@@ -1,0 +1,271 @@
+"""The plain PyTorch versions of the port's two kernels against the JAX
+Pallas kernels they replace (run as the JAX package's own tests run them:
+`interpret=True`, or the scan fallback, on the CPU), directly and through
+the public entry points.  The CUDA kernels themselves are compared with
+these plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import torchdiffeq_tpu as tde
+from torchdiffeq_tpu.ops.pallas_kernels import (
+    rk4_integrate as j_rk4, dopri5_integrate_batched as j_lanes)
+from torchdiffeq_tpu.parallel import (
+    odeint_per_sample_with_stats as j_per_sample)
+import torchdiffeq_tpu_torch as tt
+from torchdiffeq_tpu_torch.models import mlp_params_from_jax
+from torchdiffeq_tpu_torch.ops import kernels
+from torchdiffeq_tpu_torch.ops.kernels import (
+    rk4_integrate, rk4_integrate_ref, dopri5_integrate_batched,
+    dopri5_integrate_batched_ref)
+
+
+def _weights(seed, dtype, H=16, D=2, scale=0.5):
+    """MLP weights at scale 0.5, so solves take more than a few steps."""
+    rng = np.random.RandomState(seed)
+    w1 = (rng.randn(D, H) * scale).astype(dtype)
+    b1 = (rng.randn(H) * 0.1).astype(dtype)
+    w2 = (rng.randn(H, D) * scale).astype(dtype)
+    b2 = (rng.randn(D) * 0.1).astype(dtype)
+    return (w1, b1, w2, b2), rng
+
+
+def _model(ws):
+    w1, b1, w2, b2 = ws
+    return mlp_params_from_jax([dict(w=w1, b=b1), dict(w=w2, b=b2)], power=3)
+
+
+def j_field(t, y, w1, b1, w2, b2):          # (B, D) rows
+    return jnp.tanh((y ** 3) @ w1 + b1) @ w2 + b2
+
+
+def j_lane_field(tv, yv, w1, b1, w2, b2):   # (D, B) lanes
+    return j_field(tv, yv.T, w1, b1, w2, b2).T
+
+
+def _tol(dtype):
+    # float64: the operation order is the same, so only the matmul's
+    # summation order and tanh's last ULP differ: 1e-12 over a solve.
+    # float32: the same at float32's epsilon, amplified over the steps.
+    return 1e-12 if dtype == np.float64 else 2e-5
+
+
+# ---- K-rk4 ----------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("interpret", [False, True])
+def test_rk4_ref_matches_jax(dtype, interpret):
+    """`rk4_integrate_ref` against JAX `rk4_integrate`: its scan fallback
+    and the interpreted Pallas kernel, with and without `out_every`."""
+    ws, rng = _weights(0, dtype)
+    y0 = rng.randn(32, 2).astype(dtype)
+    model = _model(ws)
+    jw = tuple(jnp.asarray(w) for w in ws)
+    for out_every in (None, 10):
+        want = np.asarray(j_rk4(j_field, jnp.asarray(y0), 0.0, 0.02, 40, jw,
+                                out_every=out_every, interpret=interpret))
+        with torch.no_grad():
+            got = rk4_integrate_ref(model, torch.from_numpy(y0), 0.0, 0.02,
+                                    40, out_every=out_every).numpy()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        np.testing.assert_allclose(got, want, rtol=_tol(dtype),
+                                   atol=_tol(dtype))
+
+
+def test_rk4_ref_any_callable_with_params():
+    """The plain version takes any ``field(t, y, *params)``."""
+    ws, rng = _weights(1, np.float64)
+    y0 = rng.randn(8, 2)
+    want = np.asarray(j_rk4(j_field, jnp.asarray(y0), 0.5, 0.01, 20,
+                            tuple(jnp.asarray(w) for w in ws)))
+    t_field = lambda t, y, w1, b1, w2, b2: torch.tanh(y ** 3 @ w1 + b1) @ w2 + b2
+    got = rk4_integrate(t_field, torch.from_numpy(y0), 0.5, 0.01, 20,
+                        tuple(torch.from_numpy(w) for w in ws)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_odeint_rk4_kernel_route_matches_jax(dtype):
+    """``odeint(method='rk4', options=dict(pallas=True, num_steps=N))``
+    against JAX's route (interpreted kernel), with nfe = 4 * num_steps."""
+    ws, rng = _weights(2, dtype)
+    y0 = rng.randn(16, 2).astype(dtype)
+    t = np.linspace(0.0, 1.0, 5)
+    ys_j, st_j = tde.odeint_with_stats(
+        j_field, jnp.asarray(y0), jnp.asarray(t), method='rk4',
+        args=tuple(jnp.asarray(w) for w in ws),
+        options=dict(pallas=True, num_steps=100, interpret=True))
+    model = _model(ws)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        ys_t, st_t = tt.odeint_with_stats(
+            model, torch.from_numpy(y0), torch.from_numpy(t), method='rk4',
+            options=dict(pallas=True, num_steps=100))
+    assert kernels.launch_counts['rk4_integrate'] == 0   # CPU: plain version
+    assert ys_t.shape == (5, 16, 2)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j),
+                               rtol=_tol(dtype), atol=_tol(dtype))
+    assert list(st_t[:5]) == [int(x) for x in st_j[:5]] == [400, 100, 100, 0, 0]
+
+
+# ---- K-dopri5 (per lane) --------------------------------------------------
+
+def _lanes_both(method, dtype, seed=3, B=32, ts=(0.0, 0.3, 0.6, 1.0),
+                y_scale=0.8, **kw):
+    ws, rng = _weights(seed, dtype)
+    y0 = (rng.randn(2, B) * y_scale).astype(dtype)
+    ts = np.asarray(ts, dtype)
+    ys_j, acc_j, stp_j = j_lanes(
+        j_lane_field, jnp.asarray(y0), ts[0], ts[-1], ts=ts,
+        params=tuple(jnp.asarray(w) for w in ws),
+        per_lane_params=(False,) * 4, method=method, interpret=True, **kw)
+    with torch.no_grad():
+        ys_t, acc_t, stp_t = dopri5_integrate_batched_ref(
+            _model(ws), torch.from_numpy(y0), ts[0], ts[-1], ts=ts,
+            method=method, **kw)
+    return ((np.asarray(ys_j), np.asarray(acc_j), np.asarray(stp_j)),
+            (ys_t.numpy(), acc_t.numpy(), stp_t.numpy()))
+
+
+@pytest.mark.parametrize("method", ['dopri5', 'bosh3'])
+def test_lanes_ref_matches_jax_float64(method):
+    """float64: every lane's n_steps and n_accepted exactly equal to the
+    interpreted JAX kernel's, values to 1e-12."""
+    (ys_j, acc_j, stp_j), (ys_t, acc_t, stp_t) = _lanes_both(
+        method, np.float64, rtol=1e-7, atol=1e-9)
+    np.testing.assert_array_equal(stp_t, stp_j)
+    np.testing.assert_array_equal(acc_t, acc_j)
+    assert np.median(stp_t) > 8 and (stp_t != acc_t).any()   # adaptive
+    assert len(np.unique(stp_t)) > 3                    # per-lane control
+    np.testing.assert_allclose(ys_t, ys_j, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ['dopri5', 'bosh3'])
+def test_lanes_ref_matches_jax_float32(method):
+    """float32: as for the whole-batch solver, a one-ULP difference in a
+    stage slope (matmul summation order, tanh) moves a lane's embedded
+    error estimate, a near-cancelling sum, by far more than one ULP, and
+    with it the lane's step sizes.  Most lanes keep their counts; a few
+    differ by up to two steps (measured), and values by up to the solver's
+    tolerance -- the spread between JAX's own float32 and float64 runs of
+    this kernel is larger still."""
+    (ys_j, acc_j, stp_j), (ys_t, acc_t, stp_t) = _lanes_both(
+        method, np.float32, rtol=1e-5, atol=1e-7)
+    assert np.abs(stp_t - stp_j).max() <= 2
+    assert (stp_t == stp_j).mean() >= 0.75
+    np.testing.assert_allclose(ys_t, ys_j, rtol=0, atol=1e-3)
+
+
+def test_lanes_first_step_and_controller_options():
+    (ys_j, acc_j, stp_j), (ys_t, acc_t, stp_t) = _lanes_both(
+        'dopri5', np.float64, rtol=1e-6, atol=1e-8, first_step=1e-3,
+        safety=0.8, ifactor=4.0, dfactor=0.3)
+    np.testing.assert_array_equal(stp_t, stp_j)
+    np.testing.assert_array_equal(acc_t, acc_j)
+    np.testing.assert_allclose(ys_t, ys_j, rtol=0, atol=1e-12)
+
+
+def test_lanes_nan_poisons_unreached_outputs():
+    """Lanes that run out of max_steps return NaN rows; the easy lanes
+    finish (mirrors tests/test_pallas.py::test_kernel_nan_poisons_
+    unreached_outputs).  Every lane that runs out does so on the same
+    step, so the JAX kernel's tile-wide loop stops them exactly where the
+    port's per-lane loop does: counts equal the JAX ones."""
+    B = 32
+    lam = np.concatenate([np.full(B // 2, 1.0), np.full(B // 2, 1000.0)])
+    y0 = np.ones((1, B))
+    ys_j, acc_j, stp_j = j_lanes(
+        lambda tv, yv, l: -l[None, :] * yv, jnp.asarray(y0), 0.0, 1.0,
+        rtol=1e-6, atol=1e-8, params=(jnp.asarray(lam),), max_steps=8,
+        interpret=True)
+    lam_t = torch.from_numpy(lam)
+    ys_t, acc_t, stp_t = dopri5_integrate_batched(
+        lambda tv, yv: -lam_t[None, :] * yv, torch.from_numpy(y0), 0.0, 1.0,
+        rtol=1e-6, atol=1e-8, max_steps=8)
+    vals = ys_t.numpy()[0]
+    assert np.isfinite(vals[:B // 2]).all()
+    assert np.isnan(vals[B // 2:]).all()
+    np.testing.assert_array_equal(stp_t.numpy(), np.asarray(stp_j))
+    np.testing.assert_array_equal(acc_t.numpy(), np.asarray(acc_j))
+    np.testing.assert_allclose(vals, np.asarray(ys_j)[0], rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("method", ['dopri5', 'bosh3'])
+def test_odeint_per_sample_kernel_route_matches_jax(method):
+    """``odeint_per_sample_with_stats(options=dict(pallas=True))`` against
+    JAX's kernel route: (B, T, D) values and per-sample Stats, float64;
+    for an `MLPField` and for a plain per-sample callable with args."""
+    ws, rng = _weights(4, np.float64)
+    y0 = rng.randn(24, 2) * 1.5
+    t = np.linspace(0.0, 1.0, 4)
+    ys_j, st_j = j_per_sample(
+        lambda tt_, yy, *w: j_field(tt_, yy, *w), jnp.asarray(y0),
+        jnp.asarray(t), args=tuple(jnp.asarray(w) for w in ws),
+        rtol=1e-7, atol=1e-9, method=method,
+        options=dict(pallas=True, interpret=True))
+    t_field = lambda tt_, y, w1, b1, w2, b2: torch.tanh(y ** 3 @ w1 + b1) @ w2 + b2
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        runs = [tt.odeint_per_sample_with_stats(
+                    _model(ws), torch.from_numpy(y0), torch.from_numpy(t),
+                    rtol=1e-7, atol=1e-9, method=method,
+                    options=dict(pallas=True)),
+                tt.odeint_per_sample_with_stats(
+                    t_field, torch.from_numpy(y0), torch.from_numpy(t),
+                    args=tuple(torch.from_numpy(w) for w in ws),
+                    rtol=1e-7, atol=1e-9, method=method,
+                    options=dict(pallas=True))]
+    assert kernels.launch_counts == {'rk4_integrate': 0,
+                                     'dopri5_integrate_batched': 0}
+    for ys_t, st_t in runs:
+        assert ys_t.shape == (24, 4, 2)
+        np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                                   atol=1e-12)
+        for a, b in zip(st_t[:5], st_j[:5]):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("call", [
+    dict(options=None), dict(options=dict(pallas=True, rtol_per_leaf=1)),
+    dict(options=dict(pallas=True), method='kvaerno3'),
+    dict(options=dict(pallas=True), event_fn=lambda t, y: y[0]),
+    dict(options=dict(pallas=True), args=(torch.ones(4),), args_axes=(-1,)),
+])
+def test_per_sample_vmap_route_raises(call):
+    y0 = torch.ones(4, 2, dtype=torch.float64)
+    t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
+    func = (lambda tt_, y, a: -y) if 'args' in call else (lambda tt_, y: -y)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tt.odeint_per_sample(func, y0, t, **call)
+
+
+def test_cuda_route_refuses_a_field_it_cannot_run():
+    """A non-MLPField field has no CUDA kernel: the wrapper raises (naming
+    the supported family) rather than quietly running the plain version.
+    Checked on the CPU through the same check the CUDA route runs."""
+    with pytest.raises(TypeError, match="MLPField"):
+        kernels._kernel_mlp(lambda t, y: -y, (), torch.float32,
+                            torch.device('cpu'), 2, 'rk4_integrate')
+    ws, _ = _weights(0, np.float32, D=3)
+    with pytest.raises(ValueError, match="state dimension"):
+        kernels._kernel_mlp(_model(ws), (), torch.float32,
+                            torch.device('cpu'), 2, 'rk4_integrate')
+
+
+def test_wrappers_refuse_gradients():
+    """Both kernels are forward-only, as the JAX kernels are."""
+    ws, rng = _weights(0, np.float64)
+    model = _model(ws)                      # parameters require grad
+    y0 = torch.from_numpy(rng.randn(4, 2))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        rk4_integrate(model, y0, 0.0, 0.1, 2)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        dopri5_integrate_batched(model, y0.T.contiguous(), 0.0, 1.0)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tt.odeint_per_sample(lambda t, y, a: -a * y, y0,
+                             torch.linspace(0.0, 1.0, 3),
+                             args=(torch.ones(2, dtype=torch.float64,
+                                              requires_grad=True),),
+                             options=dict(pallas=True))

@@ -1,0 +1,90 @@
+"""`MLPField` and friends against the JAX model functions."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from torchdiffeq_tpu.models import (init_mlp as j_init_mlp,
+                                    init_spiral_model as j_init_spiral,
+                                    mlp_apply as j_mlp_apply,
+                                    spiral_field as j_spiral_field)
+from torchdiffeq_tpu_torch.models import (MLPField, init_mlp, init_spiral_model,
+                                          mlp_apply, mlp_params_from_jax,
+                                          spiral_field)
+
+
+def _params(rng, sizes, dtype):
+    return [dict(w=(rng.randn(a, b) * 0.5).astype(dtype),
+                 b=(rng.randn(b) * 0.1).astype(dtype))
+            for a, b in zip(sizes[:-1], sizes[1:])]
+
+
+# float64: both sides do the same operations and differ only in the matmul
+# summation order and tanh's last ULP, so 1e-13 relative; float32: the same
+# at float32's 1.2e-7 epsilon, so 1e-5 relative.
+TOL = {np.float64: 1e-13, np.float32: 1e-5}
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("sizes", [[2, 16, 2], [3, 8, 8, 3]])
+def test_mlp_apply_matches_jax(dtype, sizes):
+    rng = np.random.RandomState(0)
+    params = _params(rng, sizes, dtype)
+    x = rng.randn(8, sizes[0]).astype(dtype)
+    want = np.asarray(j_mlp_apply(params, jnp.asarray(x)))
+    model = mlp_params_from_jax(params)
+    got = mlp_apply(model, torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    got_field = model(torch.tensor(0.0), torch.from_numpy(x)).detach().numpy()
+    np.testing.assert_array_equal(got_field, got)   # power 1: the MLP itself
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_spiral_field_matches_jax(dtype):
+    rng = np.random.RandomState(1)
+    params = _params(rng, [2, 16, 2], dtype)
+    y = rng.randn(8, 2).astype(dtype)
+    want = np.asarray(j_spiral_field(params, 0.0, jnp.asarray(y)))
+    model = mlp_params_from_jax(params, power=3)
+    yt = torch.from_numpy(y)
+    got = model(torch.tensor(0.0), yt).detach().numpy()
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+    np.testing.assert_array_equal(
+        spiral_field(model, 0.0, yt).detach().numpy(), got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_init_spiral_model_shapes_match_jax(dtype):
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    jp = j_init_spiral(jax.random.PRNGKey(0), hidden=12, dtype=jdt)
+    model = init_spiral_model(hidden=12, dtype=dtype,
+                              generator=torch.Generator().manual_seed(0))
+    assert model.power == 3
+    assert model.sizes == [2, 12, 2]
+    for layer, w, b in zip(jp, model.weights, model.biases):
+        assert tuple(w.shape) == layer['w'].shape
+        assert tuple(b.shape) == layer['b'].shape
+        assert w.dtype == b.dtype == dtype
+        assert not b.detach().any()          # biases start at zero, as in JAX
+    # weights at scale 0.1 (JAX: normal * 0.1)
+    w = torch.cat([w.detach().flatten() for w in model.weights])
+    assert 0.03 < float(w.std()) < 0.3
+
+
+def test_init_mlp_default_scale_and_generator():
+    sizes = [4, 64, 4]
+    jp = j_init_mlp(jax.random.PRNGKey(0), sizes)
+    a = init_mlp(sizes, generator=torch.Generator().manual_seed(3))
+    b = init_mlp(sizes, generator=torch.Generator().manual_seed(3))
+    assert isinstance(a, MLPField) and a.power == 1
+    for layer, wa, wb in zip(jp, a.weights, b.weights):
+        assert tuple(wa.shape) == layer['w'].shape
+        torch.testing.assert_close(wa, wb, rtol=0, atol=0)   # seeded
+    # default scale 1/sqrt(fan_in), as in JAX
+    assert abs(float(a.weights[1].detach().std()) * 8 - 1) < 0.2
+
+
+def test_mlp_field_rejects_unsupported_power():
+    with pytest.raises(ValueError, match="power"):
+        MLPField([2, 4, 2], power=4)

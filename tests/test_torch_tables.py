@@ -1,0 +1,85 @@
+"""The port's tables equal the JAX package's, and the port never imports JAX."""
+import subprocess
+import sys
+import os
+
+import numpy as np
+import pytest
+
+import torchdiffeq_tpu.ops.tableaus as jtab
+import torchdiffeq_tpu.solvers.solution as jsol
+import torchdiffeq_tpu_torch.ops.tableaus as ttab
+import torchdiffeq_tpu_torch.solvers.solution as tsol
+from torchdiffeq_tpu_torch.solvers import SOLVERS, NOT_PORTED
+from torchdiffeq_tpu_torch.ops.kernels import PER_LANE_METHODS
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+EXPLICIT = ['DOPRI5', 'DOPRI8', 'TSIT5', 'TSIT5_LE', 'BOSH3', 'FEHLBERG2',
+            'ADAPTIVE_HEUN']
+
+
+@pytest.mark.parametrize("name", EXPLICIT)
+def test_tableau_equals_jax(name):
+    """Bit-for-bit equal tables (exact comparison: they are the same
+    published constants written the same way)."""
+    a, b = getattr(jtab, name), getattr(ttab, name)
+    for field in ('alpha', 'beta', 'c_sol', 'c_error', 'c_mid'):
+        np.testing.assert_array_equal(getattr(a, field), getattr(b, field),
+                                      err_msg=f"{name}.{field}")
+    assert a.order == b.order
+    assert a.is_fsal == b.is_fsal
+    assert a.n_stages == b.n_stages
+
+
+def test_tsit5_keeps_reference_weight_swap():
+    """tsit5 keeps the reference's swapped weight pair; tsit5_le is the
+    FSAL local-extrapolation variant (COVERAGE.md, "Known deviations")."""
+    assert not ttab.TSIT5.is_fsal
+    assert ttab.TSIT5_LE.is_fsal
+    np.testing.assert_array_equal(ttab.TSIT5_LE.c_sol[:-1], ttab.TSIT5.beta[-1])
+
+
+def test_error_codes_and_stats_fields_equal_jax():
+    for name in ('OK', 'ERR_DT_UNDERFLOW', 'ERR_NONFINITE_STATE',
+                 'ERR_MAX_NUM_STEPS', 'ERR_IMPLICIT_NO_CONVERGENCE',
+                 'ERR_SEGMENT_OVERFLOW'):
+        assert getattr(jsol, name) == getattr(tsol, name), name
+    assert jsol.ERROR_MESSAGES == tsol.ERROR_MESSAGES
+    assert jsol.Stats._fields == tsol.Stats._fields
+
+
+@pytest.mark.parametrize("code", [1, 2, 3])
+def test_raise_if_error_matches_jax(code):
+    """A failed solve raises the JAX package's message; success passes."""
+    ok = tsol.Stats.make(n_steps=4)
+    assert ok.raise_if_error() is ok
+    messages = []
+    for sol in (jsol, tsol):
+        with pytest.raises(RuntimeError) as info:
+            sol.Stats.make(n_steps=6, error_code=code).raise_if_error()
+        messages.append(str(info.value))
+    assert messages[0] == messages[1]
+    assert tsol.ERROR_MESSAGES[code] in messages[1]
+
+
+def test_registry_covers_every_jax_method():
+    """Every JAX method name is either ported or names its ROADMAP item."""
+    from torchdiffeq_tpu.solvers import SOLVERS as JAX_SOLVERS
+    assert set(JAX_SOLVERS) == set(SOLVERS) | set(NOT_PORTED)
+    assert not set(SOLVERS) & set(NOT_PORTED)
+    for m in PER_LANE_METHODS:
+        assert SOLVERS[m]['kind'] == 'adaptive'
+
+
+def test_import_leaves_jax_out():
+    """`import torchdiffeq_tpu_torch` (and its kernel module) never loads
+    JAX; checked in a fresh interpreter."""
+    code = ("import sys; import torchdiffeq_tpu_torch, "
+            "torchdiffeq_tpu_torch.ops.kernels, torchdiffeq_tpu_torch.models; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m.startswith('torchdiffeq_tpu.') or m == 'torchdiffeq_tpu']; "
+            "print(bad); sys.exit(1 if bad else 0)")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -1,0 +1,15 @@
+"""torchdiffeq_tpu_torch: the PyTorch / CUDA port of torchdiffeq_tpu.
+
+The JAX package `torchdiffeq_tpu` is the reference; this package mirrors
+its module paths and calling conventions (``func(t, y, *args)``, the
+``(T, B, D)``, ``(D, B)`` and ``(B, T, D)`` layouts) in PyTorch, and never
+imports JAX.  What is ported so far is listed in ROADMAP.md; the rest
+raises `NotImplementedError` naming its ROADMAP item.
+"""
+from .misc import Perturb
+from .odeint import odeint, odeint_with_stats
+from .parallel.batched import odeint_per_sample, odeint_per_sample_with_stats
+from .solvers.solution import Stats
+
+__all__ = ['odeint', 'odeint_with_stats', 'odeint_per_sample',
+           'odeint_per_sample_with_stats', 'Stats', 'Perturb']

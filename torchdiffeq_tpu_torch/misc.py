@@ -1,0 +1,175 @@
+"""Input checks, time handling and perturbation (counterpart of
+``torchdiffeq_tpu/misc.py``).
+
+What this slice carries of the JAX `check_inputs`: a single-tensor state,
+scalar tolerances, the RMS norm, forward and reversed time (integration
+always runs over ``t_sign * t`` with the field conjugated by the sign), and
+the time dtype.  Time stays float64 on the host, as in the reference
+(rk_common.py:180-182), so the JAX package's double-word time and its
+arithmetic ``nextafter`` are not needed.  Tuple state, per-leaf tolerances,
+other norms and callbacks come later (ROADMAP A2).
+"""
+from __future__ import annotations
+
+import enum
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+# numpy scalar types of the state dtypes this slice takes: host-side time
+# and coefficient arithmetic is done in them, so it rounds exactly as the
+# JAX package's device arithmetic in the state dtype does.
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def np_dtype(torch_dtype):
+    """The numpy scalar type of a float32/float64 torch dtype."""
+    try:
+        return _NP_DTYPES[torch_dtype]
+    except KeyError:
+        raise NotImplementedError(
+            f"state dtype {torch_dtype}: this slice of the port takes "
+            "float32 and float64 state (ROADMAP A2)") from None
+
+
+class Perturb(enum.Enum):
+    """Direction to perturb the evaluation time of the vector field
+    (reference misc.py:168-171): ``NEXT``/``PREV`` move ``t`` to the
+    next/previous representable float, so that fields with jump
+    discontinuities are evaluated on the correct side."""
+    NONE = 0
+    PREV = 1
+    NEXT = 2
+
+
+def needs_autograd(func, *tensors):
+    """Whether autograd would have to record a graph through a solve of
+    `func`: grad mode is on and one of `tensors` (or a parameter of an
+    ``nn.Module`` field) requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(func, torch.nn.Module):
+        tensors = tensors + tuple(func.parameters())
+    return any(isinstance(x, torch.Tensor) and x.requires_grad
+               for x in tensors)
+
+
+def rms_norm(x):
+    """RMS norm over all elements (reference ``_rms_norm``, misc.py:22-23)."""
+    return torch.sqrt(torch.mean(x.abs() ** 2))
+
+
+class PerturbedFunc:
+    """Wraps a vector field with `perturb` support and the time sign
+    (``_PerturbFunc``, reference misc.py:174-197): the evaluation time is
+    cast to the state dtype, optionally nudged by one ULP with
+    ``torch.nextafter``, then mapped back to the user's time frame.  The
+    field gets its time as a 0-d CPU tensor, which mixes with state on any
+    device."""
+
+    def __init__(self, base_func, t_sign=1.0):
+        self.base_func = base_func
+        self.t_sign = t_sign
+
+    def __call__(self, t, y, perturb=Perturb.NONE):
+        if not isinstance(perturb, Perturb):
+            raise TypeError("perturb argument must be of type Perturb enum")
+        t = torch.as_tensor(t, dtype=y.dtype)
+        if perturb is Perturb.NEXT:
+            t = torch.nextafter(t, t + 1)
+        elif perturb is Perturb.PREV:
+            t = torch.nextafter(t, t - 1)
+        if self.t_sign < 0:
+            return -self.base_func(-t, y)
+        return self.base_func(t, y)
+
+
+class NormalisedProblem(NamedTuple):
+    func: Callable        # PerturbedFunc in the internal (increasing) frame
+    y0: torch.Tensor
+    t: np.ndarray         # (T,) increasing host times, float64
+    rtol: float
+    atol: float
+    method: str
+    options: dict
+    t_sign: float         # +1/-1: t_internal = t_sign * t_user
+    norm: Callable
+
+
+def host_times(t):
+    """Output times as a 1-D float64 numpy array (one device read)."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().to('cpu', torch.float64).numpy()
+    t = np.asarray(t, dtype=np.float64)
+    if t.ndim != 1:
+        raise ValueError("t must be one dimensional")
+    return t
+
+
+def _check_monotonic(t_np):
+    """Strict monotonicity (reference `_check_timelike`, misc.py:376-383)."""
+    if t_np.shape[0] > 1:
+        diff = np.diff(t_np)
+        if not (np.all(diff > 0) or np.all(diff < 0)):
+            raise ValueError("t must be strictly increasing or decreasing")
+
+
+def _is_scalar(x):
+    return np.ndim(x) == 0
+
+
+def check_inputs(func, y0, t, rtol, atol, method, options, solvers, args=()):
+    """Normalise user inputs to solver form (the JAX ``check_inputs``,
+    torchdiffeq_tpu/misc.py:212-402, on the parts this slice carries)."""
+    if not isinstance(y0, torch.Tensor):
+        raise NotImplementedError(
+            "y0 must be one torch.Tensor; tuple and pytree state come "
+            "later (ROADMAP A2)")
+    if not y0.is_floating_point():
+        raise TypeError(f"y0 must be floating point, got {y0.dtype}")
+    np_dtype(y0.dtype)
+    if not (_is_scalar(rtol) and _is_scalar(atol)):
+        raise NotImplementedError(
+            "per-leaf rtol/atol come with tuple state (ROADMAP A2)")
+    for name in ('callback_step', 'callback_accept_step',
+                 'callback_reject_step'):
+        if getattr(func, name, None) is not None:
+            raise NotImplementedError(
+                f"`{name}` callbacks are not ported yet (ROADMAP A2)")
+
+    options = {} if options is None else dict(options)
+    if method is None:
+        method = 'dopri5'
+    if method not in solvers:
+        raise ValueError('Invalid method "{}". Must be one of {}'.format(
+            method, '{"' + '", "'.join(solvers.keys()) + '"}.'))
+    if options.get('norm') is not None:
+        raise NotImplementedError(
+            "user norms come with tuple state (ROADMAP A2); the port uses "
+            "the RMS norm")
+
+    tdt = options.pop('dtype', None)
+    if tdt is not None and tdt not in (torch.float64, np.float64):
+        raise NotImplementedError(
+            f"time dtype {tdt}: the port keeps time in float64 (the JAX "
+            "package's float32 double-word time is not ported, ROADMAP "
+            "'Not to port')")
+
+    t_np = host_times(t)
+    _check_monotonic(t_np)
+    if t_np.shape[0] < 2 or t_np[-1] >= t_np[0]:
+        t_sign = 1.0
+    else:
+        t_sign = -1.0
+    t_np = t_sign * t_np
+
+    if args:
+        base_func = lambda tt, yy: func(tt, yy, *args)
+    else:
+        base_func = func
+
+    return NormalisedProblem(
+        func=PerturbedFunc(base_func, t_sign), y0=y0, t=t_np,
+        rtol=float(rtol), atol=float(atol), method=method, options=options,
+        t_sign=t_sign, norm=rms_norm)

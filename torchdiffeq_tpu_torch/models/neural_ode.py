@@ -1,0 +1,97 @@
+"""Neural-ODE MLP vector fields (counterpart of
+``torchdiffeq_tpu/models/neural_ode.py``).
+
+`MLPField` is an ``nn.Module`` holding the JAX layout: each weight is
+``(in, out)`` and a layer computes ``x @ w + b``, with tanh between layers.
+The field is ``f(t, y) = mlp(y ** power)``: power 1 for a plain MLP field,
+3 for the spiral demo's field (reference examples/ode_demo.py:111-121).
+This one family is also what the CUDA kernels take (``ops/kernels.py``).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+class MLPField(nn.Module):
+    """``f(t, y) = mlp(y ** power)`` with tanh hidden activations.
+
+    Args:
+        sizes: layer sizes ``[in, h1, ..., out]``.
+        power: 1, 2 or 3 (the kernels evaluate ``y*y`` and ``y*y*y``).
+        scale: weight scale; default ``1/sqrt(fan_in)``.  Biases start at 0.
+        generator: ``torch.Generator`` for the weights (CPU).
+    """
+
+    def __init__(self, sizes, *, power=1, scale=None, dtype=torch.float32,
+                 device=None, generator=None):
+        super().__init__()
+        if power not in (1, 2, 3):
+            raise ValueError(f"power must be 1, 2 or 3, got {power}")
+        self.power = power
+        self.weights = nn.ParameterList()
+        self.biases = nn.ParameterList()
+        for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
+            s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
+            w = torch.randn((fan_in, fan_out), generator=generator,
+                            dtype=dtype) * s
+            self.weights.append(nn.Parameter(w.to(device)))
+            self.biases.append(nn.Parameter(
+                torch.zeros(fan_out, dtype=dtype, device=device)))
+
+    @property
+    def sizes(self):
+        return [self.weights[0].shape[0]] + [w.shape[1] for w in self.weights]
+
+    def forward(self, t, y):
+        return mlp_apply(self, y ** self.power if self.power != 1 else y)
+
+
+def mlp_apply(model, x):
+    """The layers of `model` on `x`, without the input power."""
+    n = len(model.weights)
+    for i, (w, b) in enumerate(zip(model.weights, model.biases)):
+        x = x @ w + b
+        if i != n - 1:
+            x = torch.tanh(x)
+    return x
+
+
+def init_mlp(sizes, scale=None, dtype=torch.float32, device=None,
+             generator=None):
+    """An MLP field (power 1) with layer sizes ``[in, h1, ..., out]``."""
+    return MLPField(sizes, scale=scale, dtype=dtype, device=device,
+                    generator=generator)
+
+
+def spiral_field(model, t, y):
+    """The spiral demo's field: the MLP applied to ``y**3``."""
+    return mlp_apply(model, y ** 3)
+
+
+def init_spiral_model(hidden=50, dtype=torch.float32, device=None,
+                      generator=None):
+    """The spiral demo's 2 -> hidden -> 2 field, weights at scale 0.1."""
+    return MLPField([2, hidden, 2], power=3, scale=0.1, dtype=dtype,
+                    device=device, generator=generator)
+
+
+def mlp_params_from_jax(params, *, power=1, device=None):
+    """An `MLPField` holding the JAX package's ``[{'w', 'b'}, ...]``
+    parameters (numpy or JAX arrays), so both packages compute the same
+    function from the same numbers."""
+    import numpy as np
+    ws = [np.asarray(layer['w']) for layer in params]
+    bs = [np.asarray(layer['b']) for layer in params]
+    sizes = [ws[0].shape[0]] + [w.shape[1] for w in ws]
+    model = MLPField(sizes, power=power,
+                     dtype=torch.from_numpy(ws[0]).dtype, device=device,
+                     generator=torch.Generator())   # overwritten below
+    with torch.no_grad():
+        for p, w in zip(model.weights, ws):
+            p.copy_(torch.from_numpy(w.copy()))
+        for p, b in zip(model.biases, bs):
+            p.copy_(torch.from_numpy(b.copy()))
+    return model

@@ -1,0 +1,141 @@
+"""The `odeint` front door (counterpart of ``torchdiffeq_tpu/odeint.py``).
+
+This slice carries the forward solve of the explicit adaptive tier through
+the host-loop solver, and the fused RK4 kernel route
+``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.
+Everything that would reach a solver family not yet ported raises
+`NotImplementedError` naming its ROADMAP item.
+
+Gradients: the JAX package differentiates adaptive solves through the
+continuous adjoint, which is the next slice (ROADMAP A3).  Until then a
+call that autograd would have to differentiate -- grad mode on, and `y0`,
+an `args` tensor or a parameter of an ``nn.Module`` field requiring grad --
+raises instead of returning a silently detached result.
+"""
+from __future__ import annotations
+
+import warnings
+
+import numpy as np
+import torch
+
+from .misc import check_inputs, host_times, needs_autograd
+from .solvers import SOLVERS, NOT_PORTED
+from .solvers import adaptive_rk
+from .solvers.solution import Stats
+
+
+def _refuse_autograd(func, y0, args):
+    if needs_autograd(func, y0, *args):
+        raise NotImplementedError(
+            "gradients of odeint come with the continuous adjoint (ROADMAP "
+            "A3); until then call the forward solve under torch.no_grad()")
+
+
+def _adaptive_config(prob, tableau):
+    opts = dict(prob.options)
+    for name in opts:
+        if name in adaptive_rk.NOT_PORTED_OPTIONS:
+            raise NotImplementedError(
+                f"option {name!r} is not ported yet "
+                f"({adaptive_rk.NOT_PORTED_OPTIONS[name]})")
+    unused = set(opts) - adaptive_rk.SUPPORTED_OPTIONS
+    if unused:
+        warnings.warn(f"adaptive solver: Unexpected arguments {sorted(unused)}")
+    return adaptive_rk.AdaptiveConfig(
+        tableau=tableau, rtol=prob.rtol, atol=prob.atol, norm=prob.norm,
+        first_step=opts.get('first_step'),
+        safety=opts.get('safety', 0.9),
+        ifactor=opts.get('ifactor', 10.0),
+        dfactor=opts.get('dfactor', 0.2),
+        min_step=opts.get('min_step', 0.0),
+        max_step=opts.get('max_step', float('inf')),
+        max_num_steps=opts.get('max_num_steps', 2 ** 31 - 1))
+
+
+def odeint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None, options=None,
+           event_fn=None, args=()):
+    """Integrate ``dy/dt = func(t, y, *args)`` from ``y(t[0]) = y0`` and
+    return the solution at every time in `t`, shape ``(T, *y0.shape)``
+    (JAX `odeint`, torchdiffeq_tpu/odeint.py:162; reference odeint.py:49).
+
+    `y0` is one float32/float64 tensor on any device; `t` is strictly
+    monotonic (decreasing time integrates backwards).  Time is float64.
+    """
+    ys, _ = _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn,
+                         args)
+    return ys
+
+
+def odeint_with_stats(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None,
+                      options=None, event_fn=None, args=()):
+    """Like `odeint`, also returning the solve's `Stats` (NFE, steps,
+    accepted and rejected steps, error code)."""
+    return _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn,
+                        args)
+
+
+def _try_pallas_rk4(func, y0, t, method, options, event_fn, args):
+    """The fused RK4 kernel route (JAX `_try_pallas_rk4`, odeint.py:190-239)
+    for ``method='rk4', options=dict(pallas=True, num_steps=N)``, with the
+    same qualification: a 2-D (B, D) real state, output times increasing
+    and uniformly strided on the `num_steps` grid, no event function.
+    Returns (ys, Stats) or None."""
+    opts = options or {}
+    if not isinstance(opts, dict) or not opts.get('pallas'):
+        return None
+    if method != 'rk4' or event_fn is not None:
+        return None
+    if set(opts) - {'pallas', 'num_steps'}:
+        return None
+    n_steps = opts.get('num_steps')
+    if n_steps is None:
+        return None
+    if not isinstance(y0, torch.Tensor) or y0.dim() != 2 \
+            or y0.is_complex():
+        return None
+    t_np = host_times(t)
+    T = t_np.shape[0]
+    if T < 2 or not (np.diff(t_np) > 0).all():
+        return None
+    n_steps = int(n_steps)
+    if n_steps % (T - 1) != 0:
+        return None
+    # outputs must sit exactly on the uniform grid
+    if not np.allclose(t_np, np.linspace(t_np[0], t_np[-1], T),
+                       rtol=0, atol=1e-12 * max(1.0, abs(t_np[-1]))):
+        return None
+
+    from .ops.kernels import rk4_integrate
+    _refuse_autograd(func, y0, args)
+    dt = (t_np[-1] - t_np[0]) / n_steps
+    ys = rk4_integrate(func, y0, t_np[0], dt, n_steps, tuple(args),
+                       out_every=n_steps // (T - 1))
+    return ys, Stats.make(nfe=4 * n_steps, n_steps=n_steps,
+                          n_accepted=n_steps)
+
+
+def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
+    res = _try_pallas_rk4(func, y0, t, method, options, event_fn, args)
+    if res is not None:
+        return res
+    if event_fn is not None:
+        raise NotImplementedError(
+            "event handling is not ported yet (ROADMAP A5)")
+    if isinstance(options, dict):
+        options = {k: v for k, v in options.items() if k != 'pallas'}
+    name = 'dopri5' if method is None else method
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"method {name!r} is not ported yet ({NOT_PORTED[name]})")
+    if SOLVERS.get(name, {}).get('kind') == 'fixed':
+        raise NotImplementedError(
+            "rk4 runs only on the fused kernel route (options=dict("
+            "pallas=True, num_steps=N) with uniform increasing output times "
+            "and a 2-D state); its scan loop is ROADMAP A4")
+    _refuse_autograd(func, y0, args)
+    prob = check_inputs(func, y0, t, rtol, atol, method, options, SOLVERS,
+                        args=tuple(args))
+    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
+    with torch.no_grad():
+        return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)

@@ -1,0 +1,81 @@
+"""Step-size control: initial step, error ratio, I-controller (counterpart
+of ``torchdiffeq_tpu/ops/step_control.py``; reference misc.py:36-95).
+
+The norms are tensor reductions; the scalar control arithmetic runs on the
+host in numpy scalars of the same dtype the JAX package computes it in
+(the state dtype for the initial step, the time dtype for the controller).
+PI and PID controllers come later (ROADMAP A2).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..misc import Perturb, np_dtype
+
+
+def error_scale(rtol, atol, y0, y1=None):
+    """``atol + rtol * |y0|`` or ``atol + rtol * max(|y0|, |y1|)``
+    (reference misc.py:80-82)."""
+    if y1 is None:
+        return atol + y0.abs() * rtol
+    return atol + rtol * torch.maximum(y0.abs(), y1.abs())
+
+
+def select_initial_step(func, t0, y0, order, rtol, atol, norm, f0):
+    """Hairer, Norsett & Wanner's initial step ("Solving ODEs I", II.4;
+    reference misc.py:36-77).  `order` is `solver_order - 1`, as at the
+    reference call site (rk_common.py:219).  Costs one field evaluation and
+    two host reads.  Returns the step as a float64 host scalar."""
+    sd = np_dtype(y0.dtype)
+    tiny = np.finfo(sd).tiny
+    scale = error_scale(rtol, atol, y0)
+
+    d0, d1 = (sd(v) for v in torch.stack(
+        [norm(y0 / scale), norm(f0 / scale)]).abs().tolist())
+    if d0 < sd(1e-5) or d1 < sd(1e-5):
+        h0 = sd(1e-6)
+    else:
+        h0 = sd(0.01) * d0 / np.maximum(d1, tiny)
+    h0 = np.abs(h0)
+
+    y1 = y0 + float(h0) * f0
+    f1 = func(sd(t0) + h0, y1, perturb=Perturb.NONE)
+
+    d2 = np.abs(sd(norm((f1 - f0) / scale).item()) / h0)
+    d_max = np.maximum(d1, d2)
+    if d1 <= sd(1e-15) and d2 <= sd(1e-15):
+        h1 = np.maximum(sd(1e-6), h0 * sd(1e-3))
+    else:
+        h1 = (sd(0.01) / np.maximum(d_max, tiny)) ** sd(1.0 / float(order + 1))
+    h1 = np.abs(h1)
+    return np.float64(np.minimum(sd(100) * h0, h1))
+
+
+def compute_error_ratio(error_estimate, rtol, atol, y0, y1, norm):
+    """``norm(err / (atol + rtol * max(|y0|, |y1|)))`` as a 0-d tensor
+    (reference misc.py:80-82)."""
+    return norm(error_estimate / error_scale(rtol, atol, y0, y1)).abs()
+
+
+def optimal_step_size(last_step, error_ratio, safety, ifactor, dfactor,
+                      order):
+    """I-controller step update (reference misc.py:85-95) on float64 host
+    scalars:
+
+        factor = min(ifactor, max(safety * ratio^(-1/order), dfactor))
+
+    with dfactor ignored (set to 1) on accepted steps, and a full `ifactor`
+    increase when the error is exactly zero.
+    """
+    f64 = np.float64
+    error_ratio = f64(error_ratio)
+    if error_ratio < 1:
+        dfactor = 1.0
+    safe_ratio = np.maximum(error_ratio, np.finfo(f64).tiny)
+    factor = np.minimum(f64(ifactor),
+                        np.maximum(f64(safety) / safe_ratio ** f64(1.0 / order),
+                                   f64(dfactor)))
+    if error_ratio == 0:
+        factor = f64(ifactor)
+    return f64(last_step) * factor
