@@ -4,8 +4,8 @@
 Drives the port's main path at the spiral neural-ODE's full width (an MLP
 field 2 -> 64 -> 2 on y**3, B=1024 trajectories, T=10 output times on
 [0, 1], rtol=1e-7, atol=1e-9; weights from a numpy seed) through the
-public entry points, and the two CUDA kernels through the routes that run
-them:
+public entry points, and the three CUDA kernels through the routes that
+run them:
 
   1. the card, the torch/CUDA versions, and the kernels' build;
   2. TF32 off for matmuls and convolutions (full float32);
@@ -18,7 +18,17 @@ them:
   5. K-rk4 against its plain PyTorch version on the same CUDA tensors, and
      both timed at B=1024 and B=65536;
   6. K-dopri5 likewise, with per-lane step counts;
-  7. one JSON line per kernel summary, the card's name and power limit,
+  7. the event path: `odeint_event` over the whole batch (one controller)
+     with a two-output event -- a threshold on the batch mean of y[:, 0]
+     that fires first, and a time cut-off -- and `odeint_dense` on [0, 1],
+     each against the same call on the CPU in float32 and float64, and the
+     dense solution against phase 3's `odeint` values;
+  8. K-events: `odeint_per_sample_with_stats(event_fn=LinearEvent(...),
+     options=dict(pallas=True, ...))` with a per-lane state threshold and a
+     time cut-off that ends every lane, its launch count reset before and
+     read after; the kernel against its plain version (per-lane `found`,
+     step and accept counts), and both timed at B=1024 and B=65536;
+  9. one JSON line per kernel summary, the card's name and power limit,
      then the result line.
 
 Each phase prints one line; any failure raises and the script exits
@@ -56,6 +66,18 @@ F32_RK4 = 1e-4
 #   the H100 for K-dopri5 at B=1024, none for the main path).
 F32_ADAPTIVE_VALUES = 1e-4
 F32_ADAPTIVE_STEPS = 5
+# - float32 event times: the event is where a state crosses a level, so a
+#   difference of F32_ADAPTIVE_VALUES in the state moves it by that over
+#   the state's rate of change (about 0.1 per unit time for the batch mean
+#   of this field, and at least that for the lanes that cross their
+#   threshold): 1e-3.  Time cut-offs are exact to float32 rounding.
+F32_EVENT_T = 1e-3
+# - the dense solution against odeint at the same output times: the same
+#   accepted steps and the same quartic, evaluated in the same order, so
+#   they agree to float32 rounding of |y| ~ 3.
+F32_DENSE_VS_ODEINT = 1e-6
+EVENT_CUT = 0.9          # phase 7's time cut-off
+EVENT_MAX_STEPS = 1000   # phase 8's max_num_steps
 
 
 def _card():
@@ -89,7 +111,8 @@ def _ptxas_summary(log):
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
                       line)
         if m:
-            k = re.search(r"(rk4|lanes)_kernelI([fd])Li(\d+)E", m.group(1))
+            k = re.search(r"(rk4|lanes|events)_kernelI([fd])Li(\d+)E",
+                          m.group(1))
             name = k and f"{k.group(1)}<{k.group(2)},D={k.group(3)}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name and m.group(1) != "0":
@@ -127,7 +150,9 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     from torchdiffeq_tpu_torch import (odeint, odeint_with_stats,
-                                       odeint_per_sample_with_stats)
+                                       odeint_per_sample_with_stats,
+                                       odeint_event, odeint_dense)
+    from torchdiffeq_tpu_torch.models import LinearEvent
     from torchdiffeq_tpu_torch.ops import _build, kernels
 
     dev = torch.device("cuda")
@@ -166,7 +191,8 @@ def main():
         ys_ps, st_ps = odeint_per_sample_with_stats(
             model, y0, t, rtol=RTOL, atol=ATOL, options=dict(pallas=True))
         torch.cuda.synchronize()
-    launches = dict(kernels.launch_counts)
+    launches = {name: kernels.launch_counts[name]
+                for name in ("rk4_integrate", "dopri5_integrate_batched")}
     for name, n in launches.items():
         _check(n > 0, f"kernel {name} was not launched on the main path")
     for name, out, shape in (("dopri5", ys, (T, B, 2)),
@@ -316,6 +342,157 @@ def main():
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:336",
         launches=launches["dopri5_integrate_batched"], max_abs_err=err_l,
         ms=ltimes[B][0], plain_ms=ltimes[B][1]))
+
+    # ---- 7: the event path (odeint_event, odeint_dense) -------------------
+    # the batch mean of y[:, 0] at t=0 and at t=4/9 (phase 3's values); a
+    # level halfway between is crossed before t=4/9 < EVENT_CUT
+    means = ys[:, :, 0].double().mean(dim=1).cpu()
+    thr = float((means[0] + means[4]) / 2)
+
+    def batch_event(tt, yy):
+        return torch.stack([yy[:, 0].mean() - thr, (tt - EVENT_CUT).to(yy.dtype)])
+
+    ev_kw = dict(event_fn=batch_event, method="dopri5", rtol=RTOL, atol=ATOL)
+    runs = {}
+    with torch.no_grad():
+        for name, m, yb in (("f32", model, y0), ("f32_cpu", model_cpu, y_cpu[:B]),
+                            ("f64", model64, y064),
+                            ("f64_cpu", model64_cpu, y64_cpu[:B])):
+            (et, ys2), st_e = odeint_with_stats(m, yb, torch.tensor([0.0, 1.0]),
+                                                **ev_kw)
+            w0 = time.perf_counter()
+            et_e, sol_e = odeint_event(m, yb, 0.0, **ev_kw)
+            torch.cuda.synchronize()
+            wall_e = time.perf_counter() - w0
+            _check(float(et_e) == float(et) and torch.equal(sol_e, ys2),
+                   f"{name}: odeint_event differs from odeint(event_fn=...)")
+            dense, st_d = odeint_dense(m, yb, 0.0, 1.0, rtol=RTOL, atol=ATOL,
+                                       _return_stats=True)
+            runs[name] = (float(et), sol_e, st_e, dense(t), st_d, wall_e)
+    et32, sol32, st32e, dv32, st32d, wall_e32 = runs["f32"]
+    _check(sol32.is_cuda and sol32.shape == (2, B, 2)
+           and bool(torch.isfinite(sol32).all()) and st32e.error_code == 0
+           and 0.0 < et32 < EVENT_CUT,
+           f"event path float32: event_t={et32}, {st32e}")
+    d_et32 = abs(et32 - runs["f32_cpu"][0])
+    d_dense32 = float((dv32.cpu() - runs["f32_cpu"][3]).abs().max())
+    d_steps32 = max(abs(st32e.n_steps - runs["f32_cpu"][2].n_steps),
+                    abs(st32d.n_steps - runs["f32_cpu"][4].n_steps))
+    _check(d_et32 <= F32_EVENT_T and d_dense32 <= F32_ADAPTIVE_VALUES
+           and d_steps32 <= F32_ADAPTIVE_STEPS,
+           f"event path float32 CUDA vs CPU: |d event_t|={d_et32}, dense "
+           f"max|dy|={d_dense32}, step diff {d_steps32}")
+    et64, _, st64e, dv64, st64d, _ = runs["f64"]
+    d_et64 = abs(et64 - runs["f64_cpu"][0])
+    d_dense64 = float((dv64.cpu() - runs["f64_cpu"][3]).abs().max())
+    _check(list(st64e[:5]) == list(runs["f64_cpu"][2][:5])
+           and list(st64d[:5]) == list(runs["f64_cpu"][4][:5])
+           and d_et64 <= F64_VALUES and d_dense64 <= F64_VALUES,
+           f"event path float64 CUDA vs CPU: |d event_t|={d_et64}, dense "
+           f"max|dy|={d_dense64}, counters {st64e} / {st64d}")
+    d_vs_odeint = float((dv32 - ys).abs().max())
+    _check(d_vs_odeint <= F32_DENSE_VS_ODEINT,
+           f"dense vs odeint at the output times: max|dy|={d_vs_odeint}")
+    print(f"[7 events path] odeint_event B={B} float32 on CUDA: event_t="
+          f"{et32:.9f} (level {thr:.6f} on the batch mean, cut-off "
+          f"{EVENT_CUT}), steps={st32e.n_steps} nfe={st32e.nfe}, wall "
+          f"{wall_e32 * 1e3:.1f} ms | vs CPU: float32 |d event_t|={d_et32:.3e} "
+          f"(<= {F32_EVENT_T}), float64 |d event_t|={d_et64:.3e} (<= "
+          f"{F64_VALUES}), counters equal | odeint_dense [0, 1]: "
+          f"steps={st32d.n_steps} nfe={st32d.nfe}, vs CPU max|dy| float32 "
+          f"{d_dense32:.3e} (<= {F32_ADAPTIVE_VALUES}), float64 "
+          f"{d_dense64:.3e} (<= {F64_VALUES}), counters equal; vs odeint at "
+          f"T={T}: max|dy|={d_vs_odeint:.3e} (<= {F32_DENSE_VS_ODEINT})")
+
+    # ---- 8: K-events through the per-sample event route ------------------
+    def lane_event(dtype, y_lanes):
+        """A threshold on y[0] at its median (about half the lanes lie on
+        each side; those that reach it fire there) and a cut-off at t=1,
+        which ends every other lane."""
+        thr_l = float(y_lanes[:, 0].double().median())
+        return LinearEvent([[1.0, 0.0], [0.0, 0.0]], time_coef=[0.0, 1.0],
+                           bias=[-thr_l, -1.0], dtype=dtype,
+                           device=dev).requires_grad_(False)
+
+    t_ev = torch.tensor([0.0, 1.0], dtype=torch.float64)
+    opts = dict(pallas=True, max_num_steps=EVENT_MAX_STEPS)
+    event32 = lane_event(torch.float32, y0)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        (et_ps, ys2_ps), st_ev = odeint_per_sample_with_stats(
+            model, y0, t_ev, event_fn=event32, rtol=RTOL, atol=ATOL,
+            options=opts)
+        torch.cuda.synchronize()
+        ev_launches = kernels.launch_counts["dopri5_events_batched"]
+        _check(ev_launches > 0, "kernel dopri5_events_batched was not "
+               "launched on the per-sample event route")
+        _check(tuple(ys2_ps.shape) == (B, 2, 2) and ys2_ps.is_cuda
+               and bool(torch.isfinite(ys2_ps).all())
+               and bool(torch.isfinite(et_ps).all())
+               and int(st_ev.error_code.max()) == 0,
+               "per-sample event route: a lane did not fire or is not finite")
+        at_cut = (et_ps - 1.0).abs() <= 1e-6
+        # the route's kernel output against the plain version
+        sign0 = torch.sign(event32(torch.zeros((), dtype=torch.float32,
+                                               device=dev), y0)).T.contiguous()
+        ekw = dict(rtol=RTOL, atol=ATOL, max_steps=EVENT_MAX_STEPS,
+                   ev_params=(sign0,))
+        ref32 = kernels.dopri5_events_batched_ref(model, y0.T.contiguous(),
+                                                  0.0, event32, **ekw)
+        err_ev32 = float((et_ps - ref32[0][0]).abs().max())
+        d_ev_steps = (st_ev.n_steps - ref32[4][0]).abs()
+        _check(torch.equal(ref32[2][0], torch.ones_like(ref32[2][0]))
+               and err_ev32 <= F32_EVENT_T
+               and int(d_ev_steps.max()) <= F32_ADAPTIVE_STEPS,
+               f"K-events float32: max|d event_t|={err_ev32}, max step diff "
+               f"{int(d_ev_steps.max())}")
+        y64T = y064.T.contiguous()
+        event64 = lane_event(torch.float64, y064)
+        sign64 = torch.sign(event64(torch.zeros((), dtype=torch.float64,
+                                                device=dev), y064)).T.contiguous()
+        ekw64 = dict(ekw, ev_params=(sign64,))
+        k64 = kernels.dopri5_events_batched(model64, y64T, 0.0, event64, **ekw64)
+        r64 = kernels.dopri5_events_batched_ref(model64, y64T, 0.0, event64,
+                                                **ekw64)
+        err_ev64 = float((k64[0] - r64[0]).abs().max())
+        err_ye64 = float((k64[1] - r64[1]).abs().max())
+        _check(all(torch.equal(a, b) for a, b in zip(k64[2:], r64[2:]))
+               and bool(r64[2].all()) and err_ev64 <= F64_VALUES
+               and err_ye64 <= F64_VALUES,
+               f"K-events float64: max|d event_t|={err_ev64}, max|d y|="
+               f"{err_ye64}, found/acc/steps equal "
+               f"{[torch.equal(a, b) for a, b in zip(k64[2:], r64[2:])]}")
+        etimes = {}
+        for b in (B, BIG_B):
+            yb = y_big[:b].T.contiguous()
+            eb = lane_event(torch.float32, y_big[:b])
+            sb = torch.sign(eb(torch.zeros((), dtype=torch.float32, device=dev),
+                               y_big[:b])).T.contiguous()
+            kwb = dict(ekw, ev_params=(sb,))
+            etimes[b] = (
+                _time_ms(torch, lambda: kernels.dopri5_events_batched(
+                    model, yb, 0.0, eb, **kwb), 5),
+                _time_ms(torch, lambda: kernels.dopri5_events_batched_ref(
+                    model, yb, 0.0, eb, **kwb), 2))
+    torch.cuda.synchronize()
+    print(f"[8 K-events] per-sample event route B={B} float32: lanes fired "
+          f"on the y[0] threshold {float((~at_cut).float().mean()):.4f}, on "
+          f"the t=1 cut-off {float(at_cut.float().mean()):.4f}; steps "
+          f"{int(st_ev.n_steps.min())}..{int(st_ev.n_steps.max())}; launches "
+          f"{ev_launches} | kernel vs plain: float32 max|d event_t|="
+          f"{err_ev32:.3e} (<= {F32_EVENT_T}), lanes with equal steps "
+          f"{float((d_ev_steps == 0).float().mean()):.4f}, max step diff "
+          f"{int(d_ev_steps.max())} (<= {F32_ADAPTIVE_STEPS}) | float64 "
+          f"max|d event_t|={err_ev64:.3e}, max|d y_event|={err_ye64:.3e} (<= "
+          f"{F64_VALUES}), per-lane found, steps and accepts equal | "
+          + " | ".join(f"B={b}: kernel {k:.3f} ms, plain {p:.3f} ms"
+                       for b, (k, p) in etimes.items()))
+    summary.append(dict(
+        name="dopri5_events_batched", route="cuda",
+        source="torchdiffeq_tpu_torch/csrc/dopri5_events.cu",
+        replaces="torchdiffeq_tpu/ops/pallas_kernels.py:580",
+        launches=ev_launches, max_abs_err=err_ev32,
+        ms=etimes[B][0], plain_ms=etimes[B][1]))
 
     torch.cuda.synchronize()
     print(_card())

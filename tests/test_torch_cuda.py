@@ -10,8 +10,10 @@ import pytest
 import torch
 
 from torchdiffeq_tpu_torch import (odeint, odeint_with_stats,
-                                   odeint_per_sample_with_stats)
-from torchdiffeq_tpu_torch.models import MLPField, mlp_params_from_jax
+                                   odeint_per_sample_with_stats, odeint_event,
+                                   odeint_dense)
+from torchdiffeq_tpu_torch.models import (LinearEvent, MLPField,
+                                          mlp_params_from_jax)
 from torchdiffeq_tpu_torch.ops import kernels
 
 pytestmark = pytest.mark.gpu
@@ -134,7 +136,8 @@ def test_kernel_routes_launch_and_match(cuda):
                                              atol=1e-9,
                                              options=dict(pallas=True))
     assert kernels.launch_counts == {"rk4_integrate": 1,
-                                     "dopri5_integrate_batched": 1}
+                                     "dopri5_integrate_batched": 1,
+                                     "dopri5_events_batched": 0}
     want = kernels.rk4_integrate_ref(model, y0, 0.0, 1.0 / 200, 200,
                                      out_every=50)
     torch.testing.assert_close(ys, want, rtol=0, atol=F64)
@@ -174,3 +177,162 @@ def test_cuda_refuses_what_the_kernels_cannot_run(cuda):
         kernels.rk4_integrate(deep, y0, 0.0, 0.1, 3)
     with pytest.raises(ValueError, match="contiguous"):
         kernels.rk4_integrate(model, y0.T, 0.0, 0.1, 3)
+
+
+# ---- K-events ---------------------------------------------------------------
+
+def _lane_event(device, dtype, y_lanes, cut=1.0, K=2):
+    """A threshold on y[0] at its median and a time cut-off that ends every
+    lane that does not reach it (K=2); with K=3 also a combination of the
+    components that starts negative on some lanes."""
+    D = y_lanes.shape[0]
+    W = np.zeros((K, D))
+    W[0, 0] = 1.0
+    c = np.zeros(K)
+    c[1] = 1.0
+    b = np.zeros(K)
+    b[0], b[1] = -float(y_lanes[0].double().median()), -cut
+    if K == 3:
+        W[2] = 0.5
+        b[2] = 3.0
+    event = LinearEvent(W, time_coef=c, bias=b, dtype=dtype,
+                        device=device).requires_grad_(False)
+    sign0 = torch.sign(event(torch.zeros((), dtype=dtype, device=device),
+                             y_lanes.T)).T.contiguous()
+    return event, sign0
+
+
+@pytest.mark.parametrize("method", ["dopri5", "bosh3"])
+@pytest.mark.parametrize("D,power,K", [(2, 3, 2), (3, 1, 3), (8, 2, 2)])
+def test_events_kernel_matches_plain_float64(cuda, method, D, power, K):
+    """Every lane fires (the cut-off ends the rest): per-lane found, step
+    and accept counts exactly equal, event times and states to 1e-10."""
+    model, rng = _model(cuda, torch.float64, D=D, power=power, scale=0.3)
+    y0 = torch.from_numpy(rng.randn(D, 1000) * 0.8).to(cuda)
+    event, sign0 = _lane_event(cuda, torch.float64, y0, K=K)
+    kw = dict(rtol=1e-7, atol=1e-9, method=method, ev_params=(sign0,))
+    before = kernels.launch_counts["dopri5_events_batched"]
+    got = kernels.dopri5_events_batched(model, y0, 0.0, event, **kw)
+    want = kernels.dopri5_events_batched_ref(model, y0, 0.0, event, **kw)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["dopri5_events_batched"] == before + 1
+    for g, w in zip(got[2:], want[2:]):          # found, n_acc, n_steps
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert bool(want[2].all())
+    at_cut = (want[0] - 1.0).abs() < 1e-9
+    assert 0 < int(at_cut.sum()) < 1000
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=F64)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=F64)
+
+
+def test_events_kernel_matches_plain_float32(cuda):
+    """float32, time included: most lanes keep their counts; a one-ULP
+    difference in a slope can shift a lane by a few steps, and its event
+    time by the state's float32 agreement over its rate of change."""
+    model, rng = _model(cuda, torch.float32, scale=0.3)
+    y0 = torch.from_numpy(rng.randn(2, 4096) * 0.8).to(cuda, torch.float32)
+    event, sign0 = _lane_event(cuda, torch.float32, y0)
+    kw = dict(rtol=1e-5, atol=1e-7, ev_params=(sign0,))
+    got = kernels.dopri5_events_batched(model, y0, 0.0, event, **kw)
+    want = kernels.dopri5_events_batched_ref(model, y0, 0.0, event, **kw)
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=0)
+    dsteps = (got[4] - want[4]).abs()
+    assert float((dsteps == 0).float().mean()) >= 0.75
+    assert int(dsteps.max()) <= 5
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+
+
+def test_events_kernel_lanes_that_do_not_fire(cuda):
+    """max_steps runs out before some lanes fire: the same lanes in both,
+    NaN event times there, and equal counts.  Their last state sits at the
+    end of their last step, whose time carries the last-bit differences of
+    the step sizes (1e-8 measured on an H100), so it is held to 1e-6."""
+    model, rng = _model(cuda, torch.float64, scale=0.3)
+    y0 = torch.from_numpy(rng.randn(2, 1000) * 0.8).to(cuda)
+    event, sign0 = _lane_event(cuda, torch.float64, y0)
+    kw = dict(rtol=1e-7, atol=1e-9, max_steps=3, ev_params=(sign0,))
+    got = kernels.dopri5_events_batched(model, y0, 0.0, event, **kw)
+    want = kernels.dopri5_events_batched_ref(model, y0, 0.0, event, **kw)
+    for g, w in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    found = want[2][0].bool()
+    assert 0 < int(found.sum()) < 1000
+    assert bool(torch.isnan(got[0][0, ~found]).all())
+    torch.testing.assert_close(got[0][:, found], want[0][:, found], rtol=0,
+                               atol=F64)
+    torch.testing.assert_close(got[1][:, found], want[1][:, found], rtol=0,
+                               atol=F64)
+    torch.testing.assert_close(got[1][:, ~found], want[1][:, ~found],
+                               rtol=0, atol=1e-6)
+
+
+def test_per_sample_event_route_launches_the_kernel(cuda):
+    model, rng = _model(cuda, torch.float64, H=64, scale=0.1)
+    y0 = torch.from_numpy(rng.randn(1024, 2)).to(cuda)
+    event, sign0 = _lane_event(cuda, torch.float64, y0.T)
+    kernels.reset_launch_counts()
+    (et, ys2), st = odeint_per_sample_with_stats(
+        model, y0, torch.tensor([0.0, 1.0], dtype=torch.float64),
+        event_fn=event, rtol=1e-7, atol=1e-9,
+        options=dict(pallas=True, max_num_steps=500))
+    assert kernels.launch_counts["dopri5_events_batched"] == 1
+    want = kernels.dopri5_events_batched_ref(
+        model, y0.T.contiguous(), 0.0, event, rtol=1e-7, atol=1e-9,
+        max_steps=500, ev_params=(sign0,))
+    torch.testing.assert_close(et, want[0][0], rtol=0, atol=F64)
+    torch.testing.assert_close(ys2[:, 1], want[1].T, rtol=0, atol=F64)
+    torch.testing.assert_close(st.n_steps, want[4][0], rtol=0, atol=0)
+    assert int(st.error_code.max()) == 0
+
+
+def test_event_kernel_refuses_what_it_cannot_run(cuda):
+    model, rng = _model(cuda, torch.float32)
+    y0 = torch.from_numpy(rng.randn(2, 64)).to(cuda, torch.float32)
+    event, sign0 = _lane_event(cuda, torch.float32, y0)
+    with pytest.raises(TypeError, match="LinearEvent"):
+        kernels.dopri5_events_batched(model, y0, 0.0,
+                                      lambda tv, yv: yv[:1] - 0.5)
+    with pytest.raises(TypeError, match="MLPField"):
+        kernels.dopri5_events_batched(lambda tv, yv: -yv, y0, 0.0, event,
+                                      ev_params=(sign0,))
+    with pytest.raises(TypeError, match="LinearEvent"):
+        odeint_per_sample_with_stats(
+            model, y0.T.contiguous(), torch.tensor([0.0, 1.0]),
+            event_fn=lambda t, y: y[0] - 0.5, options=dict(pallas=True))
+
+
+def test_event_and_dense_paths_cuda_match_cpu_float64(cuda):
+    """odeint_event (one controller for the batch) and odeint_dense on CUDA
+    against the same calls on the CPU: counters equal, times and values to
+    1e-10."""
+    model, rng = _model(cuda, torch.float64, H=64, scale=0.1)
+    model_cpu, _ = _model("cpu", torch.float64, H=64, scale=0.1)
+    y0 = rng.randn(256, 2)
+    thr = float(y0[:, 0].mean()) - 0.02
+
+    def ev(t, y):
+        return torch.stack([y[:, 0].mean() - thr, t - 0.9])
+
+    kw = dict(event_fn=ev, rtol=1e-7, atol=1e-9)
+    (et, ys2), st = odeint_with_stats(model, torch.from_numpy(y0).to(cuda),
+                                      torch.tensor([0.0, 1.0]), **kw)
+    (et_c, ys2_c), st_c = odeint_with_stats(model_cpu, torch.from_numpy(y0),
+                                            torch.tensor([0.0, 1.0]), **kw)
+    assert list(st[:5]) == list(st_c[:5])
+    assert et.is_cuda and abs(float(et) - float(et_c)) <= F64
+    torch.testing.assert_close(ys2.cpu(), ys2_c, rtol=0, atol=F64)
+    et_e, sol = odeint_event(model, torch.from_numpy(y0).to(cuda), 0.0,
+                             event_fn=ev, rtol=1e-7, atol=1e-9)
+    assert float(et_e) == float(et) and torch.equal(sol, ys2)
+    t = torch.linspace(0.0, 1.0, 7, dtype=torch.float64)
+    sol, st_d = odeint_dense(model, torch.from_numpy(y0).to(cuda), 0.0, 1.0,
+                             _return_stats=True)
+    sol_c, st_dc = odeint_dense(model_cpu, torch.from_numpy(y0), 0.0, 1.0,
+                                _return_stats=True)
+    assert list(st_d[:5]) == list(st_dc[:5])
+    torch.testing.assert_close(sol(t).cpu(), sol_c(t), rtol=0, atol=F64)
+    torch.testing.assert_close(sol.derivative(t).cpu(), sol_c.derivative(t),
+                               rtol=0, atol=F64)
+    ev_d, _ = sol.find_event(ev, tol=1e-12)
+    ev_dc, _ = sol_c.find_event(ev, tol=1e-12)
+    assert abs(float(ev_d) - float(ev_dc)) <= F64

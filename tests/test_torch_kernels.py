@@ -1,4 +1,4 @@
-"""The plain PyTorch versions of the port's two kernels against the JAX
+"""The plain PyTorch versions of the port's three kernels against the JAX
 Pallas kernels they replace (run as the JAX package's own tests run them:
 `interpret=True`, or the scan fallback, on the CPU), directly and through
 the public entry points.  The CUDA kernels themselves are compared with
@@ -11,15 +11,17 @@ import torch
 
 import torchdiffeq_tpu as tde
 from torchdiffeq_tpu.ops.pallas_kernels import (
-    rk4_integrate as j_rk4, dopri5_integrate_batched as j_lanes)
+    rk4_integrate as j_rk4, dopri5_integrate_batched as j_lanes,
+    dopri5_events_batched as j_events)
 from torchdiffeq_tpu.parallel import (
     odeint_per_sample_with_stats as j_per_sample)
 import torchdiffeq_tpu_torch as tt
-from torchdiffeq_tpu_torch.models import mlp_params_from_jax
-from torchdiffeq_tpu_torch.ops import kernels
+from torchdiffeq_tpu_torch.models import LinearEvent, mlp_params_from_jax
+from torchdiffeq_tpu_torch.ops import _build, kernels
 from torchdiffeq_tpu_torch.ops.kernels import (
     rk4_integrate, rk4_integrate_ref, dopri5_integrate_batched,
-    dopri5_integrate_batched_ref)
+    dopri5_integrate_batched_ref, dopri5_events_batched,
+    dopri5_events_batched_ref)
 
 
 def _weights(seed, dtype, H=16, D=2, scale=0.5):
@@ -218,7 +220,8 @@ def test_odeint_per_sample_kernel_route_matches_jax(method):
                     rtol=1e-7, atol=1e-9, method=method,
                     options=dict(pallas=True))]
     assert kernels.launch_counts == {'rk4_integrate': 0,
-                                     'dopri5_integrate_batched': 0}
+                                     'dopri5_integrate_batched': 0,
+                                     'dopri5_events_batched': 0}
     for ys_t, st_t in runs:
         assert ys_t.shape == (24, 4, 2)
         np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
@@ -230,7 +233,7 @@ def test_odeint_per_sample_kernel_route_matches_jax(method):
 @pytest.mark.parametrize("call", [
     dict(options=None), dict(options=dict(pallas=True, rtol_per_leaf=1)),
     dict(options=dict(pallas=True), method='kvaerno3'),
-    dict(options=dict(pallas=True), event_fn=lambda t, y: y[0]),
+    dict(options=None, event_fn=lambda t, y: y[0]),
     dict(options=dict(pallas=True), args=(torch.ones(4),), args_axes=(-1,)),
 ])
 def test_per_sample_vmap_route_raises(call):
@@ -269,3 +272,226 @@ def test_wrappers_refuse_gradients():
                              args=(torch.ones(2, dtype=torch.float64,
                                               requires_grad=True),),
                              options=dict(pallas=True))
+
+
+# ---- K-events (per-lane event solves) --------------------------------------
+
+def _event_out(outs):
+    return [np.asarray(o) for o in outs]
+
+
+@pytest.mark.parametrize("max_steps", [10_000, 4])
+def test_events_ref_matches_jax_decay(max_steps):
+    """The lambda-decay field of tests/test_pallas.py::test_events_kernel_
+    accuracy in float64: each lane stops where y = 0.5, at ln 2 / lambda.
+    Per lane, `found`, step and accept counts equal the interpreted JAX
+    kernel's and the event time agrees to 1e-12; with max_steps=4 some
+    lanes do not fire (NaN, their last accepted state)."""
+    B = 64
+    rng = np.random.RandomState(0)
+    lam = 0.5 + rng.rand(B)
+    y0 = np.ones((2, B))
+    want = _event_out(j_events(
+        lambda tv, yv, l: -l[None, :] * yv, jnp.asarray(y0), 0.0,
+        lambda tv, yv: yv[:1] - 0.5, rtol=1e-6, atol=1e-8,
+        params=(jnp.asarray(lam),), max_steps=max_steps, interpret=True))
+    lam_t = torch.from_numpy(lam)
+    got = [o.numpy() for o in dopri5_events_batched(
+        lambda tv, yv: -lam_t[None, :] * yv, torch.from_numpy(y0), 0.0,
+        lambda tv, yv: yv[:1] - 0.5, rtol=1e-6, atol=1e-8,
+        max_steps=max_steps)]
+    for g, w, name in zip(got[2:], want[2:], ('found', 'acc', 'steps')):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    found = got[2][0] == 1
+    np.testing.assert_array_equal(np.isnan(got[0][0]), ~found)
+    np.testing.assert_allclose(got[0][0, found], want[0][0, found], rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(got[1][:, found], want[1][:, found], rtol=0,
+                               atol=1e-12)
+    if max_steps == 4:
+        assert 0 < found.sum() < B
+        # a lane that did not fire returns its state at the end of its last
+        # step, a time that carries the last-bit drift of its step sizes
+        # (the error ratio's near-cancelling sum rounds differently in XLA;
+        # see tests/test_torch_events.py): 2.3e-12 measured
+        np.testing.assert_allclose(got[1][:, ~found], want[1][:, ~found],
+                                   rtol=0, atol=1e-10)
+    else:
+        assert found.all()
+        np.testing.assert_allclose(got[0][0], np.log(2.0) / lam, atol=1e-5)
+
+
+def _linear_event_problem(seed, dtype, B=32, H=16):
+    ws, rng = _weights(seed, dtype, H=H, scale=0.3)
+    y0 = (rng.randn(2, B) * 0.8).astype(dtype)
+    thr = float(np.median(y0[0]))
+    W = np.array([[1.0, 0.0], [0.0, 0.0]], dtype)
+    c = np.array([0.0, 1.0], dtype)
+    b = np.array([-thr, -0.7], dtype)
+    # the K outputs' signs at t0, per lane: (K, B)
+    sign0 = np.sign(W @ y0 + b[:, None])
+    return ws, y0, (W, c, b), sign0
+
+
+def j_linear_event(tv, yv, W, c, b, s0):
+    """The sign-combined LinearEvent in JAX's lane layout; a Pallas kernel
+    takes its arrays as `ev_params`."""
+    return jnp.min((W @ yv + c[:, None] * tv + b[:, None]) * s0, axis=0,
+                   keepdims=True)
+
+
+def _j_ev_params(W, c, b, sign0):
+    return dict(ev_params=tuple(jnp.asarray(v) for v in (W, c, b, sign0)),
+                per_lane_ev_params=(False, False, False, True))
+
+
+@pytest.mark.parametrize("method", ['dopri5', 'bosh3'])
+def test_events_ref_mlp_linear_event_matches_jax(method):
+    """An MLPField with a two-output LinearEvent -- a threshold on y[0] at
+    its median, so about half the lanes cross it, and a time cut-off at 0.7
+    that ends every other lane -- sign-combined with ``ev_params=(sign0,)``
+    as the per-sample route does: float64 counts and `found` exactly equal,
+    event times and states to 1e-12."""
+    ws, y0, (W, c, b), sign0 = _linear_event_problem(5, np.float64)
+    want = _event_out(j_events(
+        j_lane_field, jnp.asarray(y0), 0.0, j_linear_event, rtol=1e-7,
+        atol=1e-9, method=method, params=tuple(jnp.asarray(w) for w in ws),
+        per_lane_params=(False,) * 4, interpret=True,
+        **_j_ev_params(W, c, b, sign0)))
+    event = LinearEvent(W, time_coef=c, bias=b).requires_grad_(False)
+    got = [o.numpy() for o in dopri5_events_batched(
+        _model(ws).requires_grad_(False), torch.from_numpy(y0), 0.0, event,
+        ev_params=(torch.from_numpy(sign0),), rtol=1e-7, atol=1e-9,
+        method=method)]
+    for g, w, name in zip(got[2:], want[2:], ('found', 'acc', 'steps')):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got[2].all()
+    cut = np.abs(got[0][0] - 0.7) < 1e-9           # lanes ended by the time
+    assert 0 < cut.sum() < y0.shape[1]
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got[1][0, ~cut],
+                               np.median(y0[0]) * np.ones((~cut).sum()),
+                               atol=1e-6)
+
+
+def test_events_ref_matches_jax_float32():
+    """float32 (time in float32 too, as in the TPU kernel): a one-ULP
+    difference in a stage slope moves a lane's embedded error estimate and
+    its step sizes, as for K-dopri5 (test_lanes_ref_matches_jax_float32),
+    so most lanes keep their counts, a few differ by up to two steps, and
+    event times agree to the solver's tolerance."""
+    ws, y0, (W, c, b), sign0 = _linear_event_problem(6, np.float32, B=64)
+    want = _event_out(j_events(
+        j_lane_field, jnp.asarray(y0), 0.0, j_linear_event, rtol=1e-5,
+        atol=1e-7, params=tuple(jnp.asarray(w) for w in ws),
+        per_lane_params=(False,) * 4, interpret=True,
+        **_j_ev_params(W, c, b, sign0)))
+    event = LinearEvent(W, time_coef=c, bias=b).requires_grad_(False)
+    got = [o.numpy() for o in dopri5_events_batched_ref(
+        _model(ws).requires_grad_(False), torch.from_numpy(y0), 0.0, event,
+        ev_params=(torch.from_numpy(sign0),), rtol=1e-5, atol=1e-7)]
+    assert got[0].dtype == np.float32
+    np.testing.assert_array_equal(got[2], want[2])
+    dsteps = np.abs(got[4] - want[4])
+    assert dsteps.max() <= 2 and (dsteps == 0).mean() >= 0.75
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-4)
+
+
+def test_events_nan_sign_semantics():
+    """jnp.sign is NaN at NaN, torch.sign 0: a lane whose event turns NaN
+    on an accepted step counts as a hit in both packages, and a lane
+    whose event is 0 at t0 fires on its first accepted step."""
+    B = 4
+    y0 = np.array([[1.0, 1.0, 0.5, 1.0]])
+    ev_j = lambda tv, yv: jnp.where(tv > 0.3, jnp.nan, yv - 0.5)
+    ev_t = lambda tv, yv: torch.where(tv > 0.3, float('nan'), yv - 0.5)
+    want = _event_out(j_events(
+        lambda tv, yv: -yv, jnp.asarray(y0), 0.0, ev_j, rtol=1e-6,
+        atol=1e-8, first_step=0.1, interpret=True))
+    got = [o.numpy() for o in dopri5_events_batched_ref(
+        lambda tv, yv: -yv, torch.from_numpy(y0), 0.0, ev_t, rtol=1e-6,
+        atol=1e-8, first_step=0.1)]
+    for g, w in zip(got[2:], want[2:]):
+        np.testing.assert_array_equal(g, w)
+    assert got[2].all() and got[4][0, 2] == 1
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-12)
+
+
+def test_events_kernel_refuses_what_it_cannot_run():
+    """On CUDA the event kernel takes a LinearEvent with a (K, B) sign0;
+    the checks it runs there, run on the CPU."""
+    with pytest.raises(TypeError, match="LinearEvent"):
+        kernels._kernel_event(lambda tv, yv: yv[:1], (), torch.float64,
+                              torch.device('cpu'), 2, 8)
+    event = LinearEvent(np.ones((2, 2)), dtype=torch.float64)
+    with pytest.raises(ValueError, match="sign0"):
+        kernels._kernel_event(event, (torch.ones(2, 7, dtype=torch.float64),),
+                              torch.float64, torch.device('cpu'), 2, 8)
+    with pytest.raises(ValueError, match="state dimension"):
+        kernels._kernel_event(event, (), torch.float64, torch.device('cpu'),
+                              3, 8)
+    with pytest.raises(ValueError, match="K <= 4"):
+        LinearEvent(np.ones((5, 2)))
+
+
+def test_linear_event_rows_and_lanes_agree():
+    rng = np.random.RandomState(7)
+    event = LinearEvent(rng.randn(3, 4), time_coef=rng.randn(3),
+                        bias=rng.randn(3), dtype=torch.float64)
+    y = torch.from_numpy(rng.randn(5, 4))
+    t = torch.from_numpy(rng.rand(5))
+    with torch.no_grad():
+        rows = torch.stack([event(t[i], y[i]) for i in range(5)])
+        lanes = event.lanes(t[None], y.T)
+    torch.testing.assert_close(lanes, rows.T, rtol=0, atol=1e-15)
+
+
+def test_packed_tableau_is_made_once_per_key():
+    """The tableau and the output times are packed and copied once per key,
+    so a timed repeat launch copies nothing host to device."""
+    cpu = torch.device('cpu')
+    a = kernels.packed_tableau('dopri5', torch.float32, cpu)
+    assert kernels.packed_tableau('dopri5', torch.float32, cpu) is a
+    assert kernels.packed_tableau('dopri5', torch.float64, cpu) is not a
+    tab, n_alpha, order, fsal = kernels.packed_tableau('bosh3',
+                                                       torch.float64, cpu)
+    assert (n_alpha, order, fsal) == (3, 3, True)
+    assert tab[0:3].tolist() == [0.5, 0.75, 1.0]
+    ts = (0.0, 0.5, 1.0)
+    assert kernels._device_times(ts, torch.float32, cpu) is \
+        kernels._device_times(ts, torch.float32, cpu)
+    with pytest.raises(ValueError, match="stages"):
+        kernels.packed_tableau('dopri8', torch.float32, cpu)
+
+
+def test_build_reads_the_log_of_a_cached_library(tmp_path, monkeypatch):
+    """A library already built is loaded with the ptxas log its build
+    wrote beside it, so the register and spill summary is there on every
+    run.  (The load itself is faked: there is no CUDA library here.)"""
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = lambda *a: 0
+            self.__dict__[name] = fn
+            return fn
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.ctypes, "CDLL", lambda path: FakeLib())
+    monkeypatch.setattr(_build, "_build", lambda cu, so: pytest.fail(
+        "a cached library must not be rebuilt"))
+    _build.library.cache_clear()
+    try:
+        digest = _build.hashlib.sha256(" ".join(_build.NVCC_FLAGS).encode())
+        cu, cuh = _build._sources()
+        for path in cu + cuh:
+            digest.update(path.name.encode())
+            digest.update(path.read_bytes())
+        so = tmp_path / f"libtdt_kernels_{digest.hexdigest()[:16]}.so"
+        so.write_bytes(b"")
+        so.with_suffix(".log").write_text("ptxas info : Used 40 registers")
+        _build.library()
+        assert _build.build_info["log"] == "ptxas info : Used 40 registers"
+        assert _build.build_info["path"] == str(so)
+    finally:
+        _build.library.cache_clear()
+        _build.build_info.update(seconds=None, log="", path=None)

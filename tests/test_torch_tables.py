@@ -73,10 +73,14 @@ def test_registry_covers_every_jax_method():
 
 
 def test_import_leaves_jax_out():
-    """`import torchdiffeq_tpu_torch` (and its kernel module) never loads
-    JAX; checked in a fresh interpreter."""
+    """`import torchdiffeq_tpu_torch` (its kernel module, the event and
+    dense-output modules) never loads JAX; checked in a fresh interpreter."""
     code = ("import sys; import torchdiffeq_tpu_torch, "
-            "torchdiffeq_tpu_torch.ops.kernels, torchdiffeq_tpu_torch.models; "
+            "torchdiffeq_tpu_torch.ops.kernels, torchdiffeq_tpu_torch.models, "
+            "torchdiffeq_tpu_torch.events, torchdiffeq_tpu_torch.dense, "
+            "torchdiffeq_tpu_torch.ops._build; "
+            "from torchdiffeq_tpu_torch.ops.kernels import "
+            "dopri5_events_batched; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m.startswith('torchdiffeq_tpu.') or m == 'torchdiffeq_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")

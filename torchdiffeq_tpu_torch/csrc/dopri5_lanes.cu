@@ -21,6 +21,7 @@
 //
 // The tableau arrives as a small array (any explicit method of up to
 // TDT_MAX_STAGES stages: dopri5, tsit5, bosh3, fehlberg2, adaptive_heun).
+// The per-lane numerics live in lane_ops.cuh, shared with the event kernel.
 //
 // What bounds it on an H100: like K-rk4, the latency of one thread's
 // dependent chain (stage sweeps of 4-7 field evaluations of H tanh units
@@ -31,32 +32,9 @@
 // (a warp per lane group with H split across lanes, mma for the products)
 // is later work.  Outputs are stored in the (S, D, B) layout, lane index
 // fastest, so a warp's stores to one row coalesce.
-#include "mlp_field.cuh"
-
-#define TDT_MAX_ALPHA 6
-#define TDT_MAX_STAGES (TDT_MAX_ALPHA + 1)
-// packed tableau: alpha[6] | beta[6][6] | c_sol[7] | c_err[7] | c_mid[7]
-#define TDT_TAB_BETA TDT_MAX_ALPHA
-#define TDT_TAB_CSOL (TDT_TAB_BETA + TDT_MAX_ALPHA * TDT_MAX_ALPHA)
-#define TDT_TAB_CERR (TDT_TAB_CSOL + TDT_MAX_STAGES)
-#define TDT_TAB_CMID (TDT_TAB_CERR + TDT_MAX_STAGES)
-#define TDT_TAB_SIZE (TDT_TAB_CMID + TDT_MAX_STAGES)
+#include "lane_ops.cuh"
 
 namespace {
-
-using tdt::nmax;
-using tdt::nmin;
-
-template <typename T, int D>
-__device__ __forceinline__ T rms_of_scaled(const T (&v)[D], const T (&scale)[D]) {
-  T s = T(0);
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const T q = v[d] / scale[d];
-    s = d == 0 ? q * q : s + q * q;
-  }
-  return tdt::dsqrt<T>(s / T(D));
-}
 
 template <typename T, int D>
 __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
@@ -81,14 +59,8 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
   const auto f = tdt::mlp_from_shared<T, D>(smem, H, power);
-  const T* alpha = s_tab;
-  const T* beta = s_tab + TDT_TAB_BETA;
-  const T* c_sol = s_tab + TDT_TAB_CSOL;
-  const T* c_err = s_tab + TDT_TAB_CERR;
-  const T* c_mid = s_tab + TDT_TAB_CMID;
-  (void)alpha;  // the field takes no time input: stage times are not formed
-  const T tiny = sizeof(T) == 4 ? T(1.17549435e-38f) : T(2.2250738585072014e-308);
-  const T inv_order = T(1.0 / (double)order);
+  // the field takes no time input: stage times are not formed
+  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
 
   T y[D], fc[D];
 #pragma unroll
@@ -104,147 +76,32 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
   }
 
   f(y, fc);
-  T dt;
-  if (use_first_step) {
-    dt = first_step;
-  } else {  // `hairer_dt` (pallas_kernels.py:305-321)
-    T scale[D], yp[D], fp[D], df[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) scale[d] = atol + rtol * tdt::dabs(y[d]);
-    const T d0 = rms_of_scaled<T, D>(y, scale);
-    const T d1 = rms_of_scaled<T, D>(fc, scale);
-    const T h0 = (d0 < T(1e-5) || d1 < T(1e-5)) ? T(1e-6)
-                                                 : T(0.01) * d0 / nmax(d1, tiny);
-#pragma unroll
-    for (int d = 0; d < D; ++d) yp[d] = y[d] + h0 * fc[d];
-    f(yp, fp);
-#pragma unroll
-    for (int d = 0; d < D; ++d) df[d] = fp[d] - fc[d];
-    const T d2 = rms_of_scaled<T, D>(df, scale) / nmax(h0, tiny);
-    const T d_max = nmax(d1, d2);
-    const T h1 = (d1 <= T(1e-15) && d2 <= T(1e-15))
-                     ? nmax(T(1e-6), h0 * T(1e-3))
-                     : tdt::dpow<T>(T(0.01) / nmax(d_max, tiny), inv_order);
-    dt = nmin(T(100) * h0, h1);
-  }
+  T dt = use_first_step ? first_step
+                        : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
 
   int n_acc = 0, n_steps = 0;
   T k[TDT_MAX_STAGES][D];
-  T yi[D], y1[D], f1[D], err[D];
+  T y1[D], f1[D], err[D];
   while (t < t1 && n_steps < max_steps) {
     const T t_prop = t + dt;
-
-    // --- stage sweep (`stage_sweep`, pallas_kernels.py:250-279) ---------
-#pragma unroll
-    for (int d = 0; d < D; ++d) k[0][d] = fc[d];
-#pragma unroll
-    for (int i = 0; i < TDT_MAX_ALPHA; ++i) {
-      if (i < n_alpha) {
-        T acc[D];
-        bool have = false;
-#pragma unroll
-        for (int j = 0; j <= i; ++j) {
-          const T c = beta[i * TDT_MAX_ALPHA + j];
-          if (c != T(0)) {
-#pragma unroll
-            for (int d = 0; d < D; ++d) acc[d] = have ? acc[d] + c * k[j][d] : c * k[j][d];
-            have = true;
-          }
-        }
-#pragma unroll
-        for (int d = 0; d < D; ++d) yi[d] = y[d] + dt * acc[d];
-        f(yi, k[i + 1]);
-        if (i + 1 == n_alpha) {
-#pragma unroll
-          for (int d = 0; d < D; ++d) f1[d] = k[i + 1][d];
-        }
-      }
-    }
-    if (fsal) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) y1[d] = yi[d];
-    } else {
-      T acc[D];
-      bool have = false;
-#pragma unroll
-      for (int j = 0; j < TDT_MAX_STAGES; ++j) {
-        const T c = c_sol[j];
-        if (j <= n_alpha && c != T(0)) {
-#pragma unroll
-          for (int d = 0; d < D; ++d) acc[d] = have ? acc[d] + c * k[j][d] : c * k[j][d];
-          have = true;
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) y1[d] = y[d] + dt * acc[d];
-      f(y1, f1);
-    }
-    {
-      T acc[D];
-      bool have = false;
-#pragma unroll
-      for (int j = 0; j < TDT_MAX_STAGES; ++j) {
-        const T c = c_err[j];
-        if (j <= n_alpha && c != T(0)) {
-#pragma unroll
-          for (int d = 0; d < D; ++d) acc[d] = have ? acc[d] + c * k[j][d] : c * k[j][d];
-          have = true;
-        }
-      }
-#pragma unroll
-      for (int d = 0; d < D; ++d) err[d] = dt * acc[d];
-    }
-
-    // --- error ratio and accept ----------------------------------------
-    T tol[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) tol[d] = atol + rtol * nmax(tdt::dabs(y[d]), tdt::dabs(y1[d]));
-    const T ratio = rms_of_scaled<T, D>(err, tol);
+    tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
+    const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
     const bool accept = ratio <= T(1);
 
-    // --- dense output for the output times this step covers -------------
+    // dense output for the output times this step covers
     if (accept && s_next < S && s_ts[s_next] <= t_prop) {
-      T mid[D];
-      bool have = false;
-#pragma unroll
-      for (int j = 0; j < TDT_MAX_STAGES; ++j) {
-        const T c = c_mid[j];
-        if (j <= n_alpha && c != T(0)) {
-#pragma unroll
-          for (int d = 0; d < D; ++d) mid[d] = have ? mid[d] + c * k[j][d] : c * k[j][d];
-          have = true;
-        }
-      }
-      T ce[D], cd[D], cc[D], cb[D], ca[D];
-#pragma unroll
-      for (int d = 0; d < D; ++d) {  // `interp_coeffs`, pallas_kernels.py:290-294
-        const T y_mid = y[d] + dt * mid[d];
-        ca[d] = T(2) * dt * (f1[d] - fc[d]) - T(8) * (y1[d] + y[d]) + T(16) * y_mid;
-        cb[d] = dt * (T(5) * fc[d] - T(3) * f1[d]) + T(18) * y[d] + T(14) * y1[d] -
-                T(32) * y_mid;
-        cc[d] = dt * (f1[d] - T(4) * fc[d]) - T(11) * y[d] - T(5) * y1[d] + T(16) * y_mid;
-        cd[d] = dt * fc[d];
-        ce[d] = y[d];
-      }
+      tdt::Quartic<T, D> q;
+      tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
       const T dt_safe = dt > T(0) ? dt : T(1);
       while (s_next < S && s_ts[s_next] <= t_prop) {
-        const T x = (s_ts[s_next] - t) / dt_safe;
+        T val[D];
+        tdt::eval_quartic<T, D>(q, (s_ts[s_next] - t) / dt_safe, val);
 #pragma unroll
-        for (int d = 0; d < D; ++d) {  // `interp_at`
-          T total = ce[d] + x * cd[d];
-          T xp = x * x;
-          total = total + xp * cc[d];
-          xp = xp * x;
-          total = total + xp * cb[d];
-          xp = xp * x;
-          total = total + xp * ca[d];
-          ys[((size_t)s_next * D + d) * B + b] = total;
-        }
+        for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = val[d];
         ++s_next;
       }
     }
 
-    // --- controller -----------------------------------------------------
     if (accept) {
 #pragma unroll
       for (int d = 0; d < D; ++d) {
@@ -254,9 +111,7 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
       t = t_prop;
       ++n_acc;
     }
-    const T dfac = ratio < T(1) ? T(1) : dfactor;
-    const T factor = nmin(ifactor, nmax(safety / tdt::dpow<T>(nmax(ratio, tiny), inv_order), dfac));
-    dt = dt * factor;
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
     ++n_steps;
   }
 

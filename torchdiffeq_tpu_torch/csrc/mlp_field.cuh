@@ -1,5 +1,5 @@
-// Device helpers shared by the port's two CUDA kernels (rk4.cu and
-// dopri5_lanes.cu): the MLP vector field evaluated by one thread on one
+// Device helpers shared by the port's CUDA kernels (rk4.cu, dopri5_lanes.cu
+// and dopri5_events.cu): the MLP vector field evaluated by one thread on one
 // trajectory, with its weights staged in shared memory, and math that keeps
 // the NaN semantics of the plain PyTorch versions.
 //

@@ -3,11 +3,12 @@
 
 What this slice carries of the JAX `check_inputs`: a single-tensor state,
 scalar tolerances, the RMS norm, forward and reversed time (integration
-always runs over ``t_sign * t`` with the field conjugated by the sign), and
-the time dtype.  Time stays float64 on the host, as in the reference
-(rk_common.py:180-182), so the JAX package's double-word time and its
-arithmetic ``nextafter`` are not needed.  Tuple state, per-leaf tolerances,
-other norms and callbacks come later (ROADMAP A2).
+always runs over ``t_sign * t`` with the field conjugated by the sign), the
+time dtype, and the event function of an event solve.  Time stays float64
+on the host, as in the reference (rk_common.py:180-182), so the JAX
+package's double-word time and its arithmetic ``nextafter`` are not
+needed.  Tuple state, per-leaf tolerances, other norms and callbacks come
+later (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -55,6 +56,13 @@ def needs_autograd(func, *tensors):
                for x in tensors)
 
 
+def nan_sign(x):
+    """`jnp.sign`: -1, 0 or 1, and NaN at NaN.  ``torch.sign`` gives 0 at
+    NaN, which would make an event value that turns NaN look like no sign
+    change where the JAX package sees one (and vice versa)."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
 def rms_norm(x):
     """RMS norm over all elements (reference ``_rms_norm``, misc.py:22-23)."""
     return torch.sqrt(torch.mean(x.abs() ** 2))
@@ -93,6 +101,7 @@ class NormalisedProblem(NamedTuple):
     atol: float
     method: str
     options: dict
+    event_fn: Any         # combined event fn of internal time, or None
     t_sign: float         # +1/-1: t_internal = t_sign * t_user
     norm: Callable
 
@@ -119,9 +128,28 @@ def _is_scalar(x):
     return np.ndim(x) == 0
 
 
-def check_inputs(func, y0, t, rtol, atol, method, options, solvers, args=()):
+def time_tensor(t, y):
+    """Time for an event function: a 0-d float64 tensor on `y`'s device (the
+    JAX package hands event functions its float64 time)."""
+    if isinstance(t, torch.Tensor):
+        return t
+    return torch.full((), float(t), dtype=torch.float64, device=y.device)
+
+
+def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
+                 args=()):
     """Normalise user inputs to solver form (the JAX ``check_inputs``,
-    torchdiffeq_tpu/misc.py:212-402, on the parts this slice carries)."""
+    torchdiffeq_tpu/misc.py:212-402, on the parts this slice carries).
+
+    With `event_fn`, `t` must hold two times, and the problem's event
+    function takes the internal time: it hands the user's function the
+    user's time (negated back when time is reversed) and combines its
+    outputs through `events.combine_event_functions`."""
+    from .events import combine_event_functions  # events imports this module
+
+    if event_fn is not None and host_times(t).shape[0] != 2:
+        raise ValueError("We require len(t) == 2 when in event handling "
+                         f"mode, but got len(t)={host_times(t).shape[0]}.")
     if not isinstance(y0, torch.Tensor):
         raise NotImplementedError(
             "y0 must be one torch.Tensor; tuple and pytree state come "
@@ -169,7 +197,14 @@ def check_inputs(func, y0, t, rtol, atol, method, options, solvers, args=()):
     else:
         base_func = func
 
+    flat_event_fn = None
+    if event_fn is not None:
+        def flat_event_fn(tt, yy):
+            tt = time_tensor(tt, yy)
+            return event_fn(-tt if t_sign < 0 else tt, yy)
+        flat_event_fn = combine_event_functions(flat_event_fn, t_np[0], y0)
+
     return NormalisedProblem(
         func=PerturbedFunc(base_func, t_sign), y0=y0, t=t_np,
         rtol=float(rtol), atol=float(atol), method=method, options=options,
-        t_sign=t_sign, norm=rms_norm)
+        event_fn=flat_event_fn, t_sign=t_sign, norm=rms_norm)

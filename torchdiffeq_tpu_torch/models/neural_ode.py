@@ -6,6 +6,10 @@
 The field is ``f(t, y) = mlp(y ** power)``: power 1 for a plain MLP field,
 3 for the spiral demo's field (reference examples/ode_demo.py:111-121).
 This one family is also what the CUDA kernels take (``ops/kernels.py``).
+
+`LinearEvent` is the event family the CUDA event kernel takes: K <= 4
+affine outputs ``y @ W.T + c * t + b``.  It covers threshold events on a
+state component or a linear combination of components, and time cut-offs.
 """
 from __future__ import annotations
 
@@ -47,6 +51,48 @@ class MLPField(nn.Module):
 
     def forward(self, t, y):
         return mlp_apply(self, y ** self.power if self.power != 1 else y)
+
+
+class LinearEvent(nn.Module):
+    """``e(t, y) = y @ weight.T + time_coef * t + bias``: K <= 4 affine event
+    outputs, each a zero crossing to detect (``y[0] - 0.5`` is
+    ``weight=[[1, 0]], bias=[-0.5]``; ``t - 2`` is ``time_coef=[1],
+    bias=[-2]``).  Applied to one sample ``y`` of shape (D,) it returns the
+    (K,) outputs.
+
+    Args:
+        weight: (K, D).
+        time_coef, bias: (K,); zeros by default.
+        dtype, device: of the parameters (default: those of `weight`).
+    """
+    MAX_OUTPUTS = 4
+
+    def __init__(self, weight, time_coef=None, bias=None, *, dtype=None,
+                 device=None):
+        super().__init__()
+        weight = torch.as_tensor(weight, dtype=dtype, device=device)
+        if weight.dim() != 2 or not 1 <= weight.shape[0] <= self.MAX_OUTPUTS:
+            raise ValueError(f"weight must be (K, D) with 1 <= K <= "
+                             f"{self.MAX_OUTPUTS}, got {tuple(weight.shape)}")
+        K = weight.shape[0]
+
+        def vec(v):
+            v = (torch.zeros(K, dtype=weight.dtype) if v is None
+                 else torch.as_tensor(v, dtype=weight.dtype))
+            if v.shape != (K,):
+                raise ValueError(f"expected shape ({K},), got {tuple(v.shape)}")
+            return nn.Parameter(v.to(weight.device))
+
+        self.weight = nn.Parameter(weight)
+        self.time_coef = vec(time_coef)
+        self.bias = vec(bias)
+
+    def forward(self, t, y):
+        return y @ self.weight.T + self.time_coef * t + self.bias
+
+    def lanes(self, tv, yv):
+        """The outputs on the per-lane layout: t (1, B), y (D, B) -> (K, B)."""
+        return (yv.T @ self.weight.T + self.time_coef * tv.T + self.bias).T
 
 
 def mlp_apply(model, x):

@@ -1,7 +1,8 @@
 """The `odeint` front door (counterpart of ``torchdiffeq_tpu/odeint.py``).
 
 This slice carries the forward solve of the explicit adaptive tier through
-the host-loop solver, and the fused RK4 kernel route
+the host-loop solver, event solves (``event_fn=...``) on the same tier,
+and the fused RK4 kernel route
 ``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.
 Everything that would reach a solver family not yet ported raises
 `NotImplementedError` naming its ROADMAP item.
@@ -61,6 +62,11 @@ def odeint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None, options=None,
 
     `y0` is one float32/float64 tensor on any device; `t` is strictly
     monotonic (decreasing time integrates backwards).  Time is float64.
+
+    With `event_fn`, `t` holds two times (the start and a point giving the
+    direction) and the solve runs until ``event_fn(t, y)`` changes sign; it
+    returns ``(event_t, ys)``, `event_t` a 0-d float64 tensor on the
+    state's device and ``ys = stack([y0, y(event_t)])``.
     """
     ys, _ = _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn,
                          args)
@@ -119,12 +125,14 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
     res = _try_pallas_rk4(func, y0, t, method, options, event_fn, args)
     if res is not None:
         return res
-    if event_fn is not None:
-        raise NotImplementedError(
-            "event handling is not ported yet (ROADMAP A5)")
     if isinstance(options, dict):
         options = {k: v for k, v in options.items() if k != 'pallas'}
     name = 'dopri5' if method is None else method
+    if event_fn is not None and (name in NOT_PORTED or SOLVERS.get(
+            name, {}).get('kind') == 'fixed'):
+        raise NotImplementedError(
+            f"event solves with method {name!r}: the fixed-grid, Adams and "
+            "implicit event routes come with their tiers (ROADMAP A4, A9)")
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"method {name!r} is not ported yet ({NOT_PORTED[name]})")
@@ -134,8 +142,14 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
             "pallas=True, num_steps=N) with uniform increasing output times "
             "and a 2-D state); its scan loop is ROADMAP A4")
     _refuse_autograd(func, y0, args)
-    prob = check_inputs(func, y0, t, rtol, atol, method, options, SOLVERS,
-                        args=tuple(args))
+    prob = check_inputs(func, y0, t, rtol, atol, method, options, event_fn,
+                        SOLVERS, args=tuple(args))
     cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
     with torch.no_grad():
-        return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+        if event_fn is None:
+            return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+        # JAX `_solve_event_normalised` (odeint.py:125-154), the event time
+        # mapped back to the user's frame
+        event_t, y_event, stats = adaptive_rk.integrate_until_event(
+            prob.func, prob.y0, prob.t[0], prob.event_fn, cfg)
+        return (prob.t_sign * event_t, torch.stack([prob.y0, y_event])), stats

@@ -1,10 +1,14 @@
 """Build and load the port's CUDA kernels (``torchdiffeq_tpu_torch/csrc``).
 
-The kernels have a plain C interface: ``nvcc`` compiles every ``csrc/*.cu``
-into one shared library, which `ctypes` loads.  The build happens at first
-use, into ``build/torch_kernels/`` at the repository root, keyed by a hash
-of the sources and flags, so a second process reuses it.  ``nvcc`` comes
-from ``$CUDA_HOME/bin`` or the ``PATH``.  Nothing is compiled on import.
+The kernels have a plain C interface: ``nvcc`` compiles each
+``csrc/*.cu`` to an object file, all of them at once in parallel
+processes, and links the objects into one shared library, which `ctypes`
+loads.  The build happens at first use, into ``build/torch_kernels/`` at
+the repository root, keyed by a hash of the sources and flags, so a second
+process reuses it.  The build's output (ptxas register and spill counts)
+is kept in a ``.log`` file beside the library and read back with it.
+``nvcc`` comes from ``$CUDA_HOME/bin`` or the ``PATH``.  Nothing is
+compiled on import.
 """
 from __future__ import annotations
 
@@ -21,7 +25,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "--fmad=false", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+              "--fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
@@ -35,9 +39,17 @@ _SIGNATURES = {
     "tdt_dopri5_lanes": [_I, _I, _I, _I, _I, _P, _P, _I, _D, _D, _D, _D, _D,
                          _D, _D, _D, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
                          _P, _P, _P, _P],
+    # tdt_dopri5_events(dtype, B, D, H, power, y0, t0, rtol, atol, safety,
+    #   ifactor, dfactor, first_step, use_first_step, max_steps, tab,
+    #   n_alpha, order, fsal, w1, b1, w2, b2, K, ev_w, ev_c, ev_b, sign0,
+    #   bisect_iters, event_t, y_event, found, n_acc, n_steps, stream)
+    "tdt_dopri5_events": [_I, _I, _I, _I, _I, _P, _D, _D, _D, _D, _D, _D,
+                          _D, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
+                          _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
 }
 
-# what the last build printed (ptxas register and spill counts) and took
+# what the build printed (ptxas register and spill counts), read back from
+# the log beside a cached library, and how long this process's build took
 build_info = {"seconds": None, "log": "", "path": None}
 
 
@@ -58,6 +70,38 @@ def _nvcc():
     return found
 
 
+def _build(cu, so_path):
+    """Compile every source in parallel, link, and move the library into
+    place atomically (a concurrent build of the same hash is harmless).
+    Returns the compilers' output."""
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        outs = [p.communicate()[0] for p in procs]
+        log = "".join(outs)
+        for src, p, out in zip(cu, procs, outs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}) on "
+                                   f"{src.name}:\n{out[-4000:]}")
+        lib = Path(tmp) / "lib.so"
+        proc = subprocess.run([nvcc, "-shared", "-o", str(lib),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{(proc.stdout + proc.stderr)[-4000:]}")
+        log_tmp = Path(tmp) / "build.log"
+        log_tmp.write_text(log)
+        os.replace(log_tmp, so_path.with_suffix(".log"))
+        os.replace(lib, so_path)
+    return log
+
+
 @functools.lru_cache(maxsize=None)
 def library():
     """The loaded kernel library, built first if its hash is new."""
@@ -67,21 +111,13 @@ def library():
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
     so_path = BUILD_DIR / f"libtdt_kernels_{digest.hexdigest()[:16]}.so"
-    if not so_path.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, cu)]
+    if so_path.exists():
+        log_path = so_path.with_suffix(".log")
+        build_info["log"] = log_path.read_text() if log_path.exists() else ""
+    else:
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        build_info["log"] = _build(cu, so_path)
         build_info["seconds"] = time.perf_counter() - start
-        build_info["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{build_info['log'][-4000:]}")
-        os.replace(tmp, so_path)   # atomic: a concurrent build is harmless
     build_info["path"] = str(so_path)
     lib = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():

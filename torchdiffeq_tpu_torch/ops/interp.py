@@ -43,3 +43,21 @@ def interp_evaluate(coefficients, t0, t1, t):
         x_power = x_power * x
         total = total + float(x_power) * coefficients[i]
     return total
+
+
+def interp_evaluate_at(coefficients, t0, t1, t):
+    """`interp_evaluate` at float64 TENSOR times `t` on the coefficients'
+    device, with no host read: JAX's `interp_evaluate`
+    (torchdiffeq_tpu/ops/interp.py:106-127), x formed in float64 and cast
+    to the state dtype.  As there, there is no zero-width guard: an
+    interval with ``t1 == t0`` gives NaN.  `t` may have leading axes that
+    the coefficient rows share (one interval per time, `t0` and `t1`
+    broadcasting with `t`)."""
+    x = ((t - t0) / (t1 - t0)).to(coefficients.dtype)
+    x = x.reshape(x.shape + (1,) * (coefficients.dim() - 1 - x.dim()))
+    total = coefficients[0] + x * coefficients[1]
+    x_power = x
+    for i in range(2, coefficients.shape[0]):
+        x_power = x_power * x
+        total = total + x_power * coefficients[i]
+    return total

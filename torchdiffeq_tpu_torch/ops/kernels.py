@@ -6,13 +6,17 @@ of ``torchdiffeq_tpu/ops/pallas_kernels.py``).
 * `dopri5_integrate_batched` runs adaptive explicit RK with a step-size
   controller per trajectory (``csrc/dopri5_lanes.cu``), replacing the
   Pallas kernel of the same name.
+* `dopri5_events_batched` runs the same per-trajectory solve until each
+  trajectory's event changes sign and bisects its event time
+  (``csrc/dopri5_events.cu``), replacing the Pallas kernel of the same name.
 
 A Pallas kernel traces any JAX field into itself; a CUDA kernel cannot run
 a Python callable.  So the kernels take one field family, `MLPField` with
-one tanh hidden layer (ROADMAP B, "Field interface"), while the plain
-versions `*_ref` take any callable.  A wrapper takes the plain version only
-for tensors on the CPU; for a CUDA tensor it launches the kernel or raises.
-Both kernels are forward-only, as in the JAX package.
+one tanh hidden layer (ROADMAP B, "Field interface"), and the event kernel
+one event family, `LinearEvent`, while the plain versions `*_ref` take any
+callable.  A wrapper takes the plain version only for tensors on the CPU;
+for a CUDA tensor it launches the kernel or raises.  The kernels are
+forward-only, as in the JAX package.
 
 `launch_counts` counts kernel launches per wrapper, so a run can show that
 a path went through the kernels.
@@ -20,12 +24,13 @@ a path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
 
-from ..misc import host_times, needs_autograd, np_dtype
-from ..models.neural_ode import MLPField
+from ..misc import host_times, nan_sign, needs_autograd, np_dtype
+from ..models.neural_ode import LinearEvent, MLPField
 from . import tableaus
 from . import _build
 
@@ -37,7 +42,8 @@ _KERNEL_MAX_D = 8
 _KERNEL_MAX_ALPHA = 6
 _SMEM_LIMIT = 48 * 1024
 
-launch_counts = {'rk4_integrate': 0, 'dopri5_integrate_batched': 0}
+launch_counts = {'rk4_integrate': 0, 'dopri5_integrate_batched': 0,
+                 'dopri5_events_batched': 0}
 
 
 def reset_launch_counts():
@@ -194,7 +200,9 @@ def rk4_integrate(field, y0, t0, dt, n_steps, params=(), *, out_every=None):
 
 
 # ---------------------------------------------------------------------------
-# K-dopri5: per-lane adaptive explicit RK.
+# Per-lane numerics shared by the plain versions of K-dopri5 and K-events
+# (JAX `_make_lane_ops`, pallas_kernels.py:238-333; the kernels' share is
+# csrc/lane_ops.cuh), and the tableau and output times on the device.
 # ---------------------------------------------------------------------------
 
 def _tableau_consts(method, sd):
@@ -209,12 +217,34 @@ def _tableau_consts(method, sd):
             np.asarray(tab.c_mid, sd), int(tab.order), bool(tab.is_fsal))
 
 
-def _as_lane_field(field):
-    """An `MLPField` maps (..., D) rows; the per-lane solve evaluates its
-    field on the (D, B) lane layout."""
-    if isinstance(field, MLPField):
-        return lambda tv, yv: field(tv, yv.T).T
-    return field
+@functools.lru_cache(maxsize=None)
+def packed_tableau(method, dtype, device):
+    """The tableau of `method` in the kernels' packed layout
+    (csrc/lane_ops.cuh), in `dtype` on `device`, made and copied once per
+    key so that a repeated launch copies nothing host to device.  Returns
+    (tableau tensor, n_alpha, order, fsal)."""
+    alpha, beta, c_sol, c_err, c_mid, order, fsal = _tableau_consts(
+        method, np_dtype(dtype))
+    n_alpha = len(alpha)
+    m = _KERNEL_MAX_ALPHA
+    if n_alpha > m:
+        raise ValueError(
+            f"the CUDA per-lane kernels hold tableaus of at most {m + 1} "
+            f"stages; {method} has {n_alpha + 1}")
+    packed = np.zeros(m * (m + 1) + 3 * (m + 1), np_dtype(dtype))
+    packed[:n_alpha] = alpha
+    packed[m:m + m * m].reshape(m, m)[:n_alpha, :n_alpha] = beta
+    for i, vec in enumerate((c_sol, c_err, c_mid)):
+        start = m + m * m + i * (m + 1)
+        packed[start:start + n_alpha + 1] = vec
+    return torch.from_numpy(packed).to(device), n_alpha, order, fsal
+
+
+@functools.lru_cache(maxsize=64)
+def _device_times(values, dtype, device):
+    """Output times (a tuple of floats) as a tensor on `device`, cached by
+    their values."""
+    return torch.tensor(values, dtype=dtype).to(device)
 
 
 def _lincomb(coeffs, ks):
@@ -227,6 +257,105 @@ def _lincomb(coeffs, ks):
         acc = term if acc is None else acc + term
     return acc
 
+
+def _lane_rms(v):
+    """RMS over the state rows of each lane, (D, B) -> (1, B)."""
+    return torch.sqrt((v * v).sum(dim=0, keepdim=True) / float(v.shape[0]))
+
+
+def _hairer_dt(f, t, y, fc, rtol, atol, tiny, inv_order):
+    """`hairer_dt` (pallas_kernels.py:305-321): each lane's initial step."""
+    scale = atol + rtol * y.abs()
+    d0 = _lane_rms(y / scale)
+    d1 = _lane_rms(fc / scale)
+    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6),
+                     0.01 * d0 / torch.clamp_min(d1, tiny))
+    fp = f(t + h0, y + h0 * fc)
+    d2 = _lane_rms((fp - fc) / scale) / torch.clamp_min(h0, tiny)
+    d_max = torch.maximum(d1, d2)
+    h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15),
+                     torch.clamp_min(h0 * 1e-3, 1e-6),
+                     (0.01 / torch.clamp_min(d_max, tiny)) ** inv_order)
+    return torch.minimum(100.0 * h0, h1)
+
+
+def _stage_sweep(f, t, dt_c, y, fc, alpha, beta, c_sol, c_err, fsal):
+    """`stage_sweep` (pallas_kernels.py:250-279), the coefficient sums
+    formed before the dt multiply.  Returns (y1, f1, err, ks)."""
+    ks = [fc]
+    yi = y
+    for i in range(len(alpha)):
+        yi = y + dt_c * _lincomb(beta[i, :i + 1], ks)
+        ks.append(f(t + float(alpha[i]) * dt_c, yi))
+    y1 = yi if fsal else y + dt_c * _lincomb(c_sol, ks)
+    f1 = ks[-1] if fsal else f(t + dt_c, y1)
+    return y1, f1, dt_c * _lincomb(c_err, ks), ks
+
+
+def _error_ratio(y, y1, err, rtol, atol):
+    return _lane_rms(err / (atol + rtol * torch.maximum(y.abs(), y1.abs())))
+
+
+def _next_dt(dt_c, ratio, safety, ifactor, dfactor, tiny, inv_order):
+    """The I-controller, NaN-propagating like the TPU kernel's."""
+    dfac = torch.where(ratio < 1.0, torch.ones_like(ratio),
+                       torch.full_like(ratio, dfactor))
+    return dt_c * torch.clamp_max(
+        torch.maximum(safety / torch.clamp_min(ratio, tiny) ** inv_order,
+                      dfac), ifactor)
+
+
+def _quartic(y, y1, fc, f1, ks, dt_c, c_mid):
+    """`y_mid_of` and `interp_coeffs` (pallas_kernels.py:281-294): the
+    step's quartic in ascending powers of x in [0, 1]."""
+    y_mid = y + dt_c * _lincomb(c_mid, ks)
+    ca = 2 * dt_c * (f1 - fc) - 8 * (y1 + y) + 16 * y_mid
+    cb = dt_c * (5 * fc - 3 * f1) + 18 * y + 14 * y1 - 32 * y_mid
+    cc = dt_c * (f1 - 4 * fc) - 11 * y - 5 * y1 + 16 * y_mid
+    return (y, dt_c * fc, cc, cb, ca)
+
+
+def _quartic_at(coefs, x):
+    """`interp_at`: the powers of x formed by repeated multiplication."""
+    e, d, c, b, a = coefs
+    val = e + x * d
+    xp = x * x
+    val = val + xp * c
+    xp = xp * x
+    val = val + xp * b
+    xp = xp * x
+    return val + xp * a
+
+
+def _as_lane_field(field):
+    """An `MLPField` maps (..., D) rows; the per-lane solve evaluates its
+    field on the (D, B) lane layout."""
+    if isinstance(field, MLPField):
+        return lambda tv, yv: field(tv, yv.T).T
+    return field
+
+
+def _lane_setup(f, y0, t0, method, rtol, atol, first_step):
+    """What both per-lane solves start from: the tableau, the start time row,
+    f(y0), each lane's first step, and the controller constants."""
+    D, B = y0.shape
+    sd = np_dtype(y0.dtype)
+    consts = _tableau_consts(method, sd)
+    rtol, atol = float(sd(rtol)), float(sd(atol))
+    tiny = float(np.finfo(sd).tiny)
+    inv_order = float(sd(1.0 / consts[5]))
+    t = y0.new_full((1, B), float(sd(t0)))
+    fc = f(t, y0)
+    if first_step is not None:
+        dt = y0.new_full((1, B), float(sd(first_step)))
+    else:
+        dt = _hairer_dt(f, t, y0, fc, rtol, atol, tiny, inv_order)
+    return consts, rtol, atol, tiny, inv_order, t, fc, dt
+
+
+# ---------------------------------------------------------------------------
+# K-dopri5: per-lane adaptive explicit RK.
+# ---------------------------------------------------------------------------
 
 def dopri5_integrate_batched_ref(field, y0, t0, t1, *, ts=None, rtol=1e-4,
                                  atol=1e-6, method='dopri5', params=(),
@@ -242,38 +371,15 @@ def dopri5_integrate_batched_ref(field, y0, t0, t1, *, ts=None, rtol=1e-4,
     """
     f_lane = _as_lane_field(field)
     f = lambda tv, yv: f_lane(tv, yv, *params)
-    D, B = y0.shape
+    B = y0.shape[1]
     sd = np_dtype(y0.dtype)
-    alpha, beta, c_sol, c_err, c_mid, order, fsal = _tableau_consts(method, sd)
-    t_start, t_end = sd(t0), sd(t1)
+    ((alpha, beta, c_sol, c_err, c_mid, order, fsal), rtol, atol, tiny,
+     inv_order, t, fc, dt) = _lane_setup(f, y0, t0, method, rtol, atol,
+                                         first_step)
+    t_end = sd(t1)
     emit_ts = [t_end] if ts is None else [sd(v) for v in host_times(ts)]
-    rtol, atol = float(sd(rtol)), float(sd(atol))
-    tiny = float(np.finfo(sd).tiny)
-    inv_order = float(sd(1.0 / order))
-
-    def lane_rms(v):
-        return torch.sqrt((v * v).sum(dim=0, keepdim=True) / float(D))
 
     y = y0
-    t = y0.new_full((1, B), float(t_start))
-    fc = f(t, y)
-    if first_step is not None:
-        dt = y0.new_full((1, B), float(sd(first_step)))
-    else:   # `hairer_dt`
-        scale = atol + rtol * y.abs()
-        d0 = lane_rms(y / scale)
-        d1 = lane_rms(fc / scale)
-        h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5),
-                         torch.full_like(d0, 1e-6),
-                         0.01 * d0 / torch.clamp_min(d1, tiny))
-        fp = f(t + h0, y + h0 * fc)
-        d2 = lane_rms((fp - fc) / scale) / torch.clamp_min(h0, tiny)
-        d_max = torch.maximum(d1, d2)
-        h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15),
-                         torch.clamp_min(h0 * 1e-3, 1e-6),
-                         (0.01 / torch.clamp_min(d_max, tiny)) ** inv_order)
-        dt = torch.minimum(100.0 * h0, h1)
-
     out = [torch.where(t >= float(t_s), y, torch.zeros_like(y))
            for t_s in emit_ts]
     n_acc = torch.zeros((1, B), dtype=torch.int32, device=y0.device)
@@ -284,48 +390,24 @@ def dopri5_integrate_batched_ref(field, y0, t0, t1, *, ts=None, rtol=1e-4,
             break
         dt_c = torch.where(active, dt, torch.zeros_like(dt))
         t_prop = t + dt_c
-
-        # stage sweep: coefficient sums first, then the dt multiply
-        ks = [fc]
-        yi = y
-        for i in range(len(alpha)):
-            yi = y + dt_c * _lincomb(beta[i, :i + 1], ks)
-            ks.append(f(t + float(alpha[i]) * dt_c, yi))
-        y1 = yi if fsal else y + dt_c * _lincomb(c_sol, ks)
-        f1 = ks[-1] if fsal else f(t_prop, y1)
-        err = dt_c * _lincomb(c_err, ks)
-
-        tol = atol + rtol * torch.maximum(y.abs(), y1.abs())
-        ratio = lane_rms(err / tol)
+        y1, f1, err, ks = _stage_sweep(f, t, dt_c, y, fc, alpha, beta, c_sol,
+                                       c_err, fsal)
+        ratio = _error_ratio(y, y1, err, rtol, atol)
         accept = (ratio <= 1.0) & active
 
         # dense output for every output time this step covers
-        y_mid = y + dt_c * _lincomb(c_mid, ks)
-        ca = 2 * dt_c * (f1 - fc) - 8 * (y1 + y) + 16 * y_mid
-        cb = dt_c * (5 * fc - 3 * f1) + 18 * y + 14 * y1 - 32 * y_mid
-        cc = dt_c * (f1 - 4 * fc) - 11 * y - 5 * y1 + 16 * y_mid
-        cd = dt_c * fc
+        coefs = _quartic(y, y1, fc, f1, ks, dt_c, c_mid)
         dt_safe = torch.where(dt_c > 0, dt_c, torch.ones_like(dt_c))
         for s, t_s in enumerate(emit_ts):
             covered = accept & (t < float(t_s)) & (t_prop >= float(t_s))
-            x = (float(t_s) - t) / dt_safe
-            xp = x * x
-            val = (y + x * cd) + xp * cc
-            xp = xp * x
-            val = val + xp * cb
-            xp = xp * x
-            val = val + xp * ca
+            val = _quartic_at(coefs, (float(t_s) - t) / dt_safe)
             out[s] = torch.where(covered, val, out[s])
 
         y = torch.where(accept, y1, y)
         fc = torch.where(accept, f1, fc)
         t = torch.where(accept, t_prop, t)
-        dfac = torch.where(ratio < 1.0, torch.ones_like(ratio),
-                           torch.full_like(ratio, dfactor))
-        factor = torch.clamp_max(
-            torch.maximum(safety / torch.clamp_min(ratio, tiny) ** inv_order,
-                          dfac), ifactor)
-        dt = torch.where(active, dt_c * factor, dt)
+        dt = torch.where(active, _next_dt(dt_c, ratio, safety, ifactor,
+                                          dfactor, tiny, inv_order), dt)
         n_acc += accept.to(torch.int32)
         n_steps += active.to(torch.int32)
 
@@ -377,30 +459,17 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
     (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, y0.device, D,
                                       'dopri5_integrate_batched')
     sd = np_dtype(y0.dtype)
-    alpha, beta, c_sol, c_err, c_mid, order, fsal = _tableau_consts(method, sd)
-    n_alpha = len(alpha)
-    if n_alpha > _KERNEL_MAX_ALPHA:
-        raise ValueError(
-            f"the CUDA per-lane kernel holds tableaus of at most "
-            f"{_KERNEL_MAX_ALPHA + 1} stages; {method} has {n_alpha + 1}")
-    packed = np.zeros(_KERNEL_MAX_ALPHA * (_KERNEL_MAX_ALPHA + 1)
-                      + 3 * (_KERNEL_MAX_ALPHA + 1), sd)
-    packed[:n_alpha] = alpha
-    m = _KERNEL_MAX_ALPHA
-    packed[m:m + m * m].reshape(m, m)[:n_alpha, :n_alpha] = beta
-    for i, vec in enumerate((c_sol, c_err, c_mid)):
-        start = m + m * m + i * (m + 1)
-        packed[start:start + n_alpha + 1] = vec
-    emit_ts = np.array([t1] if ts is None else ts, dtype=sd)
-    S = emit_ts.shape[0]
-    shared = (2 * D * H + H + D + packed.size + S) * y0.element_size()
+    dev = y0.device
+    tab_d, n_alpha, order, fsal = packed_tableau(method, y0.dtype, dev)
+    emit_ts = tuple(float(v) for v in np.array([t1] if ts is None else ts,
+                                               dtype=sd))
+    S = len(emit_ts)
+    shared = (2 * D * H + H + D + tab_d.numel() + S) * y0.element_size()
     if shared > _SMEM_LIMIT:
         raise ValueError(f"dopri5_integrate_batched: MLP, tableau and {S} "
                          f"output times need {shared} bytes of shared "
                          f"memory, above the kernel's {_SMEM_LIMIT}")
-    dev = y0.device
-    tab_d = torch.from_numpy(packed).to(dev)
-    ts_d = torch.from_numpy(emit_ts).to(dev)
+    ts_d = _device_times(emit_ts, y0.dtype, dev)
     ys = y0.new_empty((S, D, B))
     n_acc = torch.empty((1, B), dtype=torch.int32, device=dev)
     n_steps = torch.empty((1, B), dtype=torch.int32, device=dev)
@@ -418,3 +487,186 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
         _build.check(lib, code, 'dopri5_integrate_batched')
         launch_counts['dopri5_integrate_batched'] += 1
     return (ys[0] if ts is None else ys), n_acc, n_steps
+
+
+# ---------------------------------------------------------------------------
+# K-events: per-lane adaptive explicit RK until each lane's event fires.
+# ---------------------------------------------------------------------------
+
+def _as_lane_event(event_fn):
+    """A `LinearEvent` is sign-combined per lane with ``ev_params=(sign0,)``
+    (the combination of parallel/batched.py): the lane's event is
+    ``min_k(e_k * sign0_k)``.  Any other event function already takes the
+    lane layout."""
+    if isinstance(event_fn, LinearEvent):
+        return lambda tv, yv, sign0: (event_fn.lanes(tv, yv) * sign0).amin(
+            dim=0, keepdim=True)
+    return event_fn
+
+
+def dopri5_events_batched_ref(field, y0, t0, event_fn, *, rtol=1e-4,
+                              atol=1e-6, method='dopri5', params=(),
+                              ev_params=(), max_steps=10_000, safety=0.9,
+                              ifactor=10.0, dfactor=0.2, first_step=None,
+                              bisect_iters=40):
+    """Plain PyTorch version of `dopri5_events_batched`: the TPU kernel's
+    lane arithmetic (pallas_kernels.py:645-765) on the whole batch at once,
+    with one host read per step.  The field and the event take the lane
+    layout, as in `dopri5_integrate_batched_ref`."""
+    f_lane = _as_lane_field(field)
+    f = lambda tv, yv: f_lane(tv, yv, *params)
+    ev_lane = _as_lane_event(event_fn)
+    ev = lambda tv, yv: ev_lane(tv, yv, *ev_params)
+    B = y0.shape[1]
+    ((alpha, beta, c_sol, c_err, c_mid, order, fsal), rtol, atol, tiny,
+     inv_order, t, fc, dt) = _lane_setup(f, y0, t0, method, rtol, atol,
+                                         first_step)
+    s0 = nan_sign(ev(t, y0))
+
+    y = y0
+    zeros = torch.zeros_like(y0)
+    brk_t, brk_dt = torch.zeros_like(t), torch.zeros_like(t)
+    coefs = (y0, zeros, zeros, zeros, zeros)
+    found = torch.zeros((1, B), dtype=torch.bool, device=y0.device)
+    n_acc = torch.zeros((1, B), dtype=torch.int32, device=y0.device)
+    n_steps = torch.zeros_like(n_acc)
+    while True:
+        active = ~found & (n_steps < max_steps)
+        if not bool(active.any()):
+            break
+        dt_c = torch.where(active, dt, torch.zeros_like(dt))
+        t_prop = t + dt_c
+        y1, f1, err, ks = _stage_sweep(f, t, dt_c, y, fc, alpha, beta, c_sol,
+                                       c_err, fsal)
+        ratio = _error_ratio(y, y1, err, rtol, atol)
+        accept = (ratio <= 1.0) & active
+        hit = accept & (nan_sign(ev(t_prop, y1)) != s0)
+
+        # a hit freezes the lane: keep its bracket and quartic
+        coefs = tuple(torch.where(hit, new, old) for new, old in
+                      zip(_quartic(y, y1, fc, f1, ks, dt_c, c_mid), coefs))
+        brk_t = torch.where(hit, t, brk_t)
+        brk_dt = torch.where(hit, dt_c, brk_dt)
+        found = found | hit
+        y = torch.where(accept, y1, y)
+        fc = torch.where(accept, f1, fc)
+        t = torch.where(accept, t_prop, t)
+        dt = torch.where(active, _next_dt(dt_c, ratio, safety, ifactor,
+                                          dfactor, tiny, inv_order), dt)
+        n_acc += accept.to(torch.int32)
+        n_steps += active.to(torch.int32)
+
+    # bisection on each lane's bracket: x in [0, 1] maps to
+    # [brk_t, brk_t + brk_dt]
+    lo, hi = torch.zeros_like(t), torch.ones_like(t)
+    for _ in range(int(bisect_iters)):
+        xm = 0.5 * (lo + hi)
+        same = nan_sign(ev(brk_t + xm * brk_dt, _quartic_at(coefs, xm))) == s0
+        lo = torch.where(same, xm, lo)
+        hi = torch.where(same, hi, xm)
+    x = 0.5 * (lo + hi)
+    event_t = torch.where(found, brk_t + x * brk_dt,
+                          torch.full_like(x, float('nan')))
+    y_event = torch.where(found, _quartic_at(coefs, x), y)
+    return event_t, y_event, found.to(torch.int32), n_acc, n_steps
+
+
+def _kernel_event(event_fn, ev_params, y_dtype, device, D, B):
+    """Check that `event_fn` is what the CUDA event kernel takes and return
+    its contiguous (W, c, b, sign0) and K."""
+    if not isinstance(event_fn, LinearEvent):
+        raise TypeError(
+            "the CUDA dopri5_events_batched kernel takes a LinearEvent (the "
+            "event family a CUDA kernel can evaluate: y @ W.T + c * t + b, "
+            f"K <= {LinearEvent.MAX_OUTPUTS} outputs); got "
+            f"{type(event_fn).__name__}")
+    K = event_fn.weight.shape[0]
+    if event_fn.weight.shape[1] != D:
+        raise ValueError(f"LinearEvent weight {tuple(event_fn.weight.shape)} "
+                         f"does not take the state dimension {D}")
+    if len(ev_params) != 1 or tuple(ev_params[0].shape) != (K, B):
+        raise ValueError(f"a LinearEvent takes ev_params=(sign0,) with sign0 "
+                         f"of shape ({K}, {B})")
+    ws = [w.detach() for w in (event_fn.weight, event_fn.time_coef,
+                               event_fn.bias, ev_params[0])]
+    for w in ws:
+        if w.dtype != y_dtype or w.device != device:
+            raise ValueError(f"LinearEvent weights and sign0 ({w.dtype}, "
+                             f"{w.device}) must match the state ({y_dtype}, "
+                             f"{device})")
+    return [w.contiguous() for w in ws], K
+
+
+def dopri5_events_batched(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
+                          method='dopri5', params=(), ev_params=(),
+                          max_steps=10_000, safety=0.9, ifactor=10.0,
+                          dfactor=0.2, first_step=None, bisect_iters=40):
+    """Per-lane adaptive explicit RK until each lane's own event changes
+    sign, then a fixed-count bisection of each event time on the bracketing
+    step's quartic (JAX ``dopri5_events_batched``, pallas_kernels.py:580).
+
+    Args:
+        field: an `MLPField` (CPU or CUDA), or any lane-layout callable
+            ``field(t (1, B), y (D, B), *params)`` (CPU only).
+        y0: (D, B) initial states, batch on the LAST axis.
+        t0: scalar start time.
+        event_fn: a `LinearEvent` with ``ev_params=(sign0,)``, sign0 of
+            shape (K, B), whose lane event is ``min_k(e_k * sign0_k)`` (CPU
+            or CUDA); or any lane-layout callable ``event_fn(t (1, B),
+            y (D, B), *ev_params) -> (1, B)`` (CPU only).
+        bisect_iters: bisection count on x in [0, 1] over the bracket.
+        (other args as in `dopri5_integrate_batched`.)
+
+    A lane is live while it has found no event and has taken fewer than
+    `max_steps` steps; a hit is an accepted step whose end has another
+    event sign than the start (NaN counting as a sign of its own).  Time,
+    including the event time, is kept in the state dtype, as in the TPU
+    kernel.
+
+    Returns:
+        (event_t (1, B), NaN where no event was found; y_event (D, B), the
+        last accepted state there; found, n_accepted, n_steps, each (1, B)
+        int32).
+    """
+    _refuse_grad(field, y0, params)
+    _refuse_grad(event_fn, y0, ev_params)
+    if y0.device.type == 'cpu':
+        return dopri5_events_batched_ref(
+            field, y0, t0, event_fn, rtol=rtol, atol=atol, method=method,
+            params=params, ev_params=ev_params, max_steps=max_steps,
+            safety=safety, ifactor=ifactor, dfactor=dfactor,
+            first_step=first_step, bisect_iters=bisect_iters)
+    _check_cuda_state(y0, 'dopri5_events_batched')
+    D, B = y0.shape
+    dev = y0.device
+    (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, dev, D,
+                                      'dopri5_events_batched')
+    (ev_w, ev_c, ev_b, sign0), K = _kernel_event(event_fn, ev_params,
+                                                 y0.dtype, dev, D, B)
+    tab_d, n_alpha, order, fsal = packed_tableau(method, y0.dtype, dev)
+    shared = ((2 * D * H + H + D + tab_d.numel() + K * D + 2 * K)
+              * y0.element_size())
+    if shared > _SMEM_LIMIT:
+        raise ValueError(f"dopri5_events_batched: MLP, tableau and event "
+                         f"weights need {shared} bytes of shared memory, "
+                         f"above the kernel's {_SMEM_LIMIT}")
+    sd = np_dtype(y0.dtype)
+    event_t = y0.new_empty((1, B))
+    y_event = y0.new_empty((D, B))
+    found, n_acc, n_steps = (torch.empty((1, B), dtype=torch.int32,
+                                         device=dev) for _ in range(3))
+    if B > 0:
+        lib = _build.library()
+        code = lib.tdt_dopri5_events(
+            0 if y0.dtype == torch.float32 else 1, B, D, H, field.power,
+            _ptr(y0), float(sd(t0)), float(sd(rtol)), float(sd(atol)),
+            float(sd(safety)), float(sd(ifactor)), float(sd(dfactor)),
+            0.0 if first_step is None else float(sd(first_step)),
+            int(first_step is not None), int(max_steps), _ptr(tab_d),
+            n_alpha, order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2),
+            _ptr(b2), K, _ptr(ev_w), _ptr(ev_c), _ptr(ev_b), _ptr(sign0),
+            int(bisect_iters), _ptr(event_t), _ptr(y_event), _ptr(found),
+            _ptr(n_acc), _ptr(n_steps), _stream(dev))
+        _build.check(lib, code, 'dopri5_events_batched')
+        launch_counts['dopri5_events_batched'] += 1
+    return event_t, y_event, found, n_acc, n_steps
