@@ -4,8 +4,9 @@
 Drives the port's main path at the spiral neural-ODE's full width (an MLP
 field 2 -> 64 -> 2 on y**3, B=1024 trajectories, T=10 output times on
 [0, 1], rtol=1e-7, atol=1e-9; weights from a numpy seed) through the
-public entry points, and the three CUDA kernels through the routes that
-run them:
+public entry points, the three per-trajectory CUDA kernels through the
+routes that run them, and the fused-step kernel through the chain of the
+JAX package's benchmarks/bench_fused_field.py at its full width:
 
   1. the card, the torch/CUDA versions, and the kernels' build;
   2. TF32 off for matmuls and convolutions (full float32);
@@ -28,8 +29,22 @@ run them:
      time cut-off that ends every lane, its launch count reset before and
      read after; the kernel against its plain version (per-lane `found`,
      step and accept counts), and both timed at B=1024 and B=65536;
-  9. one JSON line per kernel summary, the card's name and power limit,
-     then the result line.
+  9. K-fused: the bench's chain at B=4096, D=256, H=1024 (tanh MLP field
+     `ops.fused_field.mlp_field`, weights randn * 0.05 and biases 0, y0
+     randn, all from numpy RandomState(1); the bfloat16 copies rounded from
+     float32 to nearest even), dopri5, dt=1e-4, in float32 and bfloat16:
+     20 steps of `fused_stage_step` with the launch count reset before and
+     read after, and the same 20 steps of the stock `runge_kutta_step(...,
+     error_dtype=float32)`, with sum|y| of both; one step of the kernel
+     against its plain version `fused_stage_step_ref` on the same CUDA
+     tensors at dt=1e-4, and in float32 at dt=0.75 too, where the error
+     estimate is truncation and not rounding noise; per-step times of the
+     kernel, the plain version and the stock step;
+ 10. a JSON line with one entry per kernel (its launches on its path, its
+     error against its plain version, its time, the plain version's time,
+     its bound on this card and the PyTorch call that computes the same
+     function, where one exists), the card's name and power limit, then
+     the result line.
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -76,8 +91,45 @@ F32_EVENT_T = 1e-3
 #   accepted steps and the same quartic, evaluated in the same order, so
 #   they agree to float32 rounding of |y| ~ 3.
 F32_DENSE_VS_ODEINT = 1e-6
+# - K-fused against its plain version, one step (phase 9): each output
+#   within `ops.fused_field.kernel_bounds` (the float32 products' summation
+#   order, and in bfloat16 the flips of a hidden unit's or a slope's
+#   rounding that it can cause; the reasons stand beside KERNEL_F32_SLOPE
+#   there).  At the bench's dt=1e-4 the error estimate y1_err is rounding
+#   noise (median |y1_err| about 1e-12 in float32), below its bound, so a
+#   kernel that wrote a wrong y1_err would pass that bound.  Two checks
+#   hold it instead:
+#   * float32, one more step at FUSED_TRUNC_DT, where the estimate is
+#     truncation (median |y1_err| about 7e-5 at D=256, H=1024): the bound
+#     must be at most ERR_MEDIAN_SHARE of the median |y1_err|, so a zero or
+#     a dropped c_error term falls outside it;
+#   * bfloat16, at dt=1e-4: a slope moves by 1e-4 * |f|, far under a
+#     bfloat16 ULP of the state, so a stage input never flips and an
+#     element's y1_err differs only where one of its slopes flipped (under
+#     2% of elements): the median |kernel - plain| must be at most
+#     ERR_MEDIAN_SHARE of the median |y1_err|.  (The bfloat16 bound itself
+#     is a slope ULP wide, larger than the estimate at any step size.)
+FUSED_TRUNC_DT = 0.75
+ERR_MEDIAN_SHARE = 0.1
+# - the 20-step chains of K-fused and of the stock step, sum|y|: the same
+#   method with the same float32 stage sums in float32, so they agree to a
+#   few float32 ULPs relative.  In bfloat16 a step moves the state by
+#   1e-4 * |f|, under a bfloat16 ULP of |y|, so both chains end where they
+#   start in nearly every element: their sum|y| is printed, as the bench
+#   prints it, and checks nothing.
+CHAIN_F32_REL = 1e-5
 EVENT_CUT = 0.9          # phase 7's time cut-off
 EVENT_MAX_STEPS = 1000   # phase 8's max_num_steps
+FB, FD, FH = 4096, 256, 1024   # bench_fused_field.py:25
+FUSED_DT, FUSED_STEPS = 1e-4, 20
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W), for
+# each kernel's bound: the larger of its operations over the peak rate of
+# their type and its bytes (each input read once, each output written once)
+# over the memory rate.
+PEAK_F32 = 67e12       # float32 FLOP/s outside the tensor cores
+PEAK_BF16 = 989e12     # bfloat16 FLOP/s of the tensor cores
+PEAK_BYTES = 3.35e12   # HBM bytes/s
 
 
 def _card():
@@ -104,23 +156,30 @@ def _spiral(torch, dtype, device):
 
 
 def _ptxas_summary(log):
-    """Registers per thread of the path's kernels (D=2) and the kernels
-    that spill, from the `-Xptxas -v` lines of the kernels' build."""
+    """Registers per thread of the paths' kernels (D=2 for the per-lane
+    kernels, D=256 for the fused step) and the kernels that spill, from the
+    `-Xptxas -v` lines of the kernels' build."""
     regs, spills, name = {}, [], None
     for line in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
                       line)
         if m:
-            k = re.search(r"(rk4|lanes|events)_kernelI([fd])Li(\d+)E",
-                          m.group(1))
-            name = k and f"{k.group(1)}<{k.group(2)},D={k.group(3)}>"
+            k = re.search(r"(rk4|lanes|events|fused_step)_kernelI"
+                          r"(f|d|13__nv_bfloat16)Li(\d+)E", m.group(1))
+            if k:
+                kind, ty, n = k.groups()
+                d = 32 * int(n) if kind == "fused_step" else int(n)
+                name = f"{kind}<{'bf16' if 'bfloat' in ty else ty},D={d}>"
+            else:
+                name = None
         m = re.search(r"(\d+) bytes spill stores", line)
         if m and name and m.group(1) != "0":
             spills.append(name)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name] = int(m.group(1))
-    path = {k: v for k, v in regs.items() if k.endswith("D=2>")}
+    path = {k: v for k, v in regs.items()
+            if k.endswith("D=2>") or k.endswith("D=256>")}
     return (f"registers {path}; {len(set(spills))} of {len(regs)} kernels "
             f"spill: {sorted(set(spills))}")
 
@@ -144,6 +203,207 @@ def _check(cond, msg):
         raise AssertionError(msg)
 
 
+def _bound(flops, nbytes, peak):
+    """(bound_ms, bound_by): the least time the card could take for
+    `flops` operations at `peak` and `nbytes` of traffic."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def _mlp_flops(D, H, power):
+    """Operations of one evaluation of tanh(y**p @ W1 + b1) @ W2 + b2 on one
+    trajectory: the input power, a multiply and an add per weight (the
+    biases included), tanh counted as none."""
+    return D * (power - 1) + 4 * D * H
+
+
+def _lane_flops(n_steps, tableau, D, H, power, extra_evals=2):
+    """Operations of the per-lane solves over their lanes' step counts:
+    each step evaluates the field once per stage after the first (FSAL),
+    forms the stage, error and controller sums (a multiply and an add per
+    nonzero coefficient and state row, about 12 per row for the error ratio
+    and the controller); each lane also evaluates f(y0) and the initial
+    step's probe."""
+    n = int(n_steps.sum())
+    lanes = n_steps.numel()
+    terms = int(np.count_nonzero(tableau.beta)) + int(
+        np.count_nonzero(tableau.c_error))
+    return (((tableau.n_stages - 1) * n + extra_evals * lanes)
+            * _mlp_flops(D, H, power) + n * (2 * D * terms + 12 * D))
+
+
+def _fused_flops(B, D, H, tableau):
+    """Operations of one fused step: each field evaluation's two products
+    and bias adds (tanh counted as none), and every stage, output, error and
+    midpoint sum (a multiply and an add per nonzero coefficient)."""
+    n_eval = tableau.n_stages - 1 + (0 if tableau.is_fsal else 1)
+    terms = sum(int(np.count_nonzero(v)) for v in (
+        tableau.beta, tableau.c_sol, tableau.c_error, tableau.c_mid))
+    return n_eval * B * (4 * D * H + H + D) + 2 * B * D * terms
+
+
+def _fused_vs_plain(fused_field, params, y0, f0, dt32, tableau, name):
+    """One step of K-fused against its plain version on the same tensors,
+    each output held to `fused_field.kernel_bounds`; returns the max |d| of
+    (y1, f1, y1_err, dmid), the share of elements that differ, the worst
+    share of a bound, the y1_err bound and the medians of |y1_err| and of
+    |d y1_err|."""
+    field = fused_field.mlp_field
+    got = fused_field.fused_stage_step(field, params, y0, f0, 0.0, dt32,
+                                       tableau)
+    want = fused_field.fused_stage_step_ref(field, params, y0, f0, 0.0, dt32,
+                                            tableau)
+    bounds = fused_field.kernel_bounds(want, params[2], dt32, tableau)
+    errs, differ, worst = [], [], 0.0
+    for g, w, bound in zip(got, want, bounds):
+        d = (g.float() - w.float()).abs()
+        errs.append(float(d.max()))
+        differ.append(float((d != 0).float().mean()))
+        worst = max(worst, float((d / bound).max()))
+    _check(worst <= 1.0 and all(g.dtype == w.dtype for g, w in zip(got, want)),
+           f"K-fused {name} vs plain at dt={dt32}: max|d| (y1, f1, err, dmid) "
+           f"= {errs}, worst share of the bound {worst}")
+    return dict(errs=errs, differ=differ, worst=worst, err_bound=bounds[2],
+                median_err=float(want[2].abs().median()),
+                median_d_err=float((got[2] - want[2]).abs().median()))
+
+
+def _phase_fused(torch, fused_field, kernels, tableau, dev):
+    """Phase 9: the fused-step chain of bench_fused_field.py on the card;
+    returns the kernel's summary entry."""
+    from torchdiffeq_tpu_torch.ops.rk_step import runge_kutta_step
+    rng = np.random.RandomState(1)
+    w1 = (rng.randn(FD, FH) * 0.05).astype(np.float32)
+    w2 = (rng.randn(FH, FD) * 0.05).astype(np.float32)
+    y0_np = rng.randn(FB, FD).astype(np.float32)
+    step = fused_field.fused_stage_step
+    step_ref = fused_field.fused_stage_step_ref
+    field = fused_field.mlp_field
+    dt32 = np.float32(FUSED_DT)
+    inputs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        params = tuple(torch.from_numpy(a).to(dev).to(dtype) for a in
+                       (w1, np.zeros(FH, np.float32), w2,
+                        np.zeros(FD, np.float32)))
+        y0 = torch.from_numpy(y0_np).to(dev).to(dtype)
+        inputs[dtype] = (params, y0, field(0.0, y0, *params))
+
+    def stock_step(params, y, f, t0):
+        func = lambda t, yy, perturb=None: field(t, yy, *params)
+        return runge_kutta_step(func, y, f, t0, dt32, t0 + dt32, tableau,
+                                error_dtype=torch.float32)
+
+    def chain(one_step, params, y, f):
+        for i in range(FUSED_STEPS):
+            y, f = one_step(params, y, f, np.float32(i) * dt32)[:2]
+        return y
+
+    # the path: the two chains of fused steps, counted
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        ends = {dt_: chain(lambda p, y, f, t0: step(field, p, y, f, t0, dt32,
+                                                     tableau), *inputs[dt_])
+                for dt_ in inputs}
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts["fused_stage_step"]
+        _check(launches == 2 * FUSED_STEPS,
+               f"fused_stage_step launched {launches} times on the chains, "
+               f"not {2 * FUSED_STEPS}")
+        stock_ends = {dt_: chain(stock_step, *inputs[dt_]) for dt_ in inputs}
+
+        rows, entry = [], None
+        for dtype, params_y0_f0 in inputs.items():
+            params, y0, f0 = params_y0_f0
+            name = "float32" if dtype == torch.float32 else "bfloat16"
+            ye, ys = ends[dtype], stock_ends[dtype]
+            _check(ye.shape == (FB, FD) and ye.dtype == dtype
+                   and bool(torch.isfinite(ye).all())
+                   and bool(torch.isfinite(ys).all()),
+                   f"fused chain {name}: not finite or of the wrong shape")
+            s_fused = float(ye.float().abs().sum())
+            s_stock = float(ys.float().abs().sum())
+            rel = abs(s_fused - s_stock) / s_stock
+            if dtype == torch.float32:
+                _check(rel <= CHAIN_F32_REL, f"fused vs stock chain {name}: "
+                       f"sum|y| {s_fused} vs {s_stock}")
+            chain_row = (f"sum|y| fused {s_fused:.7g} vs stock {s_stock:.7g} "
+                         f"(rel {rel:.2e}"
+                         + (f" <= {CHAIN_F32_REL})" if dtype == torch.float32
+                            else f", end states equal in "
+                            f"{float((ye == ys).float().mean()):.3%})"))
+
+            # one step at the bench's dt, kernel against plain version
+            one = _fused_vs_plain(fused_field, params, y0, f0, dt32, tableau,
+                                  name)
+            errs, differ = one["errs"], one["differ"]
+            if dtype == torch.float32:
+                # and one at a dt where y1_err is truncation
+                trunc = _fused_vs_plain(fused_field, params, y0, f0,
+                                        np.float32(FUSED_TRUNC_DT), tableau,
+                                        name)
+                _check(trunc["err_bound"]
+                       <= ERR_MEDIAN_SHARE * trunc["median_err"],
+                       f"K-fused {name} at dt={FUSED_TRUNC_DT}: y1_err bound "
+                       f"{trunc['err_bound']} is over {ERR_MEDIAN_SHARE} of "
+                       f"the median |y1_err| {trunc['median_err']}")
+                err_row = (
+                    f"at dt={FUSED_TRUNC_DT}: median|y1_err| "
+                    f"{trunc['median_err']:.2e}, its bound "
+                    f"{trunc['err_bound']:.2e} (<= {ERR_MEDIAN_SHARE} of it), "
+                    f"max|d| y1 {trunc['errs'][0]:.2e} f1 "
+                    f"{trunc['errs'][1]:.2e} err {trunc['errs'][2]:.2e} dmid "
+                    f"{trunc['errs'][3]:.2e} (worst {trunc['worst']:.2f} of "
+                    "the bound)")
+            else:
+                _check(one["median_d_err"]
+                       <= ERR_MEDIAN_SHARE * one["median_err"],
+                       f"K-fused {name}: median |d y1_err| "
+                       f"{one['median_d_err']} is over {ERR_MEDIAN_SHARE} of "
+                       f"the median |y1_err| {one['median_err']}")
+                err_row = (f"median|d y1_err| {one['median_d_err']:.2e} vs "
+                           f"median|y1_err| {one['median_err']:.2e} (<= "
+                           f"{ERR_MEDIAN_SHARE} of it)")
+
+            ms = _time_ms(torch, lambda: step(field, params, y0, f0, 0.0,
+                                              dt32, tableau), 20)
+            plain_ms = _time_ms(torch, lambda: step_ref(
+                field, params, y0, f0, 0.0, dt32, tableau), 10)
+            stock_ms = _time_ms(torch, lambda: stock_step(params, y0, f0,
+                                                          0.0), 20)
+            nbytes = ((2 * FB * FD + 2 * FD * FH + FH + FD) * y0.element_size()
+                      + 2 * FB * FD * y0.element_size() + 2 * FB * FD * 4)
+            bound_ms, bound_by = _bound(
+                _fused_flops(FB, FD, FH, tableau), nbytes,
+                PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
+            rows.append(
+                f"{name}: {chain_row}; one step max|d| y1 "
+                f"{errs[0]:.2e} f1 {errs[1]:.2e} err {errs[2]:.2e} dmid "
+                f"{errs[3]:.2e} (worst {one['worst']:.2f} of the bound), "
+                f"elements that differ y1 {differ[0]:.3%} f1 {differ[1]:.3%} "
+                f"err {differ[2]:.3%}; {err_row}; per step: "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, stock step "
+                f"{stock_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{_fused_flops(FB, FD, FH, tableau) / ms / 1e9:.1f} TFLOP/s)")
+            numbers = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           stock_ms=stock_ms)
+            if entry is None:
+                entry = dict(
+                    name="fused_stage_step", route="cuda",
+                    source="torchdiffeq_tpu_torch/csrc/fused_step.cu",
+                    replaces="benchmarks/fused_field.py:69",
+                    launches=launches, dtype=name, **numbers,
+                    library_ms=None)
+            else:
+                entry[name] = numbers
+    torch.cuda.synchronize()
+    print(f"[9 K-fused] bench chain B={FB} D={FD} H={FH} dopri5 dt="
+          f"{FUSED_DT}, {FUSED_STEPS} steps; launches {launches} | "
+          + " | ".join(rows))
+    return entry
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -153,7 +413,8 @@ def main():
                                        odeint_per_sample_with_stats,
                                        odeint_event, odeint_dense)
     from torchdiffeq_tpu_torch.models import LinearEvent
-    from torchdiffeq_tpu_torch.ops import _build, kernels
+    from torchdiffeq_tpu_torch.ops import _build, fused_field, kernels
+    from torchdiffeq_tpu_torch.ops.tableaus import DOPRI5
 
     dev = torch.device("cuda")
     card = _card()
@@ -292,7 +553,13 @@ def main():
         source="torchdiffeq_tpu_torch/csrc/rk4.cu",
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:56",
         launches=launches["rk4_integrate"], max_abs_err=err_rk4,
-        ms=times[B][0], plain_ms=times[B][1]))
+        ms=times[B][0], plain_ms=times[B][1],
+        # four field evaluations and about 15 operations a state row for
+        # the stage sums, per trajectory and step; y0 read, y written
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            B * RK4_STEPS * (4 * _mlp_flops(2, H, 3) + 15 * 2),
+            2 * B * 2 * 4 + (4 * H + H + 2) * 4, PEAK_F32))),
+        library_ms=None))
 
     # ---- 6: K-dopri5 against its plain version ----------------------------
     ts = np.linspace(0.0, 1.0, T)
@@ -341,7 +608,13 @@ def main():
         source="torchdiffeq_tpu_torch/csrc/dopri5_lanes.cu",
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:336",
         launches=launches["dopri5_integrate_batched"], max_abs_err=err_l,
-        ms=ltimes[B][0], plain_ms=ltimes[B][1]))
+        ms=ltimes[B][0], plain_ms=ltimes[B][1],
+        # over this run's per-lane step counts; y0 read, the T output rows
+        # and two counters a lane written
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            _lane_flops(stp_k, DOPRI5, 2, H, 3),
+            (1 + T) * B * 2 * 4 + 2 * B * 4, PEAK_F32))),
+        library_ms=None))
 
     # ---- 7: the event path (odeint_event, odeint_dense) -------------------
     # the batch mean of y[:, 0] at t=0 and at t=4/9 (phase 3's values); a
@@ -492,7 +765,17 @@ def main():
         source="torchdiffeq_tpu_torch/csrc/dopri5_events.cu",
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:580",
         launches=ev_launches, max_abs_err=err_ev32,
-        ms=etimes[B][0], plain_ms=etimes[B][1]))
+        ms=etimes[B][0], plain_ms=etimes[B][1],
+        # over this run's per-lane step counts, plus 40 bisection steps of
+        # a quartic (8 operations a row) and K=2 events; y0 and sign0 read,
+        # event_t, y_event and three counters a lane written
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            _lane_flops(st_ev.n_steps, DOPRI5, 2, H, 3)
+            + 40 * B * (8 * 2 + 2 * (2 * 2 + 3)),
+            (2 + 2) * B * 4 + (1 + 2 + 3) * B * 4, PEAK_F32))),
+        library_ms=None))
+
+    summary.append(_phase_fused(torch, fused_field, kernels, DOPRI5, dev))
 
     torch.cuda.synchronize()
     print(_card())

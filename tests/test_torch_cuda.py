@@ -14,7 +14,7 @@ from torchdiffeq_tpu_torch import (odeint, odeint_with_stats,
                                    odeint_dense)
 from torchdiffeq_tpu_torch.models import (LinearEvent, MLPField,
                                           mlp_params_from_jax)
-from torchdiffeq_tpu_torch.ops import kernels
+from torchdiffeq_tpu_torch.ops import fused_field, kernels, tableaus
 
 pytestmark = pytest.mark.gpu
 
@@ -137,7 +137,8 @@ def test_kernel_routes_launch_and_match(cuda):
                                              options=dict(pallas=True))
     assert kernels.launch_counts == {"rk4_integrate": 1,
                                      "dopri5_integrate_batched": 1,
-                                     "dopri5_events_batched": 0}
+                                     "dopri5_events_batched": 0,
+                                     "fused_stage_step": 0}
     want = kernels.rk4_integrate_ref(model, y0, 0.0, 1.0 / 200, 200,
                                      out_every=50)
     torch.testing.assert_close(ys, want, rtol=0, atol=F64)
@@ -336,3 +337,103 @@ def test_event_and_dense_paths_cuda_match_cpu_float64(cuda):
     ev_d, _ = sol.find_event(ev, tol=1e-12)
     ev_dc, _ = sol_c.find_event(ev, tol=1e-12)
     assert abs(float(ev_d) - float(ev_dc)) <= F64
+
+
+# ---- K-fused ----------------------------------------------------------------
+
+# Each output is held to `fused_field.kernel_bounds` (the reasons stand
+# beside KERNEL_F32_SLOPE there).  Where y1_err is rounding noise its bound
+# is wider than the value, so at the bench's width the error estimate is
+# also held by its median (as in chip_smoke.py): in float32 at dt=0.75,
+# where it is truncation, the bound must be at most a tenth of the median
+# |y1_err|; in bfloat16 at dt=1e-4, where no stage input flips, the median
+# |kernel - plain| must be at most a tenth of it.
+TRUNC_DT = 0.75
+ERR_MEDIAN_SHARE = 0.1
+
+
+def _fused_inputs(device, dtype, B, D, H, seed=0, scale=0.1):
+    rng = np.random.RandomState(seed)
+    arrays = [rng.randn(D, H) * scale, rng.randn(H) * 0.1,
+              rng.randn(H, D) * scale, rng.randn(D) * 0.1, rng.randn(B, D)]
+    w1, b1, w2, b2, y0 = (torch.from_numpy(a.astype(np.float32)).to(device)
+                          .to(dtype) for a in arrays)
+    params = (w1, b1, w2, b2)
+    return params, y0, fused_field.mlp_field(0.0, y0, *params)
+
+
+def _assert_fused_close(got, want, dt, tab, w2):
+    bounds = fused_field.kernel_bounds(want, w2, dt, tab)
+    for name, g, w, bound in zip(("y1", "f1", "err", "dmid"), got, want,
+                                 bounds):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        d = (g.float() - w.float()).abs()
+        assert bool((d <= bound).all()), (name, float(d.max()))
+    return bounds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("method", ["dopri5", "bosh3", "tsit5", "fehlberg2",
+                                    "adaptive_heun"])
+@pytest.mark.parametrize("D,H", [(32, 128), (64, 256), (128, 384)])
+def test_fused_kernel_matches_plain(cuda, dtype, method, D, H):
+    """FSAL and non-FSAL tableaus, every kernel width but the bench's, and a
+    batch of 1000 rows: not a multiple of the kernel's 32-row tile."""
+    params, y0, f0 = _fused_inputs(cuda, dtype, 1000, D, H)
+    tab = getattr(tableaus, method.upper())
+    before = kernels.launch_counts["fused_stage_step"]
+    got = fused_field.fused_stage_step(fused_field.mlp_field, params, y0, f0,
+                                       0.25, 1e-3, tab)
+    want = fused_field.fused_stage_step_ref(fused_field.mlp_field, params, y0,
+                                            f0, 0.25, 1e-3, tab)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["fused_stage_step"] == before + 1
+    _assert_fused_close(got, want, 1e-3, tab, params[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernel_at_the_bench_width(cuda, dtype):
+    """D=256, H=1024 at the bench's weight scale, a ragged batch, a negative
+    step and a float64 error output (summed in float32 and cast, as in
+    JAX); the error estimate is also held by its median (above)."""
+    params, y0, f0 = _fused_inputs(cuda, dtype, 300, 256, 1024, seed=1,
+                                   scale=0.05)
+    step, step_ref = fused_field.fused_stage_step, fused_field.fused_stage_step_ref
+    kw = dict(error_dtype=torch.float64)
+    got = step(fused_field.mlp_field, params, y0, f0, 1.0, -1e-4,
+               tableaus.DOPRI5, **kw)
+    want = step_ref(fused_field.mlp_field, params, y0, f0, 1.0, -1e-4,
+                    tableaus.DOPRI5, **kw)
+    assert got[2].dtype == torch.float64 and got[3].dtype == torch.float32
+    _assert_fused_close(got, want, -1e-4, tableaus.DOPRI5, params[2])
+    if dtype == torch.bfloat16:
+        median_err = float(want[2].abs().median())
+        assert median_err > 0
+        assert float((got[2] - want[2]).abs().median()) \
+            <= ERR_MEDIAN_SHARE * median_err
+    else:
+        got = step(fused_field.mlp_field, params, y0, f0, 1.0, TRUNC_DT,
+                   tableaus.DOPRI5)
+        want = step_ref(fused_field.mlp_field, params, y0, f0, 1.0, TRUNC_DT,
+                        tableaus.DOPRI5)
+        bounds = _assert_fused_close(got, want, TRUNC_DT, tableaus.DOPRI5,
+                                     params[2])
+        assert bounds[2] <= ERR_MEDIAN_SHARE * float(want[2].abs().median())
+
+
+def test_fused_kernel_refuses_what_it_cannot_run(cuda):
+    params, y0, f0 = _fused_inputs(cuda, torch.float32, 64, 32, 128)
+    step = fused_field.fused_stage_step
+    with pytest.raises(TypeError, match="mlp_field"):
+        step(lambda t, y, *p: -y, params, y0, f0, 0.0, 0.1, tableaus.DOPRI5)
+    with pytest.raises(ValueError, match="at most 7 stages"):
+        step(fused_field.mlp_field, params, y0, f0, 0.0, 0.1, tableaus.DOPRI8)
+    with pytest.raises(TypeError, match="bfloat16"):
+        step(fused_field.mlp_field, tuple(p.double() for p in params),
+             y0.double(), f0.double(), 0.0, 0.1, tableaus.DOPRI5)
+    with pytest.raises(ValueError, match="match the state"):
+        step(fused_field.mlp_field, params, y0.bfloat16(), f0.bfloat16(), 0.0,
+             0.1, tableaus.DOPRI5)
+    p48, y48, f48 = _fused_inputs(cuda, torch.float32, 64, 48, 128)
+    with pytest.raises(ValueError, match="D in"):
+        step(fused_field.mlp_field, p48, y48, f48, 0.0, 0.1, tableaus.DOPRI5)

@@ -221,7 +221,8 @@ def test_odeint_per_sample_kernel_route_matches_jax(method):
                     options=dict(pallas=True))]
     assert kernels.launch_counts == {'rk4_integrate': 0,
                                      'dopri5_integrate_batched': 0,
-                                     'dopri5_events_batched': 0}
+                                     'dopri5_events_batched': 0,
+                                     'fused_stage_step': 0}
     for ys_t, st_t in runs:
         assert ys_t.shape == (24, 4, 2)
         np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,

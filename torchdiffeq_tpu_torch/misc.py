@@ -18,9 +18,10 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-# numpy scalar types of the state dtypes this slice takes: host-side time
+# numpy scalar types of the state dtypes the solvers take: host-side time
 # and coefficient arithmetic is done in them, so it rounds exactly as the
-# JAX package's device arithmetic in the state dtype does.
+# JAX package's device arithmetic in the state dtype does.  16-bit states
+# reach only the single step (`scalar_type`).
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
@@ -32,6 +33,28 @@ def np_dtype(torch_dtype):
         raise NotImplementedError(
             f"state dtype {torch_dtype}: this slice of the port takes "
             "float32 and float64 state (ROADMAP A2)") from None
+
+
+def _bf16_scalar(x):
+    """A bfloat16 host scalar.  numpy has no bfloat16, so it is a 0-d CPU
+    tensor, whose arithmetic with another rounds to bfloat16 as the JAX
+    package's device arithmetic does."""
+    return torch.tensor(float(x), dtype=torch.bfloat16)
+
+
+def scalar_type(torch_dtype):
+    """A callable that rounds a number to a host scalar of `torch_dtype`
+    (float16 to float64, bfloat16 included), for the step's timelike and
+    ``coefficient * dt`` arithmetic: numpy's scalar type, or `_bf16_scalar`.
+    ``float(sd(c) * dt)`` is then JAX's weakly typed ``float(c) * dt``: c
+    rounded to the dtype, then the product rounded.  Only `ops/rk_step` and
+    `ops/fused_field` take 16-bit states; everything else goes through
+    `np_dtype`, which refuses them."""
+    if torch_dtype == torch.bfloat16:
+        return _bf16_scalar
+    if torch_dtype == torch.float16:
+        return np.float16
+    return np_dtype(torch_dtype)
 
 
 class Perturb(enum.Enum):

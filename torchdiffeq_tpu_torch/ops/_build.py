@@ -46,6 +46,10 @@ _SIGNATURES = {
     "tdt_dopri5_events": [_I, _I, _I, _I, _I, _P, _D, _D, _D, _D, _D, _D,
                           _D, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
                           _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P],
+    # tdt_fused_step(dtype, B, D, H, y0, f0, w1, b1, w2, b2, coefs, masks,
+    #   n_alpha, fsal, kbuf, y1, f1, err, dmid, stream)
+    "tdt_fused_step": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                       _I, _P, _P, _P, _P, _P, _P],
 }
 
 # what the build printed (ptxas register and spill counts), read back from

@@ -19,7 +19,8 @@ for a CUDA tensor it launches the kernel or raises.  The kernels are
 forward-only, as in the JAX package.
 
 `launch_counts` counts kernel launches per wrapper, so a run can show that
-a path went through the kernels.
+a path went through the kernels; it also counts the fused-step kernel of
+`ops/fused_field.py`.
 """
 from __future__ import annotations
 
@@ -43,7 +44,7 @@ _KERNEL_MAX_ALPHA = 6
 _SMEM_LIMIT = 48 * 1024
 
 launch_counts = {'rk4_integrate': 0, 'dopri5_integrate_batched': 0,
-                 'dopri5_events_batched': 0}
+                 'dopri5_events_batched': 0, 'fused_stage_step': 0}
 
 
 def reset_launch_counts():
