@@ -8,7 +8,11 @@ public entry points, the three per-trajectory CUDA kernels through the
 routes that run them, and the fused-step kernel through the chain of the
 JAX package's benchmarks/bench_fused_field.py at its full width:
 
-  1. the card, the torch/CUDA versions, and the kernels' build;
+  1. the card, the torch/CUDA versions, and the kernels' build, with each
+     K-rk4 and K-fused instance's registers and spills (the ptxas log) and
+     whether its SASS (`cuobjdump -sass`) holds tensor-core instructions
+     (HGMMA, HMMA) and asynchronous copies (UTMALDG, LDGSTS): every K-fused
+     instance must copy asynchronously and every bfloat16 one run HGMMA;
   2. TF32 off for matmuls and convolutions (full float32);
   3. the main path and the kernel routes, once, with the kernels' launch
      counts reset before and read after: `odeint_with_stats` (dopri5),
@@ -17,7 +21,8 @@ JAX package's benchmarks/bench_fused_field.py at its full width:
   4. the main path on CUDA against the same call on the CPU, float32 and
      float64;
   5. K-rk4 against its plain PyTorch version on the same CUDA tensors, and
-     both timed at B=1024 and B=65536;
+     both timed at B=1024 and B=65536, with the group width (lanes a
+     trajectory) the host picks at each;
   6. K-dopri5 likewise, with per-lane step counts;
   7. the event path: `odeint_event` over the whole batch (one controller)
      with a two-output event -- a threshold on the batch mean of y[:, 0]
@@ -39,7 +44,9 @@ JAX package's benchmarks/bench_fused_field.py at its full width:
      against its plain version `fused_stage_step_ref` on the same CUDA
      tensors at dt=1e-4, and in float32 at dt=0.75 too, where the error
      estimate is truncation and not rounding noise; per-step times of the
-     kernel, the plain version and the stock step;
+     kernel (through its wrapper, and its bare launch alone), the plain
+     version and the stock step, with TFLOP/s, the share of the bound and
+     the weight stream's rate;
  10. a JSON line with one entry per kernel (its launches on its path, its
      error against its plain version, its time, the plain version's time,
      its bound on this card and the PyTorch call that computes the same
@@ -155,33 +162,84 @@ def _spiral(torch, dtype, device):
     return model, torch.from_numpy(y0.astype(npd)).to(device)
 
 
-def _ptxas_summary(log):
-    """Registers per thread of the paths' kernels (D=2 for the per-lane
-    kernels, D=256 for the fused step) and the kernels that spill, from the
-    `-Xptxas -v` lines of the kernels' build."""
-    regs, spills, name = {}, [], None
+def _ptxas_by_instance(log):
+    """Registers and spill-store bytes of each kernel instance, from the
+    `-Xptxas -v` lines of the kernels' build, by a short name
+    (`rk4<f,D=2>`, `fused_step<bf16,D=256>`, ...)."""
+    regs, spills, name = {}, {}, None
     for line in log.splitlines():
         m = re.search(r"(?:entry function|Function properties for) '?(\w+)",
                       line)
         if m:
-            k = re.search(r"(rk4|lanes|events|fused_step)_kernelI"
-                          r"(f|d|13__nv_bfloat16)Li(\d+)E", m.group(1))
-            if k:
-                kind, ty, n = k.groups()
-                d = 32 * int(n) if kind == "fused_step" else int(n)
-                name = f"{kind}<{'bf16' if 'bfloat' in ty else ty},D={d}>"
-            else:
-                name = None
+            name = _instance_name(m.group(1))
         m = re.search(r"(\d+) bytes spill stores", line)
-        if m and name and m.group(1) != "0":
-            spills.append(name)
+        if m and name:
+            spills[name] = max(spills.get(name, 0), int(m.group(1)))
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             regs[name] = int(m.group(1))
-    path = {k: v for k, v in regs.items()
-            if k.endswith("D=2>") or k.endswith("D=256>")}
-    return (f"registers {path}; {len(set(spills))} of {len(regs)} kernels "
-            f"spill: {sorted(set(spills))}")
+    return regs, spills
+
+
+def _instance_name(mangled):
+    k = re.search(r"(rk4|lanes|events|fused_step)_kernelI"
+                  r"(f|d|13__nv_bfloat16)Li(\d+)E", mangled)
+    if not k:
+        return None
+    kind, ty, d = k.groups()
+    return f"{kind}<{'bf16' if 'bfloat' in ty else ty},D={d}>"
+
+
+def _sass_by_instance(build, so_path):
+    """Whether each kernel instance's SASS (`cuobjdump -sass` of the built
+    library; the tool sits beside nvcc) holds tensor-core instructions
+    (HGMMA: wgmma; HMMA: mma.sync) and asynchronous copies (UTMALDG: TMA;
+    LDGSTS: cp.async)."""
+    from pathlib import Path
+    tool = str(Path(build._nvcc()).parent / "cuobjdump")
+    out = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    found, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = _instance_name(m.group(1))
+            if name:
+                found[name] = set()
+            continue
+        if name:
+            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS"):
+                if re.search(rf"\b{op}\b", line):
+                    found[name].add(op)
+    return found
+
+
+def _build_report(build):
+    """Phase 1's evidence for K-rk4 and K-fused: each instance's registers
+    and spills, tensor-core instructions and asynchronous copies, and
+    ptxas's notes on wgmma; fails unless every K-fused instance copies its
+    weight tiles asynchronously and every bfloat16 one runs wgmma."""
+    log = build.build_info["log"]
+    regs, spills = _ptxas_by_instance(log)
+    sass = _sass_by_instance(build, build.build_info["path"])
+    rows = []
+    for name in sorted(sass):
+        if not name.startswith(("rk4", "fused_step")):
+            continue
+        ops = sass[name]
+        rows.append(f"{name} {regs.get(name)} regs spill {spills.get(name, 0)} B "
+                    f"{'+'.join(sorted(ops)) or 'no HGMMA/HMMA/UTMALDG/LDGSTS'}")
+        if name.startswith("fused_step"):
+            _check(ops & {"UTMALDG", "LDGSTS"},
+                   f"{name}: no asynchronous copy in its SASS")
+            if "bf16" in name:
+                _check("HGMMA" in ops, f"{name}: no HGMMA in its SASS")
+    _check(any(r.startswith("fused_step") for r in rows),
+           "no K-fused instance found in the SASS")
+    spilled = sorted(n for n, b in spills.items() if b)
+    serial = [ln.strip() for ln in log.splitlines() if "wgmma" in ln.lower()]
+    return (f"{len(regs)} instances, {len(spilled)} spill {spilled}, ptxas "
+            f"wgmma notes {serial[:2]} | " + "; ".join(rows))
 
 
 def _time_ms(torch, fn, reps):
@@ -216,6 +274,22 @@ def _mlp_flops(D, H, power):
     trajectory: the input power, a multiply and an add per weight (the
     biases included), tanh counted as none."""
     return D * (power - 1) + 4 * D * H
+
+
+def _rk4_bound(b):
+    """K-rk4's bound at a batch of b (phase 5's solve)."""
+    return _bound(b * RK4_STEPS * (4 * _mlp_flops(2, H, 3) + 15 * 2),
+                  2 * b * 2 * 4 + (4 * H + H + 2) * 4, PEAK_F32)
+
+
+def _events_bound(n_steps, b):
+    """K-events' bound over a run's per-lane step counts, plus 40 bisection
+    steps of a quartic (8 operations a row) and K=2 events; y0 and sign0
+    read, event_t, y_event and three counters a lane written."""
+    from torchdiffeq_tpu_torch.ops.tableaus import DOPRI5
+    return _bound(_lane_flops(n_steps, DOPRI5, 2, H, 3)
+                  + 40 * b * (8 * 2 + 2 * (2 * 2 + 3)),
+                  (2 + 2) * b * 4 + (1 + 2 + 3) * b * 4, PEAK_F32)
 
 
 def _lane_flops(n_steps, tableau, D, H, power, extra_evals=2):
@@ -371,10 +445,18 @@ def _phase_fused(torch, fused_field, kernels, tableau, dev):
                 field, params, y0, f0, 0.0, dt32, tableau), 10)
             stock_ms = _time_ms(torch, lambda: stock_step(params, y0, f0,
                                                           0.0), 20)
+            # the kernel alone: its launch, without the wrapper's checks,
+            # coefficient packing and allocations
+            bare, _ = fused_field._kernel_launch(field, params, y0, f0, dt32,
+                                                 tableau)
+            bare_ms = _time_ms(torch, bare, 50)
+            plan = fused_field.fused_plan(dtype, FD, FH, FB)
+            flops = _fused_flops(FB, FD, FH, tableau)
+            n_eval = tableau.n_stages - 1 + (0 if tableau.is_fsal else 1)
             nbytes = ((2 * FB * FD + 2 * FD * FH + FH + FD) * y0.element_size()
                       + 2 * FB * FD * y0.element_size() + 2 * FB * FD * 4)
             bound_ms, bound_by = _bound(
-                _fused_flops(FB, FD, FH, tableau), nbytes,
+                flops, nbytes,
                 PEAK_F32 if dtype == torch.float32 else PEAK_BF16)
             rows.append(
                 f"{name}: {chain_row}; one step max|d| y1 "
@@ -382,12 +464,21 @@ def _phase_fused(torch, fused_field, kernels, tableau, dev):
                 f"{errs[3]:.2e} (worst {one['worst']:.2f} of the bound), "
                 f"elements that differ y1 {differ[0]:.3%} f1 {differ[1]:.3%} "
                 f"err {differ[2]:.3%}; {err_row}; per step: "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, stock step "
-                f"{stock_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}, "
-                f"{_fused_flops(FB, FD, FH, tableau) / ms / 1e9:.1f} TFLOP/s)")
+                f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / ms:.1%} of the bound), kernel alone "
+                f"{bare_ms:.3f} ms ({flops / bare_ms / 1e9:.1f} TFLOP/s, "
+                f"{bound_ms / bare_ms:.1%} of the bound), plain "
+                f"{plain_ms:.3f} ms, stock step {stock_ms:.3f} ms, bound "
+                f"{bound_ms:.4f} ms ({bound_by}); {plan['instance']} "
+                f"{plan['blocks']} blocks x {plan['threads']}, "
+                f"{plan['shared_bytes']} B shared, ring of {plan['ring']} "
+                f"tiles, cluster {plan['cluster']}, weights streamed "
+                f"{n_eval * plan['weight_bytes_per_eval'] / 2 ** 20:.0f} MiB "
+                f"a step ({n_eval * plan['weight_bytes_per_eval'] / bare_ms / 1e9:.2f}"
+                f" TB/s in the kernel alone)")
             numbers = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
                            bound_ms=bound_ms, bound_by=bound_by,
-                           stock_ms=stock_ms)
+                           stock_ms=stock_ms, kernel_alone_ms=bare_ms)
             if entry is None:
                 entry = dict(
                     name="fused_stage_step", route="cuda",
@@ -424,7 +515,8 @@ def main():
     print(f"[1 device] {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()} | kernels built and loaded in "
-          f"{build_s:.1f} s | ptxas: {_ptxas_summary(_build.build_info['log'])}")
+          f"{build_s:.1f} s | ptxas and SASS: "
+          f"{_build_report(_build)}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -545,7 +637,8 @@ def main():
     torch.cuda.synchronize()
     print(f"[5 K-rk4] float32 max|dy| kernel vs plain={err_rk4:.3e} "
           f"(<= {F32_RK4}), float64={err_rk4_64:.3e} (<= {F64_VALUES}) | "
-          + " | ".join(f"B={b}: kernel {k:.3f} ms, plain {p:.3f} ms"
+          + " | ".join(f"B={b}: group width L={kernels._rk4_group_width(b, H)}"
+                       f", kernel {k:.3f} ms, plain {p:.3f} ms"
                        for b, (k, p) in times.items())
           + f" | {RK4_STEPS} steps float32")
     summary.append(dict(
@@ -555,11 +648,12 @@ def main():
         launches=launches["rk4_integrate"], max_abs_err=err_rk4,
         ms=times[B][0], plain_ms=times[B][1],
         # four field evaluations and about 15 operations a state row for
-        # the stage sums, per trajectory and step; y0 read, y written
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            B * RK4_STEPS * (4 * _mlp_flops(2, H, 3) + 15 * 2),
-            2 * B * 2 * 4 + (4 * H + H + 2) * 4, PEAK_F32))),
-        library_ms=None))
+        # the stage sums, per trajectory and step; y0 read, y written.  The
+        # build's --fmad=false halves the reachable rate: the floor is
+        # twice the bound.
+        **dict(zip(("bound_ms", "bound_by"), _rk4_bound(B))),
+        bound_ms_65536=_rk4_bound(BIG_B)[0], ms_65536=times[BIG_B][0],
+        plain_ms_65536=times[BIG_B][1], library_ms=None))
 
     # ---- 6: K-dopri5 against its plain version ----------------------------
     ts = np.linspace(0.0, 1.0, T)
@@ -594,6 +688,9 @@ def main():
                     model, yb, 0.0, 1.0, **kw), 5),
                 _time_ms(torch, lambda: kernels.dopri5_integrate_batched_ref(
                     model, yb, 0.0, 1.0, **kw), 2))
+        # the per-lane step counts at the large batch, for its bound
+        stp_big = kernels.dopri5_integrate_batched(model, yb, 0.0, 1.0,
+                                                   **kw)[2]
     torch.cuda.synchronize()
     print(f"[6 K-dopri5] float32 max|dy|={err_l:.3e} (<= "
           f"{F32_ADAPTIVE_VALUES}), lanes with equal steps "
@@ -614,6 +711,10 @@ def main():
         **dict(zip(("bound_ms", "bound_by"), _bound(
             _lane_flops(stp_k, DOPRI5, 2, H, 3),
             (1 + T) * B * 2 * 4 + 2 * B * 4, PEAK_F32))),
+        bound_ms_65536=_bound(_lane_flops(stp_big, DOPRI5, 2, H, 3),
+                              (1 + T) * BIG_B * 2 * 4 + 2 * BIG_B * 4,
+                              PEAK_F32)[0],
+        ms_65536=ltimes[BIG_B][0], plain_ms_65536=ltimes[BIG_B][1],
         library_ms=None))
 
     # ---- 7: the event path (odeint_event, odeint_dense) -------------------
@@ -747,6 +848,9 @@ def main():
                     model, yb, 0.0, eb, **kwb), 5),
                 _time_ms(torch, lambda: kernels.dopri5_events_batched_ref(
                     model, yb, 0.0, eb, **kwb), 2))
+        # the per-lane step counts at the large batch, for its bound
+        ev_stp_big = kernels.dopri5_events_batched(model, yb, 0.0, eb,
+                                                   **kwb)[4]
     torch.cuda.synchronize()
     print(f"[8 K-events] per-sample event route B={B} float32: lanes fired "
           f"on the y[0] threshold {float((~at_cut).float().mean()):.4f}, on "
@@ -766,13 +870,10 @@ def main():
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:580",
         launches=ev_launches, max_abs_err=err_ev32,
         ms=etimes[B][0], plain_ms=etimes[B][1],
-        # over this run's per-lane step counts, plus 40 bisection steps of
-        # a quartic (8 operations a row) and K=2 events; y0 and sign0 read,
-        # event_t, y_event and three counters a lane written
-        **dict(zip(("bound_ms", "bound_by"), _bound(
-            _lane_flops(st_ev.n_steps, DOPRI5, 2, H, 3)
-            + 40 * B * (8 * 2 + 2 * (2 * 2 + 3)),
-            (2 + 2) * B * 4 + (1 + 2 + 3) * B * 4, PEAK_F32))),
+        # over this run's per-lane step counts (`_events_bound`)
+        **dict(zip(("bound_ms", "bound_by"), _events_bound(st_ev.n_steps, B))),
+        bound_ms_65536=_events_bound(ev_stp_big, BIG_B)[0],
+        ms_65536=etimes[BIG_B][0], plain_ms_65536=etimes[BIG_B][1],
         library_ms=None))
 
     summary.append(_phase_fused(torch, fused_field, kernels, DOPRI5, dev))

@@ -63,6 +63,32 @@ def test_rk4_kernel_matches_plain(cuda, dtype, D, power, out_every):
     torch.testing.assert_close(got, want, rtol=0, atol=tol)
 
 
+# batch sizes that select each group width of K-rk4 (H=32 lets L reach 32)
+RK4_WIDTHS = [(1000, 32), (5000, 16), (9000, 8), (17000, 4), (40000, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("D", range(1, 9))
+@pytest.mark.parametrize("B,L", RK4_WIDTHS)
+def test_rk4_kernel_every_group_width(cuda, dtype, D, B, L):
+    """Each group width the host picks, at every state size with the
+    powers 1-3, with and without out_every: within 1e-4 in float32 and
+    1e-10 in float64 of the plain version (chip_smoke.py's F32_RK4 and
+    F64_VALUES)."""
+    assert kernels._rk4_group_width(B, 32) == L
+    power, out_every = 1 + D % 3, (None if D % 2 else 10)
+    model, rng = _model(cuda, dtype, D=D, power=power)
+    y0 = torch.from_numpy(rng.randn(B, D)).to(cuda, dtype)
+    got = kernels.rk4_integrate(model, y0, 0.25, 0.01, 40,
+                                out_every=out_every)
+    want = kernels.rk4_integrate_ref(model, y0, 0.25, 0.01, 40,
+                                     out_every=out_every)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == dtype
+    tol = F64 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(got, want, rtol=0, atol=tol, equal_nan=True)
+
+
 @pytest.mark.parametrize("method", ["dopri5", "tsit5", "bosh3", "fehlberg2",
                                     "adaptive_heun"])
 def test_lanes_kernel_matches_plain_float64(cuda, method):
@@ -419,6 +445,48 @@ def test_fused_kernel_at_the_bench_width(cuda, dtype):
         bounds = _assert_fused_close(got, want, TRUNC_DT, tableaus.DOPRI5,
                                      params[2])
         assert bounds[2] <= ERR_MEDIAN_SHARE * float(want[2].abs().median())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", fused_field.KERNEL_D)
+@pytest.mark.parametrize("H", [128, 1024])
+@pytest.mark.parametrize("method", ["dopri5", "adaptive_heun"])
+def test_fused_kernel_every_width(cuda, dtype, D, H, method):
+    """Every width the kernel is built for (D=32 is one wgmma M tile of 64
+    with half its rows discarded), one chunk and eight, an FSAL and a
+    non-FSAL tableau, a ragged batch, each held to kernel_bounds; in
+    float32 also at dt=0.75, where the non-FSAL (second-order) error
+    estimate is truncation and its bound at most a tenth of its median.
+    The weights are at the bench's scale (0.05): at dt=0.75 a slope's
+    rounding difference moves the later stage inputs, and the field's
+    gain must keep that within the bound."""
+    params, y0, f0 = _fused_inputs(cuda, dtype, 1000, D, H, scale=0.05)
+    tab = getattr(tableaus, method.upper())
+    step, step_ref = fused_field.fused_stage_step, fused_field.fused_stage_step_ref
+    for dt in ((1e-3, TRUNC_DT) if dtype == torch.float32 else (1e-3,)):
+        got = step(fused_field.mlp_field, params, y0, f0, 0.25, dt, tab)
+        want = step_ref(fused_field.mlp_field, params, y0, f0, 0.25, dt, tab)
+        bounds = _assert_fused_close(got, want, dt, tab, params[2])
+        if dt == TRUNC_DT and not tab.is_fsal:
+            assert bounds[2] <= ERR_MEDIAN_SHARE * float(
+                want[2].abs().median())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", fused_field.KERNEL_D)
+def test_fused_plan_is_the_kernels(cuda, dtype, D):
+    """The host's launch plan (`fused_plan`) mirrors the one the kernel was
+    built with (`tdt_fused_plan`)."""
+    import ctypes
+    from torchdiffeq_tpu_torch.ops import _build
+    out = (ctypes.c_int * 6)()
+    lib = _build.library()
+    assert lib.tdt_fused_plan(0 if dtype == torch.float32 else 1, D,
+                              ctypes.cast(out, ctypes.c_void_p)) == 0
+    plan = fused_field.fused_plan(dtype, D, 1024, 4096)
+    assert list(out) == [plan[k] for k in ("w1_tile_rows", "w2_tile_rows",
+                                           "ring", "threads", "cluster",
+                                           "shared_bytes")]
 
 
 def test_fused_kernel_refuses_what_it_cannot_run(cuda):

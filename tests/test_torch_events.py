@@ -101,7 +101,8 @@ def test_event_solve_mlp_field_matches_jax():
     (et_j, ys_j), st_j = tde.odeint_with_stats(
         lambda t, y, p: spiral_field(p, t, y), jnp.asarray(y0),
         jnp.asarray([0.0, 1.0]), args=(params,), event_fn=j_ev, **kw)
-    model = mlp_params_from_jax(params, power=3).requires_grad_(False)
+    model = mlp_params_from_jax(params, power=3,
+                                device='cpu').requires_grad_(False)
     (et_t, ys_t), st_t = tt.odeint_with_stats(
         model, torch.from_numpy(y0), torch.tensor([0.0, 1.0]),
         event_fn=t_ev, **kw)
@@ -425,7 +426,7 @@ def test_dense_float32_spiral_against_odeint():
     params, y0 = _spiral(3, B=8)
     model = mlp_params_from_jax(
         [{k: v.astype(np.float32) for k, v in p.items()} for p in params],
-        power=3).requires_grad_(False)
+        power=3, device='cpu').requires_grad_(False)
     y = torch.from_numpy(y0.astype(np.float32))
     t = torch.linspace(0.0, 1.0, 5, dtype=torch.float64)
     ys = tt.odeint(model, y, t, rtol=1e-5, atol=1e-7)
@@ -532,7 +533,8 @@ def test_event_solve_float32_matches_jax():
         lambda t, y, p: spiral_field(p, t, y), jnp.asarray(y0, jnp.float32),
         jnp.asarray([0.0, 1.0]), args=(p32,),
         event_fn=lambda t, y: jnp.mean(y[:, 0]) - thr, **kw)
-    model = mlp_params_from_jax(p32, power=3).requires_grad_(False)
+    model = mlp_params_from_jax(p32, power=3,
+                                device='cpu').requires_grad_(False)
     (et_t, ys_t), st_t = tt.odeint_with_stats(
         model, torch.from_numpy(y0.astype(np.float32)),
         torch.tensor([0.0, 1.0]), event_fn=lambda t, y: y[:, 0].mean() - thr,

@@ -28,7 +28,7 @@ from benchmarks.fused_field import fused_stage_step as j_fused
 from torchdiffeq_tpu.ops import tableaus as jtab
 from torchdiffeq_tpu.ops.rk_step import runge_kutta_step as j_rk_step
 import torchdiffeq_tpu_torch as tt
-from torchdiffeq_tpu_torch.ops import kernels, tableaus as ttab
+from torchdiffeq_tpu_torch.ops import fused_field, kernels, tableaus as ttab
 from torchdiffeq_tpu_torch.ops.fused_field import (
     _check_kernel_args, fused_stage_step, fused_stage_step_ref,
     kernel_bounds, mlp_field)
@@ -381,3 +381,73 @@ def test_fused_kernel_refuses_what_it_cannot_run():
     tp_h, ty_h, tf_h = _inputs('float32', D=32, H=96)[3:]
     with pytest.raises(ValueError, match="multiple of 128"):
         _check_kernel_args(mlp_field, tp_h, ty_h, tf_h, ttab.DOPRI5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", fused_field.KERNEL_D)
+@pytest.mark.parametrize("H,B", [(128, 1), (384, 1000), (1024, 4096)])
+def test_fused_plan(dtype, D, H, B):
+    """The kernel's launch for every (dtype, D) it is built for: 32 KB
+    weight tiles that cut D and the 128-unit chunk evenly (into wgmma K
+    steps of 16 in bfloat16, 4-deep FMA steps in float32), shared memory
+    within a Hopper block's 227 KB, one block a 32-row tile, and in
+    bfloat16 clusters of two blocks that share each tile."""
+    plan = fused_field.fused_plan(dtype, D, H, B)
+    size = 4 if dtype == torch.float32 else 2
+    r1, r2 = plan['w1_tile_rows'], plan['w2_tile_rows']
+    step = 16 if dtype == torch.bfloat16 else 4
+    assert D % r1 == 0 and 128 % r2 == 0 and r1 % step == 0 and r2 % step == 0
+    assert r1 * 128 * size <= 32768 and r2 * D * size <= 32768
+    assert plan['tiles_per_chunk'] == D // r1 + 128 // r2
+    cluster = 2 if dtype == torch.bfloat16 else 1
+    assert plan['cluster'] == cluster
+    assert plan['threads'] == (288 if dtype == torch.bfloat16 else 256)
+    assert plan['blocks'] % cluster == 0
+    assert plan['blocks'] - cluster < -(-B // 32) <= plan['blocks']
+    assert plan['shared_bytes'] <= 227 * 1024
+    assert (plan['weight_bytes_per_eval']
+            == plan['blocks'] // cluster * 2 * D * H * size)
+    assert ('wgmma' in plan['products']) == (dtype == torch.bfloat16)
+    assert plan['instance'] == (f"fused_step<{'f32' if size == 4 else 'bf16'}"
+                                f",D={D}>")
+
+
+def test_fused_plan_at_the_bench_width():
+    """B=4096, D=256, H=1024: 128 blocks for the H100's 132 SMs; per
+    dopri5 step 384 MiB of bfloat16 weights read from L2 for 64 clusters
+    of two, 1.5 GiB of float32 ones for 128 blocks."""
+    f32 = fused_field.fused_plan(torch.float32, 256, 1024, 4096)
+    bf16 = fused_field.fused_plan(torch.bfloat16, 256, 1024, 4096)
+    assert f32['blocks'] == bf16['blocks'] == 128
+    assert (f32['w1_tile_rows'], f32['w2_tile_rows']) == (64, 32)
+    assert (bf16['w1_tile_rows'], bf16['w2_tile_rows']) == (128, 64)
+    assert 6 * bf16['weight_bytes_per_eval'] == 384 * 2 ** 20
+    assert 6 * f32['weight_bytes_per_eval'] == 1536 * 2 ** 20
+    assert (f32['shared_bytes'], bf16['shared_bytes']) == (181248, 155712)
+
+
+@pytest.mark.parametrize("dtype,D,H,B", [
+    (torch.float64, 32, 128, 8), (torch.float32, 48, 128, 8),
+    (torch.bfloat16, 32, 100, 8), (torch.float32, 32, 128, 0)])
+def test_fused_plan_refuses_what_the_kernel_cannot_run(dtype, D, H, B):
+    with pytest.raises(ValueError, match="no fused_stage_step kernel"):
+        fused_field.fused_plan(dtype, D, H, B)
+
+
+def test_packed_coefs_layout_unchanged():
+    """The coefficients the kernel is given: beta rows, c_sol, c_error,
+    c_mid times dt32 (rounded in float32), zeros skipped in the masks."""
+    dt32 = np.float32(1e-3)
+    coefs, masks = fused_field._packed_coefs(ttab.DOPRI5, dt32)
+    assert coefs.shape == (9, 7) and coefs.dtype == np.float32
+    assert masks.dtype == np.int32
+    tab = ttab.DOPRI5
+    for i in range(len(tab.alpha)):
+        for j in range(i + 1):
+            c = float(tab.beta[i, j])
+            assert coefs[i, j] == (np.float32(c) * dt32 if c else 0.0)
+            assert bool(masks[i] >> j & 1) == (c != 0.0)
+    for r, vec in zip((6, 7, 8), (tab.c_sol, tab.c_error, tab.c_mid)):
+        want = [np.float32(float(c)) * dt32 for c in vec]
+        np.testing.assert_array_equal(coefs[r, :len(vec)], want)
+        assert masks[r] == sum(1 << j for j, c in enumerate(vec) if float(c))

@@ -36,7 +36,8 @@ def _weights(seed, dtype, H=16, D=2, scale=0.5):
 
 def _model(ws):
     w1, b1, w2, b2 = ws
-    return mlp_params_from_jax([dict(w=w1, b=b1), dict(w=w2, b=b2)], power=3)
+    return mlp_params_from_jax([dict(w=w1, b=b1), dict(w=w2, b=b2)], power=3,
+                               device='cpu')
 
 
 def j_field(t, y, w1, b1, w2, b2):          # (B, D) rows
@@ -496,3 +497,23 @@ def test_build_reads_the_log_of_a_cached_library(tmp_path, monkeypatch):
     finally:
         _build.library.cache_clear()
         _build.build_info.update(seconds=None, log="", path=None)
+
+
+@pytest.mark.parametrize("B,H,want", [
+    (1, 64, 32), (1024, 64, 32), (2048, 64, 32), (4096, 64, 16),
+    (8192, 64, 8), (16384, 64, 4), (32767, 64, 4), (32768, 64, 1),
+    (65536, 64, 1), (1 << 20, 64, 1),
+    (1024, 8, 8), (1024, 1, 1), (1024, 3, 1), (1024, 4, 4),
+])
+def test_rk4_group_width(B, H, want):
+    """K-rk4's lanes a trajectory: 1, or a power of two from 4 to 32 and at
+    most H, the least that gives B * L >= _RK4_THREADS threads (or the
+    cap); 1 where 2 would do."""
+    L = kernels._rk4_group_width(B, H)
+    assert L == want
+    assert L in (1, 4, 8, 16, 32) and L <= max(H, 1)
+    if L > 1:
+        assert B * L >= kernels._RK4_THREADS or L == 32 or 2 * L > H
+        assert B * (L // 2) < kernels._RK4_THREADS
+    else:
+        assert B * 2 >= kernels._RK4_THREADS or H < 4

@@ -33,7 +33,7 @@ def test_mlp_apply_matches_jax(dtype, sizes):
     params = _params(rng, sizes, dtype)
     x = rng.randn(8, sizes[0]).astype(dtype)
     want = np.asarray(j_mlp_apply(params, jnp.asarray(x)))
-    model = mlp_params_from_jax(params)
+    model = mlp_params_from_jax(params, device='cpu')
     got = mlp_apply(model, torch.from_numpy(x)).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
     got_field = model(torch.tensor(0.0), torch.from_numpy(x)).detach().numpy()
@@ -46,7 +46,7 @@ def test_spiral_field_matches_jax(dtype):
     params = _params(rng, [2, 16, 2], dtype)
     y = rng.randn(8, 2).astype(dtype)
     want = np.asarray(j_spiral_field(params, 0.0, jnp.asarray(y)))
-    model = mlp_params_from_jax(params, power=3)
+    model = mlp_params_from_jax(params, power=3, device='cpu')
     yt = torch.from_numpy(y)
     got = model(torch.tensor(0.0), yt).detach().numpy()
     np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
@@ -58,7 +58,7 @@ def test_spiral_field_matches_jax(dtype):
 def test_init_spiral_model_shapes_match_jax(dtype):
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
     jp = j_init_spiral(jax.random.PRNGKey(0), hidden=12, dtype=jdt)
-    model = init_spiral_model(hidden=12, dtype=dtype,
+    model = init_spiral_model(hidden=12, dtype=dtype, device='cpu',
                               generator=torch.Generator().manual_seed(0))
     assert model.power == 3
     assert model.sizes == [2, 12, 2]
@@ -75,8 +75,8 @@ def test_init_spiral_model_shapes_match_jax(dtype):
 def test_init_mlp_default_scale_and_generator():
     sizes = [4, 64, 4]
     jp = j_init_mlp(jax.random.PRNGKey(0), sizes)
-    a = init_mlp(sizes, generator=torch.Generator().manual_seed(3))
-    b = init_mlp(sizes, generator=torch.Generator().manual_seed(3))
+    a = init_mlp(sizes, device='cpu', generator=torch.Generator().manual_seed(3))
+    b = init_mlp(sizes, device='cpu', generator=torch.Generator().manual_seed(3))
     assert isinstance(a, MLPField) and a.power == 1
     for layer, wa, wb in zip(jp, a.weights, b.weights):
         assert tuple(wa.shape) == layer['w'].shape
@@ -88,3 +88,22 @@ def test_init_mlp_default_scale_and_generator():
 def test_mlp_field_rejects_unsupported_power():
     with pytest.raises(ValueError, match="power"):
         MLPField([2, 4, 2], power=4)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: MLPField([2, 4, 2]),
+    lambda: init_mlp([2, 4, 2]),
+    lambda: init_spiral_model(hidden=4),
+    lambda: mlp_params_from_jax([dict(w=np.ones((2, 4)), b=np.zeros(4)),
+                                 dict(w=np.ones((4, 2)), b=np.zeros(2))]),
+], ids=["MLPField", "init_mlp", "init_spiral_model", "mlp_params_from_jax"])
+def test_models_default_to_the_card(build):
+    """With `device` left at None a model goes on the CUDA device; with no
+    CUDA device (as here) that raises, naming device='cpu', rather than
+    build CPU tensors quietly."""
+    if torch.cuda.is_available():
+        model = build()
+        assert all(p.is_cuda for p in model.parameters())
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()

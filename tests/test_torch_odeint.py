@@ -33,7 +33,7 @@ def _jax(params, y0, t, **kw):
 
 
 def _port(params, y0, t, **kw):
-    model = mlp_params_from_jax(params, power=3)
+    model = mlp_params_from_jax(params, power=3, device='cpu')
     with torch.no_grad():
         ys, st = tt.odeint_with_stats(model, torch.from_numpy(y0),
                                       torch.from_numpy(np.asarray(t)), **kw)
@@ -170,7 +170,7 @@ def test_refuses_when_autograd_would_need_a_graph():
     mode on and something requiring grad it raises, never returning a
     silently detached result; under no_grad it solves."""
     params, y0 = _problem(0, np.float64)
-    model = mlp_params_from_jax(params, power=3)
+    model = mlp_params_from_jax(params, power=3, device='cpu')
     t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
     y = torch.from_numpy(y0)
     with pytest.raises(NotImplementedError, match="ROADMAP A3"):

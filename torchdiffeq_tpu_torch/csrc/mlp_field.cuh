@@ -1,7 +1,8 @@
 // Device helpers shared by the port's CUDA kernels (rk4.cu, dopri5_lanes.cu
-// and dopri5_events.cu): the MLP vector field evaluated by one thread on one
-// trajectory, with its weights staged in shared memory, and math that keeps
-// the NaN semantics of the plain PyTorch versions.
+// and dopri5_events.cu): the MLP vector field evaluated on one trajectory,
+// by one thread (MlpField) or by a group of lanes that split its hidden
+// units (GroupMlpField), with its weights staged in shared memory, and math
+// that keeps the NaN semantics of the plain PyTorch versions.
 //
 // The field is f(t, y) = tanh(y**p @ W1 + b1) @ W2 + b2 (the MLPField family
 // of torchdiffeq_tpu_torch/models/neural_ode.py with one hidden layer), in
@@ -83,6 +84,52 @@ struct MlpField {
       const T a = dtanh<T>(s + b1[h]);
 #pragma unroll
       for (int d = 0; d < D; ++d) out[d] = out[d] + a * w2[h * D + d];
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) out[d] = out[d] + b2[d];
+  }
+};
+
+// The same field evaluated by a group of L lanes of one warp (L a power of
+// two up to 32, the groups aligned in the warp), all holding the same y:
+// lane j of the group takes the hidden units j, j + L, j + 2L, ..., sums
+// its units' terms of each output in that order, and the group adds the L
+// partial sums by an xor butterfly over __shfl_xor_sync.  IEEE addition is
+// commutative, so every lane of the group ends with the same bits of out;
+// with L = 1 the order is MlpField's.  Every lane of the warp must call it
+// (the shuffles take the whole warp).
+template <typename T, int D>
+struct GroupMlpField {
+  const T* w1;
+  const T* b1;
+  const T* w2;
+  const T* b2;
+  int H;
+  int power;
+  int lane;   // this lane's index in its group, 0..L-1
+  int L;
+
+  __device__ __forceinline__ void operator()(const T (&y)[D], T (&out)[D]) const {
+    T x[D];
+#pragma unroll
+    for (int j = 0; j < D; ++j) {
+      const T v = y[j];
+      x[j] = power == 1 ? v : (power == 2 ? v * v : v * v * v);
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) out[d] = T(0);
+#pragma unroll 2
+    for (int h = lane; h < H; h += L) {
+      T s = x[0] * w1[h];
+#pragma unroll
+      for (int j = 1; j < D; ++j) s = s + x[j] * w1[j * H + h];
+      const T a = dtanh<T>(s + b1[h]);
+#pragma unroll
+      for (int d = 0; d < D; ++d) out[d] = out[d] + a * w2[h * D + d];
+    }
+    for (int m = 1; m < L; m <<= 1) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) out[d] = out[d] + __shfl_xor_sync(0xffffffffu, out[d], m);
     }
 #pragma unroll
     for (int d = 0; d < D; ++d) out[d] = out[d] + b2[d];

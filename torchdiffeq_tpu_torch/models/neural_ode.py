@@ -26,6 +26,9 @@ class MLPField(nn.Module):
         sizes: layer sizes ``[in, h1, ..., out]``.
         power: 1, 2 or 3 (the kernels evaluate ``y*y`` and ``y*y*y``).
         scale: weight scale; default ``1/sqrt(fan_in)``.  Biases start at 0.
+        device: of the parameters; default the CUDA device (the port runs
+            on the card unless the caller asks for the CPU with
+            ``device='cpu'``).  With no CUDA device the default raises.
         generator: ``torch.Generator`` for the weights (CPU).
     """
 
@@ -34,6 +37,7 @@ class MLPField(nn.Module):
         super().__init__()
         if power not in (1, 2, 3):
             raise ValueError(f"power must be 1, 2 or 3, got {power}")
+        device = default_device(device)
         self.power = power
         self.weights = nn.ParameterList()
         self.biases = nn.ParameterList()
@@ -95,6 +99,18 @@ class LinearEvent(nn.Module):
         return (yv.T @ self.weight.T + self.time_coef * tv.T + self.bias).T
 
 
+def default_device(device):
+    """`device`, or the CUDA device when it is None; raises when it is None
+    and there is no CUDA device, rather than build CPU tensors quietly."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port's models default to the card; pass "
+            "device='cpu' to build them on the CPU")
+    return torch.device("cuda")
+
+
 def mlp_apply(model, x):
     """The layers of `model` on `x`, without the input power."""
     n = len(model.weights)
@@ -107,7 +123,8 @@ def mlp_apply(model, x):
 
 def init_mlp(sizes, scale=None, dtype=torch.float32, device=None,
              generator=None):
-    """An MLP field (power 1) with layer sizes ``[in, h1, ..., out]``."""
+    """An MLP field (power 1) with layer sizes ``[in, h1, ..., out]``, on
+    the card unless `device` says otherwise (as `MLPField`)."""
     return MLPField(sizes, scale=scale, dtype=dtype, device=device,
                     generator=generator)
 
@@ -119,7 +136,8 @@ def spiral_field(model, t, y):
 
 def init_spiral_model(hidden=50, dtype=torch.float32, device=None,
                       generator=None):
-    """The spiral demo's 2 -> hidden -> 2 field, weights at scale 0.1."""
+    """The spiral demo's 2 -> hidden -> 2 field, weights at scale 0.1, on
+    the card unless `device` says otherwise (as `MLPField`)."""
     return MLPField([2, hidden, 2], power=3, scale=0.1, dtype=dtype,
                     device=device, generator=generator)
 
@@ -127,7 +145,8 @@ def init_spiral_model(hidden=50, dtype=torch.float32, device=None,
 def mlp_params_from_jax(params, *, power=1, device=None):
     """An `MLPField` holding the JAX package's ``[{'w', 'b'}, ...]``
     parameters (numpy or JAX arrays), so both packages compute the same
-    function from the same numbers."""
+    function from the same numbers; on the card unless `device` says
+    otherwise (as `MLPField`)."""
     import numpy as np
     ws = [np.asarray(layer['w']) for layer in params]
     bs = [np.asarray(layer['b']) for layer in params]

@@ -31,8 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 _SIGNATURES = {
     # tdt_rk4(dtype, B, D, H, power, y0, w1, b1, w2, b2, dt, n_steps,
-    #         out_every, out, stream)
-    "tdt_rk4": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _I, _I, _P, _P],
+    #         out_every, group, out, stream)
+    "tdt_rk4": [_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _D, _I, _I, _I, _P,
+                _P],
     # tdt_dopri5_lanes(dtype, B, D, H, power, y0, ts, S, t0, t1, rtol, atol,
     #   safety, ifactor, dfactor, first_step, use_first_step, max_steps,
     #   tab, n_alpha, order, fsal, w1, b1, w2, b2, ys, n_acc, n_steps, stream)
@@ -50,6 +51,8 @@ _SIGNATURES = {
     #   n_alpha, fsal, kbuf, y1, f1, err, dmid, stream)
     "tdt_fused_step": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                        _I, _P, _P, _P, _P, _P, _P],
+    # tdt_fused_plan(dtype, D, out[6])
+    "tdt_fused_plan": [_I, _I, _P],
 }
 
 # what the build printed (ptxas register and spill counts), read back from

@@ -21,7 +21,9 @@ and bfloat16, against the same chain of the stock `runge_kutta_step` with
 The TPU version sizes its batch tile for 16 MB of VMEM (`_pick_block_b`)
 and takes it as ``block_b``.  A Hopper block has at most 227 KB of shared
 memory, so the CUDA kernel sets its own 32-row tile and handles a ragged
-last tile; the port takes no tile argument.
+last tile; the port takes no tile argument.  `fused_plan` states the
+kernel's launch for a (dtype, D, H, B): its tiles, its ring of weight
+tiles, its shared memory and what it streams.
 
 `kernel_bounds` states how far the kernel may lie from the plain version
 on the same inputs (the card's checks in chip_smoke.py and the GPU tests
@@ -38,8 +40,8 @@ from .kernels import _ptr, _refuse_grad, _stream, launch_counts
 from . import _build
 
 # what the CUDA kernel takes: tableaus of at most 7 stages, the state
-# widths it is built for (32 column lanes times 1, 2, 4 or 8 columns each)
-# and a hidden width that is a multiple of its 128-unit hidden chunk
+# widths it is built for (multiples of its 32 lanes, up to 4 wgmma M tiles
+# of 64) and a hidden width that is a multiple of its 128-unit hidden chunk
 # (csrc/fused_step.cu)
 KERNEL_MAX_STAGES = 7
 KERNEL_D = (32, 64, 128, 256)
@@ -57,6 +59,51 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # bfloat16 ULP of its value).
 KERNEL_F32_SLOPE = 2e-5
 KERNEL_BF16_FLIPS = 2
+
+# the kernel's launch (csrc/fused_step.cu `Plan`): a block owns
+# KERNEL_ROWS batch rows; the weights stream through a ring of 32 KB slots,
+# filled by cp.async in float32 and in bfloat16 by TMA, each tile read once
+# for a cluster of blocks
+KERNEL_ROWS = 32
+_TILE_BYTES = 32768
+
+
+def fused_plan(dtype, D, H, B):
+    """The CUDA kernel's launch for a (B, D) state of `dtype` and H hidden
+    units, as ``csrc/fused_step.cu`` makes it (its `Plan`): the instance,
+    how its two products run, the blocks and their threads, the rows of a
+    W1 tile (of D) and of a W2 tile (of the 128-unit chunk), the tiles a
+    chunk, the ring's slots, the shared memory, the cluster size (the
+    blocks that share each weight tile) and the weight bytes read from L2
+    per field evaluation (each tile once a cluster)."""
+    if dtype not in _KERNEL_DTYPES or D not in KERNEL_D \
+            or H % KERNEL_H_MULTIPLE or H <= 0 or B <= 0:
+        raise ValueError(f"no fused_stage_step kernel for dtype={dtype}, "
+                         f"D={D}, H={H}, B={B}")
+    tensor_cores = dtype == torch.bfloat16
+    size = 2 if tensor_cores else 4
+    elems = _TILE_BYTES // size
+    rows1 = min(D, elems // KERNEL_H_MULTIPLE)
+    rows2 = min(KERNEL_H_MULTIPLE, elems // D)
+    ring = 4
+    pad = 0 if tensor_cores else 4      # words a float32 row is padded by
+    cluster = 2 if tensor_cores else 1
+    blocks = -(-B // (KERNEL_ROWS * cluster)) * cluster
+    return dict(
+        instance=f"fused_step<{'bf16' if tensor_cores else 'f32'},D={D}>",
+        products=("wgmma m64n32k16 (bf16 operands, float32 accumulators), "
+                  "an M tile a warpgroup; weight tiles by TMA multicast from a "
+                  "producer warp"
+                  if tensor_cores else "float32 FMAs, 4 rows x 4 units a "
+                  "thread; weight tiles by cp.async"),
+        blocks=blocks, threads=288 if tensor_cores else 256,
+        rows=KERNEL_ROWS, w1_tile_rows=rows1, w2_tile_rows=rows2,
+        tiles_per_chunk=D // rows1 + KERNEL_H_MULTIPLE // rows2, ring=ring,
+        shared_bytes=(ring * _TILE_BYTES + KERNEL_ROWS
+                      * (D + KERNEL_H_MULTIPLE + 2 * pad) * size
+                      + (2 * ring * 8 if tensor_cores else 0)),  # mbarriers
+        cluster=cluster,
+        weight_bytes_per_eval=blocks // cluster * 2 * D * H * size)
 
 
 def _dot32(a, b):
@@ -190,7 +237,9 @@ def _check_kernel_args(field, params, y0, f0, tableau):
         raise ValueError(f"the CUDA fused_stage_step kernel holds tableaus "
                          f"of at most {KERNEL_MAX_STAGES} stages, got "
                          f"{tableau.n_stages}")
-    return [p.detach().contiguous() for p in params], H
+    # the kernel's 16-byte copies need W1 and W2 16-byte aligned
+    return [p if p.data_ptr() % 16 == 0 else p.clone()
+            for p in (q.detach().contiguous() for q in params)], H
 
 
 def fused_stage_step(field, params, y0, f0, t0, dt, tableau, *,
@@ -221,19 +270,35 @@ def fused_stage_step(field, params, y0, f0, t0, dt, tableau, *,
     if y0.device.type == 'cpu':
         return fused_stage_step_ref(field, params, y0, f0, t0, dt, tableau,
                                     error_dtype=error_dtype)
+    launch, (y1, f1, err, dmid) = _kernel_launch(field, params, y0, f0, dt,
+                                                 tableau)
+    launch()
+    err_dt = torch.float32 if error_dtype is None else error_dtype
+    return y1, f1, err.to(err_dt), dmid
+
+
+def _kernel_launch(field, params, y0, f0, dt, tableau):
+    """Check the inputs of the CUDA kernel and allocate its outputs and
+    scratch; return a function that launches it (counted) and the outputs
+    (y1, f1, err float32, dmid) it writes.  `fused_stage_step` calls the
+    function once; a timing of the kernel alone can call it again."""
     if y0.device.type != 'cuda':
         raise ValueError(f"fused_stage_step: tensors on {y0.device} are "
                          "neither CPU (plain version) nor CUDA (kernel)")
     (w1, b1, w2, b2), H = _check_kernel_args(field, params, y0, f0, tableau)
+    # the kernel reads y0 and f0 four elements at a time
+    y0, f0 = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (y0, f0))
     B, D = y0.shape
-    dt32 = np.float32(float(dt))
-    coefs, masks = _packed_coefs(tableau, dt32)
+    coefs, masks = _packed_coefs(tableau, np.float32(float(dt)))
     n_alpha = len(tableau.alpha)
     y1, f1 = torch.empty_like(y0), torch.empty_like(y0)
     err = y0.new_empty((B, D), dtype=torch.float32)
     dmid = torch.empty_like(err)
-    if B > 0:
-        scratch = y0.new_empty((n_alpha, B, D), dtype=torch.float32)
+    scratch = y0.new_empty((n_alpha, B, D), dtype=torch.float32)
+
+    def launch():
+        if B == 0:
+            return
         lib = _build.library()
         code = lib.tdt_fused_step(
             _KERNEL_DTYPES[y0.dtype], B, D, H, _ptr(y0), _ptr(f0), _ptr(w1),
@@ -244,8 +309,8 @@ def fused_stage_step(field, params, y0, f0, t0, dt, tableau, *,
             _ptr(err), _ptr(dmid), _stream(y0.device))
         _build.check(lib, code, 'fused_stage_step')
         launch_counts['fused_stage_step'] += 1
-    err_dt = torch.float32 if error_dtype is None else error_dtype
-    return y1, f1, err.to(err_dt), dmid
+
+    return launch, (y1, f1, err, dmid)
 
 
 def _pow2_floor(x):

@@ -42,6 +42,10 @@ PER_LANE_METHODS = ('dopri5', 'tsit5', 'bosh3', 'fehlberg2',
 _KERNEL_MAX_D = 8
 _KERNEL_MAX_ALPHA = 6
 _SMEM_LIMIT = 48 * 1024
+# K-rk4 gives a trajectory a group of lanes until the batch has this many
+# threads (512 on each of an H100's 132 SMs, rounded down to a power of
+# two)
+_RK4_THREADS = 65536
 
 launch_counts = {'rk4_integrate': 0, 'dopri5_integrate_batched': 0,
                  'dopri5_events_batched': 0, 'fused_stage_step': 0}
@@ -155,6 +159,21 @@ def _check_out_every(n_steps, out_every):
     return out_every
 
 
+def _rk4_group_width(B, H):
+    """Lanes a trajectory for K-rk4 (``csrc/rk4.cu``): the least power of
+    two L, from 4 to 32 and at most H, for which B * L threads fill the
+    card (`_RK4_THREADS`), and L=1 where 2 would do.  A small batch gets
+    wide groups (L=32 at B=1024), whose lanes split the H hidden units; a
+    large one a lane a trajectory (from B=32768), where every lane's
+    redundant stage sums cost more than the shorter chain saves.  Groups
+    of 2 are never taken: on an H100 they ran slower than one lane at
+    B=16384, 32768 and 65536 (kernel_variants.py; PERF.md)."""
+    L = 1
+    while L < 32 and 2 * L <= H and B * L < _RK4_THREADS:
+        L *= 2
+    return 1 if L <= 2 else L
+
+
 def rk4_integrate(field, y0, t0, dt, n_steps, params=(), *, out_every=None):
     """Integrate ``dy/dt = field(t, y, *params)`` with `n_steps` RK4 steps
     of size `dt` from `t0` (JAX ``rk4_integrate``, pallas_kernels.py:56).
@@ -194,7 +213,8 @@ def rk4_integrate(field, y0, t0, dt, n_steps, params=(), *, out_every=None):
     code = lib.tdt_rk4(
         0 if y0.dtype == torch.float32 else 1, B, D, H, field.power,
         _ptr(y0), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), float(sd(dt)),
-        n_steps, out_every or 0, _ptr(out), _stream(y0.device))
+        n_steps, out_every or 0, _rk4_group_width(B, H), _ptr(out),
+        _stream(y0.device))
     _build.check(lib, code, 'rk4_integrate')
     launch_counts['rk4_integrate'] += 1
     return out
