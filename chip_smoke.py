@@ -9,10 +9,12 @@ routes that run them, and the fused-step kernel through the chain of the
 JAX package's benchmarks/bench_fused_field.py at its full width:
 
   1. the card, the torch/CUDA versions, and the kernels' build, with each
-     K-rk4 and K-fused instance's registers and spills (the ptxas log) and
-     whether its SASS (`cuobjdump -sass`) holds tensor-core instructions
-     (HGMMA, HMMA) and asynchronous copies (UTMALDG, LDGSTS): every K-fused
-     instance must copy asynchronously and every bfloat16 one run HGMMA;
+     K-rk4, K-dopri5, K-events and K-fused instance's registers and spills
+     (the ptxas log) and whether its SASS (`cuobjdump -sass`) holds
+     tensor-core instructions (HGMMA, HMMA) and asynchronous copies
+     (UTMALDG, LDGSTS): every K-fused instance must copy asynchronously and
+     every bfloat16 one run HGMMA, and no instance that a later phase
+     launches may spill;
   2. TF32 off for matmuls and convolutions (full float32);
   3. the main path and the kernel routes, once, with the kernels' launch
      counts reset before and read after: `odeint_with_stats` (dopri5),
@@ -23,7 +25,11 @@ JAX package's benchmarks/bench_fused_field.py at its full width:
   5. K-rk4 against its plain PyTorch version on the same CUDA tensors, and
      both timed at B=1024 and B=65536, with the group width (lanes a
      trajectory) the host picks at each;
-  6. K-dopri5 likewise, with per-lane step counts;
+  6. K-dopri5 likewise, with per-lane step counts, the group width (lanes
+     a trajectory) the host picks at each batch, and three times: through
+     the wrapper, the bare launch (the C call with its arguments prepared
+     once) and the device time alone (CUDA events around launches queued
+     behind a sleep, so that no host time falls inside);
   7. the event path: `odeint_event` over the whole batch (one controller)
      with a two-output event -- a threshold on the batch mean of y[:, 0]
      that fires first, and a time cut-off -- and `odeint_dense` on [0, 1],
@@ -33,7 +39,8 @@ JAX package's benchmarks/bench_fused_field.py at its full width:
      options=dict(pallas=True, ...))` with a per-lane state threshold and a
      time cut-off that ends every lane, its launch count reset before and
      read after; the kernel against its plain version (per-lane `found`,
-     step and accept counts), and both timed at B=1024 and B=65536;
+     step and accept counts), and both timed at B=1024 and B=65536, the
+     kernel three ways, as in phase 6;
   9. K-fused: the bench's chain at B=4096, D=256, H=1024 (tanh MLP field
      `ops.fused_field.mlp_field`, weights randn * 0.05 and biases 0, y0
      randn, all from numpy RandomState(1); the bfloat16 copies rounded from
@@ -130,6 +137,15 @@ EVENT_MAX_STEPS = 1000   # phase 8's max_num_steps
 FB, FD, FH = 4096, 256, 1024   # bench_fused_field.py:25
 FUSED_DT, FUSED_STEPS = 1e-4, 20
 
+# the kernel instances at the widths the phases run (both dtypes of D=2,
+# each per-trajectory kernel with and without lane groups, and K-fused at
+# the bench's D): none may spill (phase 1)
+SMOKE_INSTANCES = ("rk4<f,D=2>", "rk4<d,D=2>", "lanes<f,D=2>", "lanes<d,D=2>",
+                   "lanes<f,D=2,group>", "lanes<d,D=2,group>", "events<f,D=2>",
+                   "events<d,D=2>", "events<f,D=2,group>",
+                   "events<d,D=2,group>", "fused_step<f,D=256>",
+                   "fused_step<bf16,D=256>")
+
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W), for
 # each kernel's bound: the larger of its operations over the peak rate of
 # their type and its bytes (each input read once, each output written once)
@@ -182,19 +198,23 @@ def _ptxas_by_instance(log):
 
 
 def _instance_name(mangled):
+    """`lanes<f,D=2>`, and `lanes<f,D=2,group>` for the instance of K-dopri5
+    or K-events that runs lane groups (its `kGroup` template argument)."""
     k = re.search(r"(rk4|lanes|events|fused_step)_kernelI"
-                  r"(f|d|13__nv_bfloat16)Li(\d+)E", mangled)
+                  r"(f|d|13__nv_bfloat16)Li(\d+)E(Lb1E)?", mangled)
     if not k:
         return None
-    kind, ty, d = k.groups()
-    return f"{kind}<{'bf16' if 'bfloat' in ty else ty},D={d}>"
+    kind, ty, d, group = k.groups()
+    return (f"{kind}<{'bf16' if 'bfloat' in ty else ty},D={d}"
+            f"{',group' if group else ''}>")
 
 
 def _sass_by_instance(build, so_path):
     """Whether each kernel instance's SASS (`cuobjdump -sass` of the built
     library; the tool sits beside nvcc) holds tensor-core instructions
-    (HGMMA: wgmma; HMMA: mma.sync) and asynchronous copies (UTMALDG: TMA;
-    LDGSTS: cp.async)."""
+    (HGMMA: wgmma; HMMA: mma.sync), asynchronous copies (UTMALDG: TMA;
+    LDGSTS: cp.async) and warp syncs (WARPSYNC: what a shuffle whose mask
+    is known only at run time costs)."""
     from pathlib import Path
     tool = str(Path(build._nvcc()).parent / "cuobjdump")
     out = subprocess.run([tool, "-sass", so_path], capture_output=True,
@@ -208,34 +228,36 @@ def _sass_by_instance(build, so_path):
                 found[name] = set()
             continue
         if name:
-            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS"):
+            for op in ("HGMMA", "HMMA", "UTMALDG", "LDGSTS", "WARPSYNC"):
                 if re.search(rf"\b{op}\b", line):
                     found[name].add(op)
     return found
 
 
 def _build_report(build):
-    """Phase 1's evidence for K-rk4 and K-fused: each instance's registers
-    and spills, tensor-core instructions and asynchronous copies, and
-    ptxas's notes on wgmma; fails unless every K-fused instance copies its
-    weight tiles asynchronously and every bfloat16 one runs wgmma."""
+    """Phase 1's evidence for the kernels: each instance's registers and
+    spills, tensor-core instructions and asynchronous copies, and ptxas's
+    notes on wgmma; fails unless every K-fused instance copies its weight
+    tiles asynchronously and every bfloat16 one runs wgmma, and if an
+    instance of `SMOKE_INSTANCES` spills or is missing."""
     log = build.build_info["log"]
     regs, spills = _ptxas_by_instance(log)
     sass = _sass_by_instance(build, build.build_info["path"])
     rows = []
     for name in sorted(sass):
-        if not name.startswith(("rk4", "fused_step")):
-            continue
         ops = sass[name]
         rows.append(f"{name} {regs.get(name)} regs spill {spills.get(name, 0)} B "
-                    f"{'+'.join(sorted(ops)) or 'no HGMMA/HMMA/UTMALDG/LDGSTS'}")
+                    f"{'+'.join(sorted(ops)) or 'none of HGMMA/HMMA/UTMALDG/LDGSTS/WARPSYNC'}")
         if name.startswith("fused_step"):
             _check(ops & {"UTMALDG", "LDGSTS"},
                    f"{name}: no asynchronous copy in its SASS")
             if "bf16" in name:
                 _check("HGMMA" in ops, f"{name}: no HGMMA in its SASS")
-    _check(any(r.startswith("fused_step") for r in rows),
-           "no K-fused instance found in the SASS")
+    for name in SMOKE_INSTANCES:
+        _check(name in sass and name in regs,
+               f"{name}: not found in the SASS or the ptxas log")
+        _check(spills.get(name, 0) == 0,
+               f"{name} spills {spills[name]} B: its phase would run it")
     spilled = sorted(n for n, b in spills.items() if b)
     serial = [ln.strip() for ln in log.splitlines() if "wgmma" in ln.lower()]
     return (f"{len(regs)} instances, {len(spilled)} spill {spilled}, ptxas "
@@ -254,6 +276,66 @@ def _time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(torch, fn, reps):
+    """Device milliseconds per call of `fn`, which launches one kernel and
+    no other device work: CUDA events around `reps` calls queued behind
+    `torch.cuda._sleep`, so that the host has queued them all before the
+    first runs and no host time falls inside the window.  The sleep is sized from the host's queueing time, and the
+    window counts only if the sleep was still running when the last call was
+    queued (otherwise it is taken again with a longer sleep)."""
+    fn()
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queue_ms = (time.perf_counter() - w0) * 1e3
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(1_000_000)
+    end.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = 1e6 / start.elapsed_time(end)
+    sleep_ms = 4 * queue_ms + 1.0
+    for _ in range(4):
+        torch.cuda._sleep(int(cycles_per_ms * sleep_ms))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        in_time = not start.query()
+        torch.cuda.synchronize()
+        if in_time:
+            return start.elapsed_time(end) / reps
+        sleep_ms *= 4
+    raise AssertionError("the launches were not all queued within the sleep")
+
+
+def _three_times(torch, wrapped, bare, plain, group):
+    """A per-trajectory kernel's times at one batch: through its wrapper,
+    as a bare launch, on the device alone (`_device_ms`), and its plain
+    version's; with the group width the launch runs."""
+    return dict(group_width=group, ms=_time_ms(torch, wrapped, 20),
+                bare_ms=_time_ms(torch, bare, 20),
+                device_ms=_device_ms(torch, bare, 20),
+                plain_ms=_time_ms(torch, plain, 2))
+
+
+def _times_row(b, t):
+    return (f"B={b}: group width L={t['group_width']}, kernel through the "
+            f"wrapper {t['ms']:.4f} ms, bare launch {t['bare_ms']:.4f} ms, "
+            f"device {t['device_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms")
+
+
+def _times_entry(times):
+    """The JSON entry's times: B=1024's under their names, B=65536's with
+    the suffix _65536."""
+    entry = dict(times[B])
+    entry.update({f"{k}_65536": v for k, v in times[BIG_B].items()})
+    return entry
 
 
 def _check(cond, msg):
@@ -683,11 +765,13 @@ def main():
         ltimes = {}
         for b in (B, BIG_B):
             yb = y_big[:b].T.contiguous()
-            ltimes[b] = (
-                _time_ms(torch, lambda: kernels.dopri5_integrate_batched(
-                    model, yb, 0.0, 1.0, **kw), 5),
-                _time_ms(torch, lambda: kernels.dopri5_integrate_batched_ref(
-                    model, yb, 0.0, 1.0, **kw), 2))
+            ltimes[b] = _three_times(
+                torch, lambda: kernels.dopri5_integrate_batched(
+                    model, yb, 0.0, 1.0, **kw),
+                kernels._lanes_launch(model, yb, 0.0, 1.0, **kw)[0],
+                lambda: kernels.dopri5_integrate_batched_ref(
+                    model, yb, 0.0, 1.0, **kw),
+                kernels._lane_group_width(b, H))
         # the per-lane step counts at the large batch, for its bound
         stp_big = kernels.dopri5_integrate_batched(model, yb, 0.0, 1.0,
                                                    **kw)[2]
@@ -698,14 +782,13 @@ def main():
           f"{int(dstp.max())} (<= {F32_ADAPTIVE_STEPS}) | float64 max|dy|="
           f"{err_l64:.3e} (<= {F64_VALUES}), per-lane steps and accepts "
           f"equal | steps {int(stp_k.min())}..{int(stp_k.max())} | "
-          + " | ".join(f"B={b}: kernel {k:.3f} ms, plain {p:.3f} ms"
-                       for b, (k, p) in ltimes.items()))
+          + " | ".join(_times_row(b, t) for b, t in ltimes.items()))
     summary.append(dict(
         name="dopri5_integrate_batched", route="cuda",
         source="torchdiffeq_tpu_torch/csrc/dopri5_lanes.cu",
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:336",
         launches=launches["dopri5_integrate_batched"], max_abs_err=err_l,
-        ms=ltimes[B][0], plain_ms=ltimes[B][1],
+        **_times_entry(ltimes),
         # over this run's per-lane step counts; y0 read, the T output rows
         # and two counters a lane written
         **dict(zip(("bound_ms", "bound_by"), _bound(
@@ -714,7 +797,6 @@ def main():
         bound_ms_65536=_bound(_lane_flops(stp_big, DOPRI5, 2, H, 3),
                               (1 + T) * BIG_B * 2 * 4 + 2 * BIG_B * 4,
                               PEAK_F32)[0],
-        ms_65536=ltimes[BIG_B][0], plain_ms_65536=ltimes[BIG_B][1],
         library_ms=None))
 
     # ---- 7: the event path (odeint_event, odeint_dense) -------------------
@@ -843,11 +925,13 @@ def main():
             sb = torch.sign(eb(torch.zeros((), dtype=torch.float32, device=dev),
                                y_big[:b])).T.contiguous()
             kwb = dict(ekw, ev_params=(sb,))
-            etimes[b] = (
-                _time_ms(torch, lambda: kernels.dopri5_events_batched(
-                    model, yb, 0.0, eb, **kwb), 5),
-                _time_ms(torch, lambda: kernels.dopri5_events_batched_ref(
-                    model, yb, 0.0, eb, **kwb), 2))
+            etimes[b] = _three_times(
+                torch, lambda: kernels.dopri5_events_batched(
+                    model, yb, 0.0, eb, **kwb),
+                kernels._events_launch(model, yb, 0.0, eb, **kwb)[0],
+                lambda: kernels.dopri5_events_batched_ref(
+                    model, yb, 0.0, eb, **kwb),
+                kernels._lane_group_width(b, H))
         # the per-lane step counts at the large batch, for its bound
         ev_stp_big = kernels.dopri5_events_batched(model, yb, 0.0, eb,
                                                    **kwb)[4]
@@ -862,18 +946,15 @@ def main():
           f"{int(d_ev_steps.max())} (<= {F32_ADAPTIVE_STEPS}) | float64 "
           f"max|d event_t|={err_ev64:.3e}, max|d y_event|={err_ye64:.3e} (<= "
           f"{F64_VALUES}), per-lane found, steps and accepts equal | "
-          + " | ".join(f"B={b}: kernel {k:.3f} ms, plain {p:.3f} ms"
-                       for b, (k, p) in etimes.items()))
+          + " | ".join(_times_row(b, t) for b, t in etimes.items()))
     summary.append(dict(
         name="dopri5_events_batched", route="cuda",
         source="torchdiffeq_tpu_torch/csrc/dopri5_events.cu",
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:580",
-        launches=ev_launches, max_abs_err=err_ev32,
-        ms=etimes[B][0], plain_ms=etimes[B][1],
+        launches=ev_launches, max_abs_err=err_ev32, **_times_entry(etimes),
         # over this run's per-lane step counts (`_events_bound`)
         **dict(zip(("bound_ms", "bound_by"), _events_bound(st_ev.n_steps, B))),
         bound_ms_65536=_events_bound(ev_stp_big, BIG_B)[0],
-        ms_65536=etimes[BIG_B][0], plain_ms_65536=etimes[BIG_B][1],
         library_ms=None))
 
     summary.append(_phase_fused(torch, fused_field, kernels, DOPRI5, dev))

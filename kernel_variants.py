@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where K-fused's and K-rk4's time goes, on one NVIDIA GPU.
+"""Where K-fused's, K-rk4's, K-dopri5's and K-events' time goes, on one
+NVIDIA GPU.
 
 Builds variants of ``torchdiffeq_tpu_torch/csrc/fused_step.cu`` (each a
 text substitution of the source, compiled alone with the port's nvcc flags
@@ -23,9 +24,26 @@ float32) at each group width L at B=1024, 16384, 32768 and 65536, by its C
 entry point with L given.  A variant's outputs other than `kernel`'s are
 printed with their share of the bound and are not checked.
 
-    python3 kernel_variants.py
+Then K-dopri5 and K-events (``csrc/dopri5_lanes.cu``,
+``csrc/dopri5_events.cu``) at each group width L from 1 to 32 at the same
+batches, on ``chip_smoke.py``'s phase-6 and phase-8 problems (the spiral
+field in float32, rtol=1e-7, atol=1e-9; ten output times on [0, 1], and a
+threshold on y[0] at its median with a cut-off at t=1), each by its C entry
+point with L given, its device time alone (``chip_smoke._device_ms``).
+
+Then (`wrapped`) the same two kernels through their public wrappers at
+B=1024 and 65536, at the width the host picks: the time of a call, and its
+device time alone (the wrapper's calls queued behind a sleep; it launches
+nothing else on the device).  It uses only what every version of the port
+has, so ``--tree DIR`` times the package of another checkout in DIR (a
+`git archive` of an earlier commit, say) with this script's method, for a
+comparison of two versions on one card.
+
+    python3 kernel_variants.py [fused] [rk4] [lanes] [wrapped] [--tree DIR]
+    (default: all four sections)
 """
 import ctypes
+import importlib
 import subprocess
 import sys
 import time
@@ -55,6 +73,9 @@ VARIANTS = {
 }
 RK4_WIDTHS = {1024: (1, 4, 8, 16, 32), 16384: (1, 2, 4, 8),
               32768: (1, 2, 4), 65536: (1, 2)}
+LANE_BATCHES = (1024, 16384, 32768, 65536)
+LANE_WIDTHS = (1, 2, 4, 8, 16, 32)
+SECTIONS = ("fused", "rk4", "lanes", "wrapped")
 
 
 def _build_variants(_build_mod):
@@ -89,37 +110,13 @@ def _build_variants(_build_mod):
     return libs
 
 
-def _time_ms(torch, fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def main():
-    import torch
-    if not torch.cuda.is_available():
-        print("kernel_variants: no CUDA device is available", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from torchdiffeq_tpu_torch.ops import _build, fused_field, tableaus
-    dev = torch.device("cuda")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
+def _fused(torch, dev, _build, fused_field, tableaus, ptr, stream):
+    """K-fused's variants at the bench's shape, both dtypes."""
+    from chip_smoke import _time_ms
     t0 = time.perf_counter()
     libs = _build_variants(_build)
-    print(f"{card} | {len(libs)} variants built in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
-    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
-    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
+    print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     rng = np.random.RandomState(1)
     B, D, H = 4096, 256, 1024
     w1 = (rng.randn(D, H) * 0.05).astype(np.float32)
@@ -163,6 +160,10 @@ def main():
             print(f"K-fused {str(dtype)[6:]:8s} {name:9s} {ms:.3f} ms "
                   f"(worst {worst:.3g} of the bound)", flush=True)
 
+
+def _rk4(torch, dev, _build, ptr, stream):
+    """K-rk4 at each group width."""
+    from chip_smoke import _time_ms
     lib = _build.library()
     rng = np.random.RandomState(0)
     ws = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in
@@ -180,6 +181,102 @@ def main():
                 assert code == 0, code
             row.append(f"L={L} {_time_ms(torch, launch, 3):.3f} ms")
         print(f"K-rk4 B={b}: " + ", ".join(row), flush=True)
+
+
+def _lane_problems(torch, dev, cs, y_big, b):
+    """chip_smoke.py's phase-6 and phase-8 problems on the first b
+    trajectories: the states (2, b), K-dopri5's keywords, the event and
+    K-events' keywords."""
+    from torchdiffeq_tpu_torch.models import LinearEvent
+    yb = y_big[:b].T.contiguous()
+    event = LinearEvent([[1.0, 0.0], [0.0, 0.0]], time_coef=[0.0, 1.0],
+                        bias=[-float(yb[0].double().median()), -1.0],
+                        dtype=torch.float32, device=dev).requires_grad_(False)
+    sign0 = torch.sign(event.lanes(torch.zeros_like(yb[:1]), yb)).contiguous()
+    kw = dict(ts=np.linspace(0.0, 1.0, cs.T).astype(np.float32),
+              rtol=cs.RTOL, atol=cs.ATOL)
+    ekw = dict(rtol=cs.RTOL, atol=cs.ATOL, max_steps=cs.EVENT_MAX_STEPS,
+               ev_params=(sign0,))
+    return yb, kw, event, ekw
+
+
+def _lanes(torch, dev):
+    """K-dopri5 and K-events at each group width: device time alone."""
+    import chip_smoke as cs
+    from torchdiffeq_tpu_torch.ops import kernels
+    model, y_big = cs._spiral(torch, torch.float32, dev)
+    with torch.no_grad():
+        for b in LANE_BATCHES:
+            yb, kw, event, ekw = _lane_problems(torch, dev, cs, y_big, b)
+            for name, make in (
+                    ("K-dopri5", lambda L: kernels._lanes_launch(
+                        model, yb, 0.0, 1.0, group=L, **kw)[0]),
+                    ("K-events", lambda L: kernels._events_launch(
+                        model, yb, 0.0, event, group=L, **ekw)[0])):
+                row = [f"L={L} {cs._device_ms(torch, make(L), 10):.4f} ms"
+                       for L in LANE_WIDTHS]
+                print(f"{name} B={b} device time: " + ", ".join(row)
+                      + f" (the host picks L="
+                      f"{kernels._lane_group_width(b, cs.H)})", flush=True)
+
+
+def _wrapped(torch, dev, tree):
+    """K-dopri5 and K-events through their public wrappers, as phases 6 and
+    8 of chip_smoke.py call them: per call, and on the device alone."""
+    import chip_smoke as cs
+    from torchdiffeq_tpu_torch.ops import kernels
+    model, y_big = cs._spiral(torch, torch.float32, dev)
+    rows = []
+    with torch.no_grad():
+        for b in (cs.B, cs.BIG_B):
+            yb, kw, event, ekw = _lane_problems(torch, dev, cs, y_big, b)
+            for name, call in (
+                    ("K-dopri5", lambda: kernels.dopri5_integrate_batched(
+                        model, yb, 0.0, 1.0, **kw)),
+                    ("K-events", lambda: kernels.dopri5_events_batched(
+                        model, yb, 0.0, event, **ekw))):
+                rows.append(f"{name} B={b}: call "
+                            f"{cs._time_ms(torch, call, 20):.4f} ms, device "
+                            f"{cs._device_ms(torch, call, 20):.4f} ms")
+    print(f"wrapped ({tree}): " + " | ".join(rows), flush=True)
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device is available", file=sys.stderr)
+        return 2
+    args = sys.argv[1:]
+    tree = ROOT
+    if "--tree" in args:
+        i = args.index("--tree")
+        tree = Path(args[i + 1]).resolve()
+        del args[i:i + 2]
+    sections = args or SECTIONS
+    if not set(sections) <= set(SECTIONS) or (tree != ROOT
+                                              and sections != ["wrapped"]):
+        print(f"kernel_variants: sections are {SECTIONS}; --tree takes "
+              "`wrapped` alone", file=sys.stderr)
+        return 2
+    # this checkout's timing helpers, loaded before DIR goes on the path
+    importlib.import_module("chip_smoke")
+    sys.path.insert(0, str(tree))
+    from torchdiffeq_tpu_torch.ops import _build, fused_field, tableaus
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    ptr = lambda x: ctypes.c_void_p(x.data_ptr())
+    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    if "fused" in sections:
+        _fused(torch, dev, _build, fused_field, tableaus, ptr, stream)
+    if "rk4" in sections:
+        _rk4(torch, dev, _build, ptr, stream)
+    if "lanes" in sections:
+        _lanes(torch, dev)
+    if "wrapped" in sections:
+        _wrapped(torch, dev, tree)
     return 0
 
 

@@ -485,7 +485,8 @@ def test_per_sample_event_multi_output_and_not_found_matches_jax(as_linear):
         options=dict(pallas=True, interpret=True, max_num_steps=200), **kw)
     if as_linear:
         event = LinearEvent([[1.0, 0.0], [0.0, 1.0]], bias=[-0.45, 1.0],
-                            dtype=torch.float64).requires_grad_(False)
+                            dtype=torch.float64,
+                            device='cpu').requires_grad_(False)
     else:
         event = lambda t_, y: torch.stack([y[0] - 0.45, y[1] + 1.0])
     (et_t, ys_t), st_t = tt.odeint_per_sample_with_stats(

@@ -360,7 +360,8 @@ def test_events_ref_mlp_linear_event_matches_jax(method):
         atol=1e-9, method=method, params=tuple(jnp.asarray(w) for w in ws),
         per_lane_params=(False,) * 4, interpret=True,
         **_j_ev_params(W, c, b, sign0)))
-    event = LinearEvent(W, time_coef=c, bias=b).requires_grad_(False)
+    event = LinearEvent(W, time_coef=c, bias=b,
+                        device='cpu').requires_grad_(False)
     got = [o.numpy() for o in dopri5_events_batched(
         _model(ws).requires_grad_(False), torch.from_numpy(y0), 0.0, event,
         ev_params=(torch.from_numpy(sign0),), rtol=1e-7, atol=1e-9,
@@ -389,7 +390,8 @@ def test_events_ref_matches_jax_float32():
         atol=1e-7, params=tuple(jnp.asarray(w) for w in ws),
         per_lane_params=(False,) * 4, interpret=True,
         **_j_ev_params(W, c, b, sign0)))
-    event = LinearEvent(W, time_coef=c, bias=b).requires_grad_(False)
+    event = LinearEvent(W, time_coef=c, bias=b,
+                        device='cpu').requires_grad_(False)
     got = [o.numpy() for o in dopri5_events_batched_ref(
         _model(ws).requires_grad_(False), torch.from_numpy(y0), 0.0, event,
         ev_params=(torch.from_numpy(sign0),), rtol=1e-5, atol=1e-7)]
@@ -426,7 +428,7 @@ def test_events_kernel_refuses_what_it_cannot_run():
     with pytest.raises(TypeError, match="LinearEvent"):
         kernels._kernel_event(lambda tv, yv: yv[:1], (), torch.float64,
                               torch.device('cpu'), 2, 8)
-    event = LinearEvent(np.ones((2, 2)), dtype=torch.float64)
+    event = LinearEvent(np.ones((2, 2)), dtype=torch.float64, device='cpu')
     with pytest.raises(ValueError, match="sign0"):
         kernels._kernel_event(event, (torch.ones(2, 7, dtype=torch.float64),),
                               torch.float64, torch.device('cpu'), 2, 8)
@@ -434,13 +436,13 @@ def test_events_kernel_refuses_what_it_cannot_run():
         kernels._kernel_event(event, (), torch.float64, torch.device('cpu'),
                               3, 8)
     with pytest.raises(ValueError, match="K <= 4"):
-        LinearEvent(np.ones((5, 2)))
+        LinearEvent(np.ones((5, 2)), device='cpu')
 
 
 def test_linear_event_rows_and_lanes_agree():
     rng = np.random.RandomState(7)
     event = LinearEvent(rng.randn(3, 4), time_coef=rng.randn(3),
-                        bias=rng.randn(3), dtype=torch.float64)
+                        bias=rng.randn(3), dtype=torch.float64, device='cpu')
     y = torch.from_numpy(rng.randn(5, 4))
     t = torch.from_numpy(rng.rand(5))
     with torch.no_grad():
@@ -517,3 +519,103 @@ def test_rk4_group_width(B, H, want):
         assert B * (L // 2) < kernels._RK4_THREADS
     else:
         assert B * 2 >= kernels._RK4_THREADS or H < 4
+
+
+# ---- the lane groups of K-dopri5 and K-events --------------------------------
+
+@pytest.mark.parametrize("B,H,want", [
+    (1, 64, 32), (33, 64, 32), (1024, 64, 32), (16384, 64, 4),
+    (32768, 64, 1), (65536, 64, 1),
+    (1, 8, 8), (1024, 4, 4), (1024, 2, 1), (33, 1, 1), (16384, 3, 1),
+])
+def test_lane_group_width(B, H, want):
+    """K-dopri5's and K-events' lanes a trajectory: 1, or a power of two
+    from 4 to 32 and at most H, the least that gives B * L >= _RK4_THREADS
+    threads (or the cap); 1 where 2 would do (K-rk4's rule)."""
+    L = kernels._lane_group_width(B, H)
+    assert L == want
+    assert L in (1, 4, 8, 16, 32) and L <= max(H, 1)
+    if L > 1:
+        assert B * (L // 2) < kernels._RK4_THREADS
+        assert B * L >= kernels._RK4_THREADS or L == 32 or 2 * L > H
+    else:
+        assert B * 2 >= kernels._RK4_THREADS or H < 4
+
+
+def _lanes_inputs():
+    ws, rng = _weights(11, np.float64)
+    y0 = torch.from_numpy(rng.randn(2, 8))
+    event = LinearEvent([[1.0, 0.0]], bias=[-0.5], dtype=torch.float64,
+                        device='cpu').requires_grad_(False)
+    sign0 = torch.sign(event.lanes(torch.zeros(1, 8, dtype=torch.float64),
+                                   y0))
+    return _model(ws).requires_grad_(False), y0, event, sign0
+
+
+@pytest.mark.parametrize("group", [0, 3, 64, -2, 2.0, "4"])
+@pytest.mark.parametrize("wrapper", ["lanes", "events"])
+def test_wrappers_refuse_a_bad_group_width(monkeypatch, wrapper, group):
+    """A group width the kernels cannot take (not a power of two from 1 to
+    32) raises before either the kernel or the plain version runs."""
+    model, y0, event, sign0 = _lanes_inputs()
+    for name in ("dopri5_integrate_batched_ref", "dopri5_events_batched_ref",
+                 "_lanes_launch", "_events_launch"):
+        monkeypatch.setattr(kernels, name, lambda *a, **k: pytest.fail(
+            "ran before the group width was checked"))
+    with pytest.raises(ValueError, match="power of two from 1 to 32"):
+        if wrapper == "lanes":
+            dopri5_integrate_batched(model, y0, 0.0, 1.0, group=group)
+        else:
+            dopri5_events_batched(model, y0, 0.0, event, ev_params=(sign0,),
+                                  group=group)
+
+
+@pytest.mark.parametrize("group", [None, 1, 32])
+def test_group_width_leaves_the_plain_version_alone(group):
+    """On the CPU a valid width is accepted and the plain version runs: the
+    width shapes only the kernel's summation order."""
+    model, y0, event, sign0 = _lanes_inputs()
+    with torch.no_grad():
+        got = dopri5_integrate_batched(model, y0, 0.0, 1.0, group=group)
+        want = dopri5_integrate_batched_ref(model, y0, 0.0, 1.0)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+        got = dopri5_events_batched(model, y0, 0.0, event,
+                                    ev_params=(sign0,), group=group)
+        want = dopri5_events_batched_ref(model, y0, 0.0, event,
+                                         ev_params=(sign0,))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+
+
+def test_group_wider_than_the_hidden_layer_is_refused():
+    """On CUDA a group splits the field's H hidden units, so it may not be
+    wider than H; the check the launch runs, run on the CPU."""
+    with pytest.raises(ValueError, match="at most H"):
+        kernels._group_for(1024, 16, 32, 'dopri5_integrate_batched')
+    assert kernels._group_for(1024, 16, 16, 'x') == 16
+    assert kernels._group_for(1024, 64, None, 'x') == \
+        kernels._lane_group_width(1024, 64)
+
+
+@pytest.mark.parametrize("weight", [
+    [[1.0, 0.0]], np.array([[1.0, 0.0]]), ((1.0, 0.0),)],
+    ids=["list", "ndarray", "tuple"])
+def test_linear_event_defaults_to_the_card(weight):
+    """With `device` left at None and a weight that is not a tensor, a
+    LinearEvent goes on the CUDA device, as MLPField does; with no CUDA
+    device (as here) that raises, naming device='cpu'."""
+    if torch.cuda.is_available():
+        assert LinearEvent(weight).weight.is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            LinearEvent(weight, bias=[-0.5])
+    event = LinearEvent(weight, bias=[-0.5], device='cpu')
+    assert all(p.device.type == 'cpu' for p in event.parameters())
+
+
+def test_linear_event_keeps_a_tensor_weights_device():
+    event = LinearEvent(torch.ones(2, 3, dtype=torch.float64),
+                        time_coef=[1.0, 0.0], bias=np.zeros(2))
+    assert all(p.device.type == 'cpu' and p.dtype == torch.float64
+               for p in event.parameters())

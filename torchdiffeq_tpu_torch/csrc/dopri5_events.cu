@@ -8,21 +8,23 @@
 // lane is live (no event found, fewer than max_steps steps), stepping the
 // others with dt = 0, and each step that hits records its quartic's five
 // coefficient rows and its (t, dt) bracket for a vectorised bisection after
-// the loop.  Here each thread owns one lane and runs its own loop; since a
-// lane freezes at its hit, its bracket is the step it just took, so the
-// thread leaves its loop with that step's stages still in registers, fits
-// the quartic once and bisects right there.  No coefficient rows are
+// the loop.  Here a group of L lanes of one warp owns a trajectory (L a
+// power of two from 1 to 32, at most H, chosen on the host by
+// ops/kernels.py `_lane_group_width`) and runs its own loop; since a
+// trajectory freezes at its hit, its bracket is the step it just took, so
+// the group leaves its loop with that step's stages still in registers,
+// fits the quartic once and bisects right there.  No coefficient rows are
 // carried through the loop.
 //
-// Per lane, as in the TPU kernel: time (t, dt, the event time) in the state
-// dtype; the step, controller and quartic of K-dopri5 (lane_ops.cuh); the
-// event evaluated at (t + dt, y1) after every step; a hit is
-// accept && sign(v1) != s0, with sign NaN at NaN (so a NaN event value on an
-// accepted step is a hit, as in JAX); the bisection runs `bisect_iters`
-// times on x in [0, 1]: xm = 0.5 * (lo + hi), keep the half whose event sign
-// equals s0's; event_t = t + x * dt and y_event = quartic(x) with
-// x = 0.5 * (lo + hi).  A lane that never fires returns event_t = NaN and
-// its last accepted state.
+// Per trajectory, as in the TPU kernel: time (t, dt, the event time) in
+// the state dtype; the step, controller and quartic of K-dopri5
+// (lane_ops.cuh); the event evaluated at (t + dt, y1) after every step; a
+// hit is accept && sign(v1) != s0, with sign NaN at NaN (so a NaN event
+// value on an accepted step is a hit, as in JAX); the bisection runs
+// `bisect_iters` times on x in [0, 1]: xm = 0.5 * (lo + hi), keep the half
+// whose event sign equals s0's; event_t = t + x * dt and y_event =
+// quartic(x) with x = 0.5 * (lo + hi).  A trajectory that never fires returns event_t =
+// NaN and its last accepted state.
 //
 // The event family is the one a CUDA kernel can evaluate: K <= 4 affine
 // outputs e_k = (W[k,:] . y + c_k * t) + b_k (LinearEvent in
@@ -31,11 +33,16 @@
 // parallel/batched.py combination).  The MLP field, tableau and event
 // weights are staged in shared memory.
 //
-// What bounds it on an H100: as K-dopri5, one thread's dependent chain of
-// stage sweeps (registers and latency, not bytes); each step adds one
-// event evaluation (K * D multiply-adds) and the bisection 40 quartic and
-// event evaluations at the end.  Lanes of one warp whose events fire at
-// different steps diverge.
+// What bounds it on an H100: as K-dopri5 (dopri5_lanes.cu), the latency of
+// each step's dependent chain of field evaluations, not bytes; each step
+// adds one event evaluation (K * D multiply-adds) and the bisection 40
+// quartic and event evaluations at the end.  As there, the group splits
+// each evaluation's H units and runs everything else redundantly on the
+// same bits, so the hit, the `break` and the bisection are the same across
+// the group; its shuffles name only its own lanes, so the groups of a warp
+// may fire at different steps, and a warp holds 32/L trajectories, so
+// fewer of them wait for its slowest.  Lane 0 of the group writes the
+// outputs.  L=1 is an instance of its own (kGroup false), as there.
 #include "lane_ops.cuh"
 
 #define TDT_MAX_EVENTS 4
@@ -77,7 +84,7 @@ struct LinearEvent {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kGroup>
 __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T atol,
                               T safety, T ifactor, T dfactor, T first_step,
                               int use_first_step, int max_steps,
@@ -87,7 +94,7 @@ __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T a
                               const T* __restrict__ w2, const T* __restrict__ b2,
                               int K, const T* __restrict__ ev_w,
                               const T* __restrict__ ev_c, const T* __restrict__ ev_b,
-                              const T* __restrict__ sign0, int bisect_iters,
+                              const T* __restrict__ sign0, int bisect_iters, int L,
                               T* __restrict__ event_t_out, T* __restrict__ y_event_out,
                               int* __restrict__ found_out, int* __restrict__ n_acc_out,
                               int* __restrict__ n_steps_out) {
@@ -104,9 +111,11 @@ __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T a
   }
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  // the L lanes of group b own trajectory b; a group past the batch returns
+  // whole
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = gid / L;
   if (b >= B) return;
-  const auto f = tdt::mlp_from_shared<T, D>(smem, H, power);
   const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
   const LinearEvent<T, D> ev{s_ev, s_ev + K * D, s_ev + K * D + K, K};
 
@@ -114,65 +123,77 @@ __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T a
 #pragma unroll
   for (int k = 0; k < TDT_MAX_EVENTS; ++k) s0k[k] = k < K ? sign0[(size_t)k * B + b] : T(0);
 
-  T y[D], fc[D];
+  // the solve, for the field f of this lane's group
+  auto solve = [&](const auto& f) {
+    T y[D], fc[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
-  T t = t0;
-  f(y, fc);
-  const T s0 = nsign<T>(ev(t, y, s0k));
-  T dt = use_first_step ? first_step
-                        : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
+    for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
+    T t = t0;
+    f(y, fc);
+    const T s0 = nsign<T>(ev(t, y, s0k));
+    T dt = use_first_step ? first_step
+                          : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
 
-  int n_acc = 0, n_steps = 0;
-  bool found = false;
-  T k[TDT_MAX_STAGES][D];
-  T y1[D], f1[D], err[D];
-  while (n_steps < max_steps) {
-    const T t_prop = t + dt;
-    tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
-    const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
-    const bool accept = ratio <= T(1);
-    ++n_steps;
-    if (accept) {
-      ++n_acc;
-      if (!(nsign<T>(ev(t_prop, y1, s0k)) == s0)) {
-        // the hit: (t, dt) brackets the event, and y, fc, k, y1, f1 still
-        // hold this step for the quartic below
-        found = true;
-        break;
-      }
+    int n_acc = 0, n_steps = 0;
+    bool found = false;
+    T k[TDT_MAX_STAGES][D];
+    T y1[D], f1[D], err[D];
+    while (n_steps < max_steps) {
+      const T t_prop = t + dt;
+      tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
+      const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
+      const bool accept = ratio <= T(1);
+      ++n_steps;
+      if (accept) {
+        ++n_acc;
+        if (!(nsign<T>(ev(t_prop, y1, s0k)) == s0)) {
+          // the hit: (t, dt) brackets the event, and y, fc, k, y1, f1 still
+          // hold this step for the quartic below
+          found = true;
+          break;
+        }
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
-        y[d] = y1[d];
-        fc[d] = f1[d];
+        for (int d = 0; d < D; ++d) {
+          y[d] = y1[d];
+          fc[d] = f1[d];
+        }
+        t = t_prop;
       }
-      t = t_prop;
+      dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
     }
-    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
-  }
 
-  T event_t = T(NAN);
-  if (found) {
-    tdt::Quartic<T, D> q;
-    tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
-    T lo = T(0), hi = T(1), ym[D];
-    for (int i = 0; i < bisect_iters; ++i) {
-      const T xm = T(0.5) * (lo + hi);
-      tdt::eval_quartic<T, D>(q, xm, ym);
-      const bool same = nsign<T>(ev(t + xm * dt, ym, s0k)) == s0;
-      lo = same ? xm : lo;
-      hi = same ? hi : xm;
+    T event_t = T(NAN);
+    if (found) {
+      tdt::Quartic<T, D> q;
+      tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
+      T lo = T(0), hi = T(1), ym[D];
+      for (int i = 0; i < bisect_iters; ++i) {
+        const T xm = T(0.5) * (lo + hi);
+        tdt::eval_quartic<T, D>(q, xm, ym);
+        const bool same = nsign<T>(ev(t + xm * dt, ym, s0k)) == s0;
+        lo = same ? xm : lo;
+        hi = same ? hi : xm;
+      }
+      const T x = T(0.5) * (lo + hi);
+      event_t = t + x * dt;
+      tdt::eval_quartic<T, D>(q, x, y);
     }
-    const T x = T(0.5) * (lo + hi);
-    event_t = t + x * dt;
-    tdt::eval_quartic<T, D>(q, x, y);
-  }
-  event_t_out[b] = event_t;
+    if ((gid & (L - 1)) != 0) return;
+    event_t_out[b] = event_t;
 #pragma unroll
-  for (int d = 0; d < D; ++d) y_event_out[(size_t)d * B + b] = y[d];
-  found_out[b] = found ? 1 : 0;
-  n_acc_out[b] = n_acc;
-  n_steps_out[b] = n_steps;
+    for (int d = 0; d < D; ++d) y_event_out[(size_t)d * B + b] = y[d];
+    found_out[b] = found ? 1 : 0;
+    n_acc_out[b] = n_acc;
+    n_steps_out[b] = n_steps;
+  };
+  // L = 1 (kGroup false) is an instance of its own: a lane a trajectory
+  // walks all H units in MlpField's loop, which the compiler unrolls further
+  // than the group's strided one, and its registers and code are not sized
+  // for the group's path
+  if constexpr (kGroup)
+    solve(tdt::group_mlp_from_shared<T, D>(smem, H, power, L));
+  else
+    solve(tdt::mlp_from_shared<T, D>(smem, H, power));
 }
 
 template <typename T>
@@ -182,15 +203,16 @@ int launch(int B, int D, int H, int power, const void* y0, double t0, double rto
            int n_alpha, int order, int fsal, const void* w1, const void* b1,
            const void* w2, const void* b2, int K, const void* ev_w,
            const void* ev_c, const void* ev_b, const void* sign0,
-           int bisect_iters, void* event_t, void* y_event, void* found,
+           int bisect_iters, int L, void* event_t, void* y_event, void* found,
            void* n_acc, void* n_steps, void* stream) {
   const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
+  const int blocks = (int)(((long long)B * L + threads - 1) / threads);
   const size_t smem =
       (size_t)(2 * D * H + H + D + TDT_TAB_SIZE + K * D + 2 * K) * sizeof(T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define TDT_LAUNCH_EVENTS(DD)                                                  \
-  events_kernel<T, DD><<<blocks, threads, smem, st>>>(                         \
+  (L == 1 ? events_kernel<T, DD, false>                                        \
+          : events_kernel<T, DD, true>)<<<blocks, threads, smem, st>>>(        \
       static_cast<const T*>(y0), B, (T)t0, (T)rtol, (T)atol, (T)safety,        \
       (T)ifactor, (T)dfactor, (T)first_step, use_first_step, max_steps,        \
       static_cast<const T*>(tab), n_alpha, order, fsal, H, power,              \
@@ -198,7 +220,7 @@ int launch(int B, int D, int H, int power, const void* y0, double t0, double rto
       static_cast<const T*>(w2), static_cast<const T*>(b2), K,                 \
       static_cast<const T*>(ev_w), static_cast<const T*>(ev_c),                \
       static_cast<const T*>(ev_b), static_cast<const T*>(sign0), bisect_iters, \
-      static_cast<T*>(event_t), static_cast<T*>(y_event),                      \
+      L, static_cast<T*>(event_t), static_cast<T*>(y_event),                   \
       static_cast<int*>(found), static_cast<int*>(n_acc),                      \
       static_cast<int*>(n_steps))
   TDT_DISPATCH_D(D, TDT_LAUNCH_EVENTS)
@@ -212,7 +234,8 @@ int launch(int B, int D, int H, int power, const void* y0, double t0, double rto
 // (K, B); event_t, found, n_acc and n_steps are (B,) (found and the counts
 // int32).  The event weights are W (K, D), c (K,), b (K,), 1 <= K <= 4.
 // Scalars are values of the state dtype passed exactly as doubles; `tab` is
-// the packed tableau in the state dtype.  Returns cudaGetLastError().
+// the packed tableau in the state dtype.  group is the lanes a trajectory, a
+// power of two from 1 to 32.  Returns cudaGetLastError().
 extern "C" int tdt_dopri5_events(int dtype, int B, int D, int H, int power,
                                  const void* y0, double t0, double rtol,
                                  double atol, double safety, double ifactor,
@@ -223,22 +246,24 @@ extern "C" int tdt_dopri5_events(int dtype, int B, int D, int H, int power,
                                  const void* w2, const void* b2, int K,
                                  const void* ev_w, const void* ev_c,
                                  const void* ev_b, const void* sign0,
-                                 int bisect_iters, void* event_t,
+                                 int bisect_iters, int group, void* event_t,
                                  void* y_event, void* found, void* n_acc,
                                  void* n_steps, void* stream) {
   if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA) return (int)cudaErrorInvalidValue;
   if (K < 1 || K > TDT_MAX_EVENTS) return (int)cudaErrorInvalidValue;
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(B, D, H, power, y0, t0, rtol, atol, safety, ifactor,
                          dfactor, first_step, use_first_step, max_steps, tab,
                          n_alpha, order, fsal, w1, b1, w2, b2, K, ev_w, ev_c,
-                         ev_b, sign0, bisect_iters, event_t, y_event, found,
+                         ev_b, sign0, bisect_iters, group, event_t, y_event, found,
                          n_acc, n_steps, stream);
   if (dtype == 1)
     return launch<double>(B, D, H, power, y0, t0, rtol, atol, safety, ifactor,
                           dfactor, first_step, use_first_step, max_steps, tab,
                           n_alpha, order, fsal, w1, b1, w2, b2, K, ev_w, ev_c,
-                          ev_b, sign0, bisect_iters, event_t, y_event, found,
+                          ev_b, sign0, bisect_iters, group, event_t, y_event, found,
                           n_acc, n_steps, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,38 +5,54 @@
 // (`dopri5_integrate_batched`, pallas_call at :545; helpers `_make_lane_ops`
 // :238-333 and `_tableau_consts` :182).  There each of a tile's 128 VPU
 // lanes owns a trajectory and one tile-wide while_loop runs until every
-// lane is done, stepping finished lanes with dt = 0.  Here each thread owns
-// one lane and runs its own `while (t < t1 && steps < max_steps)` loop, so
-// a lane's result never depends on which other lanes share its block.
+// lane is done, stepping finished lanes with dt = 0.  Here a group of L
+// lanes of one warp owns a trajectory (L a power of two from 1 to 32, at
+// most H, chosen on the host by ops/kernels.py `_lane_group_width`) and
+// runs its own `while (t < t1 && steps < max_steps)` loop, so a
+// trajectory's result never depends on which others share its warp or
+// block.
 //
-// Per lane, as in the TPU kernel: time in the state dtype; the Hairer
-// initial step (`hairer_dt`) unless first_step is given; the tableau's
-// stage sweep with the coefficient sums formed BEFORE the dt multiply;
-// tol = atol + rtol * max(|y|, |y1|); the RMS of err/tol over the true D;
-// accept = ratio <= 1; the I-controller factor
+// Per trajectory, as in the TPU kernel: time in the state dtype; the
+// Hairer initial step (`hairer_dt`) unless first_step is given; the
+// tableau's stage sweep with the coefficient sums formed BEFORE the dt
+// multiply; tol = atol + rtol * max(|y|, |y1|); the RMS of err/tol over the
+// true D; accept = ratio <= 1; the I-controller factor
 // min(ifactor, max(safety / max(ratio, tiny)^(1/order), dfactor on reject
 // else 1)); quartic dense output for every output time t_s with
 // t < t_s <= t + dt on an accepted step; outputs at or before t0 equal y0;
-// NaN in every row whose time the lane never reached.
+// NaN in every row whose time the trajectory never reached.
 //
 // The tableau arrives as a small array (any explicit method of up to
 // TDT_MAX_STAGES stages: dopri5, tsit5, bosh3, fehlberg2, adaptive_heun).
-// The per-lane numerics live in lane_ops.cuh, shared with the event kernel.
+// The per-trajectory numerics live in lane_ops.cuh, shared with the event
+// kernel.
 //
-// What bounds it on an H100: like K-rk4, the latency of one thread's
-// dependent chain (stage sweeps of 4-7 field evaluations of H tanh units
-// each), not bytes: the state, the slopes and the controller live in
-// registers, and device memory sees y0, the emitted rows and the counters
-// only.  At B=1024 one thread per lane occupies 8 of 132 SMs; lanes of one
-// warp that need different step counts also diverge.  Filling the card
-// (a warp per lane group with H split across lanes, mma for the products)
-// is later work.  Outputs are stored in the (S, D, B) layout, lane index
-// fastest, so a warp's stores to one row coalesce.
+// What bounds it on an H100: not bytes (the state, the slopes and the
+// controller live in registers; device memory sees y0, the emitted rows and
+// the counters only) but the latency of each step's dependent chain: 4-7
+// field evaluations of H tanh units each, then the stage sums, the error
+// ratio and the controller.  One thread a trajectory walked all H units of
+// every evaluation in turn and, at B=1024, filled 8 of 132 SMs, and the
+// lanes of a warp ran as long as its slowest (2-9 steps on the spiral).
+// Here the group splits the H units (GroupMlpField, mlp_field.cuh), so an
+// evaluation's chain is H/L units plus log2(L) shuffle levels, and B*L
+// threads fill the card; the warp holds 32/L trajectories, so fewer of them
+// wait for the slowest.  Every lane of the group runs the stage sums, the
+// controller and the dense output redundantly on the same bits (the
+// butterfly gives each the same sums), so every branch, the loop's end
+// included, is the same across the group: the group stays converged with
+// no vote, shared memory or barrier in the loop, and its shuffles name
+// only its own lanes, so groups of a warp may leave the loop at different
+// steps.  Lane 0 of the group writes the trajectory's rows and counters, in
+// the (S, D, B) layout, trajectory index fastest.  The redundant work is why
+// the host picks L=1 at a large batch, where B threads already fill the
+// card; L=1 is an instance of its own (kGroup false) running MlpField's
+// loop, the first version's, with no group code beside it.
 #include "lane_ops.cuh"
 
 namespace {
 
-template <typename T, int D>
+template <typename T, int D, bool kGroup>
 __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
                              int S, int B, T t0, T t1, T rtol, T atol,
                              T safety, T ifactor, T dfactor, T first_step,
@@ -45,7 +61,7 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
                              int fsal, int H, int power,
                              const T* __restrict__ w1, const T* __restrict__ b1,
                              const T* __restrict__ w2, const T* __restrict__ b2,
-                             T* __restrict__ ys, int* __restrict__ n_acc_out,
+                             int L, T* __restrict__ ys, int* __restrict__ n_acc_out,
                              int* __restrict__ n_steps_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -56,72 +72,91 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
   for (int i = threadIdx.x; i < S; i += blockDim.x) s_ts[i] = ts[i];
   __syncthreads();
 
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  // the L lanes of group b own trajectory b; a group past the batch returns
+  // whole
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = gid / L;
   if (b >= B) return;
-  const auto f = tdt::mlp_from_shared<T, D>(smem, H, power);
+  const bool writer = (gid & (L - 1)) == 0;
   // the field takes no time input: stage times are not formed
   const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
 
-  T y[D], fc[D];
+  // the solve, for the field f of this lane's group
+  auto solve = [&](const auto& f) {
+    T y[D], fc[D];
 #pragma unroll
-  for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
-  T t = t0;
+    for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
+    T t = t0;
 
-  // outputs at or before the start time are the initial state
-  int s_next = 0;
-  while (s_next < S && s_ts[s_next] <= t0) {
+    // outputs at or before the start time are the initial state
+    int s_next = 0;
+    while (s_next < S && s_ts[s_next] <= t0) {
+      if (writer) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = y[d];
-    ++s_next;
-  }
-
-  f(y, fc);
-  T dt = use_first_step ? first_step
-                        : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
-
-  int n_acc = 0, n_steps = 0;
-  T k[TDT_MAX_STAGES][D];
-  T y1[D], f1[D], err[D];
-  while (t < t1 && n_steps < max_steps) {
-    const T t_prop = t + dt;
-    tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
-    const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
-    const bool accept = ratio <= T(1);
-
-    // dense output for the output times this step covers
-    if (accept && s_next < S && s_ts[s_next] <= t_prop) {
-      tdt::Quartic<T, D> q;
-      tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
-      const T dt_safe = dt > T(0) ? dt : T(1);
-      while (s_next < S && s_ts[s_next] <= t_prop) {
-        T val[D];
-        tdt::eval_quartic<T, D>(q, (s_ts[s_next] - t) / dt_safe, val);
-#pragma unroll
-        for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = val[d];
-        ++s_next;
+        for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = y[d];
       }
+      ++s_next;
     }
 
-    if (accept) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        y[d] = y1[d];
-        fc[d] = f1[d];
-      }
-      t = t_prop;
-      ++n_acc;
-    }
-    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
-    ++n_steps;
-  }
+    f(y, fc);
+    T dt = use_first_step ? first_step
+                          : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
 
-  // rows whose time this lane never reached (max_steps ran out)
-  for (; s_next < S; ++s_next) {
+    int n_acc = 0, n_steps = 0;
+    T k[TDT_MAX_STAGES][D];
+    T y1[D], f1[D], err[D];
+    while (t < t1 && n_steps < max_steps) {
+      const T t_prop = t + dt;
+      tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
+      const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
+      const bool accept = ratio <= T(1);
+
+      // dense output for the output times this step covers
+      if (accept && s_next < S && s_ts[s_next] <= t_prop) {
+        tdt::Quartic<T, D> q;
+        tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
+        const T dt_safe = dt > T(0) ? dt : T(1);
+        while (s_next < S && s_ts[s_next] <= t_prop) {
+          T val[D];
+          tdt::eval_quartic<T, D>(q, (s_ts[s_next] - t) / dt_safe, val);
+          if (writer) {
 #pragma unroll
-    for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = T(NAN);
-  }
-  n_acc_out[b] = n_acc;
-  n_steps_out[b] = n_steps;
+            for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = val[d];
+          }
+          ++s_next;
+        }
+      }
+
+      if (accept) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+          y[d] = y1[d];
+          fc[d] = f1[d];
+        }
+        t = t_prop;
+        ++n_acc;
+      }
+      dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+      ++n_steps;
+    }
+
+    if (!writer) return;
+    // rows whose time this trajectory never reached (max_steps ran out)
+    for (; s_next < S; ++s_next) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = T(NAN);
+    }
+    n_acc_out[b] = n_acc;
+    n_steps_out[b] = n_steps;
+  };
+  // L = 1 (kGroup false) is an instance of its own: a lane a trajectory
+  // walks all H units in MlpField's loop, which the compiler unrolls further
+  // than the group's strided one, and its registers and code are not sized
+  // for the group's path
+  if constexpr (kGroup)
+    solve(tdt::group_mlp_from_shared<T, D>(smem, H, power, L));
+  else
+    solve(tdt::mlp_from_shared<T, D>(smem, H, power));
 }
 
 template <typename T>
@@ -129,20 +164,21 @@ int launch(int B, int D, int H, int power, const void* y0, const void* ts,
            int S, double t0, double t1, double rtol, double atol, double safety,
            double ifactor, double dfactor, double first_step, int use_first_step,
            int max_steps, const void* tab, int n_alpha, int order, int fsal,
-           const void* w1, const void* b1, const void* w2, const void* b2,
+           const void* w1, const void* b1, const void* w2, const void* b2, int L,
            void* ys, void* n_acc, void* n_steps, void* stream) {
   const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
+  const int blocks = (int)(((long long)B * L + threads - 1) / threads);
   const size_t smem = (size_t)(2 * D * H + H + D + TDT_TAB_SIZE + S) * sizeof(T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define TDT_LAUNCH_LANES(DD)                                                    \
-  lanes_kernel<T, DD><<<blocks, threads, smem, st>>>(                           \
+  (L == 1 ? lanes_kernel<T, DD, false>                                          \
+          : lanes_kernel<T, DD, true>)<<<blocks, threads, smem, st>>>(          \
       static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, (T)t0, (T)t1, \
       (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor, (T)first_step,       \
       use_first_step, max_steps, static_cast<const T*>(tab), n_alpha, order,    \
       fsal, H, power, static_cast<const T*>(w1), static_cast<const T*>(b1),     \
-      static_cast<const T*>(w2), static_cast<const T*>(b2), static_cast<T*>(ys), \
-      static_cast<int*>(n_acc), static_cast<int*>(n_steps))
+      static_cast<const T*>(w2), static_cast<const T*>(b2), L,                  \
+      static_cast<T*>(ys), static_cast<int*>(n_acc), static_cast<int*>(n_steps))
   TDT_DISPATCH_D(D, TDT_LAUNCH_LANES)
 #undef TDT_LAUNCH_LANES
   return (int)cudaGetLastError();
@@ -153,7 +189,8 @@ int launch(int B, int D, int H, int power, const void* y0, const void* ts,
 // dtype: 0 = float32, 1 = float64.  y0 is (D, B), ts (S,) increasing, ys
 // (S, D, B); n_acc and n_steps are (B,) int32.  Scalars are values of the
 // state dtype passed exactly as doubles; `tab` is the packed tableau in the
-// state dtype.  Returns cudaGetLastError().
+// state dtype.  group is the lanes a trajectory, a power of two from 1 to
+// 32.  Returns cudaGetLastError().
 extern "C" int tdt_dopri5_lanes(int dtype, int B, int D, int H, int power,
                                 const void* y0, const void* ts, int S, double t0,
                                 double t1, double rtol, double atol,
@@ -162,18 +199,20 @@ extern "C" int tdt_dopri5_lanes(int dtype, int B, int D, int H, int power,
                                 int max_steps, const void* tab, int n_alpha,
                                 int order, int fsal, const void* w1,
                                 const void* b1, const void* w2, const void* b2,
-                                void* ys, void* n_acc, void* n_steps,
+                                int group, void* ys, void* n_acc, void* n_steps,
                                 void* stream) {
   if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA) return (int)cudaErrorInvalidValue;
+  if (group < 1 || group > 32 || (group & (group - 1)) != 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(B, D, H, power, y0, ts, S, t0, t1, rtol, atol, safety,
                          ifactor, dfactor, first_step, use_first_step, max_steps,
-                         tab, n_alpha, order, fsal, w1, b1, w2, b2, ys, n_acc,
-                         n_steps, stream);
+                         tab, n_alpha, order, fsal, w1, b1, w2, b2, group, ys,
+                         n_acc, n_steps, stream);
   if (dtype == 1)
     return launch<double>(B, D, H, power, y0, ts, S, t0, t1, rtol, atol, safety,
                           ifactor, dfactor, first_step, use_first_step, max_steps,
-                          tab, n_alpha, order, fsal, w1, b1, w2, b2, ys, n_acc,
-                          n_steps, stream);
+                          tab, n_alpha, order, fsal, w1, b1, w2, b2, group, ys,
+                          n_acc, n_steps, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,13 @@
 // `_make_lane_ops` (torchdiffeq_tpu/ops/pallas_kernels.py:238-333): the
 // lane RMS norm, the tableau's stage sweep, the error ratio, the Hairer
 // initial step, the I-controller, and the quartic dense-output fit and
-// evaluation.  One thread owns one lane; everything here works on values in
-// its registers, in the state dtype, in the TPU kernel's operation order.
+// evaluation.  A group of L lanes owns a trajectory (the TPU kernel's lane);
+// everything here works on values in a lane's registers, in the state
+// dtype, in the TPU kernel's operation order.  Only the field `f` (a
+// GroupMlpField) divides work across the group; every lane runs the rest
+// redundantly on the same bits, so its branches, and those of the loops
+// around it, are the same across the group.  What bounds the kernels, and
+// why the group, is in dopri5_lanes.cu.
 #pragma once
 
 #include "mlp_field.cuh"

@@ -90,14 +90,37 @@ struct MlpField {
   }
 };
 
-// The same field evaluated by a group of L lanes of one warp (L a power of
-// two up to 32, the groups aligned in the warp), all holding the same y:
-// lane j of the group takes the hidden units j, j + L, j + 2L, ..., sums
-// its units' terms of each output in that order, and the group adds the L
-// partial sums by an xor butterfly over __shfl_xor_sync.  IEEE addition is
-// commutative, so every lane of the group ends with the same bits of out;
-// with L = 1 the order is MlpField's.  Every lane of the warp must call it
-// (the shuffles take the whole warp).
+// The shuffle mask of the group of L lanes that holds this thread (L a
+// power of two up to 32, the groups aligned in the warp, blockDim.x a
+// multiple of 32): the L bits from this lane's group start.
+__device__ __forceinline__ unsigned group_mask(int L) {
+  return L == 32 ? 0xffffffffu
+                 : ((1u << L) - 1u) << ((threadIdx.x & 31) & ~(L - 1));
+}
+
+// out[d] plus the other partial sums of the L lanes named in `mask`, by an
+// xor butterfly: every lane ends with the same bits (IEEE addition
+// commutes).
+template <typename T, int D>
+__device__ __forceinline__ void group_sum(T (&out)[D], unsigned mask, int L) {
+  for (int m = 1; m < L; m <<= 1) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) out[d] = out[d] + __shfl_xor_sync(mask, out[d], m);
+  }
+}
+
+// The same field evaluated by a group of L lanes of one warp (as for
+// group_mask), all holding the same y: lane j of the group takes the hidden
+// units j, j + L, j + 2L, ..., sums its units' terms of each output in that
+// order, and the group adds the L partial sums by an xor butterfly over
+// __shfl_xor_sync (group_sum).  IEEE addition is commutative, so every lane
+// of the group ends with the same bits of out, whatever the mask; with
+// L = 1 the order is MlpField's.  The shuffles name the lanes of `mask`,
+// which must all call it together: with the group's own mask
+// (group_mask(L)) that is the group alone, so the groups of one warp may
+// run their loops for different numbers of steps, or have returned; with
+// the whole warp (0xffffffff, the faster constant) it is every lane of the
+// warp, as in K-rk4, whose groups all run the same steps.
 template <typename T, int D>
 struct GroupMlpField {
   const T* w1;
@@ -106,8 +129,9 @@ struct GroupMlpField {
   const T* b2;
   int H;
   int power;
-  int lane;   // this lane's index in its group, 0..L-1
+  int lane;        // this lane's index in its group, 0..L-1
   int L;
+  unsigned mask;   // the lanes the shuffles name (see above)
 
   __device__ __forceinline__ void operator()(const T (&y)[D], T (&out)[D]) const {
     T x[D];
@@ -127,10 +151,13 @@ struct GroupMlpField {
 #pragma unroll
       for (int d = 0; d < D; ++d) out[d] = out[d] + a * w2[h * D + d];
     }
-    for (int m = 1; m < L; m <<= 1) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) out[d] = out[d] + __shfl_xor_sync(0xffffffffu, out[d], m);
-    }
+    // a mask that names the whole warp goes in as the constant: with a mask
+    // known only at run time the compiler syncs the named lanes before each
+    // shuffle
+    if (mask == 0xffffffffu)
+      group_sum<T, D>(out, 0xffffffffu, L);
+    else
+      group_sum<T, D>(out, mask, L);
 #pragma unroll
     for (int d = 0; d < D; ++d) out[d] = out[d] + b2[d];
   }
@@ -139,6 +166,14 @@ struct GroupMlpField {
 template <typename T, int D>
 __device__ __forceinline__ MlpField<T, D> mlp_from_shared(const T* s, int H, int power) {
   return MlpField<T, D>{s, s + D * H, s + D * H + H, s + 2 * D * H + H, H, power};
+}
+
+// This thread's lane of its group of L, evaluating the weights staged at s.
+template <typename T, int D>
+__device__ __forceinline__ GroupMlpField<T, D> group_mlp_from_shared(const T* s, int H,
+                                                                     int power, int L) {
+  return GroupMlpField<T, D>{s, s + D * H, s + D * H + H, s + 2 * D * H + H, H, power,
+                             (int)(threadIdx.x & (L - 1)), L, group_mask(L)};
 }
 
 }  // namespace tdt

@@ -94,13 +94,17 @@ __global__ void rk4_kernel(const T* __restrict__ y0, T* __restrict__ out,
     if (gid < B) integrate<T, D>(f, y0, out, B, gid, true, dt, n_steps, out_every);
     return;
   }
-  // a warp whose every group lies past the batch has nothing to do; in a
-  // warp that straddles the end, a group past it runs row B-1 and writes
-  // nothing, so that the warp's shuffles stay whole
+  // every group of a warp runs the same n_steps, so the shuffles name the
+  // whole warp: a constant mask, where each group's own (tdt::group_mask)
+  // would cost a sync of its lanes before every shuffle (1.4x the time at
+  // B=1024).  So the warp stays whole: a warp whose every group lies past
+  // the batch has nothing to do; in a warp that straddles the end, a group
+  // past it runs row B-1 and writes nothing.
   if ((gid & ~31) / L >= B) return;
   const int lane = gid & (L - 1);
   const bool live = gid / L < B;
-  const tdt::GroupMlpField<T, D> g{f.w1, f.b1, f.w2, f.b2, H, power, lane, L};
+  const tdt::GroupMlpField<T, D> g{f.w1, f.b1, f.w2, f.b2, H, power, lane, L,
+                                   0xffffffffu};
   integrate<T, D>(g, y0, out, B, live ? gid / L : B - 1, live && lane == 0, dt, n_steps,
                   out_every);
 }

@@ -67,13 +67,18 @@ class LinearEvent(nn.Module):
     Args:
         weight: (K, D).
         time_coef, bias: (K,); zeros by default.
-        dtype, device: of the parameters (default: those of `weight`).
+        dtype: of the parameters (default: that of `weight`).
+        device: of the parameters; default that of `weight` when it is a
+            tensor, else the CUDA device, as for `MLPField` (with no CUDA
+            device that raises: pass ``device='cpu'``).
     """
     MAX_OUTPUTS = 4
 
     def __init__(self, weight, time_coef=None, bias=None, *, dtype=None,
                  device=None):
         super().__init__()
+        if device is None and not isinstance(weight, torch.Tensor):
+            device = default_device(None)
         weight = torch.as_tensor(weight, dtype=dtype, device=device)
         if weight.dim() != 2 or not 1 <= weight.shape[0] <= self.MAX_OUTPUTS:
             raise ValueError(f"weight must be (K, D) with 1 <= K <= "

@@ -24,7 +24,6 @@ a path went through the kernels; it also counts the fused-step kernel of
 """
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
@@ -42,9 +41,9 @@ PER_LANE_METHODS = ('dopri5', 'tsit5', 'bosh3', 'fehlberg2',
 _KERNEL_MAX_D = 8
 _KERNEL_MAX_ALPHA = 6
 _SMEM_LIMIT = 48 * 1024
-# K-rk4 gives a trajectory a group of lanes until the batch has this many
-# threads (512 on each of an H100's 132 SMs, rounded down to a power of
-# two)
+# K-rk4, K-dopri5 and K-events give a trajectory a group of lanes until the
+# batch has this many threads (512 on each of an H100's 132 SMs, rounded
+# down to a power of two)
 _RK4_THREADS = 65536
 
 launch_counts = {'rk4_integrate': 0, 'dopri5_integrate_batched': 0,
@@ -72,11 +71,14 @@ def _kernel_mlp(field, params, y_dtype, device, D, kernel):
             "params (the one field family a CUDA kernel can evaluate: "
             "tanh(y**p @ W1 + b1) @ W2 + b2); got "
             f"{type(field).__name__} with {len(params)} params")
-    if len(field.weights) != 2:
+    # read from the lists' parameter dicts, in order: indexing an
+    # nn.ParameterList costs microseconds an entry, and this runs per launch
+    weights, biases = (tuple(p._parameters.values())
+                       for p in (field.weights, field.biases))
+    if len(weights) != 2:
         raise ValueError(f"the CUDA {kernel} kernel takes an MLPField with "
                          f"one hidden layer, got sizes {field.sizes}")
-    w1, w2 = field.weights
-    b1, b2 = field.biases
+    (w1, w2), (b1, b2) = weights, biases
     H = w1.shape[1]
     if w1.shape[0] != D or w2.shape != (H, D):
         raise ValueError(f"MLPField sizes {field.sizes} do not map the "
@@ -84,12 +86,19 @@ def _kernel_mlp(field, params, y_dtype, device, D, kernel):
     if not 1 <= D <= _KERNEL_MAX_D:
         raise ValueError(f"the CUDA {kernel} kernel takes 1 <= D <= "
                          f"{_KERNEL_MAX_D}, got D={D}")
-    ws = [w.detach() for w in (w1, b1, w2, b2)]
+    return _kernel_tensors((w1, b1, w2, b2), y_dtype, device,
+                           "MLPField weights"), H
+
+
+def _kernel_tensors(ws, y_dtype, device, what):
+    """`ws` as the kernels read them (contiguous), after checking that they
+    match the state's dtype and device.  The kernels read them in place, so
+    an in-place update between calls is seen by the next launch."""
     for w in ws:
         if w.dtype != y_dtype or w.device != device:
-            raise ValueError(f"MLPField weights ({w.dtype}, {w.device}) must "
-                             f"match the state ({y_dtype}, {device})")
-    return [w.contiguous() for w in ws], H
+            raise ValueError(f"{what} ({w.dtype}, {w.device}) must match the "
+                             f"state ({y_dtype}, {device})")
+    return [w if w.is_contiguous() else w.detach().contiguous() for w in ws]
 
 
 def _check_cuda_state(y, kernel):
@@ -105,11 +114,18 @@ def _check_cuda_state(y, kernel):
 
 
 def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
+    """A tensor's address for a `c_void_p` argument (ctypes takes the int)."""
+    return x.data_ptr()
+
+
+def _row_ptrs(x):
+    """The addresses of the rows of a contiguous tensor (no views made)."""
+    step = x.stride(0) * x.element_size()
+    return [x.data_ptr() + i * step for i in range(x.shape[0])]
 
 
 def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -374,6 +390,56 @@ def _lane_setup(f, y0, t0, method, rtol, atol, first_step):
     return consts, rtol, atol, tiny, inv_order, t, fc, dt
 
 
+def _lane_group_width(B, H):
+    """Lanes a trajectory for K-dopri5 and K-events (``csrc/dopri5_lanes.cu``,
+    ``csrc/dopri5_events.cu``): K-rk4's rule (`_rk4_group_width`), the least
+    power of two L from 4 to 32 and at most H for which B * L threads fill
+    the card, and L=1 where 2 would do.
+
+    Chosen from the kernels' device times on an "NVIDIA H100 80GB HBM3,
+    700.00 W" (kernel_variants.py, section lanes: chip_smoke.py's spiral
+    problems, float32, H=64), ms at L = 1, 2, 4, 8, 16, 32:
+    K-dopri5 B=1024: 0.131, 0.124, 0.082, 0.067, 0.056, 0.042;
+    B=16384: 0.144, 0.161, 0.114, 0.134, 0.161, 0.208;
+    B=32768: 0.180, 0.202, 0.204, 0.225, 0.293, 0.395;
+    B=65536: 0.279, 0.362, 0.350, 0.413, 0.552, 0.768.
+    K-events B=1024: 0.166, 0.149, 0.105, 0.084, 0.064, 0.046;
+    B=16384: 0.177, 0.187, 0.143, 0.177, 0.199, 0.247;
+    B=32768: 0.218, 0.227, 0.259, 0.295, 0.366, 0.476;
+    B=65536: 0.316, 0.414, 0.450, 0.548, 0.709, 0.932.
+    The rule picks the fastest width of both kernels at each of these
+    batches: 32, 4, 1 and 1.  Groups of 2 never won, as for K-rk4."""
+    return _rk4_group_width(B, H)
+
+
+def _check_group(group):
+    """Refuse, before any launch, a group width that the per-trajectory
+    kernels cannot take; None leaves the choice to `_lane_group_width`."""
+    if group is not None and not (isinstance(group, int) and 1 <= group <= 32
+                                  and group & (group - 1) == 0):
+        raise ValueError("group must be None or a power of two from 1 to 32 "
+                         f"(lanes a trajectory), got {group!r}")
+
+
+def _group_for(B, H, group, kernel):
+    """The group width a launch runs: `group`, or the host's choice."""
+    if group is None:
+        return _lane_group_width(B, H)
+    if group > H:
+        raise ValueError(f"{kernel}: a group of {group} lanes splits the H={H} "
+                         "hidden units; it must be at most H")
+    return group
+
+
+def _dtype_code(y):
+    return 0 if y.dtype == torch.float32 else 1
+
+
+def _state_scalars(sd, *values):
+    """`values` rounded to the state dtype, as Python floats for ctypes."""
+    return np.array([float(v) for v in values], dtype=sd).tolist()
+
+
 # ---------------------------------------------------------------------------
 # K-dopri5: per-lane adaptive explicit RK.
 # ---------------------------------------------------------------------------
@@ -441,7 +507,7 @@ def dopri5_integrate_batched_ref(field, y0, t0, t1, *, ts=None, rtol=1e-4,
 def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
                              atol=1e-6, method='dopri5', params=(),
                              max_steps=10_000, safety=0.9, ifactor=10.0,
-                             dfactor=0.2, first_step=None):
+                             dfactor=0.2, first_step=None, group=None):
     """Adaptive explicit RK over a batch of independent ODEs, each lane with
     its own step-size controller (JAX ``dopri5_integrate_batched``,
     pallas_kernels.py:336).
@@ -454,6 +520,9 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
             [t0, t1] (default: t1 only).
         rtol, atol, max_steps, safety/ifactor/dfactor, first_step:
             controller settings shared by all lanes.
+        group: the kernel's lanes a trajectory, a power of two from 1 to 32
+            and at most the field's H (default `_lane_group_width`).  It
+            changes only the summation order of the field's hidden units.
 
     Returns:
         (ys (S, D, B), or (D, B) without `ts`; n_accepted (1, B) int32;
@@ -466,48 +535,64 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
     out does so at the same time, e.g. when the others are done).
     """
     _refuse_grad(field, y0, params)
+    _check_group(group)
     if ts is not None:
         ts = host_times(ts)
-        if not (np.diff(ts) > 0).all():
+        if not (ts[1:] > ts[:-1]).all():
             raise ValueError("ts must be strictly increasing")
     if y0.device.type == 'cpu':
         return dopri5_integrate_batched_ref(
             field, y0, t0, t1, ts=ts, rtol=rtol, atol=atol, method=method,
             params=params, max_steps=max_steps, safety=safety,
             ifactor=ifactor, dfactor=dfactor, first_step=first_step)
-    _check_cuda_state(y0, 'dopri5_integrate_batched')
+    launch, (ys, n_acc, n_steps) = _lanes_launch(
+        field, y0, t0, t1, ts=ts, rtol=rtol, atol=atol, method=method,
+        params=params, max_steps=max_steps, safety=safety, ifactor=ifactor,
+        dfactor=dfactor, first_step=first_step, group=group)
+    launch()
+    return (ys[0] if ts is None else ys), n_acc, n_steps
+
+
+def _lanes_launch(field, y0, t0, t1, *, ts=None, rtol=1e-4, atol=1e-6,
+                  method='dopri5', params=(), max_steps=10_000, safety=0.9,
+                  ifactor=10.0, dfactor=0.2, first_step=None, group=None):
+    """Check the inputs of K-dopri5 (`ts` increasing, as the wrapper has
+    checked) and allocate its outputs; return a function that launches it
+    (counted) and the outputs (ys (S, D, B), n_acc, n_steps) it writes.
+    `dopri5_integrate_batched` calls the function once; a timing of the
+    launch alone can call it again."""
+    kernel = 'dopri5_integrate_batched'
+    _check_cuda_state(y0, kernel)
     D, B = y0.shape
-    (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, y0.device, D,
-                                      'dopri5_integrate_batched')
-    sd = np_dtype(y0.dtype)
     dev = y0.device
+    (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, dev, D, kernel)
+    L = _group_for(B, H, group, kernel)
+    sd = np_dtype(y0.dtype)
     tab_d, n_alpha, order, fsal = packed_tableau(method, y0.dtype, dev)
-    emit_ts = tuple(float(v) for v in np.array([t1] if ts is None else ts,
-                                               dtype=sd))
+    emit_ts = tuple(np.array([t1] if ts is None else ts, dtype=sd).tolist())
     S = len(emit_ts)
     shared = (2 * D * H + H + D + tab_d.numel() + S) * y0.element_size()
     if shared > _SMEM_LIMIT:
-        raise ValueError(f"dopri5_integrate_batched: MLP, tableau and {S} "
-                         f"output times need {shared} bytes of shared "
-                         f"memory, above the kernel's {_SMEM_LIMIT}")
+        raise ValueError(f"{kernel}: MLP, tableau and {S} output times need "
+                         f"{shared} bytes of shared memory, above the "
+                         f"kernel's {_SMEM_LIMIT}")
     ts_d = _device_times(emit_ts, y0.dtype, dev)
     ys = y0.new_empty((S, D, B))
-    n_acc = torch.empty((1, B), dtype=torch.int32, device=dev)
-    n_steps = torch.empty((1, B), dtype=torch.int32, device=dev)
-    if B > 0:
-        lib = _build.library()
-        code = lib.tdt_dopri5_lanes(
-            0 if y0.dtype == torch.float32 else 1, B, D, H, field.power,
-            _ptr(y0), _ptr(ts_d), S, float(sd(t0)), float(sd(t1)),
-            float(sd(rtol)), float(sd(atol)), float(sd(safety)),
-            float(sd(ifactor)), float(sd(dfactor)),
-            0.0 if first_step is None else float(sd(first_step)),
-            int(first_step is not None), int(max_steps), _ptr(tab_d),
-            n_alpha, order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2),
-            _ptr(b2), _ptr(ys), _ptr(n_acc), _ptr(n_steps), _stream(dev))
-        _build.check(lib, code, 'dopri5_integrate_batched')
-        launch_counts['dopri5_integrate_batched'] += 1
-    return (ys[0] if ts is None else ys), n_acc, n_steps
+    counts = torch.empty((2, B), dtype=torch.int32, device=dev)
+    args = (_dtype_code(y0), B, D, H, field.power, _ptr(y0), _ptr(ts_d), S,
+            *_state_scalars(sd, t0, t1, rtol, atol, safety, ifactor, dfactor,
+                            0.0 if first_step is None else first_step),
+            int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
+            order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), L,
+            _ptr(ys), *_row_ptrs(counts), _stream(dev))
+    lib = _build.library() if B > 0 else None
+
+    def launch():
+        if B > 0:
+            _build.check(lib, lib.tdt_dopri5_lanes(*args), kernel)
+            launch_counts[kernel] += 1
+
+    return launch, (ys, counts[0:1], counts[1:2])
 
 
 # ---------------------------------------------------------------------------
@@ -608,20 +693,16 @@ def _kernel_event(event_fn, ev_params, y_dtype, device, D, B):
     if len(ev_params) != 1 or tuple(ev_params[0].shape) != (K, B):
         raise ValueError(f"a LinearEvent takes ev_params=(sign0,) with sign0 "
                          f"of shape ({K}, {B})")
-    ws = [w.detach() for w in (event_fn.weight, event_fn.time_coef,
-                               event_fn.bias, ev_params[0])]
-    for w in ws:
-        if w.dtype != y_dtype or w.device != device:
-            raise ValueError(f"LinearEvent weights and sign0 ({w.dtype}, "
-                             f"{w.device}) must match the state ({y_dtype}, "
-                             f"{device})")
-    return [w.contiguous() for w in ws], K
+    return _kernel_tensors((event_fn.weight, event_fn.time_coef,
+                            event_fn.bias, ev_params[0]), y_dtype, device,
+                           "LinearEvent weights and sign0"), K
 
 
 def dopri5_events_batched(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
                           method='dopri5', params=(), ev_params=(),
                           max_steps=10_000, safety=0.9, ifactor=10.0,
-                          dfactor=0.2, first_step=None, bisect_iters=40):
+                          dfactor=0.2, first_step=None, bisect_iters=40,
+                          group=None):
     """Per-lane adaptive explicit RK until each lane's own event changes
     sign, then a fixed-count bisection of each event time on the bracketing
     step's quartic (JAX ``dopri5_events_batched``, pallas_kernels.py:580).
@@ -636,7 +717,7 @@ def dopri5_events_batched(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
             or CUDA); or any lane-layout callable ``event_fn(t (1, B),
             y (D, B), *ev_params) -> (1, B)`` (CPU only).
         bisect_iters: bisection count on x in [0, 1] over the bracket.
-        (other args as in `dopri5_integrate_batched`.)
+        (other args, `group` included, as in `dopri5_integrate_batched`.)
 
     A lane is live while it has found no event and has taken fewer than
     `max_steps` steps; a hit is an accepted step whose end has another
@@ -651,43 +732,62 @@ def dopri5_events_batched(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
     """
     _refuse_grad(field, y0, params)
     _refuse_grad(event_fn, y0, ev_params)
+    _check_group(group)
     if y0.device.type == 'cpu':
         return dopri5_events_batched_ref(
             field, y0, t0, event_fn, rtol=rtol, atol=atol, method=method,
             params=params, ev_params=ev_params, max_steps=max_steps,
             safety=safety, ifactor=ifactor, dfactor=dfactor,
             first_step=first_step, bisect_iters=bisect_iters)
-    _check_cuda_state(y0, 'dopri5_events_batched')
+    launch, outs = _events_launch(
+        field, y0, t0, event_fn, rtol=rtol, atol=atol, method=method,
+        params=params, ev_params=ev_params, max_steps=max_steps,
+        safety=safety, ifactor=ifactor, dfactor=dfactor,
+        first_step=first_step, bisect_iters=bisect_iters, group=group)
+    launch()
+    return outs
+
+
+def _events_launch(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
+                   method='dopri5', params=(), ev_params=(), max_steps=10_000,
+                   safety=0.9, ifactor=10.0, dfactor=0.2, first_step=None,
+                   bisect_iters=40, group=None):
+    """Check the inputs of K-events and allocate its outputs; return a
+    function that launches it (counted) and the outputs (event_t, y_event,
+    found, n_acc, n_steps) it writes, as `_lanes_launch` does for
+    K-dopri5."""
+    kernel = 'dopri5_events_batched'
+    _check_cuda_state(y0, kernel)
     D, B = y0.shape
     dev = y0.device
-    (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, dev, D,
-                                      'dopri5_events_batched')
+    (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, dev, D, kernel)
     (ev_w, ev_c, ev_b, sign0), K = _kernel_event(event_fn, ev_params,
                                                  y0.dtype, dev, D, B)
+    L = _group_for(B, H, group, kernel)
     tab_d, n_alpha, order, fsal = packed_tableau(method, y0.dtype, dev)
     shared = ((2 * D * H + H + D + tab_d.numel() + K * D + 2 * K)
               * y0.element_size())
     if shared > _SMEM_LIMIT:
-        raise ValueError(f"dopri5_events_batched: MLP, tableau and event "
-                         f"weights need {shared} bytes of shared memory, "
-                         f"above the kernel's {_SMEM_LIMIT}")
+        raise ValueError(f"{kernel}: MLP, tableau and event weights need "
+                         f"{shared} bytes of shared memory, above the "
+                         f"kernel's {_SMEM_LIMIT}")
     sd = np_dtype(y0.dtype)
-    event_t = y0.new_empty((1, B))
-    y_event = y0.new_empty((D, B))
-    found, n_acc, n_steps = (torch.empty((1, B), dtype=torch.int32,
-                                         device=dev) for _ in range(3))
-    if B > 0:
-        lib = _build.library()
-        code = lib.tdt_dopri5_events(
-            0 if y0.dtype == torch.float32 else 1, B, D, H, field.power,
-            _ptr(y0), float(sd(t0)), float(sd(rtol)), float(sd(atol)),
-            float(sd(safety)), float(sd(ifactor)), float(sd(dfactor)),
-            0.0 if first_step is None else float(sd(first_step)),
-            int(first_step is not None), int(max_steps), _ptr(tab_d),
-            n_alpha, order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2),
-            _ptr(b2), K, _ptr(ev_w), _ptr(ev_c), _ptr(ev_b), _ptr(sign0),
-            int(bisect_iters), _ptr(event_t), _ptr(y_event), _ptr(found),
-            _ptr(n_acc), _ptr(n_steps), _stream(dev))
-        _build.check(lib, code, 'dopri5_events_batched')
-        launch_counts['dopri5_events_batched'] += 1
-    return event_t, y_event, found, n_acc, n_steps
+    values = y0.new_empty((1 + D, B))   # event_t | y_event
+    counts = torch.empty((3, B), dtype=torch.int32, device=dev)
+    args = (_dtype_code(y0), B, D, H, field.power, _ptr(y0),
+            *_state_scalars(sd, t0, rtol, atol, safety, ifactor, dfactor,
+                            0.0 if first_step is None else first_step),
+            int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
+            order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), K,
+            _ptr(ev_w), _ptr(ev_c), _ptr(ev_b), _ptr(sign0),
+            int(bisect_iters), L, *_row_ptrs(values)[:2],
+            *_row_ptrs(counts), _stream(dev))
+    lib = _build.library() if B > 0 else None
+
+    def launch():
+        if B > 0:
+            _build.check(lib, lib.tdt_dopri5_events(*args), kernel)
+            launch_counts[kernel] += 1
+
+    return launch, (values[0:1], values[1:], counts[0:1], counts[1:2],
+                    counts[2:3])
