@@ -4,9 +4,11 @@
 Drives the port's main path at the spiral neural-ODE's full width (an MLP
 field 2 -> 64 -> 2 on y**3, B=1024 trajectories, T=10 output times on
 [0, 1], rtol=1e-7, atol=1e-9; weights from a numpy seed) through the
-public entry points, the three per-trajectory CUDA kernels through the
-routes that run them, and the fused-step kernel through the chain of the
-JAX package's benchmarks/bench_fused_field.py at its full width:
+public entry points -- the forward solve, and the training step of the JAX
+package's bench.py (continuous-adjoint gradients and an SGD update) --,
+the three per-trajectory CUDA kernels through the routes that run them,
+and the fused-step kernel through the chain of the JAX package's
+benchmarks/bench_fused_field.py at its full width:
 
   1. the card, the torch/CUDA versions, and the kernels' build, with each
      K-rk4, K-dopri5, K-events and K-fused instance's registers and spills
@@ -29,7 +31,9 @@ JAX package's benchmarks/bench_fused_field.py at its full width:
      a trajectory) the host picks at each batch, and three times: through
      the wrapper, the bare launch (the C call with its arguments prepared
      once) and the device time alone (CUDA events around launches queued
-     behind a sleep, so that no host time falls inside);
+     behind a sleep, so that no host time falls inside); and dopri8 (14
+     stages, the shared-memory instance) in float64 against the plain
+     version at B=1024, with its device time in that run;
   7. the event path: `odeint_event` over the whole batch (one controller)
      with a two-output event -- a threshold on the batch mean of y[:, 0]
      that fires first, and a time cut-off -- and `odeint_dense` on [0, 1],
@@ -40,7 +44,7 @@ JAX package's benchmarks/bench_fused_field.py at its full width:
      time cut-off that ends every lane, its launch count reset before and
      read after; the kernel against its plain version (per-lane `found`,
      step and accept counts), and both timed at B=1024 and B=65536, the
-     kernel three ways, as in phase 6;
+     kernel three ways, as in phase 6, and dopri8 as there;
   9. K-fused: the bench's chain at B=4096, D=256, H=1024 (tanh MLP field
      `ops.fused_field.mlp_field`, weights randn * 0.05 and biases 0, y0
      randn, all from numpy RandomState(1); the bfloat16 copies rounded from
@@ -54,7 +58,19 @@ JAX package's benchmarks/bench_fused_field.py at its full width:
      kernel (through its wrapper, and its bare launch alone), the plain
      version and the stock step, with TFLOP/s, the share of the bound and
      the weight stream's rate;
- 10. a JSON line with one entry per kernel (its launches on its path, its
+ 10. the training step of bench.py at full width, float32: `odeint_adjoint`
+     (dopri5, rtol=1e-7, atol=1e-9) of the spiral field from bench.py's
+     `make_shared_init` (RandomState(0)), loss mean((ys - target)**2),
+     backward, p -= 1e-3 * grad; the launch counts reset before and read
+     after (the step runs no kernel of the port); its gradients against the
+     same step on the CPU in float64, the loss over 5 steps, the float64
+     forward and backward counters on the card against the CPU's; the warm
+     step's median wall time and spread over 12 steps, split into forward
+     and backward (CUDA events, the step ending in a synchronize), the
+     forward and backward steps and NFE, VF evals/s, and the device-busy
+     share and launch count from one `torch.profiler` trace of a step; and
+     one `odeint_event` gradient on the card against the CPU;
+ 11. a JSON line with one entry per kernel (its launches on its path, its
      error against its plain version, its time, the plain version's time,
      its bound on this card and the PyTorch call that computes the same
      function, where one exists), the card's name and power limit, then
@@ -132,6 +148,31 @@ ERR_MEDIAN_SHARE = 0.1
 #   start in nearly every element: their sum|y| is printed, as the bench
 #   prints it, and checks nothing.
 CHAIN_F32_REL = 1e-5
+# - dopri8 in K-dopri5 and K-events against the plain version, float64
+#   (phases 6 and 8): dopri8's embedded error estimate is a near-cancelling
+#   sum of 14 slopes, rounding noise on lanes where the field is nearly
+#   linear over a step (the y**3 field is flat near 0), and the next step
+#   size follows it: two summation orders of the hidden units take steps of
+#   slightly different sizes there, agree to the solver's tolerance (1.8e-6
+#   measured on this batch on the CPU between two such orders) and can flip
+#   an accept (ROADMAP C7).  Values are held to 1e-4 and the share of lanes
+#   whose counts differ to 1%.
+DOPRI8_VALUES = 1e-4
+DOPRI8_FLIP_SHARE = 0.01
+# - the training step's float32 gradients on the card against the float64
+#   gradients of the same step on the CPU (phase 10): float32 rounding moves
+#   the step sizes of both solves (float32 takes 11 backward steps where
+#   float64 takes 10, on the CPU), so they agree to the solvers' tolerance
+#   relative to the gradient, not to float32's epsilon: 3.4e-7 of max|g|
+#   measured between float32 and float64 on the CPU.  Held to 1e-5 of max|g|.
+GRAD_F32_REL = 1e-5
+# - float64 gradients on the card against the CPU (the training step and
+#   odeint_event, phase 10): the same steps, differing in the products'
+#   summation order and tanh's last ULP, carried through a forward and a
+#   backward solve: 1e-9 of max|g|.
+GRAD_F64_REL = 1e-9
+TRAIN_STEPS = 12         # phase 10's timed warm steps
+LOSS_STEPS = 5           # and the steps over which the loss must fall
 EVENT_CUT = 0.9          # phase 7's time cut-off
 EVENT_MAX_STEPS = 1000   # phase 8's max_num_steps
 FB, FD, FH = 4096, 256, 1024   # bench_fused_field.py:25
@@ -143,8 +184,8 @@ FUSED_DT, FUSED_STEPS = 1e-4, 20
 SMOKE_INSTANCES = ("rk4<f,D=2>", "rk4<d,D=2>", "lanes<f,D=2>", "lanes<d,D=2>",
                    "lanes<f,D=2,group>", "lanes<d,D=2,group>", "events<f,D=2>",
                    "events<d,D=2>", "events<f,D=2,group>",
-                   "events<d,D=2,group>", "fused_step<f,D=256>",
-                   "fused_step<bf16,D=256>")
+                   "events<d,D=2,group>", "lanes_wide<d>", "events_wide<d>",
+                   "fused_step<f,D=256>", "fused_step<bf16,D=256>")
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W), for
 # each kernel's bound: the larger of its operations over the peak rate of
@@ -198,8 +239,12 @@ def _ptxas_by_instance(log):
 
 
 def _instance_name(mangled):
-    """`lanes<f,D=2>`, and `lanes<f,D=2,group>` for the instance of K-dopri5
-    or K-events that runs lane groups (its `kGroup` template argument)."""
+    """`lanes<f,D=2>`, `lanes<f,D=2,group>` for the instance of K-dopri5
+    or K-events that runs lane groups (its `kGroup` template argument), and
+    `lanes_wide<f>` for their shared-memory instances (any D, dopri8)."""
+    w = re.search(r"(lanes|events)_wide_kernelI(f|d)E", mangled)
+    if w:
+        return f"{w.group(1)}_wide<{w.group(2)}>"
     k = re.search(r"(rk4|lanes|events|fused_step)_kernelI"
                   r"(f|d|13__nv_bfloat16)Li(\d+)E(Lb1E)?", mangled)
     if not k:
@@ -341,6 +386,22 @@ def _times_entry(times):
 def _check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def _dopri8_vs_plain(name, values, want_values, counts, want_counts):
+    """dopri8 in a per-lane kernel against its plain version in float64:
+    the share of lanes whose counts differ and the max |d| of the values,
+    each within its bound (DOPRI8_FLIP_SHARE, DOPRI8_VALUES)."""
+    flips = None
+    for g, w in zip(counts, want_counts):
+        f = g != w
+        flips = f if flips is None else flips | f
+    share = float(flips.float().mean())
+    err = max(float((g - w).abs().max()) for g, w in zip(values, want_values))
+    _check(share <= DOPRI8_FLIP_SHARE and err <= DOPRI8_VALUES,
+           f"{name} dopri8 float64: lanes whose counts differ {share}, "
+           f"max|d|={err}")
+    return dict(dopri8_max_abs_err=err, dopri8_count_flip_share=share)
 
 
 def _bound(flops, nbytes, peak):
@@ -577,6 +638,221 @@ def _phase_fused(torch, fused_field, kernels, tableau, dev):
     return entry
 
 
+def _bench_init(npd):
+    """bench.py's `make_shared_init` (the JAX bench's weights, y0 and
+    target from RandomState(0), drawn in float32), in the dtype `npd`."""
+    rng = np.random.RandomState(0)
+    w1 = (rng.randn(2, H) * 0.1).astype(np.float32)
+    w2 = (rng.randn(H, 2) * 0.1).astype(np.float32)
+    y0 = rng.randn(B, 2).astype(np.float32)
+    target = rng.randn(B, 2).astype(np.float32)
+    params = [dict(w=w1, b=np.zeros(H, np.float32)),
+              dict(w=w2, b=np.zeros(2, np.float32))]
+    params = [{k: v.astype(npd) for k, v in layer.items()} for layer in params]
+    return params, y0.astype(npd), target.astype(npd)
+
+
+def _train_setup(torch, npd, device):
+    """The training step's model (parameters requiring grad), y0, target
+    and output times on `device`."""
+    from torchdiffeq_tpu_torch.models import mlp_params_from_jax
+    params, y0, target = _bench_init(npd)
+    model = mlp_params_from_jax(params, power=3, device=device)
+    t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+    return (model, torch.from_numpy(y0).to(device),
+            torch.from_numpy(target).to(device), t)
+
+
+def _train_step(torch, model, y0, target, t, marks=None):
+    """One step of bench.py's training loop: the adjoint solve, the loss
+    mean((ys - target)**2), its backward and p -= 1e-3 * grad.  `marks`,
+    four CUDA events, are recorded before the solve, after the loss, after
+    the backward and after the update.  Returns (loss, the gradients)."""
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    if marks:
+        marks[0].record()
+    ys = odeint_adjoint(model, y0, t, rtol=RTOL, atol=ATOL, method="dopri5")
+    loss = ((ys - target[None]) ** 2).mean()
+    if marks:
+        marks[1].record()
+    loss.backward()
+    if marks:
+        marks[2].record()
+    grads = []
+    with torch.no_grad():
+        for p in model.parameters():
+            grads.append(p.grad)
+            p -= 1e-3 * p.grad
+            p.grad = None
+    if marks:
+        marks[3].record()
+    return loss.detach(), grads
+
+
+class _BackwardStats:
+    """While active, records the `Stats` of the backward pass's solves
+    (each call of the adjoint's `_raw_odeint`)."""
+
+    def __init__(self):
+        from torchdiffeq_tpu_torch import adjoint
+        self.module = adjoint
+        self.stats = []
+
+    def __enter__(self):
+        self.raw = raw = self.module._raw_odeint
+
+        def recorded(*a, **k):
+            ys, st = raw(*a, **k)
+            self.stats.append(st)
+            return ys, st
+        self.module._raw_odeint = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module._raw_odeint = self.raw
+
+    def counters(self):
+        return [[int(x) for x in st[:5]] for st in self.stats]
+
+
+def _max_rel(got, want):
+    """max over tensors of max|got - want| / max|want|, on the CPU in
+    float64."""
+    return max(float((g.double().cpu() - w.double().cpu()).abs().max()
+                     / w.double().cpu().abs().max()) for g, w in zip(got, want))
+
+
+def _profiled_step(torch, step):
+    """One call of `step` under torch.profiler: (device time of its CUDA
+    kernels in ms, their count, the step's wall ms), or None for the first
+    two when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels_ = [e for e in prof.events() if e.device_type == cuda]
+    if not kernels_:
+        return None, None, wall_ms
+    busy_ms = sum(e.time_range.elapsed_us() for e in kernels_) / 1e3
+    return busy_ms, len(kernels_), wall_ms
+
+
+def _event_grads(torch, device):
+    """`odeint_event` on the training step's model and batch in float64: a
+    threshold on the batch mean of y[:, 0] halfway between its values at
+    t=0 and t=4/9, and a cut-off at EVENT_CUT; the gradients of event_t +
+    mean(y(event_t)**2) in the parameters.  Returns (event_t, gradients)."""
+    from torchdiffeq_tpu_torch import odeint, odeint_event
+    model, y0, _, t = _train_setup(torch, np.float64, device)
+    with torch.no_grad():
+        means = odeint(model, y0, t, rtol=RTOL, atol=ATOL)[:, :, 0].mean(1)
+    thr = float((means[0] + means[4]) / 2)
+
+    def event_fn(tt, yy):
+        return torch.stack([yy[:, 0].mean() - thr,
+                            (tt - EVENT_CUT).to(yy.dtype)])
+
+    et, sol = odeint_event(model, y0, 0.0, event_fn=event_fn, rtol=RTOL,
+                           atol=ATOL)
+    (et + (sol[-1] ** 2).mean()).backward()
+    return float(et.detach()), [p.grad for p in model.parameters()]
+
+
+def _phase_train(torch, kernels, dev):
+    """Phase 10: the training step of bench.py on the card."""
+    from torchdiffeq_tpu_torch import odeint_with_stats
+
+    # the path: LOSS_STEPS steps in float32 on the card, counted
+    model, y0, target, t = _train_setup(torch, np.float32, dev)
+    kernels.reset_launch_counts()
+    losses, first_grads = [], None
+    for i in range(LOSS_STEPS):
+        loss, grads = _train_step(torch, model, y0, target, t)
+        first_grads = first_grads or [g.clone() for g in grads]
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0]
+           and all(bool(torch.isfinite(g).all()) for g in first_grads),
+           f"training step: losses {losses}")
+
+    # the first step's gradients against the same step on the CPU in
+    # float64, and the float64 step on the card against the CPU: forward and
+    # backward counters equal, gradients within GRAD_F64_REL
+    runs = {}
+    for device in ("cpu", dev):
+        m64, y64, tg64, _ = _train_setup(torch, np.float64, device)
+        with torch.no_grad():
+            _, st_f = odeint_with_stats(m64, y64, t, rtol=RTOL, atol=ATOL)
+        with _BackwardStats() as bwd:
+            _, g64 = _train_step(torch, m64, y64, tg64, t)
+        runs[str(device)] = ([int(x) for x in st_f[:5]], bwd.counters(), g64)
+    (f_cpu, b_cpu, g_cpu), (f_gpu, b_gpu, g_gpu) = runs["cpu"], runs[str(dev)]
+    rel32 = _max_rel(first_grads, g_cpu)
+    rel64 = _max_rel(g_gpu, g_cpu)
+    _check(rel32 <= GRAD_F32_REL, f"training step float32 gradients vs CPU "
+           f"float64: {rel32} of max|g|")
+    _check(f_gpu == f_cpu and b_gpu == b_cpu and rel64 <= GRAD_F64_REL,
+           f"training step float64 card vs CPU: forward {f_gpu} vs {f_cpu}, "
+           f"backward {b_gpu} vs {b_cpu}, gradients {rel64} of max|g|")
+
+    # one odeint_event gradient, float64, card against CPU
+    et_gpu, ge_gpu = _event_grads(torch, dev)
+    et_cpu, ge_cpu = _event_grads(torch, "cpu")
+    rel_ev = _max_rel(ge_gpu, ge_cpu)
+    _check(abs(et_gpu - et_cpu) <= F64_VALUES and rel_ev <= GRAD_F64_REL
+           and 0.0 < et_gpu < EVENT_CUT,
+           f"odeint_event gradient card vs CPU: event_t {et_gpu} vs "
+           f"{et_cpu}, gradients {rel_ev} of max|g|")
+
+    # the warm step's time, forward and backward, float32
+    with torch.no_grad():
+        _, st32 = odeint_with_stats(model, y0, t, rtol=RTOL, atol=ATOL)
+    times = []
+    with _BackwardStats() as bwd32:
+        for _ in range(TRAIN_STEPS):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            _train_step(torch, model, y0, target, t, marks)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+            times.append((marks[0].elapsed_time(marks[3]),
+                          marks[0].elapsed_time(marks[1]),
+                          marks[1].elapsed_time(marks[2]), wall))
+    bwd_st = bwd32.stats[-1]
+    step_ms, fwd_ms, bwd_ms, wall_ms = (np.array(c) for c in zip(*times))
+    busy_ms, n_launch, prof_wall = _profiled_step(
+        torch, lambda: _train_step(torch, model, y0, target, t))
+    nfe = int(st32.nfe) + int(bwd_st.nfe)
+    med = float(np.median(step_ms))
+    busy = ("not measured (no device time in the trace)" if busy_ms is None
+            else f"{busy_ms:.3f} ms of device time in {n_launch} kernels, "
+            f"{busy_ms / med:.1%} of the median step ({busy_ms / prof_wall:.1%}"
+            f" of the traced step's {prof_wall:.1f} ms)")
+    print(f"[10 training step] bench.py's step B={B} H={H} T={T} dopri5 "
+          f"rtol={RTOL} atol={ATOL} float32, odeint_adjoint + SGD lr 1e-3; "
+          f"kernel launches {launches} (the step runs none) | loss over "
+          f"{LOSS_STEPS} steps {losses[0]:.7f} -> {losses[-1]:.7f} | "
+          f"gradients vs CPU float64: float32 {rel32:.2e} of max|g| (<= "
+          f"{GRAD_F32_REL}), float64 {rel64:.2e} (<= {GRAD_F64_REL}); float64 "
+          f"counters forward {f_gpu}, backward {b_gpu} == CPU | odeint_event "
+          f"gradient float64 vs CPU {rel_ev:.2e} of max|g| (event_t "
+          f"{et_gpu:.9f}) | warm step over {TRAIN_STEPS}: median "
+          f"{med:.2f} ms (min {step_ms.min():.2f}, max {step_ms.max():.2f}); "
+          f"forward {np.median(fwd_ms):.2f} ms ({fwd_ms.min():.2f}.."
+          f"{fwd_ms.max():.2f}), backward {np.median(bwd_ms):.2f} ms "
+          f"({bwd_ms.min():.2f}..{bwd_ms.max():.2f}), host wall median "
+          f"{np.median(wall_ms):.2f} ms | forward steps {st32.n_steps} nfe "
+          f"{st32.nfe}, backward steps {bwd_st.n_steps} nfe {bwd_st.nfe} | "
+          f"{nfe * B / (med / 1e3):.4g} VF evals/s | device busy: {busy}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -775,6 +1051,16 @@ def main():
         # the per-lane step counts at the large batch, for its bound
         stp_big = kernels.dopri5_integrate_batched(model, yb, 0.0, 1.0,
                                                    **kw)[2]
+        # dopri8: the shared-memory instance, float64 against the plain
+        # version, and its device time on that run (B=1024)
+        k8 = kernels.dopri5_integrate_batched(model64, y64T, 0.0, 1.0,
+                                              method="dopri8", **kw64)
+        r8 = kernels.dopri5_integrate_batched_ref(model64, y64T, 0.0, 1.0,
+                                                  method="dopri8", **kw64)
+        l8 = _dopri8_vs_plain("K-dopri5", k8[:1], r8[:1], k8[1:], r8[1:])
+        l8["dopri8_device_ms"] = _device_ms(torch, kernels._lanes_launch(
+            model64, y64T, 0.0, 1.0, method="dopri8", **kw64)[0], 20)
+        l8["dopri8_steps"] = f"{int(k8[2].min())}..{int(k8[2].max())}"
     torch.cuda.synchronize()
     print(f"[6 K-dopri5] float32 max|dy|={err_l:.3e} (<= "
           f"{F32_ADAPTIVE_VALUES}), lanes with equal steps "
@@ -782,13 +1068,18 @@ def main():
           f"{int(dstp.max())} (<= {F32_ADAPTIVE_STEPS}) | float64 max|dy|="
           f"{err_l64:.3e} (<= {F64_VALUES}), per-lane steps and accepts "
           f"equal | steps {int(stp_k.min())}..{int(stp_k.max())} | "
-          + " | ".join(_times_row(b, t) for b, t in ltimes.items()))
+          + " | ".join(_times_row(b, t) for b, t in ltimes.items())
+          + f" | dopri8 (shared-memory instance) float64 vs plain: max|dy|="
+          f"{l8['dopri8_max_abs_err']:.3e} (<= {DOPRI8_VALUES}), lanes whose "
+          f"counts differ {l8['dopri8_count_flip_share']:.4f} (<= "
+          f"{DOPRI8_FLIP_SHARE}), steps {l8['dopri8_steps']}; device time "
+          f"float64 B={B} {l8['dopri8_device_ms']:.4f} ms")
     summary.append(dict(
         name="dopri5_integrate_batched", route="cuda",
         source="torchdiffeq_tpu_torch/csrc/dopri5_lanes.cu",
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:336",
         launches=launches["dopri5_integrate_batched"], max_abs_err=err_l,
-        **_times_entry(ltimes),
+        **_times_entry(ltimes), **l8,
         # over this run's per-lane step counts; y0 read, the T output rows
         # and two counters a lane written
         **dict(zip(("bound_ms", "bound_by"), _bound(
@@ -935,6 +1226,15 @@ def main():
         # the per-lane step counts at the large batch, for its bound
         ev_stp_big = kernels.dopri5_events_batched(model, yb, 0.0, eb,
                                                    **kwb)[4]
+        # dopri8, as in phase 6
+        k8 = kernels.dopri5_events_batched(model64, y64T, 0.0, event64,
+                                           method="dopri8", **ekw64)
+        r8 = kernels.dopri5_events_batched_ref(model64, y64T, 0.0, event64,
+                                               method="dopri8", **ekw64)
+        e8 = _dopri8_vs_plain("K-events", k8[:2], r8[:2], k8[2:], r8[2:])
+        e8["dopri8_device_ms"] = _device_ms(torch, kernels._events_launch(
+            model64, y64T, 0.0, event64, method="dopri8", **ekw64)[0], 20)
+        e8["dopri8_steps"] = f"{int(k8[4].min())}..{int(k8[4].max())}"
     torch.cuda.synchronize()
     print(f"[8 K-events] per-sample event route B={B} float32: lanes fired "
           f"on the y[0] threshold {float((~at_cut).float().mean()):.4f}, on "
@@ -946,18 +1246,26 @@ def main():
           f"{int(d_ev_steps.max())} (<= {F32_ADAPTIVE_STEPS}) | float64 "
           f"max|d event_t|={err_ev64:.3e}, max|d y_event|={err_ye64:.3e} (<= "
           f"{F64_VALUES}), per-lane found, steps and accepts equal | "
-          + " | ".join(_times_row(b, t) for b, t in etimes.items()))
+          + " | ".join(_times_row(b, t) for b, t in etimes.items())
+          + f" | dopri8 (shared-memory instance) float64 vs plain: max|d|="
+          f"{e8['dopri8_max_abs_err']:.3e} (<= {DOPRI8_VALUES}), lanes whose "
+          f"counts differ {e8['dopri8_count_flip_share']:.4f} (<= "
+          f"{DOPRI8_FLIP_SHARE}), steps {e8['dopri8_steps']}; device time "
+          f"float64 B={B} {e8['dopri8_device_ms']:.4f} ms")
     summary.append(dict(
         name="dopri5_events_batched", route="cuda",
         source="torchdiffeq_tpu_torch/csrc/dopri5_events.cu",
         replaces="torchdiffeq_tpu/ops/pallas_kernels.py:580",
         launches=ev_launches, max_abs_err=err_ev32, **_times_entry(etimes),
+        **e8,
         # over this run's per-lane step counts (`_events_bound`)
         **dict(zip(("bound_ms", "bound_by"), _events_bound(st_ev.n_steps, B))),
         bound_ms_65536=_events_bound(ev_stp_big, BIG_B)[0],
         library_ms=None))
 
     summary.append(_phase_fused(torch, fused_field, kernels, DOPRI5, dev))
+
+    _phase_train(torch, kernels, dev)
 
     torch.cuda.synchronize()
     print(_card())

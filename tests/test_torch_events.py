@@ -196,7 +196,7 @@ def test_event_max_num_steps_matches_jax():
     (dict(method='rk4'), "ROADMAP A4"),
     (dict(method='euler'), "ROADMAP A4"),
     (dict(method='implicit_adams'), "ROADMAP A4, A9"),
-    (dict(options=dict(replay_grad=True)), "ROADMAP A3"),
+    (dict(options=dict(replay_grad=True)), "ROADMAP A10"),
 ])
 def test_event_routes_not_ported_raise(call, match):
     """Fixed-grid, Adams and implicit event solves and replay gradients
@@ -213,11 +213,26 @@ def test_event_requires_two_times():
 
 
 def test_event_refuses_autograd():
-    """No adjoint yet (ROADMAP A3): a differentiable call raises."""
-    y0 = torch.ones(1, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tt.odeint_event(lambda t, y: -y, y0, 0.0,
-                        event_fn=lambda t, y: y[0] - 0.5)
+    """A differentiable event solve takes its gradients from the adjoint
+    and the IFT reroute: for dy/dt = -y and the event y == 0.5, t* =
+    ln(y0 / 0.5) and dt*/dy0 = 1/y0 (JAX tests/test_events.py:75-90; held
+    against JAX in tests/test_torch_adjoint.py).  What still refuses is the
+    forward-only per-sample kernel route and odeint_dense."""
+    y0 = torch.full((1,), 1.3, dtype=torch.float64, requires_grad=True)
+    et, _ = tt.odeint_event(lambda t, y: -y, y0, 0.0,
+                            event_fn=lambda t, y: y[0] - 0.5, rtol=1e-10,
+                            atol=1e-12)
+    et.backward()
+    np.testing.assert_allclose(float(y0.grad), 1 / 1.3, rtol=1e-6)
+    from torchdiffeq_tpu_torch.models import LinearEvent
+    with pytest.raises(RuntimeError, match="forward-only.*ROADMAP A6"):
+        tt.odeint_per_sample_with_stats(
+            lambda t, y: -y, y0.expand(4, 1), torch.tensor([0.0, 5.0]),
+            options=dict(pallas=True),
+            event_fn=LinearEvent([[1.0]], bias=[-0.5], dtype=torch.float64,
+                                 device='cpu'))
+    with pytest.raises(NotImplementedError, match="no gradients"):
+        tt.odeint_dense(lambda t, y: -y, y0, 0.0, 1.0)
 
 
 # ---- find_event, combine_event_functions, the IFT reroute -----------------

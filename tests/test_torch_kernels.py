@@ -17,7 +17,7 @@ from torchdiffeq_tpu.parallel import (
     odeint_per_sample_with_stats as j_per_sample)
 import torchdiffeq_tpu_torch as tt
 from torchdiffeq_tpu_torch.models import LinearEvent, mlp_params_from_jax
-from torchdiffeq_tpu_torch.ops import _build, kernels
+from torchdiffeq_tpu_torch.ops import _build, kernels, tableaus
 from torchdiffeq_tpu_torch.ops.kernels import (
     rk4_integrate, rk4_integrate_ref, dopri5_integrate_batched,
     dopri5_integrate_batched_ref, dopri5_events_batched,
@@ -111,6 +111,27 @@ def test_odeint_rk4_kernel_route_matches_jax(dtype):
     np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j),
                                rtol=_tol(dtype), atol=_tol(dtype))
     assert list(st_t[:5]) == [int(x) for x in st_j[:5]] == [400, 100, 100, 0, 0]
+
+
+def test_odeint_rk4_route_takes_the_pallas_options():
+    """The Pallas kernel's own options `interpret` and `block_b` (a TPU lane
+    tile) are accepted and dropped on the rk4 route, as JAX's route takes
+    them (odeint.py:207): the same call in both packages, values to 1e-12
+    and equal counters (ROADMAP C8)."""
+    ws, rng = _weights(4, np.float64)
+    y0 = rng.randn(16, 2)
+    t = np.linspace(0.0, 1.0, 5)
+    options = dict(pallas=True, num_steps=40, interpret=True, block_b=8)
+    ys_j, st_j = tde.odeint_with_stats(
+        j_field, jnp.asarray(y0), jnp.asarray(t), method='rk4',
+        args=tuple(jnp.asarray(w) for w in ws), options=options)
+    with torch.no_grad():
+        ys_t, st_t = tt.odeint_with_stats(
+            _model(ws), torch.from_numpy(y0), torch.from_numpy(t),
+            method='rk4', options=options)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=1e-12)
+    assert list(st_t[:5]) == [int(x) for x in st_j[:5]] == [160, 40, 40, 0, 0]
 
 
 # ---- K-dopri5 (per lane) --------------------------------------------------
@@ -465,8 +486,18 @@ def test_packed_tableau_is_made_once_per_key():
     ts = (0.0, 0.5, 1.0)
     assert kernels._device_times(ts, torch.float32, cpu) is \
         kernels._device_times(ts, torch.float32, cpu)
-    with pytest.raises(ValueError, match="stages"):
-        kernels.packed_tableau('dopri8', torch.float32, cpu)
+    # dopri8's 14 stages fill the packed layout (csrc/lane_ops.cuh)
+    tab, n_alpha, order, fsal = kernels.packed_tableau('dopri8',
+                                                       torch.float64, cpu)
+    d8 = tableaus.DOPRI8
+    assert (n_alpha, order, fsal) == (13, 8, True)
+    assert tab.numel() == 13 + 13 * 13 + 3 * 14
+    assert tab[:13].tolist() == list(d8.alpha)
+    assert tab[13:182].reshape(13, 13).numpy().tolist() == \
+        np.asarray(d8.beta).tolist()
+    assert tab[182:196].tolist() == list(d8.c_sol)
+    assert tab[196:210].tolist() == list(d8.c_error)
+    assert tab[210:224].tolist() == list(d8.c_mid)
 
 
 def test_build_reads_the_log_of_a_cached_library(tmp_path, monkeypatch):
@@ -619,3 +650,85 @@ def test_linear_event_keeps_a_tensor_weights_device():
                         time_coef=[1.0, 0.0], bias=np.zeros(2))
     assert all(p.device.type == 'cpu' and p.dtype == torch.float64
                for p in event.parameters())
+
+
+# ---- dopri8 and D > 8 (the CUDA kernels' shared-memory instances) ----------
+
+# dopri8's embedded error estimate is a near-cancelling sum of 14 slopes.
+# On a lane where the field is nearly linear over a step it is rounding
+# noise, and the controller's next step (min(ifactor, 0.9 ratio^-1/8), not
+# yet at its cap for ratios above 4e-9) follows that noise: two summation
+# orders then take steps of slightly different sizes, agree to the solver's
+# tolerance rather than to 1e-12, and can flip an accept.  A first step of
+# 0.2, where the estimate is truncation, and a field with no flat lanes
+# (no y**3 near 0) keep the counts equal.  Values against JAX's
+# interpreted kernel, measured: 2.1e-11 (dopri8, D=2), 2.0e-14 (dopri5,
+# D=12), 2.2e-11 (dopri8, D=12); held to 1e-9, 1e-12 and 1e-9.
+WIDE = [(2, 1, 0.5, 'dopri8', 1e-9), (12, 1, 0.3, 'dopri5', 1e-12),
+        (12, 1, 0.3, 'dopri8', 1e-9)]
+
+
+def _wide_problem(D, power, scale, seed=7, B=48):
+    rng = np.random.RandomState(seed)
+    ws = ((rng.randn(D, 32) * scale), rng.randn(32) * 0.1,
+          (rng.randn(32, D) * scale), rng.randn(D) * 0.1)
+    y0 = rng.randn(D, B) * 0.8
+
+    def j_field(tv, yv, w1, b1, w2, b2):
+        x = yv.T if power == 1 else yv.T ** power
+        return (jnp.tanh(x @ w1 + b1) @ w2 + b2).T
+
+    model = mlp_params_from_jax([dict(w=ws[0], b=ws[1]),
+                                 dict(w=ws[2], b=ws[3])], power=power,
+                                device='cpu').requires_grad_(False)
+    return ws, y0, j_field, model
+
+
+@pytest.mark.parametrize("D,power,scale,method,tol", WIDE)
+def test_lanes_ref_dopri8_and_wide_state_match_jax(D, power, scale, method,
+                                                   tol):
+    """The plain K-dopri5 on dopri8 (14 stages) and a 12-row state against
+    the interpreted JAX kernel, which pads D to its sublane tile: float64
+    per-lane steps and accepts exactly equal."""
+    ws, y0, j_field, model = _wide_problem(D, power, scale)
+    kw = dict(rtol=1e-7, atol=1e-9, method=method, first_step=0.2)
+    ts = np.linspace(0.0, 1.0, 4)
+    ys_j, acc_j, stp_j = (np.asarray(o) for o in j_lanes(
+        j_field, jnp.asarray(y0), 0.0, 1.0, ts=ts,
+        params=tuple(jnp.asarray(w) for w in ws),
+        per_lane_params=(False,) * 4, interpret=True, **kw))
+    ys_t, acc_t, stp_t = (o.numpy() for o in dopri5_integrate_batched(
+        model, torch.from_numpy(y0), 0.0, 1.0, ts=ts, **kw))
+    np.testing.assert_array_equal(stp_t, stp_j)
+    np.testing.assert_array_equal(acc_t, acc_j)
+    assert ys_t.shape == (4, D, 48)
+    np.testing.assert_allclose(ys_t, ys_j, rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("D,power,scale,method,tol", WIDE)
+def test_events_ref_dopri8_and_wide_state_match_jax(D, power, scale, method,
+                                                    tol):
+    """The plain K-events likewise, with a LinearEvent threshold on y[0]
+    and a time cut-off: found, steps and accepts exactly equal."""
+    ws, y0, j_field, model = _wide_problem(D, power, scale)
+    W = np.zeros((2, D))
+    W[0, 0] = 1.0
+    c = np.array([0.0, 1.0])
+    b = np.array([-float(np.median(y0[0])), -0.7])
+    sign0 = np.sign(W @ y0 + b[:, None])
+    kw = dict(rtol=1e-7, atol=1e-9, method=method, first_step=0.2)
+    want = _event_out(j_events(
+        j_field, jnp.asarray(y0), 0.0, j_linear_event,
+        params=tuple(jnp.asarray(w) for w in ws),
+        per_lane_params=(False,) * 4, interpret=True,
+        **_j_ev_params(W, c, b, sign0), **kw))
+    event = LinearEvent(W, time_coef=c, bias=b,
+                        device='cpu').requires_grad_(False)
+    got = [o.numpy() for o in dopri5_events_batched(
+        model, torch.from_numpy(y0), 0.0, event,
+        ev_params=(torch.from_numpy(sign0),), **kw)]
+    for g, w, name in zip(got[2:], want[2:], ('found', 'acc', 'steps')):
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got[2].all()
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=tol)
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=tol)

@@ -107,3 +107,55 @@ def test_models_default_to_the_card(build):
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
+
+
+@pytest.mark.parametrize("time_dependent", [False, True])
+def test_mlp_vector_field_matches_jax(time_dependent):
+    """`mlp_vector_field`: the MLP over y, or over [y, t] (JAX
+    models/neural_ode.py:37-47)."""
+    from torchdiffeq_tpu.models.neural_ode import (
+        mlp_vector_field as j_mlp_vector_field)
+    from torchdiffeq_tpu_torch.models import mlp_vector_field
+    rng = np.random.RandomState(2)
+    params = _params(rng, [3 if time_dependent else 2, 16, 2], np.float64)
+    y = rng.randn(8, 2)
+    want = np.asarray(j_mlp_vector_field(params, 0.7, jnp.asarray(y),
+                                         time_dependent=time_dependent))
+    got = mlp_vector_field(mlp_params_from_jax(params, device='cpu'),
+                           torch.tensor(0.7, dtype=torch.float64),
+                           torch.from_numpy(y), time_dependent=time_dependent)
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-13,
+                               atol=1e-13)
+
+
+@pytest.mark.parametrize("use_adjoint", [True, False])
+def test_ode_block_gradients_match_jax(use_adjoint):
+    """`ode_block` (JAX models/neural_ode.py:58-66) on the spiral field:
+    the trajectory and the parameters' gradients of a loss on it, through
+    odeint_adjoint or plain odeint (both the adjoint), float64."""
+    from torchdiffeq_tpu.models.neural_ode import ode_block as j_ode_block
+    from torchdiffeq_tpu_torch.models import ode_block
+    rng = np.random.RandomState(3)
+    params = _params(rng, [2, 16, 2], np.float64)
+    y0 = rng.randn(8, 2) * 0.5
+    t = np.linspace(0.0, 1.0, 4)
+
+    def loss_j(p):
+        ys = j_ode_block(p, jnp.asarray(y0), jnp.asarray(t),
+                         field=j_spiral_field, use_adjoint=use_adjoint)
+        return jnp.sum(ys ** 2), ys
+
+    (_, ys_j), g_j = jax.value_and_grad(loss_j, has_aux=True)(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    model = mlp_params_from_jax(params, power=3, device='cpu')
+    ys_t = ode_block(model, torch.from_numpy(y0), torch.from_numpy(t),
+                     field=spiral_field, use_adjoint=use_adjoint)
+    (ys_t ** 2).sum().backward()
+    np.testing.assert_allclose(ys_t.detach().numpy(), np.asarray(ys_j),
+                               rtol=0, atol=1e-12)
+    for got, want in ((model.weights[0].grad, g_j[0]['w']),
+                      (model.biases[0].grad, g_j[0]['b']),
+                      (model.weights[1].grad, g_j[1]['w']),
+                      (model.biases[1].grad, g_j[1]['b'])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                                   atol=1e-11)

@@ -146,9 +146,11 @@ def test_closed_form_linear_decay():
     dict(method='kvaerno5'), dict(method='scipy_solver'),
     dict(method='rk4'),                                   # not the kernel route
     dict(method='rk4', options=dict(pallas=True, num_steps=7)),  # 7 % 3 != 0
-    dict(options=dict(step_t=[0.5])), dict(options=dict(jump_t=[0.5])),
-    dict(options=dict(controller='pi')), dict(options=dict(step_to_end=True)),
-    dict(options=dict(norm=lambda x: x.abs().max())),
+    # step_t, jump_t, step_to_end and user norms are ported (the adjoint's
+    # slice); these places hold options that are still to come
+    dict(options=dict(replay_grad=True)), dict(options=dict(forward_grad=True)),
+    dict(options=dict(controller='pi')), dict(options=dict(pcoeff=0.3)),
+    dict(options=dict(error_dtype=torch.float32)),
     dict(options=dict(dtype=torch.float32)),
     dict(method='rk4', event_fn=lambda t, y: y[0, 0]),   # fixed-grid events
 ])
@@ -160,26 +162,45 @@ def test_not_yet_ported_raises(call):
 
 
 def test_tuple_state_raises():
-    y0 = (torch.ones(2), torch.ones(3))
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tt.odeint(lambda tt_, y: y, y0, torch.linspace(0.0, 1.0, 3))
+    """A tuple state solves (tests/test_torch_adjoint.py holds it against
+    JAX); what raises is a leaf that is not floating point, and per-leaf
+    tolerances of the wrong length."""
+    t = torch.linspace(0.0, 1.0, 3)
+    with pytest.raises(TypeError, match="floating point"):
+        tt.odeint(lambda tt_, y: y, (torch.ones(2), torch.ones(3).int()), t)
+    with pytest.raises(ValueError, match="per-leaf rtol"):
+        tt.odeint(lambda tt_, y: y, (torch.ones(2), torch.ones(3)), t,
+                  rtol=[1e-6, 1e-6, 1e-6])
+    ys = tt.odeint(lambda tt_, y: (-y[0], y[1]), (torch.ones(2),
+                                                   torch.ones(3)), t)
+    assert [tuple(y.shape) for y in ys] == [(3, 2), (3, 3)]
 
 
 def test_refuses_when_autograd_would_need_a_graph():
-    """The slice has no gradients (the adjoint is ROADMAP A3): with grad
-    mode on and something requiring grad it raises, never returning a
+    """With grad mode on and something requiring grad, plain odeint takes
+    its gradients from the continuous adjoint (ROADMAP C4; the values are
+    held to JAX in tests/test_torch_adjoint.py); the forward-only kernel
+    route and the gradient modes still to come raise, never returning a
     silently detached result; under no_grad it solves."""
     params, y0 = _problem(0, np.float64)
     model = mlp_params_from_jax(params, power=3, device='cpu')
     t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
     y = torch.from_numpy(y0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tt.odeint(model, y, t)                       # parameters need grad
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        tt.odeint(lambda tt_, yy: -yy, y.clone().requires_grad_(), t)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
+    ys = tt.odeint(model, y, t)                      # parameters need grad
+    assert ys.requires_grad
+    ys.sum().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+    y_g = y.clone().requires_grad_()
+    tt.odeint(lambda tt_, yy: -yy, y_g, t)[-1].sum().backward()
+    torch.testing.assert_close(y_g.grad, torch.full_like(y, np.exp(-1.0)),
+                               rtol=1e-6, atol=0)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         tt.odeint(model, y, t, method='rk4',
                   options=dict(pallas=True, num_steps=4))
+    for option in ('replay_grad', 'forward_grad'):
+        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
+            tt.odeint(model, y, t, options={option: True})
     with torch.no_grad():
         ys = tt.odeint(model, y, t)
     assert ys.shape == (3, 8, 2) and not ys.requires_grad

@@ -8,11 +8,13 @@ raises `NotImplementedError` naming its ROADMAP item.
 """
 from .misc import Perturb
 from .odeint import odeint, odeint_with_stats
+from .adjoint import odeint_adjoint
 from .events import odeint_event
 from .dense import odeint_dense, DenseSolution
 from .parallel.batched import odeint_per_sample, odeint_per_sample_with_stats
 from .solvers.solution import Stats
 
-__all__ = ['odeint', 'odeint_with_stats', 'odeint_event', 'odeint_dense',
+__all__ = ['odeint', 'odeint_with_stats', 'odeint_adjoint',
+           'odeint_event', 'odeint_dense',
            'DenseSolution', 'odeint_per_sample',
            'odeint_per_sample_with_stats', 'Stats', 'Perturb']

@@ -1,0 +1,485 @@
+"""The continuous adjoint as a ``torch.autograd.Function`` (counterpart of
+``torchdiffeq_tpu/adjoint.py``; reference torchdiffeq/_impl/adjoint.py).
+
+The forward solve records nothing for autograd; the backward pass solves
+the augmented ODE ``(vjp_t, y, adj_y, theta_bar)`` in reverse time:
+
+* **Parameters.**  The JAX package finds them with `jax.closure_convert`.
+  Here they are the reference's own PyTorch contract: `adjoint_params` when
+  given, else the parameters of an ``nn.Module`` field that require grad,
+  plus every floating tensor in `args` (nested lists, tuples and dicts
+  included).  A tensor that the field captures in a closure gets no
+  gradient unless it is passed in one of those ways.
+* **The augmented field.**  Each evaluation runs the field once under
+  ``torch.enable_grad()`` and then one ``torch.autograd.grad`` of
+  ``<f, -adj_y>`` with respect to time, state and parameters; a parameter
+  the field does not use gets zeros, as in JAX.  The time is a float64 host
+  scalar in the solver; the evaluation makes it a 0-d tensor on the state's
+  device (a fill, not a copy), so the time gradient stays on the device.
+* **The sweep.**  For adaptive adjoint methods and more than two output
+  times, ONE reverse solve over the whole span, whose interior output times
+  are ``jump_t`` points: there a `jump_state_fn` hook resets y to the
+  forward estimate, adds the output's cotangent to adj_y and its time
+  effect to vjp_t (JAX adjoint.py:481-529).  Otherwise an interval-by-
+  interval sweep whose controller starts each interval from the previous
+  interval's last proposed step (:531-561).  ``step_to_end`` is on by
+  default: the backward's only outputs are the interval ends.
+* **Norms** (reference `handle_adjoint_norm_`, adjoint.py:243-288): the
+  default ``max(|vjp_t|, ||y||, ||adj_y||, mixed(theta_bar))``,
+  ``'seminorm'`` without the parameter term, or a user callable.
+* ``adjoint_options=dict(noise_floor=...)`` floors the backward rtol at the
+  state dtype's rounding unit (JAX :136-186).
+
+The state is kept flat inside the backward: the augmented state is one 1-D
+tensor, so each step's stage sums are one operation each, whatever the
+number of parameters.  Not ported: the interpolated adjoint (ROADMAP A10).
+"""
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from .misc import (check_inputs, flatten_state, host_times, is_tuple_state,
+                   mixed_norm, rms_norm, time_sign)
+from .solvers import SOLVERS, NOT_PORTED
+from .solvers import adaptive_rk
+
+
+def _tensors_in(obj):
+    """The tensors of a nested list, tuple or dict, in order."""
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    if isinstance(obj, dict):
+        return [x for v in obj.values() for x in _tensors_in(v)]
+    if isinstance(obj, (list, tuple)):
+        return [x for v in obj for x in _tensors_in(v)]
+    return []
+
+
+def _replace_tensors(obj, subs):
+    """`obj` with each tensor whose id is a key of `subs` replaced."""
+    if isinstance(obj, torch.Tensor):
+        return subs.get(id(obj), obj)
+    if isinstance(obj, dict):
+        return type(obj)((k, _replace_tensors(v, subs)) for k, v in
+                         obj.items())
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_replace_tensors(v, subs) for v in obj)
+    return obj
+
+
+def _adjoint_params(func, args, adjoint_params):
+    """The tensors that get adjoint gradients, without repeats:
+    `adjoint_params` (those requiring grad), or the parameters of an
+    ``nn.Module`` `func` that require grad and every floating tensor in
+    `args`.  Returns (module-side tensors, args tensors)."""
+    seen = set()
+
+    def fresh(xs):
+        out = []
+        for x in xs:
+            if id(x) not in seen:
+                seen.add(id(x))
+                out.append(x)
+        return out
+
+    if adjoint_params is not None:
+        return fresh(p for p in adjoint_params if p.requires_grad), []
+    params = []
+    if isinstance(func, torch.nn.Module):
+        params = fresh(p for p in func.parameters() if p.requires_grad)
+    arg_tensors = fresh(x for x in _tensors_in(args) if x.is_floating_point())
+    return params, arg_tensors
+
+
+def _check_method(name, what):
+    name = 'dopri5' if name is None else name
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{what} {name!r} is not ported yet ({NOT_PORTED[name]})")
+    if name not in SOLVERS:
+        raise ValueError('Invalid method "{}". Must be one of {}'.format(
+            name, '{"' + '", "'.join(SOLVERS.keys()) + '"}.'))
+    if SOLVERS[name]['kind'] != 'adaptive':
+        raise NotImplementedError(
+            f"{what} {name!r}: the fixed-grid tier and its gradients are "
+            "ROADMAP A4 (rk4 runs only on its forward kernel route)")
+    return name
+
+
+def _raw_odeint(func, y0, t, rtol, atol, method, options, time_direction):
+    """A solve that records no gradient, inside the backward pass (JAX
+    `_raw_odeint`): `y0` one tensor (the flat augmented state), the
+    adaptive driver.  Returns (ys, Stats)."""
+    from .odeint import _adaptive_config
+    prob = check_inputs(func, y0, t, rtol, atol, method, options, None,
+                        SOLVERS, time_direction=time_direction)
+    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
+    return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+
+
+def _noise_floor(spec, y0_leaves, rtol, atol):
+    """The `noise_floor` preset (JAX adjoint.py:160-186): rtol floored at
+    the state dtype's rounding unit (or at the given value), and atol
+    scaled by the same factor, so the rtol/atol ratio is kept."""
+    u = (max(torch.finfo(x.dtype).eps / 2 for x in y0_leaves)
+         if spec is True else float(spec))
+
+    def floor_r(r):
+        return max(float(r), u)
+
+    def scale_a(r, a):
+        return a * (floor_r(r) / float(r)) if float(r) > 0 else a
+
+    if np.ndim(rtol) == 0 and np.ndim(atol) == 0:
+        return floor_r(rtol), scale_a(rtol, atol)
+    if np.ndim(rtol) != 0 and np.ndim(atol) != 0 and len(rtol) == len(atol):
+        return ([floor_r(r) for r in rtol],
+                [scale_a(r, a) for r, a in zip(rtol, atol)])
+    # rtol and atol of different structure: floor rtol only
+    return (floor_r(rtol) if np.ndim(rtol) == 0
+            else [floor_r(r) for r in rtol]), atol
+
+
+class _Layout:
+    """The flat augmented state ``[vjp_t | y | adj_y | theta_bar]`` and its
+    views in the user's structure (the state's shape, or its tuple)."""
+
+    def __init__(self, y_shape, unravel, params):
+        self.n = int(np.prod(y_shape))
+        self.y_shape = tuple(y_shape)
+        self.unravel = unravel
+        self.p_shapes = [p.shape for p in params]
+        self.p_sizes = [p.numel() for p in params]
+
+    def split(self, aug):
+        """(vjp_t 0-d, y, adj_y, [theta_bar per parameter]) as views; y and
+        adj_y in the solver's state layout."""
+        n = self.n
+        th = aug[1 + 2 * n:]
+        ths = [part.view(shape) for part, shape in
+               zip(torch.split(th, self.p_sizes), self.p_shapes)]
+        return (aug[0], aug[1:1 + n].view(self.y_shape),
+                aug[1 + n:1 + 2 * n].view(self.y_shape), ths)
+
+    def user(self, y):
+        """A state-layout tensor in the user's structure."""
+        return y if self.unravel is None else self.unravel(y)
+
+
+def _make_adjoint_norm(norm_spec, user_state_norm, layout):
+    """The norm of the backward solve on the flat augmented state (JAX
+    `_make_adjoint_norm`, adjoint.py:64-118): the default, ``'seminorm'``,
+    or a user callable, which sees ``(vjp_t, y, adj_y, *theta_bar)``, y and
+    adj_y splatted per leaf for a tuple state."""
+    single = layout.unravel is None
+    if user_state_norm is None:
+        state_norm = rms_norm if single else mixed_norm
+    else:
+        state_norm = user_state_norm
+
+    def states(aug):
+        vt, y, adj_y, th = layout.split(aug)
+        return vt, (layout.user(y), layout.user(adj_y)), th
+
+    def default_adjoint_norm(aug):
+        vt, ss, th = states(aug)
+        out = vt.abs()
+        for s in ss:
+            out = torch.maximum(out, state_norm(s))
+        # with no parameters the term is 0, which a max of norms ignores
+        return torch.maximum(out, mixed_norm(th)) if th else out
+
+    def adjoint_seminorm(aug):
+        vt, ss, _ = states(aug)
+        out = vt.abs()
+        for s in ss:
+            out = torch.maximum(out, state_norm(s))
+        return out
+
+    if norm_spec is None:
+        return default_adjoint_norm
+    if isinstance(norm_spec, str):
+        if norm_spec != 'seminorm':
+            raise ValueError(f"adjoint norm must be None, 'seminorm' or a "
+                             f"callable, got {norm_spec!r}")
+        return adjoint_seminorm
+
+    def wrapped(aug):
+        vt, (y, adj_y), th = states(aug)
+        if single:
+            return norm_spec((vt, y, adj_y) + tuple(th))
+        return norm_spec((vt,) + tuple(y) + tuple(adj_y) + tuple(th))
+
+    return wrapped
+
+
+def _forward(spec, y0, t):
+    """The primal solve: (ys, Stats), or (event_t, ys2, Stats) with event_t
+    in the internal frame.  ys in the solver's state layout (flat for a
+    tuple state)."""
+    from .odeint import _adaptive_config
+    if spec.unravel is not None:
+        y0 = spec.unravel(y0)
+    prob = check_inputs(spec.func, y0, t, spec.rtol, spec.atol, spec.method,
+                        spec.options, spec.event_fn, SOLVERS,
+                        args=spec.args)
+    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
+    if spec.event_fn is None:
+        return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+    event_t, y_event, stats = adaptive_rk.integrate_until_event(
+        prob.func, prob.y0, prob.t[0], prob.event_fn, cfg)
+    return event_t, torch.stack([prob.y0, y_event]), stats
+
+
+def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
+    """The adjoint sweep (JAX `_backward_pass`, adjoint.py:335-561) over
+    internal-frame increasing times `t_int` (a float64 host array; `sign`
+    maps it to the user's frame).  `ys` and `g_ys` are (T, *state) in the
+    solver's layout; `args_d` the args with their differentiated tensors
+    replaced by detached leaves, `params` every differentiated tensor.
+    Returns (adj_y0, [theta_bar], vjp_t at t_int[0], dLds)."""
+    T = t_int.shape[0]
+    sdt, dev = ys.dtype, ys.device
+    layout = _Layout(ys.shape[1:], spec.unravel, params)
+    n = layout.n
+    func = spec.func
+
+    def f_dir(s, y):
+        """The field in the internal increasing frame: sign * f(sign * s)."""
+        out = func(s if sign > 0 else -s, layout.user(y), *args_d)
+        if spec.unravel is not None:
+            out = torch.cat([o.reshape(-1) for o in out])
+        return out if sign > 0 else -out
+
+    def aug_dyn(s, aug):
+        _, y, adj_y, _ = layout.split(aug)
+        with torch.enable_grad():
+            s_d = torch.full((), float(s), dtype=sdt, device=dev,
+                             requires_grad=True)
+            y_d = y.detach().requires_grad_(True)
+            f = f_dir(s_d, y_d)
+            grads = torch.autograd.grad(f, (s_d, y_d, *params), -adj_y,
+                                        allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, (s_d, y_d, *params))]
+        return torch.cat([grads[0].reshape(1).to(sdt), f.detach().reshape(-1),
+                          *(g.reshape(-1).to(sdt) for g in grads[1:])])
+
+    adj_opts = dict(spec.adjoint_options)
+    adj_opts['norm'] = _make_adjoint_norm(adj_opts.get('norm'),
+                                          spec.user_state_norm, layout)
+    n_th = sum(layout.p_sizes)
+
+    # the effect of moving each output time: one batched field call
+    with torch.no_grad():
+        t_out = torch.tensor(t_int[1:], dtype=sdt, device=dev)
+        f_at_out = torch.func.vmap(f_dir)(t_out, ys[1:])
+        dLds = torch.einsum('tn,tn->t', f_at_out.reshape(T - 1, -1),
+                            g_ys[1:].reshape(T - 1, -1).to(f_at_out.dtype))
+
+    def aug_state(vt, y, adj_y, th=None):
+        th = y.new_zeros(n_th) if th is None else th
+        return torch.cat([vt.reshape(1), y.reshape(-1), adj_y.reshape(-1), th])
+
+    adj_opts.setdefault('step_to_end', True)
+    warm_start = 'first_step' not in adj_opts
+    fused = (warm_start and T > 2 and 'step_t' not in adj_opts
+             and 'jump_t' not in adj_opts)
+    if fused:
+        def inject(k, tt, aug):
+            # the sorted negated jump times put boundary j = (T-2) - k of
+            # the increasing grid at hook index k
+            j = (T - 2) - k
+            out = aug.clone()
+            out[0] = aug[0] - dLds[j - 1]
+            out[1:1 + n] = ys[j].reshape(-1)
+            out[1 + n:1 + 2 * n] = aug[1 + n:1 + 2 * n] + g_ys[j].reshape(-1)
+            return out
+
+        opts = dict(adj_opts, jump_t=t_int[1:-1], jump_state_fn=inject)
+        if 'max_num_steps' in opts:
+            # a per-interval budget over T-1 intervals
+            opts['max_num_steps'] = min(int(opts['max_num_steps']) * (T - 1),
+                                        2 ** 31 - 1)
+        sol, _ = _raw_odeint(aug_dyn, aug_state(-dLds[-1], ys[-1], g_ys[-1]),
+                             np.array([t_int[-1], t_int[0]]),
+                             spec.adjoint_rtol, spec.adjoint_atol,
+                             spec.adjoint_method, opts, 'reverse')
+        vt, _, adj_y, th = layout.split(sol[1])
+        return adj_y + g_ys[0], th, vt, dLds
+
+    # interval by interval (T == 2, or user step_t/jump_t/first_step)
+    aug = aug_state(torch.zeros((), dtype=sdt, device=dev), ys[-1], g_ys[-1])
+    dt_prev = None
+    for i in range(T - 1, 0, -1):
+        opts = dict(adj_opts)
+        if warm_start and dt_prev is not None:
+            opts['first_step'] = dt_prev
+        aug = aug.clone()
+        aug[0] = aug[0] - dLds[i - 1]
+        if t_int[i] != t_int[i - 1]:   # equal only for an event at t0
+            sol, st = _raw_odeint(aug_dyn, aug,
+                                  np.array([t_int[i], t_int[i - 1]]),
+                                  spec.adjoint_rtol, spec.adjoint_atol,
+                                  spec.adjoint_method, opts, 'reverse')
+            aug, dt_prev = sol[1], st.final_dt
+        vt, _, adj_y, _ = layout.split(aug)
+        # reset y to the forward estimate; add the output's cotangent
+        aug = aug_state(vt, ys[i - 1], adj_y + g_ys[i - 1],
+                        aug[1 + 2 * n:])
+    vt, _, adj_y, th = layout.split(aug)
+    return adj_y, th, vt, dLds
+
+
+class _AdjointOp(torch.autograd.Function):
+    """``(y0, t, *params) -> ys`` (or ``-> (event_t, ys2)`` with an event
+    function), solved forward with no graph and differentiated by the
+    adjoint sweep.  `spec` carries the field, the settings and, after the
+    forward, the `Stats`."""
+
+    @staticmethod
+    def forward(ctx, spec, y0, t, *params):
+        ctx.spec = spec
+        t_user = host_times(t)
+        sign = time_sign(t_user)
+        if spec.event_fn is None:
+            ys, stats = _forward(spec, y0, t_user)
+            spec.stats = stats
+            ctx.save_for_backward(ys)
+            ctx.t_int = sign * t_user
+            ctx.sign = sign
+            return ys
+        event_t, ys2, stats = _forward(spec, y0, t_user)
+        spec.stats = stats
+        ctx.save_for_backward(ys2)
+        ctx.t_int = np.array([sign * t_user[0], float(event_t)])
+        ctx.sign = sign
+        event_t = sign * event_t
+        ctx.mark_non_differentiable(event_t)
+        return event_t, ys2
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec = ctx.spec
+        (ys,) = ctx.saved_tensors
+        g_ys = grads[-1]
+        t_in = ctx.needs_input_grad
+        subs = {id(x): x.detach().requires_grad_(True)
+                for x in spec.arg_tensors}
+        args_d = _replace_tensors(spec.args, subs)
+        params = list(spec.module_params) + [subs[id(x)]
+                                             for x in spec.arg_tensors]
+        adj_y, th, vt, dLds = _backward_pass(spec, ys, g_ys, ctx.t_int,
+                                             ctx.sign, args_d, params)
+        t_grad = None
+        if t_in[2]:
+            t_ref = spec.t_tensor
+            if spec.event_fn is None:
+                g_t = torch.cat([vt.reshape(1), dLds])
+            else:
+                g_t = torch.cat([vt.reshape(1), vt.new_zeros(
+                    t_ref.shape[0] - 1)])
+            t_grad = (ctx.sign * g_t).to(device=t_ref.device,
+                                         dtype=t_ref.dtype)
+        th_grads = [g.to(p.dtype) for g, p in
+                    zip(th, list(spec.module_params) + spec.arg_tensors)]
+        return (None, adj_y.reshape(ys.shape[1:]) if t_in[1] else None,
+                t_grad, *th_grads)
+
+
+def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
+                  adjoint_rtol, adjoint_atol, adjoint_method, adjoint_options,
+                  adjoint_params=None):
+    """Solve with continuous-adjoint gradients (JAX `adjoint_solve`).
+
+    Returns (ys, Stats), or ((event_t, ys), Stats) with `event_fn`, in the
+    user's time frame and state structure.  The Stats are the forward
+    solve's.
+    """
+    method = _check_method(method, "method")
+    adjoint_method = _check_method(adjoint_method, "adjoint method")
+    args = tuple(args)
+    adjoint_options = {} if adjoint_options is None else dict(adjoint_options)
+    if adjoint_options.pop('interpolated', False):
+        raise NotImplementedError(
+            "adjoint_options=dict(interpolated=True), the interpolated "
+            "adjoint, is not ported yet (ROADMAP A10)")
+    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    nf = adjoint_options.pop('noise_floor', False)
+    if nf:
+        adjoint_rtol, adjoint_atol = _noise_floor(nf, leaves, adjoint_rtol,
+                                                  adjoint_atol)
+
+    module_params, arg_tensors = _adjoint_params(func, args, adjoint_params)
+    t_tensor = (t if isinstance(t, torch.Tensor)
+                else torch.as_tensor(host_times(t), dtype=torch.float64))
+    if is_tuple_state(y0):
+        y0_in, unravel = flatten_state(leaves)
+    else:
+        y0_in, unravel = y0, None
+    # what the autograd Function needs besides its tensor inputs; its
+    # forward leaves the solve's Stats in `stats`
+    spec = SimpleNamespace(
+        func=func, args=args, rtol=rtol, atol=atol, method=method,
+        options=options, event_fn=event_fn, unravel=unravel,
+        adjoint_rtol=adjoint_rtol, adjoint_atol=adjoint_atol,
+        adjoint_method=adjoint_method, adjoint_options=adjoint_options,
+        user_state_norm=(options or {}).get('norm'),
+        module_params=module_params, arg_tensors=arg_tensors,
+        t_tensor=t_tensor, stats=None)
+    out = _AdjointOp.apply(spec, y0_in, t_tensor, *module_params,
+                           *arg_tensors)
+    if event_fn is None:
+        ys = out if unravel is None else unravel(out)
+        return ys, spec.stats
+    event_t, ys2 = out
+    return ((event_t, ys2 if unravel is None else unravel(ys2)),
+            spec.stats)
+
+
+def odeint_adjoint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None,
+                   options=None, event_fn=None, adjoint_rtol=None,
+                   adjoint_atol=None, adjoint_method=None,
+                   adjoint_options=None, adjoint_params=None, args=()):
+    """`odeint` with gradients by the continuous adjoint (JAX
+    `odeint_adjoint`, adjoint.py:647-684; reference adjoint.py:156-223).
+
+    Gradients flow to `y0`, `t` and the adjoint parameters: `adjoint_params`
+    when given, else the parameters of an ``nn.Module`` `func` that require
+    grad and every floating tensor in `args`.  A tensor the field captures
+    in a closure gets no gradient unless it is passed in one of those ways.
+
+    The backward solve takes `adjoint_rtol`, `adjoint_atol`,
+    `adjoint_method` and `adjoint_options`, each defaulting to the forward
+    setting (`adjoint_options` to `options` without its norm);
+    ``adjoint_options['norm']`` may be ``'seminorm'`` or a callable of
+    ``(vjp_t, y, adj_y, *theta_bar)``.
+    """
+    if adjoint_rtol is None:
+        adjoint_rtol = rtol
+    if adjoint_atol is None:
+        adjoint_atol = atol
+    if adjoint_method is None:
+        adjoint_method = method
+    if adjoint_method != method and options is not None \
+            and adjoint_options is None:
+        raise ValueError(
+            "If `adjoint_method != method` then we cannot infer "
+            "`adjoint_options` from `options`. So as `options` has been "
+            "passed then `adjoint_options` must be passed as well.")
+    if adjoint_options is None:
+        adjoint_options = ({k: v for k, v in options.items() if k != "norm"}
+                           if options is not None else {})
+    result, _ = adjoint_solve(
+        func, y0, t, rtol=rtol, atol=atol, method=method,
+        options=options, event_fn=event_fn, args=args,
+        adjoint_rtol=adjoint_rtol, adjoint_atol=adjoint_atol,
+        adjoint_method=adjoint_method, adjoint_options=adjoint_options,
+        adjoint_params=adjoint_params)
+    return result
+
+
+__all__ = ['odeint_adjoint', 'adjoint_solve']

@@ -42,7 +42,10 @@
 // the group; its shuffles name only its own lanes, so the groups of a warp
 // may fire at different steps, and a warp holds 32/L trajectories, so
 // fewer of them wait for its slowest.  Lane 0 of the group writes the
-// outputs.  L=1 is an instance of its own (kGroup false), as there.
+// outputs.  L=1 is an instance of its own (kGroup false), as there.  And as
+// there, dopri8 and D > 8 run a shared-memory instance
+// (`events_wide_kernel`), which also keeps the hit step's quartic there for
+// the bisection.
 #include "lane_ops.cuh"
 
 #define TDT_MAX_EVENTS 4
@@ -196,6 +199,129 @@ __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T a
     solve(tdt::mlp_from_shared<T, D>(smem, H, power));
 }
 
+// LinearEvent for a state of D rows known at run time, in shared memory;
+// every lane computes it whole, in the register instance's order.
+template <typename T>
+__device__ __forceinline__ T wide_event(const LinearEvent<T, 1>& ev, int D, T t,
+                                        const T* y, const T (&s0)[TDT_MAX_EVENTS]) {
+  T out = T(0);
+  for (int k = 0; k < ev.K; ++k) {
+    T e = y[0] * ev.w[k * D];
+    for (int d = 1; d < D; ++d) e = e + y[d] * ev.w[k * D + d];
+    e = (e + ev.c[k] * t) + ev.b[k];
+    const T v = e * s0[k];
+    out = k == 0 ? v : nmin(out, v);
+  }
+  return out;
+}
+
+// The same solve for any D and up to TDT_PACK_STAGES stages, the state,
+// slopes and the hit step's quartic in a shared-memory slice of each
+// trajectory (lane_ops.cuh `WideLane`), as lanes_wide_kernel.
+template <typename T>
+__global__ void events_wide_kernel(const T* __restrict__ y0, int B, int D, T t0,
+                                   T rtol, T atol, T safety, T ifactor, T dfactor,
+                                   T first_step, int use_first_step, int max_steps,
+                                   const T* __restrict__ tab, int n_alpha, int order,
+                                   int fsal, int H, int power,
+                                   const T* __restrict__ w1, const T* __restrict__ b1,
+                                   const T* __restrict__ w2, const T* __restrict__ b2,
+                                   int K, const T* __restrict__ ev_w,
+                                   const T* __restrict__ ev_c,
+                                   const T* __restrict__ ev_b,
+                                   const T* __restrict__ sign0, int bisect_iters,
+                                   int L, T* __restrict__ event_t_out,
+                                   T* __restrict__ y_event_out, int* __restrict__ found_out,
+                                   int* __restrict__ n_acc_out,
+                                   int* __restrict__ n_steps_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int n_mlp = tdt::stage_mlp(smem, w1, b1, w2, b2, D, H);
+  T* s_tab = smem + n_mlp;
+  T* s_ev = s_tab + TDT_TAB_SIZE;  // W (K*D) | c (K) | b (K)
+  T* s_slices = s_ev + K * D + 2 * K;
+  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
+  for (int i = threadIdx.x; i < K * D; i += blockDim.x) s_ev[i] = ev_w[i];
+  for (int i = threadIdx.x; i < K; i += blockDim.x) {
+    s_ev[K * D + i] = ev_c[i];
+    s_ev[K * D + K + i] = ev_b[i];
+  }
+  __syncthreads();
+
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = gid / L;
+  if (b >= B) return;
+  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
+  const LinearEvent<T, 1> ev{s_ev, s_ev + K * D, s_ev + K * D + K, K};
+  const int n_st = n_alpha + 1;
+  const tdt::WideLane<T> w(
+      smem, D, H, power,
+      s_slices + (size_t)(threadIdx.x / L) * tdt::wide_slice_elems(D, H, n_st, true),
+      n_st, tdt::lane_group(L));
+  const int lane = w.g.lane;
+
+  T s0k[TDT_MAX_EVENTS];
+#pragma unroll
+  for (int k = 0; k < TDT_MAX_EVENTS; ++k) s0k[k] = k < K ? sign0[(size_t)k * B + b] : T(0);
+
+  for (int d = lane; d < D; d += L) w.y[d] = y0[(size_t)d * B + b];
+  w.g.sync();
+  T t = t0;
+  w.field(w.y, w.k);
+  const T s0 = nsign<T>(wide_event<T>(ev, D, t, w.y, s0k));
+  T dt = use_first_step ? first_step : w.hairer_dt(rtol, atol, tb.inv_order);
+
+  int n_acc = 0, n_steps = 0;
+  bool found = false;
+  while (n_steps < max_steps) {
+    const T t_prop = t + dt;
+    w.stage_sweep(tb, dt);
+    const T ratio = w.error_ratio(rtol, atol);
+    const bool accept = ratio <= T(1);
+    ++n_steps;
+    if (accept) {
+      ++n_acc;
+      if (!(nsign<T>(wide_event<T>(ev, D, t_prop, w.y1, s0k)) == s0)) {
+        found = true;   // y, k, y1, f1 still hold this step for the quartic
+        break;
+      }
+      w.accept_step();
+      t = t_prop;
+    }
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+  }
+
+  T event_t = T(NAN);
+  if (found) {
+    T* q = w.q;   // rows e | d | c | b | a
+    for (int d = lane; d < D; d += L)
+      w.quartic_row(tb, dt, d, q[d], q[D + d], q[2 * D + d], q[3 * D + d], q[4 * D + d]);
+    T lo = T(0), hi = T(1);
+    for (int i = 0; i < bisect_iters; ++i) {
+      const T xm = T(0.5) * (lo + hi);
+      for (int d = lane; d < D; d += L)
+        w.yi[d] = tdt::quartic_at<T>(q[d], q[D + d], q[2 * D + d], q[3 * D + d],
+                                     q[4 * D + d], xm);
+      w.g.sync();
+      const bool same = nsign<T>(wide_event<T>(ev, D, t + xm * dt, w.yi, s0k)) == s0;
+      w.g.sync();
+      lo = same ? xm : lo;
+      hi = same ? hi : xm;
+    }
+    const T x = T(0.5) * (lo + hi);
+    event_t = t + x * dt;
+    for (int d = lane; d < D; d += L)
+      w.y[d] = tdt::quartic_at<T>(q[d], q[D + d], q[2 * D + d], q[3 * D + d],
+                                  q[4 * D + d], x);
+  }
+  for (int d = lane; d < D; d += L) y_event_out[(size_t)d * B + b] = w.y[d];
+  if (lane != 0) return;
+  event_t_out[b] = event_t;
+  found_out[b] = found ? 1 : 0;
+  n_acc_out[b] = n_acc;
+  n_steps_out[b] = n_steps;
+}
+
 template <typename T>
 int launch(int B, int D, int H, int power, const void* y0, double t0, double rtol,
            double atol, double safety, double ifactor, double dfactor,
@@ -203,26 +329,45 @@ int launch(int B, int D, int H, int power, const void* y0, double t0, double rto
            int n_alpha, int order, int fsal, const void* w1, const void* b1,
            const void* w2, const void* b2, int K, const void* ev_w,
            const void* ev_c, const void* ev_b, const void* sign0,
-           int bisect_iters, int L, void* event_t, void* y_event, void* found,
-           void* n_acc, void* n_steps, void* stream) {
-  const int threads = 128;
+           int bisect_iters, int L, int threads, void* event_t, void* y_event,
+           void* found, void* n_acc, void* n_steps, void* stream) {
   const int blocks = (int)(((long long)B * L + threads - 1) / threads);
-  const size_t smem =
-      (size_t)(2 * D * H + H + D + TDT_TAB_SIZE + K * D + 2 * K) * sizeof(T);
+  size_t smem = (size_t)(2 * D * H + H + D + TDT_TAB_SIZE + K * D + 2 * K) * sizeof(T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > TDT_REG_MAX_D || n_alpha > TDT_MAX_ALPHA) {
+    smem += (size_t)(threads / L) * tdt::wide_slice_elems(D, H, n_alpha + 1, true) *
+            sizeof(T);
+    const int code = tdt::allow_shared(events_wide_kernel<T>, smem);
+    if (code) return code;
+    events_wide_kernel<T><<<blocks, threads, smem, st>>>(
+        static_cast<const T*>(y0), B, D, (T)t0, (T)rtol, (T)atol, (T)safety,
+        (T)ifactor, (T)dfactor, (T)first_step, use_first_step, max_steps,
+        static_cast<const T*>(tab), n_alpha, order, fsal, H, power,
+        static_cast<const T*>(w1), static_cast<const T*>(b1),
+        static_cast<const T*>(w2), static_cast<const T*>(b2), K,
+        static_cast<const T*>(ev_w), static_cast<const T*>(ev_c),
+        static_cast<const T*>(ev_b), static_cast<const T*>(sign0), bisect_iters, L,
+        static_cast<T*>(event_t), static_cast<T*>(y_event), static_cast<int*>(found),
+        static_cast<int*>(n_acc), static_cast<int*>(n_steps));
+    return (int)cudaGetLastError();
+  }
 #define TDT_LAUNCH_EVENTS(DD)                                                  \
-  (L == 1 ? events_kernel<T, DD, false>                                        \
-          : events_kernel<T, DD, true>)<<<blocks, threads, smem, st>>>(        \
-      static_cast<const T*>(y0), B, (T)t0, (T)rtol, (T)atol, (T)safety,        \
-      (T)ifactor, (T)dfactor, (T)first_step, use_first_step, max_steps,        \
-      static_cast<const T*>(tab), n_alpha, order, fsal, H, power,              \
-      static_cast<const T*>(w1), static_cast<const T*>(b1),                    \
-      static_cast<const T*>(w2), static_cast<const T*>(b2), K,                 \
-      static_cast<const T*>(ev_w), static_cast<const T*>(ev_c),                \
-      static_cast<const T*>(ev_b), static_cast<const T*>(sign0), bisect_iters, \
-      L, static_cast<T*>(event_t), static_cast<T*>(y_event),                   \
-      static_cast<int*>(found), static_cast<int*>(n_acc),                      \
-      static_cast<int*>(n_steps))
+  {                                                                            \
+    auto kernel = L == 1 ? events_kernel<T, DD, false> : events_kernel<T, DD, true>; \
+    const int code = tdt::allow_shared(kernel, smem);                          \
+    if (code) return code;                                                     \
+    kernel<<<blocks, threads, smem, st>>>(                                     \
+        static_cast<const T*>(y0), B, (T)t0, (T)rtol, (T)atol, (T)safety,      \
+        (T)ifactor, (T)dfactor, (T)first_step, use_first_step, max_steps,      \
+        static_cast<const T*>(tab), n_alpha, order, fsal, H, power,            \
+        static_cast<const T*>(w1), static_cast<const T*>(b1),                  \
+        static_cast<const T*>(w2), static_cast<const T*>(b2), K,               \
+        static_cast<const T*>(ev_w), static_cast<const T*>(ev_c),              \
+        static_cast<const T*>(ev_b), static_cast<const T*>(sign0),             \
+        bisect_iters, L, static_cast<T*>(event_t), static_cast<T*>(y_event),   \
+        static_cast<int*>(found), static_cast<int*>(n_acc),                    \
+        static_cast<int*>(n_steps));                                           \
+  }
   TDT_DISPATCH_D(D, TDT_LAUNCH_EVENTS)
 #undef TDT_LAUNCH_EVENTS
   return (int)cudaGetLastError();
@@ -235,7 +380,8 @@ int launch(int B, int D, int H, int power, const void* y0, double t0, double rto
 // int32).  The event weights are W (K, D), c (K,), b (K,), 1 <= K <= 4.
 // Scalars are values of the state dtype passed exactly as doubles; `tab` is
 // the packed tableau in the state dtype.  group is the lanes a trajectory, a
-// power of two from 1 to 32.  Returns cudaGetLastError().
+// power of two from 1 to 32; threads the block size, as for
+// tdt_dopri5_lanes.  Returns a CUDA error code (0 on success).
 extern "C" int tdt_dopri5_events(int dtype, int B, int D, int H, int power,
                                  const void* y0, double t0, double rtol,
                                  double atol, double safety, double ifactor,
@@ -246,24 +392,26 @@ extern "C" int tdt_dopri5_events(int dtype, int B, int D, int H, int power,
                                  const void* w2, const void* b2, int K,
                                  const void* ev_w, const void* ev_c,
                                  const void* ev_b, const void* sign0,
-                                 int bisect_iters, int group, void* event_t,
-                                 void* y_event, void* found, void* n_acc,
-                                 void* n_steps, void* stream) {
-  if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA) return (int)cudaErrorInvalidValue;
+                                 int bisect_iters, int group, int threads,
+                                 void* event_t, void* y_event, void* found,
+                                 void* n_acc, void* n_steps, void* stream) {
+  if (n_alpha < 1 || n_alpha > TDT_PACK_ALPHA || D < 1) return (int)cudaErrorInvalidValue;
   if (K < 1 || K > TDT_MAX_EVENTS) return (int)cudaErrorInvalidValue;
   if (group < 1 || group > 32 || (group & (group - 1)) != 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (threads < group || threads > 128 || threads % group != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(B, D, H, power, y0, t0, rtol, atol, safety, ifactor,
                          dfactor, first_step, use_first_step, max_steps, tab,
                          n_alpha, order, fsal, w1, b1, w2, b2, K, ev_w, ev_c,
-                         ev_b, sign0, bisect_iters, group, event_t, y_event, found,
-                         n_acc, n_steps, stream);
+                         ev_b, sign0, bisect_iters, group, threads, event_t,
+                         y_event, found, n_acc, n_steps, stream);
   if (dtype == 1)
     return launch<double>(B, D, H, power, y0, t0, rtol, atol, safety, ifactor,
                           dfactor, first_step, use_first_step, max_steps, tab,
                           n_alpha, order, fsal, w1, b1, w2, b2, K, ev_w, ev_c,
-                          ev_b, sign0, bisect_iters, group, event_t, y_event, found,
-                          n_acc, n_steps, stream);
+                          ev_b, sign0, bisect_iters, group, threads, event_t,
+                          y_event, found, n_acc, n_steps, stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -23,9 +23,16 @@
 // NaN in every row whose time the trajectory never reached.
 //
 // The tableau arrives as a small array (any explicit method of up to
-// TDT_MAX_STAGES stages: dopri5, tsit5, bosh3, fehlberg2, adaptive_heun).
-// The per-trajectory numerics live in lane_ops.cuh, shared with the event
-// kernel.
+// TDT_PACK_STAGES stages: dopri5, tsit5, bosh3, fehlberg2, adaptive_heun,
+// dopri8).  The per-trajectory numerics live in lane_ops.cuh, shared with
+// the event kernel.  A problem of at most TDT_MAX_STAGES stages and D <=
+// TDT_REG_MAX_D runs an instance that holds its state and slopes in
+// registers (`lanes_kernel`, one per D); any other (dopri8's 14 stages, or
+// D > 8) runs `lanes_wide_kernel`, which holds them in a shared-memory
+// slice per trajectory (lane_ops.cuh `WideLane`) for a D known only at run
+// time: registers that grow with D and the stage count would spill.  Its
+// block holds as many trajectories as the card's shared memory takes (the
+// host picks the block size).
 //
 // What bounds it on an H100: not bytes (the state, the slopes and the
 // controller live in registers; device memory sees y0, the emitted rows and
@@ -159,26 +166,124 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
     solve(tdt::mlp_from_shared<T, D>(smem, H, power));
 }
 
+// The same solve for any D and up to TDT_PACK_STAGES stages, the state and
+// slopes in a shared-memory slice of each trajectory (lane_ops.cuh
+// `WideLane`).  The group splits every element-wise pass by state row and
+// each field evaluation by hidden unit, then by output row; each lane writes
+// its rows' outputs.
+template <typename T>
+__global__ void lanes_wide_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
+                                  int S, int B, int D, T t0, T t1, T rtol, T atol,
+                                  T safety, T ifactor, T dfactor, T first_step,
+                                  int use_first_step, int max_steps,
+                                  const T* __restrict__ tab, int n_alpha, int order,
+                                  int fsal, int H, int power,
+                                  const T* __restrict__ w1, const T* __restrict__ b1,
+                                  const T* __restrict__ w2, const T* __restrict__ b2,
+                                  int L, T* __restrict__ ys, int* __restrict__ n_acc_out,
+                                  int* __restrict__ n_steps_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int n_mlp = tdt::stage_mlp(smem, w1, b1, w2, b2, D, H);
+  T* s_tab = smem + n_mlp;
+  T* s_ts = s_tab + TDT_TAB_SIZE;
+  T* s_slices = s_ts + S;
+  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
+  for (int i = threadIdx.x; i < S; i += blockDim.x) s_ts[i] = ts[i];
+  __syncthreads();
+
+  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = gid / L;
+  if (b >= B) return;
+  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
+  const int n_st = n_alpha + 1;
+  const tdt::WideLane<T> w(
+      smem, D, H, power,
+      s_slices + (size_t)(threadIdx.x / L) * tdt::wide_slice_elems(D, H, n_st, false),
+      n_st, tdt::lane_group(L));
+  const int lane = w.g.lane;
+
+  for (int d = lane; d < D; d += L) w.y[d] = y0[(size_t)d * B + b];
+  w.g.sync();
+  T t = t0;
+  int s_next = 0;
+  while (s_next < S && s_ts[s_next] <= t0) {
+    for (int d = lane; d < D; d += L) ys[((size_t)s_next * D + d) * B + b] = w.y[d];
+    ++s_next;
+  }
+  w.field(w.y, w.k);
+  T dt = use_first_step ? first_step : w.hairer_dt(rtol, atol, tb.inv_order);
+
+  int n_acc = 0, n_steps = 0;
+  while (t < t1 && n_steps < max_steps) {
+    const T t_prop = t + dt;
+    w.stage_sweep(tb, dt);
+    const T ratio = w.error_ratio(rtol, atol);
+    const bool accept = ratio <= T(1);
+    if (accept && s_next < S && s_ts[s_next] <= t_prop) {
+      const T dt_safe = dt > T(0) ? dt : T(1);
+      for (int d = lane; d < D; d += L) {
+        T e, dd, c, bb, a;
+        w.quartic_row(tb, dt, d, e, dd, c, bb, a);
+        for (int s = s_next; s < S && s_ts[s] <= t_prop; ++s)
+          ys[((size_t)s * D + d) * B + b] =
+              tdt::quartic_at<T>(e, dd, c, bb, a, (s_ts[s] - t) / dt_safe);
+      }
+      while (s_next < S && s_ts[s_next] <= t_prop) ++s_next;
+    }
+    if (accept) {
+      w.accept_step();
+      t = t_prop;
+      ++n_acc;
+    }
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+    ++n_steps;
+  }
+  for (; s_next < S; ++s_next)
+    for (int d = lane; d < D; d += L) ys[((size_t)s_next * D + d) * B + b] = T(NAN);
+  if (lane != 0) return;
+  n_acc_out[b] = n_acc;
+  n_steps_out[b] = n_steps;
+}
+
 template <typename T>
 int launch(int B, int D, int H, int power, const void* y0, const void* ts,
            int S, double t0, double t1, double rtol, double atol, double safety,
            double ifactor, double dfactor, double first_step, int use_first_step,
            int max_steps, const void* tab, int n_alpha, int order, int fsal,
            const void* w1, const void* b1, const void* w2, const void* b2, int L,
-           void* ys, void* n_acc, void* n_steps, void* stream) {
-  const int threads = 128;
+           int threads, void* ys, void* n_acc, void* n_steps, void* stream) {
   const int blocks = (int)(((long long)B * L + threads - 1) / threads);
-  const size_t smem = (size_t)(2 * D * H + H + D + TDT_TAB_SIZE + S) * sizeof(T);
+  size_t smem = (size_t)(2 * D * H + H + D + TDT_TAB_SIZE + S) * sizeof(T);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > TDT_REG_MAX_D || n_alpha > TDT_MAX_ALPHA) {
+    smem += (size_t)(threads / L) * tdt::wide_slice_elems(D, H, n_alpha + 1, false) *
+            sizeof(T);
+    const int code = tdt::allow_shared(lanes_wide_kernel<T>, smem);
+    if (code) return code;
+    lanes_wide_kernel<T><<<blocks, threads, smem, st>>>(
+        static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, D, (T)t0, (T)t1,
+        (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor, (T)first_step,
+        use_first_step, max_steps, static_cast<const T*>(tab), n_alpha, order, fsal,
+        H, power, static_cast<const T*>(w1), static_cast<const T*>(b1),
+        static_cast<const T*>(w2), static_cast<const T*>(b2), L, static_cast<T*>(ys),
+        static_cast<int*>(n_acc), static_cast<int*>(n_steps));
+    return (int)cudaGetLastError();
+  }
 #define TDT_LAUNCH_LANES(DD)                                                    \
-  (L == 1 ? lanes_kernel<T, DD, false>                                          \
-          : lanes_kernel<T, DD, true>)<<<blocks, threads, smem, st>>>(          \
-      static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, (T)t0, (T)t1, \
-      (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor, (T)first_step,       \
-      use_first_step, max_steps, static_cast<const T*>(tab), n_alpha, order,    \
-      fsal, H, power, static_cast<const T*>(w1), static_cast<const T*>(b1),     \
-      static_cast<const T*>(w2), static_cast<const T*>(b2), L,                  \
-      static_cast<T*>(ys), static_cast<int*>(n_acc), static_cast<int*>(n_steps))
+  {                                                                             \
+    auto kernel = L == 1 ? lanes_kernel<T, DD, false> : lanes_kernel<T, DD, true>; \
+    const int code = tdt::allow_shared(kernel, smem);                           \
+    if (code) return code;                                                      \
+    kernel<<<blocks, threads, smem, st>>>(                                      \
+        static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, (T)t0,      \
+        (T)t1, (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor,             \
+        (T)first_step, use_first_step, max_steps, static_cast<const T*>(tab),   \
+        n_alpha, order, fsal, H, power, static_cast<const T*>(w1),              \
+        static_cast<const T*>(b1), static_cast<const T*>(w2),                   \
+        static_cast<const T*>(b2), L, static_cast<T*>(ys),                      \
+        static_cast<int*>(n_acc), static_cast<int*>(n_steps));                  \
+  }
   TDT_DISPATCH_D(D, TDT_LAUNCH_LANES)
 #undef TDT_LAUNCH_LANES
   return (int)cudaGetLastError();
@@ -190,7 +295,9 @@ int launch(int B, int D, int H, int power, const void* y0, const void* ts,
 // (S, D, B); n_acc and n_steps are (B,) int32.  Scalars are values of the
 // state dtype passed exactly as doubles; `tab` is the packed tableau in the
 // state dtype.  group is the lanes a trajectory, a power of two from 1 to
-// 32.  Returns cudaGetLastError().
+// 32; threads the block size, a multiple of group up to 128 (the host sizes
+// it to the shared memory of the shared-memory instance).  Returns a CUDA
+// error code (0 on success).
 extern "C" int tdt_dopri5_lanes(int dtype, int B, int D, int H, int power,
                                 const void* y0, const void* ts, int S, double t0,
                                 double t1, double rtol, double atol,
@@ -199,20 +306,32 @@ extern "C" int tdt_dopri5_lanes(int dtype, int B, int D, int H, int power,
                                 int max_steps, const void* tab, int n_alpha,
                                 int order, int fsal, const void* w1,
                                 const void* b1, const void* w2, const void* b2,
-                                int group, void* ys, void* n_acc, void* n_steps,
-                                void* stream) {
-  if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA) return (int)cudaErrorInvalidValue;
+                                int group, int threads, void* ys, void* n_acc,
+                                void* n_steps, void* stream) {
+  if (n_alpha < 1 || n_alpha > TDT_PACK_ALPHA || D < 1) return (int)cudaErrorInvalidValue;
   if (group < 1 || group > 32 || (group & (group - 1)) != 0 || B <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (threads < group || threads > 128 || threads % group != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(B, D, H, power, y0, ts, S, t0, t1, rtol, atol, safety,
                          ifactor, dfactor, first_step, use_first_step, max_steps,
-                         tab, n_alpha, order, fsal, w1, b1, w2, b2, group, ys,
-                         n_acc, n_steps, stream);
+                         tab, n_alpha, order, fsal, w1, b1, w2, b2, group, threads,
+                         ys, n_acc, n_steps, stream);
   if (dtype == 1)
     return launch<double>(B, D, H, power, y0, ts, S, t0, t1, rtol, atol, safety,
                           ifactor, dfactor, first_step, use_first_step, max_steps,
-                          tab, n_alpha, order, fsal, w1, b1, w2, b2, group, ys,
-                          n_acc, n_steps, stream);
+                          tab, n_alpha, order, fsal, w1, b1, w2, b2, group,
+                          threads, ys, n_acc, n_steps, stream);
   return (int)cudaErrorInvalidValue;
+}
+
+// The card's limit on a block's dynamic shared memory (the opt-in maximum of
+// the current device), for the host's sizing of a launch.
+extern "C" int tdt_max_shared_bytes(int* out) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(out, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return (int)err;
 }

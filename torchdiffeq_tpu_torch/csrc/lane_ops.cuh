@@ -14,14 +14,23 @@
 
 #include "mlp_field.cuh"
 
+// packed tableau of up to 14 stages (dopri8's 13 alphas): alpha[13] |
+// beta[13][13] | c_sol[14] | c_err[14] | c_mid[14], zero-padded
+// (ops/kernels.py `packed_tableau`)
+#define TDT_PACK_ALPHA 13
+#define TDT_PACK_STAGES (TDT_PACK_ALPHA + 1)
+#define TDT_TAB_BETA TDT_PACK_ALPHA
+#define TDT_TAB_CSOL (TDT_TAB_BETA + TDT_PACK_ALPHA * TDT_PACK_ALPHA)
+#define TDT_TAB_CERR (TDT_TAB_CSOL + TDT_PACK_STAGES)
+#define TDT_TAB_CMID (TDT_TAB_CERR + TDT_PACK_STAGES)
+#define TDT_TAB_SIZE (TDT_TAB_CMID + TDT_PACK_STAGES)
+// The register instances hold a trajectory's state and stage slopes in
+// registers: D <= TDT_REG_MAX_D and at most TDT_REG_STAGES stages.  Every
+// other problem (dopri8, or D > 8) runs the shared-memory instance below
+// (`WideLane`), whose registers do not grow with D or the stage count.
+#define TDT_REG_MAX_D 8
 #define TDT_MAX_ALPHA 6
 #define TDT_MAX_STAGES (TDT_MAX_ALPHA + 1)
-// packed tableau: alpha[6] | beta[6][6] | c_sol[7] | c_err[7] | c_mid[7]
-#define TDT_TAB_BETA TDT_MAX_ALPHA
-#define TDT_TAB_CSOL (TDT_TAB_BETA + TDT_MAX_ALPHA * TDT_MAX_ALPHA)
-#define TDT_TAB_CERR (TDT_TAB_CSOL + TDT_MAX_STAGES)
-#define TDT_TAB_CMID (TDT_TAB_CERR + TDT_MAX_STAGES)
-#define TDT_TAB_SIZE (TDT_TAB_CMID + TDT_MAX_STAGES)
 
 namespace tdt {
 
@@ -115,7 +124,7 @@ __device__ __forceinline__ void stage_sweep(const F& f, const Tableau<T>& tab,
   for (int i = 0; i < TDT_MAX_ALPHA; ++i) {
     if (i < tab.n_alpha) {
       T acc[D];
-      coeff_sum<T, D>(tab.beta + i * TDT_MAX_ALPHA, k, i + 1, acc);
+      coeff_sum<T, D>(tab.beta + i * TDT_PACK_ALPHA, k, i + 1, acc);
 #pragma unroll
       for (int d = 0; d < D; ++d) yi[d] = y[d] + dt * acc[d];
       f(yi, k[i + 1]);
@@ -202,6 +211,220 @@ __device__ __forceinline__ void eval_quartic(const Quartic<T, D>& q, T x, T (&ou
     total = total + xp * q.a[d];
     out[d] = total;
   }
+}
+
+
+// ---------------------------------------------------------------------------
+// The shared-memory instance: any D and up to TDT_PACK_STAGES stages.
+//
+// A trajectory's state, stage slopes, field input and hidden layer live in
+// shared memory, in a slice of `wide_slice_elems` elements that its group
+// of L lanes owns.  Element-wise work is split across the group by state
+// row (lane j takes rows j, j + L, ...), so each row is written by one lane;
+// reductions over the rows (the RMS norms, an event's dot product) are run
+// by every lane on its own, in the register instances' order, so every
+// lane holds the same bits and takes the same branches, as there.  The
+// group meets at __syncwarp(mask) wherever a lane reads a row another lane
+// wrote, or writes one another lane may still read.
+// ---------------------------------------------------------------------------
+
+// The group of L lanes (a power of two up to 32, aligned in the warp) that
+// owns a trajectory.
+struct LaneGroup {
+  int lane;        // this lane's index in the group
+  int L;
+  unsigned mask;   // group_mask(L)
+  __device__ __forceinline__ void sync() const { __syncwarp(mask); }
+};
+
+__device__ __forceinline__ LaneGroup lane_group(int L) {
+  return LaneGroup{(int)(threadIdx.x & (L - 1)), L, group_mask(L)};
+}
+
+// Elements of one trajectory's slice: the slopes k[n_stages][D] (k[0] is
+// the slope at y), y, yi, y1, f1, err, the field input x (D each), the
+// hidden layer (H), and with `quartic` the five coefficient rows (5 D).
+__host__ __device__ __forceinline__ int wide_slice_elems(int D, int H, int n_stages,
+                                                         bool quartic) {
+  return (n_stages + 6 + (quartic ? 5 : 0)) * D + H;
+}
+
+template <typename T>
+struct WideLane {
+  // the field's weights (shared memory) and the trajectory's slice
+  const T* w1;
+  const T* b1;
+  const T* w2;
+  const T* b2;
+  int D, H, power;
+  T* k;
+  T* y;
+  T* yi;
+  T* y1;
+  T* f1;
+  T* err;
+  T* x;
+  T* hid;
+  T* q;   // e | d | c | b | a rows, or null
+  LaneGroup g;
+
+  __device__ __forceinline__ WideLane(const T* s_mlp, int D_, int H_, int power_,
+                                      T* slice, int n_stages, LaneGroup g_)
+      : w1(s_mlp), b1(s_mlp + D_ * H_), w2(s_mlp + D_ * H_ + H_),
+        b2(s_mlp + 2 * D_ * H_ + H_), D(D_), H(H_), power(power_), g(g_) {
+    k = slice;
+    y = k + n_stages * D;
+    yi = y + D;
+    y1 = yi + D;
+    f1 = y1 + D;
+    err = f1 + D;
+    x = err + D;
+    hid = x + D;
+    q = hid + H;
+  }
+
+  // out = f(in) (rows of shared memory, `out` not `in`): the input power by
+  // row, each hidden unit by one lane (MlpField's pre-activation order),
+  // then each output row by one lane, summing the hidden units in order
+  // from 0 (MlpField's order, whatever L).
+  __device__ void field(const T* in, T* out) const {
+    for (int j = g.lane; j < D; j += g.L) {
+      const T v = in[j];
+      x[j] = power == 1 ? v : (power == 2 ? v * v : v * v * v);
+    }
+    g.sync();
+    for (int h = g.lane; h < H; h += g.L) {
+      T s = x[0] * w1[h];
+      for (int j = 1; j < D; ++j) s = s + x[j] * w1[j * H + h];
+      hid[h] = dtanh<T>(s + b1[h]);
+    }
+    g.sync();
+    for (int d = g.lane; d < D; d += g.L) {
+      T o = T(0);
+      for (int h = 0; h < H; ++h) o = o + hid[h] * w2[h * D + d];
+      out[d] = o + b2[d];
+    }
+    g.sync();
+  }
+
+  // coeff_sum for row d: sum_j c[j] * k[j][d] over the nonzero c[j], j < n
+  __device__ __forceinline__ T coeff_sum_row(const T* c, int n, int d) const {
+    T acc = T(0);
+    bool have = false;
+    for (int j = 0; j < n; ++j) {
+      const T cj = c[j];
+      if (cj != T(0)) {
+        acc = have ? acc + cj * k[j * D + d] : cj * k[j * D + d];
+        have = true;
+      }
+    }
+    return acc;
+  }
+
+  // rms_of_scaled over all rows of v / (atol + rtol * |y|) (scale_y1 false)
+  // or of v / (atol + rtol * max(|y|, |y1|)); v - sub when sub is given.
+  // Every lane computes it whole.
+  __device__ __forceinline__ T rms(const T* v, const T* sub, T rtol, T atol,
+                                   bool scale_y1) const {
+    T s = T(0);
+    for (int d = 0; d < D; ++d) {
+      const T scale = scale_y1 ? atol + rtol * nmax(dabs(y[d]), dabs(y1[d]))
+                               : atol + rtol * dabs(y[d]);
+      const T q_ = (sub ? v[d] - sub[d] : v[d]) / scale;
+      s = d == 0 ? q_ * q_ : s + q_ * q_;
+    }
+    return dsqrt<T>(s / T(D));
+  }
+
+  // `hairer_dt` from y and k[0] = f(y); uses yi and y1 as scratch
+  __device__ T hairer_dt(T rtol, T atol, T inv_order) const {
+    const T d0 = rms(y, nullptr, rtol, atol, false);
+    const T d1 = rms(k, nullptr, rtol, atol, false);
+    const T h0 = (d0 < T(1e-5) || d1 < T(1e-5)) ? T(1e-6) : T(0.01) * d0 / nmax(d1, tiny<T>());
+    for (int d = g.lane; d < D; d += g.L) yi[d] = y[d] + h0 * k[d];
+    g.sync();
+    field(yi, y1);
+    const T d2 = rms(y1, k, rtol, atol, false) / nmax(h0, tiny<T>());
+    const T d_max = nmax(d1, d2);
+    const T h1 = (d1 <= T(1e-15) && d2 <= T(1e-15))
+                     ? nmax(T(1e-6), h0 * T(1e-3))
+                     : dpow<T>(T(0.01) / nmax(d_max, tiny<T>()), inv_order);
+    g.sync();
+    return nmin(T(100) * h0, h1);
+  }
+
+  // `stage_sweep`: k[1..], y1, f1 and err from y, k[0] and dt
+  __device__ void stage_sweep(const Tableau<T>& tab, T dt) const {
+    const int n_st = tab.n_alpha + 1;
+    for (int i = 0; i < tab.n_alpha; ++i) {
+      for (int d = g.lane; d < D; d += g.L)
+        yi[d] = y[d] + dt * coeff_sum_row(tab.beta + i * TDT_PACK_ALPHA, i + 1, d);
+      g.sync();
+      field(yi, k + (i + 1) * D);
+    }
+    if (tab.fsal) {
+      for (int d = g.lane; d < D; d += g.L) {
+        y1[d] = yi[d];
+        f1[d] = k[tab.n_alpha * D + d];
+      }
+    } else {
+      for (int d = g.lane; d < D; d += g.L)
+        y1[d] = y[d] + dt * coeff_sum_row(tab.c_sol, n_st, d);
+      g.sync();
+      field(y1, f1);
+    }
+    for (int d = g.lane; d < D; d += g.L) err[d] = dt * coeff_sum_row(tab.c_err, n_st, d);
+    g.sync();
+  }
+
+  // the error ratio of the step just swept, whole in every lane
+  __device__ __forceinline__ T error_ratio(T rtol, T atol) const {
+    const T r = rms(err, nullptr, rtol, atol, true);
+    g.sync();
+    return r;
+  }
+
+  // the step's quartic coefficients of row d (fit_quartic)
+  __device__ __forceinline__ void quartic_row(const Tableau<T>& tab, T dt, int d,
+                                              T& e, T& dd, T& c, T& b, T& a) const {
+    const T y_mid = y[d] + dt * coeff_sum_row(tab.c_mid, tab.n_alpha + 1, d);
+    const T fc = k[d];
+    a = T(2) * dt * (f1[d] - fc) - T(8) * (y1[d] + y[d]) + T(16) * y_mid;
+    b = dt * (T(5) * fc - T(3) * f1[d]) + T(18) * y[d] + T(14) * y1[d] - T(32) * y_mid;
+    c = dt * (f1[d] - T(4) * fc) - T(11) * y[d] - T(5) * y1[d] + T(16) * y_mid;
+    dd = dt * fc;
+    e = y[d];
+  }
+
+  // y, k[0] = y1, f1 (an accepted step)
+  __device__ __forceinline__ void accept_step() const {
+    for (int d = g.lane; d < D; d += g.L) {
+      y[d] = y1[d];
+      k[d] = f1[d];
+    }
+    g.sync();
+  }
+};
+
+// eval_quartic of one row
+template <typename T>
+__device__ __forceinline__ T quartic_at(T e, T d, T c, T b, T a, T x) {
+  T total = e + x * d;
+  T xp = x * x;
+  total = total + xp * c;
+  xp = xp * x;
+  total = total + xp * b;
+  xp = xp * x;
+  return total + xp * a;
+}
+
+// Set a kernel's dynamic shared memory limit when a launch needs more than
+// the default 48 KB (up to the card's opt-in limit, which the host checks).
+template <typename K>
+__host__ __forceinline__ int allow_shared(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 }  // namespace tdt

@@ -178,9 +178,11 @@ __device__ __forceinline__ GroupMlpField<T, D> group_mlp_from_shared(const T* s,
 
 }  // namespace tdt
 
-// Dispatch a templated launch over the state sizes the kernels are built
-// for (1..8: the bound on the registers a thread spends on its state and
-// slopes; ops/kernels.py checks it before a launch).
+// Dispatch a templated launch over the state sizes of the register
+// instances (1..8: the bound on the registers a thread spends on its state
+// and slopes).  K-rk4 takes these D only (ops/kernels.py checks it before a
+// launch); K-dopri5 and K-events run larger D in their shared-memory
+// instances (lane_ops.cuh `WideLane`).
 #define TDT_DISPATCH_D(D, LAUNCH)            \
   switch (D) {                               \
     case 1: LAUNCH(1); break;                \

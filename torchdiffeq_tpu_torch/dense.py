@@ -120,7 +120,7 @@ def odeint_dense(func, y0, t0, t1, *, rtol=1e-7, atol=1e-9, method=None,
     `odeint_dense`, dense.py:140-226), or ``(sol, Stats)`` with
     `_return_stats`.  The stats are the JAX code's, whose NFE count starts
     at 2 whether or not `first_step` is given."""
-    from .odeint import _adaptive_config, _refuse_autograd
+    from .odeint import _adaptive_config, _differentiable
 
     name = 'dopri5' if method is None else method
     if name in NOT_PORTED:
@@ -135,7 +135,12 @@ def odeint_dense(func, y0, t0, t1, *, rtol=1e-7, atol=1e-9, method=None,
             f"odeint_dense requires an adaptive method (the reference "
             f"allows only dopri5, odeint.py:119; this build accepts any "
             f"adaptive tableau), got method={prob.method!r}")
-    _refuse_autograd(func, y0, args)
+    if _differentiable(func, y0, np.asarray([t0, t1]), args):
+        raise NotImplementedError(
+            "odeint_dense records no gradients (the JAX package's dense "
+            "while_loop is not reverse-differentiable either); call it under "
+            "torch.no_grad(), or take gradients through odeint or "
+            "odeint_adjoint")
     cfg = _adaptive_config(prob, spec['tableau'])
     t_end = prob.t[1]
 

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from .misc import check_inputs, nan_sign, needs_autograd, time_tensor
+from .misc import check_inputs, nan_sign, time_tensor
 
 
 def find_event(interp_fn, sign0, t0, t1, event_fn, tol):
@@ -111,22 +111,18 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
 
     Returns ``(event_t, solution)``: `event_t` a 0-d float64 tensor on the
     state's device, and `solution` stacking ``[y(t0), y(event_t)]`` on a new
-    leading axis.
+    leading axis (on each leaf of a tuple state).
 
-    Gradients come with the continuous adjoint (ROADMAP A3): until then a
-    call that autograd would have to differentiate raises, as `odeint` does.
-    The event-time reroute is applied all the same, so its backward is in
-    place for the adjoint.
+    Gradients: the solve's come from the continuous adjoint, as if it had
+    integrated up to the event time (`odeint` or `odeint_adjoint` as
+    `odeint_interface`), and the event time's through the final state by
+    the implicit function theorem (`_ImplicitFnGradientRerouting`).
     """
     from .odeint import odeint
     from .solvers import SOLVERS
 
     if odeint_interface is None:
         odeint_interface = odeint
-    if needs_autograd(func, y0, t0, *args):
-        raise NotImplementedError(
-            "gradients of odeint_event come with the continuous adjoint "
-            "(ROADMAP A3); until then call it under torch.no_grad()")
 
     t0 = torch.as_tensor(t0, dtype=torch.float64).detach().cpu().reshape(())
     t = torch.stack([t0, t0 - 1.0 if reverse_time else t0 + 1.0])
@@ -134,17 +130,25 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
     event_t, solution = odeint_interface(func, y0, t, event_fn=event_fn,
                                          args=args, **kwargs)
 
-    # the reroute works in the internal frame, as the event function of the
-    # normalised problem does (reference odeint.py:171)
+    # the reroute works in the internal frame and on the flat state, as the
+    # event function of the normalised problem does (reference
+    # odeint.py:171)
     prob = check_inputs(func, y0, t, 0.0, 0.0, None, None, event_fn, SOLVERS,
                         args=tuple(args))
+    if prob.unravel is None:
+        state_t = solution[-1]
+    else:
+        state_t = torch.cat([s[-1].reshape(-1) for s in solution])
     if reverse_time:
         event_t = -event_t
     event_t, state_t = _implicit_fn_gradient_rerouting(
-        lambda tt, yy: prob.func(tt, yy), prob.event_fn, event_t,
-        solution[-1])
+        lambda tt, yy: prob.func(tt, yy), prob.event_fn, event_t, state_t)
     if reverse_time:
         event_t = -event_t
 
     # splice the rerouted final state back into the solution
-    return event_t, torch.cat([solution[:-1], state_t[None]], dim=0)
+    if prob.unravel is None:
+        return event_t, torch.cat([solution[:-1], state_t[None]], dim=0)
+    return event_t, type(solution)(
+        torch.cat([s[:-1], s_t[None]], dim=0)
+        for s, s_t in zip(solution, prob.unravel(state_t)))

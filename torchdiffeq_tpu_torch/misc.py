@@ -2,13 +2,18 @@
 ``torchdiffeq_tpu/misc.py``).
 
 What this slice carries of the JAX `check_inputs`: a single-tensor state,
-scalar tolerances, the RMS norm, forward and reversed time (integration
-always runs over ``t_sign * t`` with the field conjugated by the sign), the
-time dtype, and the event function of an event solve.  Time stays float64
-on the host, as in the reference (rk_common.py:180-182), so the JAX
-package's double-word time and its arithmetic ``nextafter`` are not
-needed.  Tuple state, per-leaf tolerances, other norms and callbacks come
-later (ROADMAP A2).
+kept in its own shape, or a tuple (or list) of tensors, flattened to one
+1-D tensor with an `unravel` that restores the tuple (JAX's
+``ravel_state=True`` path, misc.py:250-270); scalar or per-leaf
+tolerances; the RMS norm, the max of per-leaf RMS norms (`mixed_norm`) for
+a tuple, or a user norm; forward and reversed time (integration always runs
+over ``t_sign * t`` with the field conjugated by the sign), with
+``time_direction`` to force the reverse; ``step_t``/``jump_t`` mapped into
+the internal frame; the time dtype, and the event function of an event
+solve.  Time stays float64 on the host, as in the reference
+(rk_common.py:180-182), so the JAX package's double-word time and its
+arithmetic ``nextafter`` are not needed.  Callbacks come later (ROADMAP
+A2).
 """
 from __future__ import annotations
 
@@ -91,6 +96,53 @@ def rms_norm(x):
     return torch.sqrt(torch.mean(x.abs() ** 2))
 
 
+def mixed_norm(tensors):
+    """Max over per-tensor RMS norms (reference ``_mixed_norm``,
+    misc.py:30-33; JAX misc.py:147).  A 0-d tensor of the default float
+    dtype for an empty sequence."""
+    tensors = list(tensors)
+    if not tensors:
+        return torch.zeros(())
+    return torch.max(torch.stack([rms_norm(x) for x in tensors]))
+
+
+def flatten_state(y):
+    """A tuple (or list) of tensors as one 1-D tensor and the `unravel`
+    that restores it from any tensor of that layout (views, no copy; the
+    leaves' dtypes promoted to one).  JAX's ``ravel_pytree`` on a tuple."""
+    leaves = tuple(y)
+    if not leaves or not all(isinstance(x, torch.Tensor) for x in leaves):
+        raise TypeError("a tuple state must hold one or more tensors")
+    dtype = leaves[0].dtype
+    for x in leaves[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    shapes = [x.shape for x in leaves]
+    sizes = [x.numel() for x in leaves]
+    kind = type(y) if isinstance(y, list) else tuple
+
+    def unravel(flat):
+        """The tuple from a tensor of the flat layout, with any leading
+        axes kept on each leaf (a (T, n) solution gives (T, *shape)
+        leaves)."""
+        lead = tuple(flat.shape[:-1])
+        return kind(part.reshape(lead + tuple(shape)) for part, shape in
+                    zip(torch.split(flat, sizes, dim=-1), shapes))
+
+    flat = torch.cat([x.reshape(-1).to(dtype) for x in leaves])
+    return flat, unravel
+
+
+def is_tuple_state(y):
+    return isinstance(y, (tuple, list))
+
+
+def time_sign(t):
+    """+1 for increasing output times (or fewer than two), -1 for
+    decreasing (JAX `time_sign`, misc.py:418)."""
+    t_np = host_times(t)
+    return 1.0 if t_np.shape[0] < 2 or t_np[-1] >= t_np[0] else -1.0
+
+
 class PerturbedFunc:
     """Wraps a vector field with `perturb` support and the time sign
     (``_PerturbFunc``, reference misc.py:174-197): the evaluation time is
@@ -118,15 +170,32 @@ class PerturbedFunc:
 
 class NormalisedProblem(NamedTuple):
     func: Callable        # PerturbedFunc in the internal (increasing) frame
-    y0: torch.Tensor
+    y0: torch.Tensor      # the state, or a tuple state flattened to 1-D
     t: np.ndarray         # (T,) increasing host times, float64
-    rtol: float
-    atol: float
+    rtol: Any             # float, or a per-element tensor (tuple state)
+    atol: Any
     method: str
     options: dict
     event_fn: Any         # combined event fn of internal time, or None
     t_sign: float         # +1/-1: t_internal = t_sign * t_user
     norm: Callable
+    unravel: Any = None   # flat -> the user's tuple; None for one tensor
+
+
+def _leaf_tol(name, tol, leaves, like):
+    """A scalar tolerance as a float; a per-leaf sequence as one per-element
+    tensor in the state's dtype and device (JAX `_tree_tol`,
+    misc.py:155-172)."""
+    if _is_scalar(tol):
+        return float(tol)
+    tol = list(tol)
+    if len(tol) != len(leaves):
+        raise ValueError(
+            f"If using per-leaf {name} it must have the same length as the "
+            f"state pytree leaves ({len(leaves)}), got {len(tol)}.")
+    return torch.cat([torch.full((x.numel(),), float(v), dtype=like.dtype,
+                                 device=like.device)
+                      for v, x in zip(tol, leaves)])
 
 
 def host_times(t):
@@ -160,29 +229,38 @@ def time_tensor(t, y):
 
 
 def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
-                 args=()):
+                 args=(), time_direction='auto'):
     """Normalise user inputs to solver form (the JAX ``check_inputs``,
     torchdiffeq_tpu/misc.py:212-402, on the parts this slice carries).
 
-    With `event_fn`, `t` must hold two times, and the problem's event
-    function takes the internal time: it hands the user's function the
-    user's time (negated back when time is reversed) and combines its
-    outputs through `events.combine_event_functions`."""
+    A tuple state is flattened to one 1-D tensor; the field then sees the
+    tuple and its output is flattened (JAX's ``ravel_state=True``).  With
+    `event_fn`, `t` must hold two times, and the problem's event function
+    takes the internal time: it hands the user's function the user's time
+    (negated back when time is reversed) and the user's state, and combines
+    its outputs through `events.combine_event_functions`.
+    ``time_direction='reverse'`` integrates backwards whatever the order of
+    `t` (the adjoint's backward solves).
+    """
     from .events import combine_event_functions  # events imports this module
 
     if event_fn is not None and host_times(t).shape[0] != 2:
         raise ValueError("We require len(t) == 2 when in event handling "
                          f"mode, but got len(t)={host_times(t).shape[0]}.")
-    if not isinstance(y0, torch.Tensor):
-        raise NotImplementedError(
-            "y0 must be one torch.Tensor; tuple and pytree state come "
-            "later (ROADMAP A2)")
-    if not y0.is_floating_point():
-        raise TypeError(f"y0 must be floating point, got {y0.dtype}")
+    unravel = None
+    if is_tuple_state(y0):
+        leaves = tuple(y0)
+        y0, unravel = flatten_state(leaves)
+    elif isinstance(y0, torch.Tensor):
+        leaves = (y0,)
+    else:
+        raise TypeError("y0 must be a torch.Tensor or a tuple of tensors")
+    for leaf in leaves:
+        if not leaf.is_floating_point():
+            raise TypeError(f"y0 must be floating point, got {leaf.dtype}")
     np_dtype(y0.dtype)
-    if not (_is_scalar(rtol) and _is_scalar(atol)):
-        raise NotImplementedError(
-            "per-leaf rtol/atol come with tuple state (ROADMAP A2)")
+    rtol = _leaf_tol('rtol', rtol, leaves, y0)
+    atol = _leaf_tol('atol', atol, leaves, y0)
     for name in ('callback_step', 'callback_accept_step',
                  'callback_reject_step'):
         if getattr(func, name, None) is not None:
@@ -195,10 +273,14 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
     if method not in solvers:
         raise ValueError('Invalid method "{}". Must be one of {}'.format(
             method, '{"' + '", "'.join(solvers.keys()) + '"}.'))
-    if options.get('norm') is not None:
-        raise NotImplementedError(
-            "user norms come with tuple state (ROADMAP A2); the port uses "
-            "the RMS norm")
+
+    user_norm = options.pop('norm', None)
+    if user_norm is None:
+        norm = rms_norm if unravel is None else (
+            lambda x: mixed_norm(unravel(x)))
+    else:
+        norm = user_norm if unravel is None else (
+            lambda x: user_norm(unravel(x)))
 
     tdt = options.pop('dtype', None)
     if tdt is not None and tdt not in (torch.float64, np.float64):
@@ -209,25 +291,34 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
 
     t_np = host_times(t)
     _check_monotonic(t_np)
-    if t_np.shape[0] < 2 or t_np[-1] >= t_np[0]:
-        t_sign = 1.0
-    else:
-        t_sign = -1.0
+    t_sign = -1.0 if time_direction == 'reverse' else time_sign(t_np)
     t_np = t_sign * t_np
+    for name in ('step_t', 'jump_t'):
+        tv = options.get(name)
+        if tv is not None:
+            if isinstance(tv, torch.Tensor):
+                tv = tv.detach().cpu()
+            options[name] = t_sign * np.atleast_1d(
+                np.asarray(tv, dtype=np.float64))
 
     if args:
         base_func = lambda tt, yy: func(tt, yy, *args)
     else:
         base_func = func
+    if unravel is not None:
+        user_func = base_func
+        base_func = lambda tt, yy: torch.cat(
+            [f.reshape(-1) for f in user_func(tt, unravel(yy))])
 
     flat_event_fn = None
     if event_fn is not None:
         def flat_event_fn(tt, yy):
             tt = time_tensor(tt, yy)
-            return event_fn(-tt if t_sign < 0 else tt, yy)
+            return event_fn(-tt if t_sign < 0 else tt,
+                            yy if unravel is None else unravel(yy))
         flat_event_fn = combine_event_functions(flat_event_fn, t_np[0], y0)
 
     return NormalisedProblem(
         func=PerturbedFunc(base_func, t_sign), y0=y0, t=t_np,
-        rtol=float(rtol), atol=float(atol), method=method, options=options,
-        event_fn=flat_event_fn, t_sign=t_sign, norm=rms_norm)
+        rtol=rtol, atol=atol, method=method, options=options,
+        event_fn=flat_event_fn, t_sign=t_sign, norm=norm, unravel=unravel)

@@ -1,6 +1,9 @@
-"""Model fields (neural-ODE MLP fields) and the affine event family."""
+"""Model fields (neural-ODE MLP fields, ODE blocks) and the affine event
+family."""
 from .neural_ode import (LinearEvent, MLPField, init_mlp, mlp_apply,
-                         spiral_field, init_spiral_model, mlp_params_from_jax)
+                         mlp_vector_field, spiral_field, init_spiral_model,
+                         mlp_params_from_jax, ode_block)
 
-__all__ = ['LinearEvent', 'MLPField', 'init_mlp', 'mlp_apply', 'spiral_field',
-           'init_spiral_model', 'mlp_params_from_jax']
+__all__ = ['LinearEvent', 'MLPField', 'init_mlp', 'mlp_apply',
+           'mlp_vector_field', 'spiral_field', 'init_spiral_model',
+           'mlp_params_from_jax', 'ode_block']

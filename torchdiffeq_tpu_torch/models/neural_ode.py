@@ -134,6 +134,18 @@ def init_mlp(sizes, scale=None, dtype=torch.float32, device=None,
                     generator=generator)
 
 
+def mlp_vector_field(model, t, y, time_dependent=False):
+    """f(t, y) as the MLP of `model` over y, or over ``[y, t]`` with
+    `time_dependent` (JAX `mlp_vector_field`, models/neural_ode.py:37-47;
+    the input power of an `MLPField` is not applied)."""
+    if time_dependent:
+        tcol = torch.as_tensor(t, dtype=y.dtype, device=y.device)
+        inp = torch.cat([y, tcol.expand(y.shape[:-1] + (1,))], dim=-1)
+    else:
+        inp = y
+    return mlp_apply(model, inp)
+
+
 def spiral_field(model, t, y):
     """The spiral demo's field: the MLP applied to ``y**3``."""
     return mlp_apply(model, y ** 3)
@@ -165,3 +177,36 @@ def mlp_params_from_jax(params, *, power=1, device=None):
         for p, b in zip(model.biases, bs):
             p.copy_(torch.from_numpy(b.copy()))
     return model
+
+
+def ode_block(model, y0, t, *, field, use_adjoint=True, rtol=1e-3, atol=1e-4,
+              method='dopri5', **kwargs):
+    """Integrate ``field(model, t, y)`` over `t` and return the trajectory
+    (JAX `ode_block`, models/neural_ode.py:58-66; the reference's ODEBlock,
+    odenet_mnist.py:123-126).  Gradients come from the continuous adjoint
+    either way: `odeint_adjoint` with `use_adjoint`, else plain `odeint`,
+    which differentiates through the same adjoint (ROADMAP C4).  `model`
+    goes to the solve as an argument, so every floating tensor of it (an
+    ``nn.Module``'s parameters, or a tuple or dict of tensors) gets a
+    gradient."""
+    from ..adjoint import odeint_adjoint
+    from ..odeint import odeint
+    solver = odeint_adjoint if use_adjoint else odeint
+    if isinstance(model, nn.Module):
+        return solver(_ModuleField(model, field), y0, t, rtol=rtol,
+                      atol=atol, method=method, **kwargs)
+    return solver(lambda tt, yy, p: field(p, tt, yy), y0, t, rtol=rtol,
+                  atol=atol, method=method, args=(model,), **kwargs)
+
+
+class _ModuleField(nn.Module):
+    """``field(model, t, y)`` as an ``nn.Module`` whose parameters are the
+    model's, so plain `odeint` finds them for the adjoint."""
+
+    def __init__(self, model, field):
+        super().__init__()
+        self.model = model
+        self.field = field
+
+    def forward(self, t, y):
+        return self.field(self.model, t, y)

@@ -1,17 +1,18 @@
 """The `odeint` front door (counterpart of ``torchdiffeq_tpu/odeint.py``).
 
-This slice carries the forward solve of the explicit adaptive tier through
-the host-loop solver, event solves (``event_fn=...``) on the same tier,
-and the fused RK4 kernel route
-``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.
+This slice carries the explicit adaptive tier through the host-loop solver,
+event solves (``event_fn=...``) on the same tier, and the fused RK4 kernel
+route ``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.
 Everything that would reach a solver family not yet ported raises
 `NotImplementedError` naming its ROADMAP item.
 
-Gradients: the JAX package differentiates adaptive solves through the
-continuous adjoint, which is the next slice (ROADMAP A3).  Until then a
-call that autograd would have to differentiate -- grad mode on, and `y0`,
-an `args` tensor or a parameter of an ``nn.Module`` field requiring grad --
-raises instead of returning a silently detached result.
+Gradients: as in the JAX package (odeint.py:319-329), an adaptive solve or
+an event solve that autograd would have to differentiate -- grad mode on,
+and `y0`, `t`, a tensor in `args` or a parameter of an ``nn.Module`` field
+requiring grad -- takes its gradients from the continuous adjoint
+(`adjoint.adjoint_solve`) at the forward settings.  The kernel route is
+forward-only and raises instead of returning a detached result;
+``replay_grad`` and ``forward_grad`` are ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -20,17 +21,28 @@ import warnings
 import numpy as np
 import torch
 
-from .misc import check_inputs, host_times, needs_autograd
+from .misc import check_inputs, host_times, is_tuple_state, needs_autograd
 from .solvers import SOLVERS, NOT_PORTED
 from .solvers import adaptive_rk
 from .solvers.solution import Stats
 
+# the Pallas kernels' own options, accepted and dropped off their routes
+_KERNEL_OPTIONS = ('pallas', 'interpret', 'block_b')
 
-def _refuse_autograd(func, y0, args):
-    if needs_autograd(func, y0, *args):
+
+def _differentiable(func, y0, t, args):
+    """Whether autograd would have to record through a solve."""
+    from .adjoint import _tensors_in
+    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    return needs_autograd(func, *leaves, t, *_tensors_in(args))
+
+
+def _refuse_autograd(func, y0, t, args):
+    if _differentiable(func, y0, t, args):
         raise NotImplementedError(
-            "gradients of odeint come with the continuous adjoint (ROADMAP "
-            "A3); until then call the forward solve under torch.no_grad()")
+            "the rk4 kernel route is forward-only, as the JAX kernel is; its "
+            "differentiable scan loop is ROADMAP A4 (call the route under "
+            "torch.no_grad())")
 
 
 def _adaptive_config(prob, tableau):
@@ -51,7 +63,10 @@ def _adaptive_config(prob, tableau):
         dfactor=opts.get('dfactor', 0.2),
         min_step=opts.get('min_step', 0.0),
         max_step=opts.get('max_step', float('inf')),
-        max_num_steps=opts.get('max_num_steps', 2 ** 31 - 1))
+        max_num_steps=opts.get('max_num_steps', 2 ** 31 - 1),
+        step_t=opts.get('step_t'), jump_t=opts.get('jump_t'),
+        jump_state_fn=opts.get('jump_state_fn'),
+        step_to_end=bool(opts.get('step_to_end', False)))
 
 
 def odeint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None, options=None,
@@ -60,8 +75,10 @@ def odeint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None, options=None,
     return the solution at every time in `t`, shape ``(T, *y0.shape)``
     (JAX `odeint`, torchdiffeq_tpu/odeint.py:162; reference odeint.py:49).
 
-    `y0` is one float32/float64 tensor on any device; `t` is strictly
-    monotonic (decreasing time integrates backwards).  Time is float64.
+    `y0` is one float32/float64 tensor on any device, or a tuple of them;
+    `t` is strictly monotonic (decreasing time integrates backwards).  Time
+    is float64.  Under autograd the gradients come from the continuous
+    adjoint (`odeint_adjoint` at the same settings).
 
     With `event_fn`, `t` holds two times (the start and a point giving the
     direction) and the solve runs until ``event_fn(t, y)`` changes sign; it
@@ -85,14 +102,16 @@ def _try_pallas_rk4(func, y0, t, method, options, event_fn, args):
     """The fused RK4 kernel route (JAX `_try_pallas_rk4`, odeint.py:190-239)
     for ``method='rk4', options=dict(pallas=True, num_steps=N)``, with the
     same qualification: a 2-D (B, D) real state, output times increasing
-    and uniformly strided on the `num_steps` grid, no event function.
+    and uniformly strided on the `num_steps` grid, no event function.  The
+    Pallas kernel's own options `interpret` and `block_b` (a TPU lane tile)
+    are accepted and dropped, as the JAX route takes them.
     Returns (ys, Stats) or None."""
     opts = options or {}
     if not isinstance(opts, dict) or not opts.get('pallas'):
         return None
     if method != 'rk4' or event_fn is not None:
         return None
-    if set(opts) - {'pallas', 'num_steps'}:
+    if set(opts) - {'pallas', 'num_steps', 'interpret', 'block_b'}:
         return None
     n_steps = opts.get('num_steps')
     if n_steps is None:
@@ -113,7 +132,7 @@ def _try_pallas_rk4(func, y0, t, method, options, event_fn, args):
         return None
 
     from .ops.kernels import rk4_integrate
-    _refuse_autograd(func, y0, args)
+    _refuse_autograd(func, y0, t, args)
     dt = (t_np[-1] - t_np[0]) / n_steps
     ys = rk4_integrate(func, y0, t_np[0], dt, n_steps, tuple(args),
                        out_every=n_steps // (T - 1))
@@ -126,7 +145,8 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
     if res is not None:
         return res
     if isinstance(options, dict):
-        options = {k: v for k, v in options.items() if k != 'pallas'}
+        options = {k: v for k, v in options.items()
+                   if k not in _KERNEL_OPTIONS}
     name = 'dopri5' if method is None else method
     if event_fn is not None and (name in NOT_PORTED or SOLVERS.get(
             name, {}).get('kind') == 'fixed'):
@@ -141,15 +161,25 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
             "rk4 runs only on the fused kernel route (options=dict("
             "pallas=True, num_steps=N) with uniform increasing output times "
             "and a 2-D state); its scan loop is ROADMAP A4")
-    _refuse_autograd(func, y0, args)
+    if _differentiable(func, y0, t, args):
+        # JAX odeint.py:319-329: the continuous adjoint at the forward
+        # settings, with no backward options
+        from .adjoint import adjoint_solve
+        return adjoint_solve(
+            func, y0, t, rtol=rtol, atol=atol, method=name, options=options,
+            event_fn=event_fn, args=args, adjoint_rtol=rtol,
+            adjoint_atol=atol, adjoint_method=name, adjoint_options=None)
     prob = check_inputs(func, y0, t, rtol, atol, method, options, event_fn,
                         SOLVERS, args=tuple(args))
     cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
+    unravel = prob.unravel or (lambda x: x)
     with torch.no_grad():
         if event_fn is None:
-            return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+            ys, stats = adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+            return unravel(ys), stats
         # JAX `_solve_event_normalised` (odeint.py:125-154), the event time
         # mapped back to the user's frame
         event_t, y_event, stats = adaptive_rk.integrate_until_event(
             prob.func, prob.y0, prob.t[0], prob.event_fn, cfg)
-        return (prob.t_sign * event_t, torch.stack([prob.y0, y_event])), stats
+        return ((prob.t_sign * event_t,
+                 unravel(torch.stack([prob.y0, y_event]))), stats)

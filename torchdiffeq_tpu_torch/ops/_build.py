@@ -36,18 +36,22 @@ _SIGNATURES = {
                 _P],
     # tdt_dopri5_lanes(dtype, B, D, H, power, y0, ts, S, t0, t1, rtol, atol,
     #   safety, ifactor, dfactor, first_step, use_first_step, max_steps,
-    #   tab, n_alpha, order, fsal, w1, b1, w2, b2, group, ys, n_acc, n_steps,
-    #   stream)
+    #   tab, n_alpha, order, fsal, w1, b1, w2, b2, group, threads, ys, n_acc,
+    #   n_steps, stream)
     "tdt_dopri5_lanes": [_I, _I, _I, _I, _I, _P, _P, _I, _D, _D, _D, _D, _D,
                          _D, _D, _D, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P,
-                         _I, _P, _P, _P, _P],
+                         _I, _I, _P, _P, _P, _P],
     # tdt_dopri5_events(dtype, B, D, H, power, y0, t0, rtol, atol, safety,
     #   ifactor, dfactor, first_step, use_first_step, max_steps, tab,
     #   n_alpha, order, fsal, w1, b1, w2, b2, K, ev_w, ev_c, ev_b, sign0,
-    #   bisect_iters, group, event_t, y_event, found, n_acc, n_steps, stream)
+    #   bisect_iters, group, threads, event_t, y_event, found, n_acc,
+    #   n_steps, stream)
     "tdt_dopri5_events": [_I, _I, _I, _I, _I, _P, _D, _D, _D, _D, _D, _D,
                           _D, _I, _I, _P, _I, _I, _I, _P, _P, _P, _P, _I,
-                          _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+                          _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                          _P],
+    # tdt_max_shared_bytes(out[1])
+    "tdt_max_shared_bytes": [_P],
     # tdt_fused_step(dtype, B, D, H, y0, f0, w1, b1, w2, b2, coefs, masks,
     #   n_alpha, fsal, kbuf, y1, f1, err, dmid, stream)
     "tdt_fused_step": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,

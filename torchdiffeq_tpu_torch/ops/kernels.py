@@ -24,6 +24,7 @@ a path went through the kernels; it also counts the fused-step kernel of
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -35,12 +36,20 @@ from . import tableaus
 from . import _build
 
 # explicit adaptive tableaus the per-lane solve takes (as in the JAX
-# package); the CUDA kernel holds those of at most 7 stages
+# package), all of them in the CUDA kernels
 PER_LANE_METHODS = ('dopri5', 'tsit5', 'bosh3', 'fehlberg2',
                     'adaptive_heun', 'dopri8')
+# K-rk4's state sizes and shared memory (csrc/rk4.cu)
 _KERNEL_MAX_D = 8
-_KERNEL_MAX_ALPHA = 6
 _SMEM_LIMIT = 48 * 1024
+# K-dopri5 and K-events: the packed tableau holds up to 14 stages (dopri8's
+# 13 alphas; csrc/lane_ops.cuh); problems of D <= 8 and at most 7 stages run
+# the instances that hold a trajectory in registers, all others the
+# shared-memory instances (`_lane_plan`)
+_PACK_ALPHA = 13
+_REG_MAX_D = 8
+_REG_MAX_ALPHA = 6
+_LANE_THREADS = 128
 # K-rk4, K-dopri5 and K-events give a trajectory a group of lanes until the
 # batch has this many threads (512 on each of an H100's 132 SMs, rounded
 # down to a power of two)
@@ -62,9 +71,10 @@ def _refuse_grad(field, y0, params):
             "under torch.no_grad(), or use requires_grad=False inputs")
 
 
-def _kernel_mlp(field, params, y_dtype, device, D, kernel):
-    """Check that `field` is what the CUDA kernels take and return its
-    contiguous (w1, b1, w2, b2)."""
+def _kernel_mlp(field, params, y_dtype, device, D, kernel, max_d=None):
+    """Check that `field` is what the CUDA kernels take (and D at most
+    `max_d`, where the kernel has such a bound) and return its contiguous
+    (w1, b1, w2, b2)."""
     if not isinstance(field, MLPField) or params:
         raise TypeError(
             f"the CUDA {kernel} kernel takes an MLPField with no extra "
@@ -83,9 +93,9 @@ def _kernel_mlp(field, params, y_dtype, device, D, kernel):
     if w1.shape[0] != D or w2.shape != (H, D):
         raise ValueError(f"MLPField sizes {field.sizes} do not map the "
                          f"state dimension {D} to itself")
-    if not 1 <= D <= _KERNEL_MAX_D:
+    if max_d is not None and not 1 <= D <= max_d:
         raise ValueError(f"the CUDA {kernel} kernel takes 1 <= D <= "
-                         f"{_KERNEL_MAX_D}, got D={D}")
+                         f"{max_d}, got D={D}")
     return _kernel_tensors((w1, b1, w2, b2), y_dtype, device,
                            "MLPField weights"), H
 
@@ -211,7 +221,7 @@ def rk4_integrate(field, y0, t0, dt, n_steps, params=(), *, out_every=None):
     _check_cuda_state(y0, 'rk4_integrate')
     B, D = y0.shape
     (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, y0.device, D,
-                                      'rk4_integrate')
+                                      'rk4_integrate', _KERNEL_MAX_D)
     sd = np_dtype(y0.dtype)
     n_steps = int(n_steps)
     out_every = _check_out_every(n_steps, out_every)
@@ -263,11 +273,7 @@ def packed_tableau(method, dtype, device):
     alpha, beta, c_sol, c_err, c_mid, order, fsal = _tableau_consts(
         method, np_dtype(dtype))
     n_alpha = len(alpha)
-    m = _KERNEL_MAX_ALPHA
-    if n_alpha > m:
-        raise ValueError(
-            f"the CUDA per-lane kernels hold tableaus of at most {m + 1} "
-            f"stages; {method} has {n_alpha + 1}")
+    m = _PACK_ALPHA
     packed = np.zeros(m * (m + 1) + 3 * (m + 1), np_dtype(dtype))
     packed[:n_alpha] = alpha
     packed[m:m + m * m].reshape(m, m)[:n_alpha, :n_alpha] = beta
@@ -440,6 +446,50 @@ def _state_scalars(sd, *values):
     return np.array([float(v) for v in values], dtype=sd).tolist()
 
 
+@functools.lru_cache(maxsize=None)
+def _max_shared_bytes(device):
+    """The card's limit on a block's dynamic shared memory (its opt-in
+    maximum: 227 KB on an H100)."""
+    lib = _build.library()
+    out = (ctypes.c_int * 1)()
+    with torch.cuda.device(device):
+        _build.check(lib, lib.tdt_max_shared_bytes(out),
+                     "tdt_max_shared_bytes")
+    return int(out[0])
+
+
+def _lane_plan(kernel, D, H, n_alpha, L, block_elems, element_size, device,
+               quartic):
+    """Block size of a K-dopri5 or K-events launch.
+
+    The register instances (D <= 8, at most 7 stages) run 128 threads.  The
+    shared-memory instances add a slice of ``wide_slice_elems`` elements
+    per trajectory (csrc/lane_ops.cuh) to the block's `block_elems` (the
+    MLP, the tableau and the output times or event weights), so the block
+    holds 128 / L trajectories, halved until it fits the card's shared
+    memory.  Raises where one trajectory group does not fit: that is the
+    only bound on D and H.  Returns (threads, shared bytes).
+    """
+    limit = _max_shared_bytes(device)
+    if D <= _REG_MAX_D and n_alpha <= _REG_MAX_ALPHA:
+        threads, need = _LANE_THREADS, block_elems * element_size
+    else:
+        per_traj = (n_alpha + 1 + 6 + (5 if quartic else 0)) * D + H
+        threads = _LANE_THREADS
+        while True:
+            need = (block_elems + threads // L * per_traj) * element_size
+            if need <= limit or threads == L:
+                break
+            threads //= 2
+    if need > limit:
+        raise ValueError(
+            f"{kernel}: one trajectory group (D={D}, H={H}, {n_alpha + 1} "
+            f"stages) needs {need} bytes of shared memory for the MLP, the "
+            "tableau, the output times or event weights and its state and "
+            f"slopes, above the card's {limit} bytes a block")
+    return threads, need
+
+
 # ---------------------------------------------------------------------------
 # K-dopri5: per-lane adaptive explicit RK.
 # ---------------------------------------------------------------------------
@@ -522,7 +572,9 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
             controller settings shared by all lanes.
         group: the kernel's lanes a trajectory, a power of two from 1 to 32
             and at most the field's H (default `_lane_group_width`).  It
-            changes only the summation order of the field's hidden units.
+            changes only the summation order of the field's hidden units
+            (in the register instances; the shared-memory instance that runs
+            dopri8 and D > 8 gives the same bits at every width).
 
     Returns:
         (ys (S, D, B), or (D, B) without `ts`; n_accepted (1, B) int32;
@@ -533,6 +585,18 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
     ran out of steps keeps stepping while others run; its counts then
     depend on the tile it shares (they agree whenever every lane that runs
     out does so at the same time, e.g. when the others are done).
+
+    Exactness of the counts (ROADMAP C7): the kernel sums the field's
+    hidden units in another order than the plain version's products, so
+    its float64 per-lane steps and accepts equal the plain version's only
+    away from accept boundaries.  A lane whose error ratio comes within
+    rounding of 1 on some step can flip that accept and then take other
+    steps, at every group width, L=1 included; tests/test_torch_cuda.py
+    (test_float64_counts_near_accept_boundaries) bounds the share of such
+    lanes.  dopri8's error estimate is rounding noise on steps over which
+    the field is nearly linear, and its next step follows that noise, so
+    there the two take steps of slightly different sizes; a `first_step`
+    where the estimate is truncation (e.g. 0.2 on [0, 1]) avoids most.
     """
     _refuse_grad(field, y0, params)
     _check_group(group)
@@ -571,11 +635,9 @@ def _lanes_launch(field, y0, t0, t1, *, ts=None, rtol=1e-4, atol=1e-6,
     tab_d, n_alpha, order, fsal = packed_tableau(method, y0.dtype, dev)
     emit_ts = tuple(np.array([t1] if ts is None else ts, dtype=sd).tolist())
     S = len(emit_ts)
-    shared = (2 * D * H + H + D + tab_d.numel() + S) * y0.element_size()
-    if shared > _SMEM_LIMIT:
-        raise ValueError(f"{kernel}: MLP, tableau and {S} output times need "
-                         f"{shared} bytes of shared memory, above the "
-                         f"kernel's {_SMEM_LIMIT}")
+    threads, _ = _lane_plan(kernel, D, H, n_alpha, L,
+                            2 * D * H + H + D + tab_d.numel() + S,
+                            y0.element_size(), dev, quartic=False)
     ts_d = _device_times(emit_ts, y0.dtype, dev)
     ys = y0.new_empty((S, D, B))
     counts = torch.empty((2, B), dtype=torch.int32, device=dev)
@@ -584,7 +646,7 @@ def _lanes_launch(field, y0, t0, t1, *, ts=None, rtol=1e-4, atol=1e-6,
                             0.0 if first_step is None else first_step),
             int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
             order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), L,
-            _ptr(ys), *_row_ptrs(counts), _stream(dev))
+            threads, _ptr(ys), *_row_ptrs(counts), _stream(dev))
     lib = _build.library() if B > 0 else None
 
     def launch():
@@ -729,6 +791,10 @@ def dopri5_events_batched(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
         (event_t (1, B), NaN where no event was found; y_event (D, B), the
         last accepted state there; found, n_accepted, n_steps, each (1, B)
         int32).
+
+    The float64 per-lane counts (and `found`) equal the plain version's
+    only away from accept boundaries, as for `dopri5_integrate_batched`
+    (ROADMAP C7).
     """
     _refuse_grad(field, y0, params)
     _refuse_grad(event_fn, y0, ev_params)
@@ -765,12 +831,9 @@ def _events_launch(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
                                                  y0.dtype, dev, D, B)
     L = _group_for(B, H, group, kernel)
     tab_d, n_alpha, order, fsal = packed_tableau(method, y0.dtype, dev)
-    shared = ((2 * D * H + H + D + tab_d.numel() + K * D + 2 * K)
-              * y0.element_size())
-    if shared > _SMEM_LIMIT:
-        raise ValueError(f"{kernel}: MLP, tableau and event weights need "
-                         f"{shared} bytes of shared memory, above the "
-                         f"kernel's {_SMEM_LIMIT}")
+    threads, _ = _lane_plan(kernel, D, H, n_alpha, L,
+                            2 * D * H + H + D + tab_d.numel() + K * D + 2 * K,
+                            y0.element_size(), dev, quartic=True)
     sd = np_dtype(y0.dtype)
     values = y0.new_empty((1 + D, B))   # event_t | y_event
     counts = torch.empty((3, B), dtype=torch.int32, device=dev)
@@ -780,7 +843,7 @@ def _events_launch(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
             int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
             order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), K,
             _ptr(ev_w), _ptr(ev_c), _ptr(ev_b), _ptr(sign0),
-            int(bisect_iters), L, *_row_ptrs(values)[:2],
+            int(bisect_iters), L, threads, *_row_ptrs(values)[:2],
             *_row_ptrs(counts), _stream(dev))
     lib = _build.library() if B > 0 else None
 

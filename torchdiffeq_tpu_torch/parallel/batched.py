@@ -126,7 +126,8 @@ def odeint_per_sample_with_stats(func, y0, t, args=(), args_axes=None, *,
                                             and needs_autograd(event_fn)):
         raise RuntimeError(
             "the per-sample kernel route is forward-only (as in the JAX "
-            "package): call it under torch.no_grad()")
+            "package): call it under torch.no_grad(); differentiable "
+            "per-sample solves come with the batched driver (ROADMAP A6)")
     method = method or 'dopri5'
     ts = t_np.astype(np_dtype(y0.dtype))
     if isinstance(func, MLPField) and not args:

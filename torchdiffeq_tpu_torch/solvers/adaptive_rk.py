@@ -12,8 +12,16 @@ perturbation, emission through the quartic interpolant, the per-interval
 `max_num_steps` budget, NaN poisoning of unwritten outputs) are the JAX
 solver's, so values and `Stats` counters match it.
 
-Not yet ported (ROADMAP A2/A3): `step_t`, `jump_t`, `jump_state_fn`,
-`step_to_end`, `error_dtype` and the PI/PID controllers.
+Steps are truncated at ``step_t`` and ``jump_t`` times as in the JAX
+`_adaptive_step` (adaptive_rk.py:212-258); after an accepted step that ends
+on a ``jump_t`` time, ``jump_state_fn`` (if given) transforms the state
+and the slope is evaluated again on the far side.  The hook runs only on
+such a step (the JAX package's lazy branch; its branch-free variant is a
+TPU device-loop measure, ROADMAP "Not to port").  ``step_to_end`` lands a
+step on every output time and copies the state there instead of
+interpolating (adaptive_rk.py:446-497).
+
+Not yet ported (ROADMAP A2): `error_dtype` and the PI/PID controllers.
 """
 from __future__ import annotations
 
@@ -34,15 +42,15 @@ from .solution import (Stats, OK, ERR_DT_UNDERFLOW, ERR_NONFINITE_STATE,
 
 # JAX adaptive options that belong to later slices of the port.
 NOT_PORTED_OPTIONS = {
-    'step_t': 'ROADMAP A2', 'jump_t': 'ROADMAP A2',
-    'jump_state_fn': 'ROADMAP A3', 'step_to_end': 'ROADMAP A3',
     'error_dtype': 'ROADMAP A2', 'controller': 'ROADMAP A2',
     'pcoeff': 'ROADMAP A2', 'icoeff': 'ROADMAP A2', 'dcoeff': 'ROADMAP A2',
-    'replay_grad': 'ROADMAP A3', 'max_segments': 'ROADMAP A3',
+    'replay_grad': 'ROADMAP A10', 'max_segments': 'ROADMAP A10',
     'forward_grad': 'ROADMAP A10', 'compensated_time': "ROADMAP 'Not to port'",
+    '_jump_branch_free': "ROADMAP 'Not to port'",
 }
 SUPPORTED_OPTIONS = {'first_step', 'safety', 'ifactor', 'dfactor',
-                     'min_step', 'max_step', 'max_num_steps'}
+                     'min_step', 'max_step', 'max_num_steps', 'step_t',
+                     'jump_t', 'jump_state_fn', 'step_to_end'}
 
 
 class AdaptiveConfig(NamedTuple):
@@ -57,6 +65,75 @@ class AdaptiveConfig(NamedTuple):
     min_step: float = 0.0
     max_step: float = float('inf')
     max_num_steps: int = 2 ** 31 - 1
+    step_t: Any = None            # float64 host array (internal frame)
+    jump_t: Any = None
+    # ``jump_state_fn(k, t1, y1) -> y1'``: the state transform on an
+    # accepted step that ends on the k-th (sorted) jump_t time, before the
+    # far-side re-evaluation of the slope (the fused adjoint's cotangent
+    # injection, adjoint.py)
+    jump_state_fn: Any = None
+    # land a step on every output time and copy the state there (no
+    # quartic fit or evaluation)
+    step_to_end: bool = False
+
+
+def _prep_tvals(tvals, t0):
+    """Sort a step_t/jump_t array and find the first entry past t0 (JAX
+    `_prep_tvals`, adaptive_rk.py:151-159): ``(sorted, index)``, the index
+    clipped to the array so that an exhausted array keeps pointing at its
+    last entry, which the window test then never passes."""
+    tvals = np.sort(np.asarray(tvals, dtype=np.float64).reshape(-1))
+    idx = int(np.clip(np.searchsorted(tvals, t0, side='right'), 0,
+                      tvals.shape[0] - 1))
+    return tvals, idx
+
+
+def _check_no_duplicates(step_t, jump_t):
+    """`step_t` and `jump_t` must not share elements (JAX adaptive_rk.py:713;
+    reference rk_common.py:229-231)."""
+    if step_t is None or jump_t is None:
+        return
+    combined = np.concatenate([np.ravel(step_t), np.ravel(jump_t)])
+    if len(np.unique(combined)) != len(combined):
+        raise ValueError(
+            "`step_t` and `jump_t` must not have any repeated elements "
+            "between them.")
+
+
+def _merged_step_t(cfg, ts):
+    """step_to_end's forced boundaries: the user's step_t and every output
+    time after the first, with the JAX package's two collision classes
+    dropped (adaptive_rk.py:446-475): a second copy of a time, and an
+    output time that is also a jump_t time (the jump truncation lands
+    there instead, so its far-side re-evaluation still runs)."""
+    extra = np.asarray(ts[1:], dtype=np.float64)
+    merged = extra if cfg.step_t is None else np.concatenate(
+        [np.ravel(cfg.step_t), extra])
+    merged = np.sort(merged)
+    drop = np.concatenate([[False], merged[1:] == merged[:-1]])
+    if cfg.jump_t is not None:
+        jt = np.ravel(cfg.jump_t)
+        drop = drop | np.any(merged[:, None] == jt[None, :], axis=1)
+    return np.sort(np.where(drop, np.inf, merged))
+
+
+class _TVals:
+    """A sorted step_t or jump_t array and the index of its next entry."""
+
+    def __init__(self, tvals, t0):
+        self.tvals, self.idx = _prep_tvals(tvals, t0)
+
+    @property
+    def next(self):
+        return self.tvals[self.idx]
+
+    def advance(self):
+        if self.idx != self.tvals.shape[0] - 1:
+            self.idx += 1
+
+
+def _tvals(tvals, t0):
+    return None if tvals is None or np.size(tvals) == 0 else _TVals(tvals, t0)
 
 
 def _setup(func, y0, t0, cfg: AdaptiveConfig):
@@ -83,10 +160,13 @@ class _Carry:
         self.f, self.dt, self.nfe = _setup(func, y0, t0, cfg)
         self.y = y0
         self.t0 = self.t1 = t0
-        self.coeff = y0.new_zeros((5,) + tuple(y0.shape))
+        self.coeff = None if cfg.step_to_end else y0.new_zeros(
+            (5,) + tuple(y0.shape))
         self.n_steps = self.n_acc = self.n_rej = self.steps_in_interval = 0
         self.err = OK
         self.y_finite = bool(torch.isfinite(y0).all())
+        self.step_t = _tvals(cfg.step_t, t0)
+        self.jump_t = _tvals(cfg.jump_t, t0)
 
     def stats(self):
         return Stats.make(nfe=self.nfe, n_steps=self.n_steps,
@@ -100,9 +180,10 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
 
     Makes ONE host read: the error ratio and whether the proposed state is
     finite, and with `probe`, ``probe(t1, y1)`` at the proposed step's end
-    (a 0-d tensor), all read together.  Returns (accepted, probe value).  A
-    tripped guard sets ``c.err`` and leaves the rest of the carry as it was
-    (the JAX loop freezes its carry and exits).
+    (a 0-d tensor), all read together (read again after a jump hook, which
+    changes the state).  Returns (accepted, probe value).  A tripped guard
+    sets ``c.err`` and leaves the rest of the carry as it was (the JAX loop
+    freezes its carry and exits).
     """
     tab = cfg.tableau
     min_step, max_step = np.float64(cfg.min_step), np.float64(cfg.max_step)
@@ -119,6 +200,26 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
         c.err = ERR_NONFINITE_STATE
     if c.err != OK:
         return False, None
+
+    # --- step_t / jump_t truncation (JAX adaptive_rk.py:212-258) ----------
+    on_step_t = on_jump_t = False
+    if c.step_t is not None:
+        v = c.step_t.next
+        on_step_t = t0 < v < t1
+        if on_step_t:
+            t1 = v
+    if c.jump_t is not None:
+        v = c.jump_t.next
+        on_jump_t = t0 < v < t1
+        if cfg.jump_state_fn is not None:
+            # the hook fires on a step that lands exactly on the jump time
+            # too (JAX :231-246), or its injection would be skipped
+            on_jump_t = on_jump_t or (t0 < v and v == t1)
+        on_step_t = on_step_t and not on_jump_t
+        if on_jump_t:
+            t1 = v
+    if on_step_t or on_jump_t:
+        dt = t1 - t0
 
     # --- the RK step, and the one host read of the iteration --------------
     y1, f1, y1_err, k = runge_kutta_step(func, c.y, c.f, t0, dt, t1, tab)
@@ -140,8 +241,23 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
     c.t0 = t0
     if accept:
         c.n_acc += 1
-        c.coeff = interp_fit_step(c.y, y1, k, dt, tab)
+        if not cfg.step_to_end:
+            # the interpolant is fit to the pre-jump state
+            c.coeff = interp_fit_step(c.y, y1, k, dt, tab)
+        if on_jump_t:
+            # the far side of the jump: the hook, then the slope again
+            if cfg.jump_state_fn is not None:
+                y1 = cfg.jump_state_fn(c.jump_t.idx, t1, y1)
+                y1_finite = bool(torch.isfinite(y1).all())
+                if probe is not None:
+                    probed = [float(probe(t1, y1))]
+            f1 = func(t1, y1, perturb=Perturb.NEXT)
+            c.nfe += 1
         c.y, c.f, c.t1, c.y_finite = y1, f1, t1, bool(y1_finite)
+        if on_step_t:
+            c.step_t.advance()
+        if on_jump_t:
+            c.jump_t.advance()
     else:
         c.n_rej += 1
     c.dt = _clip(optimal_step_size(dt, ratio, cfg.safety, cfg.ifactor,
@@ -155,8 +271,13 @@ def integrate(func, y0, ts, cfg: AdaptiveConfig):
 
     Returns (ys (T, *y0.shape), Stats): the JAX `integrate`
     (adaptive_rk.py:423-613), one `_adaptive_step` per loop iteration.
+    With ``step_to_end`` the steps land on the output times and emission
+    copies the state (JAX :446-475, :539).
     """
     T = ts.shape[0]
+    _check_no_duplicates(cfg.step_t, cfg.jump_t)
+    if cfg.step_to_end:
+        cfg = cfg._replace(step_t=_merged_step_t(cfg, ts))
     c = _Carry(func, y0, ts[0], cfg)
     out = y0.new_zeros((T,) + tuple(y0.shape))
     out[0] = y0
@@ -166,7 +287,8 @@ def integrate(func, y0, ts, cfg: AdaptiveConfig):
         # --- emit every output time this step covered ---------------------
         emitted = False
         while i_out < T and ts[i_out] > c.t0 and ts[i_out] <= c.t1:
-            out[i_out] = interp_evaluate(c.coeff, c.t0, c.t1, ts[i_out])
+            out[i_out] = c.y if cfg.step_to_end else interp_evaluate(
+                c.coeff, c.t0, c.t1, ts[i_out])
             i_out += 1
             emitted = True
         if emitted:
@@ -192,6 +314,8 @@ def integrate_until_event(func, y0, t0, event_fn, cfg: AdaptiveConfig):
     """
     from ..events import find_event
 
+    # event localisation bisects the interpolant: step_to_end does not apply
+    cfg = cfg._replace(step_to_end=False)
     c = _Carry(func, y0, t0, cfg)
     sign0_t = nan_sign(event_fn(t0, y0))
     sign0 = sign0_t.item()
