@@ -171,6 +171,31 @@ GRAD_F32_REL = 1e-5
 #   summation order and tanh's last ULP, carried through a forward and a
 #   backward solve: 1e-9 of max|g|.
 GRAD_F64_REL = 1e-9
+# - phase 11, the fixed grid.  float64 solves, gradients and event times on
+#   the card against the CPU: as above (F64_VALUES, GRAD_F64_REL), Stats
+#   exactly equal.  K-rk4 against the float32 loop's rk4: the kernel forms
+#   every stage in float32, while the loop, as JAX, forms the stages after
+#   the first in float64 (the time dtype) and rounds each increment back;
+#   over 36 steps on |y| <= 3.6 the plain version and the loop agree to
+#   3.6e-7 on the CPU: 1e-5.  The fixed-grid training step's float32
+#   gradients against the CPU's float64: no step size moves on a fixed
+#   grid, so float32 rounding of the states alone, 6.8e-7 of max|g| on the
+#   CPU: GRAD_F32_REL.  remat=True against the plain loop on the card: the
+#   same kernels on the same inputs, recomputed, so bit for bit.
+F32_RK4_LOOP = 1e-5
+# - a bfloat16 state with float32 error control against the float32 state
+#   at the same tolerances (BF16_RTOL, BF16_ATOL: the main path's 1e-7 is
+#   under bfloat16's rounding of the stages, where no step is accepted):
+#   bfloat16 keeps 8 bits, so each accepted step rounds |y| <= 3.6 by up to
+#   2^-9 relative: values within BF16_VALUES of max|y| over the solve's
+#   steps; the float32 error estimate sees the stages' bfloat16 rounding,
+#   so it takes more steps (5 against 3 on the CPU): at most BF16_STEPS
+#   times the float32 count.
+BF16_RTOL, BF16_ATOL = 1e-3, 1e-5
+BF16_VALUES = 3e-2
+BF16_STEPS = 3
+FIXED_STEPS = 36          # phase 11's num_steps (4 an output interval)
+FIXED_EVENT_STEP = 0.01   # and the fixed-grid event solve's step_size
 TRAIN_STEPS = 12         # phase 10's timed warm steps
 LOSS_STEPS = 5           # and the steps over which the loss must fall
 EVENT_CUT = 0.9          # phase 7's time cut-off
@@ -742,11 +767,13 @@ def _profiled_step(torch, step):
     return busy_ms, len(kernels_), wall_ms
 
 
-def _event_grads(torch, device):
+def _event_grads(torch, device, **solve):
     """`odeint_event` on the training step's model and batch in float64: a
     threshold on the batch mean of y[:, 0] halfway between its values at
     t=0 and t=4/9, and a cut-off at EVENT_CUT; the gradients of event_t +
-    mean(y(event_t)**2) in the parameters.  Returns (event_t, gradients)."""
+    mean(y(event_t)**2) in the parameters.  `solve` replaces the dopri5
+    settings of the event solve (phase 11's fixed grid).  Returns
+    (event_t, gradients)."""
     from torchdiffeq_tpu_torch import odeint, odeint_event
     model, y0, _, t = _train_setup(torch, np.float64, device)
     with torch.no_grad():
@@ -757,8 +784,8 @@ def _event_grads(torch, device):
         return torch.stack([yy[:, 0].mean() - thr,
                             (tt - EVENT_CUT).to(yy.dtype)])
 
-    et, sol = odeint_event(model, y0, 0.0, event_fn=event_fn, rtol=RTOL,
-                           atol=ATOL)
+    et, sol = odeint_event(model, y0, 0.0, event_fn=event_fn,
+                           **(solve or dict(rtol=RTOL, atol=ATOL)))
     (et + (sol[-1] ** 2).mean()).backward()
     return float(et.detach()), [p.grad for p in model.parameters()]
 
@@ -851,6 +878,253 @@ def _phase_train(torch, kernels, dev):
           f"{np.median(wall_ms):.2f} ms | forward steps {st32.n_steps} nfe "
           f"{st32.nfe}, backward steps {bwd_st.n_steps} nfe {bwd_st.nfe} | "
           f"{nfe * B / (med / 1e3):.4g} VF evals/s | device busy: {busy}")
+
+
+FIXED = ("euler", "midpoint", "heun2", "heun3", "rk4")
+
+
+def _fixed_step(torch, model, y0, target, t, options, marks=None):
+    """One step of bench.py's training loop on the fixed grid: `odeint`
+    with rk4 and `options`, backpropagated through the loop, loss and SGD
+    as `_train_step`.  Returns (loss, the gradients)."""
+    from torchdiffeq_tpu_torch import odeint
+    if marks:
+        marks[0].record()
+    ys = odeint(model, y0, t, method="rk4", options=options)
+    loss = ((ys - target[None]) ** 2).mean()
+    if marks:
+        marks[1].record()
+    loss.backward()
+    if marks:
+        marks[2].record()
+    grads = []
+    with torch.no_grad():
+        for p in model.parameters():
+            grads.append(p.grad)
+            p -= 1e-3 * p.grad
+            p.grad = None
+    if marks:
+        marks[3].record()
+    return loss.detach(), grads
+
+
+def _fixed_grads(torch, device, npd, options):
+    """The fixed-grid step's gradients from a fresh model, and on the card
+    the step's own peak of allocated memory: the peak during the step less
+    what was allocated before it (the model, the batch and what earlier
+    phases hold)."""
+    model, y0, target, t = _train_setup(torch, npd, device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    _, grads = _fixed_step(torch, model, y0, target, t, options)
+    peak = None
+    if device != "cpu":
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    return [g.clone() for g in grads], peak
+
+
+def _fixed_adjoint_grads(torch, device):
+    """`odeint_adjoint` with rk4 forward (num_steps) and backward
+    (step_size), float64: the gradients of the training loss."""
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    model, y0, target, t = _train_setup(torch, np.float64, device)
+    ys = odeint_adjoint(model, y0, t, method="rk4",
+                        options=dict(num_steps=FIXED_STEPS),
+                        adjoint_options=dict(step_size=1.0 / FIXED_STEPS))
+    ((ys - target[None]) ** 2).mean().backward()
+    return [p.grad for p in model.parameters()]
+
+
+def _phase_fixed(torch, kernels, dev):
+    """Phase 11: the fixed-grid tier, the controllers, a bfloat16 state and
+    the callbacks on the training step's model and batch (bench.py's
+    `make_shared_init`)."""
+    from torchdiffeq_tpu_torch import odeint, odeint_with_stats
+    opts = dict(num_steps=FIXED_STEPS)
+
+    # 1. every fixed method (and rk4 cubic, rk4 perturbed), float64, card
+    # against the CPU: values within F64_VALUES, Stats equal
+    calls = [(m, {}) for m in FIXED] + [("rk4", dict(interp="cubic")),
+                                         ("rk4", dict(perturb=True))]
+    worst = 0.0
+    for method, extra in calls:
+        out = {}
+        for device in ("cpu", dev):
+            model, y0, _, t = _train_setup(torch, np.float64, device)
+            with torch.no_grad():
+                ys, st = odeint_with_stats(model, y0, t, method=method,
+                                           options=dict(opts, **extra))
+            out[str(device)] = ys.cpu(), list(st[:5])
+        (ys_c, st_c), (ys_g, st_g) = out["cpu"], out[str(dev)]
+        err = float((ys_g - ys_c).abs().max())
+        worst = max(worst, err)
+        _check(st_g == st_c and err <= F64_VALUES
+               and bool(torch.isfinite(ys_g).all()),
+               f"fixed grid {method} {extra} float64 card vs CPU: max|dy|="
+               f"{err}, stats {st_g} vs {st_c}")
+
+    # 2. the rk4 kernel route beside its loop: launches counted, float32
+    model, y0, target, t = _train_setup(torch, np.float32, dev)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        ys_route = odeint(model, y0, t, method="rk4",
+                          options=dict(opts, pallas=True))
+        torch.cuda.synchronize()
+        route_launches = kernels.launch_counts["rk4_integrate"]
+        ys_loop = odeint(model, y0, t, method="rk4", options=opts)
+        t_odd = torch.tensor([0.0, 0.3, 1.0], dtype=torch.float64)
+        kernels.reset_launch_counts()
+        ys_odd = odeint(model, y0, t_odd, method="rk4",
+                        options=dict(opts, pallas=True))
+        torch.cuda.synchronize()
+        odd_launches = kernels.launch_counts["rk4_integrate"]
+    err_route = float((ys_route - ys_loop).abs().max())
+    _check(route_launches == 1 and odd_launches == 0
+           and err_route <= F32_RK4_LOOP
+           and bool(torch.isfinite(ys_odd).all()),
+           f"rk4 route: launches {route_launches} (qualifying), "
+           f"{odd_launches} (non-uniform t), max|route - loop|={err_route}")
+
+    # 3. the fixed-grid training step: gradients against the CPU, remat
+    g32, _ = _fixed_grads(torch, dev, np.float32, opts)
+    g64, peak = _fixed_grads(torch, dev, np.float64, opts)
+    g64_cpu, _ = _fixed_grads(torch, "cpu", np.float64, opts)
+    g32_remat, peak_remat32 = _fixed_grads(torch, dev, np.float32,
+                                           dict(opts, remat=True))
+    _, peak32 = _fixed_grads(torch, dev, np.float32, opts)
+    rel32, rel64 = _max_rel(g32, g64_cpu), _max_rel(g64, g64_cpu)
+    remat_same = all(torch.equal(a, b) for a, b in zip(g32_remat, g32))
+    _check(rel32 <= GRAD_F32_REL and rel64 <= GRAD_F64_REL and remat_same,
+           f"fixed-grid step gradients vs CPU float64: float32 {rel32}, "
+           f"float64 {rel64} of max|g|; remat bit for bit {remat_same}")
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        loss, _ = _fixed_step(torch, model, y0, target, t, opts, marks)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+        losses.append(float(loss))
+        times.append((marks[0].elapsed_time(marks[3]),
+                      marks[0].elapsed_time(marks[1]),
+                      marks[1].elapsed_time(marks[2]), wall))
+    step_launches = dict(kernels.launch_counts)
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"fixed-grid training step: losses {losses}")
+    step_ms, fwd_ms, bwd_ms, wall_ms = (np.array(c) for c in zip(*times))
+    busy_ms, n_launch, prof_wall = _profiled_step(
+        torch, lambda: _fixed_step(torch, model, y0, target, t, opts))
+    med = float(np.median(step_ms))
+    busy = ("not measured (no device time in the trace)" if busy_ms is None
+            else f"{busy_ms:.3f} ms of device time in {n_launch} kernels, "
+            f"{busy_ms / med:.1%} of the median step ({busy_ms / prof_wall:.1%}"
+            f" of the traced step's {prof_wall:.1f} ms)")
+
+    # 4. odeint_adjoint with rk4 forward and backward, float64
+    ga, ga_cpu = (_fixed_adjoint_grads(torch, d) for d in (dev, "cpu"))
+    rel_adj = _max_rel(ga, ga_cpu)
+    _check(rel_adj <= GRAD_F64_REL,
+           f"fixed-grid odeint_adjoint float64 card vs CPU: {rel_adj}")
+
+    # 5. a fixed-grid event (phase 7's event function), float64
+    ev = dict(method="rk4", options=dict(step_size=FIXED_EVENT_STEP))
+    et_gpu, ge_gpu = _event_grads(torch, dev, **ev)
+    et_cpu, ge_cpu = _event_grads(torch, "cpu", **ev)
+    rel_ev = _max_rel(ge_gpu, ge_cpu)
+    _check(abs(et_gpu - et_cpu) <= F64_VALUES and rel_ev <= GRAD_F64_REL
+           and 0.0 < et_gpu < EVENT_CUT,
+           f"fixed-grid odeint_event card vs CPU: event_t {et_gpu} vs "
+           f"{et_cpu}, gradients {rel_ev} of max|g|")
+
+    # 6. the PI and PID controllers on the main path, float64
+    ctl = {}
+    for name, copts in (("pi", dict(controller="pi")),
+                        ("pid", dict(controller="pid", dcoeff=0.2))):
+        sts = []
+        for device in ("cpu", dev):
+            m, yb, _, _ = _train_setup(torch, np.float64, device)
+            with torch.no_grad():
+                _, st = odeint_with_stats(m, yb, t, rtol=RTOL, atol=ATOL,
+                                          options=copts)
+            sts.append(list(st[:5]))
+        _check(sts[0] == sts[1] and sts[1][4] == 0,
+               f"controller {name} float64 card vs CPU: {sts[1]} vs {sts[0]}")
+        ctl[name] = sts[1]
+
+    # 7. a bfloat16 state (and field) with float32 error control against
+    # float32
+    mf, yf, _, _ = _train_setup(torch, np.float32, dev)
+    mb = _train_setup(torch, np.float32, dev)[0].to(torch.bfloat16)
+    with torch.no_grad():
+        ys_f, st_f = odeint_with_stats(mf, yf, t, rtol=BF16_RTOL,
+                                       atol=BF16_ATOL)
+        ys_b, st_b = odeint_with_stats(
+            mb, yf.bfloat16(), t, rtol=BF16_RTOL, atol=BF16_ATOL,
+            options=dict(error_dtype=torch.float32))
+    err_b = float((ys_b.float() - ys_f).abs().max() / ys_f.abs().max())
+    _check(ys_b.dtype == torch.bfloat16 and st_b.error_code == 0
+           and err_b <= BF16_VALUES
+           and st_b.n_steps <= BF16_STEPS * st_f.n_steps,
+           f"bfloat16 + error_dtype: {err_b} of max|y|, steps {st_b.n_steps} "
+           f"vs float32 {st_f.n_steps}")
+
+    # 8. the callbacks on the main path, float32
+    class Counting(torch.nn.Module):
+        def __init__(self, field):
+            super().__init__()
+            self.field, self.n = field, dict(step=0, accept=0, reject=0)
+
+        def forward(self, tt, yy):
+            return self.field(tt, yy)
+
+        def callback_step(self, t0, y, dt):
+            self.n["step"] += 1
+
+        def callback_accept_step(self, t0, y, dt):
+            self.n["accept"] += 1
+
+        def callback_reject_step(self, t0, y, dt):
+            self.n["reject"] += 1
+
+    counting = Counting(model).requires_grad_(False)
+    with torch.no_grad():
+        _, st_c = odeint_with_stats(counting, y0, t, rtol=RTOL, atol=ATOL)
+    n = counting.n
+    _check(n["step"] == st_c.n_steps
+           and n["accept"] + n["reject"] == n["step"]
+           and n["accept"] == st_c.n_accepted,
+           f"callbacks {n} against {st_c}")
+
+    print(f"[11 fixed grid] B={B} H={H} T={T} num_steps={FIXED_STEPS} | "
+          f"euler, midpoint, heun2, heun3, rk4 (+ cubic, + perturb) float64 "
+          f"card vs CPU max|dy|={worst:.3e} (<= {F64_VALUES}), Stats equal | "
+          f"rk4 route launches {route_launches}, non-uniform t "
+          f"{odd_launches}; route vs float32 loop {err_route:.3e} (<= "
+          f"{F32_RK4_LOOP}) | training step odeint(rk4) + SGD: gradients vs "
+          f"CPU float64: float32 {rel32:.2e} (<= {GRAD_F32_REL}), float64 "
+          f"{rel64:.2e} (<= {GRAD_F64_REL}); remat bit for bit; the step's "
+          f"peak allocation float32 {peak32 / 2**20:.1f} MiB, remat "
+          f"{peak_remat32 / 2**20:.1f} MiB (float64 {peak / 2**20:.1f}) | "
+          f"kernel launches {step_launches} (the step runs none) | loss "
+          f"{losses[0]:.7f} -> {losses[-1]:.7f} | warm step over "
+          f"{TRAIN_STEPS}: median {med:.2f} ms (min {step_ms.min():.2f}, max "
+          f"{step_ms.max():.2f}); forward {np.median(fwd_ms):.2f} ms "
+          f"({fwd_ms.min():.2f}..{fwd_ms.max():.2f}), backward "
+          f"{np.median(bwd_ms):.2f} ms ({bwd_ms.min():.2f}..{bwd_ms.max():.2f}"
+          f"), host wall median {np.median(wall_ms):.2f} ms | device busy: "
+          f"{busy} | odeint_adjoint(rk4, step_size 1/{FIXED_STEPS}) float64 "
+          f"vs CPU {rel_adj:.2e} | odeint_event(rk4, step_size "
+          f"{FIXED_EVENT_STEP}) event_t {et_gpu:.9f}, gradient vs CPU "
+          f"{rel_ev:.2e} | controllers float64 == CPU: pi {ctl['pi']}, pid "
+          f"{ctl['pid']} | bfloat16 + error_dtype float32 at rtol "
+          f"{BF16_RTOL}: {err_b:.2e} of max|y| (<= {BF16_VALUES}), steps "
+          f"{st_b.n_steps} vs float32 {st_f.n_steps} | callbacks {n} == "
+          f"steps {st_c.n_steps}")
 
 
 def main():
@@ -1266,6 +1540,8 @@ def main():
     summary.append(_phase_fused(torch, fused_field, kernels, DOPRI5, dev))
 
     _phase_train(torch, kernels, dev)
+
+    _phase_fixed(torch, kernels, dev)
 
     torch.cuda.synchronize()
     print(_card())

@@ -1012,3 +1012,87 @@ def test_training_step_gradients_cuda_match_cpu(cuda, B):
         scale = float(w.abs().max())
         assert float((g - w).abs().max()) <= 1e-9 * scale
         assert float((g32 - w).abs().max()) <= 1e-5 * scale
+
+
+# ---- the fixed-grid tier, the controllers, 16-bit states, remat ----------
+
+FIXED = ["euler", "midpoint", "heun2", "heun3", "rk4"]
+
+
+def _spiral_problem(device, dtype, B=256, H=64, seed=0):
+    model, rng = _model(device, dtype, D=2, H=H, power=3, scale=0.3,
+                        seed=seed)
+    y0 = torch.from_numpy(rng.randn(B, 2)).to(device, dtype)
+    t = torch.linspace(0.0, 1.0, 10, dtype=torch.float64)
+    return model, y0, t
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic"])
+@pytest.mark.parametrize("method", FIXED)
+def test_fixed_grid_cuda_matches_cpu(cuda, method, interp):
+    """Each fixed method on the card against the CPU in float64: Stats
+    equal, values to 1e-10 (the products' summation order and tanh's last
+    ULP over 36 steps; chip_smoke.py's F64_FIXED)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        model, y0, t = _spiral_problem(dev, torch.float64)
+        with torch.no_grad():
+            ys, st = odeint_with_stats(model, y0, t, method=method,
+                                       options=dict(num_steps=36,
+                                                    interp=interp))
+        out[str(dev)] = ys.cpu(), list(st[:5])
+    (ys_c, st_c), (ys_g, st_g) = out["cpu"], out[str(cuda)]
+    assert st_g == st_c
+    torch.testing.assert_close(ys_g, ys_c, rtol=0, atol=F64)
+
+
+@pytest.mark.parametrize("options", [dict(controller="pi"),
+                                     dict(controller="pid", dcoeff=0.2)])
+def test_controllers_cuda_counts_match_cpu(cuda, options):
+    """PI and PID on the card: float64 counters exactly the CPU's."""
+    stats = []
+    for dev in ("cpu", cuda):
+        model, y0, t = _spiral_problem(dev, torch.float64)
+        with torch.no_grad():
+            _, st = odeint_with_stats(model, y0, t, rtol=1e-7, atol=1e-9,
+                                      options=options)
+        stats.append(list(st[:5]))
+    assert stats[0] == stats[1]
+
+
+def test_bfloat16_with_error_dtype_on_cuda(cuda):
+    """A bfloat16 state and field with float32 error control on the card:
+    bfloat16 out, at most three times the float32 solve's steps, and
+    within 3% of the float32 values (chip_smoke.py's BF16_STEPS and
+    BF16_VALUES, with their reasons)."""
+    model, y0, t = _spiral_problem(cuda, torch.float32)
+    model16 = _spiral_problem(cuda, torch.float32)[0].to(torch.bfloat16)
+    with torch.no_grad():
+        ys32, st32 = odeint_with_stats(model, y0, t, rtol=1e-3, atol=1e-5)
+        ys16, st16 = odeint_with_stats(
+            model16, y0.bfloat16(), t, rtol=1e-3, atol=1e-5,
+            options=dict(error_dtype=torch.float32))
+    assert ys16.dtype == torch.bfloat16 and st16.error_code == 0
+    assert st16.n_steps <= 3 * st32.n_steps
+    err = (ys16.float() - ys32).abs().max() / ys32.abs().max()
+    assert float(err) < 3e-2
+
+
+def test_remat_on_cuda_same_gradients_less_memory(cuda):
+    """remat=True on the card: the same gradients (recomputation repeats
+    the same kernels), and a lower peak of allocated memory."""
+    grads, peaks = [], []
+    for remat in (False, True):
+        model, y0, t = _spiral_problem(cuda, torch.float32, B=4096)
+        model.requires_grad_(True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ys = odeint(model, y0, t, method="rk4",
+                    options=dict(num_steps=36, remat=remat))
+        (ys ** 2).mean().backward()
+        torch.cuda.synchronize()
+        peaks.append(torch.cuda.max_memory_allocated())
+        grads.append([p.grad.clone() for p in model.parameters()])
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert peaks[1] < peaks[0], peaks

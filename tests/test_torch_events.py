@@ -193,17 +193,36 @@ def test_event_max_num_steps_matches_jax():
 
 
 @pytest.mark.parametrize("call,match", [
-    (dict(method='rk4'), "ROADMAP A4"),
-    (dict(method='euler'), "ROADMAP A4"),
-    (dict(method='implicit_adams'), "ROADMAP A4, A9"),
+    (dict(method='implicit_adams'), "ROADMAP A9"),
     (dict(options=dict(replay_grad=True)), "ROADMAP A10"),
 ])
 def test_event_routes_not_ported_raise(call, match):
-    """Fixed-grid, Adams and implicit event solves and replay gradients
-    name their ROADMAP items."""
+    """Adams and implicit event solves and replay gradients name their
+    ROADMAP items."""
     with pytest.raises(NotImplementedError, match=match):
         tt.odeint_event(lambda t, y: -y, torch.ones(1, dtype=torch.float64),
                         0.0, event_fn=lambda t, y: y[0] - 0.5, **call)
+
+
+@pytest.mark.parametrize("method", ['rk4', 'euler'])
+def test_fixed_grid_event_routes_match_jax(method):
+    """The fixed-grid event solves that test above held to raising, now
+    against JAX: event time and state to 1e-12, Stats exactly equal
+    (tests/test_torch_fixed_grid.py holds every method and their
+    gradients)."""
+    kw = dict(method=method, options=dict(step_size=0.01))
+    (et_j, ys_j), st_j = tde.odeint_with_stats(
+        lambda t, y: -y, jnp.ones(1), jnp.asarray([0.0, 1.0]),
+        event_fn=lambda t, y: y[0] - 0.5, **kw)
+    (et_t, ys_t), st_t = tt.odeint_with_stats(
+        lambda t, y: -y, torch.ones(1, dtype=torch.float64),
+        torch.tensor([0.0, 1.0], dtype=torch.float64),
+        event_fn=lambda t, y: y[0] - 0.5, **kw)
+    assert _counters(st_t) == _counters(st_j)
+    assert abs(float(et_t) - float(et_j)) <= 1e-12
+    assert abs(float(et_t) - np.log(2.0)) < 2e-2
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=1e-12)
 
 
 def test_event_requires_two_times():

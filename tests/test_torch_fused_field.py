@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from benchmarks.fused_field import fused_stage_step as j_fused
+import torchdiffeq_tpu as tde
 from torchdiffeq_tpu.ops import tableaus as jtab
 from torchdiffeq_tpu.ops.rk_step import runge_kutta_step as j_rk_step
 import torchdiffeq_tpu_torch as tt
@@ -250,16 +251,30 @@ def test_runge_kutta_step_matches_jax(dtype, method, error_dtype):
 
 
 def test_16bit_state_refused_by_the_solvers():
-    """Only the single step takes a 16-bit state; the adaptive loop and the
-    per-lane kernels keep refusing it, naming ROADMAP A2."""
-    y0 = torch.ones(4, 2, dtype=torch.bfloat16)
-    t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
-    for call in (lambda: tt.odeint(lambda t_, y: -y, y0, t),
-                 lambda: tt.odeint(lambda t_, y: -y, y0.half(), t),
-                 lambda: tt.odeint_per_sample(lambda t_, y: -y, y0, t,
-                                              options=dict(pallas=True))):
-        with pytest.raises(NotImplementedError, match="A2"):
-            call()
+    """The adaptive loop takes 16-bit states: the same Stats as JAX's on
+    the same call (a float16 solve at the default rtol=1e-7 underflows its
+    step in both, error code 1), and the same bfloat16 values
+    (tests/test_torch_dtypes.py holds the rest); the per-lane kernels keep
+    refusing them, naming the dtypes they take."""
+    y0 = np.ones((4, 2))
+    t = np.linspace(0.0, 1.0, 3)
+    for j_dt, t_dt in ((jnp.bfloat16, torch.bfloat16),
+                       (jnp.float16, torch.float16)):
+        ys_j, st_j = tde.odeint_with_stats(lambda t_, y: -y,
+                                           jnp.asarray(y0, j_dt),
+                                           jnp.asarray(t))
+        ys_t, st_t = tt.odeint_with_stats(lambda t_, y: -y,
+                                          torch.tensor(y0, dtype=t_dt),
+                                          torch.from_numpy(t))
+        assert ys_t.dtype == t_dt
+        assert list(st_t[:5]) == [int(x) for x in st_j[:5]]
+        if t_dt == torch.bfloat16:
+            np.testing.assert_array_equal(
+                ys_t.float().numpy(), np.asarray(ys_j.astype(jnp.float32)))
+    with pytest.raises(NotImplementedError, match="float32 and float64"):
+        tt.odeint_per_sample(lambda t_, y: -y,
+                             torch.ones(4, 2, dtype=torch.bfloat16),
+                             torch.from_numpy(t), options=dict(pallas=True))
 
 
 # ---- the wrapper, the parameters' crossing and the refusals ----------------

@@ -245,3 +245,100 @@ def test_reverse_time_direction_forces_the_sign():
     np.testing.assert_array_equal(prob.t, np.asarray(prob_j.t))
     np.testing.assert_array_equal(prob.options['jump_t'],
                                   np.asarray(prob_j.options['jump_t']))
+
+
+# ---- the PI and PID controllers, linf_norm and the larger norm ------------
+
+@pytest.mark.parametrize("method", ['dopri5', 'bosh3', 'tsit5'])
+@pytest.mark.parametrize("options", [
+    dict(controller='pi'), dict(controller='pi', pcoeff=0.3, icoeff=0.6),
+    dict(controller='pid', dcoeff=0.2),
+    dict(controller='pid', pcoeff=0.2, icoeff=0.5, dcoeff=0.1),
+    dict(controller='i'),
+], ids=['pi', 'pi-coeffs', 'pid', 'pid-coeffs', 'i'])
+def test_controllers_match_jax(options, method):
+    """PI and PID (JAX ops/step_control.py:90-143, the last one and two
+    accepted ratios in the carry) on the smooth field from a first step
+    far too large, a solve that rejects steps: Stats exactly equal and
+    values to 1e-12."""
+    opts = dict(options, first_step=0.8)
+    ys_j, st_j = tde.odeint_with_stats(SMOOTH[0], jnp.asarray(Y0),
+                                       jnp.asarray([0.0, 0.3, 2.0]),
+                                       rtol=1e-8, atol=1e-10, method=method,
+                                       options=opts)
+    ys_t, st_t = tt.odeint_with_stats(SMOOTH[1], torch.from_numpy(Y0),
+                                      torch.tensor([0.0, 0.3, 2.0],
+                                                   dtype=torch.float64),
+                                      rtol=1e-8, atol=1e-10, method=method,
+                                      options=opts)
+    assert _counters(st_t) == _counters(st_j)
+    assert st_t.n_rejected > 0
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=TOL)
+
+
+def test_pid_with_zero_dcoeff_is_pi_and_controllers_differ():
+    """dcoeff=0 reduces PID to PI exactly (JAX's docstring), and the PI
+    controller takes another step sequence than the I controller."""
+    runs = {}
+    for name, opts in (('i', {}), ('pi', dict(controller='pi')),
+                       ('pid0', dict(controller='pid', dcoeff=0.0))):
+        runs[name] = tt.odeint_with_stats(
+            SMOOTH[1], torch.from_numpy(Y0),
+            torch.tensor([0.0, 2.0], dtype=torch.float64), rtol=1e-9,
+            atol=1e-11, options=opts)
+    assert list(runs['pi'][1]) == list(runs['pid0'][1])
+    assert torch.equal(runs['pi'][0], runs['pid0'][0])
+    assert list(runs['pi'][1][:4]) != list(runs['i'][1][:4])
+
+
+def test_step_size_controllers_match_jax_on_edge_ratios():
+    """The controller functions alone on float64 host scalars against JAX's:
+    zero error (a full ifactor), ratios below the smallest normal (floored
+    by finfo.tiny), and the clamps at dfactor and ifactor."""
+    from torchdiffeq_tpu.ops import step_control as sc_j
+    from torchdiffeq_tpu_torch.ops import step_control as sc_t
+    cases = [(0.0, 1.0, 1.0), (1e-320, 1e-310, 0.5), (1e6, 1.0, 1.0),
+             (1e-9, 1.0, 1.0), (0.7, 1.3, 0.2), (2.5, 0.4, 3.0)]
+    for err, prev, prev2 in cases:
+        for order in (2, 4, 5):
+            pi_t = sc_t.optimal_step_size_pi(0.1, err, prev, 0.9, 10.0, 0.2,
+                                             order, 0.4, 0.7)
+            pi_j = sc_j.optimal_step_size_pi(jnp.float64(0.1), err, prev,
+                                             0.9, 10.0, 0.2, order, 0.4, 0.7)
+            pid_t = sc_t.optimal_step_size_pid(0.1, err, prev, prev2, 0.9,
+                                               10.0, 0.2, order, 0.4, 0.7,
+                                               0.2)
+            pid_j = sc_j.optimal_step_size_pid(jnp.float64(0.1), err, prev,
+                                               prev2, 0.9, 10.0, 0.2, order,
+                                               0.4, 0.7, 0.2)
+            assert float(pi_t) == float(pi_j), (err, prev, order)
+            assert float(pid_t) == float(pid_j), (err, prev, prev2, order)
+
+
+@pytest.mark.parametrize("which", ["linf", "zero", "larger"])
+def test_more_norms_match_jax(which):
+    """linf_norm and zero_norm (JAX misc.py:133-138) and a norm that reports
+    ten times the RMS error (tests/test_norms.py:78-89: at least as many
+    NFE as the default), as user norms: Stats exactly, values to 1e-12."""
+    from torchdiffeq_tpu import misc as misc_j
+    from torchdiffeq_tpu_torch import misc as misc_t
+    norms = {
+        'linf': (misc_j.linf_norm, misc_t.linf_norm),
+        'zero': (misc_j.zero_norm, misc_t.zero_norm),
+        'larger': (lambda x: 10.0 * jnp.sqrt(jnp.mean(jnp.abs(x) ** 2)),
+                   lambda x: 10.0 * torch.sqrt(torch.mean(x.abs() ** 2))),
+    }[which]
+    kw = dict(t=(0.0, 0.5, 2.0), func=SMOOTH)
+    (ys_j, st_j), (ys_t, st_t) = _both(dict(norm=norms[0]),
+                                       dict(norm=norms[1]), **kw)
+    assert _counters(st_t) == _counters(st_j)
+    np.testing.assert_allclose(ys_t, ys_j, rtol=0, atol=TOL)
+    _, st_plain = _both(None, **kw)[1]
+    if which == 'larger':
+        assert st_t.nfe >= st_plain.nfe
+    if which == 'zero':
+        assert st_t.n_rejected == 0
+    x = torch.tensor([[3.0, -4.0], [0.5, 2.0]], dtype=torch.float64)
+    assert float(misc_t.linf_norm(x)) == 4.0
+    assert misc_t.zero_norm(x).dtype == torch.float64

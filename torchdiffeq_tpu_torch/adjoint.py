@@ -23,7 +23,14 @@ the augmented ODE ``(vjp_t, y, adj_y, theta_bar)`` in reverse time:
   effect to vjp_t (JAX adjoint.py:481-529).  Otherwise an interval-by-
   interval sweep whose controller starts each interval from the previous
   interval's last proposed step (:531-561).  ``step_to_end`` is on by
-  default: the backward's only outputs are the interval ends.
+  default: the backward's only outputs are the interval ends.  A fixed-grid
+  adjoint method (``adjoint_options=dict(step_size=...)`` or
+  ``num_steps``, per interval) takes the interval-by-interval sweep with no
+  warm start, as in JAX (:455-466).
+* **Callbacks.**  The field's ``callback_*_adjoint`` attributes fire as the
+  backward solve's ``callback_*`` (JAX :356-358), with its time (the
+  forward's internal frame) and the augmented state as the tuple
+  ``(vjp_t, y, adj_y, theta_bar)``.
 * **Norms** (reference `handle_adjoint_norm_`, adjoint.py:243-288): the
   default ``max(|vjp_t|, ||y||, ||adj_y||, mixed(theta_bar))``,
   ``'seminorm'`` without the parameter term, or a user callable.
@@ -41,10 +48,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .misc import (check_inputs, flatten_state, host_times, is_tuple_state,
-                   mixed_norm, rms_norm, time_sign)
+from .misc import (CALLBACK_NAMES, check_inputs, flatten_state, host_times,
+                   is_tuple_state, mixed_norm, rms_norm, time_sign)
 from .solvers import SOLVERS, NOT_PORTED
-from .solvers import adaptive_rk
 
 
 def _tensors_in(obj):
@@ -102,22 +108,17 @@ def _check_method(name, what):
     if name not in SOLVERS:
         raise ValueError('Invalid method "{}". Must be one of {}'.format(
             name, '{"' + '", "'.join(SOLVERS.keys()) + '"}.'))
-    if SOLVERS[name]['kind'] != 'adaptive':
-        raise NotImplementedError(
-            f"{what} {name!r}: the fixed-grid tier and its gradients are "
-            "ROADMAP A4 (rk4 runs only on its forward kernel route)")
     return name
 
 
 def _raw_odeint(func, y0, t, rtol, atol, method, options, time_direction):
     """A solve that records no gradient, inside the backward pass (JAX
     `_raw_odeint`): `y0` one tensor (the flat augmented state), the
-    adaptive driver.  Returns (ys, Stats)."""
-    from .odeint import _adaptive_config
+    adaptive or fixed-grid driver.  Returns (ys, Stats)."""
+    from .odeint import _solve_normalised
     prob = check_inputs(func, y0, t, rtol, atol, method, options, None,
                         SOLVERS, time_direction=time_direction)
-    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
-    return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+    return _solve_normalised(prob)
 
 
 def _noise_floor(spec, y0_leaves, rtol, atol):
@@ -220,18 +221,15 @@ def _forward(spec, y0, t):
     """The primal solve: (ys, Stats), or (event_t, ys2, Stats) with event_t
     in the internal frame.  ys in the solver's state layout (flat for a
     tuple state)."""
-    from .odeint import _adaptive_config
+    from .odeint import _solve_normalised, _solve_event_normalised
     if spec.unravel is not None:
         y0 = spec.unravel(y0)
     prob = check_inputs(spec.func, y0, t, spec.rtol, spec.atol, spec.method,
                         spec.options, spec.event_fn, SOLVERS,
                         args=spec.args)
-    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
     if spec.event_fn is None:
-        return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
-    event_t, y_event, stats = adaptive_rk.integrate_until_event(
-        prob.func, prob.y0, prob.t[0], prob.event_fn, cfg)
-    return event_t, torch.stack([prob.y0, y_event]), stats
+        return _solve_normalised(prob)
+    return _solve_event_normalised(prob)
 
 
 def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
@@ -255,9 +253,12 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
         return out if sign > 0 else -out
 
     def aug_dyn(s, aug):
+        # in the augmented state's dtype: a fixed-grid backward's stages
+        # are float64 for a float32 state, as in JAX
         _, y, adj_y, _ = layout.split(aug)
+        adt = aug.dtype
         with torch.enable_grad():
-            s_d = torch.full((), float(s), dtype=sdt, device=dev,
+            s_d = torch.full((), float(s), dtype=adt, device=dev,
                              requires_grad=True)
             y_d = y.detach().requires_grad_(True)
             f = f_dir(s_d, y_d)
@@ -265,8 +266,16 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
                                         allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, (s_d, y_d, *params))]
-        return torch.cat([grads[0].reshape(1).to(sdt), f.detach().reshape(-1),
-                          *(g.reshape(-1).to(sdt) for g in grads[1:])])
+        return torch.cat([grads[0].reshape(1).to(adt),
+                          f.detach().reshape(-1).to(adt),
+                          *(g.reshape(-1).to(adt) for g in grads[1:])])
+
+    # the `*_adjoint` callbacks fire as the backward solve's own (JAX
+    # adjoint.py:356-358), with the augmented state as a tuple
+    for name in CALLBACK_NAMES:
+        cb = getattr(spec.func, name + '_adjoint', None)
+        if cb is not None:
+            setattr(aug_dyn, name, _aug_callback(cb, layout))
 
     adj_opts = dict(spec.adjoint_options)
     adj_opts['norm'] = _make_adjoint_norm(adj_opts.get('norm'),
@@ -284,8 +293,12 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
         th = y.new_zeros(n_th) if th is None else th
         return torch.cat([vt.reshape(1), y.reshape(-1), adj_y.reshape(-1), th])
 
-    adj_opts.setdefault('step_to_end', True)
-    warm_start = 'first_step' not in adj_opts
+    # warm starts, step_to_end and the fused sweep are the adaptive
+    # backward's (JAX adjoint.py:455-466)
+    adaptive = SOLVERS[spec.adjoint_method]['kind'] == 'adaptive'
+    if adaptive:
+        adj_opts.setdefault('step_to_end', True)
+    warm_start = adaptive and 'first_step' not in adj_opts
     fused = (warm_start and T > 2 and 'step_t' not in adj_opts
              and 'jump_t' not in adj_opts)
     if fused:
@@ -332,6 +345,15 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
                         aug[1 + 2 * n:])
     vt, _, adj_y, th = layout.split(aug)
     return adj_y, th, vt, dLds
+
+
+def _aug_callback(cb, layout):
+    """`cb` on the flat augmented state, given as ``(vjp_t, y, adj_y,
+    theta_bar)`` with y and adj_y in the user's structure."""
+    def fire(t0, aug, dt):
+        vt, y, adj_y, th = layout.split(aug)
+        cb(t0, (vt, layout.user(y), layout.user(adj_y), tuple(th)), dt)
+    return fire
 
 
 class _AdjointOp(torch.autograd.Function):

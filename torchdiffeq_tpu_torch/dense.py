@@ -151,13 +151,16 @@ def odeint_dense(func, y0, t0, t1, *, rtol=1e-7, atol=1e-9, method=None,
         while c.t1 < t_end and c.err == OK and c.n_acc < max_segments:
             if adaptive_rk._adaptive_step(c, prob.func, cfg)[0]:
                 times.append(c.t1)
-                coeffs.append(c.coeff)
+                # stored in the state dtype, as JAX's buffer is (a 16-bit
+                # state's float32 fit is rounded)
+                coeffs.append(c.coeff.to(prob.y0.dtype))
     err = ERR_MAX_NUM_STEPS if (c.t1 < t_end and c.err == OK) else c.err
     if coeffs:
         coeffs = torch.stack(coeffs)
     else:   # as JAX's empty buffers: one zero segment over [t0, inf]
         times.append(float('inf'))
-        coeffs = c.coeff.new_zeros((1,) + tuple(c.coeff.shape))
+        coeffs = c.coeff.new_zeros((1,) + tuple(c.coeff.shape),
+                                   dtype=prob.y0.dtype)
     c.err = err
     sol = DenseSolution(np.asarray(times, np.float64), coeffs, c.n_acc,
                         prob.t[0], c.t1, prob.t_sign, err)

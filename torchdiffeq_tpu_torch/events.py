@@ -11,26 +11,39 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
-from .misc import check_inputs, nan_sign, time_tensor
+from .misc import check_inputs, nan_sign, scalar_type, smax, time_tensor
 
 
-def find_event(interp_fn, sign0, t0, t1, event_fn, tol):
+def find_event(interp_fn, sign0, t0, t1, event_fn, tol, dtype=torch.float64):
     """Bisect for the sign change of `event_fn` on [t0, t1] (JAX
     `find_event`, events.py:14-50; reference event_handling.py:5-20).
 
     ``ceil(log2(|t1 - t0| / tol))`` iterations localise the event time to
-    within `tol`.  `t0`, `t1` and `tol` are host scalars, so the count is
-    known before the loop, and the loop is a plain sequence of
+    within `tol`.  `t0`, `t1` and `tol` are host scalars (a tolerance
+    tensor counts by its max, as JAX collapses per-leaf tolerances), so the
+    count is known before the loop, and the loop is a plain sequence of
     ``torch.where`` on the device with no host read inside it.  `sign0` is
-    a tensor on the state's device.  Returns ``(event_t, interp_fn(event_t))``
-    with `event_t` a 0-d float64 tensor there.
+    a tensor on the state's device.  The bisection runs in the time
+    `dtype`: float64, or the state dtype of a fixed-grid event solve.
+    Returns ``(event_t, interp_fn(event_t))`` with `event_t` a 0-d tensor
+    of `dtype` there.
     """
-    span = abs(float(t1) - float(t0))
-    nitrs = math.ceil(math.log2(max(span / float(tol), 1.0)))
-    lo = torch.full((), float(t0), dtype=torch.float64, device=sign0.device)
-    hi = torch.full((), float(t1), dtype=torch.float64, device=sign0.device)
+    if isinstance(tol, torch.Tensor):
+        tol = tol.max().item()
+    if dtype == torch.float64:
+        span = abs(float(t1) - float(t0))
+        nitrs = math.ceil(math.log2(max(span / float(tol), 1.0)))
+    else:
+        # the count in the time dtype, as JAX computes it
+        sd = scalar_type(dtype)
+        q = smax(abs(sd(t1) - sd(t0)) / sd(tol), sd(1.0))
+        q = torch.log2(q) if isinstance(q, torch.Tensor) else np.log2(q)
+        nitrs = math.ceil(float(q))
+    lo = torch.full((), float(t0), dtype=dtype, device=sign0.device)
+    hi = torch.full((), float(t1), dtype=dtype, device=sign0.device)
     for _ in range(nitrs):
         t_mid = (lo + hi) / 2.0
         same = sign0 == nan_sign(event_fn(t_mid, interp_fn(t_mid)))

@@ -1,43 +1,59 @@
-"""Input checks, time handling and perturbation (counterpart of
+"""Input checks, time handling, perturbation and callbacks (counterpart of
 ``torchdiffeq_tpu/misc.py``).
 
-What this slice carries of the JAX `check_inputs`: a single-tensor state,
+What this port carries of the JAX `check_inputs`: a single-tensor state,
 kept in its own shape, or a tuple (or list) of tensors, flattened to one
 1-D tensor with an `unravel` that restores the tuple (JAX's
-``ravel_state=True`` path, misc.py:250-270); scalar or per-leaf
-tolerances; the RMS norm, the max of per-leaf RMS norms (`mixed_norm`) for
-a tuple, or a user norm; forward and reversed time (integration always runs
-over ``t_sign * t`` with the field conjugated by the sign), with
-``time_direction`` to force the reverse; ``step_t``/``jump_t`` mapped into
-the internal frame; the time dtype, and the event function of an event
-solve.  Time stays float64 on the host, as in the reference
-(rk_common.py:180-182), so the JAX package's double-word time and its
-arithmetic ``nextafter`` are not needed.  Callbacks come later (ROADMAP
-A2).
+``ravel_state=True`` path, misc.py:250-270); float16, bfloat16, float32 and
+float64 states; scalar or per-leaf tolerances; the RMS norm, the max of
+per-leaf RMS norms (`mixed_norm`) for a tuple, or a user norm; forward and
+reversed time (integration always runs over ``t_sign * t`` with the field
+conjugated by the sign), with ``time_direction`` to force the reverse;
+``step_t``/``jump_t`` and a ``grid_constructor`` mapped into the internal
+frame; the time dtype, the event function of an event solve, and the
+``callback_*`` attributes of the field (fired on the host per executed
+step, with the user's time frame and state structure).  Time stays float64
+on the host, as in the reference (rk_common.py:180-182), so the JAX
+package's double-word time and its arithmetic ``nextafter`` are not
+needed.  Complex states are ROADMAP A2.
 """
 from __future__ import annotations
 
 import enum
+import warnings
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
-# numpy scalar types of the state dtypes the solvers take: host-side time
-# and coefficient arithmetic is done in them, so it rounds exactly as the
-# JAX package's device arithmetic in the state dtype does.  16-bit states
-# reach only the single step (`scalar_type`).
+# numpy scalar types of the state dtypes: host-side time and coefficient
+# arithmetic is done in them, so it rounds exactly as the JAX package's
+# device arithmetic in the state dtype does.  numpy has no bfloat16
+# (`scalar_type` makes 0-d tensors for it); the kernels take float32 and
+# float64 alone (`np_dtype`).
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+_SCALAR_TYPES = {**_NP_DTYPES, torch.float16: np.float16}
+STATE_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
 
 
 def np_dtype(torch_dtype):
-    """The numpy scalar type of a float32/float64 torch dtype."""
+    """The numpy scalar type of a float32/float64 torch dtype: the dtypes
+    the CUDA kernels and their plain versions take."""
     try:
         return _NP_DTYPES[torch_dtype]
     except KeyError:
         raise NotImplementedError(
-            f"state dtype {torch_dtype}: this slice of the port takes "
-            "float32 and float64 state (ROADMAP A2)") from None
+            f"state dtype {torch_dtype}: the kernels take float32 and "
+            "float64 states") from None
+
+
+def check_state_dtype(torch_dtype):
+    """Refuse a state dtype the solvers do not take: complex states are
+    ROADMAP A2."""
+    if torch_dtype not in STATE_DTYPES:
+        raise NotImplementedError(
+            f"state dtype {torch_dtype}: the port takes float16, bfloat16, "
+            "float32 and float64 states; complex states are ROADMAP A2")
 
 
 def _bf16_scalar(x):
@@ -49,17 +65,36 @@ def _bf16_scalar(x):
 
 def scalar_type(torch_dtype):
     """A callable that rounds a number to a host scalar of `torch_dtype`
-    (float16 to float64, bfloat16 included), for the step's timelike and
-    ``coefficient * dt`` arithmetic: numpy's scalar type, or `_bf16_scalar`.
-    ``float(sd(c) * dt)`` is then JAX's weakly typed ``float(c) * dt``: c
-    rounded to the dtype, then the product rounded.  Only `ops/rk_step` and
-    `ops/fused_field` take 16-bit states; everything else goes through
-    `np_dtype`, which refuses them."""
+    (float16 to float64, bfloat16 included), for timelike and
+    ``coefficient * dt`` arithmetic in that dtype: numpy's scalar type, or
+    `_bf16_scalar`.  ``float(sd(c) * dt)`` is then JAX's weakly typed
+    ``float(c) * dt``: c rounded to the dtype, then the product rounded."""
     if torch_dtype == torch.bfloat16:
         return _bf16_scalar
-    if torch_dtype == torch.float16:
-        return np.float16
-    return np_dtype(torch_dtype)
+    check_state_dtype(torch_dtype)
+    return _SCALAR_TYPES[torch_dtype]
+
+
+def coef(c, torch_dtype):
+    """The Python float `c` rounded to `torch_dtype`: JAX's weakly typed
+    ``c * x`` for a tensor `x` of that dtype is ``coef(c, x.dtype) * x``
+    (torch would multiply by `c` rounded to float32 for a 16-bit `x`)."""
+    return float(scalar_type(torch_dtype)(c))
+
+
+def smax(a, b):
+    """``jnp.maximum`` of two host scalars of one dtype (numpy scalars, or
+    0-d bfloat16 tensors): NaN propagates."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return torch.maximum(torch.as_tensor(a), torch.as_tensor(b))
+    return np.maximum(a, b)
+
+
+def smin(a, b):
+    """``jnp.minimum`` of two host scalars, as `smax`."""
+    if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
+        return torch.minimum(torch.as_tensor(a), torch.as_tensor(b))
+    return np.minimum(a, b)
 
 
 class Perturb(enum.Enum):
@@ -94,6 +129,17 @@ def nan_sign(x):
 def rms_norm(x):
     """RMS norm over all elements (reference ``_rms_norm``, misc.py:22-23)."""
     return torch.sqrt(torch.mean(x.abs() ** 2))
+
+
+def linf_norm(x):
+    """The max norm (JAX `linf_norm`, misc.py:133-134)."""
+    return x.abs().max()
+
+
+def zero_norm(x):
+    """A norm that is always 0, in float64 on `x`'s device (JAX
+    `zero_norm`, misc.py:137-138): every step is accepted."""
+    return x.new_zeros((), dtype=torch.float64)
 
 
 def mixed_norm(tensors):
@@ -143,13 +189,47 @@ def time_sign(t):
     return 1.0 if t_np.shape[0] < 2 or t_np[-1] >= t_np[0] else -1.0
 
 
+def _nextafter(t, up):
+    """``torch.nextafter`` one ULP up or down, with a gradient of 1 to `t`
+    when it requires grad (reference ``_StitchGradient``, misc.py:348-357;
+    JAX `_nextafter`'s custom JVP): ``t + (n - t)`` is `n` exactly, since
+    the difference of adjacent floats is exact."""
+    td = t.detach()
+    n = torch.nextafter(td, td + 1 if up else td - 1)
+    return t + (n - td) if t.requires_grad else n
+
+
+# the callback attributes of a field (reference misc.py:313-343) and the
+# ones each solver kind fires (reference `valid_callbacks`,
+# solvers.py:24-26,81-83, rk_common.py:207-211; JAX misc.py:28-42)
+CALLBACK_NAMES = ('callback_step', 'callback_accept_step',
+                  'callback_reject_step')
+_VALID_CALLBACKS = {
+    'adaptive': set(CALLBACK_NAMES),
+    'fixed': {'callback_step'},
+}
+
+
+def _user_frame_callback(cb, t_sign, unravel):
+    """A callback of the internal frame that hands `cb` the user's time (a
+    0-d float64 CPU tensor, negated back for reversed time), the state in
+    the user's structure and the step size (a 0-d float64 CPU tensor), as
+    JAX's `fire` does (misc.py:360-380)."""
+    def fire(t0, y0, dt):
+        cb(torch.tensor(t_sign * float(t0), dtype=torch.float64),
+           y0 if unravel is None else unravel(y0),
+           torch.tensor(float(dt), dtype=torch.float64))
+    return fire
+
+
 class PerturbedFunc:
     """Wraps a vector field with `perturb` support and the time sign
     (``_PerturbFunc``, reference misc.py:174-197): the evaluation time is
     cast to the state dtype, optionally nudged by one ULP with
     ``torch.nextafter``, then mapped back to the user's time frame.  The
     field gets its time as a 0-d CPU tensor, which mixes with state on any
-    device."""
+    device.  `check_inputs` sets the callbacks the solver fires as its
+    attributes."""
 
     def __init__(self, base_func, t_sign=1.0):
         self.base_func = base_func
@@ -158,11 +238,10 @@ class PerturbedFunc:
     def __call__(self, t, y, perturb=Perturb.NONE):
         if not isinstance(perturb, Perturb):
             raise TypeError("perturb argument must be of type Perturb enum")
-        t = torch.as_tensor(t, dtype=y.dtype)
-        if perturb is Perturb.NEXT:
-            t = torch.nextafter(t, t + 1)
-        elif perturb is Perturb.PREV:
-            t = torch.nextafter(t, t - 1)
+        t = (t.to(y.dtype) if isinstance(t, torch.Tensor)
+             else torch.as_tensor(t, dtype=y.dtype))
+        if perturb is not Perturb.NONE:
+            t = _nextafter(t, perturb is Perturb.NEXT)
         if self.t_sign < 0:
             return -self.base_func(-t, y)
         return self.base_func(t, y)
@@ -256,16 +335,11 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
     else:
         raise TypeError("y0 must be a torch.Tensor or a tuple of tensors")
     for leaf in leaves:
-        if not leaf.is_floating_point():
+        if not (leaf.is_floating_point() or leaf.is_complex()):
             raise TypeError(f"y0 must be floating point, got {leaf.dtype}")
-    np_dtype(y0.dtype)
+    check_state_dtype(y0.dtype)
     rtol = _leaf_tol('rtol', rtol, leaves, y0)
     atol = _leaf_tol('atol', atol, leaves, y0)
-    for name in ('callback_step', 'callback_accept_step',
-                 'callback_reject_step'):
-        if getattr(func, name, None) is not None:
-            raise NotImplementedError(
-                f"`{name}` callbacks are not ported yet (ROADMAP A2)")
 
     options = {} if options is None else dict(options)
     if method is None:
@@ -300,6 +374,17 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
                 tv = tv.detach().cpu()
             options[name] = t_sign * np.atleast_1d(
                 np.asarray(tv, dtype=np.float64))
+    grid_constructor = options.get('grid_constructor')
+    if grid_constructor is not None:
+        def internal_grid(f, yy, tt):
+            """The user's grid of user times, for the internal frame: `tt`
+            a float64 tensor of internal times, `yy` the solver's state."""
+            grid = grid_constructor(f, yy if unravel is None else unravel(yy),
+                                    t_sign * tt)
+            if not isinstance(grid, torch.Tensor):
+                grid = torch.as_tensor(np.asarray(grid, dtype=np.float64))
+            return t_sign * grid.to('cpu', torch.float64)
+        options['grid_constructor'] = internal_grid
 
     if args:
         base_func = lambda tt, yy: func(tt, yy, *args)
@@ -318,7 +403,21 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
                             yy if unravel is None else unravel(yy))
         flat_event_fn = combine_event_functions(flat_event_fn, t_np[0], y0)
 
+    wrapped = PerturbedFunc(base_func, t_sign)
+    # callbacks (JAX misc.py:360-395): per executed step, in the user's
+    # frame; one the solver kind does not fire is warned about and dropped
+    # (the `_adjoint` ones are read from `func` by the adjoint)
+    fired = {name for name in CALLBACK_NAMES
+             if getattr(func, name, None) is not None}
+    invalid = fired - _VALID_CALLBACKS.get(solvers[method].get('kind'), set())
+    if invalid:
+        warnings.warn("Solver '{}' does not support callbacks {}".format(
+            method, sorted(invalid)))
+    for name in fired - invalid:
+        setattr(wrapped, name, _user_frame_callback(getattr(func, name),
+                                                    t_sign, unravel))
+
     return NormalisedProblem(
-        func=PerturbedFunc(base_func, t_sign), y0=y0, t=t_np,
+        func=wrapped, y0=y0, t=t_np,
         rtol=rtol, atol=atol, method=method, options=options,
         event_fn=flat_event_fn, t_sign=t_sign, norm=norm, unravel=unravel)

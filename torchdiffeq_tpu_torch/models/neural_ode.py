@@ -117,10 +117,14 @@ def default_device(device):
 
 
 def mlp_apply(model, x):
-    """The layers of `model` on `x`, without the input power."""
+    """The layers of `model` on `x`, without the input power.  Mixed
+    dtypes promote as JAX's matmul does: float64 input (the fixed-grid
+    stage states of a float32 state) through float32 weights computes in
+    float64."""
     n = len(model.weights)
     for i, (w, b) in enumerate(zip(model.weights, model.biases)):
-        x = x @ w + b
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x = x.to(dt) @ w.to(dt) + b.to(dt)
         if i != n - 1:
             x = torch.tanh(x)
     return x

@@ -1,18 +1,25 @@
 """The `odeint` front door (counterpart of ``torchdiffeq_tpu/odeint.py``).
 
-This slice carries the explicit adaptive tier through the host-loop solver,
-event solves (``event_fn=...``) on the same tier, and the fused RK4 kernel
-route ``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.
-Everything that would reach a solver family not yet ported raises
-`NotImplementedError` naming its ROADMAP item.
+Every explicit method of the JAX package is here: the adaptive tier through
+the host-loop solver (`solvers/adaptive_rk.py`), the fixed-grid tier
+(euler, midpoint, heun2, heun3, rk4; `solvers/fixed_grid.py`), event solves
+(``event_fn=...``) on both, and the fused RK4 kernel route
+``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.  A
+call that does not qualify for the kernel route (JAX `_try_pallas_rk4`'s
+rules) runs the fixed-grid loop, as JAX falls back to its scan.  Adams,
+implicit and SciPy methods raise `NotImplementedError` naming their
+ROADMAP item.
 
-Gradients: as in the JAX package (odeint.py:319-329), an adaptive solve or
-an event solve that autograd would have to differentiate -- grad mode on,
-and `y0`, `t`, a tensor in `args` or a parameter of an ``nn.Module`` field
-requiring grad -- takes its gradients from the continuous adjoint
-(`adjoint.adjoint_solve`) at the forward settings.  The kernel route is
-forward-only and raises instead of returning a detached result;
-``replay_grad`` and ``forward_grad`` are ROADMAP A10.
+Gradients, as in the JAX package (odeint.py:255-329): a fixed-grid solve
+without events is differentiated through the loop by autograd
+(discretise-then-optimise; ``forward_grad`` is accepted and dropped there);
+an adaptive solve or an event solve that autograd would have to
+differentiate -- grad mode on, and `y0`, `t`, a tensor in `args` or a
+parameter of an ``nn.Module`` field requiring grad -- takes its gradients
+from the continuous adjoint (`adjoint.adjoint_solve`) at the forward
+settings.  The kernel route is forward-only and raises under autograd
+instead of returning a detached result; ``replay_grad`` and the adaptive
+``forward_grad`` are ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 
 from .misc import check_inputs, host_times, is_tuple_state, needs_autograd
 from .solvers import SOLVERS, NOT_PORTED
-from .solvers import adaptive_rk
+from .solvers import adaptive_rk, fixed_grid
 from .solvers.solution import Stats
 
 # the Pallas kernels' own options, accepted and dropped off their routes
@@ -40,9 +47,19 @@ def _differentiable(func, y0, t, args):
 def _refuse_autograd(func, y0, t, args):
     if _differentiable(func, y0, t, args):
         raise NotImplementedError(
-            "the rk4 kernel route is forward-only, as the JAX kernel is; its "
-            "differentiable scan loop is ROADMAP A4 (call the route under "
-            "torch.no_grad())")
+            "the rk4 kernel route is forward-only, as the JAX kernel is: drop "
+            "pallas=True for the differentiable fixed-grid loop, or call the "
+            "route under torch.no_grad()")
+
+
+def _warn_unused(kind, options, allowed):
+    unused = set(options) - set(allowed)
+    if unused:
+        warnings.warn(f"{kind}: Unexpected arguments {sorted(unused)}")
+
+
+_FIXED_OPTIONS = {'step_size', 'grid_constructor', 'num_steps', 'perturb',
+                  'interp', 'remat'}
 
 
 def _adaptive_config(prob, tableau):
@@ -52,9 +69,7 @@ def _adaptive_config(prob, tableau):
             raise NotImplementedError(
                 f"option {name!r} is not ported yet "
                 f"({adaptive_rk.NOT_PORTED_OPTIONS[name]})")
-    unused = set(opts) - adaptive_rk.SUPPORTED_OPTIONS
-    if unused:
-        warnings.warn(f"adaptive solver: Unexpected arguments {sorted(unused)}")
+    _warn_unused('adaptive solver', opts, adaptive_rk.SUPPORTED_OPTIONS)
     return adaptive_rk.AdaptiveConfig(
         tableau=tableau, rtol=prob.rtol, atol=prob.atol, norm=prob.norm,
         first_step=opts.get('first_step'),
@@ -66,7 +81,52 @@ def _adaptive_config(prob, tableau):
         max_num_steps=opts.get('max_num_steps', 2 ** 31 - 1),
         step_t=opts.get('step_t'), jump_t=opts.get('jump_t'),
         jump_state_fn=opts.get('jump_state_fn'),
-        step_to_end=bool(opts.get('step_to_end', False)))
+        step_to_end=bool(opts.get('step_to_end', False)),
+        controller=opts.get('controller', 'i'),
+        pcoeff=opts.get('pcoeff', 0.4),
+        icoeff=opts.get('icoeff', 0.7),
+        dcoeff=opts.get('dcoeff', 0.0),
+        error_dtype=opts.get('error_dtype'))
+
+
+def _solve_normalised(prob, t_grad=None):
+    """The raw solve of a normalised problem (JAX `_solve_normalised`,
+    odeint.py:85-110): (ys in the solver's layout, Stats).  `t_grad`, the
+    internal times as a float64 CPU tensor carrying a gradient, takes the
+    place of `prob.t` on the fixed grid."""
+    spec = SOLVERS[prob.method]
+    if spec['kind'] == 'adaptive':
+        cfg = _adaptive_config(prob, spec['tableau'])
+        return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+    opts = prob.options
+    _warn_unused('fixed-grid solver', opts, _FIXED_OPTIONS)
+    ts = prob.t if t_grad is None else t_grad
+    grid = fixed_grid.construct_grid(
+        prob.func, prob.y0, ts, opts.get('step_size'),
+        opts.get('grid_constructor'), opts.get('num_steps'))
+    return fixed_grid.integrate_fixed_grid(
+        spec['method'], prob.func, prob.y0, ts, grid,
+        interp=opts.get('interp', 'linear'),
+        perturb=opts.get('perturb', False), remat=opts.get('remat', False))
+
+
+def _solve_event_normalised(prob):
+    """The raw event solve (JAX `_solve_event_normalised`,
+    odeint.py:113-155): (event_t in the internal frame, stack([y0,
+    y_event]), Stats)."""
+    spec = SOLVERS[prob.method]
+    if spec['kind'] == 'adaptive':
+        cfg = _adaptive_config(prob, spec['tableau'])
+        event_t, y_event, stats = adaptive_rk.integrate_until_event(
+            prob.func, prob.y0, prob.t[0], prob.event_fn, cfg)
+    else:
+        opts = prob.options
+        event_t, y_event, stats = fixed_grid.integrate_until_event_fixed_grid(
+            spec['method'], prob.func, prob.y0, prob.t[0], prob.event_fn,
+            step_size=opts.get('step_size'),
+            interp=opts.get('interp', 'linear'),
+            perturb=opts.get('perturb', False), atol=prob.atol)
+    return event_t, torch.stack([prob.y0, y_event]), stats
 
 
 def odeint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None, options=None,
@@ -75,10 +135,12 @@ def odeint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None, options=None,
     return the solution at every time in `t`, shape ``(T, *y0.shape)``
     (JAX `odeint`, torchdiffeq_tpu/odeint.py:162; reference odeint.py:49).
 
-    `y0` is one float32/float64 tensor on any device, or a tuple of them;
-    `t` is strictly monotonic (decreasing time integrates backwards).  Time
-    is float64.  Under autograd the gradients come from the continuous
-    adjoint (`odeint_adjoint` at the same settings).
+    `y0` is one float16/bfloat16/float32/float64 tensor on any device, or
+    a tuple of them; `t` is strictly monotonic (decreasing time integrates
+    backwards).  Time is float64.  Under autograd a fixed-grid solve is
+    differentiated through its loop, and any other solve takes its
+    gradients from the continuous adjoint (`odeint_adjoint` at the same
+    settings).
 
     With `event_fn`, `t` holds two times (the start and a point giving the
     direction) and the solve runs until ``event_fn(t, y)`` changes sign; it
@@ -148,19 +210,23 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
         options = {k: v for k, v in options.items()
                    if k not in _KERNEL_OPTIONS}
     name = 'dopri5' if method is None else method
-    if event_fn is not None and (name in NOT_PORTED or SOLVERS.get(
-            name, {}).get('kind') == 'fixed'):
-        raise NotImplementedError(
-            f"event solves with method {name!r}: the fixed-grid, Adams and "
-            "implicit event routes come with their tiers (ROADMAP A4, A9)")
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"method {name!r} is not ported yet ({NOT_PORTED[name]})")
-    if SOLVERS.get(name, {}).get('kind') == 'fixed':
-        raise NotImplementedError(
-            "rk4 runs only on the fused kernel route (options=dict("
-            "pallas=True, num_steps=N) with uniform increasing output times "
-            "and a 2-D state); its scan loop is ROADMAP A4")
+    fixed = SOLVERS.get(name, {}).get('kind') == 'fixed'
+    if fixed and isinstance(options, dict):
+        # the loop is differentiable forward too (JAX odeint.py:261-267)
+        options = {k: v for k, v in options.items() if k != 'forward_grad'}
+    if fixed and event_fn is None:
+        # JAX odeint.py:269-271: backprop through the loop
+        prob = check_inputs(func, y0, t, rtol, atol, method, options, None,
+                            SOLVERS, args=tuple(args))
+        t_grad = None
+        if (isinstance(t, torch.Tensor) and t.requires_grad
+                and torch.is_grad_enabled()):
+            t_grad = prob.t_sign * t.to('cpu', torch.float64)
+        ys, stats = _solve_normalised(prob, t_grad)
+        return (prob.unravel or (lambda x: x))(ys), stats
     if _differentiable(func, y0, t, args):
         # JAX odeint.py:319-329: the continuous adjoint at the forward
         # settings, with no backward options
@@ -171,15 +237,11 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
             adjoint_atol=atol, adjoint_method=name, adjoint_options=None)
     prob = check_inputs(func, y0, t, rtol, atol, method, options, event_fn,
                         SOLVERS, args=tuple(args))
-    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
     unravel = prob.unravel or (lambda x: x)
     with torch.no_grad():
         if event_fn is None:
-            ys, stats = adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+            ys, stats = _solve_normalised(prob)
             return unravel(ys), stats
-        # JAX `_solve_event_normalised` (odeint.py:125-154), the event time
-        # mapped back to the user's frame
-        event_t, y_event, stats = adaptive_rk.integrate_until_event(
-            prob.func, prob.y0, prob.t[0], prob.event_fn, cfg)
-        return ((prob.t_sign * event_t,
-                 unravel(torch.stack([prob.y0, y_event]))), stats)
+        # the event time mapped back to the user's frame
+        event_t, ys2, stats = _solve_event_normalised(prob)
+        return (prob.t_sign * event_t, unravel(ys2)), stats

@@ -1,13 +1,15 @@
 """Solver registry (counterpart of ``torchdiffeq_tpu/solvers/__init__.py``).
 
-The adaptive solver loop is tableau-generic, so the whole explicit adaptive tier
-is here.  `rk4` exists only for the kernel route of `odeint`
-(``options=dict(pallas=True, num_steps=N)``); its scan loop is ROADMAP A4.
-Every other JAX method name maps to the ROADMAP item that ports it.
+The whole explicit tier is here: the adaptive methods on the tableau-generic
+host loop (`adaptive_rk.py`) and the fixed-grid methods on theirs
+(`fixed_grid.py`; `rk4` also has the fused kernel route of `odeint`,
+``options=dict(pallas=True, num_steps=N)``).  The Adams, implicit and SciPy
+method names map to the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
 from ..ops import tableaus as tb
+from .fixed_grid import FIXED_STEP_METHODS
 
 SOLVERS = {
     'dopri8': dict(kind='adaptive', tableau=tb.DOPRI8),
@@ -17,13 +19,12 @@ SOLVERS = {
     'bosh3': dict(kind='adaptive', tableau=tb.BOSH3),
     'fehlberg2': dict(kind='adaptive', tableau=tb.FEHLBERG2),
     'adaptive_heun': dict(kind='adaptive', tableau=tb.ADAPTIVE_HEUN),
-    'rk4': dict(kind='fixed'),
+    **{m: dict(kind='fixed', method=FIXED_STEP_METHODS[m])
+       for m in ('euler', 'midpoint', 'heun2', 'heun3', 'rk4')},
 }
 
-_A4 = 'ROADMAP A4 (fixed-grid explicit tier)'
 _A9 = 'ROADMAP A9 (implicit tiers)'
 NOT_PORTED = {
-    **{m: _A4 for m in ('euler', 'midpoint', 'heun2', 'heun3')},
     **{m: _A9 for m in ('explicit_adams', 'implicit_adams', 'fixed_adams',
                         'implicit_euler', 'implicit_midpoint', 'trapezoid',
                         'radauIIA3', 'gl4', 'radauIIA5', 'gl6', 'sdirk2',

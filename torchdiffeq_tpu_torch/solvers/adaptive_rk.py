@@ -21,7 +21,15 @@ TPU device-loop measure, ROADMAP "Not to port").  ``step_to_end`` lands a
 step on every output time and copies the state there instead of
 interpolating (adaptive_rk.py:446-497).
 
-Not yet ported (ROADMAP A2): `error_dtype` and the PI/PID controllers.
+The step size comes from the I controller (the reference's), or from the
+PI or PID controller (``controller='pi'|'pid'``) on the last one or two
+accepted error ratios.  ``error_dtype`` computes the error estimate, its
+tolerance scale and its norm in that dtype while the state and the stages
+stay in theirs (float32 error control of a bfloat16 state).  A 16-bit
+state's dense output is fit and evaluated in float32 and emitted in the
+state dtype.  The field's ``callback_step`` fires before each attempt and
+``callback_accept_step`` or ``callback_reject_step`` after it, on the
+host, as in JAX (adaptive_rk.py:187, :336-347).
 """
 from __future__ import annotations
 
@@ -32,25 +40,26 @@ import numpy as np
 import torch
 
 from ..misc import Perturb, nan_sign, time_tensor
-from ..ops.interp import interp_fit_step, interp_evaluate, interp_evaluate_at
+from ..ops.interp import (coeff_dtype, interp_fit_step, interp_evaluate,
+                          interp_evaluate_at)
 from ..ops.rk_step import runge_kutta_step
 from ..ops.step_control import (select_initial_step, compute_error_ratio,
-                                optimal_step_size)
+                                optimal_step_size, optimal_step_size_pi,
+                                optimal_step_size_pid)
 from ..ops.tableaus import ButcherTableau
 from .solution import (Stats, OK, ERR_DT_UNDERFLOW, ERR_NONFINITE_STATE,
                        ERR_MAX_NUM_STEPS)
 
 # JAX adaptive options that belong to later slices of the port.
 NOT_PORTED_OPTIONS = {
-    'error_dtype': 'ROADMAP A2', 'controller': 'ROADMAP A2',
-    'pcoeff': 'ROADMAP A2', 'icoeff': 'ROADMAP A2', 'dcoeff': 'ROADMAP A2',
     'replay_grad': 'ROADMAP A10', 'max_segments': 'ROADMAP A10',
     'forward_grad': 'ROADMAP A10', 'compensated_time': "ROADMAP 'Not to port'",
     '_jump_branch_free': "ROADMAP 'Not to port'",
 }
 SUPPORTED_OPTIONS = {'first_step', 'safety', 'ifactor', 'dfactor',
                      'min_step', 'max_step', 'max_num_steps', 'step_t',
-                     'jump_t', 'jump_state_fn', 'step_to_end'}
+                     'jump_t', 'jump_state_fn', 'step_to_end', 'controller',
+                     'pcoeff', 'icoeff', 'dcoeff', 'error_dtype'}
 
 
 class AdaptiveConfig(NamedTuple):
@@ -75,6 +84,13 @@ class AdaptiveConfig(NamedTuple):
     # land a step on every output time and copy the state there (no
     # quartic fit or evaluation)
     step_to_end: bool = False
+    controller: str = 'i'         # 'i' (the reference's), 'pi' or 'pid'
+    pcoeff: float = 0.4
+    icoeff: float = 0.7
+    dcoeff: float = 0.0
+    # the dtype of the error estimate, its scale and its norm (None: the
+    # state dtype)
+    error_dtype: Any = None
 
 
 def _prep_tvals(tvals, t0):
@@ -161,8 +177,10 @@ class _Carry:
         self.y = y0
         self.t0 = self.t1 = t0
         self.coeff = None if cfg.step_to_end else y0.new_zeros(
-            (5,) + tuple(y0.shape))
+            (5,) + tuple(y0.shape), dtype=coeff_dtype(y0.dtype))
         self.n_steps = self.n_acc = self.n_rej = self.steps_in_interval = 0
+        # the last two accepted error ratios (PI/PID), float64
+        self.prev_ratio = self.prev_ratio2 = np.float64(1.0)
         self.err = OK
         self.y_finite = bool(torch.isfinite(y0).all())
         self.step_t = _tvals(cfg.step_t, t0)
@@ -189,6 +207,9 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
     min_step, max_step = np.float64(cfg.min_step), np.float64(cfg.max_step)
     t0 = c.t1
     dt = _clip(c.dt if math.isfinite(c.dt) else min_step, min_step, max_step)
+    callback = getattr(func, 'callback_step', None)
+    if callback is not None:
+        callback(t0, c.y, dt)                # reference rk_common.py:272
 
     # --- guards (reference asserts, rk_common.py:286-287) -----------------
     t1 = t0 + dt
@@ -199,6 +220,10 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
     elif not c.y_finite:
         c.err = ERR_NONFINITE_STATE
     if c.err != OK:
+        # JAX's frozen iteration still fires the reject callback
+        callback = getattr(func, 'callback_reject_step', None)
+        if callback is not None:
+            callback(t0, c.y, dt)
         return False, None
 
     # --- step_t / jump_t truncation (JAX adaptive_rk.py:212-258) ----------
@@ -222,10 +247,17 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
         dt = t1 - t0
 
     # --- the RK step, and the one host read of the iteration --------------
-    y1, f1, y1_err, k = runge_kutta_step(func, c.y, c.f, t0, dt, t1, tab)
+    y1, f1, y1_err, k = runge_kutta_step(func, c.y, c.f, t0, dt, t1, tab,
+                                         error_dtype=cfg.error_dtype)
     c.nfe += len(tab.alpha)
-    ratio_t = compute_error_ratio(y1_err, cfg.rtol, cfg.atol, c.y, y1,
-                                  cfg.norm)
+    if cfg.error_dtype is None:
+        ratio_t = compute_error_ratio(y1_err, cfg.rtol, cfg.atol, c.y, y1,
+                                      cfg.norm)
+    else:
+        # JAX adaptive_rk.py:268-275: scale, ratio and norm in error_dtype
+        ed = cfg.error_dtype
+        ratio_t = compute_error_ratio(y1_err, cfg.rtol, cfg.atol,
+                                      c.y.to(ed), y1.to(ed), cfg.norm)
     read = [ratio_t, torch.isfinite(y1).all().to(ratio_t.dtype)]
     if probe is not None:
         read.append(probe(t1, y1).to(ratio_t.dtype))
@@ -239,6 +271,7 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
     c.n_steps += 1
     c.steps_in_interval += 1
     c.t0 = t0
+    y0 = c.y
     if accept:
         c.n_acc += 1
         if not cfg.step_to_end:
@@ -260,10 +293,33 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
             c.jump_t.advance()
     else:
         c.n_rej += 1
-    c.dt = _clip(optimal_step_size(dt, ratio, cfg.safety, cfg.ifactor,
-                                   cfg.dfactor, tab.order),
-                 min_step, max_step)
+    callback = getattr(func, 'callback_accept_step' if accept
+                       else 'callback_reject_step', None)
+    if callback is not None:
+        callback(t0, y0, dt)                 # reference rk_common.py:339,354
+    c.dt = _clip(_next_step(c, cfg, dt, ratio, accept), min_step, max_step)
     return accept, (probed[0] if probed else None)
+
+
+def _next_step(c: _Carry, cfg: AdaptiveConfig, dt, ratio, accept):
+    """The controller's next step size; PI and PID take the last one and
+    two accepted error ratios, updated on accept (JAX
+    adaptive_rk.py:349-365)."""
+    order = cfg.tableau.order
+    if cfg.controller == 'pid':
+        dt_next = optimal_step_size_pid(
+            dt, ratio, c.prev_ratio, c.prev_ratio2, cfg.safety, cfg.ifactor,
+            cfg.dfactor, order, cfg.pcoeff, cfg.icoeff, cfg.dcoeff)
+    elif cfg.controller == 'pi':
+        dt_next = optimal_step_size_pi(
+            dt, ratio, c.prev_ratio, cfg.safety, cfg.ifactor, cfg.dfactor,
+            order, cfg.pcoeff, cfg.icoeff)
+    else:
+        return optimal_step_size(dt, ratio, cfg.safety, cfg.ifactor,
+                                 cfg.dfactor, order)
+    if accept:
+        c.prev_ratio, c.prev_ratio2 = np.float64(ratio), c.prev_ratio
+    return dt_next
 
 
 def integrate(func, y0, ts, cfg: AdaptiveConfig):
@@ -333,6 +389,7 @@ def integrate_until_event(func, y0, t0, event_fn, cfg: AdaptiveConfig):
     else:
         coeff, t_lo, t_hi = c.coeff, c.t0, c.t1
         event_t, y_event = find_event(
-            lambda t: interp_evaluate_at(coeff, t_lo, t_hi, t), sign0_t,
+            lambda t: interp_evaluate_at(coeff, t_lo, t_hi, t).to(y0.dtype),
+            sign0_t,
             t_lo, t_hi, event_fn, cfg.atol)
     return event_t, y_event, c.stats()
