@@ -194,6 +194,18 @@ F32_RK4_LOOP = 1e-5
 BF16_RTOL, BF16_ATOL = 1e-3, 1e-5
 BF16_VALUES = 3e-2
 BF16_STEPS = 3
+# - phase 12, the Adams and implicit tiers.  float64 card against CPU:
+#   values within F64_VALUES of max|y| (the stage solves end within their
+#   1e-8 of the roots by the same iterates, rounding apart: LU pivoting,
+#   the products' summation order and tanh's last ULP), Stats equal,
+#   gradients within GRAD_F64_REL.  The implicit_adams step's float32
+#   gradients against the card's float64 step: float32 rounding of the
+#   states and of the corrector's convergence tests: 4.9e-7 of max|g|
+#   measured on the H100, held to GRAD_F32_REL.  The batched stiff problem
+#   against its exact solution, rtol 1e-8 and atol 1e-10 on |y| <= 5:
+#   7.8e-11 (B=1024) to 2.8e-10 (kvaerno3, B=256) measured on the H100,
+#   held to STIFF_EXACT.
+STIFF_EXACT = 1e-8
 FIXED_STEPS = 36          # phase 11's num_steps (4 an output interval)
 FIXED_EVENT_STEP = 0.01   # and the fixed-grid event solve's step_size
 TRAIN_STEPS = 12         # phase 10's timed warm steps
@@ -202,6 +214,15 @@ EVENT_CUT = 0.9          # phase 7's time cut-off
 EVENT_MAX_STEPS = 1000   # phase 8's max_num_steps
 FB, FD, FH = 4096, 256, 1024   # bench_fused_field.py:25
 FUSED_DT, FUSED_STEPS = 1e-4, 20
+IMPLICIT_B = 32          # phase 12's card-vs-CPU batch (the CPU side stays
+#                          quick)
+STIFF_B = 1024           # phase 12's batched stiff problem
+# kvaerno3's batch there: at B=1024 its warm solve alone took 3272 steps
+# and 56.3 s on the H100, past the phase's STIFF_BUDGET_S
+KVAERNO3_B = 256
+STIFF_BUDGET_S = 60
+TRACE_STEPS = 20         # the steps of a batched stiff solve that are traced
+STIFF_RTOL, STIFF_ATOL = 1e-8, 1e-10
 
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
@@ -1127,6 +1148,359 @@ def _phase_fixed(torch, kernels, dev):
           f"steps {st_c.n_steps}")
 
 
+IMPLICIT_FIXED = ("explicit_adams", "implicit_adams", "fixed_adams",
+                  "implicit_euler", "implicit_midpoint", "trapezoid",
+                  "radauIIA3", "gl4", "radauIIA5", "gl6", "sdirk2", "trbdf2")
+STIFF = ("kvaerno5", "radau5a", "kvaerno3")
+
+
+def _implicit_setup(torch, device, b=IMPLICIT_B):
+    """Phase 12's spiral problem at batch `b`, float64: bench.py's model,
+    its first `b` states and targets, on `device`."""
+    model, y0, target, t = _train_setup(torch, np.float64, device)
+    return model, y0[:b].contiguous(), target[:b].contiguous(), t
+
+
+def _implicit_solve(torch, device, method, grads):
+    """One solve of phase 12's parity problem: (ys, Stats counters, and
+    with `grads` the gradients of mean((ys - target)**2) to y0 and the
+    parameters: through the loop on the fixed grid, by odeint_adjoint on
+    the adaptive one)."""
+    from torchdiffeq_tpu_torch import odeint, odeint_adjoint, odeint_with_stats
+    model, y0, target, t = _implicit_setup(torch, device)
+    opts = None if method in STIFF else dict(num_steps=FIXED_STEPS)
+    kw = dict(rtol=RTOL, atol=ATOL, method=method, options=opts)
+    with torch.no_grad():
+        ys, st = odeint_with_stats(model, y0, t, **kw)
+    if not grads:
+        return ys.cpu(), list(st[:5]), None
+    model.requires_grad_(True)
+    y0.requires_grad_(True)
+    solve = odeint_adjoint if method in STIFF else odeint
+    ((solve(model, y0, t, **kw) - target[None]) ** 2).mean().backward()
+    return ys.cpu(), list(st[:5]), [g.detach().cpu() for g in
+                                    [y0.grad] + [p.grad
+                                                 for p in model.parameters()]]
+
+
+def _stiff_problem(torch, device, b):
+    """The batched linear relaxation of benchmarks/perf_sections/stiff.md:
+    y_i' = -lam_i (y_i - t) + 1, lam = logspace(2, 4, b), y0 = 1 + 0.5 u
+    with u from RandomState(0), float64; and its exact solution."""
+    lam = torch.from_numpy(np.logspace(2.0, 4.0, b)).to(device)
+    u = np.random.RandomState(0).rand(b)
+    y0 = torch.from_numpy(1.0 + 0.5 * u).to(device)
+    t = torch.linspace(0.0, 5.0, 5, dtype=torch.float64)
+
+    def field(s, y):
+        return -lam * (y - s.to(y.device)) + 1.0
+
+    tt_ = t.to(device)[:, None]
+    exact = tt_ + y0[None] * torch.exp(-lam[None] * tt_)
+    return field, y0, t, exact
+
+
+class _Annotated:
+    """While active, the stage solves' linear solves and Jacobians run
+    inside `torch.profiler.record_function` ranges named 'linsolve' and
+    'jacobian', so that a trace attributes their kernels."""
+
+    def __enter__(self):
+        import torch
+        from torchdiffeq_tpu_torch.ops import linsolve
+        from torchdiffeq_tpu_torch.solvers import fixed_grid_implicit as fgi
+        self.saved = (linsolve, linsolve.solve, fgi, fgi.jacobian)
+
+        def wrap(name, fn):
+            def inner(*a, **k):
+                with torch.profiler.record_function(name):
+                    return fn(*a, **k)
+            return inner
+        linsolve.solve = wrap("linsolve", linsolve.solve)
+        fgi.jacobian = wrap("jacobian", fgi.jacobian)
+        return self
+
+    def __exit__(self, *exc):
+        linsolve, solve, fgi, jac = self.saved
+        linsolve.solve, fgi.jacobian = solve, jac
+
+
+def _profiled_shares(torch, fn):
+    """One call of `fn` under torch.profiler with `_Annotated`: (device ms
+    of all kernels, of the kernels inside 'linsolve' ranges, inside
+    'jacobian' ranges), or None when the trace holds no device time.  The
+    trace marks each range on the device too, as a span from its first
+    kernel's start to its last one's end; on one stream the kernels that
+    start inside a span are the range's, and the span's own length would
+    count the device's idle gaps in it."""
+    import bisect
+    from torch.profiler import ProfilerActivity, profile
+    names = ("linsolve", "jacobian")
+    with _Annotated(), profile(activities=[ProfilerActivity.CPU,
+                                           ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.events() if e.device_type == cuda]
+    kernels_ = [e for e in events if e.name not in names]
+    total = sum(e.time_range.elapsed_us() for e in kernels_) / 1e3
+    if total == 0:
+        return None
+    under = {}
+    for name in names:
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in events if e.name == name)
+        starts = [a for a, _ in spans]
+
+        def inside(t):
+            i = bisect.bisect_right(starts, t) - 1
+            return i >= 0 and t <= spans[i][1]
+        under[name] = sum(e.time_range.elapsed_us() for e in kernels_
+                          if inside(e.time_range.start)) / 1e3
+    return total, under["linsolve"], under["jacobian"]
+
+
+def _implicit_train_step(torch, model, y0, target, t, marks=None):
+    """Phase 10's step with implicit_adams (num_steps=FIXED_STEPS) through
+    the loop instead of the adjoint."""
+    from torchdiffeq_tpu_torch import odeint
+    if marks:
+        marks[0].record()
+    ys = odeint(model, y0, t, method="implicit_adams",
+                options=dict(num_steps=FIXED_STEPS))
+    loss = ((ys - target[None]) ** 2).mean()
+    if marks:
+        marks[1].record()
+    loss.backward()
+    if marks:
+        marks[2].record()
+    grads = []
+    with torch.no_grad():
+        for p in model.parameters():
+            grads.append(p.grad)
+            p -= 1e-3 * p.grad
+            p.grad = None
+    if marks:
+        marks[3].record()
+    return loss.detach(), grads
+
+
+def _trbdf2_grads(torch, device, b):
+    """One forward and backward of the trbdf2 (Newton) training loss on
+    `device` at batch `b`, float64: (wall ms, Stats, the stage-solve
+    counts, gradients to y0 and the parameters)."""
+    from torchdiffeq_tpu_torch import odeint_with_stats
+    from torchdiffeq_tpu_torch.solvers.solution import (IMPLICIT_COUNTS,
+                                                        reset_implicit_counts)
+    model, y0, target, t = _implicit_setup(torch, device, b)
+    model.requires_grad_(True)
+    y0.requires_grad_(True)
+    reset_implicit_counts()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    ys, st = odeint_with_stats(model, y0, t, method="trbdf2",
+                               options=dict(num_steps=FIXED_STEPS,
+                                            root_solver="newton"))
+    ((ys - target[None]) ** 2).mean().backward()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - w0) * 1e3
+    grads = [g.detach().cpu()
+             for g in [y0.grad] + [p.grad for p in model.parameters()]]
+    return wall, st, dict(IMPLICIT_COUNTS), grads
+
+
+def _phase_implicit(torch, kernels, dev):
+    """Phase 12: the Adams and implicit tiers on the card."""
+    from torchdiffeq_tpu_torch import odeint, odeint_dense, odeint_with_stats
+    from torchdiffeq_tpu_torch.solvers.solution import (IMPLICIT_COUNTS,
+                                                        reset_implicit_counts)
+
+    # 1. every new method, float64, B=IMPLICIT_B: card against CPU
+    clock = time.perf_counter()
+    worst_v = worst_g = 0.0
+    for method in IMPLICIT_FIXED + STIFF:
+        grads = method != "kvaerno3"
+        ys_c, st_c, g_c = _implicit_solve(torch, "cpu", method, grads)
+        ys_g, st_g, g_g = _implicit_solve(torch, dev, method, grads)
+        err = float((ys_g - ys_c).abs().max() / ys_c.abs().max())
+        rel = _max_rel(g_g, g_c) if grads else 0.0
+        worst_v, worst_g = max(worst_v, err), max(worst_g, rel)
+        _check(st_g == st_c and st_g[4] == 0 and err <= F64_VALUES
+               and rel <= GRAD_F64_REL,
+               f"{method} float64 card vs CPU: {err} of max|y|, Stats "
+               f"{st_g} vs {st_c}, gradients {rel} of max|g|")
+    print(f"[12a implicit parity] the 15 Adams and implicit methods, spiral "
+          f"B={IMPLICIT_B} H={H} T={T} float64 (fixed grid num_steps="
+          f"{FIXED_STEPS}; kvaerno3/5, radau5a rtol={RTOL} atol={ATOL}) card "
+          f"vs CPU: values {worst_v:.2e} of max|y| (<= {F64_VALUES}), Stats "
+          f"equal, error code 0; gradients of the mean-square loss to y0 and "
+          f"the parameters (through the loop and the IFT on the fixed grid, "
+          f"odeint_adjoint for kvaerno5 and radau5a; kvaerno3's adjoint is in "
+          f"the GPU tests) {worst_g:.2e} of max|g| (<= {GRAD_F64_REL}) | "
+          f"{time.perf_counter() - clock:.1f} s", flush=True)
+    clock = time.perf_counter()
+
+    # one odeint_event (phase 10's event function: a threshold on the batch
+    # mean of y[:, 0] and a cut-off) and one odeint_dense, kvaerno5, against
+    # the CPU
+    ev, dense = {}, {}
+    for device in ("cpu", dev):
+        model, y0, _, t = _implicit_setup(torch, device)
+        with torch.no_grad():
+            means = odeint(model, y0, t, rtol=RTOL, atol=ATOL,
+                           method="kvaerno5")[:, :, 0].mean(1)
+            thr = float((means[0] + means[4]) / 2)
+            (et, ys2), st = odeint_with_stats(
+                model, y0, torch.tensor([0.0, 1.0], dtype=torch.float64),
+                event_fn=lambda tt, yy: torch.stack(
+                    [yy[:, 0].mean() - thr, (tt - EVENT_CUT).to(yy.dtype)]),
+                method="kvaerno5", rtol=RTOL, atol=ATOL)
+            sol, st_d = odeint_dense(model, y0, 0.0, 1.0, method="kvaerno5",
+                                     rtol=RTOL, atol=ATOL,
+                                     _return_stats=True)
+            tq = torch.linspace(0.0, 1.0, 7, dtype=torch.float64)
+            ev[device] = float(et), ys2.cpu(), list(st[:5])
+            dense[device] = sol(tq).cpu(), list(st_d[:5])
+    (et_c, ye_c, se_c), (et_g, ye_g, se_g) = ev["cpu"], ev[dev]
+    (yd_c, sd_c), (yd_g, sd_g) = dense["cpu"], dense[dev]
+    err_e = max(abs(et_g - et_c), float((ye_g - ye_c).abs().max()))
+    err_d = float((yd_g - yd_c).abs().max())
+    _check(se_g == se_c and sd_g == sd_c and err_e <= F64_VALUES
+           and err_d <= F64_VALUES and 0.0 < et_g < EVENT_CUT,
+           f"kvaerno5 event/dense card vs CPU: {err_e}, {err_d}, Stats "
+           f"{se_g} vs {se_c}, {sd_g} vs {sd_c}")
+    print(f"[12b implicit event, dense] kvaerno5 float64 B={IMPLICIT_B}: "
+          f"odeint_event (phase 10's event function) event_t "
+          f"{et_g:.12f}, card vs CPU {err_e:.2e}, Stats {se_g} equal | "
+          f"odeint_dense on [0, 1] at 7 times card vs CPU {err_d:.2e}, Stats "
+          f"{sd_g} equal | {time.perf_counter() - clock:.1f} s", flush=True)
+
+    # 2. the batched stiff problem
+    rows = []
+    for method in STIFF:
+        clock = time.perf_counter()
+        b = KVAERNO3_B if method == "kvaerno3" else STIFF_B
+        field, y0s, ts, exact = _stiff_problem(torch, dev, b)
+        kw = dict(method=method, rtol=STIFF_RTOL, atol=STIFF_ATOL)
+        with torch.no_grad():
+            # the trace covers the solve's first TRACE_STEPS steps (every
+            # step runs the same work a Newton iteration; the trace's
+            # processing costs ~50 ms an iteration), and warms the path
+            shares = _profiled_shares(torch, lambda: odeint_with_stats(
+                field, y0s, ts, options=dict(max_num_steps=TRACE_STEPS),
+                **kw))
+            reset_implicit_counts()
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            ys, st = odeint_with_stats(field, y0s, ts, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+            counts = dict(IMPLICIT_COUNTS)
+        err = float((ys - exact).abs().max())
+        _check(st.error_code == 0 and bool(torch.isfinite(ys).all())
+               and err <= STIFF_EXACT,
+               f"batched stiff {method}: error code {st.error_code}, max "
+               f"error vs exact {err}")
+        share = ("linear-solve and Jacobian shares not measured (no device "
+                 "time in the trace)" if shares is None else
+                 f"traced first {TRACE_STEPS} steps: device {shares[0]:.1f} "
+                 f"ms, linear solves {shares[1] / shares[0]:.1%}, Jacobians "
+                 f"{shares[2] / shares[0]:.1%}")
+        cut = (f" (B cut to {b}: at B={STIFF_B} kvaerno3's solves would "
+               f"hold the phase past {STIFF_BUDGET_S} s)" if b != STIFF_B
+               else "")
+        rows.append(
+            f"{method} B={b}{cut}: steps {st.n_steps} (rejected "
+            f"{st.n_rejected}), nfe {st.nfe}, max|y - exact| {err:.2e}, warm "
+            f"wall {wall:.1f} ms, Newton iterations {counts['iterations']}, "
+            f"linear solves {counts['linear_solves']}, Jacobians "
+            f"{counts['jacobians']}, host reads {counts['host_reads']} in "
+            f"stage solves + {st.n_steps + 1} in the step loop; {share}; "
+            f"{time.perf_counter() - clock:.1f} s")
+    print(f"[12c batched stiff] y' = -lam (y - t) + 1, lam = logspace(2, 4, "
+          f"B), one flat state and controller, t = linspace(0, 5, 5), rtol="
+          f"{STIFF_RTOL} atol={STIFF_ATOL} float64 on the card (max error "
+          f"<= {STIFF_EXACT}) | " + " | ".join(rows), flush=True)
+
+    # 3a. the implicit_adams training step at full width, float32
+    clock = time.perf_counter()
+    model, y0, target, t = _train_setup(torch, np.float32, dev)
+    m64, y64, tg64, _ = _train_setup(torch, np.float64, dev)
+    _, g32 = _implicit_train_step(torch, model, y0, target, t)
+    g32 = [g.clone() for g in g32]
+    _, g64 = _implicit_train_step(torch, m64, y64, tg64, t)
+    rel32 = _max_rel(g32, g64)
+    _check(rel32 <= GRAD_F32_REL, f"implicit_adams step float32 gradients "
+           f"vs float64: {rel32} of max|g|")
+    with torch.no_grad():
+        reset_implicit_counts()
+        _, st_a = odeint_with_stats(model, y0, t, method="implicit_adams",
+                                    options=dict(num_steps=FIXED_STEPS))
+        conv = (IMPLICIT_COUNTS["corrector_converged"],
+                IMPLICIT_COUNTS["corrector_steps"])
+    kernels.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(TRAIN_STEPS):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        loss, _ = _implicit_train_step(torch, model, y0, target, t, marks)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - w0) * 1e3
+        losses.append(float(loss))
+        times.append((marks[0].elapsed_time(marks[3]),
+                      marks[0].elapsed_time(marks[1]),
+                      marks[1].elapsed_time(marks[2]), wall))
+    launches = dict(kernels.launch_counts)
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"implicit_adams training step: losses {losses}")
+    step_ms, fwd_ms, bwd_ms, wall_ms = (np.array(c) for c in zip(*times))
+    busy_ms, n_launch, prof_wall = _profiled_step(
+        torch, lambda: _implicit_train_step(torch, model, y0, target, t))
+    med = float(np.median(step_ms))
+    busy = ("not measured (no device time in the trace)" if busy_ms is None
+            else f"{busy_ms:.3f} ms of device time in {n_launch} kernels, "
+            f"{busy_ms / med:.1%} of the median step ({busy_ms / prof_wall:.1%}"
+            f" of the traced step's {prof_wall:.1f} ms)")
+    print(f"[12d implicit_adams step] bench.py's step B={B} H={H} T={T} "
+          f"float32, odeint(implicit_adams, num_steps={FIXED_STEPS}) through "
+          f"the loop + SGD lr 1e-3 | gradients vs the card's float64 step "
+          f"{rel32:.2e} of max|g| (<= {GRAD_F32_REL}) | nfe {st_a.nfe} "
+          f"(reference convention) over {st_a.n_steps} steps, correctors "
+          f"converged {conv[0]} of {conv[1]} | kernel launches {launches} "
+          f"(the step runs none) | loss {losses[0]:.7f} -> {losses[-1]:.7f} "
+          f"| warm step over {TRAIN_STEPS}: median {med:.2f} ms (min "
+          f"{step_ms.min():.2f}, max {step_ms.max():.2f}); forward "
+          f"{np.median(fwd_ms):.2f} ms ({fwd_ms.min():.2f}..{fwd_ms.max():.2f}"
+          f"), backward {np.median(bwd_ms):.2f} ms ({bwd_ms.min():.2f}.."
+          f"{bwd_ms.max():.2f}), host wall median {np.median(wall_ms):.2f} ms "
+          f"| device busy: {busy} | {time.perf_counter() - clock:.1f} s",
+          flush=True)
+
+    # 3b. trbdf2 with Newton at full width, float64 (n = 2048 a stage)
+    clock = time.perf_counter()
+    _trbdf2_grads(torch, dev, IMPLICIT_B)                  # warm the path
+    wall, st_t, counts, _ = _trbdf2_grads(torch, dev, B)
+    _, st_c, _, g_c = _trbdf2_grads(torch, "cpu", IMPLICIT_B)
+    _, st_s, _, g_s = _trbdf2_grads(torch, dev, IMPLICIT_B)
+    rel_t = _max_rel(g_s, g_c)
+    _check(st_t.error_code == 0 and list(st_s[:5]) == list(st_c[:5])
+           and rel_t <= GRAD_F64_REL,
+           f"trbdf2 Newton: error code {st_t.error_code}, B={IMPLICIT_B} "
+           f"card vs CPU gradients {rel_t} of max|g|")
+    print(f"[12e trbdf2 Newton step] B={B} H={H} float64, odeint(trbdf2, "
+          f"root_solver='newton', num_steps={FIXED_STEPS}) forward and "
+          f"backward (IFT) of the mean-square loss: {wall:.1f} ms, Newton "
+          f"iterations {counts['iterations']}, linear solves "
+          f"{counts['linear_solves']} (backward included), Jacobians "
+          f"{counts['jacobians']}, host reads {counts['host_reads']}, error "
+          f"code {st_t.error_code} | B={IMPLICIT_B} gradients card vs CPU "
+          f"{rel_t:.2e} of max|g| (<= {GRAD_F64_REL}), Stats equal | "
+          f"{time.perf_counter() - clock:.1f} s", flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1542,6 +1916,8 @@ def main():
     _phase_train(torch, kernels, dev)
 
     _phase_fixed(torch, kernels, dev)
+
+    _phase_implicit(torch, kernels, dev)
 
     torch.cuda.synchronize()
     print(_card())

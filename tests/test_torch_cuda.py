@@ -1096,3 +1096,77 @@ def test_remat_on_cuda_same_gradients_less_memory(cuda):
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert peaks[1] < peaks[0], peaks
+
+
+# ---- the Adams and implicit tiers ----------------------------------------
+
+IMPLICIT_FIXED = ["explicit_adams", "implicit_adams", "fixed_adams",
+                  "implicit_euler", "implicit_midpoint", "trapezoid",
+                  "radauIIA3", "gl4", "radauIIA5", "gl6", "sdirk2", "trbdf2"]
+STIFF = ["kvaerno3", "kvaerno5", "radau5a"]
+
+
+@pytest.mark.parametrize("method", IMPLICIT_FIXED + STIFF)
+def test_implicit_tiers_cuda_match_cpu(cuda, method):
+    """Every Adams and implicit method on the card against the CPU in
+    float64 on the spiral field (B=32): Stats equal (error code 0), values
+    to 1e-10 (the products' summation order, tanh's last ULP and the LU's
+    pivoting rounding, within the stage tolerance's reach)."""
+    opts = {} if method in STIFF else dict(num_steps=18)
+    out = {}
+    for dev in ("cpu", cuda):
+        model, y0, t = _spiral_problem(dev, torch.float64, B=32)
+        with torch.no_grad():
+            ys, st = odeint_with_stats(model, y0, t, rtol=1e-7, atol=1e-9,
+                                       method=method, options=opts)
+        out[str(dev)] = ys.cpu(), list(st[:5])
+    (ys_c, st_c), (ys_g, st_g) = out["cpu"], out[str(cuda)]
+    assert st_g == st_c and st_g[4] == 0
+    torch.testing.assert_close(ys_g, ys_c, rtol=0, atol=F64)
+
+
+def _implicit_grads(device, method, options, adjoint=False):
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    model, y0, t = _spiral_problem(device, torch.float64, B=32)
+    model.requires_grad_(True)
+    y0.requires_grad_(True)
+    solve = odeint_adjoint if adjoint else odeint
+    ys = solve(model, y0, t, rtol=1e-7, atol=1e-9, method=method,
+               options=options)
+    (ys ** 2).mean().backward()
+    return [g.cpu() for g in [y0.grad] + [p.grad for p in model.parameters()]]
+
+
+@pytest.mark.parametrize("method,options,adjoint", [
+    ("gl4", dict(num_steps=18), False),
+    ("trbdf2", dict(num_steps=18, root_solver="newton"), False),
+    ("kvaerno5", None, True),
+])
+def test_implicit_gradients_cuda_match_cpu(cuda, method, options, adjoint):
+    """Gradients of mean(ys**2) to y0 and the parameters in float64, card
+    against CPU: the IFT of every stage solve through the loop (one FIRK
+    method with Broyden, one DIRK with Newton) and an implicit
+    odeint_adjoint (kvaerno5 forward and backward, its stage Jacobians
+    reverse over reverse), each within 1e-9 of max|g|."""
+    want = _implicit_grads("cpu", method, options, adjoint)
+    got = _implicit_grads(cuda, method, options, adjoint)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-9 * float(w.abs().max())
+
+
+def test_implicit_nonconvergence_error_code_on_both_devices(cuda):
+    """A stiff field at two steps and one Broyden iteration: error code 4
+    on the card and on the CPU, with the same values; the converging call
+    error code 0."""
+    out = []
+    for dev in ("cpu", cuda):
+        y0 = torch.zeros(1, dtype=torch.float64, device=dev)
+        t = torch.linspace(0.0, 1.0, 2, dtype=torch.float64)
+        f = lambda s, y: -1e4 * (y - torch.cos(10 * s))
+        ys, st = odeint_with_stats(f, y0, t, method="implicit_midpoint",
+                                   options=dict(num_steps=2, max_iters=1))
+        _, st_ok = odeint_with_stats(f, y0, t, method="implicit_euler",
+                                     options=dict(num_steps=200))
+        out.append((ys.cpu(), st.error_code, st_ok.error_code))
+    assert out[0][1] == out[1][1] == 4 and out[0][2] == out[1][2] == 0
+    torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=F64)

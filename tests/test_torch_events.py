@@ -193,23 +193,21 @@ def test_event_max_num_steps_matches_jax():
 
 
 @pytest.mark.parametrize("call,match", [
-    (dict(method='implicit_adams'), "ROADMAP A9"),
     (dict(options=dict(replay_grad=True)), "ROADMAP A10"),
 ])
 def test_event_routes_not_ported_raise(call, match):
-    """Adams and implicit event solves and replay gradients name their
-    ROADMAP items."""
+    """Replay gradients of an event solve name their ROADMAP item."""
     with pytest.raises(NotImplementedError, match=match):
         tt.odeint_event(lambda t, y: -y, torch.ones(1, dtype=torch.float64),
                         0.0, event_fn=lambda t, y: y[0] - 0.5, **call)
 
 
-@pytest.mark.parametrize("method", ['rk4', 'euler'])
+@pytest.mark.parametrize("method", ['rk4', 'euler', 'implicit_adams'])
 def test_fixed_grid_event_routes_match_jax(method):
     """The fixed-grid event solves that test above held to raising, now
     against JAX: event time and state to 1e-12, Stats exactly equal
-    (tests/test_torch_fixed_grid.py holds every method and their
-    gradients)."""
+    (tests/test_torch_fixed_grid.py, test_torch_adams.py and
+    test_torch_implicit.py hold every method)."""
     kw = dict(method=method, options=dict(step_size=0.01))
     (et_j, ys_j), st_j = tde.odeint_with_stats(
         lambda t, y: -y, jnp.ones(1), jnp.asarray([0.0, 1.0]),
@@ -350,7 +348,8 @@ def _dense_both(t0, t1, method='dopri5', **kw):
     return sol_j, st_j, sol_t, st_t
 
 
-@pytest.mark.parametrize("method", ['dopri5', 'tsit5', 'dopri8', 'bosh3'])
+@pytest.mark.parametrize("method", ['dopri5', 'tsit5', 'dopri8', 'bosh3',
+                                    'kvaerno3'])
 def test_dense_matches_jax(method):
     """Values and derivatives at scalar and batched times, and the stats
     (NFE from JAX's start at 2), for exp(-t) on [0, 2]."""
@@ -448,9 +447,6 @@ def test_dense_non_adaptive_methods_raise():
     with pytest.raises(ValueError, match="adaptive"):
         tt.odeint_dense(lambda t, y: -y, torch.ones(1), 0.0, 2.0,
                         method='rk4')
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tt.odeint_dense(lambda t, y: -y, torch.ones(1), 0.0, 2.0,
-                        method='kvaerno3')
 
 
 def test_dense_float32_spiral_against_odeint():

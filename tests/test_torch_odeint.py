@@ -142,7 +142,6 @@ def test_closed_form_linear_decay():
 
 
 @pytest.mark.parametrize("call", [
-    dict(method='implicit_adams'), dict(method='kvaerno5'),
     dict(method='scipy_solver'),
     dict(options=dict(replay_grad=True)), dict(options=dict(forward_grad=True)),
     dict(options=dict(dtype=torch.float32)),
@@ -165,6 +164,7 @@ def test_not_yet_ported_raises(call):
     dict(options=dict(error_dtype='float32')),
     dict(method='rk4', options=dict(step_size=0.05),
          event_fn=lambda t, y: y[0, 0] - 0.5),
+    dict(method='implicit_adams'), dict(method='kvaerno5'),
 ])
 def test_formerly_refused_calls_match_jax(call):
     """float64 values to 1e-12 and Stats exactly equal; with a float32

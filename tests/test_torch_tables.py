@@ -17,12 +17,17 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 EXPLICIT = ['DOPRI5', 'DOPRI8', 'TSIT5', 'TSIT5_LE', 'BOSH3', 'FEHLBERG2',
             'ADAPTIVE_HEUN']
+IMPLICIT = ['IMPLICIT_EULER', 'IMPLICIT_MIDPOINT', 'TRAPEZOID',
+            'GAUSS_LEGENDRE_4', 'GAUSS_LEGENDRE_6', 'RADAU_IIA_3',
+            'RADAU_IIA_5', 'SDIRK2', 'TRBDF2', 'KVAERNO3', 'KVAERNO5',
+            'RADAU5A']
 
 
-@pytest.mark.parametrize("name", EXPLICIT)
+@pytest.mark.parametrize("name", EXPLICIT + IMPLICIT)
 def test_tableau_equals_jax(name):
     """Bit-for-bit equal tables (exact comparison: they are the same
-    published constants written the same way)."""
+    published constants written the same way), with the same `implicit`
+    and `sdirk` flags."""
     a, b = getattr(jtab, name), getattr(ttab, name)
     for field in ('alpha', 'beta', 'c_sol', 'c_error', 'c_mid'):
         np.testing.assert_array_equal(getattr(a, field), getattr(b, field),
@@ -30,6 +35,19 @@ def test_tableau_equals_jax(name):
     assert a.order == b.order
     assert a.is_fsal == b.is_fsal
     assert a.n_stages == b.n_stages
+    assert (a.implicit, a.sdirk) == (b.implicit, b.sdirk)
+    assert b.implicit == (name in IMPLICIT)
+
+
+def test_adams_coefficients_equal_jax():
+    """The Bashforth and Moulton tables and the order and iteration limits,
+    bit for bit."""
+    import torchdiffeq_tpu.ops.adams_coeffs as jac
+    import torchdiffeq_tpu_torch.ops.adams_coeffs as tac
+    for name in ('BASHFORTH', 'MOULTON'):
+        np.testing.assert_array_equal(getattr(jac, name), getattr(tac, name))
+    assert (jac.MIN_ORDER, jac.MAX_ORDER, jac.MAX_ITERS) == \
+        (tac.MIN_ORDER, tac.MAX_ORDER, tac.MAX_ITERS)
 
 
 def test_tsit5_keeps_reference_weight_swap():
@@ -64,21 +82,44 @@ def test_raise_if_error_matches_jax(code):
 
 
 def test_registry_covers_every_jax_method():
-    """Every JAX method name is either ported or names its ROADMAP item."""
-    from torchdiffeq_tpu.solvers import SOLVERS as JAX_SOLVERS
+    """Every JAX method name is either ported, with JAX's kind, or names
+    its ROADMAP item (the SciPy bridge alone)."""
+    from torchdiffeq_tpu.solvers import (SOLVERS as JAX_SOLVERS,
+                                         DIRECT_DIFF_KINDS)
+    from torchdiffeq_tpu_torch.solvers import DIRECT_DIFF_KINDS as TORCH_DDK
     assert set(JAX_SOLVERS) == set(SOLVERS) | set(NOT_PORTED)
     assert not set(SOLVERS) & set(NOT_PORTED)
+    assert set(NOT_PORTED) == {'scipy_solver'}
+    for m, spec in SOLVERS.items():
+        jspec = JAX_SOLVERS[m]
+        assert spec['kind'] == jspec['kind'], m
+        if 'implicit' in spec:
+            assert spec['implicit'] == jspec['implicit'], m
+        if 'tableau' in spec:       # the table of the same name
+            assert jspec['tableau'] is getattr(
+                jtab, _tableau_name(spec['tableau'])), m
+    assert TORCH_DDK == DIRECT_DIFF_KINDS
     for m in PER_LANE_METHODS:
         assert SOLVERS[m]['kind'] == 'adaptive'
 
 
+def _tableau_name(tab):
+    return next(n for n in EXPLICIT + IMPLICIT if getattr(ttab, n) is tab)
+
+
 def test_import_leaves_jax_out():
     """`import torchdiffeq_tpu_torch` (its kernel module, the event and
-    dense-output modules) never loads JAX; checked in a fresh interpreter."""
+    dense-output modules, the Adams and implicit tiers) never loads JAX;
+    checked in a fresh interpreter."""
     code = ("import sys; import torchdiffeq_tpu_torch, "
             "torchdiffeq_tpu_torch.ops.kernels, torchdiffeq_tpu_torch.models, "
             "torchdiffeq_tpu_torch.events, torchdiffeq_tpu_torch.dense, "
-            "torchdiffeq_tpu_torch.ops._build; "
+            "torchdiffeq_tpu_torch.ops._build, "
+            "torchdiffeq_tpu_torch.ops.adams_coeffs, "
+            "torchdiffeq_tpu_torch.ops.linsolve, "
+            "torchdiffeq_tpu_torch.solvers.adams, "
+            "torchdiffeq_tpu_torch.solvers.fixed_grid_implicit, "
+            "torchdiffeq_tpu_torch.solvers.adaptive_implicit; "
             "from torchdiffeq_tpu_torch.ops.kernels import "
             "dopri5_events_batched; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

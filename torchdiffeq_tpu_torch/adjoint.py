@@ -16,6 +16,13 @@ the augmented ODE ``(vjp_t, y, adj_y, theta_bar)`` in reverse time:
   the field does not use gets zeros, as in JAX.  The time is a float64 host
   scalar in the solver; the evaluation makes it a 0-d tensor on the state's
   device (a fill, not a copy), so the time gradient stays on the device.
+  An implicit backward method (`solvers.needs_jacobian`) also needs the
+  augmented field's Jacobian, which ``torch.func.jacrev`` cannot take
+  through ``autograd.grad``: for it the field is written with
+  ``torch.func.vjp`` and ``torch.func.functional_call`` instead, the
+  parameters passed explicitly (those of an ``nn.Module`` field and the
+  tensors in `args`), so that reverse over reverse gives the Jacobian.
+  Its values are the same.
 * **The sweep.**  For adaptive adjoint methods and more than two output
   times, ONE reverse solve over the whole span, whose interior output times
   are ``jump_t`` points: there a `jump_state_fn` hook resets y to the
@@ -50,7 +57,7 @@ import torch
 
 from .misc import (CALLBACK_NAMES, check_inputs, flatten_state, host_times,
                    is_tuple_state, mixed_norm, rms_norm, time_sign)
-from .solvers import SOLVERS, NOT_PORTED
+from .solvers import SOLVERS, NOT_PORTED, needs_jacobian
 
 
 def _tensors_in(obj):
@@ -270,6 +277,10 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
                           f.detach().reshape(-1).to(adt),
                           *(g.reshape(-1).to(adt) for g in grads[1:])])
 
+    if needs_jacobian(spec.adjoint_method):
+        aug_dyn = _functional_aug_dyn(spec, layout, sign, args_d, params,
+                                      dev)
+
     # the `*_adjoint` callbacks fire as the backward solve's own (JAX
     # adjoint.py:356-358), with the augmented state as a tuple
     for name in CALLBACK_NAMES:
@@ -345,6 +356,54 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
                         aug[1 + 2 * n:])
     vt, _, adj_y, th = layout.split(aug)
     return adj_y, th, vt, dLds
+
+
+def _functional_aug_dyn(spec, layout, sign, args_d, params, dev):
+    """The augmented field written with ``torch.func.vjp``, the
+    differentiated tensors passed to the field explicitly (module
+    docstring), so that ``torch.func.jacrev`` can take its Jacobian."""
+    func = spec.func
+    n_mod = len(spec.module_params)
+    names = []
+    if n_mod:
+        by_id = ({id(p): name for name, p in func.named_parameters()}
+                 if isinstance(func, torch.nn.Module) else {})
+        names = [by_id.get(id(p)) for p in spec.module_params]
+        if None in names:
+            raise NotImplementedError(
+                "an implicit adjoint method takes the augmented field's "
+                "Jacobian with torch.func, which reaches the parameters of "
+                "an nn.Module field and the tensors in `args`: pass the "
+                "other adjoint_params in `args`")
+    arg_ids = [id(p) for p in params[n_mod:]]
+    detached = [p.detach() for p in params]
+
+    def f_dir(s, y, ps):
+        args = _replace_tensors(args_d, dict(zip(arg_ids, ps[n_mod:])))
+        inputs = (s if sign > 0 else -s, layout.user(y), *args)
+        if n_mod:
+            out = torch.func.functional_call(
+                func, dict(zip(names, ps[:n_mod])), inputs)
+        else:
+            out = func(*inputs)
+        if spec.unravel is not None:
+            out = torch.cat([o.reshape(-1) for o in out])
+        return out if sign > 0 else -out
+
+    def aug_dyn(s, aug):
+        _, y, adj_y, _ = layout.split(aug)
+        adt = aug.dtype
+        # a copy to the device, not a host read (`misc.jacobian` refuses
+        # reads); non-blocking, so that it does not wait for the stream
+        s_d = torch.as_tensor(s).to(device=dev, dtype=adt, non_blocking=True)
+        f, pullback = torch.func.vjp(lambda s_, y_, *ps: f_dir(s_, y_, ps),
+                                     s_d, y, *detached)
+        grads = pullback(-adj_y)
+        return torch.cat([grads[0].reshape(1).to(adt),
+                          f.reshape(-1).to(adt),
+                          *(g.reshape(-1).to(adt) for g in grads[1:])])
+
+    return aug_dyn
 
 
 def _aug_callback(cb, layout):

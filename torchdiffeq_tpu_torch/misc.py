@@ -15,7 +15,8 @@ frame; the time dtype, the event function of an event solve, and the
 step, with the user's time frame and state structure).  Time stays float64
 on the host, as in the reference (rk_common.py:180-182), so the JAX
 package's double-word time and its arithmetic ``nextafter`` are not
-needed.  Complex states are ROADMAP A2.
+needed.  Complex states are ROADMAP A2.  `jacobian` is the implicit
+tiers' dense Jacobian of a stage residual.
 """
 from __future__ import annotations
 
@@ -199,6 +200,59 @@ def _nextafter(t, up):
     return t + (n - td) if t.requires_grad else n
 
 
+def nextafter_down(t):
+    """The float just below `t` in its own dtype (JAX `nextafter_down`,
+    misc.py:101): a tensor (the gradient stitched as `_nextafter`), a numpy
+    scalar, or a Python float (float64)."""
+    if isinstance(t, torch.Tensor):
+        return _nextafter(t, False)
+    if isinstance(t, float):
+        t = np.float64(t)
+    return np.nextafter(t, type(t)(-np.inf))
+
+
+class _NoHostReads(torch.overrides.TorchFunctionMode):
+    """Raises when a tensor is read to the host inside `jacobian`: were it
+    to depend on the input, autodiff would take it as a constant and return
+    a Jacobian without its terms.  torch.func wraps every tensor made
+    inside the transform, so a read of the time raises too."""
+    _READS = (torch.Tensor.item, torch.Tensor.tolist, torch.Tensor.numpy,
+              torch.Tensor.__float__, torch.Tensor.__int__,
+              torch.Tensor.__bool__, torch.Tensor.__index__)
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if (func in self._READS and args
+                and torch._C._functorch.is_functorch_wrapped_tensor(args[0])):
+            raise RuntimeError(f"{func.__name__} of a tensor inside the "
+                               "field")
+        return func(*args, **(kwargs or {}))
+
+
+def jacobian(fn, x):
+    """The dense Jacobian of ``fn: (m,) -> (m,)`` at `x`, by
+    ``torch.func.jacrev`` (JAX takes ``jax.jacfwd`` of the flat residual:
+    the same matrix to rounding, and reverse mode costs torch.func less
+    host time a call).  The field inside `fn` must be one that torch.func
+    can transform: tensor
+    operations on the state and the time, with no host read of a tensor
+    (``.item()``, ``float()``, ``bool()``; a branch on the time is
+    ``torch.where``) and no in-place update of a tensor it captures.  One
+    that is not raises here, naming that requirement, instead of giving a
+    Jacobian with terms missing."""
+    try:
+        with _NoHostReads():
+            return torch.func.jacrev(fn)(x)
+    except RuntimeError as err:
+        raise RuntimeError(
+            "the implicit solvers take the field's Jacobian with "
+            "torch.func.jacrev (Newton's method, and the implicit-function "
+            "gradient of a stage solve), which cannot transform this field: "
+            f"{err}.  The field must use tensor operations on the state and "
+            "the time, with no .item(), .tolist(), float(), bool() or numpy "
+            "of a tensor (branch with torch.where), and no in-place update "
+            "of a tensor it captures") from err
+
+
 # the callback attributes of a field (reference misc.py:313-343) and the
 # ones each solver kind fires (reference `valid_callbacks`,
 # solvers.py:24-26,81-83, rk_common.py:207-211; JAX misc.py:28-42)
@@ -206,7 +260,7 @@ CALLBACK_NAMES = ('callback_step', 'callback_accept_step',
                   'callback_reject_step')
 _VALID_CALLBACKS = {
     'adaptive': set(CALLBACK_NAMES),
-    'fixed': {'callback_step'},
+    **{kind: {'callback_step'} for kind in ('fixed', 'adams', 'firk', 'dirk')},
 }
 
 

@@ -1,18 +1,22 @@
 """The `odeint` front door (counterpart of ``torchdiffeq_tpu/odeint.py``).
 
-Every explicit method of the JAX package is here: the adaptive tier through
-the host-loop solver (`solvers/adaptive_rk.py`), the fixed-grid tier
-(euler, midpoint, heun2, heun3, rk4; `solvers/fixed_grid.py`), event solves
-(``event_fn=...``) on both, and the fused RK4 kernel route
+Every method of the JAX package but the SciPy bridge is here: the adaptive
+tier through the host-loop solver (`solvers/adaptive_rk.py`; kvaerno3,
+kvaerno5 and radau5a with its implicit step functions), the fixed-grid
+tier (euler, midpoint, heun2, heun3, rk4; `solvers/fixed_grid.py`), the
+Adams methods (`solvers/adams.py`) and the fixed-grid implicit methods
+(`solvers/fixed_grid_implicit.py`) on the same loop, event solves
+(``event_fn=...``) on all of them, and the fused RK4 kernel route
 ``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.  A
 call that does not qualify for the kernel route (JAX `_try_pallas_rk4`'s
-rules) runs the fixed-grid loop, as JAX falls back to its scan.  Adams,
-implicit and SciPy methods raise `NotImplementedError` naming their
-ROADMAP item.
+rules) runs the fixed-grid loop, as JAX falls back to its scan.  The SciPy
+bridge raises `NotImplementedError` naming its ROADMAP item.
 
-Gradients, as in the JAX package (odeint.py:255-329): a fixed-grid solve
-without events is differentiated through the loop by autograd
-(discretise-then-optimise; ``forward_grad`` is accepted and dropped there);
+Gradients, as in the JAX package (odeint.py:255-329): a fixed-grid,
+Adams or fixed-grid implicit solve without events is differentiated
+through the loop by autograd (discretise-then-optimise, the implicit stage
+solves by the implicit function theorem; ``forward_grad`` is accepted and
+dropped there);
 an adaptive solve or an event solve that autograd would have to
 differentiate -- grad mode on, and `y0`, `t`, a tensor in `args` or a
 parameter of an ``nn.Module`` field requiring grad -- takes its gradients
@@ -29,8 +33,8 @@ import numpy as np
 import torch
 
 from .misc import check_inputs, host_times, is_tuple_state, needs_autograd
-from .solvers import SOLVERS, NOT_PORTED
-from .solvers import adaptive_rk, fixed_grid
+from .solvers import SOLVERS, NOT_PORTED, DIRECT_DIFF_KINDS
+from .solvers import adams, adaptive_rk, fixed_grid, fixed_grid_implicit
 from .solvers.solution import Stats
 
 # the Pallas kernels' own options, accepted and dropped off their routes
@@ -70,7 +74,16 @@ def _adaptive_config(prob, tableau):
                 f"option {name!r} is not ported yet "
                 f"({adaptive_rk.NOT_PORTED_OPTIONS[name]})")
     _warn_unused('adaptive solver', opts, adaptive_rk.SUPPORTED_OPTIONS)
+    step_fn = None
+    if tableau.implicit:
+        from .solvers.adaptive_implicit import (make_esdirk_step_fn,
+                                                make_firk_step_fn)
+        make = make_esdirk_step_fn if tableau.sdirk else make_firk_step_fn
+        step_fn = make(stage_tol=opts.get('stage_tol'),
+                       max_iters=opts.get('max_iters', 100),
+                       error_dtype=opts.get('error_dtype'))
     return adaptive_rk.AdaptiveConfig(
+        step_fn=step_fn,
         tableau=tableau, rtol=prob.rtol, atol=prob.atol, norm=prob.norm,
         first_step=opts.get('first_step'),
         safety=opts.get('safety', 0.9),
@@ -89,15 +102,33 @@ def _adaptive_config(prob, tableau):
         error_dtype=opts.get('error_dtype'))
 
 
+def _fixed_step_method(prob, spec):
+    """The `FixedStepMethod` of a fixed-grid, Adams or implicit fixed-grid
+    method (JAX odeint.py:133-143)."""
+    kind = spec['kind']
+    if kind == 'fixed':
+        return spec['method']
+    if kind == 'adams':
+        return adams.make_fixed_step_method(prob, spec['implicit'])
+    return fixed_grid_implicit.make_fixed_step_method(
+        prob, spec['tableau'], sequential=(kind == 'dirk'))
+
+
 def _solve_normalised(prob, t_grad=None):
     """The raw solve of a normalised problem (JAX `_solve_normalised`,
-    odeint.py:85-110): (ys in the solver's layout, Stats).  `t_grad`, the
+    odeint.py:85-122): (ys in the solver's layout, Stats).  `t_grad`, the
     internal times as a float64 CPU tensor carrying a gradient, takes the
     place of `prob.t` on the fixed grid."""
     spec = SOLVERS[prob.method]
-    if spec['kind'] == 'adaptive':
+    kind = spec['kind']
+    if kind == 'adaptive':
         cfg = _adaptive_config(prob, spec['tableau'])
         return adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg)
+    if kind == 'adams':
+        return adams.integrate_adams(prob, spec['implicit'], t_grad)
+    if kind in ('firk', 'dirk'):
+        return fixed_grid_implicit.integrate_implicit(
+            prob, spec['tableau'], kind == 'dirk', t_grad)
     opts = prob.options
     _warn_unused('fixed-grid solver', opts, _FIXED_OPTIONS)
     ts = prob.t if t_grad is None else t_grad
@@ -122,7 +153,8 @@ def _solve_event_normalised(prob):
     else:
         opts = prob.options
         event_t, y_event, stats = fixed_grid.integrate_until_event_fixed_grid(
-            spec['method'], prob.func, prob.y0, prob.t[0], prob.event_fn,
+            _fixed_step_method(prob, spec), prob.func, prob.y0, prob.t[0],
+            prob.event_fn,
             step_size=opts.get('step_size'),
             interp=opts.get('interp', 'linear'),
             perturb=opts.get('perturb', False), atol=prob.atol)
@@ -213,11 +245,11 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
     if name in NOT_PORTED:
         raise NotImplementedError(
             f"method {name!r} is not ported yet ({NOT_PORTED[name]})")
-    fixed = SOLVERS.get(name, {}).get('kind') == 'fixed'
-    if fixed and isinstance(options, dict):
+    direct = SOLVERS.get(name, {}).get('kind') in DIRECT_DIFF_KINDS
+    if direct and isinstance(options, dict):
         # the loop is differentiable forward too (JAX odeint.py:261-267)
         options = {k: v for k, v in options.items() if k != 'forward_grad'}
-    if fixed and event_fn is None:
+    if direct and event_fn is None:
         # JAX odeint.py:269-271: backprop through the loop
         prob = check_inputs(func, y0, t, rtol, atol, method, options, None,
                             SOLVERS, args=tuple(args))

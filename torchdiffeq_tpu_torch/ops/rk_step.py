@@ -30,20 +30,31 @@ from .tableaus import ButcherTableau
 def weighted_sum(coeffs, vecs, dt=None, base=None):
     """``base + sum_i (coeffs[i] * dt) * vecs[i]``, skipping zero
     coefficients.  `dt` is a host scalar (or None), cast to the dtype of
-    `vecs` as JAX's `cast_time` casts it.
+    `vecs` as JAX's `cast_time` casts it, or a 0-d tensor carrying a time
+    gradient (the implicit fixed-grid tier), cast the same way.
 
     Each coefficient is scaled by dt BEFORE the multiply-accumulate, as the
     reference does (``sum(k * (beta_i * dt))``, rk_common.py:79; JAX
     rk_step.py:24-46): matching that rounding order keeps single steps
     bitwise equal, which step-count parity depends on.
     """
-    sd = scalar_type(vecs[0].dtype)
-    dt = None if dt is None else sd(float(dt))
+    dtype = vecs[0].dtype
+    sd = scalar_type(dtype)
+    timed = isinstance(dt, torch.Tensor) and dt.requires_grad
+    if timed:
+        dt = dt.to(dtype)
+    elif dt is not None:
+        dt = sd(float(dt))
     total = None
     for c, v in zip(coeffs, vecs):
         if c == 0.0:
             continue
-        scale = float(sd(c)) if dt is None else float(sd(c) * dt)
+        if dt is None:
+            scale = float(sd(c))
+        elif timed:
+            scale = dt * coef(c, dtype)
+        else:
+            scale = float(sd(c) * dt)
         term = scale * v
         total = term if total is None else total + term
     if total is None:

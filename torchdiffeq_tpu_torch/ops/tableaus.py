@@ -1,11 +1,11 @@
-"""Butcher tableaus of the explicit adaptive Runge-Kutta methods.
+"""Butcher tableaus of the explicit and implicit Runge-Kutta methods.
 
-A numpy-only copy of the explicit tables in ``torchdiffeq_tpu/ops/tableaus.py``
-(the JAX package's module cannot be imported without importing JAX).  The
+A numpy-only copy of the tables in ``torchdiffeq_tpu/ops/tableaus.py`` (the
+JAX package's module cannot be imported without importing JAX).  The
 numbers are the same published constants, written the same way, so the two
 copies are equal bit for bit (tests/test_torch_tables.py checks it) -- this
-includes tsit5's swapped weight pairs (COVERAGE.md, "Known deviations").
-The implicit tables come with the implicit tiers (ROADMAP A9).
+includes tsit5's swapped weight pairs (COVERAGE.md, "Known deviations") and
+the `implicit` and `sdirk` flags of the implicit tables.
 """
 from __future__ import annotations
 
@@ -16,15 +16,19 @@ import numpy as np
 
 @dataclasses.dataclass(frozen=True)
 class ButcherTableau:
-    """Explicit RK tableau.
+    """Explicit (or implicit) RK tableau.
 
-    alpha:   (s-1,) stage times, excluding the initial stage at alpha=0.
+    alpha:   (s-1,) stage times, excluding the initial stage at alpha=0
+             (explicit); all `s` stage times (implicit).
     beta:    (s-1, s-1) zero-padded stage-coupling matrix; row i gives the
-             coefficients of stages 0..i for computing stage i+1.
+             coefficients of stages 0..i for computing stage i+1
+             (explicit), or the full (s, s) coupling matrix (implicit).
     c_sol:   (s,) solution weights.
-    c_error: (s,) embedded error weights.
+    c_error: (s,) embedded error weights (empty for implicit fixed-grid).
     c_mid:   (s,) mid-point weights for 4th-order dense output.
     order:   convergence order used by the step-size controller.
+    implicit, sdirk: an implicit tableau, and one whose stages are solved
+             one at a time (DIRK) rather than as one system (FIRK).
     """
     alpha: np.ndarray
     beta: np.ndarray
@@ -32,6 +36,8 @@ class ButcherTableau:
     c_error: np.ndarray
     order: int
     c_mid: np.ndarray | None = None
+    implicit: bool = False
+    sdirk: bool = False
 
     @property
     def n_stages(self) -> int:
@@ -41,13 +47,14 @@ class ButcherTableau:
     def is_fsal(self) -> bool:
         """First-same-as-last: the final stage equals f(t1, y1), so the
         solution combination is free and f1 carries to the next step."""
-        if len(self.c_sol) < 2 or self.beta.shape[0] == 0:
+        if self.implicit or len(self.c_sol) < 2 or self.beta.shape[0] == 0:
             return False
         return bool(self.c_sol[-1] == 0.0 and
                     np.array_equal(self.c_sol[:-1], self.beta[-1]))
 
 
-def _tab(alpha, beta_rows, c_sol, c_error, order, c_mid=None):
+def _tab(alpha, beta_rows, c_sol, c_error, order, c_mid=None, implicit=False,
+         sdirk=False):
     alpha = np.asarray(alpha, dtype=np.float64)
     s = len(beta_rows)
     width = max((len(r) for r in beta_rows), default=0)
@@ -59,7 +66,7 @@ def _tab(alpha, beta_rows, c_sol, c_error, order, c_mid=None):
         c_sol=np.asarray(c_sol, dtype=np.float64),
         c_error=np.asarray(c_error, dtype=np.float64),
         c_mid=None if c_mid is None else np.asarray(c_mid, dtype=np.float64),
-        order=order)
+        order=order, implicit=implicit, sdirk=sdirk)
 
 
 # ---------------------------------------------------------------------------
@@ -301,3 +308,212 @@ DOPRI8 = _tab(
     c_mid=_dopri8_c_mid(),
     order=8,
 )
+
+
+# ---------------------------------------------------------------------------
+# Implicit fixed-grid tableaus (FIRK / DIRK).
+# Reference: torchdiffeq/_impl/fixed_grid_implicit.py.
+# ---------------------------------------------------------------------------
+
+_SQRT_2 = np.sqrt(2.0)
+_SQRT_3 = np.sqrt(3.0)
+_SQRT_6 = np.sqrt(6.0)
+_SQRT_15 = np.sqrt(15.0)
+
+IMPLICIT_EULER = _tab(
+    alpha=[1.], beta_rows=[[1.]], c_sol=[1.], c_error=[], order=1, implicit=True)
+
+IMPLICIT_MIDPOINT = _tab(
+    alpha=[1 / 2], beta_rows=[[1 / 2]], c_sol=[1.], c_error=[], order=2,
+    implicit=True)
+
+TRAPEZOID = _tab(
+    alpha=[0., 1.],
+    beta_rows=[[0., 0.], [1 / 2, 1 / 2]],
+    c_sol=[1 / 2, 1 / 2], c_error=[], order=2, implicit=True)
+
+GAUSS_LEGENDRE_4 = _tab(
+    # published nodes are 1/2 -+ sqrt(3)/6 (Hairer & Wanner); the reference
+    # repeats the first node (fixed_grid_implicit.py:38), which silently
+    # degrades its gl4 to first order — verified by convergence-order tests.
+    alpha=[1 / 2 - _SQRT_3 / 6, 1 / 2 + _SQRT_3 / 6],
+    beta_rows=[
+        [1 / 4, 1 / 4 - _SQRT_3 / 6],
+        [1 / 4 + _SQRT_3 / 6, 1 / 4],
+    ],
+    c_sol=[1 / 2, 1 / 2], c_error=[], order=4, implicit=True)
+
+GAUSS_LEGENDRE_6 = _tab(
+    alpha=[1 / 2 - _SQRT_15 / 10, 1 / 2, 1 / 2 + _SQRT_15 / 10],
+    beta_rows=[
+        [5 / 36, 2 / 9 - _SQRT_15 / 15, 5 / 36 - _SQRT_15 / 30],
+        [5 / 36 + _SQRT_15 / 24, 2 / 9, 5 / 36 - _SQRT_15 / 24],
+        [5 / 36 + _SQRT_15 / 30, 2 / 9 + _SQRT_15 / 15, 5 / 36],
+    ],
+    c_sol=[5 / 18, 4 / 9, 5 / 18], c_error=[], order=6, implicit=True)
+
+RADAU_IIA_3 = _tab(
+    alpha=[1 / 3, 1.],
+    beta_rows=[
+        [5 / 12, -1 / 12],
+        [3 / 4, 1 / 4],
+    ],
+    c_sol=[3 / 4, 1 / 4], c_error=[], order=3, implicit=True)
+
+RADAU_IIA_5 = _tab(
+    alpha=[2 / 5 - _SQRT_6 / 10, 2 / 5 + _SQRT_6 / 10, 1.],
+    beta_rows=[
+        [11 / 45 - 7 * _SQRT_6 / 360, 37 / 225 - 169 * _SQRT_6 / 1800, -2 / 225 + _SQRT_6 / 75],
+        [37 / 225 + 169 * _SQRT_6 / 1800, 11 / 45 + 7 * _SQRT_6 / 360, -2 / 225 - _SQRT_6 / 75],
+        [4 / 9 - _SQRT_6 / 36, 4 / 9 + _SQRT_6 / 36, 1 / 9],
+    ],
+    c_sol=[4 / 9 - _SQRT_6 / 36, 4 / 9 + _SQRT_6 / 36, 1 / 9],
+    c_error=[], order=5, implicit=True)
+
+_SDIRK_GAMMA = (2.0 - _SQRT_2) / 2.0
+SDIRK2 = _tab(
+    alpha=[_SDIRK_GAMMA, 1.],
+    beta_rows=[
+        [_SDIRK_GAMMA],
+        [1 - _SDIRK_GAMMA, _SDIRK_GAMMA],
+    ],
+    c_sol=[1 - _SDIRK_GAMMA, _SDIRK_GAMMA], c_error=[], order=2,
+    implicit=True, sdirk=True)
+
+_TRBDF_GAMMA = 1.0 - _SQRT_2 / 2.0
+_TRBDF_BETA = _SQRT_2 / 4.0
+TRBDF2 = _tab(
+    alpha=[0., 2 * _TRBDF_GAMMA, 1.],
+    beta_rows=[
+        [0.],
+        [_TRBDF_GAMMA, _TRBDF_GAMMA],
+        [_TRBDF_BETA, _TRBDF_BETA, _TRBDF_GAMMA],
+    ],
+    c_sol=[_TRBDF_BETA, _TRBDF_BETA, _TRBDF_GAMMA], c_error=[], order=2,
+    implicit=True, sdirk=True)
+
+
+# ---------------------------------------------------------------------------
+# Adaptive implicit (stiff) methods: ESDIRK with embedded error estimates.
+#
+# Beyond the reference's API (it has fixed-grid implicit only); coefficients
+# from Kvaerno (2004), "Singly diagonally implicit Runge-Kutta methods with
+# an explicit first stage", BIT Numerical Mathematics 44.  Both tableaus are
+# stiffly accurate (y1 = last stage, so f1 = f(t1, y1) carries FSAL-style)
+# with an explicit first stage, L-stable in the advancing solution, and an
+# embedded lower-order solution for the step-size controller.  Order
+# conditions verified to machine precision in tests/test_convergence.py.
+#
+# The dense-output weights `c_mid` are chosen so the adaptive loop's
+# quartic fit reduces to the cubic Hermite through (y0, f0, y1, f1):
+#   y_mid = (y0 + y1)/2 + dt (f0 - f1)/8   <=>   c_mid = b/2 + (e0 - es)/8.
+# ---------------------------------------------------------------------------
+
+
+def _hermite_c_mid(b):
+    c_mid = np.asarray(b, dtype=np.float64) / 2.0
+    c_mid[0] += 0.125
+    c_mid[-1] -= 0.125
+    return c_mid
+
+
+def _kvaerno3():
+    # gamma: the real root of x^3 - 3x^2 + 3x/2 - 1/6 in (0.3, 0.6)
+    r = np.roots([1.0, -3.0, 1.5, -1.0 / 6.0])
+    g = float([x.real for x in r
+               if abs(x.imag) < 1e-12 and 0.3 < x.real < 0.6][0])
+    a2 = [g, g]
+    a3 = [(-4 * g ** 2 + 6 * g - 1) / (4 * g), (-2 * g + 1) / (4 * g), g]
+    b = [(6 * g - 1) / (12 * g), -1 / ((24 * g - 12) * g),
+         (-6 * g ** 2 + 6 * g - 1) / (6 * g - 3), g]
+    b_hat = a3 + [0.0]
+    return _tab(
+        alpha=[0.0, 2 * g, 1.0, 1.0],
+        beta_rows=[[0.0], a2, a3, b],
+        c_sol=b,
+        c_error=list(np.asarray(b) - np.asarray(b_hat)),
+        c_mid=_hermite_c_mid(b),
+        order=3, implicit=True, sdirk=True)
+
+
+KVAERNO3 = _kvaerno3()
+
+
+def _kvaerno5():
+    g = 0.26
+    a2 = [g, g]
+    a3 = [0.13, 0.84033320996790809, g]
+    a4 = [0.22371961478320505, 0.47675532319799699, -0.06470895363112615, g]
+    a5 = [0.16648564323248321, 0.10450018841591720, 0.03631482272098715,
+          -0.13090704451073998, g]
+    a6 = [0.13855640231268224, 0.0, -0.04245337201752043,
+          0.02446657898003141, 0.61943039072480676, g]
+    b = [0.13659751177640291, 0.0, -0.05496908796538376,
+         -0.04118626728321046, 0.62993304899016403, 0.06962479448202728, g]
+    b_hat = a6 + [0.0]
+    return _tab(
+        alpha=[0.0, 0.52, 1.230333209967908, 0.8957659843500759,
+               0.43639360985864756, 1.0, 1.0],
+        beta_rows=[[0.0], a2, a3, a4, a5, a6, b],
+        c_sol=b,
+        c_error=list(np.asarray(b) - np.asarray(b_hat)),
+        c_mid=_hermite_c_mid(b),
+        order=5, implicit=True, sdirk=True)
+
+
+KVAERNO5 = _kvaerno5()
+
+
+def _radau5a():
+    """Adaptive Radau IIA 5(3): the stiff-benchmark standard (Hairer &
+    Wanner, "Solving ODEs II", ch. IV.8 / RADAU5) under the adaptive
+    loop.  Beyond the reference, whose Radau IIA tier is fixed-grid only
+    (torchdiffeq/_impl/fixed_grid_implicit.py:59-108).
+
+    Convention matches the adaptive-implicit tier: stage 0 is the carried
+    derivative f(t0, y0) (zero coupling row, zero solution weight); stages
+    1..3 are the collocation stages solved as one coupled system
+    (implicit=True, sdirk=False -> FIRK step kernel).  The embedded
+    3rd-order error weights use an f0 term with Hairer's gamma0 = 1/gamma
+    (gamma the real eigenvalue of A^{-1}); order conditions for the
+    embedded quadrature hold exactly through q=2 (verified in
+    tests/test_convergence.py).  Dense-output mid weights come from the
+    collocation polynomial integrated to theta=1/2 (reproduces b at
+    theta=1 to machine precision).
+    """
+    s6 = np.sqrt(6.0)
+    c = np.array([2 / 5 - s6 / 10, 2 / 5 + s6 / 10, 1.0])
+    A = np.array([
+        [11 / 45 - 7 * s6 / 360, 37 / 225 - 169 * s6 / 1800,
+         -2 / 225 + s6 / 75],
+        [37 / 225 + 169 * s6 / 1800, 11 / 45 + 7 * s6 / 360,
+         -2 / 225 - s6 / 75],
+        [4 / 9 - s6 / 36, 4 / 9 + s6 / 36, 1 / 9]])
+    b = A[-1]
+
+    # embedded order-3 weights (d0 on f0, d on the stages):
+    #   d0 + sum d_i = 1, sum d_i c_i = 1/2, sum d_i c_i^2 = 1/3
+    gamma = 3.637834252744496   # real eigenvalue of A^{-1} (RADAU5)
+    d0 = 1.0 / gamma
+    M = np.vstack([np.ones(3), c, c ** 2])
+    d = np.linalg.solve(M, np.array([1.0 - d0, 0.5, 1.0 / 3.0]))
+
+    # collocation dense output: b_i(theta) = int_0^theta l_i(tau) dtau
+    import numpy.polynomial.polynomial as _P
+    c_mid = [0.0]
+    for i in range(3):
+        others = [c[j] for j in range(3) if j != i]
+        num = _P.polyfromroots(others)
+        den = np.prod([c[i] - o for o in others])
+        c_mid.append(float(_P.polyval(0.5, _P.polyint(num / den))))
+
+    return _tab(
+        alpha=[0.0] + list(c),
+        beta_rows=[[0.0]] + [[0.0] + list(row) for row in A],
+        c_sol=[0.0] + list(b),
+        c_error=[d0] + list(d - b),
+        c_mid=c_mid,
+        order=5, implicit=True, sdirk=False)
+
+
+RADAU5A = _radau5a()

@@ -1,10 +1,13 @@
 """Solver registry (counterpart of ``torchdiffeq_tpu/solvers/__init__.py``).
 
-The whole explicit tier is here: the adaptive methods on the tableau-generic
-host loop (`adaptive_rk.py`) and the fixed-grid methods on theirs
-(`fixed_grid.py`; `rk4` also has the fused kernel route of `odeint`,
-``options=dict(pallas=True, num_steps=N)``).  The Adams, implicit and SciPy
-method names map to the ROADMAP item that ports them.
+Every JAX method but the SciPy bridge is here, with JAX's kinds:
+'adaptive' (the tableau-generic host loop, `adaptive_rk.py`; kvaerno3,
+kvaerno5 and radau5a through its implicit step functions,
+`adaptive_implicit.py`), 'fixed' (`fixed_grid.py`; `rk4` also has the fused
+kernel route of `odeint`, ``options=dict(pallas=True, num_steps=N)``),
+'adams' (`adams.py`), and 'firk' and 'dirk' (`fixed_grid_implicit.py`),
+the last three on the fixed-grid loop.  `scipy_solver` maps to the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -21,13 +24,34 @@ SOLVERS = {
     'adaptive_heun': dict(kind='adaptive', tableau=tb.ADAPTIVE_HEUN),
     **{m: dict(kind='fixed', method=FIXED_STEP_METHODS[m])
        for m in ('euler', 'midpoint', 'heun2', 'heun3', 'rk4')},
+    'explicit_adams': dict(kind='adams', implicit=False),
+    'implicit_adams': dict(kind='adams', implicit=True),
+    'implicit_euler': dict(kind='firk', tableau=tb.IMPLICIT_EULER),
+    'implicit_midpoint': dict(kind='firk', tableau=tb.IMPLICIT_MIDPOINT),
+    'trapezoid': dict(kind='firk', tableau=tb.TRAPEZOID),
+    'radauIIA3': dict(kind='firk', tableau=tb.RADAU_IIA_3),
+    'gl4': dict(kind='firk', tableau=tb.GAUSS_LEGENDRE_4),
+    'radauIIA5': dict(kind='firk', tableau=tb.RADAU_IIA_5),
+    'gl6': dict(kind='firk', tableau=tb.GAUSS_LEGENDRE_6),
+    'sdirk2': dict(kind='dirk', tableau=tb.SDIRK2),
+    'trbdf2': dict(kind='dirk', tableau=tb.TRBDF2),
+    'kvaerno3': dict(kind='adaptive', tableau=tb.KVAERNO3),
+    'kvaerno5': dict(kind='adaptive', tableau=tb.KVAERNO5),
+    'radau5a': dict(kind='adaptive', tableau=tb.RADAU5A),
+    # the reference's alias
+    'fixed_adams': dict(kind='adams', implicit=True),
 }
 
-_A9 = 'ROADMAP A9 (implicit tiers)'
-NOT_PORTED = {
-    **{m: _A9 for m in ('explicit_adams', 'implicit_adams', 'fixed_adams',
-                        'implicit_euler', 'implicit_midpoint', 'trapezoid',
-                        'radauIIA3', 'gl4', 'radauIIA5', 'gl6', 'sdirk2',
-                        'trbdf2', 'kvaerno3', 'kvaerno5', 'radau5a')},
-    'scipy_solver': 'ROADMAP A10 (SciPy bridge)',
-}
+# differentiated through the fixed-grid loop by autograd (JAX
+# DIRECT_DIFF_KINDS); the adaptive kind takes the continuous adjoint
+DIRECT_DIFF_KINDS = frozenset({'fixed', 'adams', 'firk', 'dirk'})
+
+NOT_PORTED = {'scipy_solver': 'ROADMAP A10 (SciPy bridge)'}
+
+
+def needs_jacobian(method):
+    """Whether `method` solves stage systems, whose Newton iterations and
+    implicit-function gradients take the field's Jacobian."""
+    spec = SOLVERS[method]
+    return spec['kind'] in ('firk', 'dirk') or (
+        spec['kind'] == 'adaptive' and spec['tableau'].implicit)

@@ -1,0 +1,141 @@
+"""The adaptive implicit (stiff) tier: step functions for the adaptive loop
+(counterpart of ``torchdiffeq_tpu/solvers/adaptive_implicit.py``).
+
+`make_esdirk_step_fn` (kvaerno3, kvaerno5) and `make_firk_step_fn`
+(radau5a) build a `step_fn` for `adaptive_rk.AdaptiveConfig`, with the
+contract of `ops.rk_step.runge_kutta_step`: ``(y1, f1, y1_error, k)``.
+
+* ESDIRK: the first stage is the carried slope f0; each later stage solves
+  ``k = f(t_i, base + dt*gamma*k)`` by Newton's method, from the previous
+  stage's slope.  FIRK: the collocation stages are one stacked Newton
+  system, from f0 repeated.  Both tableaus are stiffly accurate, so the
+  last stage is f(t1, y1) and carries to the next step: one evaluation a
+  step is the reported NFE (the implicit convention).
+* Newton's method is the fixed-grid tier's (`fixed_grid_implicit`), with
+  the exact Jacobian each iteration, to ``stage_tol`` (1e-8 for float64,
+  1e-6 otherwise) within ``max_iters`` iterations; time is in the state
+  dtype.  A stage solve that does not converge adds 1e10 to the error
+  estimate, so the controller rejects the step and shrinks it instead of
+  failing the solve.
+* ``error_dtype`` forms the error estimate from the slopes cast to it.
+* No gradient is taken through a stage solve: an adaptive solve's
+  gradients come from the continuous adjoint (ROADMAP C4), whose backward
+  solves run their stage solves with no graph.  JAX's ``custom_root`` is
+  needed only by its replay and forward gradients (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..misc import Perturb, scalar_type
+from ..ops.rk_step import weighted_sum
+from .fixed_grid_implicit import _iterate, solve_tol
+
+
+def _newton(residual, x0, tol, max_iters):
+    with torch.no_grad():
+        return _iterate(residual, x0, tol, max_iters, newton=True)
+
+
+def _error_sum(tab, k, dtc, error_dtype):
+    """The embedded error's weighted sum, of the slopes cast to
+    `error_dtype` when it is given (JAX `_error_sum`,
+    adaptive_implicit.py:105-113)."""
+    if error_dtype is None:
+        return weighted_sum(tab.c_error, k, dtc)
+    return weighted_sum(tab.c_error, [ki.to(error_dtype) for ki in k], dtc)
+
+
+def _times(t0, dt, t1, dtype):
+    sd = scalar_type(dtype)
+    return sd, sd(t0), sd(dt), sd(t1)
+
+
+def _stage_time(alpha_i, sd, t0c, dtc, t1c):
+    """The evaluation time of a stage and its perturbation: just below t1
+    at alpha 1, as the explicit step does."""
+    if alpha_i == 1.0:
+        return t1c, Perturb.PREV
+    return t0c + sd(alpha_i) * dtc, Perturb.NONE
+
+
+def _reject_unconverged(y1_error, converged):
+    # force error_ratio > 1 (JAX adaptive_implicit.py:150-156)
+    return y1_error if converged else y1_error + 1e10
+
+
+def make_esdirk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
+    """A `step_fn` for an ESDIRK tableau (implicit, an explicit first stage,
+    stiffly accurate; JAX adaptive_implicit.py:116-160)."""
+
+    def step_fn(func, y0, f0, t0, dt, t1, tab):
+        sd, t0c, dtc, t1c = _times(t0, dt, t1, y0.dtype)
+        tol = solve_tol(y0.dtype) if stage_tol is None else stage_tol
+        alpha, beta = np.asarray(tab.alpha), np.asarray(tab.beta)
+        if not (tab.implicit and float(alpha[0]) == 0.0
+                and not np.any(beta[0])):
+            raise ValueError("step_fn requires an ESDIRK tableau")
+        shape = y0.shape
+        k = [f0]
+        converged = True
+        for i in range(1, tab.n_stages):
+            base = y0 + weighted_sum(beta[i, :i], k, dtc)
+            ti, perturb = _stage_time(float(alpha[i]), sd, t0c, dtc, t1c)
+            dt_gamma = float(dtc * sd(float(beta[i, i])))
+
+            def residual(kf, base=base, ti=ti, perturb=perturb,
+                         dt_gamma=dt_gamma):
+                kk = kf.view(shape)
+                return (kk - func(ti, base + dt_gamma * kk,
+                                  perturb=perturb)).reshape(-1)
+
+            # the previous stage's slope is the predictor
+            k_i, conv = _newton(residual, k[i - 1].reshape(-1), tol,
+                                max_iters)
+            k.append(k_i.view(shape))
+            converged = converged and conv
+        y1 = y0 + weighted_sum(tab.c_sol, k, dtc)
+        y1_error = _error_sum(tab, k, dtc, error_dtype)
+        return y1, k[-1], _reject_unconverged(y1_error, converged), tuple(k)
+
+    return step_fn
+
+
+def make_firk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
+    """A `step_fn` for a fully coupled implicit tableau whose stage 0 is the
+    carried f0 (RADAU5A; JAX adaptive_implicit.py:163-235)."""
+
+    def step_fn(func, y0, f0, t0, dt, t1, tab):
+        sd, t0c, dtc, t1c = _times(t0, dt, t1, y0.dtype)
+        tol = solve_tol(y0.dtype) if stage_tol is None else stage_tol
+        alpha, beta = np.asarray(tab.alpha), np.asarray(tab.beta)
+        if not (tab.implicit and float(alpha[0]) == 0.0
+                and not np.any(beta[0])):
+            raise ValueError("step_fn expects a carried-f0 tableau")
+        s = tab.n_stages
+        m = s - 1                        # coupled stages
+        shape = y0.shape
+        y0f, f0f = y0.reshape(-1), f0.reshape(-1)
+        n = y0f.shape[0]
+        times = [_stage_time(float(alpha[i]), sd, t0c, dtc, t1c)
+                 for i in range(1, s)]
+
+        def residual(Kr):
+            K = list(Kr.view(m, n).unbind(0))
+            stages = [f0f] + K
+            res = []
+            for i in range(1, s):
+                yi = weighted_sum(beta[i, :s], stages, dtc, base=y0f)
+                ti, perturb = times[i - 1]
+                res.append(K[i - 1] - func(ti, yi.view(shape),
+                                           perturb=perturb).reshape(-1))
+            return torch.cat(res)
+
+        Kr, converged = _newton(residual, f0f.repeat(m), tol, max_iters)
+        k = tuple([f0] + [x.view(shape) for x in Kr.view(m, n).unbind(0)])
+        y1 = weighted_sum(tab.c_sol, k, dtc, base=y0)
+        y1_error = _error_sum(tab, k, dtc, error_dtype)
+        return y1, k[-1], _reject_unconverged(y1_error, converged), k
+
+    return step_fn

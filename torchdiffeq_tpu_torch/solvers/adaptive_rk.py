@@ -29,7 +29,9 @@ stay in theirs (float32 error control of a bfloat16 state).  A 16-bit
 state's dense output is fit and evaluated in float32 and emitted in the
 state dtype.  The field's ``callback_step`` fires before each attempt and
 ``callback_accept_step`` or ``callback_reject_step`` after it, on the
-host, as in JAX (adaptive_rk.py:187, :336-347).
+host, as in JAX (adaptive_rk.py:187, :336-347).  An implicit tableau's
+step is `AdaptiveConfig.step_fn` (`adaptive_implicit.py`), whose stage
+solves read back to the host on their own.
 """
 from __future__ import annotations
 
@@ -59,7 +61,8 @@ NOT_PORTED_OPTIONS = {
 SUPPORTED_OPTIONS = {'first_step', 'safety', 'ifactor', 'dfactor',
                      'min_step', 'max_step', 'max_num_steps', 'step_t',
                      'jump_t', 'jump_state_fn', 'step_to_end', 'controller',
-                     'pcoeff', 'icoeff', 'dcoeff', 'error_dtype'}
+                     'pcoeff', 'icoeff', 'dcoeff', 'error_dtype',
+                     'stage_tol', 'max_iters'}
 
 
 class AdaptiveConfig(NamedTuple):
@@ -91,6 +94,9 @@ class AdaptiveConfig(NamedTuple):
     # the dtype of the error estimate, its scale and its norm (None: the
     # state dtype)
     error_dtype: Any = None
+    # the step in place of `runge_kutta_step`, same contract (the implicit
+    # tier's, `adaptive_implicit.py`, which applies `error_dtype` itself)
+    step_fn: Any = None
 
 
 def _prep_tvals(tvals, t0):
@@ -247,9 +253,13 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
         dt = t1 - t0
 
     # --- the RK step, and the one host read of the iteration --------------
-    y1, f1, y1_err, k = runge_kutta_step(func, c.y, c.f, t0, dt, t1, tab,
-                                         error_dtype=cfg.error_dtype)
-    c.nfe += len(tab.alpha)
+    if cfg.step_fn is None:
+        y1, f1, y1_err, k = runge_kutta_step(func, c.y, c.f, t0, dt, t1, tab,
+                                             error_dtype=cfg.error_dtype)
+    else:
+        y1, f1, y1_err, k = cfg.step_fn(func, c.y, c.f, t0, dt, t1, tab)
+    # an implicit step reports its one explicit evaluation (JAX :266-269)
+    c.nfe += 1 if tab.implicit else len(tab.alpha)
     if cfg.error_dtype is None:
         ratio_t = compute_error_ratio(y1_err, cfg.rtol, cfg.atol, c.y, y1,
                                       cfg.norm)

@@ -1,6 +1,13 @@
-"""Fixed-grid explicit solvers as a host loop (counterpart of
+"""Fixed-grid solvers as a host loop (counterpart of
 ``torchdiffeq_tpu/solvers/fixed_grid.py``; reference
 torchdiffeq/_impl/solvers.py:70-164 and fixed_grid.py).
+
+The five explicit steppers are here; the Adams (`adams.py`) and implicit
+(`fixed_grid_implicit.py`) steppers ride the same loops.  A stepper
+carries a state of its own from step to step (JAX's stepper state: empty
+for the explicit ones, the slope history of Adams, the implicit tiers'
+all-converged flag), which also gives the solve's extra NFE and its error
+code.
 
 The JAX package sweeps the grid with one `lax.scan` and backpropagates
 through it.  Here the sweep is a Python loop of plain tensor operations, so
@@ -37,11 +44,38 @@ from .solution import Stats, OK, ERR_MAX_NUM_STEPS
 
 
 class FixedStepMethod(NamedTuple):
-    """A fixed-grid stepper: ``step(func, t0, dt, t1, y0, perturb) ->
-    (dy, f0)``, the increment and the slope at the step's start."""
+    """A fixed-grid stepper (JAX fixed_grid.py:41-58).
+
+    ``step(func, t0, dt, t1, y0, perturb, state) -> (dy, f0, state)``: the
+    increment, the slope at the step's start and the stepper's new state;
+    ``init_state(func, y0, t0)``, the state before the first step;
+    ``error_from_state(state)``, the error code of the last state (None:
+    OK); ``nfe_from_state(state)``, NFE counted in the state beyond
+    ``nfe_per_step`` a step (None: none).
+    """
     step: Callable
     order: int
     nfe_per_step: int
+    init_state: Callable = lambda func, y0, t0: ()
+    error_from_state: Callable = None
+    nfe_from_state: Callable = None
+
+
+def _stateless(fn):
+    """A stepper of the form ``fn(func, t0, dt, t1, y0, perturb) -> (dy,
+    f0)`` with an empty state."""
+    def step(func, t0, dt, t1, y0, perturb, state):
+        dy, f0 = fn(func, t0, dt, t1, y0, perturb)
+        return dy, f0, state
+    return step
+
+
+def _state_nfe_and_error(method, state):
+    """The extra NFE and the error code a stepper's last state reports."""
+    nfe = 0 if method.nfe_from_state is None else method.nfe_from_state(state)
+    err = OK if method.error_from_state is None else \
+        method.error_from_state(state)
+    return nfe, err
 
 
 def _f0(func, t0, y0, perturb):
@@ -93,11 +127,15 @@ def _heun2_step(func, t0, dt, t1, y0, perturb):
 
 
 FIXED_STEP_METHODS = {
-    'euler': FixedStepMethod(_euler_step, order=1, nfe_per_step=1),
-    'midpoint': FixedStepMethod(_midpoint_step, order=2, nfe_per_step=2),
-    'rk4': FixedStepMethod(_rk4_step, order=4, nfe_per_step=4),
-    'heun3': FixedStepMethod(_heun3_step, order=3, nfe_per_step=3),
-    'heun2': FixedStepMethod(_heun2_step, order=2, nfe_per_step=2),
+    'euler': FixedStepMethod(_stateless(_euler_step), order=1,
+                             nfe_per_step=1),
+    'midpoint': FixedStepMethod(_stateless(_midpoint_step), order=2,
+                                nfe_per_step=2),
+    'rk4': FixedStepMethod(_stateless(_rk4_step), order=4, nfe_per_step=4),
+    'heun3': FixedStepMethod(_stateless(_heun3_step), order=3,
+                             nfe_per_step=3),
+    'heun2': FixedStepMethod(_stateless(_heun2_step), order=2,
+                             nfe_per_step=2),
 }
 
 
@@ -153,7 +191,8 @@ def integrate_fixed_grid(method: FixedStepMethod, func, y0, ts, grid, *,
     fires before each step (reference solvers.py:113).  ``interp='cubic'``
     evaluates the field once more per interval, at its end.  Returns
     (ys (T, *y0.shape), Stats): NFE ``n_steps * nfe_per_step``, plus
-    ``n_steps`` with cubic; every step accepted.
+    ``n_steps`` with cubic, plus what the stepper's state counts; every
+    step accepted; the error code the stepper's state reports.
     """
     if interp not in ("linear", "cubic"):
         raise ValueError(f"Unknown interpolation method {interp}")
@@ -164,26 +203,28 @@ def integrate_fixed_grid(method: FixedStepMethod, func, y0, ts, grid, *,
     G = len(points)
     callback = getattr(func, 'callback_step', None)
 
-    def step(y, t0, t1):
-        dy, f0 = method.step(func, t0, t1 - t0, t1, y, perturb)
+    def step(y, state, t0, t1):
+        dy, f0, state = method.step(func, t0, t1 - t0, t1, y, perturb, state)
         y1 = y + dy.to(y.dtype)
         if cubic:
-            return y1, f0, func(t1, y1, perturb=Perturb.NONE)
-        return y1, f0
+            return y1, state, f0, func(t1, y1, perturb=Perturb.NONE)
+        return y1, state
 
     remat = remat and torch.is_grad_enabled()
     ys, f0s, f1s = [y0], [], []
+    state = method.init_state(func, y0, points[0])
     for t0, t1 in zip(points[:-1], points[1:]):
         if callback is not None:
             callback(t0, ys[-1], t1 - t0)
         if remat:
-            out = checkpoint(step, ys[-1], t0, t1, use_reentrant=False)
+            out = checkpoint(step, ys[-1], state, t0, t1, use_reentrant=False)
         else:
-            out = step(ys[-1], t0, t1)
+            out = step(ys[-1], state, t0, t1)
         ys.append(out[0])
+        state = out[1]
         if cubic:
-            f0s.append(out[1])
-            f1s.append(out[2])
+            f0s.append(out[2])
+            f1s.append(out[3])
 
     # emission: t_j in grid interval [grid[i1-1], grid[i1]] with
     # grid[i1-1] < t_j <= grid[i1] (JAX fixed_grid.py:210-222)
@@ -202,8 +243,11 @@ def integrate_fixed_grid(method: FixedStepMethod, func, y0, ts, grid, *,
         out = linear_interp(t0s, t1s, ya, yb, ts_t)
 
     n_steps = G - 1
-    nfe = n_steps * method.nfe_per_step + (n_steps if cubic else 0)
-    return out, Stats.make(nfe=nfe, n_steps=n_steps, n_accepted=n_steps)
+    extra_nfe, err = _state_nfe_and_error(method, state)
+    nfe = n_steps * method.nfe_per_step + (n_steps if cubic else 0) \
+        + extra_nfe
+    return out, Stats.make(nfe=nfe, n_steps=n_steps, n_accepted=n_steps,
+                           error_code=err)
 
 
 def integrate_until_event_fixed_grid(method: FixedStepMethod, func, y0, t0,
@@ -212,7 +256,8 @@ def integrate_until_event_fixed_grid(method: FixedStepMethod, func, y0, t0,
                                      max_itrs=20000):
     """Step until `event_fn` changes sign, then bisect on the last
     interval's interpolant (JAX `integrate_until_event_fixed_grid`,
-    fixed_grid.py:233-295; reference solvers.py:130-164).
+    fixed_grid.py:233-295; reference solvers.py:130-164).  The stepper's
+    state adds its NFE; its error code does not enter, as in JAX.
 
     Time is in the state dtype, as in JAX: ``t1 = t0 + step_size`` rounds
     there, and so does the bisection (`events.find_event` with
@@ -240,11 +285,12 @@ def integrate_until_event_fixed_grid(method: FixedStepMethod, func, y0, t0,
     t0, dt = sd(t0), sd(step_size)
     sign0_t = nan_sign(event_fn(time(t0), y0))
     sign0 = sign0_t.item()
+    state = method.init_state(func, y0, t0)
     t1, y1, f0, f1 = t0, y0, None, None
     itr, changed = 0, False
     while not changed and itr < max_itrs:
         t1 = t0 + dt
-        dy, f0 = method.step(func, t0, dt, t1, y0, perturb)
+        dy, f0, state = method.step(func, t0, dt, t1, y0, perturb, state)
         y1 = y0 + dy.to(y0.dtype)
         if cubic:
             f1 = func(t1, y1, perturb=Perturb.NONE)
@@ -265,7 +311,8 @@ def integrate_until_event_fixed_grid(method: FixedStepMethod, func, y0, t0,
 
     event_t, y_event = find_event(interp_fn, sign0_t, t0, t1, event_fn, atol,
                                   dtype=tdt)
-    nfe = itr * (method.nfe_per_step + (1 if cubic else 0))
+    nfe = itr * (method.nfe_per_step + (1 if cubic else 0)) \
+        + _state_nfe_and_error(method, state)[0]
     stats = Stats.make(nfe=nfe, n_steps=itr, n_accepted=itr,
                        error_code=OK if changed else ERR_MAX_NUM_STEPS)
     return event_t.to(torch.float64), y_event, stats

@@ -56,3 +56,17 @@ class Stats(NamedTuple):
                 f"ODE solve failed: {ERROR_MESSAGES.get(code, code)} "
                 f"(error_code={code}, after {int(self.n_steps)} steps)")
         return self
+
+
+# The implicit tiers' work since the last `reset_implicit_counts` (what no
+# `Stats` field holds): Broyden and Newton iterations, linear solves and
+# Jacobians of the stage solves, their host reads, and the Adams
+# corrector's steps, those of them that converged and its host reads.
+IMPLICIT_COUNTS = dict(iterations=0, linear_solves=0, jacobians=0,
+                       host_reads=0, corrector_steps=0,
+                       corrector_converged=0)
+
+
+def reset_implicit_counts():
+    for k in IMPLICIT_COUNTS:
+        IMPLICIT_COUNTS[k] = 0
