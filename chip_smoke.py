@@ -223,6 +223,24 @@ KVAERNO3_B = 256
 STIFF_BUDGET_S = 60
 TRACE_STEPS = 20         # the steps of a batched stiff solve that are traced
 STIFF_RTOL, STIFF_ATOL = 1e-8, 1e-10
+# - phase 13, the conv ODE-Net.  Its field on the card against the CPU in
+#   float64: the convolutions' and GroupNorm's reductions sum in other
+#   orders, and the last GroupNorm divides by a group's spread: 1e-12 of
+#   max|f| (CONV_F64_FIELD).  The solve: the same steps (Stats equal),
+#   values within F64_VALUES.  The gradients of the three modes (the
+#   continuous and the interpolated adjoint, the replay) and forward_grad's
+#   jvp: the same rounding over the solves, GRAD_F64_REL.  The SciPy bridge
+#   from a CUDA state: SciPy gets float64 evaluations that differ in their
+#   last bits and takes the same steps, nfe equal and values within
+#   CONV_F64_FIELD of max|y| of the CPU call's.
+CONV_F64_FIELD = 1e-12
+CONV_B, CONV_DIM, CONV_HW = 128, 64, 6   # bench.py:215-217: (128, 6, 6, 64)
+CONV_TOL = 1e-3                          # bench.py:218, the example's --tol
+CONV_CHECK_B = 4                         # the card-vs-CPU batch, float64
+# JAX's count of bench.py's conv step on the host CPU backend
+# (bench.py:300-330): field evaluations of the forward and of the backward
+JAX_CONV_NFE = (32, 33)
+CONV_STEPS = 12
 
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
@@ -768,10 +786,11 @@ def _max_rel(got, want):
                      / w.double().cpu().abs().max()) for g, w in zip(got, want))
 
 
-def _profiled_step(torch, step):
+def _profiled_step(torch, step, by_name=None):
     """One call of `step` under torch.profiler: (device time of its CUDA
     kernels in ms, their count, the step's wall ms), or None for the first
-    two when the trace holds no device time."""
+    two when the trace holds no device time.  With `by_name` (a dict), it
+    also gets each kernel name's device ms."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -784,6 +803,10 @@ def _profiled_step(torch, step):
     kernels_ = [e for e in prof.events() if e.device_type == cuda]
     if not kernels_:
         return None, None, wall_ms
+    if by_name is not None:
+        for e in kernels_:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3)
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels_) / 1e3
     return busy_ms, len(kernels_), wall_ms
 
@@ -1501,6 +1524,253 @@ def _phase_implicit(torch, kernels, dev):
           f"{time.perf_counter() - clock:.1f} s", flush=True)
 
 
+def _shared_conv(npd):
+    """bench.py's `make_shared_conv` (RandomState(3), drawn in float32):
+    the two 3x3 time-concat convolutions' HWIO weights (time channel last)
+    and zero biases, y0 (CONV_B, 6, 6, CONV_DIM) and the target (6, 6,
+    CONV_DIM), in the dtype `npd`."""
+    rng = np.random.RandomState(3)
+    d = CONV_DIM
+
+    def he(c_in):
+        return (rng.randn(3, 3, c_in, d) *
+                np.sqrt(2.0 / (9 * c_in))).astype(np.float32)
+
+    w1, w2 = he(d + 1), he(d + 1)
+    y0 = (0.3 * rng.randn(CONV_B, CONV_HW, CONV_HW, d)).astype(np.float32)
+    target = rng.randn(CONV_HW, CONV_HW, d).astype(np.float32)
+    params = dict(conv1=dict(w=w1, b=np.zeros(d, np.float32)),
+                  conv2=dict(w=w2, b=np.zeros(d, np.float32)))
+    params = {k: {n: a.astype(npd) for n, a in v.items()}
+              for k, v in params.items()}
+    return params, y0.astype(npd), target.astype(npd)
+
+
+def _conv_setup(torch, npd, device, b=CONV_B):
+    """The conv step's counted field (parameters requiring grad), y0[:b]
+    and target on `device`."""
+    from torchdiffeq_tpu_torch.models import conv_params_from_jax
+
+    class Counted(torch.nn.Module):
+        """The field, counting its evaluations."""
+
+        def __init__(self, field):
+            super().__init__()
+            self.field, self.n = field, 0
+
+        def forward(self, tt, yy):
+            self.n += 1
+            return self.field(tt, yy)
+
+    params, y0, target = _shared_conv(npd)
+    model = Counted(conv_params_from_jax(params, device=device))
+    return (model, torch.from_numpy(y0[:b]).to(device),
+            torch.from_numpy(target).to(device))
+
+
+def _conv_loss(torch, model, y0, target, mode):
+    """bench.py's conv loss, mean((y(1) - target)**2), through one gradient
+    mode: the continuous adjoint ('adjoint', bench.py's), the interpolated
+    one, or the replay of `odeint`."""
+    from torchdiffeq_tpu_torch import odeint, odeint_adjoint
+    t = torch.tensor([0.0, 1.0], dtype=torch.float64)
+    kw = dict(rtol=CONV_TOL, atol=CONV_TOL, method="dopri5")
+    if mode == "replay":
+        ys = odeint(model, y0, t, options=dict(replay_grad=True), **kw)
+    else:
+        ys = odeint_adjoint(model, y0, t, adjoint_options=dict(
+            interpolated=True) if mode == "interpolated" else None, **kw)
+    return ((ys[-1] - target[None]) ** 2).mean()
+
+
+def _conv_step(torch, model, y0, target, mode, marks=None):
+    """One training step (the loss, its backward, p -= 1e-3 * grad); the
+    four CUDA events `marks` as in `_train_step`.  Returns (loss, the
+    gradients, the field's evaluations in the forward and the backward)."""
+    if marks:
+        marks[0].record()
+    n0 = model.n
+    loss = _conv_loss(torch, model, y0, target, mode)
+    n1 = model.n
+    if marks:
+        marks[1].record()
+    loss.backward()
+    if marks:
+        marks[2].record()
+    grads = []
+    with torch.no_grad():
+        for p in model.parameters():
+            grads.append(p.grad)
+            p -= 1e-3 * p.grad
+            p.grad = None
+    if marks:
+        marks[3].record()
+    return loss.detach(), grads, (n1 - n0, model.n - n1)
+
+
+def _conv_grads(torch, device, mode):
+    """The float64 gradients (y0 and the four weights) of the conv loss at
+    CONV_CHECK_B on `device` through `mode`, and the forward solve's Stats
+    and values."""
+    from torchdiffeq_tpu_torch import odeint_with_stats
+    model, y0, target = _conv_setup(torch, np.float64, device, CONV_CHECK_B)
+    t = torch.tensor([0.0, 1.0], dtype=torch.float64)
+    with torch.no_grad():
+        ys, st = odeint_with_stats(model, y0, t, rtol=CONV_TOL,
+                                   atol=CONV_TOL)
+    y0.requires_grad_(True)
+    _conv_loss(torch, model, y0, target, mode).backward()
+    return ([g.detach().cpu() for g in [y0.grad] +
+             [p.grad for p in model.parameters()]], list(st[:5]), ys.cpu())
+
+
+def _phase_conv(torch, kernels, dev):
+    """Phase 13: the conv ODE-Net's training step (bench.py:215-345) on the
+    card, through the three gradient modes, and the card against the CPU
+    in float64."""
+    from torchdiffeq_tpu_torch import odeint, odeint_with_stats
+    from torchdiffeq_tpu_torch.models import conv_field_flops
+    tf32 = lambda: (torch.backends.cuda.matmul.allow_tf32,
+                    torch.backends.cudnn.allow_tf32)
+    _check(tf32() == (False, False), f"phase 13 needs TF32 off: {tf32()}")
+    p0 = time.perf_counter()
+
+    # (a) bench.py's conv step at full width, float32, counted
+    model, y0, target = _conv_setup(torch, np.float32, dev)
+    t = torch.tensor([0.0, 1.0], dtype=torch.float64)
+    kernels.reset_launch_counts()
+    losses, evals = [], None
+    with _BackwardStats() as bwd:
+        loss, grads, evals = _conv_step(torch, model, y0, target, "adjoint")
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    bwd_st = bwd.stats[-1]
+    with torch.no_grad():
+        ys, st_f = odeint_with_stats(model, y0, t, rtol=CONV_TOL,
+                                     atol=CONV_TOL)
+    _check(tuple(ys.shape) == (2, CONV_B, CONV_HW, CONV_HW, CONV_DIM)
+           and ys.device.type == torch.device(dev).type
+           and bool(torch.isfinite(ys).all())
+           and st_f.error_code == 0 and bwd_st.error_code == 0
+           and all(bool(torch.isfinite(g).all()) for g in grads),
+           f"conv step: forward {st_f}, backward {bwd_st}")
+
+    timed = {}
+    for mode in ("adjoint", "interpolated", "replay"):
+        _conv_step(torch, model, y0, target, mode)          # warm
+        times = []
+        for _ in range(CONV_STEPS):
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            loss, _, ev = _conv_step(torch, model, y0, target, mode, marks)
+            torch.cuda.synchronize()
+            losses.append(float(loss))
+            times.append((marks[0].elapsed_time(marks[3]),
+                          marks[0].elapsed_time(marks[1]),
+                          marks[1].elapsed_time(marks[2])))
+        timed[mode] = ([np.array(c) for c in zip(*times)], ev)
+    _check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+           f"conv step: losses {losses[0]} -> {losses[-1]}")
+    _check(tf32() == (False, False), f"TF32 turned on in phase 13: {tf32()}")
+    by_name = {}
+    busy_ms, n_launch, prof_wall = _profiled_step(
+        torch, lambda: _conv_step(torch, model, y0, target, "adjoint"),
+        by_name)
+    # the convolutions' kernels (cuDNN's and their GEMMs) against the rest
+    conv_ms = sum(v for k, v in by_name.items()
+                  if re.search("conv|cudnn|gemm|xmma|wgrad|dgrad", k, re.I))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+
+    # (c) the card against the CPU, float64, B=CONV_CHECK_B
+    cpu, card = {}, {}
+    for mode in ("adjoint", "interpolated", "replay"):
+        cpu[mode] = _conv_grads(torch, "cpu", mode)
+        card[mode] = _conv_grads(torch, dev, mode)
+    _, st_c, ys_c = cpu["adjoint"]
+    _, st_g, ys_g = card["adjoint"]
+    err_solve = float((ys_g - ys_c).abs().max())
+    _check(st_g == st_c and err_solve <= F64_VALUES,
+           f"conv solve float64 card vs CPU: {err_solve}, {st_g} vs {st_c}")
+    rel = {m: _max_rel(card[m][0], cpu[m][0]) for m in cpu}
+    _check(all(r <= GRAD_F64_REL for r in rel.values()),
+           f"conv gradients float64 card vs CPU: {rel}")
+    fields = []
+    for device in ("cpu", dev):
+        m64, y64, _ = _conv_setup(torch, np.float64, device, CONV_CHECK_B)
+        with torch.no_grad():
+            fields.append(m64(torch.tensor(0.37, dtype=torch.float64),
+                              y64).cpu())
+    err_field = float((fields[1] - fields[0]).abs().max()
+                      / fields[0].abs().max())
+    _check(err_field <= CONV_F64_FIELD,
+           f"conv field float64 card vs CPU: {err_field} of max|f|")
+
+    # forward_grad's jvp on the spiral field, and the SciPy bridge from a
+    # CUDA state, card against CPU in float64
+    jvps, sci = [], []
+    for device in ("cpu", dev):
+        m, ys0, _, ts = _train_setup(torch, np.float64, device)
+        ys0 = ys0[:64]
+        v = torch.from_numpy(np.random.RandomState(5).randn(64, 2)).to(device)
+        _, tan = torch.func.jvp(lambda y: (odeint(
+            m, y, ts, rtol=RTOL, atol=ATOL,
+            options=dict(forward_grad=True)) ** 2).mean(), (ys0,), (v,))
+        jvps.append(tan.cpu())
+        with torch.no_grad():
+            ys_s, st_s = odeint_with_stats(m, ys0, ts, method="scipy_solver",
+                                           rtol=RTOL, atol=ATOL)
+        _check(ys_s.device == ys0.device and ys_s.dtype == torch.float64,
+               f"scipy_solver result on {ys_s.device}, {ys_s.dtype}")
+        sci.append((ys_s.cpu(), int(st_s.nfe)))
+    rel_jvp = abs(float(jvps[1] - jvps[0])) / abs(float(jvps[0]))
+    err_sci = float((sci[1][0] - sci[0][0]).abs().max()
+                    / sci[0][0].abs().max())
+    _check(rel_jvp <= GRAD_F64_REL and sci[1][1] == sci[0][1]
+           and err_sci <= CONV_F64_FIELD,
+           f"forward_grad jvp {rel_jvp}, scipy {err_sci} nfe {sci[1][1]} "
+           f"vs {sci[0][1]}")
+    phase_s = time.perf_counter() - p0
+
+    def row(mode):
+        (step, fwd, bwd_ms), ev = timed[mode]
+        return (f"{mode}: median {np.median(step):.2f} ms (min "
+                f"{step.min():.2f}, max {step.max():.2f}), forward "
+                f"{np.median(fwd):.2f}, backward {np.median(bwd_ms):.2f}; "
+                f"field evaluations forward {ev[0]}, backward {ev[1]}")
+
+    med = float(np.median(timed["adjoint"][0][0]))
+    nfe = st_f.nfe + bwd_st.nfe
+    flops = (evals[0] + evals[1]) * conv_field_flops(CONV_B, CONV_HW,
+                                                    CONV_HW, CONV_DIM) * 2
+    busy = ("not measured (no device time in the trace)" if busy_ms is None
+            else f"{busy_ms:.3f} ms of device time in {n_launch} kernels, "
+            f"{busy_ms / med:.1%} of the median step ({busy_ms / prof_wall:.1%}"
+            f" of the traced step's {prof_wall:.1f} ms), of which the "
+            f"convolutions' kernels {conv_ms:.3f} ms; longest "
+            + ", ".join(f"{k[:60]} {v:.3f} ms" for k, v in top))
+    print(f"[13 conv ODE-Net] bench.py's conv step state ({CONV_B}, "
+          f"{CONV_HW}, {CONV_HW}, {CONV_DIM}) float32, dopri5 rtol=atol="
+          f"{CONV_TOL}, odeint_adjoint + SGD lr 1e-3, TF32 off; kernel "
+          f"launches {launches} (the step runs none) | loss {losses[0]:.7f} "
+          f"-> {losses[-1]:.7f} over {len(losses)} steps | forward steps "
+          f"{st_f.n_steps} nfe {st_f.nfe}, backward steps {bwd_st.n_steps} "
+          f"nfe {bwd_st.nfe} (solver counts, {nfe} in all); field "
+          f"evaluations forward {evals[0]}, backward {evals[1]} (JAX's count "
+          f"on the host CPU, bench.py:300-330: {JAX_CONV_NFE[0]} and "
+          f"{JAX_CONV_NFE[1]}) | warm steps over {CONV_STEPS}, "
+          + " | ".join(row(m) for m in ("adjoint", "interpolated", "replay"))
+          + f" | {flops / (med / 1e3) / 1e12:.3f} TFLOP/s of convolution "
+          f"(the adjoint step's evaluations x 2 for the backward's products) "
+          f"| device busy: {busy} | float64 B={CONV_CHECK_B} card vs CPU: "
+          f"field {err_field:.2e} of max|f| (<= {CONV_F64_FIELD}), solve "
+          f"{err_solve:.2e} (<= {F64_VALUES}), Stats {st_g} equal, gradients "
+          + ", ".join(f"{m} {r:.2e}" for m, r in rel.items())
+          + f" of max|g| (<= {GRAD_F64_REL}) | forward_grad jvp (spiral, "
+          f"B=64) {rel_jvp:.2e} | scipy_solver from CUDA: back on the card, "
+          f"{err_sci:.2e} of max|y|, nfe {sci[1][1]} == CPU | {phase_s:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1918,6 +2188,8 @@ def main():
     _phase_fixed(torch, kernels, dev)
 
     _phase_implicit(torch, kernels, dev)
+
+    _phase_conv(torch, kernels, dev)
 
     torch.cuda.synchronize()
     print(_card())

@@ -354,15 +354,20 @@ def test_spiral_adjoint_norms(norm, bwd_stats):
 
 def test_noise_floor_and_interpolated_options():
     """noise_floor=True floors at the state dtype's unit (a no-op for a
-    float64 state at rtol 1e-7); interpolated=True is ROADMAP A10."""
+    float64 state at rtol 1e-7); interpolated=True, which this test once
+    held to raising, solves (tests/test_torch_interpolated_adjoint.py holds
+    it against JAX): exp(-1) for y' = -y."""
     assert tadj._noise_floor(True, (torch.ones(1),), 1e-7, 1e-9) == \
         (max(1e-7, 2 ** -24), 1e-9 * max(1e-7, 2 ** -24) / 1e-7)
     assert tadj._noise_floor(True, (torch.ones(1, dtype=torch.float64),),
                              1e-7, 1e-9) == (1e-7, 1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tt.odeint_adjoint(lambda t, y: -y, torch.ones(1, requires_grad=True),
-                          torch.tensor([0.0, 1.0]),
-                          adjoint_options=dict(interpolated=True))
+    y0 = torch.ones(1, dtype=torch.float64, requires_grad=True)
+    tt.odeint_adjoint(lambda t, y: -y, y0,
+                      torch.tensor([0.0, 1.0], dtype=torch.float64),
+                      adjoint_options=dict(interpolated=True,
+                                           noise_floor=True))[-1].sum() \
+        .backward()
+    np.testing.assert_allclose(float(y0.grad), np.exp(-1.0), rtol=1e-6)
 
 
 # ---- tuple state --------------------------------------------------------------

@@ -1170,3 +1170,124 @@ def test_implicit_nonconvergence_error_code_on_both_devices(cuda):
         out.append((ys.cpu(), st.error_code, st_ok.error_code))
     assert out[0][1] == out[1][1] == 4 and out[0][2] == out[1][2] == 0
     torch.testing.assert_close(out[1][0], out[0][0], rtol=0, atol=F64)
+
+
+# ---- the conv ODE-Net field, the gradient modes, the SciPy bridge ----------
+
+def _conv_problem(device, dtype, B=4, dim=8, hw=6):
+    """A conv field from seed-made HWIO weights (as bench.py's
+    `make_shared_conv`), its NHWC state and the output times."""
+    from torchdiffeq_tpu_torch.models import conv_params_from_jax
+    rng = np.random.RandomState(3)
+
+    def conv():
+        return dict(w=rng.randn(3, 3, dim + 1, dim)
+                    * np.sqrt(2.0 / (9 * (dim + 1))),
+                    b=rng.randn(dim) * 0.1)
+
+    params = dict(conv1=conv(), conv2=conv())
+    model = conv_params_from_jax(params, device=device).to(dtype)
+    y0 = torch.from_numpy(0.3 * rng.randn(B, hw, hw, dim)).to(device, dtype)
+    return model, y0, torch.tensor([0.0, 0.5, 1.0], dtype=torch.float64)
+
+
+@pytest.mark.parametrize("dim", [8, 64])
+def test_conv_field_cuda_matches_cpu(cuda, dim):
+    """The conv field (cuDNN's convolutions, the NHWC state through a
+    channels-last view) on the card against the CPU: float64 to 1e-12 of
+    max|f| (the convolutions' and reductions' summation order), float32
+    with TF32 off to 1e-5 (float32's rounding, amplified by the last
+    GroupNorm's division by the group's spread)."""
+    torch.backends.cudnn.allow_tf32 = False
+    want = None
+    for dtype in (torch.float64, torch.float32):
+        out = {}
+        for dev in ("cpu", cuda):
+            model, y0, _ = _conv_problem(dev, dtype, dim=dim)
+            with torch.no_grad():
+                out[str(dev)] = model(torch.tensor(0.37), y0).double().cpu()
+        if want is None:
+            want = out["cpu"]
+        tol = 1e-12 if dtype == torch.float64 else 1e-5
+        assert float((out[str(cuda)] - want).abs().max()) \
+            <= tol * float(want.abs().max())
+
+
+def test_conv_solve_and_adjoint_cuda_match_cpu(cuda):
+    """dopri5 at rtol=atol=1e-3 on the conv field in float64, card against
+    CPU: Stats equal, values to 1e-10; `odeint_adjoint`'s gradients to the
+    weights and y0 within 1e-9 of max|g|."""
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for dev in ("cpu", cuda):
+        model, y0, t = _conv_problem(dev, torch.float64)
+        with torch.no_grad():
+            ys, st = odeint_with_stats(model, y0, t, rtol=1e-3, atol=1e-3)
+        y0.requires_grad_(True)
+        ys2 = odeint_adjoint(model, y0, t, rtol=1e-3, atol=1e-3)
+        (ys2[-1] ** 2).mean().backward()
+        out[str(dev)] = (ys.cpu(), list(st[:5]),
+                         [g.cpu() for g in [y0.grad] +
+                          [p.grad for p in model.parameters()]])
+    (ys_c, st_c, g_c), (ys_g, st_g, g_g) = out["cpu"], out[str(cuda)]
+    assert st_g == st_c and st_g[4] == 0
+    torch.testing.assert_close(ys_g, ys_c, rtol=0, atol=F64)
+    scale = max(float(g.abs().max()) for g in g_c)
+    for a, b in zip(g_g, g_c):
+        assert float((a - b).abs().max()) <= 1e-9 * scale
+
+
+def _mode_grads(device, mode):
+    """Gradients of mean(ys**2) to y0 and the parameters in float64 on the
+    spiral field (B=64) by one gradient mode; forward_grad's as the jvp of
+    the same loss in a seed-made direction of y0."""
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    model, y0, t = _spiral_problem(device, torch.float64, B=64)
+    kw = dict(rtol=1e-7, atol=1e-9)
+    if mode == "forward_grad":
+        v = torch.from_numpy(np.random.RandomState(5).randn(64, 2)).to(device)
+        _, tan = torch.func.jvp(lambda y: (odeint(
+            model, y, t, options=dict(forward_grad=True), **kw) ** 2).mean(),
+            (y0,), (v,))
+        return [tan.cpu()]
+    model.requires_grad_(True)
+    y0.requires_grad_(True)
+    if mode == "interpolated":
+        ys = odeint_adjoint(model, y0, t, adjoint_options=dict(
+            interpolated=True), **kw)
+    else:
+        ys = odeint(model, y0, t, options=dict(replay_grad=True), **kw)
+    (ys ** 2).mean().backward()
+    return [g.cpu() for g in [y0.grad] + [p.grad for p in model.parameters()]]
+
+
+@pytest.mark.parametrize("mode", ["interpolated", "replay_grad",
+                                  "forward_grad"])
+def test_gradient_modes_cuda_match_cpu(cuda, mode):
+    """The interpolated adjoint, the replay and forward_grad's jvp on the
+    card against the CPU in float64: within 1e-9 of max|g| (the products'
+    summation order and tanh's last ULP over the solves)."""
+    want = _mode_grads("cpu", mode)
+    got = _mode_grads(cuda, mode)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-9 * float(w.abs().max())
+
+
+def test_scipy_solver_device_round_trip(cuda):
+    """The SciPy bridge from a CUDA state: the field runs on the card,
+    SciPy on the host, and the result comes back on the card in the
+    state's dtype, equal to the CPU call's to 1e-12 of max|y| (the same
+    solve on evaluations that differ in their last bits)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        model, y0, t = _spiral_problem(dev, torch.float64, B=16)
+        with torch.no_grad():
+            ys, st = odeint_with_stats(model, y0, t, method="scipy_solver",
+                                       rtol=1e-8, atol=1e-10)
+        assert ys.device == y0.device and ys.dtype == torch.float64
+        out[str(dev)] = ys.cpu(), int(st.nfe)
+    (ys_c, n_c), (ys_g, n_g) = out["cpu"], out[str(cuda)]
+    assert n_g == n_c
+    assert float((ys_g - ys_c).abs().max()) <= 1e-12 * float(
+        ys_c.abs().max())

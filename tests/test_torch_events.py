@@ -192,14 +192,20 @@ def test_event_max_num_steps_matches_jax():
                                atol=1e-10)
 
 
-@pytest.mark.parametrize("call,match", [
-    (dict(options=dict(replay_grad=True)), "ROADMAP A10"),
-])
-def test_event_routes_not_ported_raise(call, match):
-    """Replay gradients of an event solve name their ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=match):
-        tt.odeint_event(lambda t, y: -y, torch.ones(1, dtype=torch.float64),
-                        0.0, event_fn=lambda t, y: y[0] - 0.5, **call)
+def test_replay_event_route_matches_jax():
+    """The replay event solve, which this file once held to raising
+    (tests/test_torch_replay.py holds its gradients): event time and state
+    to 1e-12 and Stats exactly equal to JAX's."""
+    kw = dict(event_fn=lambda t, y: y[0] - 0.5, rtol=1e-8, atol=1e-10,
+              options=dict(replay_grad=True))
+    et_j, ys_j = tde.odeint_event(lambda t, y: -y, jnp.ones(1),
+                                  jnp.asarray(0.0), **kw)
+    et_t, ys_t = tt.odeint_event(lambda t, y: -y,
+                                 torch.ones(1, dtype=torch.float64), 0.0,
+                                 **kw)
+    assert abs(float(et_t) - float(et_j)) <= 1e-12
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=1e-12)
 
 
 @pytest.mark.parametrize("method", ['rk4', 'euler', 'implicit_adams'])

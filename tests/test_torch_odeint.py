@@ -142,8 +142,6 @@ def test_closed_form_linear_decay():
 
 
 @pytest.mark.parametrize("call", [
-    dict(method='scipy_solver'),
-    dict(options=dict(replay_grad=True)), dict(options=dict(forward_grad=True)),
     dict(options=dict(dtype=torch.float32)),
 ])
 def test_not_yet_ported_raises(call):
@@ -165,6 +163,8 @@ def test_not_yet_ported_raises(call):
     dict(method='rk4', options=dict(step_size=0.05),
          event_fn=lambda t, y: y[0, 0] - 0.5),
     dict(method='implicit_adams'), dict(method='kvaerno5'),
+    dict(method='scipy_solver'),
+    dict(options=dict(replay_grad=True)), dict(options=dict(forward_grad=True)),
 ])
 def test_formerly_refused_calls_match_jax(call):
     """float64 values to 1e-12 and Stats exactly equal; with a float32
@@ -233,9 +233,12 @@ def test_refuses_when_autograd_would_need_a_graph():
     with pytest.raises(NotImplementedError, match="drop pallas=True"):
         tt.odeint(model, y, t, method='rk4',
                   options=dict(pallas=True, num_steps=4))
-    for option in ('replay_grad', 'forward_grad'):
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            tt.odeint(model, y, t, options={option: True})
+    # replay_grad records a graph through the replayed steps; forward_grad
+    # none (its tangents are forward-mode), as JAX's has no reverse mode
+    ys = tt.odeint(model, y, t, options=dict(replay_grad=True))
+    assert ys.requires_grad
+    assert not tt.odeint(model, y, t,
+                         options=dict(forward_grad=True)).requires_grad
     with torch.no_grad():
         ys = tt.odeint(model, y, t)
     assert ys.shape == (3, 8, 2) and not ys.requires_grad

@@ -10,7 +10,7 @@ import torchdiffeq_tpu.ops.tableaus as jtab
 import torchdiffeq_tpu.solvers.solution as jsol
 import torchdiffeq_tpu_torch.ops.tableaus as ttab
 import torchdiffeq_tpu_torch.solvers.solution as tsol
-from torchdiffeq_tpu_torch.solvers import SOLVERS, NOT_PORTED
+from torchdiffeq_tpu_torch.solvers import SOLVERS
 from torchdiffeq_tpu_torch.ops.kernels import PER_LANE_METHODS
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,14 +82,11 @@ def test_raise_if_error_matches_jax(code):
 
 
 def test_registry_covers_every_jax_method():
-    """Every JAX method name is either ported, with JAX's kind, or names
-    its ROADMAP item (the SciPy bridge alone)."""
+    """Every JAX method name is ported, with JAX's kind."""
     from torchdiffeq_tpu.solvers import (SOLVERS as JAX_SOLVERS,
                                          DIRECT_DIFF_KINDS)
     from torchdiffeq_tpu_torch.solvers import DIRECT_DIFF_KINDS as TORCH_DDK
-    assert set(JAX_SOLVERS) == set(SOLVERS) | set(NOT_PORTED)
-    assert not set(SOLVERS) & set(NOT_PORTED)
-    assert set(NOT_PORTED) == {'scipy_solver'}
+    assert set(JAX_SOLVERS) == set(SOLVERS)
     for m, spec in SOLVERS.items():
         jspec = JAX_SOLVERS[m]
         assert spec['kind'] == jspec['kind'], m

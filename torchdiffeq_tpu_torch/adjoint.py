@@ -46,7 +46,15 @@ the augmented ODE ``(vjp_t, y, adj_y, theta_bar)`` in reverse time:
 
 The state is kept flat inside the backward: the augmented state is one 1-D
 tensor, so each step's stage sums are one operation each, whatever the
-number of parameters.  Not ported: the interpolated adjoint (ROADMAP A10).
+number of parameters.
+
+``adjoint_options=dict(interpolated=True)`` (JAX adjoint.py:188-460;
+Daulbaev et al. 2020) records the forward as one `odeint_dense` over the
+span, whose interpolant gives the outputs, and sweeps the reduced state
+``(vjp_t, adj_y, theta_bar)`` backwards with y(s) read from that
+interpolant and held constant; ``max_segments`` (default 4096) bounds the
+recording.  It refuses event mode, a non-adaptive forward or adjoint
+method, a callable adjoint norm and an adjoint ``step_t`` or ``jump_t``.
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ import torch
 
 from .misc import (CALLBACK_NAMES, check_inputs, flatten_state, host_times,
                    is_tuple_state, mixed_norm, rms_norm, time_sign)
-from .solvers import SOLVERS, NOT_PORTED, needs_jacobian
+from .solvers import SOLVERS, needs_jacobian
 
 
 def _tensors_in(obj):
@@ -107,11 +115,8 @@ def _adjoint_params(func, args, adjoint_params):
     return params, arg_tensors
 
 
-def _check_method(name, what):
+def _check_method(name):
     name = 'dopri5' if name is None else name
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{what} {name!r} is not ported yet ({NOT_PORTED[name]})")
     if name not in SOLVERS:
         raise ValueError('Invalid method "{}". Must be one of {}'.format(
             name, '{"' + '", "'.join(SOLVERS.keys()) + '"}.'))
@@ -153,24 +158,28 @@ def _noise_floor(spec, y0_leaves, rtol, atol):
 
 class _Layout:
     """The flat augmented state ``[vjp_t | y | adj_y | theta_bar]`` and its
-    views in the user's structure (the state's shape, or its tuple)."""
+    views in the user's structure (the state's shape, or its tuple); the
+    interpolated adjoint's ``[vjp_t | adj_y | theta_bar]`` has no y
+    (`has_y` False)."""
 
-    def __init__(self, y_shape, unravel, params):
+    def __init__(self, y_shape, unravel, params, has_y=True):
         self.n = int(np.prod(y_shape))
         self.y_shape = tuple(y_shape)
         self.unravel = unravel
+        self.has_y = has_y
         self.p_shapes = [p.shape for p in params]
         self.p_sizes = [p.numel() for p in params]
 
     def split(self, aug):
-        """(vjp_t 0-d, y, adj_y, [theta_bar per parameter]) as views; y and
-        adj_y in the solver's state layout."""
+        """(vjp_t 0-d, y or None, adj_y, [theta_bar per parameter]) as
+        views; y and adj_y in the solver's state layout."""
         n = self.n
-        th = aug[1 + 2 * n:]
+        a = 1 + n if self.has_y else 1
+        th = aug[a + n:]
         ths = [part.view(shape) for part, shape in
                zip(torch.split(th, self.p_sizes), self.p_shapes)]
-        return (aug[0], aug[1:1 + n].view(self.y_shape),
-                aug[1 + n:1 + 2 * n].view(self.y_shape), ths)
+        y = aug[1:1 + n].view(self.y_shape) if self.has_y else None
+        return aug[0], y, aug[a:a + n].view(self.y_shape), ths
 
     def user(self, y):
         """A state-layout tensor in the user's structure."""
@@ -190,7 +199,8 @@ def _make_adjoint_norm(norm_spec, user_state_norm, layout):
 
     def states(aug):
         vt, y, adj_y, th = layout.split(aug)
-        return vt, (layout.user(y), layout.user(adj_y)), th
+        return vt, tuple(layout.user(s) for s in (y, adj_y)
+                         if s is not None), th
 
     def default_adjoint_norm(aug):
         vt, ss, th = states(aug)
@@ -239,18 +249,51 @@ def _forward(spec, y0, t):
     return _solve_event_normalised(prob)
 
 
-def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
+def _record_dense(spec, y0, t_user):
+    """The interpolated adjoint's forward (JAX `_record_dense`,
+    adjoint.py:295-333): one `odeint_dense` over the span, whose
+    interpolant gives both the outputs and the backward's y(s).  A failed
+    recording covers a prefix of the span: the outputs past it are NaN, as
+    the standard loop poisons its unwritten tail.  Returns (ys, Stats,
+    the DenseSolution)."""
+    from .dense import odeint_dense
+    T = t_user.shape[0]
+    opts = dict(spec.options or {})
+    if opts.get('max_num_steps') is not None:
+        # a per-interval budget in the standard loop; one span of T-1
+        opts['max_num_steps'] = min(int(opts['max_num_steps'])
+                                    * max(T - 1, 1), 2 ** 31 - 1)
+    sol, stats = odeint_dense(
+        spec.func, y0 if spec.unravel is None else spec.unravel(y0),
+        t_user[0], t_user[-1], rtol=spec.rtol, atol=spec.atol,
+        method=spec.method, options=opts, args=spec.args,
+        max_segments=spec.interp_max_segments, _return_stats=True)
+    ys = sol(torch.from_numpy(t_user))
+    if stats.error_code != 0:
+        uncovered = torch.from_numpy(sol.t_sign * t_user > sol.t_hi)
+        ys[uncovered.to(ys.device)] = float('nan')
+    return ys, stats, sol
+
+
+def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
+                   rec_sol=None):
     """The adjoint sweep (JAX `_backward_pass`, adjoint.py:335-561) over
     internal-frame increasing times `t_int` (a float64 host array; `sign`
     maps it to the user's frame).  `ys` and `g_ys` are (T, *state) in the
     solver's layout; `args_d` the args with their differentiated tensors
-    replaced by detached leaves, `params` every differentiated tensor.
+    replaced by detached leaves, `params` every differentiated tensor;
+    `rec_sol` the interpolated adjoint's recorded `DenseSolution`.
     Returns (adj_y0, [theta_bar], vjp_t at t_int[0], dLds)."""
     T = t_int.shape[0]
     sdt, dev = ys.dtype, ys.device
-    layout = _Layout(ys.shape[1:], spec.unravel, params)
+    layout = _Layout(ys.shape[1:], spec.unravel, params,
+                     has_y=rec_sol is None)
     n = layout.n
     func = spec.func
+    # the interpolated adjoint: y at internal time s from the recorded
+    # interpolant, held constant (JAX adjoint.py:404-407)
+    y_of = None if rec_sol is None else (
+        lambda s: rec_sol._eval_internal(float(s)))
 
     def f_dir(s, y):
         """The field in the internal increasing frame: sign * f(sign * s)."""
@@ -263,6 +306,8 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
         # in the augmented state's dtype: a fixed-grid backward's stages
         # are float64 for a float32 state, as in JAX
         _, y, adj_y, _ = layout.split(aug)
+        if y_of is not None:
+            y = y_of(s)
         adt = aug.dtype
         with torch.enable_grad():
             s_d = torch.full((), float(s), dtype=adt, device=dev,
@@ -273,13 +318,17 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
                                         allow_unused=True)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, (s_d, y_d, *params))]
-        return torch.cat([grads[0].reshape(1).to(adt),
-                          f.detach().reshape(-1).to(adt),
+        dy = [] if y_of is not None else [f.detach().reshape(-1).to(adt)]
+        return torch.cat([grads[0].reshape(1).to(adt), *dy,
                           *(g.reshape(-1).to(adt) for g in grads[1:])])
 
     if needs_jacobian(spec.adjoint_method):
-        aug_dyn = _functional_aug_dyn(spec, layout, sign, args_d, params,
-                                      dev)
+        # inside a stage solve's Jacobian the time is a tensor torch.func
+        # made, which may not be read: the interpolant is looked up on the
+        # device there
+        aug_dyn = _functional_aug_dyn(
+            spec, layout, sign, args_d, params, dev,
+            None if rec_sol is None else (lambda s: rec_sol(sign * s)))
 
     # the `*_adjoint` callbacks fire as the backward solve's own (JAX
     # adjoint.py:356-358), with the augmented state as a tuple
@@ -301,8 +350,32 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
                             g_ys[1:].reshape(T - 1, -1).to(f_at_out.dtype))
 
     def aug_state(vt, y, adj_y, th=None):
-        th = y.new_zeros(n_th) if th is None else th
-        return torch.cat([vt.reshape(1), y.reshape(-1), adj_y.reshape(-1), th])
+        th = adj_y.new_zeros(n_th) if th is None else th
+        ys_ = [] if y is None else [y.reshape(-1)]
+        return torch.cat([vt.reshape(1), *ys_, adj_y.reshape(-1), th])
+
+    if rec_sol is not None:
+        # the interpolated adjoint (JAX adjoint.py:394-460): one reduced
+        # reverse sweep, the output cotangents injected at jump_t points
+        adj_opts.setdefault('step_to_end', True)
+        if T > 2:
+            def inject(k, tt, aug):
+                j = (T - 2) - k
+                out = aug.clone()
+                out[0] = aug[0] - dLds[j - 1]
+                out[1:1 + n] = aug[1:1 + n] + g_ys[j].reshape(-1)
+                return out
+
+            adj_opts.update(jump_t=t_int[1:-1], jump_state_fn=inject)
+            if 'max_num_steps' in adj_opts:
+                adj_opts['max_num_steps'] = min(
+                    int(adj_opts['max_num_steps']) * (T - 1), 2 ** 31 - 1)
+        sol, _ = _raw_odeint(aug_dyn, aug_state(-dLds[-1], None, g_ys[-1]),
+                             np.array([t_int[-1], t_int[0]]),
+                             spec.adjoint_rtol, spec.adjoint_atol,
+                             spec.adjoint_method, adj_opts, 'reverse')
+        vt, _, adj_y, th = layout.split(sol[1])
+        return adj_y + g_ys[0], th, vt, dLds
 
     # warm starts, step_to_end and the fused sweep are the adaptive
     # backward's (JAX adjoint.py:455-466)
@@ -358,10 +431,11 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params):
     return adj_y, th, vt, dLds
 
 
-def _functional_aug_dyn(spec, layout, sign, args_d, params, dev):
+def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None):
     """The augmented field written with ``torch.func.vjp``, the
     differentiated tensors passed to the field explicitly (module
-    docstring), so that ``torch.func.jacrev`` can take its Jacobian."""
+    docstring), so that ``torch.func.jacrev`` can take its Jacobian.  With
+    `y_of` (the interpolated adjoint) y is read from it, not the state."""
     func = spec.func
     n_mod = len(spec.module_params)
     names = []
@@ -392,6 +466,8 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev):
 
     def aug_dyn(s, aug):
         _, y, adj_y, _ = layout.split(aug)
+        if y_of is not None:
+            y = y_of(s)
         adt = aug.dtype
         # a copy to the device, not a host read (`misc.jacobian` refuses
         # reads); non-blocking, so that it does not wait for the stream
@@ -399,8 +475,8 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev):
         f, pullback = torch.func.vjp(lambda s_, y_, *ps: f_dir(s_, y_, ps),
                                      s_d, y, *detached)
         grads = pullback(-adj_y)
-        return torch.cat([grads[0].reshape(1).to(adt),
-                          f.reshape(-1).to(adt),
+        dy = [] if y_of is not None else [f.reshape(-1).to(adt)]
+        return torch.cat([grads[0].reshape(1).to(adt), *dy,
                           *(g.reshape(-1).to(adt) for g in grads[1:])])
 
     return aug_dyn
@@ -408,10 +484,12 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev):
 
 def _aug_callback(cb, layout):
     """`cb` on the flat augmented state, given as ``(vjp_t, y, adj_y,
-    theta_bar)`` with y and adj_y in the user's structure."""
+    theta_bar)`` with y and adj_y in the user's structure (``(vjp_t, adj_y,
+    theta_bar)`` for the interpolated adjoint)."""
     def fire(t0, aug, dt):
         vt, y, adj_y, th = layout.split(aug)
-        cb(t0, (vt, layout.user(y), layout.user(adj_y), tuple(th)), dt)
+        ys_ = () if y is None else (layout.user(y),)
+        cb(t0, (vt, *ys_, layout.user(adj_y), tuple(th)), dt)
     return fire
 
 
@@ -427,7 +505,11 @@ class _AdjointOp(torch.autograd.Function):
         t_user = host_times(t)
         sign = time_sign(t_user)
         if spec.event_fn is None:
-            ys, stats = _forward(spec, y0, t_user)
+            ctx.rec_sol = None
+            if spec.interp_max_segments is not None:
+                ys, stats, ctx.rec_sol = _record_dense(spec, y0, t_user)
+            else:
+                ys, stats = _forward(spec, y0, t_user)
             spec.stats = stats
             ctx.save_for_backward(ys)
             ctx.t_int = sign * t_user
@@ -453,8 +535,9 @@ class _AdjointOp(torch.autograd.Function):
         args_d = _replace_tensors(spec.args, subs)
         params = list(spec.module_params) + [subs[id(x)]
                                              for x in spec.arg_tensors]
-        adj_y, th, vt, dLds = _backward_pass(spec, ys, g_ys, ctx.t_int,
-                                             ctx.sign, args_d, params)
+        adj_y, th, vt, dLds = _backward_pass(
+            spec, ys, g_ys, ctx.t_int, ctx.sign, args_d, params,
+            getattr(ctx, 'rec_sol', None))
         t_grad = None
         if t_in[2]:
             t_ref = spec.t_tensor
@@ -471,6 +554,32 @@ class _AdjointOp(torch.autograd.Function):
                 t_grad, *th_grads)
 
 
+def _check_interpolated(event_fn, method, adjoint_method, adjoint_options):
+    """The interpolated adjoint's refusals (JAX adjoint.py:188-240)."""
+    if event_fn is not None:
+        raise ValueError(
+            "adjoint_options=dict(interpolated=True) does not support "
+            "event mode; use the standard adjoint for odeint_event.")
+    kinds = [SOLVERS[m]['kind'] for m in (method, adjoint_method)]
+    if kinds != ['adaptive', 'adaptive']:
+        raise ValueError(
+            "interpolated adjoint requires adaptive forward and adjoint "
+            f"methods (got kinds {kinds[0]!r}/{kinds[1]!r}): the dense "
+            "recording and the reduced single-sweep backward both ride the "
+            "adaptive loop.")
+    if callable(adjoint_options.get('norm')):
+        raise ValueError(
+            "interpolated adjoint does not support a custom adjoint norm "
+            "callable (the augmented state has no y component); use "
+            "norm='seminorm' or the default.")
+    for key in ('step_t', 'jump_t'):
+        if key in adjoint_options:
+            raise ValueError(
+                f"interpolated adjoint does not support adjoint {key!r} "
+                "(the single-sweep backward owns the jump_t slots for "
+                "output-cotangent injection).")
+
+
 def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
                   adjoint_rtol, adjoint_atol, adjoint_method, adjoint_options,
                   adjoint_params=None):
@@ -480,19 +589,20 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
     user's time frame and state structure.  The Stats are the forward
     solve's.
     """
-    method = _check_method(method, "method")
-    adjoint_method = _check_method(adjoint_method, "adjoint method")
+    method = _check_method(method)
+    adjoint_method = _check_method(adjoint_method)
     args = tuple(args)
     adjoint_options = {} if adjoint_options is None else dict(adjoint_options)
-    if adjoint_options.pop('interpolated', False):
-        raise NotImplementedError(
-            "adjoint_options=dict(interpolated=True), the interpolated "
-            "adjoint, is not ported yet (ROADMAP A10)")
     leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
     nf = adjoint_options.pop('noise_floor', False)
     if nf:
         adjoint_rtol, adjoint_atol = _noise_floor(nf, leaves, adjoint_rtol,
                                                   adjoint_atol)
+    interp_max_segments = None
+    if adjoint_options.pop('interpolated', False):
+        interp_max_segments = int(adjoint_options.pop('max_segments', 4096))
+        _check_interpolated(event_fn, method, adjoint_method,
+                            adjoint_options)
 
     module_params, arg_tensors = _adjoint_params(func, args, adjoint_params)
     t_tensor = (t if isinstance(t, torch.Tensor)
@@ -509,6 +619,7 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
         adjoint_rtol=adjoint_rtol, adjoint_atol=adjoint_atol,
         adjoint_method=adjoint_method, adjoint_options=adjoint_options,
         user_state_norm=(options or {}).get('norm'),
+        interp_max_segments=interp_max_segments,
         module_params=module_params, arg_tensors=arg_tensors,
         t_tensor=t_tensor, stats=None)
     out = _AdjointOp.apply(spec, y0_in, t_tensor, *module_params,

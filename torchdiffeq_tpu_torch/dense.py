@@ -15,8 +15,8 @@ import numpy as np
 import torch
 
 from .misc import check_inputs, nan_sign
-from .ops.interp import interp_evaluate_at
-from .solvers import SOLVERS, NOT_PORTED
+from .ops.interp import interp_evaluate, interp_evaluate_at
+from .solvers import SOLVERS
 from .solvers import adaptive_rk
 from .solvers.solution import OK, ERR_MAX_NUM_STEPS
 
@@ -50,6 +50,18 @@ class DenseSolution:
                           1, max(self.count, 1))
         return tt, self.times_d[idx - 1], self.times_d[idx], \
             self.coeffs[idx - 1]
+
+    def _eval_internal(self, tt):
+        """The solution at one internal host time `tt` (a float), the
+        segment found on the host and the quartic evaluated with host
+        scalars: no copy to or read from the device (the interpolated
+        adjoint's backward, one call an evaluation).  The same segment and
+        values as `__call__`."""
+        tt = min(max(tt, self.t_lo), self.t_hi)
+        idx = int(np.clip(np.searchsorted(self.times, tt, side='right'), 1,
+                          max(self.count, 1)))
+        return interp_evaluate(self.coeffs[idx - 1], self.times[idx - 1],
+                               self.times[idx], tt)
 
     def _user_times(self, t_eval):
         t_eval = torch.as_tensor(t_eval, dtype=torch.float64)
@@ -122,10 +134,6 @@ def odeint_dense(func, y0, t0, t1, *, rtol=1e-7, atol=1e-9, method=None,
     at 2 whether or not `first_step` is given."""
     from .odeint import _adaptive_config, _differentiable
 
-    name = 'dopri5' if method is None else method
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet ({NOT_PORTED[name]})")
     t = np.array([float(t0), float(t1)])
     prob = check_inputs(func, y0, t, rtol, atol, method, options, None,
                         SOLVERS, args=tuple(args))

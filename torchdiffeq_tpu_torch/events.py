@@ -129,7 +129,10 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
     Gradients: the solve's come from the continuous adjoint, as if it had
     integrated up to the event time (`odeint` or `odeint_adjoint` as
     `odeint_interface`), and the event time's through the final state by
-    the implicit function theorem (`_ImplicitFnGradientRerouting`).
+    the implicit function theorem (`_ImplicitFnGradientRerouting`).  With
+    ``options=dict(replay_grad=True)`` on an adaptive method through
+    `odeint`, both are the replay's (`solvers/replay.py`), exact for the
+    discrete solution.
     """
     from .odeint import odeint
     from .solvers import SOLVERS
@@ -142,6 +145,15 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
 
     event_t, solution = odeint_interface(func, y0, t, event_fn=event_fn,
                                          args=args, **kwargs)
+
+    # a replay event solve (JAX events.py:160-170) already returns an event
+    # time and state with the exact gradients of the discrete solution:
+    # no reroute, when the replay ran (an adaptive method through `odeint`)
+    if (kwargs.get('options') or {}).get('replay_grad') \
+            and odeint_interface is odeint \
+            and SOLVERS.get(kwargs.get('method') or 'dopri5', {}).get(
+                'kind') == 'adaptive':
+        return event_t, solution
 
     # the reroute works in the internal frame and on the flat state, as the
     # event function of the normalised problem does (reference

@@ -84,8 +84,9 @@ def coef(c, torch_dtype):
 
 
 def smax(a, b):
-    """``jnp.maximum`` of two host scalars of one dtype (numpy scalars, or
-    0-d bfloat16 tensors): NaN propagates."""
+    """``jnp.maximum`` of two scalars of one dtype (numpy scalars, or 0-d
+    tensors: bfloat16 host scalars, or ``forward_grad``'s times and norms,
+    whose derivatives it keeps): NaN propagates."""
     if isinstance(a, torch.Tensor) or isinstance(b, torch.Tensor):
         return torch.maximum(torch.as_tensor(a), torch.as_tensor(b))
     return np.maximum(a, b)
@@ -190,14 +191,38 @@ def time_sign(t):
     return 1.0 if t_np.shape[0] < 2 or t_np[-1] >= t_np[0] else -1.0
 
 
+def carries_derivative(x):
+    """Whether tensor `x` carries a reverse-mode graph or a forward-mode
+    tangent (a ``torch.autograd.forward_ad`` dual, or a tensor inside a
+    ``torch.func`` transform)."""
+    return (x.requires_grad
+            or torch._C._functorch.is_functorch_wrapped_tensor(x)
+            or torch.autograd.forward_ad.unpack_dual(x).tangent is not None)
+
+
+def tcast(t, dtype):
+    """A time scalar in `dtype`: a host scalar rounded by `scalar_type`, or
+    a tensor time (one that carries a tangent, `adaptive_rk`'s
+    ``forward_grad``) cast with its derivative."""
+    if isinstance(t, torch.Tensor):
+        return t.to(dtype)
+    return scalar_type(dtype)(t)
+
+
+def tval(t):
+    """A time scalar as an operand of tensor arithmetic: a Python float, or
+    the tensor itself, whose derivative then flows into the result."""
+    return t if isinstance(t, torch.Tensor) else float(t)
+
+
 def _nextafter(t, up):
-    """``torch.nextafter`` one ULP up or down, with a gradient of 1 to `t`
-    when it requires grad (reference ``_StitchGradient``, misc.py:348-357;
+    """``torch.nextafter`` one ULP up or down, with a derivative of 1 to `t`
+    when it carries one (reference ``_StitchGradient``, misc.py:348-357;
     JAX `_nextafter`'s custom JVP): ``t + (n - t)`` is `n` exactly, since
     the difference of adjacent floats is exact."""
     td = t.detach()
     n = torch.nextafter(td, td + 1 if up else td - 1)
-    return t + (n - td) if t.requires_grad else n
+    return t + (n - td) if carries_derivative(t) else n
 
 
 def nextafter_down(t):
@@ -332,9 +357,10 @@ def _leaf_tol(name, tol, leaves, like):
 
 
 def host_times(t):
-    """Output times as a 1-D float64 numpy array (one device read)."""
+    """Output times as a 1-D float64 numpy array (one device read; by
+    `tolist`, which reads a tensor inside a ``torch.func`` transform too)."""
     if isinstance(t, torch.Tensor):
-        t = t.detach().to('cpu', torch.float64).numpy()
+        t = t.detach().to('cpu', torch.float64).tolist()
     t = np.asarray(t, dtype=np.float64)
     if t.ndim != 1:
         raise ValueError("t must be one dimensional")

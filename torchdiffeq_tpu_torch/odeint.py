@@ -1,29 +1,34 @@
 """The `odeint` front door (counterpart of ``torchdiffeq_tpu/odeint.py``).
 
-Every method of the JAX package but the SciPy bridge is here: the adaptive
-tier through the host-loop solver (`solvers/adaptive_rk.py`; kvaerno3,
-kvaerno5 and radau5a with its implicit step functions), the fixed-grid
-tier (euler, midpoint, heun2, heun3, rk4; `solvers/fixed_grid.py`), the
-Adams methods (`solvers/adams.py`) and the fixed-grid implicit methods
-(`solvers/fixed_grid_implicit.py`) on the same loop, event solves
-(``event_fn=...``) on all of them, and the fused RK4 kernel route
+Every method of the JAX package is here: the adaptive tier through the
+host-loop solver (`solvers/adaptive_rk.py`; kvaerno3, kvaerno5 and radau5a
+with its implicit step functions), the fixed-grid tier (euler, midpoint,
+heun2, heun3, rk4; `solvers/fixed_grid.py`), the Adams methods
+(`solvers/adams.py`) and the fixed-grid implicit methods
+(`solvers/fixed_grid_implicit.py`) on the same loop, the SciPy bridge
+(`solvers/scipy_wrapper.py`), event solves (``event_fn=...``) on all of
+them but the SciPy bridge, and the fused RK4 kernel route
 ``odeint(..., method='rk4', options=dict(pallas=True, num_steps=N))``.  A
 call that does not qualify for the kernel route (JAX `_try_pallas_rk4`'s
-rules) runs the fixed-grid loop, as JAX falls back to its scan.  The SciPy
-bridge raises `NotImplementedError` naming its ROADMAP item.
+rules) runs the fixed-grid loop, as JAX falls back to its scan.
 
-Gradients, as in the JAX package (odeint.py:255-329): a fixed-grid,
+Gradients, as in the JAX package (odeint.py:242-315): a fixed-grid,
 Adams or fixed-grid implicit solve without events is differentiated
 through the loop by autograd (discretise-then-optimise, the implicit stage
 solves by the implicit function theorem; ``forward_grad`` is accepted and
-dropped there);
-an adaptive solve or an event solve that autograd would have to
+dropped there, and for the SciPy bridge, whose result is detached, as
+JAX's is).  On an adaptive method, ``options=dict(forward_grad=True)``
+runs the loop with tensor times under ``torch.no_grad()``, so that
+``torch.func.jvp`` sees the tangent of every step the controller takes and
+reverse mode finds no graph (`solvers/adaptive_rk.py`), and
+``options=dict(replay_grad=True)`` records the steps and replays them
+differentiably (`solvers/replay.py`; ``max_segments`` bounds the record).
+Otherwise an adaptive solve or an event solve that autograd would have to
 differentiate -- grad mode on, and `y0`, `t`, a tensor in `args` or a
 parameter of an ``nn.Module`` field requiring grad -- takes its gradients
 from the continuous adjoint (`adjoint.adjoint_solve`) at the forward
 settings.  The kernel route is forward-only and raises under autograd
-instead of returning a detached result; ``replay_grad`` and the adaptive
-``forward_grad`` are ROADMAP A10.
+instead of returning a detached result.
 """
 from __future__ import annotations
 
@@ -33,8 +38,9 @@ import numpy as np
 import torch
 
 from .misc import check_inputs, host_times, is_tuple_state, needs_autograd
-from .solvers import SOLVERS, NOT_PORTED, DIRECT_DIFF_KINDS
-from .solvers import adams, adaptive_rk, fixed_grid, fixed_grid_implicit
+from .solvers import SOLVERS, DIRECT_DIFF_KINDS
+from .solvers import (adams, adaptive_rk, fixed_grid, fixed_grid_implicit,
+                      replay, scipy_wrapper)
 from .solvers.solution import Stats
 
 # the Pallas kernels' own options, accepted and dropped off their routes
@@ -129,6 +135,8 @@ def _solve_normalised(prob, t_grad=None):
     if kind in ('firk', 'dirk'):
         return fixed_grid_implicit.integrate_implicit(
             prob, spec['tableau'], kind == 'dirk', t_grad)
+    if kind == 'scipy':
+        return scipy_wrapper.integrate_scipy(prob)
     opts = prob.options
     _warn_unused('fixed-grid solver', opts, _FIXED_OPTIONS)
     ts = prob.t if t_grad is None else t_grad
@@ -146,6 +154,9 @@ def _solve_event_normalised(prob):
     odeint.py:113-155): (event_t in the internal frame, stack([y0,
     y_event]), Stats)."""
     spec = SOLVERS[prob.method]
+    if spec['kind'] == 'scipy':
+        raise ValueError(
+            f"method '{prob.method}' does not support event handling")
     if spec['kind'] == 'adaptive':
         cfg = _adaptive_config(prob, spec['tableau'])
         event_t, y_event, stats = adaptive_rk.integrate_until_event(
@@ -234,6 +245,58 @@ def _try_pallas_rk4(func, y0, t, method, options, event_fn, args):
                           n_accepted=n_steps)
 
 
+def _internal_times(prob, t):
+    """The problem's internal times as a float64 CPU tensor that carries
+    the derivative of the user's `t` when it is a tensor (forward_grad's
+    tangents, replay_grad's gradients)."""
+    if isinstance(t, torch.Tensor):
+        return prob.t_sign * t.to('cpu', torch.float64)
+    return torch.from_numpy(prob.t)
+
+
+def _forward_grad(func, y0, t, rtol, atol, method, options, event_fn, args):
+    """``forward_grad``: the adaptive loop with tensor times and no graph
+    (JAX odeint.py:275-298)."""
+    if event_fn is not None:
+        raise ValueError(
+            "forward_grad does not support event solves (the event "
+            "time's bisection is non-differentiable forward-through; "
+            "use options=dict(replay_grad=True) for differentiable "
+            "event times)")
+    options = {k: v for k, v in options.items() if k != 'forward_grad'}
+    prob = check_inputs(func, y0, t, rtol, atol, method, options, None,
+                        SOLVERS, args=tuple(args))
+    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
+    with torch.no_grad():
+        ys, stats = adaptive_rk.integrate(prob.func, prob.y0, prob.t, cfg,
+                                          _internal_times(prob, t))
+    return (prob.unravel or (lambda x: x))(ys), stats
+
+
+def _replay(func, y0, t, rtol, atol, method, options, event_fn, args):
+    """``replay_grad``: record the steps, then replay them differentiably
+    (JAX odeint.py:300-322).  step_to_end is dropped: the replay emits
+    through the interpolant."""
+    options = dict(options)
+    options.pop('replay_grad')
+    options.pop('step_to_end', None)
+    max_segments = options.pop('max_segments', None)
+    prob = check_inputs(func, y0, t, rtol, atol, method, options, event_fn,
+                        SOLVERS, args=tuple(args))
+    unravel = prob.unravel or (lambda x: x)
+    cfg = _adaptive_config(prob, SOLVERS[prob.method]['tableau'])
+    ts_d = _internal_times(prob, t)
+    if event_fn is None:
+        ys, stats = replay.integrate_replay(prob.func, prob.y0, prob.t, ts_d,
+                                            cfg, max_segments)
+        return unravel(ys), stats
+    event_t, y_event, stats = replay.integrate_replay_event(
+        prob.func, prob.y0, prob.t[0], ts_d[0], prob.event_fn, cfg,
+        max_segments)
+    return ((prob.t_sign * event_t, unravel(torch.stack([prob.y0, y_event]))),
+            stats)
+
+
 def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
     res = _try_pallas_rk4(func, y0, t, method, options, event_fn, args)
     if res is not None:
@@ -242,12 +305,11 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
         options = {k: v for k, v in options.items()
                    if k not in _KERNEL_OPTIONS}
     name = 'dopri5' if method is None else method
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {name!r} is not ported yet ({NOT_PORTED[name]})")
-    direct = SOLVERS.get(name, {}).get('kind') in DIRECT_DIFF_KINDS
+    kind = SOLVERS.get(name, {}).get('kind')
+    direct = kind in DIRECT_DIFF_KINDS or kind == 'scipy'
     if direct and isinstance(options, dict):
-        # the loop is differentiable forward too (JAX odeint.py:261-267)
+        # the loop is differentiable forward too, and the SciPy bridge's
+        # result is detached (JAX odeint.py:261-267)
         options = {k: v for k, v in options.items() if k != 'forward_grad'}
     if direct and event_fn is None:
         # JAX odeint.py:269-271: backprop through the loop
@@ -259,6 +321,12 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
             t_grad = prob.t_sign * t.to('cpu', torch.float64)
         ys, stats = _solve_normalised(prob, t_grad)
         return (prob.unravel or (lambda x: x))(ys), stats
+    opts = options if isinstance(options, dict) else {}
+    if kind == 'adaptive' and opts.get('forward_grad', False):
+        return _forward_grad(func, y0, t, rtol, atol, method, opts, event_fn,
+                             args)
+    if kind == 'adaptive' and opts.get('replay_grad', False):
+        return _replay(func, y0, t, rtol, atol, method, opts, event_fn, args)
     if _differentiable(func, y0, t, args):
         # JAX odeint.py:319-329: the continuous adjoint at the forward
         # settings, with no backward options

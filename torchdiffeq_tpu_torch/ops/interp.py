@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..misc import scalar_type
+from ..misc import scalar_type, tcast, tval
 from .rk_step import weighted_sum
 
 
@@ -37,7 +37,7 @@ def interp_fit_step(y0, y1, k, dt, tableau):
     the coefficients are float32."""
     if coeff_dtype(y0.dtype) != y0.dtype:
         f32 = torch.float32
-        dtf = float(scalar_type(f32)(float(dt)))
+        dtf = tval(tcast(dt, f32))
         kf = [x.to(f32) for x in k]
         d1 = weighted_sum(tableau.c_sol, kf, dtf)
         dmid = weighted_sum(tableau.c_mid, kf, dtf)
@@ -46,30 +46,39 @@ def interp_fit_step(y0, y1, k, dt, tableau):
         b = (5 * dtf0 - 3 * dtf1) + 14 * d1 - 32 * dmid
         c = (dtf1 - 4 * dtf0) - 5 * d1 + 16 * dmid
         return torch.stack([y0.to(f32), dtf0, c, b, a])
-    sd = scalar_type(y0.dtype)
-    dt = sd(dt)
+    dt = tcast(dt, y0.dtype)
     y_mid = weighted_sum(tableau.c_mid, k, dt, base=y0)
-    f0, f1 = k[0], k[-1]
-    dtf = float(dt)
-    a = float(sd(2) * dt) * (f1 - f0) - 8 * (y1 + y0) + 16 * y_mid
+    return interp_fit(y0, y1, y_mid, k[0], k[-1], dt)
+
+
+def interp_fit(y0, y1, y_mid, f0, f1, dt):
+    """The quartic's coefficients from the step's ends, its midpoint and
+    the end slopes (JAX `interp_fit`, ops/interp.py:87-103; reference
+    interp.py:1-22), in the state dtype; `dt` a host time scalar or a 0-d
+    tensor carrying a derivative."""
+    dt = tcast(dt, y0.dtype)
+    two_dt = scalar_type(y0.dtype)(2) * dt
+    dtf = tval(dt)
+    a = tval(two_dt) * (f1 - f0) - 8 * (y1 + y0) + 16 * y_mid
     b = dtf * (5 * f0 - 3 * f1) + 18 * y0 + 14 * y1 - 32 * y_mid
     c = dtf * (f1 - 4 * f0) - 11 * y0 - 5 * y1 + 16 * y_mid
     return torch.stack([y0, dtf * f0, c, b, a])
 
 
 def interp_evaluate(coefficients, t0, t1, t):
-    """Evaluate the fitted polynomial at host time `t` in [t0, t1]
-    (reference interp.py:25-48), with the guard for a zero-width step.
-    Horner-style in ascending powers; the powers of x are host scalars in
-    the coefficients' dtype, as the JAX package computes them."""
-    sd = scalar_type(coefficients.dtype)
+    """Evaluate the fitted polynomial at time `t` in [t0, t1] (reference
+    interp.py:25-48), with the guard for a zero-width step.  Horner-style
+    in ascending powers; the powers of x are scalars in the coefficients'
+    dtype, as the JAX package computes them: host scalars, or 0-d tensors
+    where a time is a tensor carrying a derivative (``forward_grad``,
+    ``replay_grad``)."""
     denom = t1 - t0 if t1 > t0 else 1.0
-    x = sd((t - t0) / denom)
-    total = coefficients[0] + float(x) * coefficients[1]
+    x = tcast((t - t0) / denom, coefficients.dtype)
+    total = coefficients[0] + tval(x) * coefficients[1]
     x_power = x
     for i in range(2, coefficients.shape[0]):
         x_power = x_power * x
-        total = total + float(x_power) * coefficients[i]
+        total = total + tval(x_power) * coefficients[i]
     return total
 
 

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import Perturb, coef, scalar_type
+from ..misc import Perturb, carries_derivative, coef, scalar_type, tcast
 from .tableaus import ButcherTableau
 
 
@@ -31,7 +31,8 @@ def weighted_sum(coeffs, vecs, dt=None, base=None):
     """``base + sum_i (coeffs[i] * dt) * vecs[i]``, skipping zero
     coefficients.  `dt` is a host scalar (or None), cast to the dtype of
     `vecs` as JAX's `cast_time` casts it, or a 0-d tensor carrying a time
-    gradient (the implicit fixed-grid tier), cast the same way.
+    derivative (the implicit fixed-grid tier's gradient, `forward_grad`'s
+    tangent), cast the same way.
 
     Each coefficient is scaled by dt BEFORE the multiply-accumulate, as the
     reference does (``sum(k * (beta_i * dt))``, rk_common.py:79; JAX
@@ -40,7 +41,7 @@ def weighted_sum(coeffs, vecs, dt=None, base=None):
     """
     dtype = vecs[0].dtype
     sd = scalar_type(dtype)
-    timed = isinstance(dt, torch.Tensor) and dt.requires_grad
+    timed = isinstance(dt, torch.Tensor) and carries_derivative(dt)
     if timed:
         dt = dt.to(dtype)
     elif dt is not None:
@@ -73,7 +74,8 @@ def runge_kutta_step(func, y0, f0, t0, dt, t1, tableau: ButcherTableau,
     Args:
         func: perturb-aware field ``func(t, y, perturb=...)``.
         y0, f0: state and derivative at t0.
-        t0, dt, t1: host time scalars; cast to the state dtype here.
+        t0, dt, t1: host time scalars, or 0-d tensors carrying tangents
+            (``forward_grad``); cast to the state dtype here.
         error_dtype: optional dtype of the embedded error: every slope is
             cast to it before the error sum (JAX rk_step.py:105-109), e.g.
             float32 for a bfloat16 state, whose near-cancelling error sum
@@ -83,7 +85,7 @@ def runge_kutta_step(func, y0, f0, t0, dt, t1, tableau: ButcherTableau,
         (y1, f1, y1_error, k) with k the tuple of stage slopes.
     """
     sd = scalar_type(y0.dtype)
-    t0, dt, t1 = sd(t0), sd(dt), sd(t1)
+    t0, dt, t1 = (tcast(x, y0.dtype) for x in (t0, dt, t1))
 
     k = [f0]
     yi = y0

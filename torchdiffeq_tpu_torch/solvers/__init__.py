@@ -1,13 +1,13 @@
 """Solver registry (counterpart of ``torchdiffeq_tpu/solvers/__init__.py``).
 
-Every JAX method but the SciPy bridge is here, with JAX's kinds:
-'adaptive' (the tableau-generic host loop, `adaptive_rk.py`; kvaerno3,
-kvaerno5 and radau5a through its implicit step functions,
-`adaptive_implicit.py`), 'fixed' (`fixed_grid.py`; `rk4` also has the fused
-kernel route of `odeint`, ``options=dict(pallas=True, num_steps=N)``),
-'adams' (`adams.py`), and 'firk' and 'dirk' (`fixed_grid_implicit.py`),
-the last three on the fixed-grid loop.  `scipy_solver` maps to the ROADMAP
-item that ports it.
+Every JAX method is here, with JAX's kinds: 'adaptive' (the
+tableau-generic host loop, `adaptive_rk.py`; kvaerno3, kvaerno5 and
+radau5a through its implicit step functions, `adaptive_implicit.py`),
+'fixed' (`fixed_grid.py`; `rk4` also has the fused kernel route of
+`odeint`, ``options=dict(pallas=True, num_steps=N)``), 'adams'
+(`adams.py`), 'firk' and 'dirk' (`fixed_grid_implicit.py`), the last three
+on the fixed-grid loop, and 'scipy' (`scipy_wrapper.py`, SciPy's
+``solve_ivp`` on the host).
 """
 from __future__ import annotations
 
@@ -40,14 +40,12 @@ SOLVERS = {
     'radau5a': dict(kind='adaptive', tableau=tb.RADAU5A),
     # the reference's alias
     'fixed_adams': dict(kind='adams', implicit=True),
+    'scipy_solver': dict(kind='scipy'),
 }
 
 # differentiated through the fixed-grid loop by autograd (JAX
 # DIRECT_DIFF_KINDS); the adaptive kind takes the continuous adjoint
 DIRECT_DIFF_KINDS = frozenset({'fixed', 'adams', 'firk', 'dirk'})
-
-NOT_PORTED = {'scipy_solver': 'ROADMAP A10 (SciPy bridge)'}
-
 
 def needs_jacobian(method):
     """Whether `method` solves stage systems, whose Newton iterations and

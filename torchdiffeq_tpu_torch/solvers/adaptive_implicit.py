@@ -18,24 +18,21 @@ contract of `ops.rk_step.runge_kutta_step`: ``(y1, f1, y1_error, k)``.
   estimate, so the controller rejects the step and shrinks it instead of
   failing the solve.
 * ``error_dtype`` forms the error estimate from the slopes cast to it.
-* No gradient is taken through a stage solve: an adaptive solve's
-  gradients come from the continuous adjoint (ROADMAP C4), whose backward
-  solves run their stage solves with no graph.  JAX's ``custom_root`` is
-  needed only by its replay and forward gradients (ROADMAP A10).
+* The Newton iterations record no derivative.  Under autograd (the
+  replay of ``replay_grad``, `replay.py`) or with forward-mode tangents
+  (``forward_grad``) a converged stage carries the implicit-function-
+  theorem derivative of `fixed_grid_implicit.root_solve`, as JAX's
+  ``custom_root`` does; the continuous adjoint's solves run with no graph
+  and take none.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..misc import Perturb, scalar_type
+from ..misc import Perturb, scalar_type, tcast, tval
 from ..ops.rk_step import weighted_sum
-from .fixed_grid_implicit import _iterate, solve_tol
-
-
-def _newton(residual, x0, tol, max_iters):
-    with torch.no_grad():
-        return _iterate(residual, x0, tol, max_iters, newton=True)
+from .fixed_grid_implicit import root_solve, solve_tol
 
 
 def _error_sum(tab, k, dtc, error_dtype):
@@ -48,8 +45,10 @@ def _error_sum(tab, k, dtc, error_dtype):
 
 
 def _times(t0, dt, t1, dtype):
-    sd = scalar_type(dtype)
-    return sd, sd(t0), sd(dt), sd(t1)
+    """The step's times in the state dtype: host scalars, or tensors with
+    their tangents (``forward_grad``)."""
+    return (scalar_type(dtype), tcast(t0, dtype), tcast(dt, dtype),
+            tcast(t1, dtype))
 
 
 def _stage_time(alpha_i, sd, t0c, dtc, t1c):
@@ -82,7 +81,7 @@ def make_esdirk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
         for i in range(1, tab.n_stages):
             base = y0 + weighted_sum(beta[i, :i], k, dtc)
             ti, perturb = _stage_time(float(alpha[i]), sd, t0c, dtc, t1c)
-            dt_gamma = float(dtc * sd(float(beta[i, i])))
+            dt_gamma = tval(dtc * sd(float(beta[i, i])))
 
             def residual(kf, base=base, ti=ti, perturb=perturb,
                          dt_gamma=dt_gamma):
@@ -91,8 +90,8 @@ def make_esdirk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
                                   perturb=perturb)).reshape(-1)
 
             # the previous stage's slope is the predictor
-            k_i, conv = _newton(residual, k[i - 1].reshape(-1), tol,
-                                max_iters)
+            k_i, conv = root_solve(residual, k[i - 1].reshape(-1), tol,
+                                   max_iters, newton=True)
             k.append(k_i.view(shape))
             converged = converged and conv
         y1 = y0 + weighted_sum(tab.c_sol, k, dtc)
@@ -132,7 +131,8 @@ def make_firk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
                                            perturb=perturb).reshape(-1))
             return torch.cat(res)
 
-        Kr, converged = _newton(residual, f0f.repeat(m), tol, max_iters)
+        Kr, converged = root_solve(residual, f0f.repeat(m), tol, max_iters,
+                                   newton=True)
         k = tuple([f0] + [x.view(shape) for x in Kr.view(m, n).unbind(0)])
         y1 = weighted_sum(tab.c_sol, k, dtc, base=y0)
         y1_error = _error_sum(tab, k, dtc, error_dtype)

@@ -7,7 +7,13 @@ one step on the device and reads back ONE set of values -- the error ratio,
 whether the new state is finite, and in an event solve the event's sign at
 the step's end -- from which the host decides accept or reject, the next
 step size, the guards, the output emission and the end of an event solve.  Time is
-a float64 host scalar throughout.  Numerics (controller constants, FSAL,
+a float64 host scalar throughout, except under ``forward_grad``: there the
+output times, the step times and the step size are 0-d float64 CPU tensors
+that carry forward-mode tangents (the field gets its time as a 0-d CPU
+tensor in any case), so that a ``torch.func.jvp`` through the solve sees
+the tangent of every step size the controller picks, as JAX's ``jax.jvp``
+through its ``while_loop`` does; the host's decisions read their primal
+values, and the loop runs under ``torch.no_grad()``.  Numerics (controller constants, FSAL,
 perturbation, emission through the quartic interpolant, the per-interval
 `max_num_steps` budget, NaN poisoning of unwritten outputs) are the JAX
 solver's, so values and `Stats` counters match it.
@@ -47,22 +53,25 @@ from ..ops.interp import (coeff_dtype, interp_fit_step, interp_evaluate,
 from ..ops.rk_step import runge_kutta_step
 from ..ops.step_control import (select_initial_step, compute_error_ratio,
                                 optimal_step_size, optimal_step_size_pi,
-                                optimal_step_size_pid)
+                                optimal_step_size_pid, _f64)
 from ..ops.tableaus import ButcherTableau
 from .solution import (Stats, OK, ERR_DT_UNDERFLOW, ERR_NONFINITE_STATE,
                        ERR_MAX_NUM_STEPS)
 
-# JAX adaptive options that belong to later slices of the port.
+# JAX adaptive options the port does not take (TPU measures).
 NOT_PORTED_OPTIONS = {
-    'replay_grad': 'ROADMAP A10', 'max_segments': 'ROADMAP A10',
-    'forward_grad': 'ROADMAP A10', 'compensated_time': "ROADMAP 'Not to port'",
+    'compensated_time': "ROADMAP 'Not to port'",
     '_jump_branch_free': "ROADMAP 'Not to port'",
 }
+# the gradient modes' options are consumed by `odeint` before the config is
+# built; elsewhere (`odeint_adjoint`'s forward) they are accepted and
+# dropped, as JAX's `_adaptive_config` accepts them
 SUPPORTED_OPTIONS = {'first_step', 'safety', 'ifactor', 'dfactor',
                      'min_step', 'max_step', 'max_num_steps', 'step_t',
                      'jump_t', 'jump_state_fn', 'step_to_end', 'controller',
                      'pcoeff', 'icoeff', 'dcoeff', 'error_dtype',
-                     'stage_tol', 'max_iters'}
+                     'stage_tol', 'max_iters', 'replay_grad', 'max_segments',
+                     'forward_grad'}
 
 
 class AdaptiveConfig(NamedTuple):
@@ -105,7 +114,7 @@ def _prep_tvals(tvals, t0):
     clipped to the array so that an exhausted array keeps pointing at its
     last entry, which the window test then never passes."""
     tvals = np.sort(np.asarray(tvals, dtype=np.float64).reshape(-1))
-    idx = int(np.clip(np.searchsorted(tvals, t0, side='right'), 0,
+    idx = int(np.clip(np.searchsorted(tvals, float(t0), side='right'), 0,
                       tvals.shape[0] - 1))
     return tvals, idx
 
@@ -160,7 +169,8 @@ def _tvals(tvals, t0):
 
 def _setup(func, y0, t0, cfg: AdaptiveConfig):
     """Initial f0 and dt (reference `_before_integrate`,
-    rk_common.py:213-241).  Returns (f0, dt0, nfe0)."""
+    rk_common.py:213-241).  Returns (f0, dt0, nfe0); dt0 a float64 host
+    scalar, or a 0-d tensor when `t0` is one (``forward_grad``)."""
     f0 = func(t0, y0, perturb=Perturb.NONE)
     if cfg.first_step is None:
         dt0 = select_initial_step(func, t0, y0, cfg.tableau.order - 1,
@@ -170,6 +180,10 @@ def _setup(func, y0, t0, cfg: AdaptiveConfig):
 
 
 def _clip(x, lo, hi):
+    """``jnp.clip`` of a float64 host scalar, or of a 0-d tensor with its
+    tangent."""
+    if isinstance(x, torch.Tensor):
+        return torch.clamp(x, float(lo), float(hi))
     return np.minimum(np.maximum(x, lo), hi)
 
 
@@ -179,6 +193,8 @@ class _Carry:
     the counters and the error code (the JAX `_Carry`)."""
 
     def __init__(self, func, y0, t0, cfg: AdaptiveConfig):
+        # tensor time, with tangents (`forward_grad`)
+        self.timed = isinstance(t0, torch.Tensor)
         self.f, self.dt, self.nfe = _setup(func, y0, t0, cfg)
         self.y = y0
         self.t0 = self.t1 = t0
@@ -191,6 +207,9 @@ class _Carry:
         self.y_finite = bool(torch.isfinite(y0).all())
         self.step_t = _tvals(cfg.step_t, t0)
         self.jump_t = _tvals(cfg.jump_t, t0)
+        # step_to_end's forced boundaries that are output times, as tensors
+        # carrying their tangents (`forward_grad`; filled by `integrate`)
+        self.out_times = {}
 
     def stats(self):
         return Stats.make(nfe=self.nfe, n_steps=self.n_steps,
@@ -238,7 +257,9 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
         v = c.step_t.next
         on_step_t = t0 < v < t1
         if on_step_t:
-            t1 = v
+            # a forced boundary on an output time carries that time's
+            # tangent (`forward_grad` with step_to_end)
+            t1 = c.out_times.get(v, v)
     if c.jump_t is not None:
         v = c.jump_t.next
         on_jump_t = t0 < v < t1
@@ -253,6 +274,7 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
         dt = t1 - t0
 
     # --- the RK step, and the one host read of the iteration --------------
+    timed = c.timed
     if cfg.step_fn is None:
         y1, f1, y1_err, k = runge_kutta_step(func, c.y, c.f, t0, dt, t1, tab,
                                              error_dtype=cfg.error_dtype)
@@ -271,7 +293,13 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
     read = [ratio_t, torch.isfinite(y1).all().to(ratio_t.dtype)]
     if probe is not None:
         read.append(probe(t1, y1).to(ratio_t.dtype))
-    ratio, y1_finite, *probed = torch.stack(read).tolist()
+    read = torch.stack(read)
+    if timed:
+        # the ratio's tangent goes on to the controller; the copy to the
+        # host is the one read of the step
+        read = read.cpu()
+        ratio_t = read[0]
+    ratio, y1_finite, *probed = read.tolist()
     accept = ratio <= 1
     if dt > max_step:
         accept = False
@@ -307,14 +335,16 @@ def _adaptive_step(c: _Carry, func, cfg: AdaptiveConfig, probe=None):
                        else 'callback_reject_step', None)
     if callback is not None:
         callback(t0, y0, dt)                 # reference rk_common.py:339,354
-    c.dt = _clip(_next_step(c, cfg, dt, ratio, accept), min_step, max_step)
+    c.dt = _clip(_next_step(c, cfg, dt, ratio_t if timed else ratio, accept),
+                 min_step, max_step)
     return accept, (probed[0] if probed else None)
 
 
 def _next_step(c: _Carry, cfg: AdaptiveConfig, dt, ratio, accept):
     """The controller's next step size; PI and PID take the last one and
     two accepted error ratios, updated on accept (JAX
-    adaptive_rk.py:349-365)."""
+    adaptive_rk.py:349-365).  `ratio` is a host scalar, or a 0-d tensor
+    with its tangent (``forward_grad``)."""
     order = cfg.tableau.order
     if cfg.controller == 'pid':
         dt_next = optimal_step_size_pid(
@@ -328,34 +358,43 @@ def _next_step(c: _Carry, cfg: AdaptiveConfig, dt, ratio, accept):
         return optimal_step_size(dt, ratio, cfg.safety, cfg.ifactor,
                                  cfg.dfactor, order)
     if accept:
-        c.prev_ratio, c.prev_ratio2 = np.float64(ratio), c.prev_ratio
+        c.prev_ratio, c.prev_ratio2 = _f64(ratio), c.prev_ratio
     return dt_next
 
 
-def integrate(func, y0, ts, cfg: AdaptiveConfig):
+def integrate(func, y0, ts, cfg: AdaptiveConfig, ts_d=None):
     """Integrate to every time in `ts` (increasing float64 host array).
 
     Returns (ys (T, *y0.shape), Stats): the JAX `integrate`
     (adaptive_rk.py:423-613), one `_adaptive_step` per loop iteration.
     With ``step_to_end`` the steps land on the output times and emission
-    copies the state (JAX :446-475, :539).
+    copies the state (JAX :446-475, :539).  `ts_d`, the same times as a
+    float64 CPU tensor carrying tangents, makes the time tensors
+    (``forward_grad``, module docstring): the start, the emission times and
+    step_to_end's boundaries take their tangents from it.
     """
     T = ts.shape[0]
     _check_no_duplicates(cfg.step_t, cfg.jump_t)
+    user_step_t = cfg.step_t
     if cfg.step_to_end:
         cfg = cfg._replace(step_t=_merged_step_t(cfg, ts))
-    c = _Carry(func, y0, ts[0], cfg)
-    out = y0.new_zeros((T,) + tuple(y0.shape))
-    out[0] = y0
-    i_out = 1
+    c = _Carry(func, y0, ts[0] if ts_d is None else ts_d[0], cfg)
+    if ts_d is not None and cfg.step_to_end:
+        # JAX's stable sort keeps a user step_t's copy of an output time,
+        # which has no tangent
+        user = set() if user_step_t is None else set(
+            np.ravel(user_step_t).tolist())
+        c.out_times = {float(ts[j]): ts_d[j] for j in range(1, T)
+                       if float(ts[j]) not in user}
+    out = [y0]
     while ts[-1] > c.t1 and c.err == OK:
         _adaptive_step(c, func, cfg)
         # --- emit every output time this step covered ---------------------
         emitted = False
-        while i_out < T and ts[i_out] > c.t0 and ts[i_out] <= c.t1:
-            out[i_out] = c.y if cfg.step_to_end else interp_evaluate(
-                c.coeff, c.t0, c.t1, ts[i_out])
-            i_out += 1
+        while len(out) < T and ts[len(out)] > c.t0 and ts[len(out)] <= c.t1:
+            t_out = ts[len(out)] if ts_d is None else ts_d[len(out)]
+            out.append(c.y if cfg.step_to_end else interp_evaluate(
+                c.coeff, c.t0, c.t1, t_out).to(y0.dtype))
             emitted = True
         if emitted:
             # max_num_steps bounds steps per output interval (reference
@@ -364,8 +403,8 @@ def integrate(func, y0, ts, cfg: AdaptiveConfig):
 
     if c.err != OK:
         # poison the unwritten tail so stale zeros cannot pass as a result
-        out[i_out:] = float('nan')
-    return out, c.stats()
+        out += [torch.full_like(y0, float('nan'))] * (T - len(out))
+    return torch.stack(out), c.stats()
 
 
 def integrate_until_event(func, y0, t0, event_fn, cfg: AdaptiveConfig):

@@ -36,7 +36,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import Perturb, coef, jacobian, nextafter_down, scalar_type
+from ..misc import (Perturb, carries_derivative, coef, jacobian,
+                    nextafter_down, scalar_type)
 from ..ops import linsolve
 from ..ops.rk_step import weighted_sum
 from .fixed_grid import FixedStepMethod, construct_grid, integrate_fixed_grid
@@ -93,14 +94,18 @@ def _iterate(residual, x0, tol, max_iters, newton):
 
 class _IFT(torch.autograd.Function):
     """``(r, jac) -> zeros_like(r)``, whose backward is ``-solve(J^T, g)``
-    with ``J = jac()``: added to the converged stages it routes their
-    cotangent through the residual `r`, as the implicit function theorem
-    prescribes."""
+    and whose forward-mode derivative is ``-solve(J, r')``, with ``J =
+    jac()``: added to the converged stages it routes their derivatives
+    through the residual `r`, as the implicit function theorem prescribes
+    (JAX's ``custom_root``, in both modes)."""
 
     @staticmethod
-    def forward(ctx, r, jac):
-        ctx.jac = jac
+    def forward(r, jac):
         return torch.zeros_like(r)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.jac = inputs[1]
 
     @staticmethod
     def backward(ctx, g):
@@ -109,16 +114,25 @@ class _IFT(torch.autograd.Function):
         COUNTS['linear_solves'] += 1
         return -linsolve.solve(J.T, g), None
 
+    @staticmethod
+    def jvp(ctx, r_t, jac_t):
+        J = ctx.jac()
+        COUNTS['jacobians'] += 1
+        COUNTS['linear_solves'] += 1
+        return -linsolve.solve(J, r_t)
+
 
 def root_solve(residual, x0, tol, max_iters, newton):
-    """Solve ``residual(x) = 0`` from `x0`; under autograd the root carries
-    the implicit-function-theorem gradient (module docstring).  Returns
-    (x, converged)."""
+    """Solve ``residual(x) = 0`` from `x0`; under autograd, or when the
+    problem carries forward-mode tangents (``forward_grad``), the root
+    carries the implicit-function-theorem derivative (module docstring),
+    not that of the iterations.  Returns (x, converged)."""
     with torch.no_grad():
         x, conv = _iterate(residual, x0.detach(), tol, max_iters, newton)
-    if torch.is_grad_enabled():
+    if torch.is_grad_enabled() or carries_derivative(x0):
+        x = x.detach()
         r = residual(x)
-        if r.requires_grad:
+        if carries_derivative(r):
             def jac(root=x):
                 with torch.no_grad():
                     return jacobian(residual, root)
