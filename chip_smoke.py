@@ -70,7 +70,20 @@ benchmarks/bench_fused_field.py at its full width:
      forward and backward steps and NFE, VF evals/s, and the device-busy
      share and launch count from one `torch.profiler` trace of a step; and
      one `odeint_event` gradient on the card against the CPU;
- 11. a JSON line with one entry per kernel (its launches on its path, its
+ 11-13. the fixed-grid tier, the Adams and implicit tiers and the conv
+     ODE-Net's training step (each phase's function says what it runs);
+ 14. the per-sample batched driver (`solvers/batched_rk.py`, the route of
+     every per-sample problem the kernels do not take): examples/ensemble.py
+     at its defaults (B=1024 damped oscillators with a frequency per sample,
+     args_axes=(-1,), dopri5 rtol=1e-6, float32) with its per-sample first
+     zeros as events, timed, with the driver's iterations, its host reads
+     and launches an iteration and the device's busy share; the driver
+     against K-dopri5 and K-events on the spiral at B=1024 in float32 and
+     float64; the per-sample gradient (float64 card against CPU, through
+     the solve and through the oscillators' per-sample events, and a timed
+     float32 step at B=1024); and benchmarks/bench_ensemble.py's
+     scalar field at B=65536 against its closed form;
+ 15. a JSON line with one entry per kernel (its launches on its path, its
      error against its plain version, its time, the plain version's time,
      its bound on this card and the PyTorch call that computes the same
      function, where one exists), the card's name and power limit, then
@@ -241,6 +254,35 @@ CONV_CHECK_B = 4                         # the card-vs-CPU batch, float64
 # (bench.py:300-330): field evaluations of the forward and of the backward
 JAX_CONV_NFE = (32, 33)
 CONV_STEPS = 12
+# - phase 14, the per-sample driver (examples/ensemble.py and
+#   benchmarks/bench_ensemble.py's "scalar" field, both at their defaults).
+#   The ensemble against its closed form x(t) = exp(-t/20) (cos(w_d t) +
+#   sin(w_d t) / (20 w_d)), w_d^2 = w^2 - 1/400: rtol 1e-6 over up to 700
+#   steps of a float32 state, 2.1e-5 measured on the CPU at B=256; held to
+#   ENS_EXACT.  Its event times within 5% of pi/(2w), the example's own
+#   check (the damping moves the first zero).  The scalar field against its
+#   closed form at rtol 1e-4 on |y| <= 1: 7.6e-5 measured on the CPU at
+#   B=4096; held to SCALAR_EXACT.  The driver against K-dopri5 and K-events
+#   (B3, B4): float32 values within F32_ADAPTIVE_VALUES and steps within
+#   F32_ADAPTIVE_STEPS, as kernel against plain (the kernel keeps its time
+#   and controller in the state dtype, the driver in float64); float64
+#   counts equal on every lane away from an accept boundary, the share of
+#   lanes that differ held to C7's dopri5 bound (DRIVER_FLIP_SHARE,
+#   tests/test_torch_cuda.py), and values within F64_VALUES on the lanes
+#   whose counts agree; event times there within ATOL, the driver's
+#   bisection tolerance (it halves each sample's last step until the
+#   bracket is under atol, as JAX's vmap route does; the kernel halves it
+#   40 times).  The per-sample gradient card against CPU in
+#   float64: GRAD_F64_REL.
+ENS_B, ENS_RTOL, ENS_OMEGA_MAX = 1024, 1e-6, 60.0   # examples/ensemble.py
+ENS_EXACT = 1e-3
+ENS_EVENT_REL = 0.05
+ENS_REPS = 3
+SCALAR_B, SCALAR_LAM_MAX = 65536, 300.0     # benchmarks/bench_ensemble.py
+SCALAR_RTOL, SCALAR_ATOL = 1e-4, 1e-6
+SCALAR_EXACT = 1e-3
+DRIVER_FLIP_SHARE = 0.015
+PS_GRAD_B = 8
 
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
@@ -1771,6 +1813,374 @@ def _phase_conv(torch, kernels, dev):
           f"{err_sci:.2e} of max|y|, nfe {sci[1][1]} == CPU | {phase_s:.1f} s")
 
 
+def _wall_stats(torch, fn, reps):
+    """Median, min and max milliseconds of `reps` calls of `fn` (CUDA
+    events around each; `fn` ends in host reads, so each call is whole),
+    called when the same call has just run once: warm."""
+    ms = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return float(np.median(ms)), float(min(ms)), float(max(ms))
+
+
+def _spread(steps):
+    s = steps.cpu().numpy()
+    return f"{s.min()}/{int(np.median(s))}/{s.max()}"
+
+
+def _lane_spiral(torch, mlp):
+    """The spiral MLP field with a per-sample decay, for phase 14's
+    gradient: f(t, y, lam_i) = mlp(y**3) - lam_i * y, an ``nn.Module``
+    holding the MLP, so that its parameters get gradients."""
+    class LaneSpiral(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.mlp = mlp
+
+        def forward(self, t, y, lam):
+            return self.mlp(t, y) - lam * y
+
+    return LaneSpiral()
+
+
+def _ps_grads(torch, device, npd, b):
+    """The per-sample spiral's gradients of mean(ys**2) in y0, the MLP's
+    parameters and the per-sample decay, B=`b`, on `device`."""
+    from torchdiffeq_tpu_torch import odeint_per_sample
+    model, y_big = _spiral(torch, torch.float64 if npd == np.float64
+                           else torch.float32, device)
+    model.requires_grad_(True)
+    field = _lane_spiral(torch, model)
+    y0 = y_big[:b].clone().requires_grad_(True)
+    lam = torch.linspace(0.1, 0.5, b, dtype=y0.dtype,
+                         device=device).requires_grad_(True)
+    t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+    ys = odeint_per_sample(field, y0, t, args=(lam,), args_axes=(0,),
+                           rtol=RTOL, atol=ATOL)
+    (ys ** 2).mean().backward()
+    return [y0.grad, lam.grad] + [p.grad for p in model.parameters()]
+
+
+def _ps_event_grads(torch, device, b):
+    """Gradients through the first zeros of phase 14's oscillators (B=`b`,
+    float64): of sum(x(event)**2 + v(event)**2) in y0 and in each sample's
+    frequency."""
+    from torchdiffeq_tpu_torch import odeint_per_sample_with_stats
+    rng = np.random.RandomState(0)
+    om = torch.from_numpy(np.exp(rng.uniform(0.0, np.log(ENS_OMEGA_MAX), b))
+                          ).to(device).requires_grad_(True)
+    y0 = torch.stack([torch.ones(b, dtype=torch.float64),
+                      torch.zeros(b, dtype=torch.float64)], 1).to(
+        device).requires_grad_(True)
+    (_, ys2), _ = odeint_per_sample_with_stats(
+        lambda t, y, w: torch.stack([y[1], -w ** 2 * y[0] - 0.1 * y[1]]),
+        y0, torch.tensor([0.0, 2.0], dtype=torch.float64), args=(om,),
+        args_axes=(0,), event_fn=lambda t, y: y[0], rtol=RTOL, atol=ATOL)
+    (ys2[:, 1] ** 2).sum().backward()
+    return [y0.grad, om.grad]
+
+
+def _phase_per_sample(torch, kernels, dev):
+    """Phase 14: the batched per-sample driver on the card -- the ensemble
+    of examples/ensemble.py and its events, the driver against K-dopri5
+    and K-events on the spiral, the per-sample gradient, and
+    benchmarks/bench_ensemble.py's scalar field at B=65536."""
+    from torchdiffeq_tpu_torch import odeint_with_stats, \
+        odeint_per_sample_with_stats
+    from torchdiffeq_tpu_torch.models import LinearEvent
+    from torchdiffeq_tpu_torch.solvers import batched_rk
+    card = _card()
+    p0 = time.perf_counter()
+
+    # (a) examples/ensemble.py at its defaults: damped oscillators with a
+    # frequency per sample, args_axes=(-1,), dopri5, float32
+    def osc(t, y, om):
+        return torch.stack([y[1], -om ** 2 * y[0] - 0.1 * y[1]])
+
+    rng = np.random.RandomState(0)
+    omega = np.exp(rng.uniform(0.0, np.log(ENS_OMEGA_MAX), ENS_B)).astype(
+        np.float32)
+    om = torch.from_numpy(omega).to(dev)
+    y0 = torch.stack([torch.ones(ENS_B), torch.zeros(ENS_B)], 1).to(dev)
+    t = torch.linspace(0.0, 2.0, 5, dtype=torch.float64)
+    kw = dict(args=(om,), args_axes=(-1,), rtol=ENS_RTOL,
+              atol=ENS_RTOL * 1e-2, method="dopri5")
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        batched_rk.reset_lane_counts()
+        ys, st = odeint_per_sample_with_stats(osc, y0, t, **kw)
+        torch.cuda.synchronize()
+        counts = dict(batched_rk.LANE_COUNTS)
+        launched = dict(kernels.launch_counts)
+        om64 = omega.astype(np.float64)
+        wd = np.sqrt(om64 ** 2 - 0.0025)[:, None]
+        tn = t.numpy()[None, :]
+        exact = np.exp(-0.05 * tn) * (np.cos(wd * tn)
+                                      + 0.05 / wd * np.sin(wd * tn))
+        err_ens = float(np.abs(ys[:, :, 0].double().cpu().numpy()
+                               - exact).max())
+        _check(tuple(ys.shape) == (ENS_B, 5, 2) and ys.device == y0.device
+               and int(st.error_code.max()) == 0 and err_ens <= ENS_EXACT
+               and sum(launched.values()) == 0,
+               f"ensemble: error {err_ens}, codes {st.error_code.max()}, "
+               f"kernel launches {launched}")
+        ens_ms = _wall_stats(torch, lambda: odeint_per_sample_with_stats(
+            osc, y0, t, **kw)[1].n_steps.max().item(), ENS_REPS)
+        # the profiled solve spans a tenth of [0, 2]: gathering a trace of
+        # the whole solve's ~200k launches took longer than the phase has
+        # (about 20 s for a quarter of it on the H100)
+        t_prof = torch.tensor([0.0, 0.2], dtype=torch.float64)
+        batched_rk.reset_lane_counts()
+        busy_ms, n_kern, prof_wall = _profiled_step(
+            torch, lambda: odeint_per_sample_with_stats(osc, y0, t_prof,
+                                                        **kw))
+        prof_iters = batched_rk.LANE_COUNTS["iterations"]
+        # one controller for the batch, as the reference runs it
+        _, st_sh = odeint_with_stats(
+            lambda tt_, yy: torch.stack(
+                [yy[:, 1], -om ** 2 * yy[:, 0] - 0.1 * yy[:, 1]], 1),
+            y0, t, rtol=ENS_RTOL, atol=ENS_RTOL * 1e-2)
+        # the first zero of x, each sample its own event
+        t_ev = torch.tensor([0.0, 2.0], dtype=torch.float64)
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        (ev_t, y_ev), st_e = odeint_per_sample_with_stats(
+            osc, y0, t_ev, event_fn=lambda tt_, yy: yy[0], **kw)
+        torch.cuda.synchronize()
+        ev_ms = (time.perf_counter() - w0) * 1e3
+        approx = np.pi / 2 / om64
+        ev = ev_t.cpu().numpy()
+        ev_rel = float(np.max(np.abs(ev - approx) / approx))
+        _check(np.isfinite(ev).all() and (ev > 0).all()
+               and ev_rel < ENS_EVENT_REL
+               and int(st_e.error_code.max()) == 0,
+               f"ensemble events: max rel dev {ev_rel}")
+    iters = counts["iterations"]
+    busy = ("not measured (no device time in the trace)" if busy_ms is None
+            else f"{busy_ms:.2f} ms of device time in {n_kern} kernels over "
+            f"{prof_iters} iterations ({n_kern / prof_iters:.0f} launches an "
+            f"iteration), busy {busy_ms / prof_wall:.1%} of the traced "
+            f"{prof_wall:.1f} ms")
+    print(f"[14a ensemble] {card} | examples/ensemble.py B={ENS_B} damped "
+          f"oscillators, omega in [1, {ENS_OMEGA_MAX:.0f}] per sample "
+          f"(args_axes=(-1,)), dopri5 rtol={ENS_RTOL} atol={ENS_RTOL * 1e-2}, "
+          f"t=linspace(0, 2, 5), float32, the batched driver (no kernel "
+          f"launched) | warm solve median {ens_ms[0]:.1f} ms (min "
+          f"{ens_ms[1]:.1f}, max {ens_ms[2]:.1f}; {ENS_REPS} solves, CUDA "
+          f"events) | driver iterations {iters}, host reads {counts['host_reads']}"
+          f" ({counts['host_reads'] / iters:.3f} an iteration) | per-sample "
+          f"steps min/median/max {_spread(st.n_steps)}; one controller for "
+          f"the batch (odeint_with_stats): {st_sh.n_steps} steps | max|x - "
+          f"exact| {err_ens:.2e} (<= {ENS_EXACT}) | profiled solve on "
+          f"[0, 0.2]: {busy} | event (first zero of x): times in "
+          f"[{ev.min():.4f}, {ev.max():.4f}], max rel dev from pi/(2 omega) "
+          f"{ev_rel:.2%} (< {ENS_EVENT_REL:.0%}), steps {_spread(st_e.n_steps)},"
+          f" wall {ev_ms:.1f} ms | {time.perf_counter() - p0:.1f} s")
+
+    # (b) the spiral at the main path's width: the driver against K-dopri5
+    # and K-events
+    p1 = time.perf_counter()
+    rows = []
+    tb = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+    t_evb = torch.tensor([0.0, 1.0], dtype=torch.float64)
+    for dtype in (torch.float32, torch.float64):
+        model, y_big = _spiral(torch, dtype, dev)
+        yb = y_big[:B].contiguous()
+        # phase 8's threshold and cut-off, the threshold halfway between
+        # the two middle lanes: on the median lane itself the event is zero
+        # at t0, where JAX's vmap route (and the driver) stops with no step
+        # and the kernel, whose sign there is 0, never fires
+        mid = yb[:, 0].double().sort().values[B // 2 - 1:B // 2 + 1]
+        thr = float(mid.mean())
+        event = LinearEvent([[1.0, 0.0], [0.0, 0.0]], time_coef=[0.0, 1.0],
+                            bias=[-thr, -1.0], dtype=dtype,
+                            device=dev).requires_grad_(False)
+        ekw = dict(event_fn=event, rtol=RTOL, atol=ATOL)
+        with torch.no_grad():
+            kernels.reset_launch_counts()
+            kern = odeint_per_sample_with_stats(
+                model, yb, tb, rtol=RTOL, atol=ATOL,
+                options=dict(pallas=True))
+            kern_ev = odeint_per_sample_with_stats(
+                model, yb, t_evb, options=dict(
+                    pallas=True, max_num_steps=EVENT_MAX_STEPS), **ekw)
+            torch.cuda.synchronize()
+            kl = dict(kernels.launch_counts)
+            _check(kl["dopri5_integrate_batched"] == 1
+                   and kl["dopri5_events_batched"] == 1,
+                   f"the kernel routes' launches {kl}")
+            kernels.reset_launch_counts()
+            drv = odeint_per_sample_with_stats(model, yb, tb, rtol=RTOL,
+                                               atol=ATOL)
+            drv_ev = odeint_per_sample_with_stats(
+                model, yb, t_evb, options=dict(
+                    max_num_steps=EVENT_MAX_STEPS), **ekw)
+            torch.cuda.synchronize()
+            _check(sum(kernels.launch_counts.values()) == 0,
+                   f"the driver launched {kernels.launch_counts}")
+            res = {}
+            for name, (k_out, k_st), (d_out, d_st) in (
+                    ("solve", kern, drv), ("events", kern_ev, drv_ev)):
+                if name == "events":
+                    k_out, d_out = k_out[0][:, None], d_out[0][:, None]
+                    same = (k_st.n_steps == d_st.n_steps) & (
+                        k_st.error_code == d_st.error_code)
+                else:
+                    same = ((k_st.n_steps == d_st.n_steps)
+                            & (k_st.n_accepted == d_st.n_accepted))
+                diff = (k_out - d_out).abs().reshape(B, -1).amax(1)
+                dsteps = int((k_st.n_steps - d_st.n_steps).abs().max())
+                flip = float((~same).float().mean())
+                err_all = float(diff.max())
+                err_same = float(diff[same].max()) if bool(same.any()) \
+                    else 0.0
+                _check(int(d_st.error_code.max()) == 0
+                       and bool(torch.isfinite(d_out).all()),
+                       f"driver {name}: not finite or an error code")
+                if dtype == torch.float32:
+                    bound = (F32_EVENT_T if name == "events"
+                             else F32_ADAPTIVE_VALUES)
+                    _check(err_all <= bound and dsteps <= F32_ADAPTIVE_STEPS,
+                           f"driver vs kernel {name} float32: max|d|="
+                           f"{err_all}, max step diff {dsteps}")
+                else:
+                    bound = ATOL if name == "events" else F64_VALUES
+                    _check(flip <= DRIVER_FLIP_SHARE and err_same <= bound,
+                           f"driver vs kernel {name} float64: lanes whose "
+                           f"counts differ {flip}, max|d| where equal "
+                           f"{err_same}")
+                res[name] = (err_all, err_same, dsteps, flip)
+            if dtype == torch.float32:
+                k_ms = _time_ms(torch, lambda: odeint_per_sample_with_stats(
+                    model, yb, tb, rtol=RTOL, atol=ATOL,
+                    options=dict(pallas=True)), 5)
+                ke_ms = _time_ms(torch, lambda: odeint_per_sample_with_stats(
+                    model, yb, t_evb, options=dict(
+                        pallas=True, max_num_steps=EVENT_MAX_STEPS), **ekw),
+                    5)
+                d_ms = _wall_stats(torch, lambda: odeint_per_sample_with_stats(
+                    model, yb, tb, rtol=RTOL, atol=ATOL)[1].n_steps.max(
+                    ).item(), ENS_REPS)
+                de_ms = _wall_stats(torch, lambda: odeint_per_sample_with_stats(
+                    model, yb, t_evb, options=dict(
+                        max_num_steps=EVENT_MAX_STEPS),
+                    **ekw)[1].n_steps.max().item(), ENS_REPS)
+                times = (k_ms, d_ms, ke_ms, de_ms)
+                steps = (_spread(drv[1].n_steps), _spread(drv_ev[1].n_steps))
+        rows.append((dtype, res))
+
+    def brow(dtype, res):
+        name = str(dtype).replace("torch.", "")
+        return name + ": " + ", ".join(
+            f"{k} max|d| {v[0]:.2e} (where counts agree {v[1]:.2e}), max "
+            f"step diff {v[2]}, lanes whose counts differ {v[3]:.4f}"
+            for k, v in res.items())
+
+    print(f"[14b driver vs kernels] {card} | spiral B={B} H={H} T={T} rtol="
+          f"{RTOL} atol={ATOL}: the driver (no pallas) against K-dopri5 and "
+          f"K-events (pallas=True, one launch each; phase 8's LinearEvent, "
+          f"max_num_steps={EVENT_MAX_STEPS}) | "
+          + " | ".join(brow(*r) for r in rows)
+          + f" (bounds: float32 {F32_ADAPTIVE_VALUES}/{F32_EVENT_T} and "
+          f"{F32_ADAPTIVE_STEPS} steps; float64 {F64_VALUES}/{ATOL} where "
+          f"counts agree, share <= {DRIVER_FLIP_SHARE}) | float32 times: "
+          f"K-dopri5 "
+          f"route {times[0]:.3f} ms, driver median {times[1][0]:.1f} ms (min "
+          f"{times[1][1]:.1f}, max {times[1][2]:.1f}), steps {steps[0]}; "
+          f"K-events route {times[2]:.3f} ms, driver median {times[3][0]:.1f}"
+          f" ms (min {times[3][1]:.1f}, max {times[3][2]:.1f}), steps "
+          f"{steps[1]} | {time.perf_counter() - p1:.1f} s")
+
+    # (c) the per-sample gradient: float64 card against CPU, then a timed
+    # float32 step at full width
+    p1 = time.perf_counter()
+    g_cpu = _ps_grads(torch, torch.device("cpu"), np.float64, PS_GRAD_B)
+    g_dev = _ps_grads(torch, dev, np.float64, PS_GRAD_B)
+    rel_g = _max_rel(g_dev, g_cpu)
+    _check(rel_g <= GRAD_F64_REL, f"per-sample gradient card vs CPU {rel_g}")
+    rel_ge = _max_rel(_ps_event_grads(torch, dev, PS_GRAD_B),
+                      _ps_event_grads(torch, torch.device("cpu"), PS_GRAD_B))
+    _check(rel_ge <= GRAD_F64_REL,
+           f"per-sample event gradient card vs CPU {rel_ge}")
+    model, y_big = _spiral(torch, torch.float32, dev)
+    model.requires_grad_(True)
+    field = _lane_spiral(torch, model)
+    lam = torch.linspace(0.1, 0.5, B, device=dev).requires_grad_(True)
+    y0g = y_big[:B].clone().requires_grad_(True)
+    fwd, bwd = [], []
+    for i in range(ENS_REPS + 1):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        ys, stg = odeint_per_sample_with_stats(
+            field, y0g, tb, args=(lam,), args_axes=(0,), rtol=RTOL,
+            atol=ATOL)
+        loss = (ys ** 2).mean()
+        marks[1].record()
+        loss.backward()
+        marks[2].record()
+        torch.cuda.synchronize()
+        if i:
+            fwd.append(marks[0].elapsed_time(marks[1]))
+            bwd.append(marks[1].elapsed_time(marks[2]))
+        for p in (y0g, lam, *model.parameters()):
+            p.grad = None
+    _check(bool(torch.isfinite(loss)), "per-sample float32 loss")
+    print(f"[14c per-sample gradient] {card} | the spiral with a per-sample "
+          f"decay (args_axes=(0,)), loss mean(ys**2), .backward() to y0, the "
+          f"MLPField's parameters and the decay: float64 B={PS_GRAD_B} card "
+          f"vs CPU {rel_g:.2e} of max|g| (<= {GRAD_F64_REL}); through the "
+          f"oscillators' per-sample first zeros (to y0 and omega) "
+          f"{rel_ge:.2e} | float32 B={B}:"
+          f" forward median {np.median(fwd):.1f} ms (min {min(fwd):.1f}, max "
+          f"{max(fwd):.1f}), backward median {np.median(bwd):.1f} ms (min "
+          f"{min(bwd):.1f}, max {max(bwd):.1f}) over {ENS_REPS} warm steps; "
+          f"forward steps {_spread(stg.n_steps)}")
+
+    # (d) benchmarks/bench_ensemble.py's scalar field at B=65536
+    p1 = time.perf_counter()
+    lam_np = np.logspace(0, np.log10(SCALAR_LAM_MAX), SCALAR_B).astype(
+        np.float32)
+    lam_d = torch.from_numpy(lam_np).to(dev)
+    ys0 = torch.ones(SCALAR_B, 1, device=dev)
+    t2 = torch.tensor([0.0, 2.0], dtype=torch.float64)
+    skw = dict(args=(lam_d,), args_axes=(-1,), rtol=SCALAR_RTOL,
+               atol=SCALAR_ATOL)
+
+    def scalar(tt_, yy, l_):
+        return -l_ * yy + torch.sin(tt_)
+
+    with torch.no_grad():
+        batched_rk.reset_lane_counts()
+        ysc, stc = odeint_per_sample_with_stats(scalar, ys0, t2, **skw)
+        torch.cuda.synchronize()
+        sc_counts = dict(batched_rk.LANE_COUNTS)
+        sc_ms = _wall_stats(torch, lambda: odeint_per_sample_with_stats(
+            scalar, ys0, t2, **skw)[1].n_steps.max().item(), ENS_REPS)
+    l64 = lam_np.astype(np.float64)
+    exact = ((1 + 1 / (l64 ** 2 + 1)) * np.exp(-2 * l64)
+             + (l64 * np.sin(2.0) - np.cos(2.0)) / (l64 ** 2 + 1))
+    err_sc = float(np.abs(ysc[:, -1, 0].double().cpu().numpy()
+                          - exact).max())
+    _check(err_sc <= SCALAR_EXACT and int(stc.error_code.max()) == 0,
+           f"scalar ensemble error {err_sc}")
+    print(f"[14d scalar ensemble] {card} | benchmarks/bench_ensemble.py "
+          f"'scalar' y' = -lam y + sin t, lam log-spaced over [1, "
+          f"{SCALAR_LAM_MAX:.0f}] per sample, B={SCALAR_B}, dopri5 rtol="
+          f"{SCALAR_RTOL} atol={SCALAR_ATOL}, t=(0, 2), float32 | warm solve "
+          f"median {sc_ms[0]:.1f} ms (min {sc_ms[1]:.1f}, max {sc_ms[2]:.1f})"
+          f" | steps min/median/max {_spread(stc.n_steps)}, driver iterations"
+          f" {sc_counts['iterations']}, host reads {sc_counts['host_reads']} "
+          f"| max|y(2) - exact| {err_sc:.2e} (<= {SCALAR_EXACT}) | "
+          f"{time.perf_counter() - p1:.1f} s; phase 14 "
+          f"{time.perf_counter() - p0:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2190,6 +2600,8 @@ def main():
     _phase_implicit(torch, kernels, dev)
 
     _phase_conv(torch, kernels, dev)
+
+    _phase_per_sample(torch, kernels, dev)
 
     torch.cuda.synchronize()
     print(_card())

@@ -257,14 +257,51 @@ def test_odeint_per_sample_kernel_route_matches_jax(method):
     dict(options=None), dict(options=dict(pallas=True, rtol_per_leaf=1)),
     dict(options=dict(pallas=True), method='kvaerno3'),
     dict(options=None, event_fn=lambda t, y: y[0]),
-    dict(options=dict(pallas=True), args=(torch.ones(4),), args_axes=(-1,)),
+    dict(options=dict(pallas=True), args=(np.linspace(0.5, 2.0, 4),),
+         args_axes=(-1,)),
 ])
 def test_per_sample_vmap_route_raises(call):
-    y0 = torch.ones(4, 2, dtype=torch.float64)
-    t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
-    func = (lambda tt_, y, a: -y) if 'args' in call else (lambda tt_, y: -y)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.odeint_per_sample(func, y0, t, **call)
+    """The calls that JAX's `_pallas_qualifies` sends to its vmap route, or
+    to the kernel with per-sample args, each as JAX answers it: a problem
+    off the kernel route (no ``pallas``, or an option the kernel does not
+    take) is the batched driver's, values to 1e-12 and `Stats` equal to
+    JAX's vmap route; per-sample args on the kernel route run its plain
+    version, equal to JAX's kernel in interpret mode; a stiff method stays
+    refused (ROADMAP A6b); an event solve with three output times raises
+    the ValueError JAX's vmap route raises."""
+    call = dict(call)
+    y0 = np.linspace(0.5, 1.5, 8).reshape(4, 2)
+    t = np.linspace(0.0, 1.0, 3)
+    args = call.pop('args', ())
+    if args:
+        j_func, t_func = (lambda tt_, y, a: -a * y), (lambda tt_, y, a: -a * y)
+    else:
+        j_func, t_func = (lambda tt_, y: -y), (lambda tt_, y: -y)
+    t_call = lambda: tt.odeint_per_sample_with_stats(
+        t_func, torch.from_numpy(y0), torch.from_numpy(t),
+        args=tuple(torch.from_numpy(a) for a in args), **call)
+    if call.get('method') == 'kvaerno3':
+        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
+            t_call()
+        return
+    j_opts = call.pop('options', None)
+    if j_opts and j_opts.get('pallas'):
+        j_opts = dict(j_opts, interpret=True)
+    j_call = lambda: j_per_sample(j_func, jnp.asarray(y0), jnp.asarray(t),
+                                  args=tuple(jnp.asarray(a) for a in args),
+                                  options=j_opts, **call)
+    if 'event_fn' in call:
+        for run in (j_call, t_call):
+            with pytest.raises(ValueError, match="len\\(t\\) == 2"):
+                run()
+        return
+    ys_j, st_j = j_call()
+    with torch.no_grad():
+        ys_t, st_t = t_call()
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=1e-12)
+    for a, b in zip(st_t[:5], st_j[:5]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_cuda_route_refuses_a_field_it_cannot_run():

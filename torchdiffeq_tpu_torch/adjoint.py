@@ -464,7 +464,10 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None):
             out = torch.cat([o.reshape(-1) for o in out])
         return out if sign > 0 else -out
 
-    def aug_dyn(s, aug):
+    def aug_dyn(s, aug, *ps):
+        # `ps`, the differentiated tensors, default to `params` detached;
+        # the per-sample driver passes each sample's own (a per-sample
+        # arg's row, under ``torch.func.vmap``)
         _, y, adj_y, _ = layout.split(aug)
         if y_of is not None:
             y = y_of(s)
@@ -472,8 +475,8 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None):
         # a copy to the device, not a host read (`misc.jacobian` refuses
         # reads); non-blocking, so that it does not wait for the stream
         s_d = torch.as_tensor(s).to(device=dev, dtype=adt, non_blocking=True)
-        f, pullback = torch.func.vjp(lambda s_, y_, *ps: f_dir(s_, y_, ps),
-                                     s_d, y, *detached)
+        f, pullback = torch.func.vjp(lambda s_, y_, *ps_: f_dir(s_, y_, ps_),
+                                     s_d, y, *(ps or detached))
         grads = pullback(-adj_y)
         dy = [] if y_of is not None else [f.reshape(-1).to(adt)]
         return torch.cat([grads[0].reshape(1).to(adt), *dy,

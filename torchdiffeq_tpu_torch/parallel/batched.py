@@ -1,69 +1,105 @@
-"""Per-sample batched adaptive step control (counterpart of
+"""Per-sample batched solves (counterpart of
 ``torchdiffeq_tpu/parallel/batched.py``).
 
 The reference shares one error norm across the whole batch, so one stiff
 sample shrinks every sample's steps.  Here every sample gets its own
-accept/reject sequence and step size.  This slice carries the kernel route
-(``options=dict(pallas=True)``): the whole batched solve is the per-lane
-kernel `ops/kernels.dopri5_integrate_batched` on CUDA (an `MLPField`
-field), or its plain version on the CPU (any per-sample field).  With
-``event_fn`` each sample integrates until its own event fires, in
-`ops/kernels.dopri5_events_batched` (an `MLPField` field and a
-`LinearEvent` event on CUDA; any per-sample functions on the CPU).  The
-JAX package's vmap route is ROADMAP A6, and so are per-sample args
-(``args_axes=-1``).
+accept/reject sequence and step size, by two routes chosen with JAX's
+rules (`_pallas_qualifies`, batched.py:57-78):
+
+* the kernel route, for ``options=dict(pallas=True)`` and a problem the
+  per-lane kernel takes (a per-lane method, a 2-D real (B, D) state,
+  increasing output times, scalar tolerances, the kernel's options alone,
+  args shared or mapped over their last axis): the whole batched solve is
+  `ops/kernels.dopri5_integrate_batched` on CUDA (an `MLPField` field with
+  no args), or its plain version on the CPU (any per-sample field and
+  args); with ``event_fn`` `ops/kernels.dopri5_events_batched` (an
+  `MLPField` and a `LinearEvent` on CUDA).  On a CUDA tensor a field the
+  kernel cannot evaluate raises: it never falls to the driver quietly.
+  The route is forward-only, as JAX's is.
+* the batched driver, for every other problem (JAX's
+  ``jax.vmap(odeint_with_stats)``, batched.py:252-260): the explicit
+  adaptive methods through `solvers/batched_rk.py`, a masked host loop with
+  a controller per sample, and the explicit fixed-grid methods through
+  `solvers/fixed_grid.integrate_fixed_grid` over the lane-vectorised field
+  (the grid comes from the shared `t`, so it is every sample's).  Each
+  sample's field is ``func(t_i, y_i, *args_i)`` vectorised by
+  ``torch.func.vmap``; ``args_axes`` maps an arg over any axis.  Events
+  per sample on both tiers.  Gradients: the fixed grid by autograd through
+  its loop; the adaptive tier by the continuous adjoint vmapped (JAX's
+  custom_vjp under vmap, ROADMAP C4): each sample solves its own backward
+  with its own controller and adjoint norm, a shared parameter's gradient
+  is the sum of the samples' and a per-sample arg's is its own row; an
+  adaptive event solve backpropagates each sample as if it had integrated
+  to its own event time (JAX's event-mode adjoint under vmap).
+
+What the driver does not take yet raises `NotImplementedError` naming
+ROADMAP A6b: the Adams, implicit fixed-grid and stiff tiers, the gradient
+modes (``replay_grad``, ``forward_grad``), the SciPy bridge, callbacks (JAX
+calls them back once per sample), a ``grid_constructor``, and gradients
+through a per-sample fixed-grid event.
 """
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
-from ..misc import host_times, nan_sign, needs_autograd, np_dtype
+from ..misc import (check_inputs, host_times, is_tuple_state, nan_sign,
+                    needs_autograd, np_dtype, CALLBACK_NAMES)
 from ..models.neural_ode import LinearEvent, MLPField
+from ..solvers import SOLVERS
+from ..solvers import batched_rk
+from ..solvers.batched_rk import LaneField, lane_norm
 from ..solvers.solution import Stats, OK, ERR_MAX_NUM_STEPS
 
-# options the per-lane kernel route understands (the JAX set, less the
-# Pallas interpreter switch)
+A6B = "ROADMAP A6b"
+
+# options the per-lane kernel route understands (JAX's set; `interpret`,
+# the Pallas interpreter switch, is accepted and dropped)
 _PALLAS_OPTS = {'pallas', 'first_step', 'safety', 'ifactor', 'dfactor',
-                'max_num_steps'}
+                'max_num_steps', 'interpret'}
 
 
-def _kernel_route(y0, t, rtol, atol, method, options, args_axes, kwargs):
-    """The JAX `_pallas_qualifies` rules (batched.py:57-78); a problem that
-    would take the vmap route there raises here.  Returns the host times."""
+def _pallas_qualifies(y0, t, rtol, atol, method, options):
+    """JAX `_pallas_qualifies` (batched.py:57-78): the host output times if
+    the problem takes the kernel route, else None."""
     from ..ops.kernels import PER_LANE_METHODS
-    todo = "the vmap route of odeint_per_sample is not ported yet (ROADMAP A6)"
-    if args_axes is not None and any(a is not None for a in args_axes):
-        raise NotImplementedError(
-            "per-sample args (args_axes) are not ported yet (ROADMAP A6)")
-    if kwargs:
-        raise NotImplementedError(f"{todo}: options {sorted(kwargs)}")
     if not isinstance(options, dict) or not options.get('pallas'):
-        raise NotImplementedError(
-            f"{todo}; pass options=dict(pallas=True) for the kernel route")
+        return None
     if method is not None and method not in PER_LANE_METHODS:
-        raise NotImplementedError(f"{todo}: method {method!r}")
+        return None
     if set(options) - _PALLAS_OPTS:
-        raise NotImplementedError(
-            f"{todo}: options {sorted(set(options) - _PALLAS_OPTS)}")
+        return None
     if np.ndim(rtol) != 0 or np.ndim(atol) != 0:
-        raise NotImplementedError(f"{todo}: per-element tolerances")
+        return None
     if not isinstance(y0, torch.Tensor) or y0.dim() != 2 or y0.is_complex():
-        raise NotImplementedError(f"{todo}: state that is not a real (B, D) "
-                                  "tensor")
+        return None
     t_np = host_times(t)
     if t_np.shape[0] < 2 or not (np.diff(t_np) > 0).all():
-        raise NotImplementedError(f"{todo}: output times that are not "
-                                  "increasing")
+        return None
     return t_np
 
 
-def _lane_field(func, args):
+def _norm_args_axes(args, args_axes):
+    """`args_axes` as a per-arg tuple of None / axis ints (JAX
+    `_norm_args_axes`, batched.py:81-90)."""
+    if args_axes is None:
+        return (None,) * len(args)
+    args_axes = tuple(args_axes)
+    if len(args_axes) != len(args):
+        raise ValueError(f"args_axes has {len(args_axes)} entries for "
+                         f"{len(args)} args")
+    return args_axes
+
+
+def _lane_field(func, args, axes):
     """Lane-vectorise a per-sample ``func(t, y_i, *args)`` to the kernel
-    layout: t (1, B), y (D, B) with the batch on the last axis."""
-    per_sample = torch.func.vmap(
-        lambda tt, yy: func(tt, yy, *args), in_dims=(0, 1), out_dims=1)
-    return lambda tv, yv: per_sample(tv[0], yv)
+    layout: t (1, B), y (D, B) with the batch on the last axis, args mapped
+    over their last axis where `axes` says -1."""
+    dims = tuple(None if a is None else -1 for a in axes)
+    per_sample = torch.func.vmap(func, in_dims=(0, 1) + dims, out_dims=1)
+    return lambda tv, yv: per_sample(tv[0], yv, *args)
 
 
 def _lane_event(event_fn):
@@ -84,56 +120,40 @@ def _per_step_nfe(method):
     return len(alpha) + (0 if fsal else 1)
 
 
-def odeint_per_sample(func, y0, t, args=(), args_axes=None, **kwargs):
-    """Batched solve with independent per-sample step-size controllers.
-
-    Args:
-        func: vector field per sample, ``func(t, y_i, *args)`` with `y_i`
-            one sample (no batch axis).  An `MLPField` runs in the CUDA
-            kernel; any other field runs on CPU tensors only.
-        y0: (B, D) initial states.
-        t: (T,) shared increasing output times.
-        **kwargs: ``rtol``, ``atol``, ``method`` and ``options``, which
-            must include ``pallas=True`` (the kernel route).
-
-    Returns:
-        ys of shape (B, T, D).
-    """
-    ys, _ = odeint_per_sample_with_stats(func, y0, t, args=args,
-                                         args_axes=args_axes, **kwargs)
-    return ys
-
-
-def odeint_per_sample_with_stats(func, y0, t, args=(), args_axes=None, *,
-                                 rtol=1e-7, atol=1e-9, method=None,
-                                 options=None, event_fn=None, **kwargs):
-    """Like `odeint_per_sample`, also returning per-sample `Stats`, each
-    counter a (B,) int32 tensor: ``nfe = per_step_nfe * n_steps + init``,
-    ``n_rejected = n_steps - n_accepted``, and ``ERR_MAX_NUM_STEPS`` where
-    a sample used all `max_num_steps` steps (JAX batched.py:114-147).
-
-    With ``event_fn`` (a per-sample ``event_fn(t, y_i)`` with one or more
-    outputs; a `LinearEvent` on CUDA) and `t` of shape (2,), each sample
-    integrates until its own event fires, and the result is
-    ``((event_t (B,), ys (B, 2, D)), Stats)`` with ``ys[:, 1]`` the state
-    at the event; a sample whose event did not fire within `max_num_steps`
-    steps has ``event_t`` NaN and ``ERR_MAX_NUM_STEPS``."""
+def _kernel_route(func, y0, t_np, rtol, atol, method, options, event_fn,
+                  args, axes):
+    """The per-lane kernel route (JAX `_pallas_per_sample(_event)`,
+    batched.py:107-200)."""
     from ..ops.kernels import dopri5_integrate_batched, dopri5_events_batched
 
-    t_np = _kernel_route(y0, t, rtol, atol, method, options, args_axes,
-                         kwargs)
+    if y0.dtype not in (torch.float32, torch.float64):
+        raise NotImplementedError(
+            f"state dtype {y0.dtype} on the per-lane kernel route: the "
+            "port's kernels take float32 and float64 states (a 16-bit "
+            f"instance is {A6B}); drop pallas=True for the batched driver")
     if needs_autograd(func, y0, *args) or (event_fn is not None
                                             and needs_autograd(event_fn)):
         raise RuntimeError(
-            "the per-sample kernel route is forward-only (as in the JAX "
-            "package): call it under torch.no_grad(); differentiable "
-            "per-sample solves come with the batched driver (ROADMAP A6)")
+            "the per-sample kernel route is forward-only, as in the JAX "
+            "package (ROADMAP A6): call it under torch.no_grad(), or drop "
+            "pallas=True for the batched driver, which differentiates")
+    if y0.is_cuda and not (isinstance(func, MLPField) and not args):
+        raise TypeError(
+            "the per-lane CUDA kernels evaluate an MLPField with no args, "
+            f"not {type(func).__name__} with {len(args)} args; drop "
+            "pallas=True for the batched driver, which takes any field")
+    if y0.is_cuda and event_fn is not None \
+            and not isinstance(event_fn, LinearEvent):
+        raise TypeError(
+            "the per-lane CUDA event kernel evaluates a LinearEvent, not "
+            f"{type(event_fn).__name__}; drop pallas=True for the batched "
+            "driver, which takes any event function")
     method = method or 'dopri5'
     ts = t_np.astype(np_dtype(y0.dtype))
     if isinstance(func, MLPField) and not args:
         field = func   # the kernel's field family, evaluated in-kernel
     else:
-        field = _lane_field(func, tuple(args))
+        field = _lane_field(func, tuple(args), axes)
     max_steps = int(options.get('max_num_steps', 10_000))
     control = dict(rtol=float(rtol), atol=float(atol), method=method,
                    max_steps=max_steps,
@@ -144,9 +164,9 @@ def odeint_per_sample_with_stats(func, y0, t, args=(), args_axes=None, *,
     init_nfe = 1 if options.get('first_step') is not None else 2
 
     if event_fn is not None:
-        # JAX `_pallas_per_sample_event` (batched.py:150-200): t is (t0, a
-        # point giving the direction), and every sample stops at its own
-        # event; the outputs are sign-combined with the signs at t0
+        # t is (t0, a point giving the direction), and every sample stops
+        # at its own event; the outputs are sign-combined with the signs at
+        # t0 (JAX batched.py:150-200, :240-249)
         if t_np.shape[0] != 2:
             raise ValueError(
                 "per-sample event solves require t of shape (2,) "
@@ -172,3 +192,451 @@ def odeint_per_sample_with_stats(func, y0, t, args=(), args_axes=None, *,
         n_accepted=acc_b, n_rejected=stp_b - acc_b,
         error_code=torch.where(failed, ERR_MAX_NUM_STEPS, OK).to(torch.int32))
     return result, stats
+
+
+def _check_event_times(t_np):
+    """The vmap route's check (JAX misc.py `check_inputs`)."""
+    if t_np.shape[0] != 2:
+        raise ValueError("We require len(t) == 2 when in event handling "
+                         f"mode, but got len(t)={t_np.shape[0]}.")
+
+
+# ---- the batched driver ------------------------------------------------------
+
+def _refuse(func, method, options):
+    """What the batched driver does not take yet (ROADMAP A6b)."""
+    name = method or 'dopri5'
+    spec = SOLVERS.get(name)
+    if spec is None:
+        raise ValueError('Invalid method "{}". Must be one of {}'.format(
+            name, '{"' + '", "'.join(SOLVERS.keys()) + '"}.'))
+    kind = spec['kind']
+    if kind not in ('adaptive', 'fixed') or (
+            kind == 'adaptive' and spec['tableau'].implicit):
+        raise NotImplementedError(
+            f"method {name!r} on the per-sample route: the Adams, implicit "
+            "and stiff tiers (per-sample convergence, batched Newton and LU "
+            f"solves) and the SciPy bridge are {A6B}")
+    for opt in ('replay_grad', 'forward_grad', 'grid_constructor'):
+        if (options or {}).get(opt):
+            raise NotImplementedError(
+                f"option {opt!r} on the per-sample route ({A6B})")
+    cbs = [n for n in CALLBACK_NAMES if getattr(func, n, None) is not None]
+    if cbs:
+        raise NotImplementedError(
+            f"callbacks {cbs} on the per-sample route: JAX calls them back "
+            f"once per sample ({A6B})")
+    return name, spec
+
+
+def _lane_problem(func, y0, t, rtol, atol, method, options, args, axes,
+                  time_direction='auto'):
+    """The per-sample normalised problem: `check_inputs` on one sample (the
+    internal times, tolerances, options and the per-sample norm and tuple
+    layout), the batch in the solver's layout (a tuple state flattened per
+    sample to (B, n)) and the batched field."""
+    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    if not all(isinstance(x, torch.Tensor) and x.dim() >= 1
+               for x in leaves):
+        raise TypeError("y0 must be a tensor, or a tuple of tensors, with a "
+                        "leading batch axis")
+    B = leaves[0].shape[0]
+    if any(x.shape[0] != B for x in leaves):
+        raise ValueError("every leaf of y0 must have the same batch size")
+    sample = type(y0)(x[0] for x in leaves) if is_tuple_state(y0) else y0[0]
+    prob = check_inputs(lambda tt, yy: yy, sample, t, rtol, atol, method,
+                        options, None, SOLVERS, time_direction=time_direction)
+    unravel = prob.unravel
+    if unravel is None:
+        y0_b = y0
+    else:
+        y0_b = torch.cat([x.reshape(B, -1).to(prob.y0.dtype)
+                          for x in leaves], dim=1)
+
+    def one(tt, yy, *aa):
+        out = func(tt, yy if unravel is None else unravel(yy), *aa)
+        if unravel is not None:
+            out = torch.cat([o.reshape(-1) for o in out])
+        return out
+
+    return SimpleNamespace(prob=prob, y0=y0_b, B=B, one=one, args=args,
+                           axes=axes, unravel=unravel)
+
+
+def _lane_event_fn(lp, event_fn):
+    """The batched, sign-combined event function of the internal frame
+    (`events.combine_event_functions` per sample, each with its own signs
+    at t0), taking the time in the dtype the solver hands it."""
+    t_sign, unravel = lp.prob.t_sign, lp.unravel
+
+    def ev(tt, yy):
+        return torch.atleast_1d(event_fn(-tt if t_sign < 0 else tt,
+                                         yy if unravel is None
+                                         else unravel(yy)))
+
+    vm = torch.func.vmap(ev)
+    t0 = float(lp.prob.t[0])
+    with torch.no_grad():
+        sign0 = nan_sign(vm(torch.full((lp.B,), t0, dtype=torch.float64,
+                                       device=lp.y0.device), lp.y0))
+    # `amin` over the one axis: a full `torch.min` falls back to a loop over
+    # the samples under vmap
+    combined = torch.func.vmap(
+        lambda tt, yy, s: torch.amin((ev(tt, yy) * s).reshape(-1), dim=0))
+    return lambda tt, yy: combined(tt, yy, sign0)
+
+
+def _unravel_rows(lp, ys):
+    return ys if lp.unravel is None else lp.unravel(ys)
+
+
+def _fixed_field(lp):
+    """The fixed grid's field: one time for the batch, each sample's
+    field vectorised (`misc.PerturbedFunc` over it)."""
+    from ..misc import PerturbedFunc
+    vm = torch.func.vmap(lp.one, in_dims=(None, 0) + tuple(lp.axes))
+    return PerturbedFunc(lambda tt, yy: vm(tt, yy, *lp.args), lp.prob.t_sign)
+
+
+def _broadcast_stats(stats, B, device):
+    """A fixed-grid solve's shared counters as (B,) tensors, as JAX's vmap
+    broadcasts its unbatched Stats."""
+    def full(v, dtype):
+        return torch.full((B,), v, dtype=dtype, device=device)
+    return Stats.make(*(full(int(v), torch.int32) for v in stats[:5]),
+                      final_dt=full(float(stats.final_dt), torch.float64))
+
+
+def _adaptive_cfg(lp, spec):
+    from ..odeint import _adaptive_config
+    return _adaptive_config(lp.prob, spec['tableau'])
+
+
+def _solve_lanes(lp, spec, y0_b=None):
+    """The adaptive forward solve of the batched driver, no graph: ys (B,
+    T, ...) in the solver's layout, and (B,) Stats."""
+    y0_b = lp.y0 if y0_b is None else y0_b
+    prob = lp.prob
+    with torch.no_grad():
+        field = LaneField(lp.one, lp.args, lp.axes, prob.t_sign)
+        return batched_rk.integrate_lanes(field, y0_b, prob.t,
+                                          _adaptive_cfg(lp, spec),
+                                          lane_norm(prob.norm))
+
+
+def _solve_fixed(lp, spec, y0_b, t_grad=None):
+    from ..solvers import fixed_grid
+    from ..odeint import _FIXED_OPTIONS, _warn_unused
+    prob = lp.prob
+    opts = prob.options
+    _warn_unused('fixed-grid solver', opts, _FIXED_OPTIONS)
+    ts = prob.t if t_grad is None else t_grad
+    func = _fixed_field(lp)
+    grid = fixed_grid.construct_grid(func, y0_b, ts, opts.get('step_size'),
+                                     None, opts.get('num_steps'))
+    ys, stats = fixed_grid.integrate_fixed_grid(
+        spec['method'], func, y0_b, ts, grid,
+        interp=opts.get('interp', 'linear'),
+        perturb=opts.get('perturb', False), remat=opts.get('remat', False))
+    return ys.transpose(0, 1), _broadcast_stats(stats, lp.B, y0_b.device)
+
+
+def _event_driver(lp, spec, event_fn):
+    """Per-sample event solves: ((event_t (B,), ys (B, 2, ...)), Stats)."""
+    et, ys2, stats = _event_solve(lp, spec, event_fn, lp.y0)
+    return (lp.prob.t_sign * et, _unravel_rows(lp, ys2)), stats
+
+
+def _event_solve(lp, spec, event_fn, y0_b):
+    """The per-sample event solve, no graph: (event_t (B,) in the internal
+    frame, stack([y0, y_event]) (B, 2, ...) in the solver's layout,
+    Stats)."""
+    prob = lp.prob
+    _check_event_times(prob.t)
+    ev = _lane_event_fn(lp, event_fn)
+    with torch.no_grad():
+        if spec['kind'] == 'adaptive':
+            field = LaneField(lp.one, lp.args, lp.axes, prob.t_sign)
+            et, ye, stats = batched_rk.integrate_lanes_until_event(
+                field, y0_b, prob.t[0], ev, _adaptive_cfg(lp, spec),
+                lane_norm(prob.norm))
+        else:
+            opts = prob.options
+            et, ye, stats = \
+                batched_rk.integrate_lanes_until_event_fixed_grid(
+                    spec['method'], _fixed_field(lp), y0_b, prob.t[0], ev,
+                    step_size=opts.get('step_size'),
+                    interp=opts.get('interp', 'linear'),
+                    perturb=opts.get('perturb', False), atol=prob.atol)
+    return et, torch.stack([y0_b, ye], dim=1), stats
+
+
+def _driver(func, y0, t, rtol, atol, method, options, event_fn, args, axes):
+    name, spec = _refuse(func, method, options)
+    from ..adjoint import _tensors_in
+    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    grad = needs_autograd(func, *leaves, t, *_tensors_in(args))
+    if event_fn is not None and grad and spec['kind'] != 'adaptive':
+        raise NotImplementedError(
+            "gradients through a per-sample fixed-grid event solve (each "
+            "sample's backward on its own grid to its own event time) are "
+            f"{A6B}; call it under torch.no_grad()")
+    lp = _lane_problem(func, y0, t, rtol, atol, name, options, args, axes)
+    if spec['kind'] == 'fixed' and event_fn is None:
+        # the grid is shared, so the solve differentiates through its loop
+        t_grad = None
+        if (isinstance(t, torch.Tensor) and t.requires_grad
+                and torch.is_grad_enabled()):
+            t_grad = lp.prob.t_sign * t.to('cpu', torch.float64)
+        ys, stats = _solve_fixed(lp, spec, lp.y0, t_grad)
+        return _unravel_rows(lp, ys), stats
+    if grad:
+        return _lane_adjoint(lp, spec, func, t, args, axes, options,
+                             event_fn)
+    if event_fn is not None:
+        return _event_driver(lp, spec, event_fn)
+    ys, stats = _solve_lanes(lp, spec)
+    return _unravel_rows(lp, ys), stats
+
+
+# ---- per-sample gradients: the continuous adjoint, vmapped -------------------
+
+def _lane_adjoint(lp, spec, func, t, args, axes, options, event_fn=None):
+    """The continuous adjoint of every sample (JAX's custom_vjp under vmap):
+    `_LaneAdjointOp` over the flat batch, the parameters those of
+    `adjoint._adjoint_params`.  With `event_fn`, JAX's event mode
+    (adjoint.py:611-644) per sample: each sample backpropagates as if it
+    had integrated to its own event time, which itself gets no gradient
+    (the implicit-function reroute is `odeint_event`'s, not this route's,
+    in JAX as here)."""
+    from ..adjoint import _adjoint_params, _tensors_in
+    module_params, arg_tensors = _adjoint_params(func, args, None)
+    # the axis each differentiated arg tensor is mapped over
+    axis_of = {}
+    for a, ax in zip(args, axes):
+        for x in _tensors_in(a):
+            axis_of.setdefault(id(x), ax)
+    if any(axis_of.get(id(x)) is not None and not x.is_floating_point()
+           for a in args for x in _tensors_in(a)):
+        raise NotImplementedError(
+            f"a per-sample arg that is not floating point under gradients "
+            f"({A6B})")
+    t_tensor = (t if isinstance(t, torch.Tensor)
+                else torch.as_tensor(host_times(t), dtype=torch.float64))
+    ctx = SimpleNamespace(
+        lp=lp, spec=spec, func=func, module_params=module_params,
+        arg_tensors=arg_tensors,
+        p_dims=[None] * len(module_params)
+        + [axis_of.get(id(x)) for x in arg_tensors],
+        user_state_norm=(options or {}).get('norm'), event_fn=event_fn,
+        t_tensor=t_tensor, stats=None)
+    # lp.y0, a tuple state's leaves concatenated under autograd, carries
+    # the gradient back to them
+    out = _LaneAdjointOp.apply(ctx, lp.y0, t_tensor, *module_params,
+                               *arg_tensors)
+    if event_fn is None:
+        return _unravel_rows(lp, out), ctx.stats
+    event_t, ys2 = out
+    return (event_t, _unravel_rows(lp, ys2)), ctx.stats
+
+
+class _LaneAdjointOp(torch.autograd.Function):
+    """``(y0 (B, ...), t, *params) -> ys (B, T, ...)`` (or ``-> (event_t
+    (B,), ys (B, 2, ...))`` with an event function): every sample solved
+    forward by the batched driver with no graph, and differentiated by its
+    own adjoint sweep (`_lane_backward_pass`)."""
+
+    @staticmethod
+    def forward(ctx, spec, y0, t, *params):
+        ctx.spec = spec
+        if spec.event_fn is None:
+            ys, spec.stats = _solve_lanes(spec.lp, spec.spec, y0.detach())
+            ctx.event_t = None
+            ctx.save_for_backward(ys)
+            return ys
+        event_t, ys, spec.stats = _event_solve(spec.lp, spec.spec,
+                                               spec.event_fn, y0.detach())
+        ctx.event_t = event_t
+        ctx.save_for_backward(ys)
+        event_t = spec.lp.prob.t_sign * event_t
+        ctx.mark_non_differentiable(event_t)
+        return event_t, ys
+
+    @staticmethod
+    def backward(ctx, *grads):
+        spec = ctx.spec
+        (ys,) = ctx.saved_tensors
+        g_ys = grads[-1]
+        with torch.no_grad():
+            adj_y, ths, vt, dLds = _lane_backward_pass(spec, ys, g_ys,
+                                                       ctx.event_t)
+        t_grad = None
+        if ctx.needs_input_grad[2]:
+            sign = spec.lp.prob.t_sign
+            if ctx.event_t is not None:
+                # the event time's own effect is not differentiated
+                dLds = torch.zeros_like(dLds)
+            g_t = (sign * torch.cat([vt[:, None], dLds], dim=1)).sum(0)
+            t_grad = g_t.to(device=spec.t_tensor.device,
+                            dtype=spec.t_tensor.dtype)
+        p_grads = []
+        for th, p, dim in zip(ths, list(spec.module_params)
+                              + list(spec.arg_tensors), spec.p_dims):
+            # a shared parameter's gradient is the sum over the samples
+            g = th.sum(0) if dim is None else th.movedim(0, dim)
+            p_grads.append(g.reshape(p.shape).to(p.dtype))
+        return (None, adj_y if ctx.needs_input_grad[1] else None, t_grad,
+                *p_grads)
+
+
+def _lane_backward_pass(spec, ys, g_ys, event_t=None):
+    """The adjoint sweep of every sample (the port's `adjoint._backward_pass`
+    with the batched driver; JAX adjoint.py:335-561 under vmap).  Each
+    sample's augmented state ``[vjp_t | y | adj_y | theta_bar]`` is a row of
+    one (B, N) tensor, solved in reverse time with its own controller and
+    its own default adjoint norm over that row; its field is
+    ``torch.func.vmap`` of `adjoint._functional_aug_dyn`, whose vjp takes
+    a shared parameter in full (a per-sample theta_bar) and a per-sample
+    arg as its own row.  More than two output times take one fused sweep
+    whose interior output times are `jump_t` points, the cotangents
+    injected by each sample's own jump index.  With `event_t` (B,), the
+    internal-frame event times, each sample's backward runs from its own
+    event time to t0.  Returns (adj_y0 (B, ...), [theta_bar (B, ...) per
+    parameter], vjp_t (B,), dLds (B, T-1))."""
+    from ..adjoint import _Layout, _functional_aug_dyn, _make_adjoint_norm
+    lp = spec.lp
+    t_int = lp.prob.t
+    sign = lp.prob.t_sign
+    T, B = t_int.shape[0], ys.shape[0]
+    sdt, dev = ys.dtype, ys.device
+    params = list(spec.module_params) + list(spec.arg_tensors)
+    reps = [p if d is None else p.select(d, 0)
+            for p, d in zip(params, spec.p_dims)]
+    layout = _Layout(ys.shape[2:], lp.unravel, reps)
+    n = layout.n
+    aug_one = _functional_aug_dyn(
+        SimpleNamespace(func=spec.func, module_params=spec.module_params,
+                        unravel=lp.unravel),
+        layout, sign, lp.args, params, dev)
+    norm_one = _make_adjoint_norm(None, spec.user_state_norm, layout)
+
+    def t_out(j):
+        if event_t is not None:
+            return event_t
+        return torch.full((B,), float(t_int[j]), dtype=torch.float64,
+                          device=dev)
+
+    # the effect of moving each output time: one field call a time
+    field = LaneField(lp.one, lp.args, lp.axes, sign)
+    dLds = torch.stack([
+        (field(t_out(j), ys[:, j]).reshape(B, -1)
+         * g_ys[:, j].reshape(B, -1).to(sdt)).sum(1)
+        for j in range(1, T)], dim=1)
+    rows = torch.arange(B, device=dev)
+
+    def aug_state(vt, y, adj_y, th=None):
+        th = adj_y.new_zeros((B, sum(layout.p_sizes))) if th is None else th
+        return torch.cat([vt.reshape(B, 1), y.reshape(B, -1),
+                          adj_y.reshape(B, -1), th], dim=1)
+
+    opts = dict(norm=norm_one, step_to_end=True)
+    if T > 2:
+        def inject(k, tt, aug):
+            # hook index k is boundary j = (T-2) - k of the increasing grid
+            j = (T - 2) - k
+            out = aug.clone()
+            out[:, 0] = aug[:, 0] - dLds[rows, j - 1]
+            out[:, 1:1 + n] = ys[rows, j].reshape(B, -1)
+            out[:, 1 + n:1 + 2 * n] = (aug[:, 1 + n:1 + 2 * n]
+                                       + g_ys[rows, j].reshape(B, -1))
+            return out
+
+        opts.update(jump_t=t_int[1:-1], jump_state_fn=inject)
+        aug0 = aug_state(-dLds[:, -1], ys[:, -1], g_ys[:, -1])
+    else:
+        aug0 = aug_state(-dLds[:, 0], ys[:, 1], g_ys[:, 1])
+    # the reverse solve of the augmented rows, in the forward's internal
+    # frame reversed; an event solve's samples start at their own event
+    # times (a sample whose event is at t0 takes no step)
+    t_hi = t_int[-1] if event_t is None else float(event_t.max())
+    end = aug0
+    if t_hi != t_int[0]:
+        back = _lane_problem(lambda tt, yy: yy, aug0,
+                             np.array([t_hi, t_int[0]]), lp.prob.rtol,
+                             lp.prob.atol, lp.prob.method, opts, (), (),
+                             time_direction='reverse')
+        ps = [p.detach() for p in params]
+        aug_field = LaneField(aug_one, ps, spec.p_dims, back.prob.t_sign)
+        sol, _ = batched_rk.integrate_lanes(
+            aug_field, aug0, back.prob.t, _adaptive_cfg(back, spec.spec),
+            lane_norm(back.prob.norm),
+            t0=None if event_t is None else back.prob.t_sign * event_t)
+        end = sol[:, 1]
+    adj_y = end[:, 1 + n:1 + 2 * n] + g_ys[:, 0].reshape(B, -1)
+    th = end[:, 1 + 2 * n:]
+    ths = [part.reshape((B,) + tuple(r.shape)) for part, r in
+           zip(torch.split(th, layout.p_sizes, dim=1), reps)]
+    return adj_y.reshape(ys[:, 0].shape), ths, end[:, 0], dLds
+
+
+# ---- the entry points ----------------------------------------------------------
+
+def odeint_per_sample(func, y0, t, args=(), args_axes=None, **kwargs):
+    """Batched solve with independent per-sample step-size controllers.
+
+    Args:
+        func: vector field per sample, ``func(t, y_i, *args)`` with `y_i`
+            one sample (no batch axis).
+        y0: initial states with a leading batch axis: one tensor, or a
+            tuple of them.
+        t: (T,) shared output times.
+        args: extra tensors passed to `func`, shared across samples unless
+            mapped by `args_axes`.
+        args_axes: a per-arg tuple of None (shared) or an axis int (mapped
+            per sample, like ``torch.func.vmap``'s `in_dims`).  The kernel
+            route takes only axis -1.
+        **kwargs: ``rtol``, ``atol``, ``method``, ``options`` and
+            ``event_fn``.  ``options=dict(pallas=True)`` asks for the
+            per-lane kernel (module docstring); a problem that does not
+            qualify takes the batched driver.
+
+    Returns:
+        ys of shape (B, T, ...) (per leaf of a tuple state).
+    """
+    ys, _ = odeint_per_sample_with_stats(func, y0, t, args=args,
+                                         args_axes=args_axes, **kwargs)
+    return ys
+
+
+def odeint_per_sample_with_stats(func, y0, t, args=(), args_axes=None, *,
+                                 rtol=1e-7, atol=1e-9, method=None,
+                                 options=None, event_fn=None, **kwargs):
+    """Like `odeint_per_sample`, also returning per-sample `Stats`, each
+    counter a (B,) int32 tensor and `final_dt` a (B,) float64 one (on the
+    kernel route: ``nfe = per_step_nfe * n_steps + init``, ``n_rejected =
+    n_steps - n_accepted``, ``ERR_MAX_NUM_STEPS`` where a sample used all
+    `max_num_steps` steps, JAX batched.py:114-147).
+
+    With ``event_fn`` (a per-sample ``event_fn(t, y_i)`` with one or more
+    outputs) and `t` of shape (2,), each sample integrates until its own
+    event fires, and the result is ``((event_t (B,), ys (B, 2, ...)),
+    Stats)`` with ``ys[:, 1]`` the state at the event.  On the kernel
+    route a sample whose event did not fire within `max_num_steps` steps
+    has ``event_t`` NaN and ``ERR_MAX_NUM_STEPS``; on the driver its error
+    code is the same and its event time is the bisection of its last step,
+    as JAX's vmap route gives it."""
+    args = tuple(args)
+    axes = _norm_args_axes(args, args_axes)
+    if kwargs:
+        raise TypeError("odeint_per_sample_with_stats() got unexpected "
+                        f"keyword arguments {sorted(kwargs)}")
+    t_np = _pallas_qualifies(y0, t, rtol, atol, method, options)
+    if t_np is not None and all(a in (None, -1) for a in axes):
+        return _kernel_route(func, y0, t_np, rtol, atol, method, options,
+                             event_fn, args, axes)
+    if isinstance(options, dict) and ('pallas' in options
+                                      or 'interpret' in options):
+        options = {k: v for k, v in options.items()
+                   if k not in ('pallas', 'interpret')}
+    return _driver(func, y0, t, rtol, atol, method, options, event_fn, args,
+                   axes)
