@@ -83,11 +83,25 @@ benchmarks/bench_fused_field.py at its full width:
      the solve and through the oscillators' per-sample events, and a timed
      float32 step at B=1024); and benchmarks/bench_ensemble.py's
      scalar field at B=65536 against its closed form;
- 15. a JSON line with one entry per kernel (its launches on its path, its
+ 15. the per-sample stiff, implicit and 16-bit route: (a) phase 12c's
+     linear relaxation at B=1024 through `odeint_per_sample_with_stats`
+     with kvaerno5 and radau5a (each sample its own controller and 1x1
+     Newton solves) against its exact solution, timed beside phase 12c's
+     one-controller dense-LU solve; (b) a stiff van der Pol ensemble (mu
+     per sample) at B=1024, timed, 8 of its samples card against CPU;
+     (c) implicit_adams, gl4 (Broyden) and trbdf2 (Newton) per sample,
+     card against CPU, every sample finite; (d) kvaerno5's per-sample gradients by the continuous
+     adjoint, replay_grad and forward_grad, card against CPU; (e) a
+     callback, a grid_constructor and a fixed-grid event gradient, card
+     against CPU; (f) K-dopri5 and K-events in bfloat16 and float16 through
+     `odeint_per_sample(..., options=dict(pallas=True))` with the launch
+     counts reset before and read after, each against its plain version
+     and timed three ways at B=1024 and B=65536; (g) the phase's seconds;
+ 16. a JSON line with one entry per kernel (its launches on its path, its
      error against its plain version, its time, the plain version's time,
      its bound on this card and the PyTorch call that computes the same
-     function, where one exists), the card's name and power limit, then
-     the result line.
+     function, where one exists; the 16-bit instances as entries of their
+     own), the card's name and power limit, then the result line.
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -284,6 +298,34 @@ SCALAR_EXACT = 1e-3
 DRIVER_FLIP_SHARE = 0.015
 PS_GRAD_B = 8
 
+# - phase 15, the per-sample stiff, implicit and 16-bit route.  (a) each
+#   sample's error against the exact solution as phase 12c (STIFF_EXACT);
+#   (b)-(e) float64 card against CPU as phase 12 (F64_VALUES, Stats equal,
+#   GRAD_F64_REL); (f) the 16-bit kernels against their plain versions on
+#   the CPU (the rounding the CPU tests hold to JAX's kernel): a 16-bit
+#   error estimate and step size are coarse, so a last-bit difference (the
+#   products' summation order, tanhf against the CPU's tanh) flips an
+#   accept on some lanes, whose counts then differ (C7), or moves a step
+#   size by a unit, after which the lane takes other steps of the same
+#   count.  The share of lanes whose counts differ is held to
+#   LANE16_FLIP_SHARE, and every other lane to LANE16_ULPS units in the
+#   last place of max|y| of its dtype (32 bfloat16 units are 256 float16
+#   ones: 2**-5 of max|y|'s binade), both from the largest readings on an
+#   H100 (PERF.md §6): 1.76% of the lanes with other counts (the GPU
+#   tests, float16, D=12), the others within 13.0 bfloat16 units (this
+#   phase, B=65536) and 157.88 float16 units (the GPU tests, D=12).
+PS_STIFF_B = 1024
+VDP_B, VDP_CHECK_B, VDP_T = 1024, 8, 10.0
+PS_IMPLICIT_B = 32
+PS_FIXED_STEPS = 100
+PS_OPT_B = 8
+PS_GRAD_T = 0.005
+LANE16_RTOL, LANE16_ATOL = 1e-2, 1e-2
+LANE16_TS = np.linspace(0.0, 10.0, 5)
+LANE16_FLIP_SHARE = 0.025
+LANE16_ULPS = {"bf16": 32, "f16": 256}
+PS_BUDGET_S = 60
+
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
 # the bench's D): none may spill (phase 1)
@@ -291,6 +333,10 @@ SMOKE_INSTANCES = ("rk4<f,D=2>", "rk4<d,D=2>", "lanes<f,D=2>", "lanes<d,D=2>",
                    "lanes<f,D=2,group>", "lanes<d,D=2,group>", "events<f,D=2>",
                    "events<d,D=2>", "events<f,D=2,group>",
                    "events<d,D=2,group>", "lanes_wide<d>", "events_wide<d>",
+                   "lanes<bf16,D=2>", "lanes<f16,D=2>", "lanes<bf16,D=2,group>",
+                   "lanes<f16,D=2,group>", "events<bf16,D=2>",
+                   "events<f16,D=2>", "events<bf16,D=2,group>",
+                   "events<f16,D=2,group>",
                    "fused_step<f,D=256>", "fused_step<bf16,D=256>")
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, dense, at 700 W), for
@@ -298,6 +344,8 @@ SMOKE_INSTANCES = ("rk4<f,D=2>", "rk4<d,D=2>", "lanes<f,D=2>", "lanes<d,D=2>",
 # their type and its bytes (each input read once, each output written once)
 # over the memory rate.
 PEAK_F32 = 67e12       # float32 FLOP/s outside the tensor cores
+PEAK_F16 = 133.8e12    # float16/bfloat16 FLOP/s outside the tensor cores
+#                        (NVIDIA's Hopper whitepaper: twice float32's)
 PEAK_BF16 = 989e12     # bfloat16 FLOP/s of the tensor cores
 PEAK_BYTES = 3.35e12   # HBM bytes/s
 
@@ -348,16 +396,25 @@ def _instance_name(mangled):
     """`lanes<f,D=2>`, `lanes<f,D=2,group>` for the instance of K-dopri5
     or K-events that runs lane groups (its `kGroup` template argument), and
     `lanes_wide<f>` for their shared-memory instances (any D, dopri8)."""
-    w = re.search(r"(lanes|events)_wide_kernelI(f|d)E", mangled)
+    types = r"(f|d|13__nv_bfloat16|N3tdt2LoI13__nv_bfloat16EE|N3tdt2LoI6__halfEE)"
+    w = re.search(r"(lanes|events)_wide_kernelI" + types, mangled)
     if w:
-        return f"{w.group(1)}_wide<{w.group(2)}>"
-    k = re.search(r"(rk4|lanes|events|fused_step)_kernelI"
-                  r"(f|d|13__nv_bfloat16)Li(\d+)E(Lb1E)?", mangled)
+        return f"{w.group(1)}_wide<{_type_name(w.group(2))}>"
+    k = re.search(r"(rk4|lanes|events|fused_step)_kernelI" + types
+                  + r"Li(\d+)E(Lb1E)?", mangled)
     if not k:
         return None
     kind, ty, d, group = k.groups()
-    return (f"{kind}<{'bf16' if 'bfloat' in ty else ty},D={d}"
+    return (f"{kind}<{_type_name(ty)},D={d}"
             f"{',group' if group else ''}>")
+
+
+def _type_name(mangled_type):
+    """f, d, bf16 (a raw __nv_bfloat16, or tdt::Lo of one: the per-trajectory
+    kernels' 16-bit instances) or f16 (tdt::Lo<__half>)."""
+    if "bfloat" in mangled_type:
+        return "bf16"
+    return "f16" if "half" in mangled_type else mangled_type
 
 
 def _sass_by_instance(build, so_path):
@@ -512,8 +569,13 @@ def _dopri8_vs_plain(name, values, want_values, counts, want_counts):
 
 def _bound(flops, nbytes, peak):
     """(bound_ms, bound_by): the least time the card could take for
-    `flops` operations at `peak` and `nbytes` of traffic."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    `flops` operations at `peak` and `nbytes` of traffic; `flops` may be a
+    list of (operations, peak) pairs of several types, whose times add."""
+    if isinstance(flops, list):
+        t_ops = sum(n / p for n, p in flops)
+    else:
+        t_ops = flops / peak
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -541,19 +603,26 @@ def _events_bound(n_steps, b):
                   (2 + 2) * b * 4 + (1 + 2 + 3) * b * 4, PEAK_F32)
 
 
-def _lane_flops(n_steps, tableau, D, H, power, extra_evals=2):
+def _lane_flops(n_steps, tableau, D, H, power, extra_evals=2, split=False):
     """Operations of the per-lane solves over their lanes' step counts:
     each step evaluates the field once per stage after the first (FSAL),
     forms the stage, error and controller sums (a multiply and an add per
     nonzero coefficient and state row, about 12 per row for the error ratio
     and the controller); each lane also evaluates f(y0) and the initial
-    step's probe."""
+    step's probe.  With `split`, (the operations in the state dtype, those
+    in float) for a 16-bit lane: the two products' multiply-adds but the
+    H hidden bias adds, and the norm's sum (one add a row), accumulate in
+    float; the rest rounds to the state dtype."""
     n = int(n_steps.sum())
     lanes = n_steps.numel()
     terms = int(np.count_nonzero(tableau.beta)) + int(
         np.count_nonzero(tableau.c_error))
-    return (((tableau.n_stages - 1) * n + extra_evals * lanes)
-            * _mlp_flops(D, H, power) + n * (2 * D * terms + 12 * D))
+    evals = (tableau.n_stages - 1) * n + extra_evals * lanes
+    total = evals * _mlp_flops(D, H, power) + n * (2 * D * terms + 12 * D)
+    if not split:
+        return total
+    wide = evals * (4 * D * H - H) + n * D
+    return total - wide, wide
 
 
 def _fused_flops(B, D, H, tableau):
@@ -1274,7 +1343,7 @@ class _Annotated:
         import torch
         from torchdiffeq_tpu_torch.ops import linsolve
         from torchdiffeq_tpu_torch.solvers import fixed_grid_implicit as fgi
-        self.saved = (linsolve, linsolve.solve, fgi, fgi.jacobian)
+        self.saved = (linsolve, linsolve.solve, fgi, fgi.lane_jacobian)
 
         def wrap(name, fn):
             def inner(*a, **k):
@@ -1282,12 +1351,12 @@ class _Annotated:
                     return fn(*a, **k)
             return inner
         linsolve.solve = wrap("linsolve", linsolve.solve)
-        fgi.jacobian = wrap("jacobian", fgi.jacobian)
+        fgi.lane_jacobian = wrap("jacobian", fgi.lane_jacobian)
         return self
 
     def __exit__(self, *exc):
         linsolve, solve, fgi, jac = self.saved
-        linsolve.solve, fgi.jacobian = solve, jac
+        linsolve.solve, fgi.lane_jacobian = solve, jac
 
 
 def _profiled_shares(torch, fn):
@@ -1444,6 +1513,7 @@ def _phase_implicit(torch, kernels, dev):
 
     # 2. the batched stiff problem
     rows = []
+    walls = {}
     for method in STIFF:
         clock = time.perf_counter()
         b = KVAERNO3_B if method == "kvaerno3" else STIFF_B
@@ -1463,6 +1533,7 @@ def _phase_implicit(torch, kernels, dev):
             torch.cuda.synchronize()
             wall = (time.perf_counter() - w0) * 1e3
             counts = dict(IMPLICIT_COUNTS)
+        walls[method] = (b, wall)
         err = float((ys - exact).abs().max())
         _check(st.error_code == 0 and bool(torch.isfinite(ys).all())
                and err <= STIFF_EXACT,
@@ -1564,6 +1635,7 @@ def _phase_implicit(torch, kernels, dev):
           f"code {st_t.error_code} | B={IMPLICIT_B} gradients card vs CPU "
           f"{rel_t:.2e} of max|g| (<= {GRAD_F64_REL}), Stats equal | "
           f"{time.perf_counter() - clock:.1f} s", flush=True)
+    return walls
 
 
 def _shared_conv(npd):
@@ -2181,6 +2253,489 @@ def _phase_per_sample(torch, kernels, dev):
           f"{time.perf_counter() - p0:.1f} s")
 
 
+def _relax_i(t, y, lam):
+    """Phase 12c's linear relaxation for one sample: y' = -lam (y - t) + 1,
+    y of shape (1,)."""
+    return -lam * (y - t) + 1.0
+
+
+def _vdp_i(t, y, mu):
+    """tests/test_stiff.py:68-85's van der Pol field, mu per sample."""
+    import torch
+    return torch.stack([y[1], mu * ((1 - y[0] ** 2) * y[1]) - y[0]])
+
+
+def _ps_relax(torch, device, b, lam_range=(2.0, 4.0), dtype=None):
+    """(a)'s problem per sample: lam = logspace(*lam_range, b) (phase 12c's
+    logspace(2, 4, b) by default) and y0 = 1 + 0.5 u, y0 of shape (b, 1),
+    t = linspace(0, 5, 5); and the exact solution (b, 5, 1)."""
+    lam = torch.from_numpy(np.logspace(*lam_range, b)).to(device)
+    u = np.random.RandomState(0).rand(b)
+    y0 = torch.from_numpy(1.0 + 0.5 * u).to(device)[:, None]
+    t = torch.linspace(0.0, 5.0, 5, dtype=torch.float64)
+    tt_ = t.to(device)[None, :]
+    exact = (tt_ + y0 * torch.exp(-lam[:, None] * tt_))[:, :, None]
+    return lam, y0, t, exact
+
+
+def _stats_list(st):
+    return [x.cpu() for x in st[:5]]
+
+
+def _card_vs_cpu(torch, dev, run, what, tol=None):
+    """`run(device)` -> (values, Stats) on the card and on the CPU, float64:
+    Stats equal and values within `tol` (F64_VALUES) of max|y|.  Returns
+    the relative error."""
+    vg, sg = run(dev)
+    vc, sc = run("cpu")
+    vg, vc = vg.detach().cpu(), vc.detach()
+    fin = bool(torch.isfinite(vg).all()) and bool(torch.isfinite(vc).all())
+    err = float((vg - vc).abs().max() / vc.abs().max())
+    same = all(torch.equal(a, b) for a, b in zip(_stats_list(sg),
+                                                 _stats_list(sc)))
+    _check(same and fin and err <= (F64_VALUES if tol is None else tol),
+           f"{what} card vs CPU: Stats equal {same}, all finite {fin}, "
+           f"{err} of max|y|")
+    return err
+
+
+def _lane16_vs_plain(torch, kernels, dtype, model_g, model_c, y_g, b,
+                     events):
+    """One 16-bit K-dopri5 or K-events launch at a batch of b against its
+    plain version on the same inputs on the CPU: (launch outputs, the
+    share of lanes whose counts differ from the plain version's, the
+    largest distance of the other lanes' values in units in the last place
+    of max|y|, and the per-lane steps)."""
+    yb = y_g[:b].T.contiguous()
+    yc = yb.cpu()
+    if events:
+        ev_g, s0_g, ev_c = _ev16(torch, dtype, yb)
+        kw = dict(rtol=LANE16_RTOL, atol=LANE16_ATOL,
+                  max_steps=EVENT_MAX_STEPS)
+        out = kernels.dopri5_events_batched(model_g, yb, 0.0, ev_g,
+                                            ev_params=(s0_g,), **kw)
+        ref = kernels.dopri5_events_batched_ref(
+            model_c, yc, 0.0, ev_c, ev_params=(s0_g.cpu(),), **kw)
+        vals, rvals = (out[0], out[1]), (ref[0], ref[1])
+        counts, rcounts = out[2:], ref[2:]
+    else:
+        kw = dict(ts=LANE16_TS, rtol=LANE16_RTOL, atol=LANE16_ATOL)
+        t1 = float(LANE16_TS[-1])
+        out = kernels.dopri5_integrate_batched(model_g, yb, 0.0, t1, **kw)
+        ref = kernels.dopri5_integrate_batched_ref(model_c, yc, 0.0, t1,
+                                                   **kw)
+        vals, rvals = (out[0],), (ref[0],)
+        counts, rcounts = out[1:], ref[1:]
+    return (out, *lane16_flips_and_ulps(torch, dtype, vals, rvals, counts,
+                                        rcounts), counts[-1])
+
+
+def lane16_flips_and_ulps(torch, dtype, vals, rvals, counts, rcounts):
+    """(the share of lanes whose counts differ from the plain version's,
+    the largest distance over every other lane in units in the last place
+    of max|y|)."""
+    same = None
+    for g, w in zip(counts, rcounts):
+        e = (g.cpu() == w).reshape(-1)
+        same = e if same is None else same & e
+    dist = torch.zeros(same.shape[0], dtype=torch.float64)
+    for g, w in zip(vals, rvals):
+        g, w = g.cpu().double(), w.double()
+        ok = torch.isfinite(w)
+        _check(torch.equal(torch.isfinite(g)[..., same], ok[..., same]),
+               f"{dtype}: NaN rows differ from the plain version's")
+        if not bool(ok.any()):
+            continue
+        # units in the last place of max|y| (a value near 0 has tiny ones,
+        # while the step's rounding is relative to the state's size)
+        unit = 2.0 ** (np.floor(np.log2(float(w[ok].abs().max())))
+                       - (7 if dtype == torch.bfloat16 else 10))
+        d = torch.where(ok, (g - w).abs(), torch.zeros_like(w)) / unit
+        dist = torch.maximum(dist, d.reshape(-1, same.shape[0]).amax(0))
+    kept = dist[same]
+    return (1.0 - float(same.float().mean()),
+            float(kept.max()) if kept.numel() else 0.0)
+
+
+def _ev16(torch, dtype, yb):
+    """Phase 8's event family in a 16-bit dtype: a threshold on y[0] halfway
+    through the batch's range, and a cut-off at t = 1."""
+    from torchdiffeq_tpu_torch.models import LinearEvent
+    dev = yb.device
+    w = [[1.0, 0.0], [0.0, 0.0]]
+    mk = lambda d: LinearEvent(w, time_coef=[0.0, 1.0], bias=[-0.5, -1.0],
+                               dtype=dtype, device=d).requires_grad_(False)
+    ev_g = mk(dev)
+    s0 = torch.sign(ev_g.lanes(torch.zeros(1, yb.shape[1], dtype=dtype,
+                                           device=dev), yb))
+    return ev_g, s0, mk("cpu")
+
+
+def _phase_per_sample_stiff(torch, kernels, dev, walls_12c):
+    """Phase 15: the per-sample stiff, implicit and Adams tiers on batched
+    Newton solves, the per-sample gradient modes and options, and the
+    16-bit instances of K-dopri5 and K-events.  Returns their JSON
+    entries."""
+    from torchdiffeq_tpu_torch import (odeint_per_sample,
+                                       odeint_per_sample_with_stats)
+    from torchdiffeq_tpu_torch.solvers import batched_rk
+    from torchdiffeq_tpu_torch.solvers.solution import (IMPLICIT_COUNTS,
+                                                        reset_implicit_counts)
+    card = _card()
+    p0 = time.perf_counter()
+
+    def med(x):
+        x = x.cpu()
+        return f"{int(x.min())}/{int(x.median())}/{int(x.max())}"
+
+    # (a) phase 12c's relaxation, every sample its own controller and 1x1
+    # Newton solves
+    rows = []
+    lam, y0, t, exact = _ps_relax(torch, dev, PS_STIFF_B)
+    for method in ("kvaerno5", "radau5a"):
+        clock = time.perf_counter()
+        kw = dict(args=(lam,), args_axes=(0,), method=method,
+                  rtol=STIFF_RTOL, atol=STIFF_ATOL)
+        with torch.no_grad():
+            # warms torch.func's transforms and the batched solves
+            odeint_per_sample_with_stats(_relax_i, y0, t, options=dict(
+                max_num_steps=2), **kw)
+            reset_implicit_counts()
+            batched_rk.reset_lane_counts()
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            ys, st = odeint_per_sample_with_stats(_relax_i, y0, t, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - w0
+        counts, lanes = dict(IMPLICIT_COUNTS), dict(batched_rk.LANE_COUNTS)
+        err = float((ys - exact).abs().max())
+        _check(int(st.error_code.max()) == 0 and err <= STIFF_EXACT,
+               f"per-sample {method}: codes {st.error_code.max()}, max "
+               f"error vs exact {err}")
+        b12, w12 = walls_12c.get(method, (None, float("nan")))
+        rows.append(
+            f"{method}: per-sample steps min/median/max {med(st.n_steps)}, "
+            f"max|y - exact| {err:.2e}, warm wall {wall:.2f} s (phase 12c's "
+            f"one controller and dense LU at B={b12}: {w12 / 1e3:.2f} s), "
+            f"{lanes['iterations']} step iterations, Newton iterations "
+            f"{counts['iterations']} (each one batched LU of B 1x1 systems), "
+            f"host reads {counts['host_reads']} in stage solves + "
+            f"{lanes['host_reads']} in the step loop; "
+            f"{time.perf_counter() - clock:.1f} s")
+    print(f"[15a per-sample stiff] {card} | y' = -lam (y - t) + 1 per sample, "
+          f"lam = logspace(2, 4, {PS_STIFF_B}), t = linspace(0, 5, 5), rtol="
+          f"{STIFF_RTOL} atol={STIFF_ATOL} float64, max error <= "
+          f"{STIFF_EXACT} | " + " | ".join(rows), flush=True)
+
+    # (b) a stiff van der Pol ensemble, mu per sample
+    clock = time.perf_counter()
+    mu_all = torch.from_numpy(np.logspace(0.0, 2.0, VDP_B))
+
+    def vdp(device, mu, **opts):
+        y = torch.tensor([2.0, 0.0], dtype=torch.float64).repeat(
+            mu.shape[0], 1).to(device)
+        tv = torch.linspace(0.0, VDP_T, 5, dtype=torch.float64)
+        with torch.no_grad():
+            return odeint_per_sample_with_stats(
+                _vdp_i, y, tv, args=(mu.to(device),), args_axes=(0,),
+                method="kvaerno5", rtol=1e-6, atol=1e-8, options=opts)
+
+    vdp(dev, mu_all, max_num_steps=2)      # warms the timed path
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    ys_v, st_v = vdp(dev, mu_all)
+    torch.cuda.synchronize()
+    wall_v = time.perf_counter() - w0
+    _check(int(st_v.error_code.max()) == 0
+           and bool(torch.isfinite(ys_v).all())
+           and float(ys_v[:, :, 0].abs().max()) < 2.5,
+           f"van der Pol B={VDP_B}: codes {st_v.error_code.max()}, "
+           f"max|y0| {float(ys_v[:, :, 0].abs().max())}")
+    # VDP_CHECK_B of the timed run's own samples, mu from 1 to 100, against
+    # the same samples solved on the CPU (each sample's solve is its own)
+    pick = torch.from_numpy(np.linspace(0, VDP_B - 1, VDP_CHECK_B).round()
+                            .astype(np.int64))
+    err_v = _card_vs_cpu(
+        torch, dev, lambda d: (ys_v[pick.to(dev)], [x[pick.to(dev)] for x in
+                                                    st_v[:5]])
+        if d == dev else vdp(d, mu_all[pick]),
+        f"van der Pol, {VDP_CHECK_B} of B={VDP_B}")
+    print(f"[15b van der Pol] {card} | mu = logspace(0, 2, B) per sample, "
+          f"y0 = (2, 0), t = linspace(0, {VDP_T}, 5), kvaerno5 rtol 1e-6 "
+          f"atol 1e-8 float64 | B={VDP_B}: steps min/median/max "
+          f"{med(st_v.n_steps)}, warm wall {wall_v:.2f} s, |y0| <= 2.5 on "
+          f"the limit cycle | {VDP_CHECK_B} of its samples (mu 1 to 100) "
+          f"card vs CPU {err_v:.2e} of max|y|, Stats equal | "
+          f"{time.perf_counter() - clock:.1f} s", flush=True)
+
+    # (c) Adams and FIRK/DIRK per sample on (a)'s field, B=32: lam =
+    # logspace(2, 4) for the stiff FIRK/DIRK, logspace(0, 1) for
+    # implicit_adams, whose corrector is a fixed-point iteration that
+    # converges where lam h is small (h = 0.05 here)
+    clock = time.perf_counter()
+    rows = []
+    for method, opts, lams in (
+            ("implicit_adams", dict(num_steps=PS_FIXED_STEPS), (0.0, 1.0)),
+            ("gl4", dict(num_steps=PS_FIXED_STEPS), (2.0, 4.0)),
+            ("trbdf2", dict(num_steps=PS_FIXED_STEPS, root_solver="newton"),
+             (2.0, 4.0))):
+        def run(device, method=method, opts=opts, lams=lams):
+            lam_, y0_, t_, _ = _ps_relax(torch, device, PS_IMPLICIT_B, lams)
+            with torch.no_grad():
+                return odeint_per_sample_with_stats(
+                    _relax_i, y0_, t_, args=(lam_,), args_axes=(0,),
+                    method=method, options=opts)
+        err_c = _card_vs_cpu(torch, dev, run, f"per-sample {method}")
+        ys_c, st_c = run(dev)
+        _check(int(st_c.error_code.max()) == 0,
+               f"per-sample {method}: codes {st_c.error_code.max()}")
+        rows.append(f"{method} lam = logspace({lams[0]:g}, {lams[1]:g}) "
+                    f"{err_c:.2e} (nfe {med(st_c.nfe)}, all "
+                    f"{PS_IMPLICIT_B} samples finite, codes 0)")
+    print(f"[15c Adams, FIRK/DIRK per sample] {card} | (a)'s field B="
+          f"{PS_IMPLICIT_B} num_steps={PS_FIXED_STEPS} float64 card vs CPU "
+          f"(of max|y|, Stats equal): " + ", ".join(rows)
+          + f" | {time.perf_counter() - clock:.1f} s", flush=True)
+
+    # (d) per-sample gradients on (a)'s problem, B=8, cut to t <= PS_GRAD_T
+    clock = time.perf_counter()
+    rows = []
+
+    def grads(device, mode):
+        lam_, y0_, _, _ = _ps_relax(torch, device, PS_OPT_B)
+        t_ = torch.linspace(0.0, PS_GRAD_T, 3, dtype=torch.float64)
+        opts = dict(replay_grad=dict(replay_grad=True),
+                    forward_grad=dict(forward_grad=True)).get(mode)
+        kw = dict(args_axes=(0,), method="kvaerno5", rtol=1e-6, atol=1e-8,
+                  options=opts)
+        if mode == "forward_grad":
+            dy = torch.ones_like(y0_)
+            _, tan = torch.func.jvp(
+                lambda y: odeint_per_sample(_relax_i, y, t_, args=(lam_,),
+                                            **kw), (y0_,), (dy,))
+            return [tan]
+        y0_ = y0_.clone().requires_grad_(True)
+        lam_ = lam_.clone().requires_grad_(True)
+        ys = odeint_per_sample(_relax_i, y0_, t_, args=(lam_,), **kw)
+        (ys ** 2).sum().backward()
+        return [y0_.grad, lam_.grad]
+
+    for mode in ("adjoint", "replay_grad", "forward_grad"):
+        w = time.perf_counter()
+        g_g = [g.cpu() for g in grads(dev, mode)]
+        wall = time.perf_counter() - w
+        g_c = grads("cpu", mode)
+        rel = _max_rel(g_g, g_c)
+        _check(rel <= GRAD_F64_REL, f"per-sample kvaerno5 {mode}: card vs "
+               f"CPU {rel} of max|g|")
+        rows.append(f"{mode} {rel:.2e} ({wall:.2f} s on the card)")
+    print(f"[15d per-sample gradients] {card} | (a)'s problem B={PS_OPT_B} "
+          f"on t in [0, {PS_GRAD_T}], kvaerno5 rtol 1e-6 atol 1e-8 float64, "
+          f"card vs CPU of max|g| (<= {GRAD_F64_REL}): " + ", ".join(rows)
+          + f" | {time.perf_counter() - clock:.1f} s", flush=True)
+
+    # (e) a callback, a grid_constructor and the fixed-grid event gradient
+    clock = time.perf_counter()
+
+    class Counted:
+        def __init__(self):
+            self.seen = []
+
+        def __call__(self, t_, y, lam_):
+            return _relax_i(t_, y, lam_)
+
+        def callback_step(self, t0, y, dt):
+            self.seen.append(float(y[0]))
+
+    def with_cb(device):
+        lam_, y0_, t_, _ = _ps_relax(torch, device, PS_OPT_B)
+        f = Counted()
+        with torch.no_grad():
+            ys, st = odeint_per_sample_with_stats(
+                f, y0_, t_, args=(lam_,), args_axes=(0,), method="kvaerno5",
+                rtol=1e-6, atol=1e-8)
+        _check(len(f.seen) == int(st.n_steps.sum()),
+               f"callbacks fired {len(f.seen)} times for "
+               f"{int(st.n_steps.sum())} steps")
+        return ys, st
+
+    err_cb = _card_vs_cpu(torch, dev, with_cb, "per-sample callbacks")
+
+    def with_grid(device):
+        lam_, y0_, t_, _ = _ps_relax(torch, device, PS_OPT_B)
+
+        def grid(f, y, tt_):
+            frac = torch.linspace(0.0, 1.0, 41, dtype=torch.float64)
+            return tt_[0] + (tt_[-1] - tt_[0]) * frac ** (1.5 + 0.1 * float(
+                y[0]))
+        with torch.no_grad():
+            return odeint_per_sample_with_stats(
+                _relax_i, y0_, t_, args=(lam_,), args_axes=(0,),
+                method="implicit_euler", options=dict(grid_constructor=grid))
+
+    err_grid = _card_vs_cpu(torch, dev, with_grid,
+                            "per-sample grid_constructor")
+    # grids that differ by sample take one solve a sample (a host loop):
+    # its cost grows with B
+    torch.cuda.synchronize()
+    w0 = time.perf_counter()
+    with_grid(dev)
+    torch.cuda.synchronize()
+    wall_grid = time.perf_counter() - w0
+
+    def fixed_event_grads(device):
+        mu = torch.linspace(1.0, 3.0, PS_OPT_B,
+                            dtype=torch.float64).to(device).requires_grad_()
+        y = torch.tensor([1.0, 0.0], dtype=torch.float64).repeat(
+            PS_OPT_B, 1).to(device).requires_grad_()
+        (_, ys2), _ = odeint_per_sample_with_stats(
+            lambda t_, y_, m: torch.stack([y_[1], -m * y_[0]]), y,
+            torch.tensor([0.0, 5.0], dtype=torch.float64), args=(mu,),
+            args_axes=(0,), method="rk4", options=dict(step_size=0.01),
+            event_fn=lambda t_, y_: y_[0] - 0.5)
+        (ys2[:, 1] ** 2).sum().backward()
+        return [y.grad.cpu(), mu.grad.cpu()]
+
+    rel_ev = _max_rel(fixed_event_grads(dev), fixed_event_grads("cpu"))
+    _check(rel_ev <= GRAD_F64_REL, f"fixed-grid event gradient card vs CPU "
+           f"{rel_ev} of max|g|")
+    print(f"[15e per-sample options] {card} | (a)'s problem B={PS_OPT_B} "
+          f"float64 card vs CPU: a callback_step (fired once a sample a "
+          f"step) {err_cb:.2e}, a grid_constructor per sample "
+          f"(implicit_euler, 40 steps) {err_grid:.2e} of max|y|, Stats "
+          f"equal, {wall_grid:.2f} s warm on the card ({PS_OPT_B} solves, "
+          f"one a sample) | rk4 "
+          f"event gradient (step_size 0.01) {rel_ev:.2e} of max|g| | "
+          f"{time.perf_counter() - clock:.1f} s", flush=True)
+
+    entries = _phase_lanes16(torch, kernels, dev, card)
+    total = time.perf_counter() - p0
+    print(f"[15g budget] phase 15 took {total:.1f} s (aim: about "
+          f"{PS_BUDGET_S} s)", flush=True)
+    return entries
+
+
+def _phase_lanes16(torch, kernels, dev, card):
+    """Phase 15 (f): K-dopri5 and K-events in bfloat16 and float16, through
+    the per-sample route and against their plain versions, timed three
+    ways at B and BIG_B.  Returns their JSON entries."""
+    from torchdiffeq_tpu_torch import odeint_per_sample_with_stats
+    from torchdiffeq_tpu_torch.ops.tableaus import DOPRI5 as DOPRI5_TAB
+    clock = time.perf_counter()
+    entries, rows = [], []
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        model_g, y_g = _spiral(torch, torch.float32, dev)
+        model_g, y_g = model_g.to(dtype), y_g.to(dtype)
+        model_c = _spiral(torch, torch.float32, "cpu")[0].to(dtype)
+        # launched through the entry point a user calls
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            ys_r, st_r = odeint_per_sample_with_stats(
+                model_g, y_g[:B], torch.from_numpy(LANE16_TS),
+                rtol=LANE16_RTOL, atol=LANE16_ATOL, options=dict(pallas=True))
+            (et_r, _), st_e = odeint_per_sample_with_stats(
+                model_g, y_g[:B], torch.tensor([0.0, 20.0]),
+                rtol=LANE16_RTOL, atol=LANE16_ATOL, options=dict(
+                    pallas=True, max_num_steps=EVENT_MAX_STEPS),
+                event_fn=_ev16(torch, dtype, y_g[:B].T)[0])
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+        _check(launches["dopri5_integrate_batched"] == 1
+               and launches["dopri5_events_batched"] == 1
+               and ys_r.dtype == dtype
+               and bool(torch.isfinite(ys_r).all())
+               and int(st_r.error_code.max()) == 0,
+               f"{tag} per-sample kernel route: launches {launches}, codes "
+               f"{st_r.error_code.max()}")
+        for events in (False, True):
+            name = ("dopri5_events_batched" if events
+                    else "dopri5_integrate_batched")
+            times, flips, errs, stp = {}, {}, {}, {}
+            with torch.no_grad():
+                for b in (B, BIG_B):
+                    out, flips[b], errs[b], stp[b] = _lane16_vs_plain(
+                        torch, kernels, dtype, model_g, model_c, y_g, b,
+                        events)
+                    print(f"[15f reading] {tag} {name} B={b}: lanes with "
+                          f"other counts {flips[b]}, the others within "
+                          f"{errs[b]} ULPs of max|y|", flush=True)
+                    _check(flips[b] <= LANE16_FLIP_SHARE
+                           and errs[b] <= LANE16_ULPS[tag],
+                           f"{tag} {name} B={b}: lanes with other counts "
+                           f"{flips[b]}, the others within {errs[b]} ULPs")
+                    yb = y_g[:b].T.contiguous()
+                    if events:
+                        ev_g, s0, _ = _ev16(torch, dtype, yb)
+                        kw = dict(rtol=LANE16_RTOL, atol=LANE16_ATOL,
+                                  max_steps=EVENT_MAX_STEPS,
+                                  ev_params=(s0,))
+                        times[b] = _three_times(
+                            torch, lambda: kernels.dopri5_events_batched(
+                                model_g, yb, 0.0, ev_g, **kw),
+                            kernels._events_launch(model_g, yb, 0.0, ev_g,
+                                                   **kw)[0],
+                            lambda: kernels.dopri5_events_batched_ref(
+                                model_g, yb, 0.0, ev_g, **kw),
+                            kernels._lane_group_width(b, H))
+                    else:
+                        kw = dict(ts=LANE16_TS, rtol=LANE16_RTOL,
+                                  atol=LANE16_ATOL)
+                        t1 = float(LANE16_TS[-1])
+                        times[b] = _three_times(
+                            torch, lambda: kernels.dopri5_integrate_batched(
+                                model_g, yb, 0.0, t1, **kw),
+                            kernels._lanes_launch(model_g, yb, 0.0, t1,
+                                                  **kw)[0],
+                            lambda: kernels.dopri5_integrate_batched_ref(
+                                model_g, yb, 0.0, t1, **kw),
+                            kernels._lane_group_width(b, H))
+            S = len(LANE16_TS)
+
+            def bound(n_steps, b):
+                # 16-bit operations at PEAK_F16, float sums at PEAK_F32;
+                # events: 40 bisection steps of a quartic (8 operations a
+                # row) and K=2 events, whose dot products sum in float
+                n16, n32 = _lane_flops(n_steps, DOPRI5_TAB, 2, H, 3,
+                                       split=True)
+                if events:
+                    return _bound(
+                        [(n16 + 40 * b * (8 * 2 + 2 * 3), PEAK_F16),
+                         (n32 + 40 * b * 2 * 2 * 2, PEAK_F32)],
+                        (2 + 2) * b * 2 + (1 + 2) * b * 2 + 3 * b * 4, None)
+                return _bound([(n16, PEAK_F16), (n32, PEAK_F32)],
+                              (1 + S) * b * 2 * 2 + 2 * b * 4, None)
+            entry = dict(
+                name=f"{name}[{tag}]", route="cuda",
+                source=("torchdiffeq_tpu_torch/csrc/dopri5_events_16bit.cu"
+                        if events else
+                        "torchdiffeq_tpu_torch/csrc/dopri5_lanes_16bit.cu"),
+                replaces=("torchdiffeq_tpu/ops/pallas_kernels.py:580" if events
+                          else "torchdiffeq_tpu/ops/pallas_kernels.py:336"),
+                launches=launches[name], max_abs_err=errs[B],
+                max_err_unit="16-bit ULPs of max|y|, over every lane whose "
+                "counts equal the plain version's",
+                count_flip_share=flips[B],
+                count_flip_share_65536=flips[BIG_B],
+                max_abs_err_65536=errs[BIG_B], **_times_entry(times),
+                **dict(zip(("bound_ms", "bound_by"), bound(stp[B], B))),
+                bound_ms_65536=bound(stp[BIG_B], BIG_B)[0], library_ms=None)
+            entries.append(entry)
+            rows.append(
+                f"{name}[{tag}]: launches {launches[name]}, lanes with other "
+                f"counts than the plain version's {flips[B]:.4f} (B={B}) / "
+                f"{flips[BIG_B]:.4f} (B={BIG_B}) (<= {LANE16_FLIP_SHARE}), "
+                f"the others within {errs[B]:.2f} / {errs[BIG_B]:.2f} ULPs "
+                f"of max|y| (<= {LANE16_ULPS[tag]}), "
+                f"steps {int(stp[B].min())}.."
+                f"{int(stp[B].max())}, bound {entry['bound_ms']:.4f} ms | "
+                + " | ".join(_times_row(b, t) for b, t in times.items()))
+    print(f"[15f 16-bit lanes] {card} | spiral rtol={LANE16_RTOL} atol="
+          f"{LANE16_ATOL}, odeint_per_sample(pallas=True) and the kernels "
+          f"against their plain versions on the CPU | " + " | ".join(rows)
+          + f" | {time.perf_counter() - clock:.1f} s", flush=True)
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2597,11 +3152,13 @@ def main():
 
     _phase_fixed(torch, kernels, dev)
 
-    _phase_implicit(torch, kernels, dev)
+    walls_12c = _phase_implicit(torch, kernels, dev)
 
     _phase_conv(torch, kernels, dev)
 
     _phase_per_sample(torch, kernels, dev)
+
+    summary.extend(_phase_per_sample_stiff(torch, kernels, dev, walls_12c))
 
     torch.cuda.synchronize()
     print(_card())

@@ -1401,3 +1401,167 @@ def test_per_sample_kernel_route_refuses_other_fields(cuda):
                                               args_axes=(-1,))
     assert ys.is_cuda and int(st.error_code.max()) == 0
     assert sum(kernels.launch_counts.values()) == 0
+
+
+# ---- the 16-bit instances of K-dopri5 and K-events ---------------------------
+
+# a 16-bit error estimate and step size are coarse, so a last-bit difference
+# (the products' summation order, tanhf) flips an accept on some lanes (C7),
+# whose counts then differ, or moves a step size by a unit, after which the
+# lane takes other steps of the same count.  Two bounds, as chip_smoke.py's
+# phase 15 (f): the share of lanes whose counts differ (LANE16_FLIP_SHARE),
+# and the distance of every lane whose counts are equal, in units in the
+# last place of max|y| of its dtype (LANE16_ULPS: 32 bfloat16 units are 256
+# float16 ones); both from the largest readings on an H100 (PERF.md §6):
+# 1.76% with other counts, the others within 157.88 float16 units
+# (D=12) here and 13.0 bfloat16 units in chip_smoke.py's phase 15 (f).
+LANE16_FLIP_SHARE = 0.025
+LANE16_ULPS = {torch.bfloat16: 32, torch.float16: 256}
+
+
+def _flips_and_ulps(vals, want_vals, counts, want_counts, dtype):
+    """(the share of lanes whose counts differ from the plain version's,
+    the largest distance over the other lanes in units in the last place
+    of max|y|, how many of them lie more than 2 units away)."""
+    same = None
+    for g, w in zip(counts, want_counts):
+        e = (g.cpu() == w).reshape(-1)
+        same = e if same is None else same & e
+    dist = torch.zeros(same.shape[0], dtype=torch.float64)
+    for g, w in zip(vals, want_vals):
+        g, w = g.cpu().double(), w.double()
+        ok = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(g)[..., same], ok[..., same])
+        if not bool(ok.any()):
+            continue
+        unit = 2.0 ** (np.floor(np.log2(float(w[ok].abs().max())))
+                       - (7 if dtype == torch.bfloat16 else 10))
+        d = torch.where(ok, (g - w).abs(), torch.zeros_like(w)) / unit
+        dist = torch.maximum(dist, d.reshape(-1, same.shape[0]).amax(0))
+    kept = dist[same]
+    return (1.0 - float(same.float().mean()),
+            float(kept.max()) if kept.numel() else 0.0,
+            int((kept > 2).sum()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("D,power,method", [(2, 3, 'dopri5'), (3, 1, 'bosh3'),
+                                            (12, 2, 'dopri5'),
+                                            (2, 3, 'dopri8')])
+@pytest.mark.parametrize("events", [False, True])
+def test_lanes_16bit_kernels_match_plain(cuda, dtype, D, power, method,
+                                         events):
+    """The bfloat16 and float16 instances (register and shared-memory)
+    against their plain versions on the CPU, the rounding the CPU tests
+    hold to JAX's kernel.  A first step is given: float16's Hairer initial
+    step squares f / (atol + rtol |y|), which overflows on some of these
+    lanes (in JAX's kernel as here) and leaves them at dt = 0."""
+    model, rng = _model(cuda, torch.float32, D=D, power=power, scale=0.3)
+    model = model.to(dtype)
+    model_c = _model("cpu", torch.float32, D=D, power=power,
+                     scale=0.3)[0].to(dtype)
+    B = 512
+    y0 = torch.from_numpy(rng.randn(D, B)).to(dtype)
+    kw = dict(rtol=1e-2, atol=1e-2, method=method, first_step=0.05)
+    if events:
+        w = [[1.0] + [0.0] * (D - 1)]
+        ev = LinearEvent(w, time_coef=[0.0], bias=[-0.3], dtype=dtype,
+                         device=cuda).requires_grad_(False)
+        ev_c = LinearEvent(w, time_coef=[0.0], bias=[-0.3], dtype=dtype,
+                           device="cpu").requires_grad_(False)
+        s0 = torch.sign(ev_c.lanes(torch.zeros(1, B, dtype=dtype), y0))
+        got = kernels.dopri5_events_batched(
+            model, y0.to(cuda), 0.0, ev, ev_params=(s0.to(cuda),),
+            max_steps=500, **kw)
+        want = kernels.dopri5_events_batched_ref(
+            model_c, y0, 0.0, ev_c, ev_params=(s0,), max_steps=500, **kw)
+        vals, counts = (0, 1), (2, 3, 4)
+    else:
+        kw['ts'] = np.linspace(0.0, 4.0, 5)
+        got = kernels.dopri5_integrate_batched(model, y0.to(cuda), 0.0, 4.0,
+                                               **kw)
+        want = kernels.dopri5_integrate_batched_ref(model_c, y0, 0.0, 4.0,
+                                                    **kw)
+        vals, counts = (0,), (1, 2)
+    assert got[0].dtype == dtype
+    share, ulps, far = _flips_and_ulps(
+        [got[i] for i in vals], [want[i] for i in vals],
+        [got[i] for i in counts], [want[i] for i in counts], dtype)
+    print(f"16-bit {dtype} D={D} {method} events={events}: lanes with other "
+          f"counts {share:.4f}, the others within {ulps:.2f} ULPs of max|y| "
+          f"({far} of {B} past 2)")   # shown with -s
+    assert share <= LANE16_FLIP_SHARE and ulps <= LANE16_ULPS[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_per_sample_route_launches_16bit_kernels(cuda, dtype):
+    """`odeint_per_sample(..., options=dict(pallas=True))` with a 16-bit
+    MLPField launches K-dopri5 and K-events once each."""
+    model, rng = _model(cuda, torch.float32, scale=0.3)
+    model = model.to(dtype)
+    y0 = torch.from_numpy(rng.randn(256, 2)).to(dtype).to(cuda)
+    ev = LinearEvent([[1.0, 0.0]], bias=[-0.3], dtype=dtype, device=cuda)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        ys, st = odeint_per_sample_with_stats(
+            model, y0, torch.linspace(0.0, 2.0, 3), rtol=1e-2, atol=1e-2,
+            options=dict(pallas=True))
+        (et, _), st_e = odeint_per_sample_with_stats(
+            model, y0, torch.tensor([0.0, 5.0]), rtol=1e-2, atol=1e-2,
+            event_fn=ev, options=dict(pallas=True, max_num_steps=300))
+    assert kernels.launch_counts["dopri5_integrate_batched"] == 1
+    assert kernels.launch_counts["dopri5_events_batched"] == 1
+    assert ys.dtype == dtype and ys.is_cuda and et.dtype == dtype
+    assert int(st.error_code.max()) == 0
+
+
+# ---- the per-sample stiff, implicit and Adams tiers --------------------------
+
+def _relax_i(t, y, lam):
+    return -lam * (y - t) + 1.0
+
+
+@pytest.mark.parametrize("method,options", [
+    ('kvaerno5', None), ('radau5a', None), ('kvaerno3', None),
+    ('implicit_adams', dict(num_steps=40)), ('gl4', dict(num_steps=20)),
+    ('trbdf2', dict(num_steps=20, root_solver='newton'))])
+def test_per_sample_implicit_tiers_cuda_match_cpu(cuda, method, options):
+    """Each sample's own controller, Newton or Broyden solves and Adams
+    order, on the card against the CPU in float64: Stats equal, values
+    within 1e-10 of max|y| (NaN where a sample's corrector diverged, on
+    both)."""
+    out = {}
+    for dev in ("cpu", cuda):
+        lam = torch.from_numpy(np.logspace(0.0, 3.0, 16)).to(dev)
+        y0 = torch.linspace(0.5, 1.5, 16, dtype=torch.float64).to(dev)[:, None]
+        with torch.no_grad():
+            ys, st = odeint_per_sample_with_stats(
+                _relax_i, y0, torch.linspace(0.0, 1.0, 3), args=(lam,),
+                args_axes=(0,), method=method, options=options, rtol=1e-6,
+                atol=1e-8)
+        out[str(dev)] = ys.cpu(), [x.cpu() for x in st]
+    (ys_c, st_c), (ys_g, st_g) = out["cpu"], out[str(cuda)]
+    for a, b in zip(st_g[:5], st_c[:5]):
+        assert torch.equal(a, b)
+    fin = torch.isfinite(ys_c)
+    assert torch.equal(torch.isfinite(ys_g), fin)
+    assert float((ys_g - ys_c)[fin].abs().max()) <= F64 * float(
+        ys_c[fin].abs().max())
+
+
+def test_per_sample_stiff_gradient_cuda_matches_cpu(cuda):
+    """kvaerno5's continuous adjoint per sample (the backward's Newton
+    steps per sample too), card against CPU in float64: 1e-9 of max|g|."""
+    grads = {}
+    for dev in ("cpu", cuda):
+        lam = torch.from_numpy(np.logspace(0.0, 1.0, 8)).to(dev)
+        lam.requires_grad_(True)
+        y0 = torch.linspace(0.5, 1.5, 8, dtype=torch.float64).to(
+            dev)[:, None].requires_grad_(True)
+        ys = odeint_per_sample(_relax_i, y0, torch.linspace(0.0, 1.0, 3),
+                               args=(lam,), args_axes=(0,),
+                               method='kvaerno5', rtol=1e-6, atol=1e-8)
+        (ys ** 2).sum().backward()
+        grads[str(dev)] = [y0.grad.cpu(), lam.grad.cpu()]
+    for g, w in zip(grads[str(cuda)], grads["cpu"]):
+        assert float((g - w).abs().max()) <= 1e-9 * float(w.abs().max())

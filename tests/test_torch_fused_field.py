@@ -19,6 +19,7 @@ Tolerances, each with its reason:
 """
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +27,8 @@ import torch
 
 from benchmarks.fused_field import fused_stage_step as j_fused
 import torchdiffeq_tpu as tde
+from torchdiffeq_tpu.parallel import (
+    odeint_per_sample_with_stats as j_per_sample)
 from torchdiffeq_tpu.ops import tableaus as jtab
 from torchdiffeq_tpu.ops.rk_step import runge_kutta_step as j_rk_step
 import torchdiffeq_tpu_torch as tt
@@ -254,8 +257,8 @@ def test_16bit_state_refused_by_the_solvers():
     """The adaptive loop takes 16-bit states: the same Stats as JAX's on
     the same call (a float16 solve at the default rtol=1e-7 underflows its
     step in both, error code 1), and the same bfloat16 values
-    (tests/test_torch_dtypes.py holds the rest); the per-lane kernels keep
-    refusing them, naming the dtypes they take."""
+    (tests/test_torch_dtypes.py holds the rest); the per-lane kernels'
+    route takes them as JAX's does."""
     y0 = np.ones((4, 2))
     t = np.linspace(0.0, 1.0, 3)
     for j_dt, t_dt in ((jnp.bfloat16, torch.bfloat16),
@@ -271,10 +274,24 @@ def test_16bit_state_refused_by_the_solvers():
         if t_dt == torch.bfloat16:
             np.testing.assert_array_equal(
                 ys_t.float().numpy(), np.asarray(ys_j.astype(jnp.float32)))
-    with pytest.raises(NotImplementedError, match="float32 and float64"):
-        tt.odeint_per_sample(lambda t_, y: -y,
-                             torch.ones(4, 2, dtype=torch.bfloat16),
-                             torch.from_numpy(t), options=dict(pallas=True))
+    # the per-lane kernels' route takes them too: bfloat16 counts and
+    # values JAX's kernel's in interpret mode (compiled with XLA's excess
+    # precision off, as tests/test_torch_lanes_16bit.py explains)
+    kw = dict(rtol=1e-2, atol=1e-3,
+              options=dict(pallas=True, interpret=True, max_num_steps=100))
+    y0_16 = np.linspace(0.5, 1.5, 8).reshape(4, 2)
+    ys_j, st_j = jax.jit(lambda y: j_per_sample(
+        lambda t_, y_: -y_, y, t, **kw)).lower(
+        jnp.asarray(y0_16, jnp.bfloat16)).compile(
+        compiler_options={'xla_allow_excess_precision': False})(
+        jnp.asarray(y0_16, jnp.bfloat16))
+    ys_t, st_t = tt.odeint_per_sample_with_stats(
+        lambda t_, y: -y, torch.tensor(y0_16).bfloat16(),
+        torch.from_numpy(t), **kw)
+    for a, b in zip(st_t[:5], st_j[:5]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(ys_t.float().numpy(),
+                                  np.asarray(ys_j.astype(jnp.float32)))
 
 
 # ---- the wrapper, the parameters' crossing and the refusals ----------------

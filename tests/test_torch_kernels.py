@@ -266,8 +266,9 @@ def test_per_sample_vmap_route_raises(call):
     off the kernel route (no ``pallas``, or an option the kernel does not
     take) is the batched driver's, values to 1e-12 and `Stats` equal to
     JAX's vmap route; per-sample args on the kernel route run its plain
-    version, equal to JAX's kernel in interpret mode; a stiff method stays
-    refused (ROADMAP A6b); an event solve with three output times raises
+    version, equal to JAX's kernel in interpret mode; a stiff method (which
+    JAX's rules send to its vmap route) the batched driver's, its
+    per-sample Newton steps included; an event solve with three output times raises
     the ValueError JAX's vmap route raises."""
     call = dict(call)
     y0 = np.linspace(0.5, 1.5, 8).reshape(4, 2)
@@ -280,10 +281,6 @@ def test_per_sample_vmap_route_raises(call):
     t_call = lambda: tt.odeint_per_sample_with_stats(
         t_func, torch.from_numpy(y0), torch.from_numpy(t),
         args=tuple(torch.from_numpy(a) for a in args), **call)
-    if call.get('method') == 'kvaerno3':
-        with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-            t_call()
-        return
     j_opts = call.pop('options', None)
     if j_opts and j_opts.get('pallas'):
         j_opts = dict(j_opts, interpret=True)

@@ -583,14 +583,17 @@ def test_kernel_route_plain_version_against_the_driver():
     _assert_values(ys_k, ys_d, tol=1e-10)
 
 
-# ---- what stays refused (ROADMAP A6b) ---------------------------------------------
+# ---- what the route took last (ROADMAP A6b), each as JAX answers it ----------------
 
 class _WithCallback:
+    def __init__(self):
+        self.calls = 0
+
     def __call__(self, t, y):
         return -y
 
     def callback_step(self, t0, y, dt):
-        pass
+        self.calls += 1
 
 
 @pytest.mark.parametrize("case", [
@@ -602,7 +605,9 @@ class _WithCallback:
     dict(method='scipy_solver'), dict(options=dict(replay_grad=True)),
     dict(options=dict(forward_grad=True)),
     dict(method='rk4', options=dict(
-        grid_constructor=lambda f, y, t: torch.linspace(0.0, 1.0, 5))),
+        grid_constructor=lambda f, y, t: t[0] + (t[-1] - t[0])
+        * (jnp if isinstance(y, jnp.ndarray) else torch).linspace(
+            0.0, 1.0, 5, dtype=y.dtype))),
     dict(func=_WithCallback()),
     dict(grad_event=True, method='rk4', options=dict(step_size=0.1))],
     ids=['kvaerno3', 'kvaerno5', 'radau5a', 'implicit_adams',
@@ -610,13 +615,45 @@ class _WithCallback:
          'forward_grad', 'grid_constructor', 'callback',
          'fixed_grid_event_gradient'])
 def test_what_is_not_ported_raises_naming_a6b(case):
+    """The calls this route refused while they were ROADMAP A6b, each now
+    as JAX's vmap route answers it (tests/test_torch_per_sample_implicit.py
+    holds each at length): values to 1e-10 and `Stats` exactly; the
+    callback fired once a sample a step, as each sample's own solve fires
+    it; the gradient through a fixed-grid event JAX's to 1e-9; and the
+    SciPy bridge refused by both, as JAX's vmap of its host callback
+    refuses it."""
     case = dict(case)
     func = case.pop('func', lambda t, y: -y)
-    y0 = torch.ones(4, 2, dtype=torch.float64)
-    t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
-    if case.pop('grad_event', False):
-        y0.requires_grad_()
+    y0 = np.linspace(0.5, 1.2, 8).reshape(4, 2)
+    t = np.linspace(0.0, 1.0, 3)
+    grad_event = case.pop('grad_event', False)
+    if grad_event:
         case['event_fn'] = lambda t_, y: y[0] - 0.5
         t = t[[0, -1]]
-    with pytest.raises(NotImplementedError, match="ROADMAP A6b"):
-        tt.odeint_per_sample(func, y0, t, **case)
+    if case.get('method') == 'scipy_solver':
+        with pytest.raises(NotImplementedError):
+            j_per_sample(func, jnp.asarray(y0), t, **case)
+        with pytest.raises(NotImplementedError, match="refuses"):
+            tt.odeint_per_sample(func, torch.from_numpy(y0),
+                                 torch.from_numpy(t), **case)
+        return
+    if grad_event:
+        def j_loss(y0_):
+            (_, ys), _ = j_per_sample(func, y0_, t, **case)
+            return jnp.sum(ys[:, 1] ** 2)
+
+        g_j = jax.grad(j_loss)(jnp.asarray(y0))
+        yt = torch.from_numpy(y0).requires_grad_()
+        (_, ys), _ = tt.odeint_per_sample_with_stats(
+            func, yt, torch.from_numpy(t), **case)
+        (ys[:, 1] ** 2).sum().backward()
+        _assert_values(yt.grad, g_j, tol=1e-9)
+        return
+    ys_j, st_j = j_per_sample(func, jnp.asarray(y0), t, **case)
+    n_calls = getattr(func, 'calls', None)
+    ys_t, st_t = tt.odeint_per_sample_with_stats(
+        func, torch.from_numpy(y0), torch.from_numpy(t), **case)
+    _assert_values(ys_t, ys_j, tol=1e-10)
+    _assert_stats(st_t, st_j)
+    if n_calls is not None:
+        assert func.calls - n_calls == int(st_t.n_steps.sum())

@@ -472,7 +472,7 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None):
         if y_of is not None:
             y = y_of(s)
         adt = aug.dtype
-        # a copy to the device, not a host read (`misc.jacobian` refuses
+        # a copy to the device, not a host read (`misc.lane_jacobian` refuses
         # reads); non-blocking, so that it does not wait for the stream
         s_d = torch.as_tensor(s).to(device=dev, dtype=adt, non_blocking=True)
         f, pullback = torch.func.vjp(lambda s_, y_, *ps_: f_dir(s_, y_, ps_),

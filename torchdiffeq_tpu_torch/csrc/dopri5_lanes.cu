@@ -1,297 +1,31 @@
-// K-dopri5: adaptive explicit Runge-Kutta with a step-size controller per
-// trajectory, the whole solve in one kernel.
-//
-// Replaces the TPU kernel torchdiffeq_tpu/ops/pallas_kernels.py:336
-// (`dopri5_integrate_batched`, pallas_call at :545; helpers `_make_lane_ops`
-// :238-333 and `_tableau_consts` :182).  There each of a tile's 128 VPU
-// lanes owns a trajectory and one tile-wide while_loop runs until every
-// lane is done, stepping finished lanes with dt = 0.  Here a group of L
-// lanes of one warp owns a trajectory (L a power of two from 1 to 32, at
-// most H, chosen on the host by ops/kernels.py `_lane_group_width`) and
-// runs its own `while (t < t1 && steps < max_steps)` loop, so a
-// trajectory's result never depends on which others share its warp or
-// block.
-//
-// Per trajectory, as in the TPU kernel: time in the state dtype; the
-// Hairer initial step (`hairer_dt`) unless first_step is given; the
-// tableau's stage sweep with the coefficient sums formed BEFORE the dt
-// multiply; tol = atol + rtol * max(|y|, |y1|); the RMS of err/tol over the
-// true D; accept = ratio <= 1; the I-controller factor
-// min(ifactor, max(safety / max(ratio, tiny)^(1/order), dfactor on reject
-// else 1)); quartic dense output for every output time t_s with
-// t < t_s <= t + dt on an accepted step; outputs at or before t0 equal y0;
-// NaN in every row whose time the trajectory never reached.
-//
-// The tableau arrives as a small array (any explicit method of up to
-// TDT_PACK_STAGES stages: dopri5, tsit5, bosh3, fehlberg2, adaptive_heun,
-// dopri8).  The per-trajectory numerics live in lane_ops.cuh, shared with
-// the event kernel.  A problem of at most TDT_MAX_STAGES stages and D <=
-// TDT_REG_MAX_D runs an instance that holds its state and slopes in
-// registers (`lanes_kernel`, one per D); any other (dopri8's 14 stages, or
-// D > 8) runs `lanes_wide_kernel`, which holds them in a shared-memory
-// slice per trajectory (lane_ops.cuh `WideLane`) for a D known only at run
-// time: registers that grow with D and the stage count would spill.  Its
-// block holds as many trajectories as the card's shared memory takes (the
-// host picks the block size).
-//
-// What bounds it on an H100: not bytes (the state, the slopes and the
-// controller live in registers; device memory sees y0, the emitted rows and
-// the counters only) but the latency of each step's dependent chain: 4-7
-// field evaluations of H tanh units each, then the stage sums, the error
-// ratio and the controller.  One thread a trajectory walked all H units of
-// every evaluation in turn and, at B=1024, filled 8 of 132 SMs, and the
-// lanes of a warp ran as long as its slowest (2-9 steps on the spiral).
-// Here the group splits the H units (GroupMlpField, mlp_field.cuh), so an
-// evaluation's chain is H/L units plus log2(L) shuffle levels, and B*L
-// threads fill the card; the warp holds 32/L trajectories, so fewer of them
-// wait for the slowest.  Every lane of the group runs the stage sums, the
-// controller and the dense output redundantly on the same bits (the
-// butterfly gives each the same sums), so every branch, the loop's end
-// included, is the same across the group: the group stays converged with
-// no vote, shared memory or barrier in the loop, and its shuffles name
-// only its own lanes, so groups of a warp may leave the loop at different
-// steps.  Lane 0 of the group writes the trajectory's rows and counters, in
-// the (S, D, B) layout, trajectory index fastest.  The redundant work is why
-// the host picks L=1 at a large batch, where B threads already fill the
-// card; L=1 is an instance of its own (kGroup false) running MlpField's
-// loop, the first version's, with no group code beside it.
-#include "lane_ops.cuh"
+// K-dopri5's float32 and float64 instances and its C entry point; the
+// kernels are in dopri5_lanes.cuh, the 16-bit instances in
+// dopri5_lanes_16bit.cu.
+#include "dopri5_lanes.cuh"
 
-namespace {
+namespace tdt_lanes {
+// instantiated in dopri5_lanes_16bit.cu
+extern template int launch<tdt::bf16>(
+    int B, int D, int H, int power, const void* y0, const void* ts, int S,
+    double t0, double t1, double rtol, double atol, double safety,
+    double ifactor, double dfactor, double first_step, int use_first_step,
+    int max_steps, const void* tab, int n_alpha, int order, int fsal,
+    const void* w1, const void* b1, const void* w2, const void* b2, int L,
+    int threads, void* ys, void* n_acc, void* n_steps, void* stream);
+extern template int launch<tdt::f16>(
+    int B, int D, int H, int power, const void* y0, const void* ts, int S,
+    double t0, double t1, double rtol, double atol, double safety,
+    double ifactor, double dfactor, double first_step, int use_first_step,
+    int max_steps, const void* tab, int n_alpha, int order, int fsal,
+    const void* w1, const void* b1, const void* w2, const void* b2, int L,
+    int threads, void* ys, void* n_acc, void* n_steps, void* stream);
+}  // namespace tdt_lanes
 
-template <typename T, int D, bool kGroup>
-__global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
-                             int S, int B, T t0, T t1, T rtol, T atol,
-                             T safety, T ifactor, T dfactor, T first_step,
-                             int use_first_step, int max_steps,
-                             const T* __restrict__ tab, int n_alpha, int order,
-                             int fsal, int H, int power,
-                             const T* __restrict__ w1, const T* __restrict__ b1,
-                             const T* __restrict__ w2, const T* __restrict__ b2,
-                             int L, T* __restrict__ ys, int* __restrict__ n_acc_out,
-                             int* __restrict__ n_steps_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int n_mlp = tdt::stage_mlp(smem, w1, b1, w2, b2, D, H);
-  T* s_tab = smem + n_mlp;
-  T* s_ts = s_tab + TDT_TAB_SIZE;
-  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
-  for (int i = threadIdx.x; i < S; i += blockDim.x) s_ts[i] = ts[i];
-  __syncthreads();
+using namespace tdt_lanes;
 
-  // the L lanes of group b own trajectory b; a group past the batch returns
-  // whole
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = gid / L;
-  if (b >= B) return;
-  const bool writer = (gid & (L - 1)) == 0;
-  // the field takes no time input: stage times are not formed
-  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
 
-  // the solve, for the field f of this lane's group
-  auto solve = [&](const auto& f) {
-    T y[D], fc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
-    T t = t0;
-
-    // outputs at or before the start time are the initial state
-    int s_next = 0;
-    while (s_next < S && s_ts[s_next] <= t0) {
-      if (writer) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = y[d];
-      }
-      ++s_next;
-    }
-
-    f(y, fc);
-    T dt = use_first_step ? first_step
-                          : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
-
-    int n_acc = 0, n_steps = 0;
-    T k[TDT_MAX_STAGES][D];
-    T y1[D], f1[D], err[D];
-    while (t < t1 && n_steps < max_steps) {
-      const T t_prop = t + dt;
-      tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
-      const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
-      const bool accept = ratio <= T(1);
-
-      // dense output for the output times this step covers
-      if (accept && s_next < S && s_ts[s_next] <= t_prop) {
-        tdt::Quartic<T, D> q;
-        tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
-        const T dt_safe = dt > T(0) ? dt : T(1);
-        while (s_next < S && s_ts[s_next] <= t_prop) {
-          T val[D];
-          tdt::eval_quartic<T, D>(q, (s_ts[s_next] - t) / dt_safe, val);
-          if (writer) {
-#pragma unroll
-            for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = val[d];
-          }
-          ++s_next;
-        }
-      }
-
-      if (accept) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          y[d] = y1[d];
-          fc[d] = f1[d];
-        }
-        t = t_prop;
-        ++n_acc;
-      }
-      dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
-      ++n_steps;
-    }
-
-    if (!writer) return;
-    // rows whose time this trajectory never reached (max_steps ran out)
-    for (; s_next < S; ++s_next) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = T(NAN);
-    }
-    n_acc_out[b] = n_acc;
-    n_steps_out[b] = n_steps;
-  };
-  // L = 1 (kGroup false) is an instance of its own: a lane a trajectory
-  // walks all H units in MlpField's loop, which the compiler unrolls further
-  // than the group's strided one, and its registers and code are not sized
-  // for the group's path
-  if constexpr (kGroup)
-    solve(tdt::group_mlp_from_shared<T, D>(smem, H, power, L));
-  else
-    solve(tdt::mlp_from_shared<T, D>(smem, H, power));
-}
-
-// The same solve for any D and up to TDT_PACK_STAGES stages, the state and
-// slopes in a shared-memory slice of each trajectory (lane_ops.cuh
-// `WideLane`).  The group splits every element-wise pass by state row and
-// each field evaluation by hidden unit, then by output row; each lane writes
-// its rows' outputs.
-template <typename T>
-__global__ void lanes_wide_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
-                                  int S, int B, int D, T t0, T t1, T rtol, T atol,
-                                  T safety, T ifactor, T dfactor, T first_step,
-                                  int use_first_step, int max_steps,
-                                  const T* __restrict__ tab, int n_alpha, int order,
-                                  int fsal, int H, int power,
-                                  const T* __restrict__ w1, const T* __restrict__ b1,
-                                  const T* __restrict__ w2, const T* __restrict__ b2,
-                                  int L, T* __restrict__ ys, int* __restrict__ n_acc_out,
-                                  int* __restrict__ n_steps_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int n_mlp = tdt::stage_mlp(smem, w1, b1, w2, b2, D, H);
-  T* s_tab = smem + n_mlp;
-  T* s_ts = s_tab + TDT_TAB_SIZE;
-  T* s_slices = s_ts + S;
-  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
-  for (int i = threadIdx.x; i < S; i += blockDim.x) s_ts[i] = ts[i];
-  __syncthreads();
-
-  const int gid = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = gid / L;
-  if (b >= B) return;
-  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
-  const int n_st = n_alpha + 1;
-  const tdt::WideLane<T> w(
-      smem, D, H, power,
-      s_slices + (size_t)(threadIdx.x / L) * tdt::wide_slice_elems(D, H, n_st, false),
-      n_st, tdt::lane_group(L));
-  const int lane = w.g.lane;
-
-  for (int d = lane; d < D; d += L) w.y[d] = y0[(size_t)d * B + b];
-  w.g.sync();
-  T t = t0;
-  int s_next = 0;
-  while (s_next < S && s_ts[s_next] <= t0) {
-    for (int d = lane; d < D; d += L) ys[((size_t)s_next * D + d) * B + b] = w.y[d];
-    ++s_next;
-  }
-  w.field(w.y, w.k);
-  T dt = use_first_step ? first_step : w.hairer_dt(rtol, atol, tb.inv_order);
-
-  int n_acc = 0, n_steps = 0;
-  while (t < t1 && n_steps < max_steps) {
-    const T t_prop = t + dt;
-    w.stage_sweep(tb, dt);
-    const T ratio = w.error_ratio(rtol, atol);
-    const bool accept = ratio <= T(1);
-    if (accept && s_next < S && s_ts[s_next] <= t_prop) {
-      const T dt_safe = dt > T(0) ? dt : T(1);
-      for (int d = lane; d < D; d += L) {
-        T e, dd, c, bb, a;
-        w.quartic_row(tb, dt, d, e, dd, c, bb, a);
-        for (int s = s_next; s < S && s_ts[s] <= t_prop; ++s)
-          ys[((size_t)s * D + d) * B + b] =
-              tdt::quartic_at<T>(e, dd, c, bb, a, (s_ts[s] - t) / dt_safe);
-      }
-      while (s_next < S && s_ts[s_next] <= t_prop) ++s_next;
-    }
-    if (accept) {
-      w.accept_step();
-      t = t_prop;
-      ++n_acc;
-    }
-    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
-    ++n_steps;
-  }
-  for (; s_next < S; ++s_next)
-    for (int d = lane; d < D; d += L) ys[((size_t)s_next * D + d) * B + b] = T(NAN);
-  if (lane != 0) return;
-  n_acc_out[b] = n_acc;
-  n_steps_out[b] = n_steps;
-}
-
-template <typename T>
-int launch(int B, int D, int H, int power, const void* y0, const void* ts,
-           int S, double t0, double t1, double rtol, double atol, double safety,
-           double ifactor, double dfactor, double first_step, int use_first_step,
-           int max_steps, const void* tab, int n_alpha, int order, int fsal,
-           const void* w1, const void* b1, const void* w2, const void* b2, int L,
-           int threads, void* ys, void* n_acc, void* n_steps, void* stream) {
-  const int blocks = (int)(((long long)B * L + threads - 1) / threads);
-  size_t smem = (size_t)(2 * D * H + H + D + TDT_TAB_SIZE + S) * sizeof(T);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D > TDT_REG_MAX_D || n_alpha > TDT_MAX_ALPHA) {
-    smem += (size_t)(threads / L) * tdt::wide_slice_elems(D, H, n_alpha + 1, false) *
-            sizeof(T);
-    const int code = tdt::allow_shared(lanes_wide_kernel<T>, smem);
-    if (code) return code;
-    lanes_wide_kernel<T><<<blocks, threads, smem, st>>>(
-        static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, D, (T)t0, (T)t1,
-        (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor, (T)first_step,
-        use_first_step, max_steps, static_cast<const T*>(tab), n_alpha, order, fsal,
-        H, power, static_cast<const T*>(w1), static_cast<const T*>(b1),
-        static_cast<const T*>(w2), static_cast<const T*>(b2), L, static_cast<T*>(ys),
-        static_cast<int*>(n_acc), static_cast<int*>(n_steps));
-    return (int)cudaGetLastError();
-  }
-#define TDT_LAUNCH_LANES(DD)                                                    \
-  {                                                                             \
-    auto kernel = L == 1 ? lanes_kernel<T, DD, false> : lanes_kernel<T, DD, true>; \
-    const int code = tdt::allow_shared(kernel, smem);                           \
-    if (code) return code;                                                      \
-    kernel<<<blocks, threads, smem, st>>>(                                      \
-        static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, (T)t0,      \
-        (T)t1, (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor,             \
-        (T)first_step, use_first_step, max_steps, static_cast<const T*>(tab),   \
-        n_alpha, order, fsal, H, power, static_cast<const T*>(w1),              \
-        static_cast<const T*>(b1), static_cast<const T*>(w2),                   \
-        static_cast<const T*>(b2), L, static_cast<T*>(ys),                      \
-        static_cast<int*>(n_acc), static_cast<int*>(n_steps));                  \
-  }
-  TDT_DISPATCH_D(D, TDT_LAUNCH_LANES)
-#undef TDT_LAUNCH_LANES
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-// dtype: 0 = float32, 1 = float64.  y0 is (D, B), ts (S,) increasing, ys
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16, 3 = float16 (tdt::Lo).  y0
+// is (D, B), ts (S,) increasing, ys
 // (S, D, B); n_acc and n_steps are (B,) int32.  Scalars are values of the
 // state dtype passed exactly as doubles; `tab` is the packed tableau in the
 // state dtype.  group is the lanes a trajectory, a power of two from 1 to
@@ -323,6 +57,16 @@ extern "C" int tdt_dopri5_lanes(int dtype, int B, int D, int H, int power,
                           ifactor, dfactor, first_step, use_first_step, max_steps,
                           tab, n_alpha, order, fsal, w1, b1, w2, b2, group,
                           threads, ys, n_acc, n_steps, stream);
+  if (dtype == 2)
+    return launch<tdt::bf16>(B, D, H, power, y0, ts, S, t0, t1, rtol, atol, safety,
+                              ifactor, dfactor, first_step, use_first_step, max_steps,
+                              tab, n_alpha, order, fsal, w1, b1, w2, b2, group,
+                              threads, ys, n_acc, n_steps, stream);
+  if (dtype == 3)
+    return launch<tdt::f16>(B, D, H, power, y0, ts, S, t0, t1, rtol, atol, safety,
+                             ifactor, dfactor, first_step, use_first_step, max_steps,
+                             tab, n_alpha, order, fsal, w1, b1, w2, b2, group,
+                             threads, ys, n_acc, n_steps, stream);
   return (int)cudaErrorInvalidValue;
 }
 

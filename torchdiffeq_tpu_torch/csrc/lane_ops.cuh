@@ -1,5 +1,5 @@
 // Per-lane adaptive Runge-Kutta numerics shared by the two per-lane kernels
-// (dopri5_lanes.cu and dopri5_events.cu), as the TPU kernels share
+// (dopri5_lanes.cuh and dopri5_events.cuh), as the TPU kernels share
 // `_make_lane_ops` (torchdiffeq_tpu/ops/pallas_kernels.py:238-333): the
 // lane RMS norm, the tableau's stage sweep, the error ratio, the Hairer
 // initial step, the I-controller, and the quartic dense-output fit and
@@ -9,7 +9,7 @@
 // GroupMlpField) divides work across the group; every lane runs the rest
 // redundantly on the same bits, so its branches, and those of the loops
 // around it, are the same across the group.  What bounds the kernels, and
-// why the group, is in dopri5_lanes.cu.
+// why the group, is in dopri5_lanes.cuh.
 #pragma once
 
 #include "mlp_field.cuh"
@@ -37,6 +37,8 @@ namespace tdt {
 template <typename T> __device__ __forceinline__ T tiny();
 template <> __device__ __forceinline__ float tiny<float>() { return 1.17549435e-38f; }
 template <> __device__ __forceinline__ double tiny<double>() { return 2.2250738585072014e-308; }
+template <> __device__ __forceinline__ bf16 tiny<bf16>() { return bf16(1.17549435e-38f); }
+template <> __device__ __forceinline__ f16 tiny<f16>() { return f16(6.103515625e-05f); }
 
 // The packed tableau, staged in shared memory.
 template <typename T>
@@ -57,16 +59,17 @@ __device__ __forceinline__ Tableau<T> tableau_from_shared(const T* s, int n_alph
                     s + TDT_TAB_CMID, n_alpha, fsal, T(1.0 / (double)order)};
 }
 
-// sqrt(sum_d (v/scale)^2 / D): `lane_rms` over the true state size.
+// sqrt(sum_d (v/scale)^2 / D): `lane_rms` over the true state size (the
+// squares in the state dtype, their sum accumulated in acc_t<T>).
 template <typename T, int D>
 __device__ __forceinline__ T rms_of_scaled(const T (&v)[D], const T (&scale)[D]) {
-  T s = T(0);
+  acc_t<T> s = acc_t<T>(0);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const T q = v[d] / scale[d];
-    s = d == 0 ? q * q : s + q * q;
+    s = d == 0 ? acc(q * q) : s + acc(q * q);
   }
-  return dsqrt<T>(s / T(D));
+  return dsqrt<T>(from_acc<T>(s) / T(D));
 }
 
 // acc = sum_j c[j] * k[j] over the nonzero c[j], j < n, in order (the sums
@@ -288,21 +291,19 @@ struct WideLane {
   // then each output row by one lane, summing the hidden units in order
   // from 0 (MlpField's order, whatever L).
   __device__ void field(const T* in, T* out) const {
-    for (int j = g.lane; j < D; j += g.L) {
-      const T v = in[j];
-      x[j] = power == 1 ? v : (power == 2 ? v * v : v * v * v);
-    }
+    using A = acc_t<T>;
+    for (int j = g.lane; j < D; j += g.L) x[j] = field_power<T>(in[j], power);
     g.sync();
     for (int h = g.lane; h < H; h += g.L) {
-      T s = x[0] * w1[h];
-      for (int j = 1; j < D; ++j) s = s + x[j] * w1[j * H + h];
-      hid[h] = dtanh<T>(s + b1[h]);
+      A s = acc(x[0]) * acc(w1[h]);
+      for (int j = 1; j < D; ++j) s = s + acc(x[j]) * acc(w1[j * H + h]);
+      hid[h] = dtanh<T>(from_acc<T>(s) + b1[h]);
     }
     g.sync();
     for (int d = g.lane; d < D; d += g.L) {
-      T o = T(0);
-      for (int h = 0; h < H; ++h) o = o + hid[h] * w2[h * D + d];
-      out[d] = o + b2[d];
+      A o = A(0);
+      for (int h = 0; h < H; ++h) o = o + acc(hid[h]) * acc(w2[h * D + d]);
+      out[d] = from_acc<T>(o) + b2[d];
     }
     g.sync();
   }
@@ -326,14 +327,14 @@ struct WideLane {
   // Every lane computes it whole.
   __device__ __forceinline__ T rms(const T* v, const T* sub, T rtol, T atol,
                                    bool scale_y1) const {
-    T s = T(0);
+    acc_t<T> s = acc_t<T>(0);
     for (int d = 0; d < D; ++d) {
       const T scale = scale_y1 ? atol + rtol * nmax(dabs(y[d]), dabs(y1[d]))
                                : atol + rtol * dabs(y[d]);
       const T q_ = (sub ? v[d] - sub[d] : v[d]) / scale;
-      s = d == 0 ? q_ * q_ : s + q_ * q_;
+      s = d == 0 ? acc(q_ * q_) : s + acc(q_ * q_);
     }
-    return dsqrt<T>(s / T(D));
+    return dsqrt<T>(from_acc<T>(s) / T(D));
   }
 
   // `hairer_dt` from y and k[0] = f(y); uses yi and y1 as scratch

@@ -10,11 +10,92 @@
 // kernels are compiled with --fmad=false so that every a*b+c rounds twice,
 // exactly as the separate PyTorch operations of the plain versions do; only
 // the summation order of the two small matrix products differs from theirs.
+//
+// 16-bit states (bfloat16, float16) are `Lo<S>` values: every operation on
+// them is computed in float and rounded back to S, as PyTorch's operations
+// on a 16-bit tensor round each result (and as the TPU kernel's arithmetic
+// in the state dtype does).  A matrix product is one operation there, its
+// sum accumulated in float and rounded once: the field's two products and
+// the RMS norms' sums accumulate in `acc_t<T>` (float for a 16-bit T, T
+// itself otherwise, so the float32 and float64 instances are unchanged).
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace tdt {
+
+__host__ __device__ __forceinline__ float lo_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__host__ __device__ __forceinline__ float lo_float(__half x) { return __half2float(x); }
+template <typename S> __host__ __device__ __forceinline__ S lo_round(float x);
+template <> __host__ __device__ __forceinline__ __nv_bfloat16 lo_round<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+template <> __host__ __device__ __forceinline__ __half lo_round<__half>(float x) {
+  return __float2half_rn(x);
+}
+
+// A bfloat16 or float16 value (S) whose arithmetic rounds each result to S;
+// a double converts through float, as PyTorch converts one.
+template <typename S>
+struct Lo {
+  S v;
+  Lo() = default;
+  __host__ __device__ __forceinline__ explicit Lo(float x) : v(lo_round<S>(x)) {}
+  __host__ __device__ __forceinline__ explicit Lo(double x) : v(lo_round<S>((float)x)) {}
+  __host__ __device__ __forceinline__ explicit Lo(int x) : v(lo_round<S>((float)x)) {}
+  __host__ __device__ __forceinline__ float f() const { return lo_float(v); }
+};
+using bf16 = Lo<__nv_bfloat16>;
+using f16 = Lo<__half>;
+
+#define TDT_LO_BINARY(OP)                                                     \
+  template <typename S>                                                       \
+  __device__ __forceinline__ Lo<S> operator OP(Lo<S> a, Lo<S> b) {            \
+    return Lo<S>(a.f() OP b.f());                                             \
+  }
+TDT_LO_BINARY(+)
+TDT_LO_BINARY(-)
+TDT_LO_BINARY(*)
+TDT_LO_BINARY(/)
+#undef TDT_LO_BINARY
+#define TDT_LO_COMPARE(OP)                                                    \
+  template <typename S>                                                       \
+  __device__ __forceinline__ bool operator OP(Lo<S> a, Lo<S> b) {             \
+    return a.f() OP b.f();                                                    \
+  }
+TDT_LO_COMPARE(<)
+TDT_LO_COMPARE(<=)
+TDT_LO_COMPARE(>)
+TDT_LO_COMPARE(>=)
+TDT_LO_COMPARE(==)
+TDT_LO_COMPARE(!=)
+#undef TDT_LO_COMPARE
+template <typename S>
+__device__ __forceinline__ Lo<S> operator-(Lo<S> a) {
+  return Lo<S>(-a.f());
+}
+
+// The accumulator of a sum over products: float for a 16-bit T.
+template <typename T> struct AccOf { using type = T; };
+template <typename S> struct AccOf<Lo<S>> { using type = float; };
+template <typename T> using acc_t = typename AccOf<T>::type;
+template <typename T> __device__ __forceinline__ acc_t<T> acc(T x) { return x; }
+template <typename S> __device__ __forceinline__ float acc(Lo<S> x) { return x.f(); }
+template <typename T> __device__ __forceinline__ T from_acc(acc_t<T> x) { return T(x); }
+
+// y**3 as PyTorch computes it: (y*y)*y, rounded after each product, for
+// float, double and bfloat16; in float, rounded once, for float16.
+template <typename T> __device__ __forceinline__ T cube(T v) { return v * v * v; }
+template <> __device__ __forceinline__ f16 cube<f16>(f16 v) {
+  return f16(v.f() * v.f() * v.f());
+}
+template <typename T> __device__ __forceinline__ T field_power(T v, int power) {
+  return power == 1 ? v : (power == 2 ? v * v : cube<T>(v));
+}
 
 template <typename T> __device__ __forceinline__ T dtanh(T x);
 template <> __device__ __forceinline__ float dtanh<float>(float x) { return tanhf(x); }
@@ -31,6 +112,16 @@ template <> __device__ __forceinline__ double dabs<double>(double x) { return fa
 template <typename T> __device__ __forceinline__ T dpow(T x, T y);
 template <> __device__ __forceinline__ float dpow<float>(float x, float y) { return powf(x, y); }
 template <> __device__ __forceinline__ double dpow<double>(double x, double y) { return pow(x, y); }
+#define TDT_LO_MATH(TYPE)                                                               \
+  template <> __device__ __forceinline__ TYPE dtanh<TYPE>(TYPE x) { return TYPE(tanhf(x.f())); } \
+  template <> __device__ __forceinline__ TYPE dsqrt<TYPE>(TYPE x) { return TYPE(sqrtf(x.f())); } \
+  template <> __device__ __forceinline__ TYPE dabs<TYPE>(TYPE x) { return TYPE(fabsf(x.f())); }  \
+  template <> __device__ __forceinline__ TYPE dpow<TYPE>(TYPE x, TYPE y) {                       \
+    return TYPE(powf(x.f(), y.f()));                                                             \
+  }
+TDT_LO_MATH(bf16)
+TDT_LO_MATH(f16)
+#undef TDT_LO_MATH
 
 // max/min that propagate NaN like torch.maximum/torch.minimum (fmax/fmin
 // would drop it).
@@ -68,25 +159,23 @@ struct MlpField {
   int power;
 
   __device__ __forceinline__ void operator()(const T (&y)[D], T (&out)[D]) const {
+    using A = acc_t<T>;
     T x[D];
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const T v = y[j];
-      // y*y*y is (y*y)*y, as torch's pow(y, 3) computes it
-      x[j] = power == 1 ? v : (power == 2 ? v * v : v * v * v);
-    }
+    for (int j = 0; j < D; ++j) x[j] = field_power<T>(y[j], power);
+    A o[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = T(0);
+    for (int d = 0; d < D; ++d) o[d] = A(0);
     for (int h = 0; h < H; ++h) {
-      T s = x[0] * w1[h];
+      A s = acc(x[0]) * acc(w1[h]);
 #pragma unroll
-      for (int j = 1; j < D; ++j) s = s + x[j] * w1[j * H + h];
-      const T a = dtanh<T>(s + b1[h]);
+      for (int j = 1; j < D; ++j) s = s + acc(x[j]) * acc(w1[j * H + h]);
+      const A a = acc(dtanh<T>(from_acc<T>(s) + b1[h]));
 #pragma unroll
-      for (int d = 0; d < D; ++d) out[d] = out[d] + a * w2[h * D + d];
+      for (int d = 0; d < D; ++d) o[d] = o[d] + a * acc(w2[h * D + d]);
     }
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = out[d] + b2[d];
+    for (int d = 0; d < D; ++d) out[d] = from_acc<T>(o[d]) + b2[d];
   }
 };
 
@@ -134,32 +223,31 @@ struct GroupMlpField {
   unsigned mask;   // the lanes the shuffles name (see above)
 
   __device__ __forceinline__ void operator()(const T (&y)[D], T (&out)[D]) const {
+    using A = acc_t<T>;
     T x[D];
 #pragma unroll
-    for (int j = 0; j < D; ++j) {
-      const T v = y[j];
-      x[j] = power == 1 ? v : (power == 2 ? v * v : v * v * v);
-    }
+    for (int j = 0; j < D; ++j) x[j] = field_power<T>(y[j], power);
+    A o[D];
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = T(0);
+    for (int d = 0; d < D; ++d) o[d] = A(0);
 #pragma unroll 2
     for (int h = lane; h < H; h += L) {
-      T s = x[0] * w1[h];
+      A s = acc(x[0]) * acc(w1[h]);
 #pragma unroll
-      for (int j = 1; j < D; ++j) s = s + x[j] * w1[j * H + h];
-      const T a = dtanh<T>(s + b1[h]);
+      for (int j = 1; j < D; ++j) s = s + acc(x[j]) * acc(w1[j * H + h]);
+      const A a = acc(dtanh<T>(from_acc<T>(s) + b1[h]));
 #pragma unroll
-      for (int d = 0; d < D; ++d) out[d] = out[d] + a * w2[h * D + d];
+      for (int d = 0; d < D; ++d) o[d] = o[d] + a * acc(w2[h * D + d]);
     }
     // a mask that names the whole warp goes in as the constant: with a mask
     // known only at run time the compiler syncs the named lanes before each
     // shuffle
     if (mask == 0xffffffffu)
-      group_sum<T, D>(out, 0xffffffffu, L);
+      group_sum<A, D>(o, 0xffffffffu, L);
     else
-      group_sum<T, D>(out, mask, L);
+      group_sum<A, D>(o, mask, L);
 #pragma unroll
-    for (int d = 0; d < D; ++d) out[d] = out[d] + b2[d];
+    for (int d = 0; d < D; ++d) out[d] = from_acc<T>(o[d]) + b2[d];
   }
 };
 

@@ -15,8 +15,8 @@ frame; the time dtype, the event function of an event solve, and the
 step, with the user's time frame and state structure).  Time stays float64
 on the host, as in the reference (rk_common.py:180-182), so the JAX
 package's double-word time and its arithmetic ``nextafter`` are not
-needed.  Complex states are ROADMAP A2.  `jacobian` is the implicit
-tiers' dense Jacobian of a stage residual.
+needed.  Complex states are ROADMAP A2.  `lane_jacobian` is the implicit
+tiers' Jacobian of a stage residual, each sample's own.
 """
 from __future__ import annotations
 
@@ -237,7 +237,7 @@ def nextafter_down(t):
 
 
 class _NoHostReads(torch.overrides.TorchFunctionMode):
-    """Raises when a tensor is read to the host inside `jacobian`: were it
+    """Raises when a tensor is read to the host inside `lane_jacobian`: were it
     to depend on the input, autodiff would take it as a constant and return
     a Jacobian without its terms.  torch.func wraps every tensor made
     inside the transform, so a read of the time raises too."""
@@ -253,29 +253,37 @@ class _NoHostReads(torch.overrides.TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-def jacobian(fn, x):
-    """The dense Jacobian of ``fn: (m,) -> (m,)`` at `x`, by
-    ``torch.func.jacrev`` (JAX takes ``jax.jacfwd`` of the flat residual:
-    the same matrix to rounding, and reverse mode costs torch.func less
+def lane_jacobian(fn, x):
+    """The Jacobian of every sample of a batched ``fn: (B, m) -> (B, m)``
+    whose row b depends on row b of `x` alone: (B, m, m).  Row i of every
+    sample's matrix is the vjp of the cotangent e_i put in every sample,
+    so one vmapped pullback gives all of them: reverse mode in block form
+    (JAX takes ``jax.jacfwd`` of the flat residual, under vmap per sample:
+    the same matrices to rounding, and reverse mode costs torch.func less
     host time a call).  The field inside `fn` must be one that torch.func
-    can transform: tensor
-    operations on the state and the time, with no host read of a tensor
-    (``.item()``, ``float()``, ``bool()``; a branch on the time is
-    ``torch.where``) and no in-place update of a tensor it captures.  One
-    that is not raises here, naming that requirement, instead of giving a
-    Jacobian with terms missing."""
+    can transform: tensor operations on the state and the time, with no
+    host read of a tensor (``.item()``, ``float()``, ``bool()``; a branch
+    on the time is ``torch.where``) and no in-place update of a tensor it
+    captures.  One that is not raises here, naming that requirement,
+    instead of giving a Jacobian with terms missing."""
     try:
         with _NoHostReads():
-            return torch.func.jacrev(fn)(x)
+            out, pullback = torch.func.vjp(fn, x)
+            m = out.shape[-1]
+            basis = torch.eye(m, dtype=out.dtype, device=out.device)
+            rows = torch.func.vmap(
+                lambda e: pullback(e.expand_as(out))[0])(basis)
+            return rows.transpose(0, 1)
     except RuntimeError as err:
         raise RuntimeError(
-            "the implicit solvers take the field's Jacobian with "
-            "torch.func.jacrev (Newton's method, and the implicit-function "
-            "gradient of a stage solve), which cannot transform this field: "
-            f"{err}.  The field must use tensor operations on the state and "
-            "the time, with no .item(), .tolist(), float(), bool() or numpy "
-            "of a tensor (branch with torch.where), and no in-place update "
-            "of a tensor it captures") from err
+            "the implicit solvers take the field's Jacobian in reverse mode "
+            "with torch.func, as torch.func.jacrev does (Newton's method, "
+            "and the implicit-function gradient of a stage solve), which "
+            f"cannot transform this field: {err}.  The "
+            "field must use tensor operations on the state and the time, "
+            "with no .item(), .tolist(), float(), bool() or numpy of a "
+            "tensor (branch with torch.where), and no in-place update of a "
+            "tensor it captures") from err
 
 
 # the callback attributes of a field (reference misc.py:313-343) and the
@@ -287,6 +295,22 @@ _VALID_CALLBACKS = {
     'adaptive': set(CALLBACK_NAMES),
     **{kind: {'callback_step'} for kind in ('fixed', 'adams', 'firk', 'dirk')},
 }
+
+
+def solver_callbacks(func, method, solvers, t_sign, unravel):
+    """The callbacks of `func` the solver of `method` fires, each wrapped
+    by `_user_frame_callback` (JAX misc.py:360-395): per executed step, in
+    the user's frame; one the solver kind does not fire is warned about and
+    dropped (the `_adjoint` ones are read from `func` by the adjoint).
+    Returns {name: fire}."""
+    fired = {name for name in CALLBACK_NAMES
+             if getattr(func, name, None) is not None}
+    invalid = fired - _VALID_CALLBACKS.get(solvers[method].get('kind'), set())
+    if invalid:
+        warnings.warn("Solver '{}' does not support callbacks {}".format(
+            method, sorted(invalid)))
+    return {name: _user_frame_callback(getattr(func, name), t_sign, unravel)
+            for name in sorted(fired - invalid)}
 
 
 def _user_frame_callback(cb, t_sign, unravel):
@@ -484,18 +508,9 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
         flat_event_fn = combine_event_functions(flat_event_fn, t_np[0], y0)
 
     wrapped = PerturbedFunc(base_func, t_sign)
-    # callbacks (JAX misc.py:360-395): per executed step, in the user's
-    # frame; one the solver kind does not fire is warned about and dropped
-    # (the `_adjoint` ones are read from `func` by the adjoint)
-    fired = {name for name in CALLBACK_NAMES
-             if getattr(func, name, None) is not None}
-    invalid = fired - _VALID_CALLBACKS.get(solvers[method].get('kind'), set())
-    if invalid:
-        warnings.warn("Solver '{}' does not support callbacks {}".format(
-            method, sorted(invalid)))
-    for name in fired - invalid:
-        setattr(wrapped, name, _user_frame_callback(getattr(func, name),
-                                                    t_sign, unravel))
+    for name, fire in solver_callbacks(func, method, solvers, t_sign,
+                                       unravel).items():
+        setattr(wrapped, name, fire)
 
     return NormalisedProblem(
         func=wrapped, y0=y0, t=t_np,

@@ -4,11 +4,14 @@ of ``torchdiffeq_tpu/ops/pallas_kernels.py``).
 * `rk4_integrate` runs the whole fixed-grid RK4 (3/8 rule) loop in one
   kernel (``csrc/rk4.cu``), replacing the Pallas kernel of the same name.
 * `dopri5_integrate_batched` runs adaptive explicit RK with a step-size
-  controller per trajectory (``csrc/dopri5_lanes.cu``), replacing the
+  controller per trajectory (``csrc/dopri5_lanes.cuh``), replacing the
   Pallas kernel of the same name.
 * `dopri5_events_batched` runs the same per-trajectory solve until each
   trajectory's event changes sign and bisects its event time
-  (``csrc/dopri5_events.cu``), replacing the Pallas kernel of the same name.
+  (``csrc/dopri5_events.cuh``), replacing the Pallas kernel of the same name.
+  Both take float32, float64, bfloat16 and float16 states; the 16-bit
+  instances are compiled by ``csrc/dopri5_lanes_16bit.cu`` and
+  ``csrc/dopri5_events_16bit.cu``.
 
 A Pallas kernel traces any JAX field into itself; a CUDA kernel cannot run
 a Python callable.  So the kernels take one field family, `MLPField` with
@@ -30,7 +33,7 @@ import functools
 import numpy as np
 import torch
 
-from ..misc import host_times, nan_sign, needs_autograd, np_dtype
+from ..misc import coef, host_times, nan_sign, needs_autograd, np_dtype
 from ..models.neural_ode import LinearEvent, MLPField
 from . import tableaus
 from . import _build
@@ -111,13 +114,14 @@ def _kernel_tensors(ws, y_dtype, device, what):
     return [w if w.is_contiguous() else w.detach().contiguous() for w in ws]
 
 
-def _check_cuda_state(y, kernel):
+def _check_cuda_state(y, kernel, dtypes=(torch.float32, torch.float64)):
     if y.device.type != 'cuda':
         raise ValueError(f"{kernel}: tensors on {y.device} are neither CPU "
                          "(plain version) nor CUDA (kernel)")
-    if y.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{kernel}: the kernel takes float32 or float64 "
-                        f"state, got {y.dtype}")
+    if y.dtype not in dtypes:
+        names = ', '.join(str(d).replace('torch.', '') for d in dtypes)
+        raise TypeError(f"{kernel}: the kernel takes a state of {names}, "
+                        f"got {y.dtype}")
     if y.dim() != 2 or not y.is_contiguous():
         raise ValueError(f"{kernel}: the kernel takes a contiguous 2-D "
                          f"state, got shape {tuple(y.shape)}")
@@ -252,16 +256,28 @@ def rk4_integrate(field, y0, t0, dt, n_steps, params=(), *, out_every=None):
 # csrc/lane_ops.cuh), and the tableau and output times on the device.
 # ---------------------------------------------------------------------------
 
-def _tableau_consts(method, sd):
-    """The tableau in the state dtype (JAX `_tableau_consts`,
-    pallas_kernels.py:182)."""
+# the state dtypes of K-dopri5 and K-events (K-rk4 takes the first two)
+LANE_DTYPES = (torch.float32, torch.float64, torch.bfloat16, torch.float16)
+
+
+def _rounded(values, dtype):
+    """`values` rounded to the torch `dtype`, as a float64 array (numpy has
+    no bfloat16): each the value JAX's ``np.asarray(values, dtype)``
+    holds."""
+    v = np.asarray(values, dtype=np.float64)
+    return np.array([coef(x, dtype) for x in v.ravel()]).reshape(v.shape)
+
+
+def _tableau_consts(method, dtype):
+    """The tableau rounded to the torch state `dtype` (JAX
+    `_tableau_consts`, pallas_kernels.py:182)."""
     if method not in PER_LANE_METHODS:
         raise ValueError(f"per-lane method must be one of {PER_LANE_METHODS},"
                          f" got {method!r}")
     tab = getattr(tableaus, method.upper())
-    return (np.asarray(tab.alpha, sd), np.asarray(tab.beta, sd),
-            np.asarray(tab.c_sol, sd), np.asarray(tab.c_error, sd),
-            np.asarray(tab.c_mid, sd), int(tab.order), bool(tab.is_fsal))
+    return (_rounded(tab.alpha, dtype), _rounded(tab.beta, dtype),
+            _rounded(tab.c_sol, dtype), _rounded(tab.c_error, dtype),
+            _rounded(tab.c_mid, dtype), int(tab.order), bool(tab.is_fsal))
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,16 +287,17 @@ def packed_tableau(method, dtype, device):
     key so that a repeated launch copies nothing host to device.  Returns
     (tableau tensor, n_alpha, order, fsal)."""
     alpha, beta, c_sol, c_err, c_mid, order, fsal = _tableau_consts(
-        method, np_dtype(dtype))
+        method, dtype)
     n_alpha = len(alpha)
     m = _PACK_ALPHA
-    packed = np.zeros(m * (m + 1) + 3 * (m + 1), np_dtype(dtype))
+    packed = np.zeros(m * (m + 1) + 3 * (m + 1))
     packed[:n_alpha] = alpha
     packed[m:m + m * m].reshape(m, m)[:n_alpha, :n_alpha] = beta
     for i, vec in enumerate((c_sol, c_err, c_mid)):
         start = m + m * m + i * (m + 1)
         packed[start:start + n_alpha + 1] = vec
-    return torch.from_numpy(packed).to(device), n_alpha, order, fsal
+    return (torch.from_numpy(packed).to(dtype).to(device), n_alpha, order,
+            fsal)
 
 
 @functools.lru_cache(maxsize=64)
@@ -307,18 +324,25 @@ def _lane_rms(v):
 
 
 def _hairer_dt(f, t, y, fc, rtol, atol, tiny, inv_order):
-    """`hairer_dt` (pallas_kernels.py:305-321): each lane's initial step."""
+    """`hairer_dt` (pallas_kernels.py:305-321): each lane's initial step.
+    Its constants are JAX's weakly typed ones, rounded to the state dtype;
+    a constant over a tensor is one division (torch's ``c / x`` would be a
+    reciprocal and a product)."""
+    def c(v, like):
+        return torch.full_like(like, coef(v, like.dtype))
+
     scale = atol + rtol * y.abs()
     d0 = _lane_rms(y / scale)
     d1 = _lane_rms(fc / scale)
-    h0 = torch.where((d0 < 1e-5) | (d1 < 1e-5), torch.full_like(d0, 1e-6),
-                     0.01 * d0 / torch.clamp_min(d1, tiny))
+    h0 = torch.where((d0 < c(1e-5, d0)) | (d1 < c(1e-5, d1)), c(1e-6, d0),
+                     c(0.01, d0) * d0 / torch.clamp_min(d1, tiny))
     fp = f(t + h0, y + h0 * fc)
     d2 = _lane_rms((fp - fc) / scale) / torch.clamp_min(h0, tiny)
     d_max = torch.maximum(d1, d2)
-    h1 = torch.where((d1 <= 1e-15) & (d2 <= 1e-15),
-                     torch.clamp_min(h0 * 1e-3, 1e-6),
-                     (0.01 / torch.clamp_min(d_max, tiny)) ** inv_order)
+    h1 = torch.where((d1 <= c(1e-15, d1)) & (d2 <= c(1e-15, d2)),
+                     torch.maximum(h0 * c(1e-3, h0), c(1e-6, h0)),
+                     (c(0.01, d_max) / torch.clamp_min(d_max, tiny))
+                     ** inv_order)
     return torch.minimum(100.0 * h0, h1)
 
 
@@ -340,12 +364,14 @@ def _error_ratio(y, y1, err, rtol, atol):
 
 
 def _next_dt(dt_c, ratio, safety, ifactor, dfactor, tiny, inv_order):
-    """The I-controller, NaN-propagating like the TPU kernel's."""
+    """The I-controller, NaN-propagating like the TPU kernel's (`safety`,
+    `ifactor` and `dfactor` in the state dtype)."""
     dfac = torch.where(ratio < 1.0, torch.ones_like(ratio),
                        torch.full_like(ratio, dfactor))
-    return dt_c * torch.clamp_max(
-        torch.maximum(safety / torch.clamp_min(ratio, tiny) ** inv_order,
-                      dfac), ifactor)
+    return dt_c * torch.minimum(
+        torch.maximum(torch.full_like(ratio, safety)
+                      / torch.clamp_min(ratio, tiny) ** inv_order, dfac),
+        torch.full_like(ratio, ifactor))
 
 
 def _quartic(y, y1, fc, f1, ks, dt_c, c_mid):
@@ -380,25 +406,26 @@ def _as_lane_field(field):
 
 def _lane_setup(f, y0, t0, method, rtol, atol, first_step):
     """What both per-lane solves start from: the tableau, the start time row,
-    f(y0), each lane's first step, and the controller constants."""
+    f(y0), each lane's first step, and the controller constants, all
+    rounded to the state dtype."""
     D, B = y0.shape
-    sd = np_dtype(y0.dtype)
-    consts = _tableau_consts(method, sd)
-    rtol, atol = float(sd(rtol)), float(sd(atol))
-    tiny = float(np.finfo(sd).tiny)
-    inv_order = float(sd(1.0 / consts[5]))
-    t = y0.new_full((1, B), float(sd(t0)))
+    dtype = y0.dtype
+    consts = _tableau_consts(method, dtype)
+    rtol, atol = coef(rtol, dtype), coef(atol, dtype)
+    tiny = torch.finfo(dtype).tiny
+    inv_order = coef(1.0 / consts[5], dtype)
+    t = y0.new_full((1, B), coef(t0, dtype))
     fc = f(t, y0)
     if first_step is not None:
-        dt = y0.new_full((1, B), float(sd(first_step)))
+        dt = y0.new_full((1, B), coef(first_step, dtype))
     else:
         dt = _hairer_dt(f, t, y0, fc, rtol, atol, tiny, inv_order)
     return consts, rtol, atol, tiny, inv_order, t, fc, dt
 
 
 def _lane_group_width(B, H):
-    """Lanes a trajectory for K-dopri5 and K-events (``csrc/dopri5_lanes.cu``,
-    ``csrc/dopri5_events.cu``): K-rk4's rule (`_rk4_group_width`), the least
+    """Lanes a trajectory for K-dopri5 and K-events (``csrc/dopri5_lanes.cuh``,
+    ``csrc/dopri5_events.cuh``): K-rk4's rule (`_rk4_group_width`), the least
     power of two L from 4 to 32 and at most H for which B * L threads fill
     the card, and L=1 where 2 would do.
 
@@ -438,12 +465,13 @@ def _group_for(B, H, group, kernel):
 
 
 def _dtype_code(y):
-    return 0 if y.dtype == torch.float32 else 1
+    """The C entry points' dtype code (csrc/dopri5_lanes.cu)."""
+    return LANE_DTYPES.index(y.dtype)
 
 
-def _state_scalars(sd, *values):
+def _state_scalars(dtype, *values):
     """`values` rounded to the state dtype, as Python floats for ctypes."""
-    return np.array([float(v) for v in values], dtype=sd).tolist()
+    return [coef(v, dtype) for v in values]
 
 
 @functools.lru_cache(maxsize=None)
@@ -509,12 +537,12 @@ def dopri5_integrate_batched_ref(field, y0, t0, t1, *, ts=None, rtol=1e-4,
     f_lane = _as_lane_field(field)
     f = lambda tv, yv: f_lane(tv, yv, *params)
     B = y0.shape[1]
-    sd = np_dtype(y0.dtype)
     ((alpha, beta, c_sol, c_err, c_mid, order, fsal), rtol, atol, tiny,
      inv_order, t, fc, dt) = _lane_setup(f, y0, t0, method, rtol, atol,
                                          first_step)
-    t_end = sd(t1)
-    emit_ts = [t_end] if ts is None else [sd(v) for v in host_times(ts)]
+    t_end = coef(t1, y0.dtype)
+    emit_ts = ([t_end] if ts is None
+               else [coef(v, y0.dtype) for v in host_times(ts)])
 
     y = y0
     out = [torch.where(t >= float(t_s), y, torch.zeros_like(y))
@@ -626,14 +654,13 @@ def _lanes_launch(field, y0, t0, t1, *, ts=None, rtol=1e-4, atol=1e-6,
     `dopri5_integrate_batched` calls the function once; a timing of the
     launch alone can call it again."""
     kernel = 'dopri5_integrate_batched'
-    _check_cuda_state(y0, kernel)
+    _check_cuda_state(y0, kernel, LANE_DTYPES)
     D, B = y0.shape
     dev = y0.device
     (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, dev, D, kernel)
     L = _group_for(B, H, group, kernel)
-    sd = np_dtype(y0.dtype)
     tab_d, n_alpha, order, fsal = packed_tableau(method, y0.dtype, dev)
-    emit_ts = tuple(np.array([t1] if ts is None else ts, dtype=sd).tolist())
+    emit_ts = tuple(_rounded([t1] if ts is None else ts, y0.dtype).tolist())
     S = len(emit_ts)
     threads, _ = _lane_plan(kernel, D, H, n_alpha, L,
                             2 * D * H + H + D + tab_d.numel() + S,
@@ -642,7 +669,8 @@ def _lanes_launch(field, y0, t0, t1, *, ts=None, rtol=1e-4, atol=1e-6,
     ys = y0.new_empty((S, D, B))
     counts = torch.empty((2, B), dtype=torch.int32, device=dev)
     args = (_dtype_code(y0), B, D, H, field.power, _ptr(y0), _ptr(ts_d), S,
-            *_state_scalars(sd, t0, t1, rtol, atol, safety, ifactor, dfactor,
+            *_state_scalars(y0.dtype, t0, t1, rtol, atol, safety, ifactor,
+                            dfactor,
                             0.0 if first_step is None else first_step),
             int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
             order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), L,
@@ -823,7 +851,7 @@ def _events_launch(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
     found, n_acc, n_steps) it writes, as `_lanes_launch` does for
     K-dopri5."""
     kernel = 'dopri5_events_batched'
-    _check_cuda_state(y0, kernel)
+    _check_cuda_state(y0, kernel, LANE_DTYPES)
     D, B = y0.shape
     dev = y0.device
     (w1, b1, w2, b2), H = _kernel_mlp(field, params, y0.dtype, dev, D, kernel)
@@ -834,11 +862,11 @@ def _events_launch(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
     threads, _ = _lane_plan(kernel, D, H, n_alpha, L,
                             2 * D * H + H + D + tab_d.numel() + K * D + 2 * K,
                             y0.element_size(), dev, quartic=True)
-    sd = np_dtype(y0.dtype)
     values = y0.new_empty((1 + D, B))   # event_t | y_event
     counts = torch.empty((3, B), dtype=torch.int32, device=dev)
     args = (_dtype_code(y0), B, D, H, field.power, _ptr(y0),
-            *_state_scalars(sd, t0, rtol, atol, safety, ifactor, dfactor,
+            *_state_scalars(y0.dtype, t0, rtol, atol, safety, ifactor,
+                            dfactor,
                             0.0 if first_step is None else first_step),
             int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
             order, int(fsal), _ptr(w1), _ptr(b1), _ptr(w2), _ptr(b2), K,

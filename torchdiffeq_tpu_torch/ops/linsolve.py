@@ -16,5 +16,7 @@ import torch
 
 
 def solve(a, b):
-    """``a^{-1} b`` for a square `a` and a vector `b`."""
+    """``a^{-1} b`` for a square `a` (m, m) and a vector `b` (m,), or for a
+    batch of them, (B, m, m) and (B, m): one batched LU (the per-sample
+    route's stage solves, JAX's solve under vmap)."""
     return torch.linalg.solve_ex(a, b)[0]

@@ -7,9 +7,10 @@ accept/reject sequence and step size, by two routes chosen with JAX's
 rules (`_pallas_qualifies`, batched.py:57-78):
 
 * the kernel route, for ``options=dict(pallas=True)`` and a problem the
-  per-lane kernel takes (a per-lane method, a 2-D real (B, D) state,
-  increasing output times, scalar tolerances, the kernel's options alone,
-  args shared or mapped over their last axis): the whole batched solve is
+  per-lane kernel takes (a per-lane method, a 2-D real (B, D) state of
+  float32, float64, bfloat16 or float16, increasing output times, scalar
+  tolerances, the kernel's options alone, args shared or mapped over their
+  last axis): the whole batched solve is
   `ops/kernels.dopri5_integrate_batched` on CUDA (an `MLPField` field with
   no args), or its plain version on the CPU (any per-sample field and
   args); with ``event_fn`` `ops/kernels.dopri5_events_batched` (an
@@ -17,26 +18,49 @@ rules (`_pallas_qualifies`, batched.py:57-78):
   kernel cannot evaluate raises: it never falls to the driver quietly.
   The route is forward-only, as JAX's is.
 * the batched driver, for every other problem (JAX's
-  ``jax.vmap(odeint_with_stats)``, batched.py:252-260): the explicit
-  adaptive methods through `solvers/batched_rk.py`, a masked host loop with
-  a controller per sample, and the explicit fixed-grid methods through
-  `solvers/fixed_grid.integrate_fixed_grid` over the lane-vectorised field
-  (the grid comes from the shared `t`, so it is every sample's).  Each
-  sample's field is ``func(t_i, y_i, *args_i)`` vectorised by
-  ``torch.func.vmap``; ``args_axes`` maps an arg over any axis.  Events
-  per sample on both tiers.  Gradients: the fixed grid by autograd through
-  its loop; the adaptive tier by the continuous adjoint vmapped (JAX's
-  custom_vjp under vmap, ROADMAP C4): each sample solves its own backward
-  with its own controller and adjoint norm, a shared parameter's gradient
-  is the sum of the samples' and a per-sample arg's is its own row; an
-  adaptive event solve backpropagates each sample as if it had integrated
-  to its own event time (JAX's event-mode adjoint under vmap).
+  ``jax.vmap(odeint_with_stats)``, batched.py:252-260), every method of
+  the registry but ``scipy_solver``.  Each sample's field is ``func(t_i,
+  y_i, *args_i)`` vectorised by ``torch.func.vmap``; ``args_axes`` maps an
+  arg over any axis.
 
-What the driver does not take yet raises `NotImplementedError` naming
-ROADMAP A6b: the Adams, implicit fixed-grid and stiff tiers, the gradient
-modes (``replay_grad``, ``forward_grad``), the SciPy bridge, callbacks (JAX
-calls them back once per sample), a ``grid_constructor``, and gradients
-through a per-sample fixed-grid event.
+  - The adaptive tier, explicit and stiff (kvaerno3, kvaerno5, radau5a):
+    `solvers/batched_rk.py`, one masked host loop with a controller per
+    sample; an implicit tableau's step is
+    `adaptive_implicit.make_lane_step_fn`, each sample's Newton solves its
+    own (batched Jacobians and LU solves, per-sample convergence and
+    unconverged-step rejection).
+  - The fixed-grid tiers (explicit, Adams, FIRK/DIRK) on the shared grid
+    of `t` through `solvers/fixed_grid.integrate_fixed_grid` over the
+    batched field, with the lane steppers of `fixed_grid_implicit` (each
+    sample's own Broyden or Newton stage solves and error code) and
+    `adams` (each sample's own corrector convergence, dropped history and
+    so order, and NFE).  A ``grid_constructor`` is evaluated per sample as
+    JAX's vmap does: a grid every sample shares takes the batched sweep,
+    and grids that differ by sample take one solve a sample
+    (`_per_sample_solves`).
+  - Events per sample on every tier (``t`` of two times).
+  - Callbacks fire per sample, each with that sample's values on its own
+    steps, as its own solve fires them (JAX's vmap route fires them on
+    finished lanes too, ROADMAP C9).
+  - Gradients: the fixed-grid tiers by autograd through the loop (the
+    stage solves by each sample's implicit-function gradient); the
+    adaptive tier by the continuous adjoint vmapped (JAX's custom_vjp
+    under vmap, ROADMAP C4), each sample solving its own backward with its
+    own controller and adjoint norm (and, for a stiff method, its own
+    Newton steps), a shared parameter's gradient the sum of the samples'
+    and a per-sample arg's its own row; an adaptive event solve
+    backpropagates each sample as if it had integrated to its own event
+    time (JAX's event-mode adjoint under vmap), and a fixed-grid event
+    solve's gradient is each sample's event-mode adjoint on its own grid
+    from its own event time (one solve a sample).  ``replay_grad`` records
+    every sample's own steps in one masked loop and replays them in
+    another (`batched_rk.record_lanes`, `replay_lanes`; with an event, one
+    replay a sample); ``forward_grad`` runs the driver with tensor times
+    under ``torch.no_grad()``, so ``torch.func.jvp`` sees every sample's
+    steps.
+
+What the route refuses: ``scipy_solver``, as JAX's vmap route does (its
+host callback cannot be batched), and complex states (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -46,14 +70,14 @@ import numpy as np
 import torch
 
 from ..misc import (check_inputs, host_times, is_tuple_state, nan_sign,
-                    needs_autograd, np_dtype, CALLBACK_NAMES)
+                    needs_autograd, solver_callbacks)
 from ..models.neural_ode import LinearEvent, MLPField
-from ..solvers import SOLVERS
+from ..solvers import SOLVERS, DIRECT_DIFF_KINDS
 from ..solvers import batched_rk
 from ..solvers.batched_rk import LaneField, lane_norm
 from ..solvers.solution import Stats, OK, ERR_MAX_NUM_STEPS
 
-A6B = "ROADMAP A6b"
+A2 = "ROADMAP A2"
 
 # options the per-lane kernel route understands (JAX's set; `interpret`,
 # the Pallas interpreter switch, is accepted and dropped)
@@ -116,7 +140,7 @@ def _lane_event(event_fn):
 
 def _per_step_nfe(method):
     from ..ops.kernels import _tableau_consts
-    alpha, _, _, _, _, _, fsal = _tableau_consts(method, np.float32)
+    alpha, _, _, _, _, _, fsal = _tableau_consts(method, torch.float32)
     return len(alpha) + (0 if fsal else 1)
 
 
@@ -124,13 +148,9 @@ def _kernel_route(func, y0, t_np, rtol, atol, method, options, event_fn,
                   args, axes):
     """The per-lane kernel route (JAX `_pallas_per_sample(_event)`,
     batched.py:107-200)."""
-    from ..ops.kernels import dopri5_integrate_batched, dopri5_events_batched
+    from ..ops.kernels import (_rounded, dopri5_integrate_batched,
+                               dopri5_events_batched)
 
-    if y0.dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"state dtype {y0.dtype} on the per-lane kernel route: the "
-            "port's kernels take float32 and float64 states (a 16-bit "
-            f"instance is {A6B}); drop pallas=True for the batched driver")
     if needs_autograd(func, y0, *args) or (event_fn is not None
                                             and needs_autograd(event_fn)):
         raise RuntimeError(
@@ -149,7 +169,7 @@ def _kernel_route(func, y0, t_np, rtol, atol, method, options, event_fn,
             f"{type(event_fn).__name__}; drop pallas=True for the batched "
             "driver, which takes any event function")
     method = method or 'dopri5'
-    ts = t_np.astype(np_dtype(y0.dtype))
+    ts = _rounded(t_np, y0.dtype)
     if isinstance(func, MLPField) and not args:
         field = func   # the kernel's field family, evaluated in-kernel
     else:
@@ -203,29 +223,25 @@ def _check_event_times(t_np):
 
 # ---- the batched driver ------------------------------------------------------
 
-def _refuse(func, method, options):
-    """What the batched driver does not take yet (ROADMAP A6b)."""
+def _refuse(y0, method):
+    """What the per-sample route does not take: the SciPy bridge, which
+    JAX's vmap route refuses itself, and complex states (ROADMAP A2)."""
     name = method or 'dopri5'
     spec = SOLVERS.get(name)
     if spec is None:
         raise ValueError('Invalid method "{}". Must be one of {}'.format(
             name, '{"' + '", "'.join(SOLVERS.keys()) + '"}.'))
-    kind = spec['kind']
-    if kind not in ('adaptive', 'fixed') or (
-            kind == 'adaptive' and spec['tableau'].implicit):
+    if spec['kind'] == 'scipy':
         raise NotImplementedError(
-            f"method {name!r} on the per-sample route: the Adams, implicit "
-            "and stiff tiers (per-sample convergence, batched Newton and LU "
-            f"solves) and the SciPy bridge are {A6B}")
-    for opt in ('replay_grad', 'forward_grad', 'grid_constructor'):
-        if (options or {}).get(opt):
-            raise NotImplementedError(
-                f"option {opt!r} on the per-sample route ({A6B})")
-    cbs = [n for n in CALLBACK_NAMES if getattr(func, n, None) is not None]
-    if cbs:
+            "method 'scipy_solver' on the per-sample route: the JAX "
+            "package's vmap route refuses it too (its SciPy bridge is a "
+            "jax.pure_callback that vmap cannot batch, "
+            "solvers/scipy_wrapper.py:67); solve the samples one by one "
+            "with odeint")
+    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    if any(isinstance(x, torch.Tensor) and x.is_complex() for x in leaves):
         raise NotImplementedError(
-            f"callbacks {cbs} on the per-sample route: JAX calls them back "
-            f"once per sample ({A6B})")
+            f"complex states on the per-sample route ({A2})")
     return name, spec
 
 
@@ -259,8 +275,11 @@ def _lane_problem(func, y0, t, rtol, atol, method, options, args, axes,
             out = torch.cat([o.reshape(-1) for o in out])
         return out
 
-    return SimpleNamespace(prob=prob, y0=y0_b, B=B, one=one, args=args,
-                           axes=axes, unravel=unravel)
+    return SimpleNamespace(
+        prob=prob, y0=y0_b, B=B, one=one, args=args, axes=axes,
+        unravel=unravel,
+        callbacks=solver_callbacks(func, method, SOLVERS, prob.t_sign,
+                                   unravel))
 
 
 def _lane_event_fn(lp, event_fn):
@@ -292,52 +311,105 @@ def _unravel_rows(lp, ys):
 
 def _fixed_field(lp):
     """The fixed grid's field: one time for the batch, each sample's
-    field vectorised (`misc.PerturbedFunc` over it)."""
+    field vectorised (`misc.PerturbedFunc` over it); its ``callback_step``
+    fires each sample's callback with that sample's state."""
     from ..misc import PerturbedFunc
     vm = torch.func.vmap(lp.one, in_dims=(None, 0) + tuple(lp.axes))
-    return PerturbedFunc(lambda tt, yy: vm(tt, yy, *lp.args), lp.prob.t_sign)
+    field = PerturbedFunc(lambda tt, yy: vm(tt, yy, *lp.args),
+                          lp.prob.t_sign)
+    fire = lp.callbacks.get('callback_step')
+    if fire is not None:
+        def callback_step(t0, y, dt):
+            for b in range(y.shape[0]):
+                fire(t0, y[b], dt)
+        field.callback_step = callback_step
+    return field
+
+
+def _lane_field_of(lp):
+    """The adaptive tier's batched field, with each sample's callbacks."""
+    return LaneField(lp.one, lp.args, lp.axes, lp.prob.t_sign, lp.callbacks)
 
 
 def _broadcast_stats(stats, B, device):
-    """A fixed-grid solve's shared counters as (B,) tensors, as JAX's vmap
-    broadcasts its unbatched Stats."""
+    """A fixed-grid solve's counters as (B,) tensors: the shared ones
+    broadcast, as JAX's vmap broadcasts its unbatched Stats, and the
+    per-sample ones (the Adams NFE, the implicit tiers' error codes) kept."""
     def full(v, dtype):
-        return torch.full((B,), v, dtype=dtype, device=device)
-    return Stats.make(*(full(int(v), torch.int32) for v in stats[:5]),
-                      final_dt=full(float(stats.final_dt), torch.float64))
+        if isinstance(v, torch.Tensor) and v.dim() == 1:
+            return v.to(device=device, dtype=dtype)
+        return torch.full((B,), float(v) if dtype.is_floating_point
+                          else int(v), dtype=dtype, device=device)
+    return Stats.make(*(full(v, torch.int32) for v in stats[:5]),
+                      final_dt=full(stats.final_dt, torch.float64))
 
 
 def _adaptive_cfg(lp, spec):
+    """The adaptive configuration of the batched driver: the problem's
+    options, an implicit tableau's step the per-sample one."""
     from ..odeint import _adaptive_config
-    return _adaptive_config(lp.prob, spec['tableau'])
+    cfg = _adaptive_config(lp.prob, spec['tableau'])
+    if spec['tableau'].implicit:
+        from ..solvers.adaptive_implicit import make_lane_step_fn
+        opts = lp.prob.options
+        cfg = cfg._replace(step_fn=make_lane_step_fn(
+            spec['tableau'], stage_tol=opts.get('stage_tol'),
+            max_iters=opts.get('max_iters', 100),
+            error_dtype=opts.get('error_dtype')))
+    return cfg
 
 
-def _solve_lanes(lp, spec, y0_b=None):
+def _lane_fixed_method(lp, spec):
+    """The stepper of a fixed-grid, Adams or implicit fixed-grid method on
+    the batch (each sample's convergence its own), and the options its
+    kind takes."""
+    from ..odeint import _FIXED_OPTIONS
+    from ..solvers import adams, fixed_grid_implicit
+    kind = spec['kind']
+    if kind == 'fixed':
+        return spec['method'], ('fixed-grid solver', _FIXED_OPTIONS)
+    if kind == 'adams':
+        return (adams.make_fixed_step_method(lp.prob, spec['implicit'],
+                                             lanes=True),
+                ('Adams solver', adams.ADAMS_OPTIONS))
+    return (fixed_grid_implicit.make_fixed_step_method(
+        lp.prob, spec['tableau'], sequential=kind == 'dirk', lanes=True),
+        ('implicit fixed-grid solver', fixed_grid_implicit.IMPLICIT_OPTIONS))
+
+
+def _solve_lanes(lp, spec, y0_b=None, ts_t=None):
     """The adaptive forward solve of the batched driver, no graph: ys (B,
-    T, ...) in the solver's layout, and (B,) Stats."""
+    T, ...) in the solver's layout, and (B,) Stats.  `ts_t`, the internal
+    times as a tensor carrying tangents (``forward_grad``), gives the start
+    and the emission times theirs."""
     y0_b = lp.y0 if y0_b is None else y0_b
     prob = lp.prob
     with torch.no_grad():
-        field = LaneField(lp.one, lp.args, lp.axes, prob.t_sign)
-        return batched_rk.integrate_lanes(field, y0_b, prob.t,
+        return batched_rk.integrate_lanes(_lane_field_of(lp), y0_b, prob.t,
                                           _adaptive_cfg(lp, spec),
-                                          lane_norm(prob.norm))
+                                          lane_norm(prob.norm), ts_t=ts_t)
 
 
-def _solve_fixed(lp, spec, y0_b, t_grad=None):
+def _solve_fixed(lp, spec, y0_b, t_grad=None, grid=None):
     from ..solvers import fixed_grid
-    from ..odeint import _FIXED_OPTIONS, _warn_unused
+    from ..odeint import _warn_unused
     prob = lp.prob
     opts = prob.options
-    _warn_unused('fixed-grid solver', opts, _FIXED_OPTIONS)
+    method, (kind, allowed) = _lane_fixed_method(lp, spec)
+    _warn_unused(kind, opts, allowed)
     ts = prob.t if t_grad is None else t_grad
     func = _fixed_field(lp)
-    grid = fixed_grid.construct_grid(func, y0_b, ts, opts.get('step_size'),
-                                     None, opts.get('num_steps'))
+    if grid is None:
+        grid = fixed_grid.construct_grid(func, y0_b, ts,
+                                         opts.get('step_size'), None,
+                                         opts.get('num_steps'))
+    elif not grid.requires_grad:
+        grid = grid.detach().numpy()
     ys, stats = fixed_grid.integrate_fixed_grid(
-        spec['method'], func, y0_b, ts, grid,
+        method, func, y0_b, ts, grid,
         interp=opts.get('interp', 'linear'),
-        perturb=opts.get('perturb', False), remat=opts.get('remat', False))
+        perturb=opts.get('perturb', False),
+        remat=spec['kind'] == 'fixed' and opts.get('remat', False))
     return ys.transpose(0, 1), _broadcast_stats(stats, lp.B, y0_b.device)
 
 
@@ -356,47 +428,161 @@ def _event_solve(lp, spec, event_fn, y0_b):
     ev = _lane_event_fn(lp, event_fn)
     with torch.no_grad():
         if spec['kind'] == 'adaptive':
-            field = LaneField(lp.one, lp.args, lp.axes, prob.t_sign)
             et, ye, stats = batched_rk.integrate_lanes_until_event(
-                field, y0_b, prob.t[0], ev, _adaptive_cfg(lp, spec),
+                _lane_field_of(lp), y0_b, prob.t[0], ev,
+                _adaptive_cfg(lp, spec),
                 lane_norm(prob.norm))
         else:
             opts = prob.options
             et, ye, stats = \
                 batched_rk.integrate_lanes_until_event_fixed_grid(
-                    spec['method'], _fixed_field(lp), y0_b, prob.t[0], ev,
+                    _lane_fixed_method(lp, spec)[0], _fixed_field(lp), y0_b,
+                    prob.t[0], ev,
                     step_size=opts.get('step_size'),
                     interp=opts.get('interp', 'linear'),
                     perturb=opts.get('perturb', False), atol=prob.atol)
     return et, torch.stack([y0_b, ye], dim=1), stats
 
 
+def _per_sample_solves(func, y0, t, rtol, atol, method, options, event_fn,
+                       args, axes):
+    """Every sample solved alone by `odeint_with_stats` (its values, Stats
+    and gradients those of its own solve, which is what JAX's vmap gives
+    each sample), the results stacked as the driver returns them.  A host
+    loop over the samples: the route of the problems whose samples do not
+    share a grid of steps (module docstring)."""
+    from ..odeint import odeint_with_stats
+    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    B = leaves[0].shape[0]
+    results, stats = [], []
+    for b in range(B):
+        y0_b = (type(y0)(x[b] for x in leaves) if is_tuple_state(y0)
+                else y0[b])
+        args_b = tuple(a if ax is None else a.select(ax, b)
+                       for a, ax in zip(args, axes))
+        res, st = odeint_with_stats(func, y0_b, t, rtol=rtol, atol=atol,
+                                    method=method, options=options,
+                                    event_fn=event_fn, args=args_b)
+        results.append(res)
+        stats.append(st)
+    dev = leaves[0].device
+
+    def stack(xs):
+        if isinstance(xs[0], tuple):
+            return type(xs[0])(stack(list(p)) for p in zip(*xs))
+        return torch.stack(xs)
+
+    out = stack(results)
+    fields = [torch.as_tensor([int(st[i]) for st in stats], dtype=torch.int32,
+                              device=dev) for i in range(5)]
+    final_dt = torch.as_tensor([float(st.final_dt) for st in stats],
+                               dtype=torch.float64, device=dev)
+    return out, Stats.make(*fields, final_dt=final_dt)
+
+
+def _sample_grids(lp):
+    """Each sample's grid from the ``grid_constructor`` (JAX evaluates it
+    under vmap, misc.py:346-349): (B, N) internal times, one row a
+    sample."""
+    gc = lp.prob.options['grid_constructor']
+    t_int = torch.from_numpy(lp.prob.t)
+    rows = []
+    for b in range(lp.B):
+        args_b = tuple(a if ax is None else a.select(ax, b)
+                       for a, ax in zip(lp.args, lp.axes))
+        rows.append(gc(lambda tt, yy: lp.one(tt, yy, *args_b), lp.y0[b],
+                       t_int))
+    return torch.stack(rows)
+
+
 def _driver(func, y0, t, rtol, atol, method, options, event_fn, args, axes):
-    name, spec = _refuse(func, method, options)
+    name, spec = _refuse(y0, method)
+    kind = spec['kind']
+    direct = kind in DIRECT_DIFF_KINDS
+    opts = dict(options) if isinstance(options, dict) else {}
+    if direct:
+        # the fixed-grid loops are forward-differentiable as they are (JAX
+        # odeint.py:261-267)
+        opts.pop('forward_grad', None)
+    if kind == 'adaptive' and opts.get('replay_grad'):
+        if event_fn is not None:
+            # each sample's replay to its own event, one by one
+            return _per_sample_solves(func, y0, t, rtol, atol, name, opts,
+                                      event_fn, args, axes)
+        return _replay_driver(func, y0, t, rtol, atol, name, spec, opts,
+                              args, axes)
     from ..adjoint import _tensors_in
     leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
     grad = needs_autograd(func, *leaves, t, *_tensors_in(args))
-    if event_fn is not None and grad and spec['kind'] != 'adaptive':
-        raise NotImplementedError(
-            "gradients through a per-sample fixed-grid event solve (each "
-            "sample's backward on its own grid to its own event time) are "
-            f"{A6B}; call it under torch.no_grad()")
-    lp = _lane_problem(func, y0, t, rtol, atol, name, options, args, axes)
-    if spec['kind'] == 'fixed' and event_fn is None:
-        # the grid is shared, so the solve differentiates through its loop
+    if direct and event_fn is not None and grad:
+        # JAX's gradient here is each sample's event-mode adjoint on its
+        # own grid from its own event time back to t0
+        return _per_sample_solves(func, y0, t, rtol, atol, name, opts,
+                                  event_fn, args, axes)
+    forward_grad = kind == 'adaptive' and opts.pop('forward_grad', False)
+    if forward_grad and event_fn is not None:
+        raise ValueError(
+            "forward_grad does not support event solves (the event "
+            "time's bisection is non-differentiable forward-through; "
+            "use options=dict(replay_grad=True) for differentiable "
+            "event times)")
+    lp = _lane_problem(func, y0, t, rtol, atol, name, opts, args, axes)
+    if direct and event_fn is None:
         t_grad = None
         if (isinstance(t, torch.Tensor) and t.requires_grad
                 and torch.is_grad_enabled()):
             t_grad = lp.prob.t_sign * t.to('cpu', torch.float64)
-        ys, stats = _solve_fixed(lp, spec, lp.y0, t_grad)
+        grid = None
+        if lp.prob.options.get('grid_constructor') is not None:
+            grids = _sample_grids(lp)
+            if not bool((grids == grids[:1]).all()):
+                # a grid per sample: each sample sweeps its own
+                return _per_sample_solves(func, y0, t, rtol, atol, name,
+                                          opts, event_fn, args, axes)
+            grid = grids[0]
+        # a shared grid: the solve differentiates through its loop
+        ys, stats = _solve_fixed(lp, spec, lp.y0, t_grad, grid)
+        return _unravel_rows(lp, ys), stats
+    if forward_grad:
+        ys, stats = _solve_lanes(lp, spec, ts_t=_internal_times(lp, t))
         return _unravel_rows(lp, ys), stats
     if grad:
-        return _lane_adjoint(lp, spec, func, t, args, axes, options,
-                             event_fn)
+        return _lane_adjoint(lp, spec, func, t, args, axes, opts, event_fn)
     if event_fn is not None:
         return _event_driver(lp, spec, event_fn)
     ys, stats = _solve_lanes(lp, spec)
     return _unravel_rows(lp, ys), stats
+
+
+def _replay_driver(func, y0, t, rtol, atol, name, spec, opts, args, axes):
+    """``replay_grad`` on the batched driver (JAX's replay under vmap):
+    each sample's accepted steps recorded by one masked loop, then replayed
+    differentiably by another (`batched_rk.record_lanes`,
+    `replay_lanes`); a sample whose recording failed has NaN outputs."""
+    from ..solvers.replay import _AUTO_LIMIT
+    opts = dict(opts)
+    opts.pop('replay_grad')
+    opts.pop('step_to_end', None)
+    max_segments = opts.pop('max_segments', None)
+    cap = _AUTO_LIMIT if max_segments is None else int(max_segments)
+    lp = _lane_problem(func, y0, t, rtol, atol, name, opts, args, axes)
+    cfg = _adaptive_cfg(lp, spec)
+    field = _lane_field_of(lp)
+    times, counts, stats = batched_rk.record_lanes(
+        field, lp.y0, lp.prob.t, cfg, lane_norm(lp.prob.norm), cap)
+    ys = batched_rk.replay_lanes(field, lp.y0, _internal_times(lp, t), cfg,
+                                 times, counts)
+    bad = batched_rk.lanes(stats.error_code != OK, ys)
+    ys = torch.where(bad, torch.full_like(ys, float('nan')), ys)
+    return _unravel_rows(lp, ys), stats
+
+
+def _internal_times(lp, t):
+    """The internal times as a float64 tensor that carries the tangent of
+    the user's `t` when it is a tensor (`odeint._internal_times`)."""
+    if isinstance(t, torch.Tensor):
+        return lp.prob.t_sign * t.to(torch.float64)
+    return torch.from_numpy(lp.prob.t)
 
 
 # ---- per-sample gradients: the continuous adjoint, vmapped -------------------
@@ -416,11 +602,10 @@ def _lane_adjoint(lp, spec, func, t, args, axes, options, event_fn=None):
     for a, ax in zip(args, axes):
         for x in _tensors_in(a):
             axis_of.setdefault(id(x), ax)
-    if any(axis_of.get(id(x)) is not None and not x.is_floating_point()
-           for a in args for x in _tensors_in(a)):
-        raise NotImplementedError(
-            f"a per-sample arg that is not floating point under gradients "
-            f"({A6B})")
+    # the per-sample tensors that get no gradient (integer ones): the
+    # backward's field takes each sample's row of them too
+    fixed = [(x, axis_of[id(x)]) for a in args for x in _tensors_in(a)
+             if axis_of.get(id(x)) is not None and not x.is_floating_point()]
     t_tensor = (t if isinstance(t, torch.Tensor)
                 else torch.as_tensor(host_times(t), dtype=torch.float64))
     ctx = SimpleNamespace(
@@ -429,7 +614,7 @@ def _lane_adjoint(lp, spec, func, t, args, axes, options, event_fn=None):
         p_dims=[None] * len(module_params)
         + [axis_of.get(id(x)) for x in arg_tensors],
         user_state_norm=(options or {}).get('norm'), event_fn=event_fn,
-        t_tensor=t_tensor, stats=None)
+        t_tensor=t_tensor, stats=None, fixed=fixed)
     # lp.y0, a tuple state's leaves concatenated under autograd, carries
     # the gradient back to them
     out = _LaneAdjointOp.apply(ctx, lp.y0, t_tensor, *module_params,
@@ -503,7 +688,8 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
     internal-frame event times, each sample's backward runs from its own
     event time to t0.  Returns (adj_y0 (B, ...), [theta_bar (B, ...) per
     parameter], vjp_t (B,), dLds (B, T-1))."""
-    from ..adjoint import _Layout, _functional_aug_dyn, _make_adjoint_norm
+    from ..adjoint import (_Layout, _functional_aug_dyn, _make_adjoint_norm,
+                           _replace_tensors)
     lp = spec.lp
     t_int = lp.prob.t
     sign = lp.prob.t_sign
@@ -514,10 +700,17 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
             for p, d in zip(params, spec.p_dims)]
     layout = _Layout(ys.shape[2:], lp.unravel, reps)
     n = layout.n
-    aug_one = _functional_aug_dyn(
-        SimpleNamespace(func=spec.func, module_params=spec.module_params,
-                        unravel=lp.unravel),
-        layout, sign, lp.args, params, dev)
+    spec_f = SimpleNamespace(func=spec.func, module_params=spec.module_params,
+                             unravel=lp.unravel)
+    n_p = len(params)
+
+    def aug_one(s, aug, *xs):
+        # a per-sample integer arg's row replaces it in the args the field
+        # gets (the differentiated ones `_functional_aug_dyn` replaces)
+        args_s = _replace_tensors(lp.args, {
+            id(x): v for (x, _), v in zip(spec.fixed, xs[n_p:])})
+        return _functional_aug_dyn(spec_f, layout, sign, args_s, params,
+                                   dev)(s, aug, *xs[:n_p])
     norm_one = _make_adjoint_norm(None, spec.user_state_norm, layout)
 
     def t_out(j):
@@ -565,8 +758,10 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
                              np.array([t_hi, t_int[0]]), lp.prob.rtol,
                              lp.prob.atol, lp.prob.method, opts, (), (),
                              time_direction='reverse')
-        ps = [p.detach() for p in params]
-        aug_field = LaneField(aug_one, ps, spec.p_dims, back.prob.t_sign)
+        ps = [p.detach() for p in params] + [x for x, _ in spec.fixed]
+        aug_field = LaneField(aug_one, ps, list(spec.p_dims)
+                              + [ax for _, ax in spec.fixed],
+                              back.prob.t_sign)
         sol, _ = batched_rk.integrate_lanes(
             aug_field, aug0, back.prob.t, _adaptive_cfg(back, spec.spec),
             lane_norm(back.prob.norm),

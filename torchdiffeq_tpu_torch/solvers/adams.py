@@ -30,13 +30,14 @@ from __future__ import annotations
 
 import warnings
 
+import numpy as np
 import torch
 
 from ..misc import Perturb, linf_norm, scalar_type
 from ..ops import rk_step
 from ..ops.adams_coeffs import (BASHFORTH, MOULTON, MIN_ORDER, MAX_ORDER,
                                 MAX_ITERS)
-from ..ops.step_control import compute_error_ratio
+from ..ops.step_control import compute_error_ratio, error_scale
 from .fixed_grid import FixedStepMethod, construct_grid, integrate_fixed_grid
 from .solution import IMPLICIT_COUNTS as COUNTS
 
@@ -142,11 +143,130 @@ def make_adams_method(*, implicit, rtol, atol, max_iters=MAX_ITERS,
                            nfe_from_state=lambda st: st['nfe'])
 
 
-def make_fixed_step_method(prob, implicit):
+def make_lane_adams_method(*, implicit, rtol, atol, max_iters=MAX_ITERS,
+                           max_order=MAX_ORDER):
+    """`make_adams_method` for a batch (B, ...) on a shared grid with a
+    batched field: JAX's Adams stepper under vmap.  The history is shared
+    in its entries (a slope is prepended for every sample when time
+    advances) but its usable length is each sample's own, since a sample
+    whose corrector did not converge drops its oldest entry: each sample
+    then runs its own order, its Bashforth and Moulton rows gathered per
+    sample, and the RK4 bootstrap is selected per sample where its order
+    is below 4 (JAX's `lax.cond` on a batched predicate, which runs both
+    branches and selects).  The lengths are kept on the host: they change
+    by one where a step's corrector ends unconverged, which the loop reads
+    only when it ran all `max_iters` iterations.  The corrector iterates
+    while any sample is unconverged (one host read an iteration); each
+    sample counts the evaluations it made before it converged, JAX's NFE
+    (ROADMAP C3).  The state's ``nfe`` is (B,)."""
+    max_order = int(max_order)
+    if max_order > MAX_ORDER:
+        raise ValueError(f"max_order must be at most {MAX_ORDER}")
+    if max_order < MIN_ORDER:
+        warnings.warn(
+            f"max_order is below {MIN_ORDER}, so the solver reduces to `rk4`.")
+    hist_size = max(max_order - 1, 1)
+    max_iters = int(max_iters)
+
+    def init_state(func, y0, t0):
+        B = y0.shape[0]
+        return dict(hist=[], hist_len=np.zeros(B, dtype=np.int64),
+                    prev_t=None,
+                    nfe=torch.zeros(B, dtype=torch.int32, device=y0.device))
+
+    def rows(table, orders, offset, width, device):
+        """Row ``order + offset`` of `table` per sample, its first `width`
+        entries (zero beyond the row's own), (width, B) float64."""
+        return torch.from_numpy(np.ascontiguousarray(
+            table[orders + offset, :width].T)).to(device)
+
+    def combine(dt_y, c, hist, dtype):
+        """``(dt_y * tensordot(c_b, hist)).astype(dtype)`` per sample, in
+        float64."""
+        total = None
+        for j, h in enumerate(hist):
+            term = lanes_of(c[j], h) * h.to(torch.float64)
+            total = term if total is None else total + term
+        return (dt_y * total).to(dtype)
+
+    def lanes_of(v, x):
+        return v.reshape(v.shape + (1,) * (x.dim() - 1))
+
+    def has_converged(dy0, dy1):
+        scale = error_scale(rtol, atol, dy0, dy1)
+        ratio = ((dy0 - dy1).abs() / scale).abs()
+        return ratio.reshape(ratio.shape[0], -1).amax(1) < 1
+
+    def step(func, t0, dt, t1, y0, perturb, state):
+        f0 = func(t0, y0, perturb=Perturb.NEXT if perturb else Perturb.NONE)
+        t_now = float(t0.detach() if isinstance(t0, torch.Tensor) else t0)
+        if state['prev_t'] is None or state['prev_t'] != t_now:
+            state = dict(state, hist=[f0] + state['hist'][:hist_size - 1],
+                         hist_len=np.minimum(state['hist_len'] + 1,
+                                             hist_size), prev_t=t_now)
+        hist_len = state['hist_len']
+        order = np.minimum(hist_len, max_order - 1)
+        use_rk4 = order < MIN_ORDER - 1
+        yd, dev = y0.dtype, y0.device
+        hist = state['hist']
+        dy = None
+        nfe = state['nfe']
+        if use_rk4.any():
+            dy = rk_step.rk4_alt_step_func(func, t0, dt, t1, y0, f0=hist[0],
+                                           perturb=perturb).to(yd)
+            nfe = nfe + torch.from_numpy(3 * use_rk4.astype(np.int32)).to(dev)
+        if use_rk4.all():
+            return dy, f0, dict(state, nfe=nfe)
+        dt_y = _dt_in(dt, yd)
+        width = len(hist)
+        bash = rows(BASHFORTH, order, 0, width, dev)
+        dy_ad = combine(dt_y, bash, hist, yd)
+        adams = torch.from_numpy(~use_rk4).to(dev)
+        if implicit:
+            moult = rows(MOULTON, order, 1, width + 1, dev)
+            delta = combine(dt_y, moult[1:], hist, yd)
+            c0 = lanes_of(dt_y * moult[0], y0)
+            p1 = Perturb.PREV if perturb else Perturb.NONE
+            converged = ~adams
+            n_ev = torch.zeros_like(nfe)
+            it = 0
+            while it < max_iters:
+                COUNTS['host_reads'] += 1
+                if bool(converged.all()):
+                    break
+                it += 1
+                n_ev = n_ev + (~converged).to(torch.int32)
+                f = func(t1, y0 + dy_ad, perturb=p1)
+                dy_new = (c0 * f.to(torch.float64)).to(yd) + delta
+                conv_now = has_converged(dy_ad, dy_new)
+                dy_ad = torch.where(lanes_of(converged, dy_ad), dy_ad,
+                                    dy_new)
+                converged = converged | conv_now
+            COUNTS['corrector_steps'] += 1
+            nfe = nfe + n_ev
+            if it == max_iters:
+                COUNTS['host_reads'] += 1
+                dropped = (~converged).cpu().numpy()
+                COUNTS['corrector_converged'] += int(not dropped.any())
+                hist_len = np.where(dropped, np.maximum(hist_len - 1, 0),
+                                    hist_len)
+            else:
+                COUNTS['corrector_converged'] += 1
+        dy = dy_ad if dy is None else torch.where(lanes_of(adams, dy), dy_ad,
+                                                  dy)
+        return dy, f0, dict(state, nfe=nfe, hist_len=hist_len)
+
+    return FixedStepMethod(step, order=MIN_ORDER, nfe_per_step=1,
+                           init_state=init_state,
+                           nfe_from_state=lambda st: st['nfe'])
+
+
+def make_fixed_step_method(prob, implicit, lanes=False):
     """The Adams stepper of a normalised problem's options (JAX
-    adams.py:151-157)."""
+    adams.py:151-157); with `lanes`, `make_lane_adams_method`."""
     opts = dict(prob.options)
-    return make_adams_method(
+    make = make_lane_adams_method if lanes else make_adams_method
+    return make(
         implicit=opts.get('implicit', implicit),
         rtol=prob.rtol, atol=prob.atol,
         max_iters=opts.get('max_iters', MAX_ITERS),

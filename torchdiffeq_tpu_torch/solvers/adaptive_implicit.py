@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import Perturb, scalar_type, tcast, tval
+from ..misc import Perturb, coef, scalar_type, tcast, tval
 from ..ops.rk_step import weighted_sum
 from .fixed_grid_implicit import root_solve, solve_tol
 
@@ -137,5 +137,97 @@ def make_firk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
         y1 = weighted_sum(tab.c_sol, k, dtc, base=y0)
         y1_error = _error_sum(tab, k, dtc, error_dtype)
         return y1, k[-1], _reject_unconverged(y1_error, converged), k
+
+    return step_fn
+
+
+# ---- the per-sample step functions (the batched driver's) -------------------
+
+def _lane_stage_time(alpha_i, t0c, dtc, t1c):
+    if alpha_i == 1.0:
+        return t1c, Perturb.PREV
+    return t0c + coef(alpha_i, t0c.dtype) * dtc, Perturb.NONE
+
+
+def _lane_error(tab, k, dtc, error_dtype, converged):
+    """The embedded error of every sample, 1e10 added where a sample's
+    stage solve did not converge (`_error_sum`, `_reject_unconverged`)."""
+    from .batched_rk import lane_weighted_sum, lanes
+    if error_dtype is not None:
+        k = [ki.to(error_dtype) for ki in k]
+    err = lane_weighted_sum(tab.c_error, k, dtc)
+    return torch.where(lanes(converged, err), err, err + 1e10)
+
+
+def make_lane_step_fn(tab, stage_tol=None, max_iters=100, error_dtype=None):
+    """The `step_fn` of `tab` for `batched_rk`: JAX's ESDIRK or FIRK step
+    (`make_esdirk_step_fn`, `make_firk_step_fn`) under vmap.  Its times are
+    (B,) float64, cast to the state dtype; each sample solves its own stage
+    systems by Newton's method (`fixed_grid_implicit.root_solve`'s lanes,
+    with per-sample convergence, Jacobians and linear solves), and a sample
+    whose solve did not converge gets its own 1e10 on its error.  `active`
+    (B,) leaves the samples that do not step out of the Newton iterations.
+    Returns ``step_fn(func, y0, f0, t0, dt, t1, tab, active=None) -> (y1,
+    f1, y1_error, k)``."""
+    from .batched_rk import lane_weighted_sum, lanes
+    alpha, beta = np.asarray(tab.alpha), np.asarray(tab.beta)
+    if not (tab.implicit and float(alpha[0]) == 0.0 and not np.any(beta[0])):
+        raise ValueError("the per-sample step function takes an implicit "
+                         "tableau whose first stage is the carried slope")
+    s = tab.n_stages
+
+    def step_fn(func, y0, f0, t0, dt, t1, tab_, active=None):
+        dtype = y0.dtype
+        t0c, dtc, t1c = (v.to(dtype) for v in (t0, dt, t1))
+        tol = solve_tol(dtype) if stage_tol is None else stage_tol
+        B, shape = y0.shape[0], y0.shape
+        converged = torch.ones(B, dtype=torch.bool, device=y0.device)
+
+        def solve(residual, x0):
+            return root_solve(residual, x0, tol, max_iters, newton=True,
+                              lanes=True, active=active)
+
+        if tab.sdirk:
+            k = [f0]
+            for i in range(1, s):
+                base = lane_weighted_sum(beta[i, :i], k, dtc, base=y0)
+                ti, perturb = _lane_stage_time(float(alpha[i]), t0c, dtc,
+                                               t1c)
+                dt_gamma = lanes(dtc * coef(float(beta[i, i]), dtype), y0)
+
+                def residual(kf, base=base, ti=ti, perturb=perturb,
+                             dt_gamma=dt_gamma):
+                    kk = kf.view(shape)
+                    return (kk - func(ti, base + dt_gamma * kk,
+                                      perturb=perturb)).reshape(B, -1)
+
+                # the previous stage's slope is the predictor
+                k_i, conv = solve(residual, k[i - 1].reshape(B, -1))
+                k.append(k_i.view(shape))
+                converged = converged & conv
+        else:
+            m = s - 1
+            y0f, f0f = y0.reshape(B, -1), f0.reshape(B, -1)
+            n = y0f.shape[1]
+            times = [_lane_stage_time(float(alpha[i]), t0c, dtc, t1c)
+                     for i in range(1, s)]
+
+            def residual(Kr):
+                K = list(Kr.view(B, m, n).unbind(1))
+                stages = [f0f] + K
+                res = []
+                for i in range(1, s):
+                    yi = lane_weighted_sum(beta[i, :s], stages, dtc,
+                                           base=y0f)
+                    ti, perturb = times[i - 1]
+                    res.append(K[i - 1] - func(ti, yi.view(shape),
+                                               perturb=perturb).reshape(B, -1))
+                return torch.cat(res, dim=1)
+
+            Kr, converged = solve(residual, f0f.repeat(1, m))
+            k = [f0] + [x.view(shape) for x in Kr.view(B, m, n).unbind(1)]
+        y1 = lane_weighted_sum(tab.c_sol, k, dtc, base=y0)
+        return (y1, k[-1], _lane_error(tab, k, dtc, error_dtype, converged),
+                tuple(k))
 
     return step_fn

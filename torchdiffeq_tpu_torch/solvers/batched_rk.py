@@ -27,6 +27,19 @@ last.  An accepted step that ends on a ``jump_t`` time re-evaluates the
 slope (and runs ``jump_state_fn(k (B,), t1 (B,), y1)``, which gets every
 sample's jump index, on every sample, and is kept where a sample jumped)
 when some sample jumped: a second host read on such iterations.
+
+The step is the tableau's explicit RK step (`lane_rk_step`), or an
+implicit tableau's `AdaptiveConfig.step_fn`
+(`adaptive_implicit.make_lane_step_fn`: each sample's own Newton solves,
+one more host read an iteration of them), which the samples that do not
+step skip.  A field's callbacks (`LaneField.callbacks`) fire per sample on
+that sample's own steps (`fire_lanes`).  The same loop records every
+sample's accepted steps for ``replay_grad`` (`record_lanes`), and
+`replay_lanes` replays them differentiably, each iteration one segment of
+every sample that has one.  The fixed-grid event loop
+(`integrate_lanes_until_event_fixed_grid`) steps every sample on the shared
+grid with any fixed-grid, Adams or implicit stepper, counting a stepper's
+own NFE only while its sample steps.
 """
 from __future__ import annotations
 
@@ -75,10 +88,12 @@ class LaneField:
     perturbed evaluation, and `t_sign` maps the internal frame to the
     user's."""
 
-    def __init__(self, fn, args=(), in_dims=(), t_sign=1.0):
+    def __init__(self, fn, args=(), in_dims=(), t_sign=1.0, callbacks=None):
         self.vm = torch.func.vmap(fn, in_dims=(0, 0) + tuple(in_dims))
         self.args = tuple(args)
         self.t_sign = t_sign
+        # {name: fire(t0, y_i, dt)}, each sample's own (`fire_lanes`)
+        self.callbacks = callbacks or {}
 
     def __call__(self, t, y, perturb=Perturb.NONE):
         t = t.to(y.dtype)
@@ -87,6 +102,23 @@ class LaneField:
         if self.t_sign < 0:
             return -self.vm(-t, y, *self.args)
         return self.vm(t, y, *self.args)
+
+
+def fire_lanes(func, name, mask, t0, y, dt):
+    """Fire callback `name` of a batched field (`LaneField.callbacks`) for
+    every sample in `mask`, with that sample's start time, state and step
+    size, as its own solve fires it (JAX calls a callback back once per
+    sample under vmap).  One host read, and only when the callback is
+    there."""
+    fire = getattr(func, 'callbacks', {}).get(name)
+    if fire is None:
+        return
+    LANE_COUNTS['host_reads'] += 1
+    m, ts, dts = (torch.stack([mask.to(F64), t0.to(F64), dt.to(F64)])
+                  .tolist())
+    for b, on in enumerate(m):
+        if on:
+            fire(ts[b], y[b], dts[b])
 
 
 def lane_norm(norm):
@@ -168,6 +200,12 @@ def lane_interp_fit_step(y0, y1, k, dt, tableau):
         b = (5 * dtf0 - 3 * dtf1) + 14 * d1 - 32 * dmid
         c = (dtf1 - 4 * dtf0) - 5 * d1 + 16 * dmid
         return torch.stack([y0.to(f32), dtf0, c, b, a])
+    return _lane_yform_fit(y0, y1, k, dt, tableau)
+
+
+def _lane_yform_fit(y0, y1, k, dt, tableau):
+    """The quartic's y-form coefficients in the state dtype
+    (`ops.interp.interp_fit` of ``y_mid = y0 + sum((c_mid * dt) * k)``)."""
     dt = dt.to(y0.dtype)
     y_mid = lane_weighted_sum(tableau.c_mid, k, dt, base=y0)
     f0, f1 = k[0], k[-1]
@@ -326,6 +364,7 @@ def _lane_step(c, func, cfg: AdaptiveConfig, norm, run):
     dt = torch.where(torch.isfinite(c.dt), c.dt,
                      torch.full_like(c.dt, min_step))
     dt = torch.clamp(dt, min_step, max_step)
+    fire_lanes(func, 'callback_step', run, t0, c.y, dt)  # rk_common.py:272
 
     # --- guards (reference asserts, rk_common.py:286-287) -----------------
     t1 = t0 + dt
@@ -335,6 +374,8 @@ def _lane_step(c, func, cfg: AdaptiveConfig, norm, run):
     err = torch.where((err == OK) & ~finite, ERR_NONFINITE_STATE, err)
     c.err = torch.where(run, err.to(torch.int32), c.err)
     ok = run & (err == OK)
+    # a sample's tripped guard fires its reject callback, as its own solve
+    fire_lanes(func, 'callback_reject_step', run & ~ok, t0, c.y, dt)
 
     # --- step_t / jump_t truncation (JAX adaptive_rk.py:212-258) ----------
     on_step = on_jump = None
@@ -355,9 +396,17 @@ def _lane_step(c, func, cfg: AdaptiveConfig, norm, run):
         dt = torch.where(truncated[0] | truncated[-1], t1 - t0, dt)
 
     # --- the RK step and its error ratio ----------------------------------
-    y1, f1, y1_err, k = lane_rk_step(func, c.y, c.f, t0, dt, t1, tab,
-                                     cfg.error_dtype)
-    c.nfe = c.nfe + torch.where(ok, len(tab.alpha), 0).to(torch.int32)
+    if cfg.step_fn is None:
+        y1, f1, y1_err, k = lane_rk_step(func, c.y, c.f, t0, dt, t1, tab,
+                                         cfg.error_dtype)
+    else:
+        # an implicit tableau's step (`adaptive_implicit.make_lane_step_fn`):
+        # the samples that do not step take no Newton iteration
+        y1, f1, y1_err, k = cfg.step_fn(func, c.y, c.f, t0, dt, t1, tab,
+                                        active=ok)
+    # an implicit step reports its one explicit evaluation (JAX :266-269)
+    c.nfe = c.nfe + torch.where(ok, 1 if tab.implicit else len(tab.alpha),
+                                0).to(torch.int32)
     y0, ye0, ye1 = c.y, c.y, y1
     if cfg.error_dtype is not None:
         ye0, ye1 = y0.to(cfg.error_dtype), y1.to(cfg.error_dtype)
@@ -382,6 +431,9 @@ def _lane_step(c, func, cfg: AdaptiveConfig, norm, run):
             f1 = torch.where(lanes(jumped, f1), f_j, f1)
             c.nfe = c.nfe + jumped.to(torch.int32)
 
+    # rk_common.py:339,354
+    fire_lanes(func, 'callback_accept_step', accept, t0, y0, dt)
+    fire_lanes(func, 'callback_reject_step', ok & ~accept, t0, y0, dt)
     keep = lanes(accept, y1)
     c.y = torch.where(keep, y1, y0)
     c.f = torch.where(keep, f1, c.f)
@@ -413,7 +465,8 @@ def _stats(c):
 
 # ---- the solves ---------------------------------------------------------------
 
-def integrate_lanes(func, y0, ts, cfg: AdaptiveConfig, norm, t0=None):
+def integrate_lanes(func, y0, ts, cfg: AdaptiveConfig, norm, t0=None,
+                    ts_t=None):
     """Integrate every sample of `y0` (B, ...) to every time in `ts`
     (increasing float64 host array), each with its own controller:
     `adaptive_rk.integrate` per sample.  `func` and `norm` are batched
@@ -422,14 +475,20 @@ def integrate_lanes(func, y0, ts, cfg: AdaptiveConfig, norm, t0=None):
     ``step_to_end``); a sample whose error code is set has its unwritten
     outputs NaN.  `t0`, (B,) float64, starts each sample at its own time
     in place of ``ts[0]`` (the backward solve of a per-sample event, from
-    each sample's event time).  Returns (ys (B, T, ...), Stats of (B,)
-    counters)."""
+    each sample's event time).  `ts_t`, the same times as a float64 tensor
+    carrying tangents (``forward_grad``), gives the start and the emission
+    times theirs, as `adaptive_rk.integrate`'s `ts_d`.  Returns (ys (B, T,
+    ...), Stats of (B,) counters)."""
     B, T, dev = y0.shape[0], ts.shape[0], y0.device
     _check_no_duplicates(cfg.step_t, cfg.jump_t)
     if cfg.step_to_end:
         cfg = cfg._replace(step_t=_merged_step_t(cfg, ts))
+    if ts_t is not None:
+        ts_d = ts_t.to(device=dev, dtype=F64)
+        t0 = ts_d[0].expand(B)
+    else:
+        ts_d = torch.tensor(ts, dtype=F64, device=dev)
     c = _lane_carry(func, y0, ts[0] if t0 is None else t0, cfg, norm)
-    ts_d = torch.tensor(ts, dtype=F64, device=dev)
     out = y0.new_zeros((B, T) + tuple(y0.shape[1:]))
     out[:, 0] = y0
     i_out = torch.ones(B, dtype=torch.long, device=dev)
@@ -455,6 +514,114 @@ def integrate_lanes(func, y0, ts, cfg: AdaptiveConfig, norm, t0=None):
     poison = (c.err != OK)[:, None] & (rows[None, :] >= i_out[:, None])
     ys = torch.where(lanes(poison, out), float('nan'), out)
     return ys, _stats(c)
+
+
+def record_lanes(func, y0, ts, cfg: AdaptiveConfig, norm, max_segments):
+    """`replay.record_segments` for every sample: the batched loop with no
+    graph (no emission, no callbacks), keeping each sample's accepted
+    step boundaries, its own sequence and count.  `max_num_steps` is a
+    budget for the whole span, as there.  Returns (times (B, K + 1) float64
+    on the host, each row padded with its last time, counts (B,), Stats);
+    a sample that needed more than `max_segments` steps has
+    ``ERR_SEGMENT_OVERFLOW``."""
+    from .replay import _bare
+    from .solution import ERR_SEGMENT_OVERFLOW
+    n_iv = max(ts.shape[0] - 1, 1)
+    if cfg.max_num_steps < 2 ** 31 - 1:
+        cfg = cfg._replace(
+            max_num_steps=min(cfg.max_num_steps * n_iv, 2 ** 31 - 1))
+    # no quartic: the recording emits nothing
+    cfg = cfg._replace(step_to_end=True)
+    bare = _bare(func)
+    if isinstance(func, LaneField):
+        bare = LaneField.__new__(LaneField)
+        bare.__dict__.update(func.__dict__, callbacks={})
+    t_end = float(ts[-1])
+    with torch.no_grad():
+        c = _lane_carry(bare, y0.detach(), ts[0], cfg, norm)
+        t1s, accs = [c.t1], [torch.ones_like(c.t1, dtype=torch.bool)]
+        while True:
+            run = ((c.t1 < t_end) & (c.err == OK)
+                   & (c.n_acc < max_segments))
+            if not _any(run):
+                break
+            LANE_COUNTS['iterations'] += 1
+            before = c.n_acc
+            _lane_step(c, bare, cfg, norm, run)
+            t1s.append(c.t1)
+            accs.append(c.n_acc > before)
+        t1s, accs = torch.stack(t1s, 1).cpu(), torch.stack(accs, 1).cpu()
+    counts = accs.sum(1) - 1
+    K = int(counts.max())
+    times = np.empty((y0.shape[0], K + 1))
+    for b in range(y0.shape[0]):
+        row = t1s[b][accs[b]].numpy()
+        times[b, :row.shape[0]] = row
+        times[b, row.shape[0]:] = row[-1]
+    over = (c.t1 < t_end) & (c.err == OK)
+    c.err = torch.where(over, ERR_SEGMENT_OVERFLOW, c.err).to(torch.int32)
+    # the recording's Stats carry no final step size, as `replay._stats`
+    return times, counts.numpy(), _stats(c)._replace(
+        final_dt=torch.zeros_like(c.dt))
+
+
+def replay_lanes(func, y0, ts_d, cfg: AdaptiveConfig, times, counts):
+    """`replay.replay_integrate` for every sample: iteration i replays
+    segment i of every sample that has one (its own times, a constant) and
+    keeps the others' state, as a lane of JAX's vmapped replay is masked;
+    output j is emitted from the quartic of the segment of each sample that
+    owns it.  Differentiable; an implicit tableau's stages carry their
+    implicit-function derivatives (`cfg.step_fn`).  `ts_d` (T,) float64,
+    which may carry derivatives.  Returns (B, T, ...)."""
+    from .adaptive_rk import _prep_tvals
+    B, dev = y0.shape[0], y0.device
+    T = ts_d.shape[0]
+    ts_np = ts_d.detach().cpu().numpy()
+    tab = cfg.tableau
+    seg = np.stack([np.searchsorted(times[b, :counts[b] + 1], ts_np,
+                                    side='left') - 1 for b in range(B)])
+    times_d = torch.from_numpy(times).to(dev)
+    jump = None
+    if cfg.jump_t is not None and np.size(cfg.jump_t):
+        jump = _prep_tvals(cfg.jump_t, ts_np[0])[0]
+    ts_dev = ts_d.to(dev)
+    y = y0
+    f = func(ts_dev[0].expand(B), y0, perturb=Perturb.NONE)
+    outs = [y0] + [torch.zeros_like(y0)] * (T - 1)
+    # every decision is the host's, from the recorded times: no host read
+    for i in range(int(counts.max())):
+        act = counts > i
+        active = torch.from_numpy(act).to(dev)
+        t0, t1 = times_d[:, i], times_d[:, i + 1]
+        dt = t1 - t0
+        if cfg.step_fn is None:
+            y1, f1, _, k = lane_rk_step(func, y, f, t0, dt, t1, tab)
+        else:
+            y1, f1, _, k = cfg.step_fn(func, y, f, t0, dt, t1, tab,
+                                       active=active)
+        if jump is not None:
+            at_jump = act & np.isin(times[:, i + 1], jump)
+            if at_jump.any():
+                f1 = torch.where(
+                    lanes(torch.from_numpy(at_jump).to(dev), f1),
+                    func(t1, y1, perturb=Perturb.NEXT), f1)
+        emit = (seg == i) & act[:, None]
+        if emit[:, 1:].any():
+            coeff = _lane_yform_fit(y, y1, k, dt, tab)
+            # a finished sample's empty segment would divide by zero, and
+            # its unselected NaN would reach the gradient
+            t1_safe = torch.where(active, t1, t0 + 1.0)
+            for j in range(1, T):
+                if emit[:, j].any():
+                    val = lane_interp_at(coeff, t0, t1_safe,
+                                         ts_dev[j].expand(B))
+                    outs[j] = torch.where(
+                        lanes(torch.from_numpy(emit[:, j]).to(dev), val),
+                        val.to(y0.dtype), outs[j])
+        keep = lanes(active, y1)
+        y = torch.where(keep, y1, y)
+        f = torch.where(keep, f1, f)
+    return torch.stack(outs, 1)
 
 
 def _lane_tol(tol):
@@ -543,6 +710,10 @@ def integrate_lanes_until_event_fixed_grid(method, func, y0, t0, event_fn, *,
     t_now, dt = sd(t0), sd(step_size)
     sign0 = nan_sign(event_fn(times(t_now), y0))
     state = method.init_state(func, y0, t_now)
+    # the NFE a stepper's state counts (the Adams corrector's), each
+    # sample's only while it steps
+    state_nfe = method.nfe_from_state
+    extra_nfe = torch.zeros(B, **i32)
     ta, tb = times(t_now), times(t_now)
     ya = yb = y0
     fa = fb = torch.zeros_like(y0)
@@ -554,7 +725,12 @@ def integrate_lanes_until_event_fixed_grid(method, func, y0, t0, event_fn, *,
             break
         LANE_COUNTS['iterations'] += 1
         t1 = t_now + dt
+        nfe_before = None if state_nfe is None else state_nfe(state)
         dy, f0, state = method.step(func, t_now, dt, t1, ya, perturb, state)
+        if state_nfe is not None:
+            extra_nfe = extra_nfe + torch.where(
+                run, torch.as_tensor(state_nfe(state) - nfe_before,
+                                     device=dev), 0).to(torch.int32)
         y1 = ya + dy.to(tdt)
         f1 = func(t1, y1, perturb=Perturb.NONE) if cubic else fb
         # NaN != NaN: a NaN sign ends the sample's loop, as in JAX
@@ -592,7 +768,7 @@ def integrate_lanes_until_event_fixed_grid(method, func, y0, t0, event_fn, *,
         hi = torch.where(live & ~same, t_mid, hi)
     event_t = (lo + hi) / 2.0
     y_event = interp_fn(event_t)
-    nfe = itr * (method.nfe_per_step + (1 if cubic else 0))
+    nfe = itr * (method.nfe_per_step + (1 if cubic else 0)) + extra_nfe
     stats = Stats.make(nfe=nfe, n_steps=itr, n_accepted=itr,
                        n_rejected=torch.zeros_like(itr),
                        error_code=torch.where(changed, OK, ERR_MAX_NUM_STEPS

@@ -5,12 +5,12 @@ torchdiffeq/_impl/rk_common.py:378-558).
 * **Stage solves.**  Broyden's method (the default: identity initial
   Jacobian, rank-1 updates, the update's denominator floored at the dtype's
   `tiny`) or Newton's (``root_solver='newton'``: the exact Jacobian,
-  `misc.jacobian`, each iteration), on the flat stage residual, to an
+  `misc.lane_jacobian`, each iteration), on the flat stage residual, to an
   absolute tolerance on its 2-norm (1e-8 for float64, 1e-6 otherwise).  A
   step that is not finite ends the iteration where it stands (JAX's
-  bail-out, in place of the reference's try/except).  Each iteration reads
-  the residual norm back to the host, and the linear solves are
-  `ops.linsolve.solve`.
+  bail-out, in place of the reference's try/except).  One solve is a
+  batch of one of the per-sample solves (`_iterate`): each iteration
+  makes one host read, and the linear solves are `ops.linsolve.solve`.
 * **FIRK** solves all ``s`` stages as one ``(s*n)`` system; **DIRK** one
   ``n`` system per stage.  A stage at alpha 1 evaluates the field just
   below t1 (`misc.nextafter_down`); a stage with alpha 0 and no coupling is
@@ -36,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import (Perturb, carries_derivative, coef, jacobian,
+from ..misc import (Perturb, carries_derivative, coef, lane_jacobian,
                     nextafter_down, scalar_type)
 from ..ops import linsolve
 from ..ops.rk_step import weighted_sum
@@ -48,48 +48,6 @@ from .solution import (OK, ERR_IMPLICIT_NO_CONVERGENCE,
 def solve_tol(dtype):
     """The stage solves' absolute tolerance (reference rk_common.py:425-429)."""
     return 1e-8 if dtype == torch.float64 else 1e-6
-
-
-def _norm_read(f, *more):
-    """The 2-norm of `f` and the values of `more` (0-d tensors), read to
-    the host together: one read."""
-    COUNTS['host_reads'] += 1
-    return torch.stack([torch.linalg.vector_norm(f).to(f.dtype)]
-                       + [m.to(f.dtype) for m in more]).tolist()
-
-
-def _iterate(residual, x0, tol, max_iters, newton):
-    """Broyden's (JAX `_broyden`, fixed_grid_implicit.py:41-69) or Newton's
-    (`_newton`, :72-98) method on ``residual: (m,) -> (m,)`` from `x0`, with
-    no graph.  Returns (x, converged)."""
-    # the norm is compared in its dtype, as JAX's weakly typed tolerance
-    tol = float(scalar_type(x0.dtype)(tol))
-    x = x0
-    f = residual(x)
-    (norm_f,) = _norm_read(f)
-    J = None if newton else torch.eye(x.shape[0], dtype=x.dtype,
-                                      device=x.device)
-    tiny = torch.finfo(x.dtype).tiny
-    it = 0
-    # NaN >= tol is False: a NaN residual stops the loop unconverged
-    while norm_f >= tol and it < max_iters:
-        if newton:
-            COUNTS['jacobians'] += 1
-            J = jacobian(residual, x)
-        s = -linsolve.solve(J, f)
-        COUNTS['linear_solves'] += 1
-        COUNTS['iterations'] += 1
-        x_new = x + s
-        f_new = residual(x_new)
-        norm_new, finite = _norm_read(f_new, torch.isfinite(s).all())
-        it += 1
-        if not finite:
-            break
-        if not newton:
-            denom = torch.clamp(s @ s, min=tiny)
-            J = J + torch.outer(f_new - f - J @ s, s) / denom
-        x, f, norm_f = x_new, f_new, norm_new
-    return x, norm_f < tol
 
 
 class _IFT(torch.autograd.Function):
@@ -112,7 +70,7 @@ class _IFT(torch.autograd.Function):
         J = ctx.jac()
         COUNTS['jacobians'] += 1
         COUNTS['linear_solves'] += 1
-        return -linsolve.solve(J.T, g), None
+        return -linsolve.solve(J.mT, g), None
 
     @staticmethod
     def jvp(ctx, r_t, jac_t):
@@ -122,22 +80,91 @@ class _IFT(torch.autograd.Function):
         return -linsolve.solve(J, r_t)
 
 
-def root_solve(residual, x0, tol, max_iters, newton):
-    """Solve ``residual(x) = 0`` from `x0`; under autograd, or when the
-    problem carries forward-mode tangents (``forward_grad``), the root
-    carries the implicit-function-theorem derivative (module docstring),
-    not that of the iterations.  Returns (x, converged)."""
+def _iterate(residual, x0, tol, max_iters, newton, active=None):
+    """Broyden's (JAX `_broyden`, fixed_grid_implicit.py:41-69) or Newton's
+    (`_newton`, :72-98) method for every sample of a batch at once (JAX's
+    solves under vmap), with no graph: ``residual: (B, m) -> (B, m)`` row
+    by row, and each sample carries its own x, residual, Broyden matrix
+    (B, m, m), iteration count and non-finite bail-out.  A sample iterates
+    while its own 2-norm is at least `tol`, it has not bailed out and it
+    has taken fewer than `max_iters` iterations; then it keeps its values,
+    as a lane of JAX's batched while_loop keeps its carry.  Newton's
+    Jacobians are `misc.lane_jacobian`, the linear solves one batched
+    `ops.linsolve.solve`.  One host read an iteration: whether any sample
+    still iterates, and whether all have converged.  `active` (B,) bool
+    leaves the other samples out from the start (an adaptive step's
+    finished samples).  Returns (x, converged (B,), all converged: a
+    bool)."""
+    # the norm is compared in its dtype, as JAX's weakly typed tolerance
+    tol = float(scalar_type(x0.dtype)(tol))
+    B, m = x0.shape
+    x = x0
+    f = residual(x)
+    norm_f = torch.linalg.vector_norm(f, dim=1)
+    J = None if newton else torch.eye(
+        m, dtype=x.dtype, device=x.device).expand(B, m, m)
+    tiny = torch.finfo(x.dtype).tiny
+    it = torch.zeros(B, dtype=torch.int32, device=x.device)
+    bailed = (torch.zeros(B, dtype=torch.bool, device=x.device)
+              if active is None else ~active)
+    while True:
+        # NaN >= tol is False: a NaN residual stops the sample unconverged
+        live = (norm_f >= tol) & ~bailed & (it < max_iters)
+        COUNTS['host_reads'] += 1
+        any_live, all_conv = torch.stack(
+            [live.any(), (norm_f < tol).all()]).tolist()
+        if not any_live:
+            break
+        if newton:
+            COUNTS['jacobians'] += 1
+            J = lane_jacobian(residual, x)
+        s = -linsolve.solve(J, f)
+        COUNTS['linear_solves'] += 1
+        COUNTS['iterations'] += 1
+        bail = ~torch.isfinite(s).all(1)
+        s = torch.where(bail[:, None], torch.zeros_like(s), s)
+        x_new = x + s
+        f_new = residual(x_new)
+        upd = live & ~bail
+        if not newton:
+            denom = torch.clamp((s * s).sum(1), min=tiny)
+            u = f_new - f - (J @ s[:, :, None])[:, :, 0]
+            J_new = J + u[:, :, None] * s[:, None, :] / denom[:, None, None]
+            J = torch.where(upd[:, None, None], J_new, J)
+        x = torch.where(upd[:, None], x_new, x)
+        f = torch.where(upd[:, None], f_new, f)
+        norm_f = torch.where(upd, torch.linalg.vector_norm(f_new, dim=1),
+                             norm_f)
+        it = it + live.to(torch.int32)
+        bailed = bailed | (live & bail)
+    return x, norm_f < tol, bool(all_conv)
+
+
+def root_solve(residual, x0, tol, max_iters, newton, lanes=False,
+               active=None):
+    """Solve ``residual(x) = 0`` from `x0` (`_iterate`); under autograd,
+    or when the problem carries forward-mode tangents (``forward_grad``),
+    the root carries the implicit-function-theorem derivative (module
+    docstring), not that of the iterations.  `x0` is (m,), a batch of one;
+    with `lanes` it is (B, m) and every sample solves its own system
+    (`active` as `_iterate`'s), its implicit-function derivative through
+    its own Jacobian.  Returns (x, converged: a bool, or (B,) with
+    `lanes`)."""
+    if not lanes:
+        one, residual = residual, lambda xb: one(xb[0])[None]
+        x0 = x0[None]
     with torch.no_grad():
-        x, conv = _iterate(residual, x0.detach(), tol, max_iters, newton)
+        x, conv, all_conv = _iterate(residual, x0.detach(), tol, max_iters,
+                                     newton, active)
     if torch.is_grad_enabled() or carries_derivative(x0):
         x = x.detach()
         r = residual(x)
         if carries_derivative(r):
             def jac(root=x):
                 with torch.no_grad():
-                    return jacobian(residual, root)
+                    return lane_jacobian(residual, root)
             x = x + _IFT.apply(r, jac)
-    return x, conv
+    return (x, conv) if lanes else (x[0], all_conv)
 
 
 def _stage_times(tableau):
@@ -173,11 +200,15 @@ def _stage_time(plan_i, t0, dt, t1, dtype):
     return t0 + scalar_type(dtype)(a) * dt
 
 
-def make_fixed_step_method(prob, tableau, sequential):
+def make_fixed_step_method(prob, tableau, sequential, lanes=False):
     """The implicit `FixedStepMethod` of `tableau` (JAX
     `make_fixed_step_method`, fixed_grid_implicit.py:180-288):
     ``sequential=False`` FIRK, ``True`` DIRK.  Options ``max_iters``
-    (100) and ``root_solver`` ('broyden' or 'newton')."""
+    (100) and ``root_solver`` ('broyden' or 'newton').  With `lanes` the
+    state is a batch (B, ...) on a shared grid, the field batched, and
+    each sample solves its own stage systems (`root_solve`'s lanes, JAX's
+    solve under vmap); the stepper's state is then each sample's
+    all-converged flag (B,), and so is its error code."""
     opts = dict(prob.options)
     max_iters = int(opts.get('max_iters', 100))
     # any other value is Broyden's method, as in JAX
@@ -185,6 +216,8 @@ def make_fixed_step_method(prob, tableau, sequential):
     s = tableau.n_stages
     beta = np.asarray(tableau.beta)
     plan = _stage_times(tableau)
+    # the stage vectors: flat per sample, (n,) or (B, n)
+    lead = 1 if lanes else 0
 
     def prepare(func, t0, dt, t1, y0, perturb):
         f0 = func(t0, y0, perturb=Perturb.NEXT if perturb else Perturb.NONE)
@@ -193,7 +226,8 @@ def make_fixed_step_method(prob, tableau, sequential):
         shape = y0.shape
 
         def eval_f(ti, yf):
-            return func(ti, yf.view(shape), perturb=Perturb.NONE).reshape(-1)
+            return func(ti, yf.view(shape), perturb=Perturb.NONE).reshape(
+                yf.shape)
 
         times = [None if kind == 'pinned'
                  else _stage_time((kind, a), t0c, dtc, t1c, td)
@@ -202,17 +236,23 @@ def make_fixed_step_method(prob, tableau, sequential):
 
     tol = solve_tol(prob.y0.dtype)
 
+    def flat(x):
+        return x.reshape(x.shape[:lead] + (-1,))
+
+    def solve(residual, x0):
+        return root_solve(residual, x0, tol, max_iters, newton, lanes=lanes)
+
     if not sequential:
         def step(func, t0, dt, t1, y0, perturb, state):
             f0, t0c, dtc, eval_f, times = prepare(func, t0, dt, t1, y0,
                                                   perturb)
-            y0f = y0.reshape(-1)
-            n = y0f.shape[0]
+            y0f = flat(y0)
+            n = y0f.shape[-1]
             pinned = (eval_f(t0c, y0f) if any(k == 'pinned' for k, _ in plan)
                       else None)
 
             def residual(Kf):
-                K = list(Kf.view(s, n).unbind(0))
+                K = list(Kf.unflatten(-1, (s, n)).unbind(-2))
                 res = []
                 for i in range(s):
                     if plan[i][0] == 'pinned':
@@ -220,18 +260,18 @@ def make_fixed_step_method(prob, tableau, sequential):
                         continue
                     yi = y0f + weighted_sum(beta[i], K, dtc)
                     res.append(K[i] - eval_f(times[i], yi))
-                return torch.cat(res)
+                return torch.cat(res, dim=-1)
 
-            Kf, conv = root_solve(residual, f0.reshape(-1).repeat(s), tol,
-                                  max_iters, newton)
-            dy = weighted_sum(tableau.c_sol, list(Kf.view(s, n).unbind(0)),
-                              dtc)
-            return dy.view(y0.shape), f0, state and conv
+            Kf, conv = solve(residual, flat(f0).repeat(
+                *((1,) * lead), s))
+            dy = weighted_sum(tableau.c_sol,
+                              list(Kf.unflatten(-1, (s, n)).unbind(-2)), dtc)
+            return dy.view(y0.shape), f0, state & conv
     else:
         def step(func, t0, dt, t1, y0, perturb, state):
             f0, t0c, dtc, eval_f, times = prepare(func, t0, dt, t1, y0,
                                                   perturb)
-            y0f, f0f = y0.reshape(-1), f0.reshape(-1)
+            y0f, f0f = flat(y0), flat(f0)
             K, conv_all = [], state
             for i in range(s):
                 if plan[i][0] == 'pinned':
@@ -243,12 +283,19 @@ def make_fixed_step_method(prob, tableau, sequential):
                                             dtc)
                     return k - eval_f(times[i], yi)
 
-                ki, conv = root_solve(residual_i, f0f, tol, max_iters, newton)
-                conv_all = conv_all and conv
+                ki, conv = solve(residual_i, f0f)
+                conv_all = conv_all & conv
                 K.append(ki)
             return weighted_sum(tableau.c_sol, K, dtc).view(y0.shape), f0, \
                 conv_all
 
+    if lanes:
+        return FixedStepMethod(
+            step, order=tableau.order, nfe_per_step=1,
+            init_state=lambda func_, y0, t0: torch.ones(
+                y0.shape[0], dtype=torch.bool, device=y0.device),
+            error_from_state=lambda st: torch.where(
+                st, OK, ERR_IMPLICIT_NO_CONVERGENCE).to(torch.int32))
     return FixedStepMethod(
         step, order=tableau.order, nfe_per_step=1,
         init_state=lambda func_, y0, t0: True,
