@@ -101,7 +101,22 @@ benchmarks/bench_fused_field.py at its full width:
      error against its plain version, its time, the plain version's time,
      its bound on this card and the PyTorch call that computes the same
      function, where one exists; the 16-bit instances as entries of their
-     own), the card's name and power limit, then the result line.
+     own, the traced instances of phase 17 too), the card's name and power
+     limit, then the result line; printed after phase 17.
+ 17. the examples (torchdiffeq_tpu_torch/examples/) at their default widths,
+     only iteration counts cut: (a) examples/ensemble.py through its `main`
+     (B=1024, float32) with the launch counts reset before and read after,
+     its two kernel calls launching the traced K-dopri5 and K-events
+     instances of its field and event (ops/traced.py), each against its
+     plain version in float32 and float64 and timed three ways beside
+     phase 14 (a)'s driver, with the instances' first-use build times and
+     their bounds; (b) ode_demo with `odeint` and `--adjoint`; (c)
+     latent_ode (100 spirals, a solve per trajectory); (d) cnf with `odeint`
+     and `--adjoint`; (e) odenet_mnist (the ODE-Net with and without
+     `--adjoint`, and the residual network), each timed with its NFE, and a
+     float64 step card against CPU for (b)-(d); (f) bouncing_ball whole in
+     float64; (g) learn_physics whole if it fits its budget; (h) the phase's
+     seconds;
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -2251,6 +2266,7 @@ def _phase_per_sample(torch, kernels, dev):
           f"| max|y(2) - exact| {err_sc:.2e} (<= {SCALAR_EXACT}) | "
           f"{time.perf_counter() - p1:.1f} s; phase 14 "
           f"{time.perf_counter() - p0:.1f} s")
+    return ens_ms[0]
 
 
 def _relax_i(t, y, lam):
@@ -2736,6 +2752,517 @@ def _phase_lanes16(torch, kernels, dev, card):
     return entries
 
 
+# ---- phase 17: the examples ---------------------------------------------------
+
+# - phase 17, the examples (torchdiffeq_tpu_torch/examples/).  (a) The
+#   traced K-dopri5 and K-events instances of examples/ensemble.py's field
+#   and event against their plain versions on the same CUDA tensors:
+#   float32 values (event times) within F32_ADAPTIVE_VALUES (F32_EVENT_T)
+#   and steps within F32_ADAPTIVE_STEPS, as the hand-written instances;
+#   float64 the share of lanes whose counts differ within C7's
+#   DRIVER_FLIP_SHARE, values within F64_VALUES on the others.  (b)-(d)
+#   one float64 training step on the card against the same step on the
+#   CPU: the same solves but for the products' summation order and libm's
+#   last bit, so the loss within EX_LOSS_F64 and the gradients within
+#   EX_GRAD_F64 of max|g| (latent_ode: every trajectory's solve, cnf: a
+#   hypernetwork's jvp probes inside the field, all through the adjoint's
+#   backward).  (f) bouncing_ball's five gradients card against CPU within
+#   EX_GRAD_F64; against finite differences within the example's own 1e-3.
+EX_LOSS_F64 = 1e-10
+EX_GRAD_F64 = 1e-8
+PEAK_F64 = 34e12   # float64 FLOP/s outside the tensor cores (data sheet, SXM)
+EX_ITERS = 20      # ode_demo's timed iterations (of 2000)
+EX_STEPS = 5       # latent_ode, cnf and odenet_mnist's timed steps
+LATENT_CPU_B = 8   # latent_ode's card-vs-CPU batch (the CPU side's cost)
+CNF_CPU_B = 64     # cnf's card-vs-CPU batch
+LEARN_BUDGET_S = 60.0   # learn_physics runs whole (300 iterations) if a
+#                         warm iteration's time says they fit this
+
+
+def _traced_bound(n_steps, tableau, D, field_ops, peak, esize, S=0,
+                  event_ops=None, K=0):
+    """A traced instance's bound over this run's per-lane step counts: the
+    field's traced operations at each evaluation (FSAL), the stage, error
+    and controller sums (as `_lane_flops`), and for K-events the event at
+    each step and 40 bisection steps (a quartic row, 8 operations, and the
+    event); y0 and the per-lane arg read, the rows and counters written."""
+    n, b = int(n_steps.sum()), n_steps.numel()
+    terms = int(np.count_nonzero(tableau.beta)) + int(
+        np.count_nonzero(tableau.c_error))
+    ops = (((tableau.n_stages - 1) * n + 2 * b) * field_ops
+           + n * (2 * D * terms + 12 * D))
+    nbytes = (D + 1) * b * esize + S * D * b * esize + 2 * b * 4
+    if event_ops is not None:
+        ops += n * event_ops + 40 * b * (8 * D + event_ops)
+        nbytes += K * b * esize + (1 + D) * b * esize + b * 4
+    return _bound(ops, nbytes, peak)
+
+
+def _flips(got, want):
+    """The share of lanes whose counts (the trailing (1, B) outputs)
+    differ, and the mask of the others."""
+    same = None
+    for g, w in zip(got, want):
+        eq = (g[0] == w[0])
+        same = eq if same is None else same & eq
+    return 1.0 - float(same.float().mean()), same
+
+
+def _bwd_nfe(bwd):
+    """The last backward solve's NFE that `bwd` recorded."""
+    return int(bwd.stats[-1].nfe) if bwd.stats else "not recorded"
+
+
+def _event_ms(torch):
+    return torch.cuda.Event(enable_timing=True)
+
+
+def _timed_steps(torch, step, n):
+    """`n` calls of `step(i)`, each between CUDA events: (ms per call)."""
+    out = []
+    for i in range(n):
+        a, b = _event_ms(torch), _event_ms(torch)
+        a.record()
+        step(i)
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return out
+
+
+def _ms_row(ms):
+    return (f"median {np.median(ms):.1f} ms (min {min(ms):.1f}, max "
+            f"{max(ms):.1f})")
+
+
+def _ex_traced(torch, kernels, dev, driver_ms, card):
+    """Phase 17 (a): examples/ensemble.py through its entry point with the
+    launch counts reset before and read after, then its two traced kernel
+    calls at B=1024 in float32 and float64 against their plain versions,
+    timed three ways.  Returns the two JSON entries."""
+    from torchdiffeq_tpu_torch.examples import ensemble
+    from torchdiffeq_tpu_torch.ops import _build, traced
+    from torchdiffeq_tpu_torch.ops.tableaus import DOPRI5 as DOPRI5_TAB
+    p0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    w0 = time.perf_counter()
+    out = ensemble.main(["--batch", str(ENS_B)])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - w0
+    launched = dict(kernels.traced_launch_counts)
+    _check(all(n > 0 for n in launched.values()),
+           f"a traced instance was not launched by the ensemble: {launched}")
+    first_builds = dict(_build.traced_builds)
+    res = {}
+    for dtype, tag, peak in ((torch.float32, "f32", PEAK_F32),
+                             (torch.float64, "f64", PEAK_F64)):
+        omega, y0, t = ensemble.make_problem(ENS_B, dev, dtype)
+        y0T = y0.T.contiguous()
+        field = traced.PerSampleField(ensemble.field, (omega,), (-1,))
+        event = traced.PerSampleEvent(ensemble.event_fn)
+        kw = dict(ts=t.numpy(), rtol=ENS_RTOL, atol=ENS_RTOL * 1e-2)
+        sign0 = torch.sign(y0T[:1]).contiguous()
+        ekw = dict(rtol=ENS_RTOL, atol=ENS_RTOL * 1e-2, ev_params=(sign0,))
+        with torch.no_grad():
+            got = kernels.dopri5_integrate_batched(field, y0T, 0.0, 2.0, **kw)
+            want = kernels.dopri5_integrate_batched_ref(field, y0T, 0.0, 2.0,
+                                                        **kw)
+            got_e = kernels.dopri5_events_batched(field, y0T, 0.0, event,
+                                                  **ekw)
+            want_e = kernels.dopri5_events_batched_ref(field, y0T, 0.0, event,
+                                                       **ekw)
+            lanes_launch = kernels._lanes_launch(field, y0T, 0.0, 2.0, **kw)[0]
+            events_launch = kernels._events_launch(field, y0T, 0.0, event,
+                                                   **ekw)[0]
+            t_l = _three_times(
+                torch, lambda: kernels.dopri5_integrate_batched(
+                    field, y0T, 0.0, 2.0, **kw), lanes_launch,
+                lambda: kernels.dopri5_integrate_batched_ref(
+                    field, y0T, 0.0, 2.0, **kw), 1)
+            t_e = _three_times(
+                torch, lambda: kernels.dopri5_events_batched(
+                    field, y0T, 0.0, event, **ekw), events_launch,
+                lambda: kernels.dopri5_events_batched_ref(
+                    field, y0T, 0.0, event, **ekw), 1)
+        flip_l, same_l = _flips(got[1:], want[1:])
+        flip_e, same_e = _flips(got_e[2:], want_e[2:])
+        err_l = float((got[0] - want[0])[..., same_l].abs().max())
+        err_e = float((got_e[0] - want_e[0])[..., same_e].abs().max())
+        dstp = int((got[2] - want[2]).abs().max())
+        dstp_e = int((got_e[4] - want_e[4]).abs().max())
+        if dtype == torch.float32:
+            err_l = float((got[0] - want[0]).abs().max())
+            err_e = float((got_e[0] - want_e[0]).abs().max())
+            _check(err_l <= F32_ADAPTIVE_VALUES and err_e <= F32_EVENT_T
+                   and max(dstp, dstp_e) <= F32_ADAPTIVE_STEPS,
+                   f"traced float32 vs plain: {err_l}, {err_e}, steps "
+                   f"{dstp}, {dstp_e}")
+        else:
+            _check(max(flip_l, flip_e) <= DRIVER_FLIP_SHARE
+                   and max(err_l, err_e) <= F64_VALUES,
+                   f"traced float64 vs plain: flips {flip_l}, {flip_e}, "
+                   f"values {err_l}, {err_e}")
+        src_l, src_e = lanes_launch.source, events_launch.source
+        esize = y0.element_size()
+        res[tag] = dict(
+            err_l=err_l, err_e=err_e, flip_l=flip_l, flip_e=flip_e,
+            t_l=t_l, t_e=t_e, steps=got[2], steps_e=got_e[4],
+            bound_l=_traced_bound(got[2], DOPRI5_TAB, 2, src_l.field_ops,
+                                  peak, esize, S=len(kw["ts"])),
+            bound_e=_traced_bound(got_e[4], DOPRI5_TAB, 2, src_e.field_ops,
+                                  peak, esize, event_ops=src_e.event_ops,
+                                  K=src_e.K),
+            ops=(src_l.field_ops, src_e.event_ops))
+    builds = ", ".join(f"{s:.1f} s" for s in _build.traced_builds.values())
+    first = ", ".join(f"{s:.1f} s" for s in first_builds.values())
+    rows = []
+    for tag, r in res.items():
+        rows.append(
+            f"{tag}: K-dopri5 traced max|d| {r['err_l']:.3e}, lanes whose "
+            f"counts differ {r['flip_l']:.4f}, steps {_spread(r['steps'])}, "
+            f"wrapper {r['t_l']['ms']:.4f} ms, bare {r['t_l']['bare_ms']:.4f}"
+            f" ms, device {r['t_l']['device_ms']:.4f} ms, plain "
+            f"{r['t_l']['plain_ms']:.1f} ms, bound {r['bound_l'][0]:.4f} ms "
+            f"({r['bound_l'][1]}); K-events traced max|d event_t| "
+            f"{r['err_e']:.3e}, lanes whose counts differ {r['flip_e']:.4f}, "
+            f"steps {_spread(r['steps_e'])}, wrapper {r['t_e']['ms']:.4f} ms,"
+            f" bare {r['t_e']['bare_ms']:.4f} ms, device "
+            f"{r['t_e']['device_ms']:.4f} ms, plain {r['t_e']['plain_ms']:.1f}"
+            f" ms, bound {r['bound_e'][0]:.4f} ms ({r['bound_e'][1]})")
+    print(f"[17a traced kernels] {card} | examples/ensemble.py main B={ENS_B}"
+          f" float32 on the card {main_s:.1f} s (kernel vs driver max diff "
+          f"{out['err']:.2e} < 1e-2, events max rel dev {out['rel']:.2%} < "
+          f"5%), traced launches {launched} | field ops an evaluation "
+          f"{res['f32']['ops'][0]}, event ops {res['f32']['ops'][1]} | "
+          f"first-use builds {first} (all traced builds this process: "
+          f"{builds}) | "
+          + " | ".join(rows)
+          + f" | the batched driver on the same ensemble (phase 14a): "
+          f"median {driver_ms:.1f} ms a solve | {time.perf_counter() - p0:.1f} s")
+    entries = []
+    for name, src_file, replaces, key, err, times, bound, n in (
+            ("dopri5_integrate_batched_traced",
+             "torchdiffeq_tpu_torch/csrc/dopri5_lanes.cuh",
+             "torchdiffeq_tpu/ops/pallas_kernels.py:336", "l", "err_l", "t_l",
+             "bound_l", launched["dopri5_integrate_batched"]),
+            ("dopri5_events_batched_traced",
+             "torchdiffeq_tpu_torch/csrc/dopri5_events.cuh",
+             "torchdiffeq_tpu/ops/pallas_kernels.py:580", "e", "err_e", "t_e",
+             "bound_e", launched["dopri5_events_batched"])):
+        f32, f64 = res["f32"], res["f64"]
+        entries.append(dict(
+            name=name, route="cuda", source=src_file, replaces=replaces,
+            emitted_by="torchdiffeq_tpu_torch/ops/traced.py",
+            field="examples/ensemble.py's oscillators, B=1024",
+            launches=n, max_abs_err=f32[err], **f32[times],
+            bound_ms=f32[bound][0], bound_by=f32[bound][1],
+            max_abs_err_f64=f64[err], count_flip_share_f64=f64["flip_" + key],
+            ms_f64=f64[times]["ms"], bare_ms_f64=f64[times]["bare_ms"],
+            device_ms_f64=f64[times]["device_ms"],
+            plain_ms_f64=f64[times]["plain_ms"], bound_ms_f64=f64[bound][0],
+            first_build_s=list(first_builds.values()),
+            driver_ms=driver_ms, library_ms=None))
+    return entries
+
+
+def _ex_ode_demo(torch, card):
+    """Phase 17 (b): ode_demo at its defaults with `odeint` and with
+    ``--adjoint``: EX_ITERS training iterations and one test solve over the
+    1000 points, timed; forward and backward NFE; one float64 step on the
+    card against the CPU."""
+    from torchdiffeq_tpu_torch import odeint, odeint_with_stats
+    from torchdiffeq_tpu_torch.examples import ode_demo
+    from torchdiffeq_tpu_torch.examples._optim import RMSprop
+    p0 = time.perf_counter()
+    rows = []
+    for flag in ([], ["--adjoint"]):
+        args = ode_demo.parser.parse_args(flag)
+        gen = torch.Generator().manual_seed(args.seed)
+        true_y0, t, true_y = ode_demo.make_data(args, "cuda", torch.float32)
+        model = ode_demo.init_model(args, gen, "cuda", torch.float32)
+        opt = RMSprop(model.parameters(), 1e-3)
+        batches = [ode_demo.get_batch(ode_demo.draw_batch(gen, args), args, t,
+                                      true_y) for _ in range(EX_ITERS + 1)]
+        ode_demo.train_step(model, opt, batches[-1], args)   # warm
+        with _BackwardStats() as bwd:
+            ms = _timed_steps(torch, lambda i: ode_demo.train_step(
+                model, opt, batches[i], args), EX_ITERS)
+        with torch.no_grad():
+            _, st_f = odeint_with_stats(model, batches[0][0], batches[0][1],
+                                        rtol=1e-7, atol=1e-9)
+            a, b = _event_ms(torch), _event_ms(torch)
+            a.record()
+            pred = odeint(model, true_y0, t, method=args.method)
+            b.record()
+            torch.cuda.synchronize()
+            test_loss = float(torch.mean(torch.abs(pred - true_y)))
+        _check(np.isfinite(test_loss), "ode_demo test loss")
+        rows.append(
+            f"{'odeint_adjoint' if flag else 'odeint'}: {EX_ITERS} iterations"
+            f" {_ms_row(ms)}, forward nfe {int(st_f.nfe)}, backward nfe "
+            f"{_bwd_nfe(bwd)}; test solve over {args.data_size} "
+            f"points {a.elapsed_time(b):.1f} ms, loss {test_loss:.4f}")
+    # one float64 step, card against CPU
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = ode_demo.parser.parse_args(["--device", dev])
+        gen = torch.Generator().manual_seed(args.seed)
+        _, t, true_y = ode_demo.make_data(args, dev, torch.float64)
+        model = ode_demo.init_model(args, gen, dev, torch.float64)
+        batch = ode_demo.get_batch(ode_demo.draw_batch(gen, args), args, t,
+                                   true_y)
+        loss = ode_demo.train_step(model, RMSprop(model.parameters(), 1e-3),
+                                   batch, args)
+        out[dev] = float(loss), [p.grad for p in model.parameters()]
+    d_loss = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    rel = _max_rel(out["cuda"][1], out["cpu"][1])
+    _check(d_loss <= EX_LOSS_F64 and rel <= EX_GRAD_F64,
+           f"ode_demo float64 card vs CPU: loss {d_loss}, gradients {rel}")
+    print(f"[17b ode_demo] {card} | batch 20 x 10 points, MLP 2-50-2 of y**3,"
+          f" dopri5 rtol 1e-7 atol 1e-9, float32 | " + " | ".join(rows)
+          + f" | float64 step card vs CPU: loss {d_loss:.2e} (<= "
+          f"{EX_LOSS_F64}), gradients {rel:.2e} of max|g| (<= {EX_GRAD_F64})"
+          f" | cut: {EX_ITERS} of 2000 iterations | "
+          f"{time.perf_counter() - p0:.1f} s")
+
+
+def _ex_latent(torch, card):
+    """Phase 17 (c): latent_ode at its defaults (100 spirals), EX_STEPS
+    training steps timed, the driver's iterations and each trajectory's
+    steps; a float64 step card against CPU at LATENT_CPU_B spirals."""
+    from torchdiffeq_tpu_torch.examples import latent_ode
+    from torchdiffeq_tpu_torch.examples._optim import Adam
+    from torchdiffeq_tpu_torch.solvers import batched_rk
+    p0 = time.perf_counter()
+    args = latent_ode.parser.parse_args([])
+    gen = torch.Generator().manual_seed(args.seed)
+    trajs, ts = latent_ode.generate_spirals(args, "cuda")
+    ts = ts.double().cpu()
+    params = latent_ode.init_params(args, gen, "cuda")
+    opt = Adam(params.parameters(), args.lr)
+    eps = [torch.randn((args.nspiral, args.latent_dim), generator=gen).cuda()
+           for _ in range(EX_STEPS + 1)]
+    latent_ode.train_step(params, opt, trajs, ts, eps[-1], args.noise_std)
+    batched_rk.reset_lane_counts()
+    losses = []
+    ms = _timed_steps(torch, lambda i: losses.append(latent_ode.train_step(
+        params, opt, trajs, ts, eps[i], args.noise_std)), EX_STEPS)
+    iters = batched_rk.LANE_COUNTS["iterations"] / EX_STEPS
+    with torch.no_grad():
+        mean, logvar = latent_ode.encode(params, trajs)
+        _, st = latent_ode.latent_solve(
+            params, mean + eps[0] * torch.exp(0.5 * logvar), ts,
+            with_stats=True)
+    _check(all(np.isfinite(float(x)) for x in losses), "latent_ode loss")
+    out = {}
+    cargs = latent_ode.parser.parse_args(["--nspiral", str(LATENT_CPU_B)])
+    for dev in ("cuda", "cpu"):
+        g = torch.Generator().manual_seed(1)
+        tr, tt_ = latent_ode.generate_spirals(cargs, dev)
+        p = latent_ode.init_params(cargs, g, dev, torch.float64)
+        e = torch.randn((LATENT_CPU_B, cargs.latent_dim), generator=g,
+                        dtype=torch.float64).to(dev)
+        loss = latent_ode.elbo_loss(p, tr.double(), tt_.double().cpu(), e,
+                                    cargs.noise_std)
+        loss.backward()
+        out[dev] = float(loss.detach()), [q.grad for q in p.parameters()]
+    d_loss = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    rel = _max_rel(out["cuda"][1], out["cpu"][1])
+    _check(d_loss <= EX_LOSS_F64 and rel <= EX_GRAD_F64,
+           f"latent_ode float64 card vs CPU: loss {d_loss}, gradients {rel}")
+    print(f"[17c latent_ode] {card} | {args.nspiral} spirals x "
+          f"{args.nsample} points, each its own solve (odeint_per_sample, "
+          f"rtol 1e-4 atol 1e-5, its own backward), float32 | {EX_STEPS} "
+          f"steps {_ms_row(ms)}, neg elbo {float(losses[-1]):.2f} | forward "
+          f"driver iterations a step {iters:.0f} (forward and backward "
+          f"drivers), each trajectory's forward steps min/median/max "
+          f"{_spread(st.n_steps)} | float64 step at {LATENT_CPU_B} spirals "
+          f"card vs CPU: loss {d_loss:.2e}, gradients {rel:.2e} of max|g| | "
+          f"cut: {EX_STEPS} of 500 steps | {time.perf_counter() - p0:.1f} s")
+
+
+def _ex_cnf(torch, card):
+    """Phase 17 (d): cnf at its defaults (512 samples, width 32) with
+    `odeint` and ``--adjoint``, EX_STEPS steps timed, forward and backward
+    NFE; a float64 step card against CPU at CNF_CPU_B samples."""
+    from torchdiffeq_tpu_torch import odeint_with_stats
+    from torchdiffeq_tpu_torch.examples import cnf
+    from torchdiffeq_tpu_torch.examples._optim import Adam
+    p0 = time.perf_counter()
+    rows = []
+    for flag in ([], ["--adjoint"]):
+        args = cnf.parser.parse_args(flag)
+        gen = torch.Generator().manual_seed(args.seed)
+        func = cnf.CNF(cnf.init_hyper_net(cnf.IN_OUT_DIM, args.hidden_dim,
+                                          args.width, gen, "cuda"))
+        opt = Adam(func.parameters(), args.lr)
+        xs = [cnf.sample_circles(args.num_samples, gen, "cuda")
+              for _ in range(EX_STEPS + 1)]
+        cnf.train_step(func, opt, xs[-1], args)
+        losses = []
+        with _BackwardStats() as bwd:
+            ms = _timed_steps(torch, lambda i: losses.append(cnf.train_step(
+                func, opt, xs[i], args)), EX_STEPS)
+        fwd = []
+
+        def with_stats(*a, **k):
+            ys, st = odeint_with_stats(*a, **k)
+            fwd.append(st)
+            return ys
+        with torch.no_grad():
+            cnf.loss_fn(func, xs[0], args, solve=with_stats)
+        _check(all(np.isfinite(float(x)) for x in losses), "cnf loss")
+        rows.append(f"{'odeint_adjoint' if flag else 'odeint'}: {EX_STEPS} "
+                    f"steps {_ms_row(ms)}, NLL {float(losses[-1]):.3f}, "
+                    f"forward nfe {int(fwd[0].nfe)}, backward nfe "
+                    f"{_bwd_nfe(bwd)}")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        args = cnf.parser.parse_args(["--device", dev])
+        gen = torch.Generator().manual_seed(1)
+        func = cnf.CNF(cnf.init_hyper_net(cnf.IN_OUT_DIM, args.hidden_dim,
+                                          args.width, gen, dev,
+                                          torch.float64))
+        x = cnf.sample_circles(CNF_CPU_B, gen, dev, torch.float64)
+        loss = cnf.loss_fn(func, x, args)
+        loss.backward()
+        out[dev] = float(loss.detach()), [p.grad for p in func.parameters()]
+    d_loss = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    rel = _max_rel(out["cuda"][1], out["cpu"][1])
+    _check(d_loss <= EX_LOSS_F64 and rel <= EX_GRAD_F64,
+           f"cnf float64 card vs CPU: loss {d_loss}, gradients {rel}")
+    print(f"[17d cnf] {card} | 512 samples, hypernetwork 1-32-32-224, "
+          f"(z, logp) from t=10 to 0 at rtol=atol=1e-5, exact trace by "
+          f"torch.func.jvp, float32 | " + " | ".join(rows)
+          + f" | float64 step at {CNF_CPU_B} samples card vs CPU: loss "
+          f"{d_loss:.2e}, gradients {rel:.2e} of max|g| | cut: {EX_STEPS} of"
+          f" 500 steps | {time.perf_counter() - p0:.1f} s")
+
+
+def _ex_odenet(torch, card):
+    """Phase 17 (e): odenet_mnist at its defaults (batch 128, hidden 32,
+    synthetic 16x16 digits): the ODE-Net with `odeint` and ``--adjoint``
+    and the residual network, EX_STEPS steps each timed, NFE; one profiled
+    ODE-Net step's device busy share and launches."""
+    from torchdiffeq_tpu_torch.examples import odenet_mnist
+    from torchdiffeq_tpu_torch.examples._optim import SGD
+    p0 = time.perf_counter()
+    rows = []
+    busy = "not measured"
+    for flags in (["--network", "odenet"],
+                  ["--network", "odenet", "--adjoint"],
+                  ["--network", "resnet"]):
+        args = odenet_mnist.parser.parse_args(flags)
+        gen = torch.Generator().manual_seed(args.seed)
+        xs, ys = odenet_mnist.synthetic_digits(
+            args.batch_size * (EX_STEPS + 1), gen, device="cuda")
+        model = odenet_mnist.init_model(args, gen, "cuda")
+        opt = SGD(model.parameters(), args.lr, momentum=0.9)
+        bs = args.batch_size
+
+        def step(i):
+            return odenet_mnist.train_step(model, opt, xs[i * bs:(i + 1) * bs],
+                                           ys[i * bs:(i + 1) * bs], args)
+        step(EX_STEPS)
+        losses = []
+        with _BackwardStats() as bwd:
+            ms = _timed_steps(torch, lambda i: losses.append(step(i)),
+                              EX_STEPS)
+        _check(all(np.isfinite(float(x)) for x in losses), "odenet loss")
+        row = f"{' '.join(flags[1:])}: {EX_STEPS} steps {_ms_row(ms)}"
+        if args.network == "odenet":
+            with torch.no_grad():
+                _, st = odenet_mnist.forward(model, xs[:bs], args,
+                                             with_stats=True)
+            row += (f", forward nfe {int(st.nfe)}, backward nfe "
+                    f"{_bwd_nfe(bwd)}")
+            if not args.adjoint:
+                busy_ms, n_k, wall = _profiled_step(torch, lambda: step(0))
+                busy = ("not measured (no device time in the trace)"
+                        if busy_ms is None else
+                        f"{busy_ms:.2f} ms of device time in {n_k} kernels, "
+                        f"busy {busy_ms / wall:.1%} of the traced "
+                        f"{wall:.1f} ms")
+        rows.append(row)
+    print(f"[17e odenet_mnist] {card} | batch 128, hidden 32, the conv "
+          f"field (cuDNN, channels-last) over [0, 1] at tol 1e-3, SGD "
+          f"momentum 0.9, float32 | " + " | ".join(rows)
+          + f" | profiled odenet step: {busy} | cut: {EX_STEPS} of 300 "
+          f"steps | {time.perf_counter() - p0:.1f} s")
+
+
+def _ex_physics(torch, card):
+    """Phase 17 (f) bouncing_ball whole on the card (float64), against the
+    closed form and finite differences (its own checks) and the CPU; (g)
+    learn_physics whole when a warm iteration's time says the 300 fit
+    LEARN_BUDGET_S, else cut to what fits."""
+    from torchdiffeq_tpu_torch.examples import bouncing_ball, learn_physics
+    from torchdiffeq_tpu_torch.examples._common import default_dtype
+    from torchdiffeq_tpu_torch.examples._optim import Adam
+    p0 = time.perf_counter()
+    gpu = bouncing_ball.main(["--device", "cuda"])
+    cpu = bouncing_ball.main(["--device", "cpu"])
+    rel = max(abs(g - c) for g, c in zip(gpu["grads"], cpu["grads"])) / max(
+        abs(c) for c in cpu["grads"])
+    fd = max(abs(g - f) for g, f in zip(gpu["grads"], gpu["fds"]))
+    _check(rel <= EX_GRAD_F64, f"bouncing_ball card vs CPU gradients {rel}")
+    ball_s = time.perf_counter() - p0
+    p1 = time.perf_counter()
+    with default_dtype(torch.float64):
+        t_np = np.linspace(0.0, 3.0, 100)
+        t_obs = torch.from_numpy(t_np).cuda()
+        y_obs = torch.from_numpy(learn_physics.simulate_true(t_np)).cuda()
+        params = learn_physics.init_params("cuda")
+        for _ in range(2):   # the second, warm, is timed
+            w0 = time.perf_counter()
+            learn_physics.trajectory_loss(params, t_obs, y_obs, 3.0,
+                                          3).backward()
+            torch.cuda.synchronize()
+            iter_s = time.perf_counter() - w0
+    niters = 300 if 300 * iter_s <= LEARN_BUDGET_S else max(
+        1, int(LEARN_BUDGET_S / iter_s))
+    if niters == 300:   # whole: the example asserts its gravity
+        gravity = learn_physics.main(["--device", "cuda"])["gravity"]
+    else:
+        with default_dtype(torch.float64):
+            params = learn_physics.init_params("cuda")
+            opt = Adam(list(params.values()), 0.05)
+            for _ in range(niters):
+                opt.zero_grad()
+                learn_physics.trajectory_loss(params, t_obs, y_obs, 3.0,
+                                              3).backward()
+                opt.step()
+            gravity = float(torch.exp(params["log_gravity"]))
+    learn_s = time.perf_counter() - p1
+    print(f"[17f bouncing_ball] {card} | whole, float64 on the card: event "
+          f"times {[round(t, 9) for t in gpu['times']]}, first bounce vs "
+          f"closed form {abs(gpu['times'][0] - gpu['exact']):.2e} (< 1e-6), "
+          f"five gradients vs finite differences max|d| {fd:.2e} (the "
+          f"example's 1e-3), vs CPU {rel:.2e} of max|g| (<= {EX_GRAD_F64}) | "
+          f"{ball_s:.1f} s")
+    how = ("whole, 300 iterations, the example asserting gravity within 0.5"
+           if niters == 300 else
+           f"cut to {niters} of 300 iterations (no assertion)")
+    print(f"[17g learn_physics] {card} | float64, a warm iteration "
+          f"{iter_s * 1e3:.0f} ms; {how}: gravity {gravity:.3f} (true 9.8) | "
+          f"{learn_s:.1f} s")
+
+
+def _phase_examples(torch, kernels, dev, driver_ms):
+    """Phase 17: the examples on the card (module docstring).  Returns the
+    traced instances' JSON entries."""
+    card = _card()
+    p0 = time.perf_counter()
+    entries = _ex_traced(torch, kernels, dev, driver_ms, card)
+    _ex_ode_demo(torch, card)
+    _ex_latent(torch, card)
+    _ex_cnf(torch, card)
+    _ex_odenet(torch, card)
+    _ex_physics(torch, card)
+    print(f"[17h examples] {card} | phase 17 {time.perf_counter() - p0:.1f} s")
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3156,9 +3683,11 @@ def main():
 
     _phase_conv(torch, kernels, dev)
 
-    _phase_per_sample(torch, kernels, dev)
+    driver_ms = _phase_per_sample(torch, kernels, dev)
 
     summary.extend(_phase_per_sample_stiff(torch, kernels, dev, walls_12c))
+
+    summary.extend(_phase_examples(torch, kernels, dev, driver_ms))
 
     torch.cuda.synchronize()
     print(_card())

@@ -16,6 +16,7 @@ from torchdiffeq_tpu_torch import (odeint, odeint_with_stats,
 from torchdiffeq_tpu_torch.models import (LinearEvent, MLPField,
                                           mlp_params_from_jax)
 from torchdiffeq_tpu_torch.ops import fused_field, kernels, tableaus
+from torchdiffeq_tpu_torch.ops.traced import PerSampleEvent, PerSampleField
 
 pytestmark = pytest.mark.gpu
 
@@ -192,15 +193,33 @@ def test_main_path_cuda_matches_cpu_float64(cuda):
 
 
 def test_cuda_refuses_what_the_kernels_cannot_run(cuda):
-    """No quiet fallback to the plain version on a CUDA tensor."""
+    """No quiet fallback to the plain version on a CUDA tensor.  K-rk4
+    takes the MLPField family alone; the per-lane route traces any other
+    field into a kernel instance (since the traced instances) and raises on
+    an operation outside the traced set, naming it."""
     model, rng = _model(cuda, torch.float32)
     y0 = torch.from_numpy(rng.randn(64, 2)).to(cuda, torch.float32)
     with pytest.raises(TypeError, match="MLPField"):
         kernels.rk4_integrate(lambda t, y: -y, y0, 0.0, 0.1, 3)
-    with pytest.raises(TypeError, match="MLPField"):
-        odeint_per_sample_with_stats(lambda t, y: -y, y0,
-                                     torch.linspace(0.0, 1.0, 3),
+    with pytest.raises(TypeError, match="aten.softplus"):
+        odeint_per_sample_with_stats(
+            lambda t, y: torch.nn.functional.softplus(y), y0,
+            torch.linspace(0.0, 1.0, 3), options=dict(pallas=True))
+    elu = MLPField([2, 8, 2], activation=torch.nn.functional.elu,
+                   device=cuda).requires_grad_(False)
+    with pytest.raises(TypeError, match="activation"):
+        kernels.dopri5_integrate_batched(elu, y0.T.contiguous(), 0.0, 1.0)
+    with pytest.raises(TypeError, match="aten.elu"):
+        odeint_per_sample_with_stats(elu, y0, torch.linspace(0.0, 1.0, 3),
                                      options=dict(pallas=True))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        ys, st = odeint_per_sample_with_stats(lambda t, y: -y, y0,
+                                              torch.linspace(0.0, 1.0, 3),
+                                              options=dict(pallas=True))
+    assert kernels.traced_launch_counts["dopri5_integrate_batched"] == 1
+    torch.testing.assert_close(ys[:, -1], y0 * float(np.exp(-1.0)),
+                               rtol=1e-5, atol=1e-5)
     # dopri8 runs (the shared-memory instance; in float32 its step sizes
     # follow its error estimate's rounding, so values agree to 1e-2 here,
     # 9e-4 measured); the only bound is a group's shared memory
@@ -336,10 +355,20 @@ def test_event_kernel_refuses_what_it_cannot_run(cuda):
     with pytest.raises(TypeError, match="MLPField"):
         kernels.dopri5_events_batched(lambda tv, yv: -yv, y0, 0.0, event,
                                       ev_params=(sign0,))
-    with pytest.raises(TypeError, match="LinearEvent"):
+    # the per-sample route traces any other event function (and the field
+    # with it) and raises on an operation outside the traced set
+    with pytest.raises(TypeError, match="aten.erf"):
         odeint_per_sample_with_stats(
             model, y0.T.contiguous(), torch.tensor([0.0, 1.0]),
+            event_fn=lambda t, y: torch.erf(y[0]) - 0.5,
+            options=dict(pallas=True))
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        (et, _), st = odeint_per_sample_with_stats(
+            model, y0.T.contiguous(), torch.tensor([0.0, 1.0]),
             event_fn=lambda t, y: y[0] - 0.5, options=dict(pallas=True))
+    assert kernels.traced_launch_counts["dopri5_events_batched"] == 1
+    assert et.shape == (64,)
 
 
 def test_event_and_dense_paths_cuda_match_cpu_float64(cuda):
@@ -1386,14 +1415,23 @@ def test_per_sample_gradient_cuda_matches_cpu(cuda, event):
 
 
 def test_per_sample_kernel_route_refuses_other_fields(cuda):
-    """pallas=True on CUDA takes the per-lane kernel only for an MLPField
-    with no args; any other field raises and names the batched driver,
-    which then takes it when pallas=True is dropped."""
+    """pallas=True on CUDA takes the per-lane kernel for an MLPField with
+    no args (the hand-written instance) and for any field in the traced op
+    set (a traced instance: the oscillators with a frequency per sample,
+    which raised here before the traced instances); a field outside the set
+    raises, names the operation and the batched driver, which then takes it
+    when pallas=True is dropped."""
     y0, om = _ensemble(cuda, B=16)
     t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
-    with pytest.raises(TypeError, match="MLPField.*drop pallas=True"):
+    kernels.reset_launch_counts()
+    with torch.no_grad():
         odeint_per_sample_with_stats(_osc, y0, t, args=(om,),
                                      args_axes=(-1,),
+                                     options=dict(pallas=True))
+    assert kernels.traced_launch_counts["dopri5_integrate_batched"] == 1
+    with pytest.raises(TypeError, match="aten.sinh.*drop pallas=True"):
+        odeint_per_sample_with_stats(lambda tt, y, w: torch.sinh(w * y), y0,
+                                     t, args=(om,), args_axes=(-1,),
                                      options=dict(pallas=True))
     kernels.reset_launch_counts()
     with torch.no_grad():
@@ -1401,6 +1439,128 @@ def test_per_sample_kernel_route_refuses_other_fields(cuda):
                                               args_axes=(-1,))
     assert ys.is_cuda and int(st.error_code.max()) == 0
     assert sum(kernels.launch_counts.values()) == 0
+
+
+# ---- the traced instances of K-dopri5 and K-events ---------------------------
+
+def _shared_w(device, dtype):
+    return torch.tensor([[0.3, -1.2], [1.1, 0.2]], dtype=dtype, device=device)
+
+
+def _traced_fields(device, dtype):
+    """(name, per-sample field, args, args_axes) of the traced cases: the
+    ensemble's oscillators (a per-lane arg), a field with a shared matrix
+    and a per-lane rate (@, tanh, sum), and one that reads its time (the
+    stage times) with a closed-over constant."""
+    c = torch.tensor(0.7, dtype=dtype, device=device)
+    return [
+        ("oscillators", _osc, ("om",), (-1,)),
+        ("shared_matrix", lambda t, y, W, k: torch.tanh(y @ W) * k
+         - 0.1 * y * torch.sum(y * y), ("W", "k"), (None, -1)),
+        ("time", lambda t, y, k: torch.stack(
+            [y[1] * torch.cos(t) * c, -k * torch.sin(y[0]) - 0.2 * y[1]]),
+         ("k",), (-1,)),
+    ]
+
+
+def _traced_args(names, device, dtype, B):
+    rng = np.random.RandomState(3)
+    vals = dict(om=np.exp(rng.uniform(0.0, np.log(20.0), B)),
+                k=rng.uniform(0.5, 2.0, B))
+    return tuple(_shared_w(device, dtype) if n == "W" else
+                 torch.from_numpy(vals[n]).to(device, dtype) for n in names)
+
+
+def _traced_flips(got, want, n_counts):
+    """The share of lanes whose counts differ, and a mask of the others."""
+    same = torch.ones_like(got[-1][0], dtype=torch.bool)
+    for g, w in zip(got[-n_counts:], want[-n_counts:]):
+        same &= (g[0] == w[0])
+    return 1.0 - float(same.float().mean()), same
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", [0, 1, 2])
+@pytest.mark.parametrize("method", ["dopri5", "dopri8"])
+def test_traced_lanes_match_plain(cuda, dtype, case, method):
+    """K-dopri5's traced instance against its plain version on the same
+    CUDA tensors.  float64: the same operations in the traced graph's order
+    but for the sums' order and libm's last bit, so counts equal away from
+    accept boundaries (at most 1% of lanes flip, C7) and values within F64
+    on the others; float32 within the bounds of the hand-written instance's
+    float32 test (test_lanes_kernel_matches_plain_float32)."""
+    name, func, names, axes = _traced_fields(cuda, dtype)[case]
+    B = 2048
+    rng = np.random.RandomState(case)
+    y0 = torch.from_numpy(rng.randn(2, B) * 0.8).to(cuda, dtype)
+    field = PerSampleField(func, _traced_args(names, cuda, dtype, B), axes)
+    kw = dict(ts=np.linspace(0.0, 1.0, 5), rtol=1e-6, atol=1e-8,
+              method=method)
+    before = kernels.traced_launch_counts["dopri5_integrate_batched"]
+    with torch.no_grad():
+        got = kernels.dopri5_integrate_batched(field, y0, 0.0, 1.0, **kw)
+        want = kernels.dopri5_integrate_batched_ref(field, y0, 0.0, 1.0,
+                                                    **kw)
+    torch.cuda.synchronize()
+    assert kernels.traced_launch_counts["dopri5_integrate_batched"] \
+        == before + 1
+    if dtype == torch.float64:
+        flips, same = _traced_flips(got, want, 2)
+        assert flips <= 0.01, (name, flips)
+        torch.testing.assert_close(got[0][..., same], want[0][..., same],
+                                   rtol=0, atol=F64)
+    else:
+        dsteps = (got[2] - want[2]).abs()
+        assert float((dsteps == 0).float().mean()) >= 0.75, name
+        assert int(dsteps.max()) <= 5, name
+        torch.testing.assert_close(got[0], want[0], rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("K", [1, 2])
+def test_traced_events_match_plain(cuda, dtype, K):
+    """K-events' traced instance (the oscillators' field, an event of K
+    outputs sign-combined inside its functor: the first zero of x, and with
+    K=2 a cut-off at t=0.4) against its plain version: float64 found and
+    counts equal but for C7's flips (at most 1%), event times within F64 on
+    the others; float32 event times within 1e-3 (chip_smoke.py's
+    F32_EVENT_T) and steps within 5."""
+    B = 2048
+    y0_b, om = _ensemble(cuda, B)
+    y0_b, om = y0_b.to(dtype), om.to(dtype)
+    y0 = y0_b.T.contiguous()
+    ev_fn = (lambda t, y: y[0]) if K == 1 else \
+        (lambda t, y: torch.stack([y[0], (0.4 - t).to(y.dtype)]))
+    field, event = PerSampleField(_osc, (om,), (-1,)), PerSampleEvent(ev_fn)
+    t0 = torch.zeros((), dtype=dtype, device=cuda)
+    sign0 = torch.sign(torch.func.vmap(
+        lambda yy: torch.atleast_1d(ev_fn(t0, yy)))(y0_b)).T.contiguous()
+    kw = dict(rtol=1e-6, atol=1e-8, ev_params=(sign0,))
+    with torch.no_grad():
+        got = kernels.dopri5_events_batched(field, y0, 0.0, event, **kw)
+        want = kernels.dopri5_events_batched_ref(field, y0, 0.0, event, **kw)
+    torch.cuda.synchronize()
+    assert bool(want[2].all())
+    if dtype == torch.float64:
+        flips, same = _traced_flips(got, want, 3)
+        assert flips <= 0.01, flips
+        torch.testing.assert_close(got[0][..., same], want[0][..., same],
+                                   rtol=0, atol=F64)
+    else:
+        assert float((got[0] - want[0]).abs().max()) <= 1e-3
+        assert int((got[4] - want[4]).abs().max()) <= 5
+
+
+def test_traced_per_sample_route_matches_the_driver(cuda):
+    """The ensemble example's two kernel calls on the card launch the traced
+    instances and agree with the batched driver as the example asserts
+    (values within 1e-2, event times within 5% of pi/(2 omega))."""
+    from torchdiffeq_tpu_torch.examples import ensemble
+    kernels.reset_launch_counts()
+    out = ensemble.main(["--batch", "256"])
+    assert kernels.traced_launch_counts == {"dopri5_integrate_batched": 1,
+                                            "dopri5_events_batched": 1}
+    assert out["err"] < 1e-2 and out["rel"] < 0.05
 
 
 # ---- the 16-bit instances of K-dopri5 and K-events ---------------------------

@@ -105,9 +105,10 @@ def _tableau_name(tab):
 
 
 def test_import_leaves_jax_out():
-    """`import torchdiffeq_tpu_torch` (its kernel module, the event and
-    dense-output modules, the Adams and implicit tiers) never loads JAX;
-    checked in a fresh interpreter."""
+    """`import torchdiffeq_tpu_torch` (its kernel module, the tracer, the
+    event and dense-output modules, the Adams and implicit tiers, every
+    example) never loads JAX, optax or the JAX package; checked in a fresh
+    interpreter."""
     code = ("import sys; import torchdiffeq_tpu_torch, "
             "torchdiffeq_tpu_torch.ops.kernels, torchdiffeq_tpu_torch.models, "
             "torchdiffeq_tpu_torch.events, torchdiffeq_tpu_torch.dense, "
@@ -116,10 +117,21 @@ def test_import_leaves_jax_out():
             "torchdiffeq_tpu_torch.ops.linsolve, "
             "torchdiffeq_tpu_torch.solvers.adams, "
             "torchdiffeq_tpu_torch.solvers.fixed_grid_implicit, "
-            "torchdiffeq_tpu_torch.solvers.adaptive_implicit; "
+            "torchdiffeq_tpu_torch.solvers.adaptive_implicit, "
+            "torchdiffeq_tpu_torch.ops.traced, "
+            "torchdiffeq_tpu_torch.examples._common, "
+            "torchdiffeq_tpu_torch.examples._optim, "
+            "torchdiffeq_tpu_torch.examples.ensemble, "
+            "torchdiffeq_tpu_torch.examples.ode_demo, "
+            "torchdiffeq_tpu_torch.examples.latent_ode, "
+            "torchdiffeq_tpu_torch.examples.cnf, "
+            "torchdiffeq_tpu_torch.examples.odenet_mnist, "
+            "torchdiffeq_tpu_torch.examples.bouncing_ball, "
+            "torchdiffeq_tpu_torch.examples.learn_physics; "
             "from torchdiffeq_tpu_torch.ops.kernels import "
             "dopri5_events_batched; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'optax' or m.startswith('optax.')"
             " or m.startswith('torchdiffeq_tpu.') or m == 'torchdiffeq_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -54,6 +54,12 @@
 // instantiates the float32 and float64 ones and holds the C entry point,
 // dopri5_events_16bit.cu the bfloat16 and float16 ones (tdt::Lo), so that the
 // build compiles the two halves in parallel.
+//
+// Any other field or event function takes a traced instance
+// (`events_traced_kernel`, one lane a trajectory): the same solve
+// (`events_solve`) for a field and an event functor that ops/traced.py emits,
+// the event's K outputs sign-combined inside its functor, as
+// parallel/batched.py combines them (min_k(e_k * sign0_k)); any K.
 #pragma once
 
 #include "lane_ops.cuh"
@@ -98,6 +104,92 @@ struct LinearEvent {
   }
 };
 
+// A LinearEvent with the lane's signs at t0: the lane's event `ev(t, y)`.
+template <typename T, int D>
+struct SignedLinearEvent {
+  LinearEvent<T, D> ev;
+  T s0[TDT_MAX_EVENTS];
+  __device__ __forceinline__ T operator()(T t, const T (&y)[D]) const { return ev(t, y, s0); }
+};
+
+// The solve of trajectory b to its event for the field f and the lane's
+// sign-combined event ev(t, y), then the bisection; `writer` (lane 0 of the
+// group) writes the outputs.
+template <typename T, int D, typename F, typename E>
+__device__ __forceinline__ void events_solve(const F& f, const E& ev,
+                                             const tdt::Tableau<T>& tb,
+                                             const T* __restrict__ y0, int B, int b,
+                                             bool writer, T t0, T rtol, T atol,
+                                             T safety, T ifactor, T dfactor,
+                                             T first_step, int use_first_step,
+                                             int max_steps, int bisect_iters,
+                                             T* __restrict__ event_t_out,
+                                             T* __restrict__ y_event_out,
+                                             int* __restrict__ found_out,
+                                             int* __restrict__ n_acc_out,
+                                             int* __restrict__ n_steps_out) {
+  T y[D], fc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
+  T t = t0;
+  f(t, y, fc);
+  const T s0 = nsign<T>(ev(t, y));
+  T dt = use_first_step ? first_step
+                        : tdt::hairer_dt<T, D>(f, t, y, fc, rtol, atol, tb.inv_order);
+
+  int n_acc = 0, n_steps = 0;
+  bool found = false;
+  T k[TDT_MAX_STAGES][D];
+  T y1[D], f1[D], err[D];
+  while (n_steps < max_steps) {
+    const T t_prop = t + dt;
+    tdt::stage_sweep<T, D>(f, tb, t, y, fc, dt, k, y1, f1, err);
+    const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
+    const bool accept = ratio <= T(1);
+    ++n_steps;
+    if (accept) {
+      ++n_acc;
+      if (!(nsign<T>(ev(t_prop, y1)) == s0)) {
+        // the hit: (t, dt) brackets the event, and y, fc, k, y1, f1 still
+        // hold this step for the quartic below
+        found = true;
+        break;
+      }
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        y[d] = y1[d];
+        fc[d] = f1[d];
+      }
+      t = t_prop;
+    }
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+  }
+
+  T event_t = T(NAN);
+  if (found) {
+    tdt::Quartic<T, D> q;
+    tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
+    T lo = T(0), hi = T(1), ym[D];
+    for (int i = 0; i < bisect_iters; ++i) {
+      const T xm = T(0.5) * (lo + hi);
+      tdt::eval_quartic<T, D>(q, xm, ym);
+      const bool same = nsign<T>(ev(t + xm * dt, ym)) == s0;
+      lo = same ? xm : lo;
+      hi = same ? hi : xm;
+    }
+    const T x = T(0.5) * (lo + hi);
+    event_t = t + x * dt;
+    tdt::eval_quartic<T, D>(q, x, y);
+  }
+  if (!writer) return;
+  event_t_out[b] = event_t;
+#pragma unroll
+  for (int d = 0; d < D; ++d) y_event_out[(size_t)d * B + b] = y[d];
+  found_out[b] = found ? 1 : 0;
+  n_acc_out[b] = n_acc;
+  n_steps_out[b] = n_steps;
+}
+
 template <typename T, int D, bool kGroup>
 __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T atol,
                               T safety, T ifactor, T dfactor, T first_step,
@@ -131,83 +223,84 @@ __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T a
   const int b = gid / L;
   if (b >= B) return;
   const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
-  const LinearEvent<T, D> ev{s_ev, s_ev + K * D, s_ev + K * D + K, K};
-
-  T s0k[TDT_MAX_EVENTS];
+  SignedLinearEvent<T, D> ev{{s_ev, s_ev + K * D, s_ev + K * D + K, K}, {}};
 #pragma unroll
-  for (int k = 0; k < TDT_MAX_EVENTS; ++k) s0k[k] = k < K ? sign0[(size_t)k * B + b] : T(0);
-
-  // the solve, for the field f of this lane's group
-  auto solve = [&](const auto& f) {
-    T y[D], fc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
-    T t = t0;
-    f(y, fc);
-    const T s0 = nsign<T>(ev(t, y, s0k));
-    T dt = use_first_step ? first_step
-                          : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
-
-    int n_acc = 0, n_steps = 0;
-    bool found = false;
-    T k[TDT_MAX_STAGES][D];
-    T y1[D], f1[D], err[D];
-    while (n_steps < max_steps) {
-      const T t_prop = t + dt;
-      tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
-      const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
-      const bool accept = ratio <= T(1);
-      ++n_steps;
-      if (accept) {
-        ++n_acc;
-        if (!(nsign<T>(ev(t_prop, y1, s0k)) == s0)) {
-          // the hit: (t, dt) brackets the event, and y, fc, k, y1, f1 still
-          // hold this step for the quartic below
-          found = true;
-          break;
-        }
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          y[d] = y1[d];
-          fc[d] = f1[d];
-        }
-        t = t_prop;
-      }
-      dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
-    }
-
-    T event_t = T(NAN);
-    if (found) {
-      tdt::Quartic<T, D> q;
-      tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
-      T lo = T(0), hi = T(1), ym[D];
-      for (int i = 0; i < bisect_iters; ++i) {
-        const T xm = T(0.5) * (lo + hi);
-        tdt::eval_quartic<T, D>(q, xm, ym);
-        const bool same = nsign<T>(ev(t + xm * dt, ym, s0k)) == s0;
-        lo = same ? xm : lo;
-        hi = same ? hi : xm;
-      }
-      const T x = T(0.5) * (lo + hi);
-      event_t = t + x * dt;
-      tdt::eval_quartic<T, D>(q, x, y);
-    }
-    if ((gid & (L - 1)) != 0) return;
-    event_t_out[b] = event_t;
-#pragma unroll
-    for (int d = 0; d < D; ++d) y_event_out[(size_t)d * B + b] = y[d];
-    found_out[b] = found ? 1 : 0;
-    n_acc_out[b] = n_acc;
-    n_steps_out[b] = n_steps;
-  };
+  for (int k = 0; k < TDT_MAX_EVENTS; ++k) ev.s0[k] = k < K ? sign0[(size_t)k * B + b] : T(0);
+  const bool writer = (gid & (L - 1)) == 0;
   // L = 1 (kGroup false) is an instance of its own: a lane a trajectory
   // walks all H units in MlpField's loop, which the compiler unrolls further
   // than the group's strided one, and its registers and code are not sized
   // for the group's path
   if constexpr (kGroup)
-    solve(tdt::group_mlp_from_shared<T, D>(smem, H, power, L));
+    events_solve<T, D>(tdt::group_mlp_from_shared<T, D>(smem, H, power, L), ev, tb, y0, B,
+                       b, writer, t0, rtol, atol, safety, ifactor, dfactor, first_step,
+                       use_first_step, max_steps, bisect_iters, event_t_out,
+                       y_event_out, found_out, n_acc_out, n_steps_out);
   else
-    solve(tdt::mlp_from_shared<T, D>(smem, H, power));
+    events_solve<T, D>(tdt::mlp_from_shared<T, D>(smem, H, power), ev, tb, y0, B, b,
+                       writer, t0, rtol, atol, safety, ifactor, dfactor, first_step,
+                       use_first_step, max_steps, bisect_iters, event_t_out,
+                       y_event_out, found_out, n_acc_out, n_steps_out);
+}
+
+// The event solve for a traced field F and a traced event E (ops/traced.py):
+// one lane a trajectory, F built for lane b as in lanes_traced_kernel, E
+// from the lane's signs at t0 (`sign0`, (K, B)) and its own shared tensors;
+// E sign-combines its K outputs, min_k(e_k * s0_k).
+template <typename T, int D, typename F, typename E>
+__global__ void events_traced_kernel(const T* __restrict__ y0, int B, T t0, T rtol,
+                                     T atol, T safety, T ifactor, T dfactor,
+                                     T first_step, int use_first_step, int max_steps,
+                                     const T* __restrict__ tab, int n_alpha, int order,
+                                     int fsal, const T* __restrict__ lane,
+                                     const T* __restrict__ shared,
+                                     const T* __restrict__ sign0,
+                                     const T* __restrict__ ev_shared, int bisect_iters,
+                                     T* __restrict__ event_t_out,
+                                     T* __restrict__ y_event_out,
+                                     int* __restrict__ found_out,
+                                     int* __restrict__ n_acc_out,
+                                     int* __restrict__ n_steps_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_tab = reinterpret_cast<T*>(smem_raw);
+  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
+  __syncthreads();
+
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
+  const F f(lane, shared, b, B);
+  const E ev(sign0, ev_shared, b, B);
+  events_solve<T, D>(f, ev, tb, y0, B, b, true, t0, rtol, atol, safety, ifactor, dfactor,
+                     first_step, use_first_step, max_steps, bisect_iters, event_t_out,
+                     y_event_out, found_out, n_acc_out, n_steps_out);
+}
+
+// The host launch of a traced event instance: blocks of `threads`
+// trajectories.
+template <typename T, int D, typename F, typename E>
+int launch_traced(int B, const void* y0, double t0, double rtol, double atol,
+                  double safety, double ifactor, double dfactor, double first_step,
+                  int use_first_step, int max_steps, const void* tab, int n_alpha,
+                  int order, int fsal, const void* lane, const void* shared,
+                  const void* sign0, const void* ev_shared, int bisect_iters,
+                  int threads, void* event_t, void* y_event, void* found, void* n_acc,
+                  void* n_steps, void* stream) {
+  if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA || B <= 0 || threads < 32 ||
+      threads > 1024 || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (B + threads - 1) / threads;
+  events_traced_kernel<T, D, F, E>
+      <<<blocks, threads, (size_t)TDT_TAB_SIZE * sizeof(T),
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const T*>(y0), B, (T)t0, (T)rtol, (T)atol, (T)safety, (T)ifactor,
+          (T)dfactor, (T)first_step, use_first_step, max_steps,
+          static_cast<const T*>(tab), n_alpha, order, fsal, static_cast<const T*>(lane),
+          static_cast<const T*>(shared), static_cast<const T*>(sign0),
+          static_cast<const T*>(ev_shared), bisect_iters, static_cast<T*>(event_t),
+          static_cast<T*>(y_event), static_cast<int*>(found), static_cast<int*>(n_acc),
+          static_cast<int*>(n_steps));
+  return (int)cudaGetLastError();
 }
 
 // LinearEvent for a state of D rows known at run time, in shared memory;

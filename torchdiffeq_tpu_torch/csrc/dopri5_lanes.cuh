@@ -71,11 +71,99 @@
 // instantiates the float32 and float64 ones and holds the C entry point,
 // dopri5_lanes_16bit.cu the bfloat16 and float16 ones (tdt::Lo), so that the
 // build compiles the two halves in parallel.
+//
+// Any other field takes a traced instance: `lanes_traced_kernel` runs the
+// same solve (`lanes_solve`) for a field functor that ops/traced.py emits
+// from the Python field (its per-sample function traced by torch.fx into
+// straight-line code of the state dtype, in the traced graph's operation
+// order), one lane a trajectory: a traced field has no hidden units for a
+// group to split.  The tracer's source instantiates it, with its own C entry
+// point, and is built at first use into a library of its own.
 #pragma once
 
 #include "lane_ops.cuh"
 
 namespace tdt_lanes {
+
+// The solve of trajectory b for the field f (every lane of its group runs
+// it; `writer`, lane 0 of the group, writes the rows and counters), from the
+// tableau and output times staged in shared memory.
+template <typename T, int D, typename F>
+__device__ __forceinline__ void lanes_solve(const F& f, const tdt::Tableau<T>& tb,
+                                            const T* __restrict__ y0,
+                                            const T* __restrict__ s_ts, int S, int B,
+                                            int b, bool writer, T t0, T t1, T rtol,
+                                            T atol, T safety, T ifactor, T dfactor,
+                                            T first_step, int use_first_step,
+                                            int max_steps, T* __restrict__ ys,
+                                            int* __restrict__ n_acc_out,
+                                            int* __restrict__ n_steps_out) {
+  T y[D], fc[D];
+#pragma unroll
+  for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
+  T t = t0;
+
+  // outputs at or before the start time are the initial state
+  int s_next = 0;
+  while (s_next < S && s_ts[s_next] <= t0) {
+    if (writer) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = y[d];
+    }
+    ++s_next;
+  }
+
+  f(t, y, fc);
+  T dt = use_first_step ? first_step
+                        : tdt::hairer_dt<T, D>(f, t, y, fc, rtol, atol, tb.inv_order);
+
+  int n_acc = 0, n_steps = 0;
+  T k[TDT_MAX_STAGES][D];
+  T y1[D], f1[D], err[D];
+  while (t < t1 && n_steps < max_steps) {
+    const T t_prop = t + dt;
+    tdt::stage_sweep<T, D>(f, tb, t, y, fc, dt, k, y1, f1, err);
+    const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
+    const bool accept = ratio <= T(1);
+
+    // dense output for the output times this step covers
+    if (accept && s_next < S && s_ts[s_next] <= t_prop) {
+      tdt::Quartic<T, D> q;
+      tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
+      const T dt_safe = dt > T(0) ? dt : T(1);
+      while (s_next < S && s_ts[s_next] <= t_prop) {
+        T val[D];
+        tdt::eval_quartic<T, D>(q, (s_ts[s_next] - t) / dt_safe, val);
+        if (writer) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = val[d];
+        }
+        ++s_next;
+      }
+    }
+
+    if (accept) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        y[d] = y1[d];
+        fc[d] = f1[d];
+      }
+      t = t_prop;
+      ++n_acc;
+    }
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+    ++n_steps;
+  }
+
+  if (!writer) return;
+  // rows whose time this trajectory never reached (max_steps ran out)
+  for (; s_next < S; ++s_next) {
+#pragma unroll
+    for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = T(NAN);
+  }
+  n_acc_out[b] = n_acc;
+  n_steps_out[b] = n_steps;
+}
 
 template <typename T, int D, bool kGroup>
 __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
@@ -103,85 +191,77 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
   const int b = gid / L;
   if (b >= B) return;
   const bool writer = (gid & (L - 1)) == 0;
-  // the field takes no time input: stage times are not formed
   const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
-
-  // the solve, for the field f of this lane's group
-  auto solve = [&](const auto& f) {
-    T y[D], fc[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
-    T t = t0;
-
-    // outputs at or before the start time are the initial state
-    int s_next = 0;
-    while (s_next < S && s_ts[s_next] <= t0) {
-      if (writer) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = y[d];
-      }
-      ++s_next;
-    }
-
-    f(y, fc);
-    T dt = use_first_step ? first_step
-                          : tdt::hairer_dt<T, D>(f, y, fc, rtol, atol, tb.inv_order);
-
-    int n_acc = 0, n_steps = 0;
-    T k[TDT_MAX_STAGES][D];
-    T y1[D], f1[D], err[D];
-    while (t < t1 && n_steps < max_steps) {
-      const T t_prop = t + dt;
-      tdt::stage_sweep<T, D>(f, tb, y, fc, dt, k, y1, f1, err);
-      const T ratio = tdt::error_ratio<T, D>(y, y1, err, rtol, atol);
-      const bool accept = ratio <= T(1);
-
-      // dense output for the output times this step covers
-      if (accept && s_next < S && s_ts[s_next] <= t_prop) {
-        tdt::Quartic<T, D> q;
-        tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
-        const T dt_safe = dt > T(0) ? dt : T(1);
-        while (s_next < S && s_ts[s_next] <= t_prop) {
-          T val[D];
-          tdt::eval_quartic<T, D>(q, (s_ts[s_next] - t) / dt_safe, val);
-          if (writer) {
-#pragma unroll
-            for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = val[d];
-          }
-          ++s_next;
-        }
-      }
-
-      if (accept) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          y[d] = y1[d];
-          fc[d] = f1[d];
-        }
-        t = t_prop;
-        ++n_acc;
-      }
-      dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
-      ++n_steps;
-    }
-
-    if (!writer) return;
-    // rows whose time this trajectory never reached (max_steps ran out)
-    for (; s_next < S; ++s_next) {
-#pragma unroll
-      for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = T(NAN);
-    }
-    n_acc_out[b] = n_acc;
-    n_steps_out[b] = n_steps;
-  };
   // L = 1 (kGroup false) is an instance of its own: a lane a trajectory
   // walks all H units in MlpField's loop, which the compiler unrolls further
   // than the group's strided one, and its registers and code are not sized
   // for the group's path
   if constexpr (kGroup)
-    solve(tdt::group_mlp_from_shared<T, D>(smem, H, power, L));
+    lanes_solve<T, D>(tdt::group_mlp_from_shared<T, D>(smem, H, power, L), tb, y0,
+                      s_ts, S, B, b, writer, t0, t1, rtol, atol, safety, ifactor,
+                      dfactor, first_step, use_first_step, max_steps, ys, n_acc_out,
+                      n_steps_out);
   else
-    solve(tdt::mlp_from_shared<T, D>(smem, H, power));
+    lanes_solve<T, D>(tdt::mlp_from_shared<T, D>(smem, H, power), tb, y0, s_ts, S, B,
+                      b, writer, t0, t1, rtol, atol, safety, ifactor, dfactor,
+                      first_step, use_first_step, max_steps, ys, n_acc_out,
+                      n_steps_out);
+}
+
+// The solve for a traced field F (ops/traced.py): one lane a trajectory,
+// the field built for lane b from its per-lane values (`lane`, (P, B)
+// lanes-major like the state) and the shared tensors (`shared`), which it
+// reads from device memory.  F holds D and T; its instance is compiled on
+// its own, from the source the tracer emitted.
+template <typename T, int D, typename F>
+__global__ void lanes_traced_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
+                                    int S, int B, T t0, T t1, T rtol, T atol,
+                                    T safety, T ifactor, T dfactor, T first_step,
+                                    int use_first_step, int max_steps,
+                                    const T* __restrict__ tab, int n_alpha, int order,
+                                    int fsal, const T* __restrict__ lane,
+                                    const T* __restrict__ shared, T* __restrict__ ys,
+                                    int* __restrict__ n_acc_out,
+                                    int* __restrict__ n_steps_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_tab = reinterpret_cast<T*>(smem_raw);
+  T* s_ts = s_tab + TDT_TAB_SIZE;
+  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
+  for (int i = threadIdx.x; i < S; i += blockDim.x) s_ts[i] = ts[i];
+  __syncthreads();
+
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
+  const F f(lane, shared, b, B);
+  lanes_solve<T, D>(f, tb, y0, s_ts, S, B, b, true, t0, t1, rtol, atol, safety, ifactor,
+                    dfactor, first_step, use_first_step, max_steps, ys, n_acc_out,
+                    n_steps_out);
+}
+
+// The host launch of a traced instance: blocks of `threads` trajectories.
+template <typename T, int D, typename F>
+int launch_traced(int B, const void* y0, const void* ts, int S, double t0, double t1,
+                  double rtol, double atol, double safety, double ifactor,
+                  double dfactor, double first_step, int use_first_step, int max_steps,
+                  const void* tab, int n_alpha, int order, int fsal, const void* lane,
+                  const void* shared, int threads, void* ys, void* n_acc,
+                  void* n_steps, void* stream) {
+  if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA || B <= 0 || threads < 32 ||
+      threads > 1024 || threads % 32 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (B + threads - 1) / threads;
+  const size_t smem = (size_t)(TDT_TAB_SIZE + S) * sizeof(T);
+  auto kernel = lanes_traced_kernel<T, D, F>;
+  const int code = tdt::allow_shared(kernel, smem);
+  if (code) return code;
+  kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, (T)t0, (T)t1,
+      (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor, (T)first_step,
+      use_first_step, max_steps, static_cast<const T*>(tab), n_alpha, order, fsal,
+      static_cast<const T*>(lane), static_cast<const T*>(shared), static_cast<T*>(ys),
+      static_cast<int*>(n_acc), static_cast<int*>(n_steps));
+  return (int)cudaGetLastError();
 }
 
 // The same solve for any D and up to TDT_PACK_STAGES stages, the state and

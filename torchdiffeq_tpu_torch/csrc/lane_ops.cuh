@@ -10,6 +10,12 @@
 // redundantly on the same bits, so its branches, and those of the loops
 // around it, are the same across the group.  What bounds the kernels, and
 // why the group, is in dopri5_lanes.cuh.
+//
+// The field is any functor `f(t, y, out)` over a state of D values in
+// registers: an MlpField (which takes no time), or a field the tracer
+// (ops/traced.py) emitted from a Python function.  The stage times
+// t + alpha_i * dt are formed as the TPU kernel forms them; a field that
+// never reads its time leaves them to the compiler to drop.
 #pragma once
 
 #include "mlp_field.cuh"
@@ -28,8 +34,12 @@
 // registers: D <= TDT_REG_MAX_D and at most TDT_REG_STAGES stages.  Every
 // other problem (dopri8, or D > 8) runs the shared-memory instance below
 // (`WideLane`), whose registers do not grow with D or the stage count.
+// A traced instance (a translation unit of its own) may define
+// TDT_MAX_ALPHA first, to hold a longer tableau (dopri8) in registers.
 #define TDT_REG_MAX_D 8
+#ifndef TDT_MAX_ALPHA
 #define TDT_MAX_ALPHA 6
+#endif
 #define TDT_MAX_STAGES (TDT_MAX_ALPHA + 1)
 
 namespace tdt {
@@ -43,6 +53,7 @@ template <> __device__ __forceinline__ f16 tiny<f16>() { return f16(6.103515625e
 // The packed tableau, staged in shared memory.
 template <typename T>
 struct Tableau {
+  const T* alpha;
   const T* beta;
   const T* c_sol;
   const T* c_err;
@@ -55,7 +66,7 @@ struct Tableau {
 template <typename T>
 __device__ __forceinline__ Tableau<T> tableau_from_shared(const T* s, int n_alpha,
                                                           int order, int fsal) {
-  return Tableau<T>{s + TDT_TAB_BETA, s + TDT_TAB_CSOL, s + TDT_TAB_CERR,
+  return Tableau<T>{s, s + TDT_TAB_BETA, s + TDT_TAB_CSOL, s + TDT_TAB_CERR,
                     s + TDT_TAB_CMID, n_alpha, fsal, T(1.0 / (double)order)};
 }
 
@@ -90,9 +101,9 @@ __device__ __forceinline__ void coeff_sum(const T* c, const T (&k)[TDT_MAX_STAGE
   }
 }
 
-// `hairer_dt` (pallas_kernels.py:305-321): the initial step from y, f(y).
+// `hairer_dt` (pallas_kernels.py:305-321): the initial step from y, f(t, y).
 template <typename T, int D, typename F>
-__device__ __forceinline__ T hairer_dt(const F& f, const T (&y)[D], const T (&fc)[D],
+__device__ __forceinline__ T hairer_dt(const F& f, T t, const T (&y)[D], const T (&fc)[D],
                                        T rtol, T atol, T inv_order) {
   T scale[D], yp[D], fp[D], df[D];
 #pragma unroll
@@ -102,7 +113,7 @@ __device__ __forceinline__ T hairer_dt(const F& f, const T (&y)[D], const T (&fc
   const T h0 = (d0 < T(1e-5) || d1 < T(1e-5)) ? T(1e-6) : T(0.01) * d0 / nmax(d1, tiny<T>());
 #pragma unroll
   for (int d = 0; d < D; ++d) yp[d] = y[d] + h0 * fc[d];
-  f(yp, fp);
+  f(t + h0, yp, fp);
 #pragma unroll
   for (int d = 0; d < D; ++d) df[d] = fp[d] - fc[d];
   const T d2 = rms_of_scaled<T, D>(df, scale) / nmax(h0, tiny<T>());
@@ -114,9 +125,9 @@ __device__ __forceinline__ T hairer_dt(const F& f, const T (&y)[D], const T (&fc
 }
 
 // `stage_sweep` (pallas_kernels.py:250-279): the stages k (k[0] = fc), the
-// proposed y1 and f1 = f(y1), and the embedded error estimate.
+// proposed y1 and f1 = f(t + dt, y1), and the embedded error estimate.
 template <typename T, int D, typename F>
-__device__ __forceinline__ void stage_sweep(const F& f, const Tableau<T>& tab,
+__device__ __forceinline__ void stage_sweep(const F& f, const Tableau<T>& tab, T t,
                                             const T (&y)[D], const T (&fc)[D], T dt,
                                             T (&k)[TDT_MAX_STAGES][D], T (&y1)[D],
                                             T (&f1)[D], T (&err)[D]) {
@@ -130,7 +141,7 @@ __device__ __forceinline__ void stage_sweep(const F& f, const Tableau<T>& tab,
       coeff_sum<T, D>(tab.beta + i * TDT_PACK_ALPHA, k, i + 1, acc);
 #pragma unroll
       for (int d = 0; d < D; ++d) yi[d] = y[d] + dt * acc[d];
-      f(yi, k[i + 1]);
+      f(t + tab.alpha[i] * dt, yi, k[i + 1]);
       if (i + 1 == tab.n_alpha) {
 #pragma unroll
         for (int d = 0; d < D; ++d) f1[d] = k[i + 1][d];
@@ -145,7 +156,7 @@ __device__ __forceinline__ void stage_sweep(const F& f, const Tableau<T>& tab,
     coeff_sum<T, D>(tab.c_sol, k, tab.n_alpha + 1, acc);
 #pragma unroll
     for (int d = 0; d < D; ++d) y1[d] = y[d] + dt * acc[d];
-    f(y1, f1);
+    f(t + dt, y1, f1);
   }
   T acc[D];
   coeff_sum<T, D>(tab.c_err, k, tab.n_alpha + 1, acc);

@@ -158,6 +158,11 @@ struct MlpField {
   int H;
   int power;
 
+  // the per-lane kernels' call: the field takes no time
+  __device__ __forceinline__ void operator()(T, const T (&y)[D], T (&out)[D]) const {
+    (*this)(y, out);
+  }
+
   __device__ __forceinline__ void operator()(const T (&y)[D], T (&out)[D]) const {
     using A = acc_t<T>;
     T x[D];
@@ -221,6 +226,10 @@ struct GroupMlpField {
   int lane;        // this lane's index in its group, 0..L-1
   int L;
   unsigned mask;   // the lanes the shuffles name (see above)
+
+  __device__ __forceinline__ void operator()(T, const T (&y)[D], T (&out)[D]) const {
+    (*this)(y, out);
+  }
 
   __device__ __forceinline__ void operator()(const T (&y)[D], T (&out)[D]) const {
     using A = acc_t<T>;

@@ -1,0 +1,47 @@
+// What a traced instance of K-dopri5 and K-events includes: the two lane
+// templates and the math of the traced op set (ops/traced.py), in float and
+// double.
+//
+// ops/traced.py traces a per-sample field f(t, y, *args) (and an event
+// function e(t, y)) with torch.fx into a graph of ATen operations and emits
+// it as a functor of straight-line code: one `const T vN = ...;` a value,
+// in the graph's order, each operation rounded to the state dtype as
+// PyTorch rounds it (the build's --fmad=false keeps every a*b+c two
+// roundings).  The emitted translation unit defines `Field` (and `Event`)
+// and the C entry points `tdt_traced_lanes` / `tdt_traced_events`, which
+// instantiate `tdt_lanes::launch_traced` / `tdt_events::launch_traced`;
+// ops/_build.py compiles it alone into a library keyed by the hash of its
+// source.
+//
+// Replaces the "any traceable field(t, y, *params)" of the TPU kernels
+// torchdiffeq_tpu/ops/pallas_kernels.py:336 and :580, which trace a JAX
+// field into the Pallas kernel; a CUDA kernel cannot run a Python callable,
+// so the tracer compiles one.
+#pragma once
+
+#include "dopri5_events.cuh"
+#include "dopri5_lanes.cuh"
+
+namespace tdt {
+
+// The traced op set's functions of one value.  PyTorch's own kernels call
+// the same libm functions on the card; on the CPU they may differ in the
+// last bit (the plain version's tolerance covers it).
+template <typename T> __device__ __forceinline__ T tsin(T x);
+template <typename T> __device__ __forceinline__ T tcos(T x);
+template <typename T> __device__ __forceinline__ T texp(T x);
+template <typename T> __device__ __forceinline__ T tlog(T x);
+template <> __device__ __forceinline__ float tsin<float>(float x) { return sinf(x); }
+template <> __device__ __forceinline__ double tsin<double>(double x) { return sin(x); }
+template <> __device__ __forceinline__ float tcos<float>(float x) { return cosf(x); }
+template <> __device__ __forceinline__ double tcos<double>(double x) { return cos(x); }
+template <> __device__ __forceinline__ float texp<float>(float x) { return expf(x); }
+template <> __device__ __forceinline__ double texp<double>(double x) { return exp(x); }
+template <> __device__ __forceinline__ float tlog<float>(float x) { return logf(x); }
+template <> __device__ __forceinline__ double tlog<double>(double x) { return log(x); }
+
+}  // namespace tdt
+
+extern "C" const char* tdt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -140,8 +140,11 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
     if odeint_interface is None:
         odeint_interface = odeint
 
-    t0 = torch.as_tensor(t0, dtype=torch.float64).detach().cpu().reshape(())
-    t = torch.stack([t0, t0 - 1.0 if reverse_time else t0 + 1.0])
+    # t0 keeps its gradient (a chained solve starts at an earlier event
+    # time); the direction point is t0's value moved by one, no input
+    t0 = torch.as_tensor(t0, dtype=torch.float64).cpu().reshape(())
+    t1 = t0.detach() - 1.0 if reverse_time else t0.detach() + 1.0
+    t = torch.stack([t0, t1])
 
     event_t, solution = odeint_interface(func, y0, t, event_fn=event_fn,
                                          args=args, **kwargs)

@@ -2,10 +2,14 @@
 ``torchdiffeq_tpu/models/neural_ode.py``).
 
 `MLPField` is an ``nn.Module`` holding the JAX layout: each weight is
-``(in, out)`` and a layer computes ``x @ w + b``, with tanh between layers.
-The field is ``f(t, y) = mlp(y ** power)``: power 1 for a plain MLP field,
-3 for the spiral demo's field (reference examples/ode_demo.py:111-121).
-This one family is also what the CUDA kernels take (``ops/kernels.py``).
+``(in, out)`` and a layer computes ``x @ w + b``, with an activation
+between layers (tanh unless the module is built with another, as JAX's
+``mlp_apply(..., activation=...)``).  The field is ``f(t, y) = mlp(y **
+power)``: power 1 for a plain MLP field, 3 for the spiral demo's field
+(reference examples/ode_demo.py:111-121).  With tanh and one hidden layer
+it is the family the CUDA kernels evaluate by hand (``ops/kernels.py``);
+the per-lane kernels take any other field through the tracer
+(``ops/traced.py``).
 
 `LinearEvent` is the event family the CUDA event kernel takes: K <= 4
 affine outputs ``y @ W.T + c * t + b``.  It covers threshold events on a
@@ -20,11 +24,13 @@ from torch import nn
 
 
 class MLPField(nn.Module):
-    """``f(t, y) = mlp(y ** power)`` with tanh hidden activations.
+    """``f(t, y) = mlp(y ** power)`` with `activation` between layers.
 
     Args:
         sizes: layer sizes ``[in, h1, ..., out]``.
         power: 1, 2 or 3 (the kernels evaluate ``y*y`` and ``y*y*y``).
+        activation: the hidden layers' activation, ``torch.tanh`` by default
+            (the one the hand-written CUDA kernels evaluate).
         scale: weight scale; default ``1/sqrt(fan_in)``.  Biases start at 0.
         device: of the parameters; default the CUDA device (the port runs
             on the card unless the caller asks for the CPU with
@@ -33,12 +39,13 @@ class MLPField(nn.Module):
     """
 
     def __init__(self, sizes, *, power=1, scale=None, dtype=torch.float32,
-                 device=None, generator=None):
+                 device=None, generator=None, activation=torch.tanh):
         super().__init__()
         if power not in (1, 2, 3):
             raise ValueError(f"power must be 1, 2 or 3, got {power}")
         device = default_device(device)
         self.power = power
+        self.activation = activation
         self.weights = nn.ParameterList()
         self.biases = nn.ParameterList()
         for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
@@ -54,7 +61,8 @@ class MLPField(nn.Module):
         return [self.weights[0].shape[0]] + [w.shape[1] for w in self.weights]
 
     def forward(self, t, y):
-        return mlp_apply(self, y ** self.power if self.power != 1 else y)
+        return mlp_apply(self, y ** self.power if self.power != 1 else y,
+                         self.activation)
 
 
 class LinearEvent(nn.Module):
@@ -116,8 +124,9 @@ def default_device(device):
     return torch.device("cuda")
 
 
-def mlp_apply(model, x):
-    """The layers of `model` on `x`, without the input power.  Mixed
+def mlp_apply(model, x, activation=torch.tanh):
+    """The layers of `model` on `x`, without the input power, `activation`
+    between them (JAX `mlp_apply`, models/neural_ode.py:29).  Mixed
     dtypes promote as JAX's matmul does: float64 input (the fixed-grid
     stage states of a float32 state) through float32 weights computes in
     float64."""
@@ -126,19 +135,26 @@ def mlp_apply(model, x):
         dt = torch.promote_types(x.dtype, w.dtype)
         x = x.to(dt) @ w.to(dt) + b.to(dt)
         if i != n - 1:
-            x = torch.tanh(x)
+            x = activation(x)
     return x
 
 
 def init_mlp(sizes, scale=None, dtype=torch.float32, device=None,
-             generator=None):
+             generator=None, activation=torch.tanh):
     """An MLP field (power 1) with layer sizes ``[in, h1, ..., out]``, on
     the card unless `device` says otherwise (as `MLPField`)."""
     return MLPField(sizes, scale=scale, dtype=dtype, device=device,
-                    generator=generator)
+                    generator=generator, activation=activation)
 
 
-def mlp_vector_field(model, t, y, time_dependent=False):
+def is_kernel_mlp(field):
+    """Whether `field` is the family the hand-written CUDA kernels evaluate:
+    an `MLPField` with tanh between its layers."""
+    return isinstance(field, MLPField) and field.activation is torch.tanh
+
+
+def mlp_vector_field(model, t, y, activation=torch.tanh,
+                     time_dependent=False):
     """f(t, y) as the MLP of `model` over y, or over ``[y, t]`` with
     `time_dependent` (JAX `mlp_vector_field`, models/neural_ode.py:37-47;
     the input power of an `MLPField` is not applied)."""
@@ -147,7 +163,7 @@ def mlp_vector_field(model, t, y, time_dependent=False):
         inp = torch.cat([y, tcol.expand(y.shape[:-1] + (1,))], dim=-1)
     else:
         inp = y
-    return mlp_apply(model, inp)
+    return mlp_apply(model, inp, activation)
 
 
 def spiral_field(model, t, y):
@@ -163,7 +179,8 @@ def init_spiral_model(hidden=50, dtype=torch.float32, device=None,
                     device=device, generator=generator)
 
 
-def mlp_params_from_jax(params, *, power=1, device=None):
+def mlp_params_from_jax(params, *, power=1, device=None,
+                        activation=torch.tanh):
     """An `MLPField` holding the JAX package's ``[{'w', 'b'}, ...]``
     parameters (numpy or JAX arrays), so both packages compute the same
     function from the same numbers; on the card unless `device` says
@@ -174,7 +191,8 @@ def mlp_params_from_jax(params, *, power=1, device=None):
     sizes = [ws[0].shape[0]] + [w.shape[1] for w in ws]
     model = MLPField(sizes, power=power,
                      dtype=torch.from_numpy(ws[0]).dtype, device=device,
-                     generator=torch.Generator())   # overwritten below
+                     generator=torch.Generator(),   # overwritten below
+                     activation=activation)
     with torch.no_grad():
         for p, w in zip(model.weights, ws):
             p.copy_(torch.from_numpy(w.copy()))

@@ -9,6 +9,11 @@ process reuses it.  The build's output (ptxas register and spill counts)
 is kept in a ``.log`` file beside the library and read back with it.
 ``nvcc`` comes from ``$CUDA_HOME/bin`` or the ``PATH``.  Nothing is
 compiled on import.
+
+A traced instance of the per-lane kernels (``ops/traced.py``) is a
+translation unit of its own, emitted at run time: `traced_library` builds
+it alone, into ``build/torch_kernels/traced/``, keyed by the hash of its
+source.
 """
 from __future__ import annotations
 
@@ -136,6 +141,74 @@ def library():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    lib.tdt_error_string.argtypes = [ctypes.c_int]
+    lib.tdt_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+# the traced instances' C entry points (ops/traced.py emits them)
+_TRACED_SIGNATURES = {
+    # tdt_traced_lanes(B, y0, ts, S, t0, t1, rtol, atol, safety, ifactor,
+    #   dfactor, first_step, use_first_step, max_steps, tab, n_alpha, order,
+    #   fsal, lane, shared, threads, ys, n_acc, n_steps, stream)
+    "tdt_traced_lanes": [_I, _P, _P, _I, _D, _D, _D, _D, _D, _D, _D, _D, _I,
+                         _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+    # tdt_traced_events(B, y0, t0, rtol, atol, safety, ifactor, dfactor,
+    #   first_step, use_first_step, max_steps, tab, n_alpha, order, fsal,
+    #   lane, shared, sign0, ev_shared, bisect_iters, threads, event_t,
+    #   y_event, found, n_acc, n_steps, stream)
+    "tdt_traced_events": [_I, _P, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _I,
+                          _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
+                          _P],
+}
+
+# the first-use build of each traced instance this process built: its
+# source's hash -> seconds (a cached library adds nothing)
+traced_builds = {}
+
+
+@functools.lru_cache(maxsize=None)
+def traced_library(source):
+    """The library of one traced instance (`source`, a translation unit that
+    ops/traced.py emitted, which includes ``csrc/traced_field.cuh``), built
+    at first use into ``build/torch_kernels/traced/`` and keyed by the hash
+    of the source, the headers and the flags.  Its one entry point,
+    ``tdt_traced_lanes`` or ``tdt_traced_events``, is typed on return."""
+    _, cuh = _sources()
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest.update(source.encode())
+    for path in cuh:
+        digest.update(path.name.encode())
+        digest.update(path.read_bytes())
+    key = digest.hexdigest()[:16]
+    out_dir = BUILD_DIR / "traced"
+    so_path = out_dir / f"libtdt_traced_{key}.so"
+    if not so_path.exists():
+        nvcc = _nvcc()
+        out_dir.mkdir(parents=True, exist_ok=True)
+        start = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+            src = Path(tmp) / f"traced_{key}.cu"
+            src.write_text(source)
+            lib = Path(tmp) / "lib.so"
+            proc = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o",
+                 str(lib), str(src)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}) on a traced instance:\n"
+                    f"{(proc.stdout + proc.stderr)[-4000:]}")
+            (Path(tmp) / "build.log").write_text(proc.stdout + proc.stderr)
+            os.replace(Path(tmp) / "build.log", so_path.with_suffix(".log"))
+            os.replace(src, so_path.with_suffix(".cu"))
+            os.replace(lib, so_path)
+        traced_builds[key] = time.perf_counter() - start
+    lib = ctypes.CDLL(str(so_path))
+    for name, argtypes in _TRACED_SIGNATURES.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.tdt_error_string.argtypes = [ctypes.c_int]
     lib.tdt_error_string.restype = ctypes.c_char_p
     return lib

@@ -14,16 +14,30 @@ of ``torchdiffeq_tpu/ops/pallas_kernels.py``).
   ``csrc/dopri5_events_16bit.cu``.
 
 A Pallas kernel traces any JAX field into itself; a CUDA kernel cannot run
-a Python callable.  So the kernels take one field family, `MLPField` with
-one tanh hidden layer (ROADMAP B, "Field interface"), and the event kernel
-one event family, `LinearEvent`, while the plain versions `*_ref` take any
-callable.  A wrapper takes the plain version only for tensors on the CPU;
-for a CUDA tensor it launches the kernel or raises.  The kernels are
-forward-only, as in the JAX package.
+a Python callable.  So the kernels take two kinds of field on the card:
 
-`launch_counts` counts kernel launches per wrapper, so a run can show that
-a path went through the kernels; it also counts the fused-step kernel of
-`ops/fused_field.py`.
+* `MLPField` with one tanh hidden layer (and, for K-events, a `LinearEvent`),
+  evaluated by hand-tuned device code (``csrc/mlp_field.cuh``) in every
+  dtype, a group of lanes splitting its hidden units; K-rk4 takes this
+  family alone;
+* for K-dopri5 and K-events, any per-sample field ``func(t, y_i, *args_i)``
+  (`ops.traced.PerSampleField`, with shared and per-lane args) and event
+  function (`ops.traced.PerSampleEvent`), traced by ``torch.fx`` into a
+  C++ functor and compiled at first use into an instance of its own (float32
+  and float64; the traced op set is in ``ops/traced.py``: indexing, stack,
+  + - * / and powers, sin cos exp log tanh sqrt abs minimum maximum where,
+  @ by a shared matrix and sum).  A field outside the set raises
+  ``TypeError`` naming the operation.
+
+The plain versions `*_ref` take any lane-layout callable.  A wrapper takes
+the plain version only for tensors on the CPU; for a CUDA tensor it
+launches the kernel or raises.  The kernels are forward-only, as in the JAX
+package.
+
+`launch_counts` counts kernel launches per wrapper, and
+`traced_launch_counts` the traced instances' launches, so a run can show
+that a path went through the kernels; the first also counts the fused-step
+kernel of `ops/fused_field.py`.
 """
 from __future__ import annotations
 
@@ -34,9 +48,11 @@ import numpy as np
 import torch
 
 from ..misc import coef, host_times, nan_sign, needs_autograd, np_dtype
-from ..models.neural_ode import LinearEvent, MLPField
+from ..models.neural_ode import LinearEvent, MLPField, is_kernel_mlp
 from . import tableaus
 from . import _build
+from . import traced
+from .traced import PerSampleEvent, PerSampleField
 
 # explicit adaptive tableaus the per-lane solve takes (as in the JAX
 # package), all of them in the CUDA kernels
@@ -60,11 +76,18 @@ _RK4_THREADS = 65536
 
 launch_counts = {'rk4_integrate': 0, 'dopri5_integrate_batched': 0,
                  'dopri5_events_batched': 0, 'fused_stage_step': 0}
+# the traced instances' launches, by the wrapper that launched them
+traced_launch_counts = {'dopri5_integrate_batched': 0,
+                        'dopri5_events_batched': 0}
+# a traced instance's trajectories a block (one lane each): blocks of a warp
+# until the batch fills every SM of an H100 with one, then 128
+_TRACED_SMS = 132
 
 
 def reset_launch_counts():
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, traced_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _refuse_grad(field, y0, params):
@@ -78,12 +101,18 @@ def _kernel_mlp(field, params, y_dtype, device, D, kernel, max_d=None):
     """Check that `field` is what the CUDA kernels take (and D at most
     `max_d`, where the kernel has such a bound) and return its contiguous
     (w1, b1, w2, b2)."""
-    if not isinstance(field, MLPField) or params:
+    if not is_kernel_mlp(field) or params:
+        what = (f"an MLPField with activation {field.activation!r}"
+                if isinstance(field, MLPField) else type(field).__name__)
         raise TypeError(
-            f"the CUDA {kernel} kernel takes an MLPField with no extra "
-            "params (the one field family a CUDA kernel can evaluate: "
-            "tanh(y**p @ W1 + b1) @ W2 + b2); got "
-            f"{type(field).__name__} with {len(params)} params")
+            f"the CUDA {kernel} kernel takes an MLPField with tanh and no "
+            "extra params (the field family its hand-written code "
+            "evaluates: tanh(y**p @ W1 + b1) @ W2 + b2)"
+            + ("" if kernel == 'rk4_integrate' else
+               ", or a traced per-sample field (ops.traced.PerSampleField, "
+               "what odeint_per_sample(..., options=dict(pallas=True)) "
+               "passes)")
+            + f"; got {what} with {len(params)} params")
     # read from the lists' parameter dicts, in order: indexing an
     # nn.ParameterList costs microseconds an entry, and this runs per launch
     weights, biases = (tuple(p._parameters.values())
@@ -591,7 +620,9 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
     pallas_kernels.py:336).
 
     Args:
-        field: an `MLPField` (CPU or CUDA), or any lane-layout callable
+        field: an `MLPField` (CPU or CUDA; on CUDA tanh), a
+            `traced.PerSampleField` (CPU or CUDA: on CUDA a traced instance,
+            float32 or float64, group 1), or any lane-layout callable
             ``field(t (1, B), y (D, B), *params)`` (CPU only).
         y0: (D, B) initial states, batch on the LAST axis.
         t0, t1: scalars; ts: optional increasing (S,) output times in
@@ -654,6 +685,12 @@ def _lanes_launch(field, y0, t0, t1, *, ts=None, rtol=1e-4, atol=1e-6,
     `dopri5_integrate_batched` calls the function once; a timing of the
     launch alone can call it again."""
     kernel = 'dopri5_integrate_batched'
+    if isinstance(field, PerSampleField):
+        return _traced_lanes_launch(
+            field, y0, t0, t1, ts=ts, rtol=rtol, atol=atol, method=method,
+            params=params, max_steps=max_steps, safety=safety,
+            ifactor=ifactor, dfactor=dfactor, first_step=first_step,
+            group=group)
     _check_cuda_state(y0, kernel, LANE_DTYPES)
     D, B = y0.shape
     dev = y0.device
@@ -682,6 +719,8 @@ def _lanes_launch(field, y0, t0, t1, *, ts=None, rtol=1e-4, atol=1e-6,
             _build.check(lib, lib.tdt_dopri5_lanes(*args), kernel)
             launch_counts[kernel] += 1
 
+    # every tensor whose address `args` holds lives as long as the launch
+    launch.keep = (y0, ts_d, tab_d, w1, b1, w2, b2, ys, counts)
     return launch, (ys, counts[0:1], counts[1:2])
 
 
@@ -773,9 +812,11 @@ def _kernel_event(event_fn, ev_params, y_dtype, device, D, B):
     if not isinstance(event_fn, LinearEvent):
         raise TypeError(
             "the CUDA dopri5_events_batched kernel takes a LinearEvent (the "
-            "event family a CUDA kernel can evaluate: y @ W.T + c * t + b, "
-            f"K <= {LinearEvent.MAX_OUTPUTS} outputs); got "
-            f"{type(event_fn).__name__}")
+            "event family its hand-written code evaluates: y @ W.T + c * t "
+            f"+ b, K <= {LinearEvent.MAX_OUTPUTS} outputs), or a traced "
+            "per-sample event (ops.traced.PerSampleEvent, what "
+            "odeint_per_sample(..., event_fn=..., options=dict(pallas=True)) "
+            f"passes); got {type(event_fn).__name__}")
     K = event_fn.weight.shape[0]
     if event_fn.weight.shape[1] != D:
         raise ValueError(f"LinearEvent weight {tuple(event_fn.weight.shape)} "
@@ -798,13 +839,15 @@ def dopri5_events_batched(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
     step's quartic (JAX ``dopri5_events_batched``, pallas_kernels.py:580).
 
     Args:
-        field: an `MLPField` (CPU or CUDA), or any lane-layout callable
-            ``field(t (1, B), y (D, B), *params)`` (CPU only).
+        field: as in `dopri5_integrate_batched`.
         y0: (D, B) initial states, batch on the LAST axis.
         t0: scalar start time.
         event_fn: a `LinearEvent` with ``ev_params=(sign0,)``, sign0 of
             shape (K, B), whose lane event is ``min_k(e_k * sign0_k)`` (CPU
-            or CUDA); or any lane-layout callable ``event_fn(t (1, B),
+            or CUDA); a `traced.PerSampleEvent`, the same with sign0 its
+            (K, B) signs at t0 (CPU or CUDA: with a `PerSampleField`, or
+            with an `MLPField` or `LinearEvent` traced beside it, a traced
+            instance); or any lane-layout callable ``event_fn(t (1, B),
             y (D, B), *ev_params) -> (1, B)`` (CPU only).
         bisect_iters: bisection count on x in [0, 1] over the bracket.
         (other args, `group` included, as in `dopri5_integrate_batched`.)
@@ -851,6 +894,13 @@ def _events_launch(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
     found, n_acc, n_steps) it writes, as `_lanes_launch` does for
     K-dopri5."""
     kernel = 'dopri5_events_batched'
+    if isinstance(field, PerSampleField) or isinstance(event_fn,
+                                                       PerSampleEvent):
+        return _traced_events_launch(
+            field, y0, t0, event_fn, rtol=rtol, atol=atol, method=method,
+            params=params, ev_params=ev_params, max_steps=max_steps,
+            safety=safety, ifactor=ifactor, dfactor=dfactor,
+            first_step=first_step, bisect_iters=bisect_iters, group=group)
     _check_cuda_state(y0, kernel, LANE_DTYPES)
     D, B = y0.shape
     dev = y0.device
@@ -880,5 +930,124 @@ def _events_launch(field, y0, t0, event_fn, *, rtol=1e-4, atol=1e-6,
             _build.check(lib, lib.tdt_dopri5_events(*args), kernel)
             launch_counts[kernel] += 1
 
+    launch.keep = (y0, tab_d, w1, b1, w2, b2, ev_w, ev_c, ev_b, sign0, values,
+                   counts)
+
+    return launch, (values[0:1], values[1:], counts[0:1], counts[1:2],
+                    counts[2:3])
+
+
+# ---------------------------------------------------------------------------
+# The traced instances of K-dopri5 and K-events (ops/traced.py).
+# ---------------------------------------------------------------------------
+
+def _traced_threads(B):
+    """Trajectories a block of a traced instance: a warp, until B of them
+    fill every SM of an H100 with a block; then 128."""
+    return 32 if B < _TRACED_SMS * 128 else 128
+
+
+def _traced_common(field, y0, params, group, kernel, method):
+    """Checks shared by both traced launches; returns the tableau."""
+    _check_cuda_state(y0, kernel)
+    if params:
+        raise TypeError(f"{kernel}: a traced field carries its own args "
+                        f"(PerSampleField(func, args, axes)), not params")
+    if group not in (None, 1):
+        raise ValueError(f"{kernel}: a traced field runs one lane a "
+                         f"trajectory (group 1), got group={group}")
+    return packed_tableau(method, y0.dtype, y0.device)
+
+
+def _traced_lanes_launch(field, y0, t0, t1, *, ts, rtol, atol, method,
+                         params, max_steps, safety, ifactor, dfactor,
+                         first_step, group):
+    """`_lanes_launch` for a traced field: trace `field` (a
+    `PerSampleField`), build its instance at first use, and return the
+    launch (counted in `traced_launch_counts`) and the
+    outputs."""
+    kernel = 'dopri5_integrate_batched'
+    tab_d, n_alpha, order, fsal = _traced_common(field, y0, params, group,
+                                                 kernel, method)
+    D, B = y0.shape
+    dev = y0.device
+    src = traced.field_source(field, y0, n_alpha)
+    lib = _build.traced_library(src.source)
+    lane = src.lane_buffer(B, y0.dtype, dev)
+    shared = src.buffer(src.shared, y0.dtype, dev)
+    emit_ts = tuple(_rounded([t1] if ts is None else ts, y0.dtype).tolist())
+    S = len(emit_ts)
+    ts_d = _device_times(emit_ts, y0.dtype, dev)
+    ys = y0.new_empty((S, D, B))
+    counts = torch.empty((2, B), dtype=torch.int32, device=dev)
+    args = (B, _ptr(y0), _ptr(ts_d), S,
+            *_state_scalars(y0.dtype, t0, t1, rtol, atol, safety, ifactor,
+                            dfactor, 0.0 if first_step is None else first_step),
+            int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
+            order, int(fsal), None if lane is None else _ptr(lane),
+            None if shared is None else _ptr(shared), _traced_threads(B),
+            _ptr(ys), *_row_ptrs(counts), _stream(dev))
+
+    def launch():
+        if B > 0:
+            _build.check(lib, lib.tdt_traced_lanes(*args), kernel)
+            traced_launch_counts[kernel] += 1
+
+    launch.keep = (y0, ts_d, tab_d, lane, shared, ys, counts)
+    launch.source = src
+    return launch, (ys, counts[0:1], counts[1:2])
+
+
+def _traced_events_launch(field, y0, t0, event_fn, *, rtol, atol, method,
+                          params, ev_params, max_steps, safety, ifactor,
+                          dfactor, first_step, bisect_iters, group):
+    """`_events_launch` for a traced field and event: `field` a
+    `PerSampleField` or an `MLPField`, `event_fn` a `PerSampleEvent` or a
+    `LinearEvent` (both traced), ``ev_params=(sign0,)`` with sign0 (K, B);
+    counted in `traced_launch_counts`."""
+    kernel = 'dopri5_events_batched'
+    if not isinstance(field, PerSampleField):
+        if not isinstance(field, MLPField):
+            _kernel_mlp(field, params, y0.dtype, y0.device, y0.shape[0],
+                        kernel)   # raises, naming what is taken
+        field = PerSampleField(field)
+    if not isinstance(event_fn, PerSampleEvent):
+        if not isinstance(event_fn, LinearEvent):
+            _kernel_event(event_fn, ev_params, y0.dtype, y0.device,
+                          *y0.shape)   # raises, naming what is taken
+        event_fn = PerSampleEvent(event_fn)
+    tab_d, n_alpha, order, fsal = _traced_common(field, y0, params, group,
+                                                 kernel, method)
+    D, B = y0.shape
+    dev = y0.device
+    src = traced.events_source(field, event_fn, y0, n_alpha)
+    if len(ev_params) != 1 or tuple(ev_params[0].shape) != (src.K, B):
+        raise ValueError(f"{kernel}: a traced event of {src.K} outputs takes "
+                         f"ev_params=(sign0,) with sign0 of shape "
+                         f"({src.K}, {B})")
+    sign0 = _kernel_tensors(ev_params[:1], y0.dtype, dev, "sign0")[0]
+    lib = _build.traced_library(src.source)
+    lane = src.lane_buffer(B, y0.dtype, dev)
+    shared = src.buffer(src.shared, y0.dtype, dev)
+    ev_shared = src.buffer(src.ev_shared, y0.dtype, dev)
+    values = y0.new_empty((1 + D, B))   # event_t | y_event
+    counts = torch.empty((3, B), dtype=torch.int32, device=dev)
+    args = (B, _ptr(y0),
+            *_state_scalars(y0.dtype, t0, rtol, atol, safety, ifactor,
+                            dfactor, 0.0 if first_step is None else first_step),
+            int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
+            order, int(fsal), None if lane is None else _ptr(lane),
+            None if shared is None else _ptr(shared), _ptr(sign0),
+            None if ev_shared is None else _ptr(ev_shared), int(bisect_iters),
+            _traced_threads(B), *_row_ptrs(values)[:2], *_row_ptrs(counts),
+            _stream(dev))
+
+    def launch():
+        if B > 0:
+            _build.check(lib, lib.tdt_traced_events(*args), kernel)
+            traced_launch_counts[kernel] += 1
+
+    launch.keep = (y0, tab_d, lane, shared, ev_shared, sign0, values, counts)
+    launch.source = src
     return launch, (values[0:1], values[1:], counts[0:1], counts[1:2],
                     counts[2:3])

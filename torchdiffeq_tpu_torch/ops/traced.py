@@ -1,0 +1,727 @@
+"""Traced fields for the per-lane CUDA kernels, K-dopri5 and K-events.
+
+The TPU kernels take any traceable ``field(t, y, *params)``: Pallas traces
+the JAX field into the kernel (``torchdiffeq_tpu/ops/pallas_kernels.py:336``
+and ``:580``).  A CUDA kernel cannot run a Python callable, so this module
+traces the per-sample field once with ``torch.fx`` (`make_fx`, a graph of
+ATen operations on one sample's values) and emits it as a C++ functor of
+straight-line code, which ``csrc/traced_field.cuh`` instantiates in the
+lane templates of ``csrc/dopri5_lanes.cuh`` and ``csrc/dopri5_events.cuh``.
+``ops/_build.traced_library`` compiles the instance at first use, keyed by
+the hash of its source.
+
+The traced op set is the one the Pallas kernels name for their fields
+(``pallas_kernels.py:10-12``, "elementwise math, jnp.dot/@, reductions"):
+
+* constant indexing and slicing of the state, ``torch.stack`` and
+  ``torch.cat``, and the views between them (unsqueeze, squeeze, view,
+  reshape, expand, transpose);
+* ``+ - * /``, unary minus, the reciprocal and powers;
+* ``sin cos exp log tanh sqrt abs minimum maximum where`` and the
+  comparisons that feed ``where``;
+* ``@`` of a lane's vector by a shared matrix, and ``sum`` (and ``min``,
+  ``max``) over a lane's vector;
+* constants (``zeros_like``, ``ones_like``, ``full``, tensors the field
+  closes over).
+
+Each operation is emitted in the graph's order, rounded to the state dtype
+as PyTorch rounds it: a power by 2 or 3 is a product, as PyTorch's kernel
+computes it (``x*x``, ``x*x*x``), a scalar over a tensor is a reciprocal
+times the scalar, as ``Tensor.__rtruediv__`` computes it, and the build's
+``--fmad=false`` keeps every ``a*b+c`` two roundings.  A sum or a matrix
+product adds its terms in order; PyTorch's reductions and BLAS may add them
+in another, which is the one difference from the plain version besides a
+library function's last bit.
+
+Arguments are per-lane (``args_axes=-1``: one value, or one small vector, a
+lane, read lanes-major like the state, (P, B)) or shared (read whole by
+every lane).  Anything outside the set -- another ATen operation, a dtype
+conversion, data-dependent control flow -- raises ``TypeError`` naming it.
+The traced instances take float32 and float64 states.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+# the kernels' C type of each state dtype a traced instance takes
+_C_TYPES = {torch.float32: 'float', torch.float64: 'double'}
+# a field of more emitted values than this is no longer "small"
+MAX_VALUES = 1 << 14
+
+
+class PerSampleField:
+    """A per-sample field ``func(t, y_i, *args_i)`` with its args, each
+    shared (axis None) or per-lane (axis -1), as the kernel route of
+    ``parallel.odeint_per_sample`` hands it to the per-lane kernels.
+
+    Called on the lane layout, ``field(t (1, B), y (D, B))``, it is the
+    plain versions' field (``torch.func.vmap`` over the samples); on the
+    card the kernels trace `func` (`field_source`)."""
+
+    def __init__(self, func, args=(), axes=None):
+        self.func = func
+        self.args = tuple(args)
+        self.axes = (None,) * len(self.args) if axes is None else tuple(axes)
+        if len(self.axes) != len(self.args) or any(
+                a not in (None, -1) for a in self.axes):
+            raise ValueError("a per-lane field's args_axes are None or -1, "
+                             f"one an arg, got {self.axes}")
+        dims = tuple(None if a is None else -1 for a in self.axes)
+        self._lanes = torch.func.vmap(func, in_dims=(0, 1) + dims, out_dims=1)
+
+    def __call__(self, tv, yv):
+        return self._lanes(tv[0], yv, *self.args)
+
+
+class PerSampleEvent:
+    """A per-sample event function ``event_fn(t, y_i)`` whose outputs are
+    sign-combined per lane, ``min_k(e_k * sign0_k)`` with sign0 (K, B) (the
+    kernels' event layout, JAX `_pallas_per_sample_event`'s ``ev``)."""
+
+    def __init__(self, event_fn):
+        self.event_fn = event_fn
+        one = lambda tt, yy, s_i: torch.min(
+            torch.atleast_1d(event_fn(tt, yy)) * s_i)
+        self._lanes = torch.func.vmap(one, in_dims=(0, 1, 1), out_dims=0)
+
+    def __call__(self, tv, yv, sign0):
+        return self._lanes(tv[0], yv, sign0)[None]
+
+
+def _name(func):
+    return getattr(func, '__qualname__', None) or type(func).__name__
+
+
+def _refuse(what, func):
+    raise TypeError(
+        f"the per-lane CUDA kernels cannot translate {what} (in "
+        f"{_name(func)}): a traced field takes constant indexing, stack/cat, "
+        "+ - * / and powers, sin cos exp log tanh sqrt abs minimum maximum "
+        "where, @ by a shared matrix and sum; drop pallas=True for the "
+        "batched driver, which takes any field")
+
+
+def _trace(func, inputs):
+    """The ATen graph of ``func(*inputs)`` on one sample (real tensors: the
+    values a field closes over stay the tensors it holds)."""
+    from torch.fx.experimental.proxy_tensor import make_fx
+    try:
+        with torch.no_grad():
+            return make_fx(func)(*inputs)
+    except Exception as exc:  # noqa: BLE001 -- named in the refusal
+        _refuse(f"what torch.fx could not trace ({type(exc).__name__}: "
+                f"{str(exc).splitlines()[0][:200]}; data-dependent control "
+                "flow cannot be traced)", func)
+
+
+def _lit(x):
+    """A Python number as a literal of the state type (PyTorch casts a
+    scalar operand to the tensor's dtype the same way)."""
+    if isinstance(x, bool):
+        return 'true' if x else 'false'
+    x = float(x)
+    if math.isnan(x):
+        return 'T(NAN)'
+    if math.isinf(x):
+        return 'T(INFINITY)' if x > 0 else 'T(-INFINITY)'
+    return f'T({x!r})'
+
+
+class _Emitter:
+    """Straight-line C++ for one traced graph: every value is a numpy object
+    array of C expressions (a state element, a load of an arg, or the name
+    of an emitted ``const T vN``), so shapes, broadcasting and indexing are
+    numpy's, and each element of an operation's result is one statement."""
+
+    def __init__(self, func, dtype, prefix):
+        self.func = func
+        self.dtype = dtype
+        self.prefix = prefix
+        self.lines = []
+        self.ops = 0          # arithmetic operations an evaluation runs
+        self.shared = []      # the shared tensors, in the buffer's order
+        self.n_shared = 0     # elements of the shared buffer so far
+
+    def let(self, expr, kind='T', ops=1):
+        name = f"{self.prefix}{len(self.lines)}"
+        self.lines.append(f"    const {kind} {name} = {expr};")
+        self.ops += ops
+        if len(self.lines) > MAX_VALUES:
+            _refuse(f"a field of more than {MAX_VALUES} values", self.func)
+        return name
+
+    def shared_tensor(self, x):
+        """A tensor every lane reads whole: its elements are loads from the
+        shared buffer."""
+        if x.dtype != self.dtype:
+            _refuse(f"a {x.dtype} tensor in a {self.dtype} field", self.func)
+        off = self.n_shared
+        self.shared.append(x)
+        self.n_shared += x.numel()
+        idx = np.arange(x.numel()).reshape(tuple(x.shape))
+        return np.vectorize(lambda i: f"s[{off + i}]", otypes=[object])(idx) \
+            if x.numel() else np.empty(tuple(x.shape), dtype=object), 'T'
+
+
+def _arr(v):
+    return v if isinstance(v, np.ndarray) else np.asarray(v, dtype=object)
+
+
+def _elementwise(em, fmt, vals, kind='T', ops=1):
+    """One statement an element of the broadcast of `vals`."""
+    arrs = np.broadcast_arrays(*[_arr(a) for a, _ in vals])
+    out = np.empty(arrs[0].shape, dtype=object)
+    for idx in np.ndindex(out.shape):
+        out[idx] = em.let(fmt.format(*[a[idx] for a in arrs]), kind, ops)
+    return out, kind
+
+
+def _chain(em, terms, op):
+    """`terms` combined in order: ``((t0 op t1) op t2) ...``, or by
+    tdt::nmin / tdt::nmax."""
+    acc = terms[0]
+    for x in terms[1:]:
+        acc = f"({acc} {op} {x})" if op in '+*' else f"{op}({acc}, {x})"
+    return em.let(acc, 'T', max(len(terms) - 1, 0)) if len(terms) > 1 \
+        else acc
+
+
+def _reduce(em, val, dims, keepdim, op):
+    arr, _ = val
+    nd = arr.ndim
+    dims = list(range(nd)) if dims is None or dims == [] else \
+        sorted(d % nd for d in dims)
+    keep = [d for d in range(nd) if d not in dims]
+    moved = np.transpose(arr, keep + dims)
+    lead = moved.shape[:len(keep)]
+    flat = moved.reshape(lead + (-1,))
+    out = np.empty(lead, dtype=object)
+    for idx in np.ndindex(lead):
+        out[idx] = _chain(em, list(flat[idx]), op)
+    if keepdim:
+        out = out.reshape([1 if d in dims else arr.shape[d]
+                           for d in range(nd)])
+    return out, 'T'
+
+
+def _matmul(em, a, b):
+    """``a @ b`` for 1-D and 2-D operands: each output element the ordered
+    sum of its products (2 operations a term)."""
+    A, B = _arr(a[0]), _arr(b[0])
+    va, vb = A.ndim == 1, B.ndim == 1
+    A2 = A[None, :] if va else A
+    B2 = B[:, None] if vb else B
+    if A2.ndim != 2 or B2.ndim != 2 or A2.shape[1] != B2.shape[0]:
+        _refuse(f"a matrix product of shapes {A.shape} and {B.shape}", em.func)
+    out = np.empty((A2.shape[0], B2.shape[1]), dtype=object)
+    for i in range(A2.shape[0]):
+        for j in range(B2.shape[1]):
+            terms = [f"{A2[i, k]} * {B2[k, j]}" for k in range(A2.shape[1])]
+            acc = f"({terms[0]})"
+            for term in terms[1:]:
+                acc = f"({acc} + {term})"
+            out[i, j] = em.let(acc, 'T', 2 * len(terms) - 1)
+    if va:
+        out = out[0]
+    if vb:
+        out = out[..., 0]
+    return out, 'T'
+
+
+def _pow_scalar(em, x, e):
+    """``x ** e`` as PyTorch's kernel computes it (a product for 2 and 3,
+    the square root for 0.5, a reciprocal for -1 and -2)."""
+    forms = {2.0: "{0} * {0}", 3.0: "{0} * {0} * {0}", 0.5: "tdt::dsqrt<T>({0})",
+             -0.5: "T(1) / tdt::dsqrt<T>({0})", -1.0: "T(1) / {0}",
+             -2.0: "T(1) / ({0} * {0})", 1.0: "{0}"}
+    e = float(e)
+    if e == 0.0:
+        return np.full(x[0].shape, 'T(1)', dtype=object), 'T'
+    fmt = forms.get(e, "tdt::dpow<T>({0}, %s)" % _lit(e))
+    return _elementwise(em, fmt, [x])
+
+
+_BINARY = {'add': '{0} + {1}', 'sub': '{0} - {1}', 'mul': '{0} * {1}',
+           'div': '{0} / {1}', 'minimum': 'tdt::nmin({0}, {1})',
+           'maximum': 'tdt::nmax({0}, {1})'}
+_COMPARE = {'gt': '>', 'lt': '<', 'ge': '>=', 'le': '<=', 'eq': '==',
+            'ne': '!='}
+_UNARY = {'neg': '-{0}', 'reciprocal': 'T(1) / {0}',
+          'sin': 'tdt::tsin<T>({0})', 'cos': 'tdt::tcos<T>({0})',
+          'exp': 'tdt::texp<T>({0})', 'log': 'tdt::tlog<T>({0})',
+          'tanh': 'tdt::dtanh<T>({0})', 'sqrt': 'tdt::dsqrt<T>({0})',
+          'abs': 'tdt::dabs<T>({0})'}
+_IDENTITY = {'clone', 'alias', 'detach', 'lift_fresh_copy', 'contiguous'}
+_VIEWS = {'view', 'reshape', '_unsafe_view'}
+
+
+def _emit_node(em, node, env):
+    """The value of one call_function node of the traced graph."""
+    target = node.target
+    packet = getattr(target, '_overloadpacket', None)
+    name = getattr(packet, '__name__', str(target))
+    overload = getattr(target, '_overloadname', '')
+    qual = f"aten.{name}.{overload}" if packet is not None else str(target)
+
+    def val(a):
+        if isinstance(a, torch.fx.Node):
+            return env[a]
+        if isinstance(a, (bool, int, float)):
+            return np.asarray(_lit(a), dtype=object), \
+                'bool' if isinstance(a, bool) else 'T'
+        _refuse(f"{qual} with an argument {a!r}", em.func)
+
+    args, kw = node.args, dict(node.kwargs)
+    meta = node.meta.get('val')
+    if isinstance(meta, torch.Tensor) and meta.dtype not in (em.dtype,
+                                                             torch.bool):
+        _refuse(f"{qual}, which computes in {meta.dtype} (the state is "
+                f"{em.dtype})", em.func)
+    for placement in ('device', 'pin_memory', 'layout', 'memory_format'):
+        kw.pop(placement, None)
+
+    if name in _IDENTITY:
+        return val(args[0])
+    if name == '_to_copy':
+        if kw.get('dtype', em.dtype) != em.dtype:
+            _refuse(f"{qual} to {kw.get('dtype')}", em.func)
+        return val(args[0])
+    if name in ('add', 'sub') and (kw.get('alpha', 1) != 1 or len(args) > 2):
+        _refuse(f"{qual} with alpha", em.func)
+    if name == 'div' and kw.get('rounding_mode') is not None:
+        _refuse(f"{qual} with rounding_mode", em.func)
+    if name in _BINARY and overload in ('Tensor', 'Scalar', 'default'):
+        return _elementwise(em, _BINARY[name], [val(args[0]), val(args[1])])
+    if name == 'rsub':
+        if kw.get('alpha', 1) != 1:
+            _refuse(f"{qual} with alpha", em.func)
+        return _elementwise(em, '{1} - {0}', [val(args[0]), val(args[1])])
+    if name in _COMPARE:
+        return _elementwise(em, '{0} %s {1}' % _COMPARE[name],
+                            [val(args[0]), val(args[1])], 'bool')
+    if name == 'where' and overload in ('self', 'ScalarOther', 'ScalarSelf',
+                                        'Scalar'):
+        return _elementwise(em, '{0} ? {1} : {2}',
+                            [val(args[0]), val(args[1]), val(args[2])])
+    if name in _UNARY and overload == 'default':
+        return _elementwise(em, _UNARY[name], [val(args[0])])
+    if name == 'pow' and overload == 'Tensor_Scalar':
+        return _pow_scalar(em, val(args[0]), args[1])
+    if name == 'pow' and overload in ('Tensor_Tensor', 'Scalar'):
+        return _elementwise(em, 'tdt::dpow<T>({0}, {1})',
+                            [val(args[0]), val(args[1])])
+    # shapes
+    if name == 'select':
+        arr, kind = val(args[0])
+        return np.take(arr, args[2], axis=args[1]), kind
+    if name == 'slice':
+        arr, kind = val(args[0])
+        dim = args[1] if len(args) > 1 else 0
+        start = args[2] if len(args) > 2 else None
+        end = args[3] if len(args) > 3 else None
+        step = args[4] if len(args) > 4 else 1
+        index = [slice(None)] * arr.ndim
+        index[dim] = slice(start, end, step)
+        return arr[tuple(index)], kind
+    if name == 'unsqueeze':
+        arr, kind = val(args[0])
+        return np.expand_dims(arr, args[1] % (arr.ndim + 1)), kind
+    if name in ('squeeze', 'squeeze_'):
+        arr, kind = val(args[0])
+        if len(args) == 1:
+            return np.squeeze(arr), kind
+        dims = args[1] if isinstance(args[1], (list, tuple)) else [args[1]]
+        dims = tuple(d % max(arr.ndim, 1) for d in dims
+                     if arr.ndim and arr.shape[d] == 1)
+        return (np.squeeze(arr, axis=dims) if dims else arr), kind
+    if name in _VIEWS:
+        arr, kind = val(args[0])
+        return arr.reshape(tuple(args[1])), kind
+    if name == 'expand':
+        arr, kind = val(args[0])
+        size = list(args[1])
+        lead = len(size) - arr.ndim
+        size = [arr.shape[i - lead] if s == -1 else s
+                for i, s in enumerate(size)]
+        return np.broadcast_to(arr, size), kind
+    if name == 't':
+        arr, kind = val(args[0])
+        return arr.T, kind
+    if name == 'transpose':
+        arr, kind = val(args[0])
+        return np.swapaxes(arr, args[1], args[2]), kind
+    if name == 'permute':
+        arr, kind = val(args[0])
+        return np.transpose(arr, args[1]), kind
+    if name in ('stack', 'cat'):
+        parts = [val(a) for a in args[0]]
+        dim = args[1] if len(args) > 1 else kw.get('dim', 0)
+        kinds = {k for _, k in parts}
+        if len(kinds) != 1:
+            _refuse(f"{qual} of bool and float values", em.func)
+        join = np.stack if name == 'stack' else np.concatenate
+        return join([p for p, _ in parts], axis=dim), kinds.pop()
+    # products and reductions
+    if name in ('mm', 'mv', 'dot', 'matmul'):
+        return _matmul(em, val(args[0]), val(args[1]))
+    if name == 'sum' and kw.get('dtype') in (None, em.dtype):
+        dims = args[1] if len(args) > 1 else kw.get('dim')
+        keep = args[2] if len(args) > 2 else kw.get('keepdim', False)
+        return _reduce(em, val(args[0]), dims, keep, '+')
+    if name in ('amin', 'amax', 'min', 'max') and overload in (
+            'default', ''):
+        dims = args[1] if len(args) > 1 else kw.get('dim')
+        keep = args[2] if len(args) > 2 else kw.get('keepdim', False)
+        op = 'tdt::nmin' if name in ('amin', 'min') else 'tdt::nmax'
+        return _reduce(em, val(args[0]), dims, keep, op)
+    # constants
+    if name in ('zeros_like', 'ones_like', 'full_like'):
+        arr, _ = val(args[0])
+        fill = {'zeros_like': 0.0, 'ones_like': 1.0}.get(
+            name, args[1] if len(args) > 1 else None)
+        return np.full(arr.shape, _lit(fill), dtype=object), 'T'
+    if name in ('zeros', 'ones', 'full', 'scalar_tensor'):
+        size = () if name == 'scalar_tensor' else tuple(args[0])
+        fill = {'zeros': 0.0, 'ones': 1.0}.get(name)
+        if fill is None:
+            fill = args[0] if name == 'scalar_tensor' else args[1]
+        return np.full(size, _lit(fill), dtype=object), 'T'
+    _refuse(qual, em.func)
+
+
+def _inputs(em, graph, module, placeholders):
+    """The values of the graph's placeholders and constants."""
+    env = {}
+    ph = [n for n in graph.nodes if n.op == 'placeholder']
+    for node, value in zip(ph, placeholders):
+        env[node] = value
+    for node in graph.nodes:
+        if node.op == 'get_attr':
+            const = getattr(module, node.target)
+            if not isinstance(const, torch.Tensor):
+                _refuse(f"the constant {node.target!r}", em.func)
+            env[node] = em.shared_tensor(const.detach())
+    return env
+
+
+def _run(em, gm, env):
+    out = None
+    for node in gm.graph.nodes:
+        if node.op == 'call_function':
+            arr, kind = _emit_node(em, node, env)
+            # numpy hands an indexed element back as the element itself
+            env[node] = (arr if isinstance(arr, np.ndarray)
+                         else np.asarray(arr, dtype=object), kind)
+        elif node.op == 'output':
+            out = node.args[0]
+            if isinstance(out, (list, tuple)):
+                if len(out) != 1:
+                    _refuse("a field that returns several tensors", em.func)
+                out = out[0]
+            out = env[out] if isinstance(out, torch.fx.Node) else None
+        elif node.op not in ('placeholder', 'get_attr'):
+            _refuse(f"the graph node {node.op} {node.target}", em.func)
+    if out is None or out[1] != 'T':
+        _refuse("a field whose value is not a tensor of the state dtype",
+                em.func)
+    return out[0]
+
+
+def _materialised(em, arr):
+    """`arr`'s elements as emitted names (an output may alias the input)."""
+    return [x if x.startswith(em.prefix) else em.let(x, 'T', 0)
+            for x in np.asarray(arr, dtype=object).reshape(-1)]
+
+
+class TracedSource:
+    """One traced instance: its C++ source, what it reads at a launch and
+    what an evaluation costs.
+
+    Attributes:
+        source: the translation unit (``csrc/traced_field.cuh`` included).
+        lane_args: the per-lane args, each (..., B), in the (P, B) rows the
+            functor reads.
+        shared: the field's shared tensors (args and constants), in its
+            buffer's order; ``ev_shared`` the event's.
+        field_ops, event_ops: arithmetic operations of one evaluation.
+        K: the event's outputs (0 without one).
+    """
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def lane_buffer(self, B, dtype, device):
+        """The per-lane args as the (P, B) rows the functor reads."""
+        if not self.lane_args:
+            return None
+        return torch.cat([a.detach().reshape(-1, B) for a in self.lane_args]
+                         ).to(device=device, dtype=dtype).contiguous()
+
+    @staticmethod
+    def buffer(tensors, dtype, device):
+        """Shared tensors flattened into one buffer, in order."""
+        if not tensors:
+            return None
+        return torch.cat([t.detach().reshape(-1) for t in tensors]).to(
+            device=device, dtype=dtype).contiguous()
+
+
+def _field_functor(field, y_sample, dtype):
+    """(struct source, the constants it closes over, ops) of the traced
+    field; its shared buffer holds its shared args, then the constants."""
+    D = y_sample.shape[0]
+    em = _Emitter(field.func, dtype, 'v')
+    t = torch.zeros((), dtype=dtype, device=y_sample.device)
+    inputs, placeholders = [t, y_sample], [
+        (np.asarray('t', dtype=object), 'T'),
+        (np.asarray([f"y[{d}]" for d in range(D)], dtype=object), 'T')]
+    n_lane = 0
+    for arg, axis in zip(field.args, field.axes):
+        if not isinstance(arg, torch.Tensor):
+            arg = torch.as_tensor(arg, dtype=dtype, device=y_sample.device)
+        if axis is None:
+            inputs.append(arg)
+            placeholders.append(None)   # filled below, in the buffer's order
+            continue
+        sample = arg[..., 0]
+        idx = np.arange(n_lane, n_lane + sample.numel()).reshape(
+            tuple(sample.shape))
+        placeholders.append((np.vectorize(lambda i: f"a[{i}]", otypes=[object])(
+            idx) if sample.numel() else np.empty(sample.shape, dtype=object),
+            'T'))
+        inputs.append(sample)
+        n_lane += sample.numel()
+        if arg.dtype != dtype:
+            _refuse(f"a {arg.dtype} per-lane arg in a {dtype} field",
+                    field.func)
+    for i, (arg, axis) in enumerate(zip(field.args, field.axes)):
+        if axis is None:
+            placeholders[2 + i] = em.shared_tensor(inputs[2 + i])
+    n_args = len(em.shared)
+    gm = _trace(field.func, inputs)
+    env = _inputs(em, gm.graph, gm, placeholders)
+    out = _run(em, gm, env)
+    if out.shape != (D,):
+        _refuse(f"a field value of shape {out.shape} for a state of "
+                f"shape ({D},)", field.func)
+    names = _materialised(em, out)
+    load = (f"#pragma unroll\n    for (int p = 0; p < {n_lane}; ++p) "
+            "a[p] = lane[(size_t)p * B + b];" if n_lane else "(void)lane;")
+    src = f"""struct Field {{
+  const T* __restrict__ s;
+  T a[{max(n_lane, 1)}];
+  __device__ __forceinline__ Field(const T* lane, const T* shared, int b, int B)
+      : s(shared) {{
+    {load}
+    (void)b; (void)B;
+  }}
+  __device__ __forceinline__ void operator()(T t, const T (&y)[{D}], T (&out)[{D}]) const {{
+    (void)t;
+{chr(10).join(em.lines)}
+{chr(10).join(f"    out[{d}] = {n};" for d, n in enumerate(names))}
+  }}
+}};
+"""
+    return src, em.shared[n_args:], em.ops
+
+
+def _event_functor(event, y_sample, dtype):
+    """(struct source, shared tensors, ops, K) of the traced event, its K
+    outputs sign-combined inside: min_k(e_k * s0_k)."""
+    D = y_sample.shape[0]
+    em = _Emitter(event.event_fn, dtype, 'e')
+    t = torch.zeros((), dtype=dtype, device=y_sample.device)
+    gm = _trace(event.event_fn, [t, y_sample])
+    env = _inputs(em, gm.graph, gm, [
+        (np.asarray('t', dtype=object), 'T'),
+        (np.asarray([f"y[{d}]" for d in range(D)], dtype=object), 'T')])
+    out = _run(em, gm, env)
+    if out.ndim > 1:
+        _refuse(f"an event value of shape {out.shape}", event.event_fn)
+    outs = list(out.reshape(-1))
+    K = len(outs)
+    terms = [em.let(f"{e} * s0[{k}]", 'T') for k, e in enumerate(outs)]
+    combined = terms[0]
+    for x in terms[1:]:
+        combined = em.let(f"tdt::nmin({combined}, {x})", 'T')
+    src = f"""struct Event {{
+  const T* __restrict__ s;
+  T s0[{K}];
+  __device__ __forceinline__ Event(const T* sign0, const T* shared, int b, int B)
+      : s(shared) {{
+#pragma unroll
+    for (int k = 0; k < {K}; ++k) s0[k] = sign0[(size_t)k * B + b];
+  }}
+  __device__ __forceinline__ T operator()(T t, const T (&y)[{D}]) const {{
+    (void)t;
+{chr(10).join(em.lines)}
+    return {combined};
+  }}
+}};
+"""
+    return src, em.shared, em.ops, K
+
+
+_HEAD = """// A traced instance of the per-lane kernels, emitted by
+// torchdiffeq_tpu_torch/ops/traced.py from {what} (see
+// csrc/traced_field.cuh).
+#define TDT_MAX_ALPHA {n_alpha}
+#include "traced_field.cuh"
+
+namespace {{
+using T = {ctype};
+{body}}}  // namespace
+"""
+
+_LANES_ENTRY = """
+extern "C" int tdt_traced_lanes(int B, const void* y0, const void* ts, int S,
+                                double t0, double t1, double rtol, double atol,
+                                double safety, double ifactor, double dfactor,
+                                double first_step, int use_first_step,
+                                int max_steps, const void* tab, int n_alpha,
+                                int order, int fsal, const void* lane,
+                                const void* shared, int threads, void* ys,
+                                void* n_acc, void* n_steps, void* stream) {{
+  return tdt_lanes::launch_traced<T, {D}, Field>(
+      B, y0, ts, S, t0, t1, rtol, atol, safety, ifactor, dfactor, first_step,
+      use_first_step, max_steps, tab, n_alpha, order, fsal, lane, shared,
+      threads, ys, n_acc, n_steps, stream);
+}}
+"""
+
+_EVENTS_ENTRY = """
+extern "C" int tdt_traced_events(int B, const void* y0, double t0, double rtol,
+                                 double atol, double safety, double ifactor,
+                                 double dfactor, double first_step,
+                                 int use_first_step, int max_steps,
+                                 const void* tab, int n_alpha, int order,
+                                 int fsal, const void* lane, const void* shared,
+                                 const void* sign0, const void* ev_shared,
+                                 int bisect_iters, int threads, void* event_t,
+                                 void* y_event, void* found, void* n_acc,
+                                 void* n_steps, void* stream) {{
+  return tdt_events::launch_traced<T, {D}, Field, Event>(
+      B, y0, t0, rtol, atol, safety, ifactor, dfactor, first_step,
+      use_first_step, max_steps, tab, n_alpha, order, fsal, lane, shared,
+      sign0, ev_shared, bisect_iters, threads, event_t, y_event, found, n_acc,
+      n_steps, stream);
+}}
+"""
+
+
+def _check_state(y0_lanes, func):
+    if y0_lanes.dtype not in _C_TYPES:
+        raise TypeError(
+            f"a traced field takes a float32 or float64 state, got "
+            f"{y0_lanes.dtype} (16-bit traced instances: ROADMAP)")
+    if y0_lanes.dim() != 2 or y0_lanes.shape[1] < 1:
+        raise ValueError(f"a (D, B) state with B >= 1, got "
+                         f"{tuple(y0_lanes.shape)}")
+
+
+def _plain(v):
+    return v if isinstance(v, (bool, int, float, str, type(None))) else id(v)
+
+
+def _func_key(func):
+    """What a trace of `func` depends on besides its inputs: the function
+    and the values of its closure cells and defaults (numbers by value,
+    anything else by identity).  A field that reads a global that changes
+    must be a new function for a new trace."""
+    cells = []
+    for c in getattr(func, '__closure__', None) or ():
+        try:
+            cells.append(_plain(c.cell_contents))
+        except ValueError:   # an empty cell
+            cells.append(None)
+    return (func, tuple(cells),
+            tuple(_plain(d) for d in getattr(func, '__defaults__', None)
+                  or ()))
+
+
+# traces by what they depend on (`_key`), the most recent last
+_TRACES = {}
+_MAX_TRACES = 64
+
+
+def _cached(key, build):
+    """`build()`, or its value for `key` from an earlier call; a key that
+    cannot be hashed is built every time."""
+    try:
+        hit = _TRACES.pop(key, None)
+    except TypeError:
+        return build()
+    if hit is None:
+        hit = build()
+        if len(_TRACES) >= _MAX_TRACES:
+            _TRACES.pop(next(iter(_TRACES)))
+    _TRACES[key] = hit
+    return hit
+
+
+def _key(field, y0_lanes, n_alpha, event=None):
+    return (_func_key(field.func), field.axes,
+            tuple((tuple(a.shape), a.dtype, a.device)
+                  if isinstance(a, torch.Tensor) else _plain(a)
+                  for a in field.args),
+            y0_lanes.shape[0], y0_lanes.dtype, y0_lanes.device, n_alpha,
+            None if event is None else _func_key(event.event_fn))
+
+
+def _args_of(field, constants):
+    """(per-lane args, shared tensors) of this call: the shared args, then
+    the constants the traced field closes over."""
+    lane = [a for a, ax in zip(field.args, field.axes) if ax == -1]
+    shared = [a for a, ax in zip(field.args, field.axes) if ax is None]
+    return lane, [torch.as_tensor(a) for a in shared] + list(constants)
+
+
+def field_source(field, y0_lanes, n_alpha):
+    """The traced K-dopri5 instance of `field` (a `PerSampleField`) for the
+    (D, B) state `y0_lanes` and a tableau of `n_alpha` stages after the
+    first: a `TracedSource`.  The trace is kept for the next call with the
+    same function, arg shapes and state."""
+    _check_state(y0_lanes, field.func)
+    dtype = y0_lanes.dtype
+
+    def build():
+        body, constants, ops = _field_functor(field, y0_lanes[:, 0], dtype)
+        src = _HEAD.format(what=f"the field {_name(field.func)}",
+                           n_alpha=max(n_alpha, 1), ctype=_C_TYPES[dtype],
+                           body=body) + _LANES_ENTRY.format(
+                               D=y0_lanes.shape[0])
+        return src, constants, ops
+
+    src, constants, ops = _cached(_key(field, y0_lanes, n_alpha), build)
+    lane_args, shared = _args_of(field, constants)
+    return TracedSource(source=src, lane_args=lane_args, shared=shared,
+                        ev_shared=[], field_ops=ops, event_ops=0, K=0)
+
+
+def events_source(field, event, y0_lanes, n_alpha):
+    """The traced K-events instance of `field` and `event` (a
+    `PerSampleEvent`): a `TracedSource`, its trace kept as `field_source`
+    keeps one."""
+    _check_state(y0_lanes, field.func)
+    dtype = y0_lanes.dtype
+
+    def build():
+        y_sample = y0_lanes[:, 0]
+        fbody, constants, fops = _field_functor(field, y_sample, dtype)
+        ebody, ev_shared, eops, K = _event_functor(event, y_sample, dtype)
+        src = _HEAD.format(
+            what=f"the field {_name(field.func)} and the event "
+            f"{_name(event.event_fn)}", n_alpha=max(n_alpha, 1),
+            ctype=_C_TYPES[dtype], body=fbody + "\n" + ebody) \
+            + _EVENTS_ENTRY.format(D=y0_lanes.shape[0])
+        return src, constants, fops, ev_shared, eops, K
+
+    src, constants, fops, ev_shared, eops, K = _cached(
+        _key(field, y0_lanes, n_alpha, event), build)
+    lane_args, shared = _args_of(field, constants)
+    return TracedSource(source=src, lane_args=lane_args, shared=shared,
+                        ev_shared=ev_shared, field_ops=fops, event_ops=eops,
+                        K=K)

@@ -11,12 +11,16 @@ rules (`_pallas_qualifies`, batched.py:57-78):
   float32, float64, bfloat16 or float16, increasing output times, scalar
   tolerances, the kernel's options alone, args shared or mapped over their
   last axis): the whole batched solve is
-  `ops/kernels.dopri5_integrate_batched` on CUDA (an `MLPField` field with
-  no args), or its plain version on the CPU (any per-sample field and
-  args); with ``event_fn`` `ops/kernels.dopri5_events_batched` (an
-  `MLPField` and a `LinearEvent` on CUDA).  On a CUDA tensor a field the
-  kernel cannot evaluate raises: it never falls to the driver quietly.
-  The route is forward-only, as JAX's is.
+  `ops/kernels.dopri5_integrate_batched`, with ``event_fn``
+  `ops/kernels.dopri5_events_batched`, on CUDA, or their plain versions on
+  the CPU.  On the card an `MLPField` (tanh, no args) and a `LinearEvent`
+  run the hand-written instances; any other field and event function is
+  traced (`ops/traced.py`: indexing, stack, + - * / and powers, sin cos exp
+  log tanh sqrt abs minimum maximum where, @ by a shared matrix, sum; args
+  shared or per lane; float32 and float64) into an instance of its own.  A
+  field outside that set raises ``TypeError`` naming the operation: it
+  never falls to the driver quietly.  The route is forward-only, as JAX's
+  is.
 * the batched driver, for every other problem (JAX's
   ``jax.vmap(odeint_with_stats)``, batched.py:252-260), every method of
   the registry but ``scipy_solver``.  Each sample's field is ``func(t_i,
@@ -71,7 +75,7 @@ import torch
 
 from ..misc import (check_inputs, host_times, is_tuple_state, nan_sign,
                     needs_autograd, solver_callbacks)
-from ..models.neural_ode import LinearEvent, MLPField
+from ..models.neural_ode import LinearEvent, is_kernel_mlp
 from ..solvers import SOLVERS, DIRECT_DIFF_KINDS
 from ..solvers import batched_rk
 from ..solvers.batched_rk import LaneField, lane_norm
@@ -120,22 +124,21 @@ def _norm_args_axes(args, args_axes):
 def _lane_field(func, args, axes):
     """Lane-vectorise a per-sample ``func(t, y_i, *args)`` to the kernel
     layout: t (1, B), y (D, B) with the batch on the last axis, args mapped
-    over their last axis where `axes` says -1."""
-    dims = tuple(None if a is None else -1 for a in axes)
-    per_sample = torch.func.vmap(func, in_dims=(0, 1) + dims, out_dims=1)
-    return lambda tv, yv: per_sample(tv[0], yv, *args)
+    over their last axis where `axes` says -1 (the per-lane kernels trace
+    it on the card)."""
+    from ..ops.traced import PerSampleField
+    return PerSampleField(func, args,
+                          tuple(None if a is None else -1 for a in axes))
 
 
 def _lane_event(event_fn):
     """Lane-vectorise a per-sample event function and sign-combine its
     outputs per sample: ``min_k(e_k * sign0_k)`` with sign0 (K, B), the
     kernel's event layout (JAX `_pallas_per_sample_event`'s `ev`)."""
+    from ..ops.traced import PerSampleEvent
     if isinstance(event_fn, LinearEvent):
         return event_fn     # combined with sign0 in the kernel
-    one = lambda tt, yy, s_i: torch.min(
-        torch.atleast_1d(event_fn(tt, yy)) * s_i)
-    per_sample = torch.func.vmap(one, in_dims=(0, 1, 1), out_dims=0)
-    return lambda tv, yv, sign0: per_sample(tv[0], yv, sign0)[None]
+    return PerSampleEvent(event_fn)
 
 
 def _per_step_nfe(method):
@@ -157,23 +160,13 @@ def _kernel_route(func, y0, t_np, rtol, atol, method, options, event_fn,
             "the per-sample kernel route is forward-only, as in the JAX "
             "package (ROADMAP A6): call it under torch.no_grad(), or drop "
             "pallas=True for the batched driver, which differentiates")
-    if y0.is_cuda and not (isinstance(func, MLPField) and not args):
-        raise TypeError(
-            "the per-lane CUDA kernels evaluate an MLPField with no args, "
-            f"not {type(func).__name__} with {len(args)} args; drop "
-            "pallas=True for the batched driver, which takes any field")
-    if y0.is_cuda and event_fn is not None \
-            and not isinstance(event_fn, LinearEvent):
-        raise TypeError(
-            "the per-lane CUDA event kernel evaluates a LinearEvent, not "
-            f"{type(event_fn).__name__}; drop pallas=True for the batched "
-            "driver, which takes any event function")
     method = method or 'dopri5'
     ts = _rounded(t_np, y0.dtype)
-    if isinstance(func, MLPField) and not args:
-        field = func   # the kernel's field family, evaluated in-kernel
+    if is_kernel_mlp(func) and not args and (
+            event_fn is None or isinstance(event_fn, LinearEvent)):
+        field = func   # the hand-written instances' field family
     else:
-        field = _lane_field(func, tuple(args), axes)
+        field = _lane_field(func, tuple(args), axes)   # traced on the card
     max_steps = int(options.get('max_num_steps', 10_000))
     control = dict(rtol=float(rtol), atol=float(atol), method=method,
                    max_steps=max_steps,
