@@ -101,8 +101,8 @@ benchmarks/bench_fused_field.py at its full width:
      error against its plain version, its time, the plain version's time,
      its bound on this card and the PyTorch call that computes the same
      function, where one exists; the 16-bit instances as entries of their
-     own, the traced instances of phase 17 too), the card's name and power
-     limit, then the result line; printed after phase 17.
+     own, the traced instances of phases 17 and 18 too), the card's name
+     and power limit, then the result line; printed after phase 18.
  17. the examples (torchdiffeq_tpu_torch/examples/) at their default widths,
      only iteration counts cut: (a) examples/ensemble.py through its `main`
      (B=1024, float32) with the launch counts reset before and read after,
@@ -117,6 +117,20 @@ benchmarks/bench_fused_field.py at its full width:
      float64 step card against CPU for (b)-(d); (f) bouncing_ball whole in
      float64; (g) learn_physics whole if it fits its budget; (h) the phase's
      seconds;
+ 18. every state dtype: (a) complex states on a discretised 1-D
+     Schroedinger equation (64 wavepackets on 256 points, complex128):
+     the dopri5 solve card against CPU and against unitarity, complex64
+     against complex128, the odeint_adjoint training step (default and
+     interpolated) with respect to the potential's coefficients and psi0,
+     an event solve, the per-sample driver, and one wavepacket of 512
+     points through kvaerno5, radau5a and gl4 (their stage systems on the
+     stacked real view), each timed, with the device's busy share and the
+     linear solves' share; (b) the bfloat16 and float16 traced instances
+     of K-dopri5 and K-events on examples/ensemble.py's field and event,
+     launched through `odeint_per_sample(pallas=True)` with the counts
+     reset before and read after, each against its plain version on the
+     card and timed three ways at B=1024 and B=65536; (c) the phase's
+     seconds.
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -912,14 +926,16 @@ def _max_rel(got, want):
                      / w.double().cpu().abs().max()) for g, w in zip(got, want))
 
 
-def _profiled_step(torch, step, by_name=None):
+def _profiled_step(torch, step, by_name=None, host=True):
     """One call of `step` under torch.profiler: (device time of its CUDA
     kernels in ms, their count, the step's wall ms), or None for the first
     two when the trace holds no device time.  With `by_name` (a dict), it
-    also gets each kernel name's device ms."""
+    also gets each kernel name's device ms.  ``host=False`` traces the
+    device alone (a trace of the host's ~10^5 small operations of phase
+    18's adjoint step took longer than 40 s on the H100's host, run BB)."""
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host else [])
+    with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         w0 = time.perf_counter()
         step()
@@ -2295,7 +2311,8 @@ def _ps_relax(torch, device, b, lam_range=(2.0, 4.0), dtype=None):
 
 
 def _stats_list(st):
-    return [x.cpu() for x in st[:5]]
+    import torch
+    return [torch.as_tensor(x).cpu() for x in st[:5]]
 
 
 def _card_vs_cpu(torch, dev, run, what, tol=None):
@@ -2371,6 +2388,36 @@ def lane16_flips_and_ulps(torch, dtype, vals, rvals, counts, rcounts):
     kept = dist[same]
     return (1.0 - float(same.float().mean()),
             float(kept.max()) if kept.numel() else 0.0)
+
+
+def traced16_flips_and_ulps(torch, dtype, vals, rvals, counts, rcounts):
+    """(the number of lanes whose counts differ from the plain version's,
+    the largest distance over every other lane in units in the last place
+    of each component's own magnitude in that lane: an (S, D, B) output
+    takes a component's largest |y| over the output times, a (K, B) one
+    each value's own; the unit is never below the dtype's subnormal
+    spacing, so a value of 0 must be 0)."""
+    same = None
+    for g, w in zip(counts, rcounts):
+        e = (g.cpu() == w).reshape(-1)
+        same = e if same is None else same & e
+    mant = 7 if dtype == torch.bfloat16 else 10
+    least = torch.finfo(dtype).tiny * 2.0 ** -mant
+    dist = torch.zeros(same.shape[0], dtype=torch.float64)
+    for g, w in zip(vals, rvals):
+        g, w = g.cpu().double(), w.double()
+        ok = torch.isfinite(w)
+        _check(torch.equal(torch.isfinite(g)[..., same], ok[..., same]),
+               f"{dtype}: NaN rows differ from the plain version's")
+        mag = torch.where(ok, w.abs(), torch.zeros_like(w))
+        if mag.dim() == 3:
+            mag = mag.amax(0, keepdim=True)
+        unit = torch.exp2(torch.floor(torch.log2(mag.clamp_min(least)))
+                          - mant).clamp_min(least)
+        d = torch.where(ok, (g - w).abs(), torch.zeros_like(w)) / unit
+        dist = torch.maximum(dist, d.reshape(-1, same.shape[0]).amax(0))
+    kept = dist[same]
+    return (int((~same).sum()), float(kept.max()) if kept.numel() else 0.0)
 
 
 def _ev16(torch, dtype, yb):
@@ -3263,6 +3310,532 @@ def _phase_examples(torch, kernels, dev, driver_ms):
     return entries
 
 
+# ---- phase 18: every state dtype (complex states, 16-bit traced fields) ------
+
+# - phase 18 (a), complex states: a discretised 1-D Schroedinger equation
+#   i psi' = H psi, H = -1/2 Laplacian + V(x) (second differences on SCH_N
+#   points of [-SCH_L, SCH_L], dense), V(x) = c0 + c1 x + c2 x^2 harmonic,
+#   SCH_B Gaussian wavepackets.  Card against CPU in complex128: the same
+#   steps (Stats equal) and values within F64_VALUES of max|psi|, gradients
+#   within GRAD_F64_REL, as every float64 card-vs-CPU check (the products'
+#   summation order and the last bit of complex |z| apart).  The solve
+#   against unitarity: sum |psi|^2 dx stays 1 within SCH_NORM over t = 2
+#   (dopri5 is not unitary; at rtol 1e-8 the drift is the error control's,
+#   measured 3.6e-9 on the CPU at B=64).  complex64 at SCH_RTOL_C64 against
+#   complex128 at the same tolerance: two step sequences at dopri5's
+#   stability edge (557 and 457 steps on the H100, run BH), whose global
+#   errors at rtol 1e-5 differ by 1.30e-3 of max|psi| there: SCH_C64.  The implicit tiers on one
+#   wavepacket of SCH_IMPL_N points against a dopri5 solve at rtol 1e-10:
+#   within SCH_IMPL of max|psi|, three times their rtol (the global error
+#   two solves at their tolerances may carry).
+SCH_N, SCH_B, SCH_L = 256, 64, 10.0
+SCH_TS = np.linspace(0.0, 2.0, 11)
+SCH_RTOL, SCH_ATOL = 1e-8, 1e-10
+SCH_RTOL_C64, SCH_ATOL_C64 = 1e-5, 1e-7
+SCH_CPU_B = 8            # the batch of the CPU's side of the checks
+# the training step: the first SCH_STEP_T outputs (t <= 1) at a trainer's
+# tolerances (its backward at the solve's 1e-8 took 3289 steps to the
+# forward's 466 on the CPU, 20 s at B=8); its check on the CPU over the
+# first SCH_CHECK_T (t <= 0.4), and its profiled run, as the solve's, over
+# the first SCH_PROF_T (t <= 0.2: a trace of the step to t = 0.4 took 16 s
+# on the H100's host, run BD)
+SCH_STEP_T, SCH_CHECK_T, SCH_PROF_T = 6, 3, 2
+SCH_STEP_RTOL, SCH_STEP_ATOL = 1e-6, 1e-8
+# the step's gradients card vs CPU (every forward and backward counter
+# equal): float64 rounding (zgemm's summation order, the last bit of |z|)
+# carried through a forward and a backward solve near dopri5's stability
+# edge (the kinetic term's top eigenvalues times the step are about 1.6):
+# 1.09e-9 of max|g| measured on the H100 (run BB), over GRAD_F64_REL's
+# 1e-9, so held to 1e-8
+SCH_GRAD = 1e-8
+# the event's state card vs CPU: the event times agree within the
+# bisection's atol (2.4e-11 measured, run BC), and the state moves by
+# |H psi| <= ~10 |psi| per unit time there: 10 atol of max|psi|
+SCH_EVENT_STATE = 10 * SCH_ATOL
+# the per-sample driver card vs CPU: each sample's own controller runs at
+# dopri5's stability edge (the kinetic term's top eigenvalues times the
+# step near 3.3), where it chatters between accepts and rejects (10-18
+# rejected of ~480 steps a sample), so a last-place difference of its
+# error ratio (complex |z| and zgemm round otherwise on the card and the
+# CPU, as C16 finds for XLA) moves the chatter: on the H100 7 of the 8
+# samples took other steps, up to 12 of 492 (run BG), while the batched
+# solve's one norm over the batch kept every count.  Held: every sample
+# within SCH_PS_FLIP_VALUES of max|psi| (the global error of two step
+# sequences at rtol 1e-8; 1.2e-7 measured), its steps within
+# SCH_PS_STEP_SHARE of the CPU's, those with equal counts within
+# F64_VALUES
+SCH_PS_STEP_SHARE, SCH_PS_FLIP_VALUES = 0.05, 1e-6
+SCH_IMPL_N, SCH_IMPL_CPU_N = 512, 48
+SCH_IMPL_RTOL, SCH_IMPL_ATOL = 1e-6, 1e-8
+SCH_IMPL_TS = np.linspace(0.0, 1.0, 3)
+SCH_NORM = 1e-6
+SCH_C64 = 5e-3
+SCH_IMPL = 3 * SCH_IMPL_RTOL * 10
+SCH_WINDOW = (1.0, 4.0)  # the loss's window: |psi|^2 over 1 <= x <= 4
+SCH_STEP_REPS = 2
+# - phase 18 (b), the 16-bit traced instances: examples/ensemble.py's field
+#   and first-zero event at rtol = atol = LANE16_RTOL, against their plain
+#   versions on the same CUDA tensors, under phase 15 (f)'s gates
+#   (TR16_ULPS, TR16_FLIP_LANES).  bfloat16 takes the example's own
+#   omegas (make_problem) and output times (t <= 2); float16 tops out at
+#   65504, and the Hairer initial step's square of |f| / (atol + rtol |y|)
+#   overflows it past omega ~ 1.5 (a lane then stalls at dt = 0, in JAX's
+#   kernel as in these), so its omegas are drawn in [0.3, 1.2] instead.
+#   Those slow oscillators take 3-4 steps to t = 2 at rtol 1e-2 (readings
+#   BH, BJ), a launch's floor rather than the kernel's loop, so float16's
+#   integrate runs to TR16_T_F16 (tens of steps a lane, the JSON entry's
+#   `steps`); its event stays the example's first zero, a quarter period.
+# - its gate: a traced instance and its plain version run the same
+#   operations in the same order, each rounded to the state dtype
+#   (ops/traced.py), and every reading on the H100 was bit for bit (AY,
+#   BH, BJ: 0 lanes with other counts, 0 units).  So each lane is held to
+#   TR16_ULPS units in the last place of each component's own magnitude in
+#   that lane (an output's largest |y| over the output times; an event time
+#   or event state its own), and at most TR16_FLIP_LANES lanes of a run may
+#   take other counts.  Phase 15 (f)'s gates, whose unit is set by max|y|
+#   over the whole output, would leave every x of the ensemble (|x| <= 1
+#   beside |v| up to omega ~ 60) and most event times unchecked.
+TR16_OMEGA_F16 = (0.3, 1.2)
+TR16_T_F16 = 100.0
+TR16_MAX_STEPS = 4000
+TR16_ULPS, TR16_FLIP_LANES = 2, 2
+
+
+def _schrodinger(torch, n, b, device, dtype=None, seed=0):
+    """(field, psi0 (b, n), V's coefficients, x, dx, the kinetic matrix):
+    SCH_L's grid of n points, b Gaussian wavepackets (centres in [-3, 3],
+    momenta in [-2, 2], width 1, normalised), V(x) = x^2 / 2 as (c0, c1,
+    c2).  The field takes the coefficients as an arg, so the adjoint
+    differentiates them; the kinetic matrix and the grid are closed
+    over."""
+    dtype = dtype or torch.complex128
+    rdt = dtype.to_real()
+    x = np.linspace(-SCH_L, SCH_L, n)
+    dx = float(x[1] - x[0])
+    ones = np.ones(n)
+    lap = (np.diag(-2.0 * ones) + np.diag(ones[:-1], 1)
+           + np.diag(ones[:-1], -1)) / dx ** 2
+    kin = torch.from_numpy(-0.5 * lap).to(device, dtype)
+    # drawn for SCH_B packets, so that a smaller batch is their first b
+    rng = np.random.RandomState(seed)
+    c = rng.uniform(-3.0, 3.0, max(b, SCH_B))[:b, None]
+    k = rng.uniform(-2.0, 2.0, max(b, SCH_B))[:b, None]
+    psi = np.exp(-(x[None] - c) ** 2 / 2.0 + 1j * k * x[None])
+    psi /= np.sqrt((np.abs(psi) ** 2).sum(1, keepdims=True) * dx)
+    xt = torch.from_numpy(x).to(device, rdt)
+
+    def field(t, p, coef):
+        v = coef[0] + coef[1] * xt + coef[2] * xt * xt
+        return -1j * (p @ kin + v * p)
+
+    coef = torch.tensor([0.0, 0.0, 0.5], dtype=rdt, device=device)
+    return field, torch.from_numpy(psi).to(device, dtype), coef, xt, dx, kin
+
+
+def _sch_loss(torch, ys, xt, dx):
+    """The probability in SCH_WINDOW at the last output time, a real loss of
+    the complex solution."""
+    w = ((xt >= SCH_WINDOW[0]) & (xt <= SCH_WINDOW[1])).to(xt.dtype)
+    return ((ys[-1].abs() ** 2) * w).sum() * dx
+
+
+def _sch_step(torch, device, b, adjoint_options=None, ts=None):
+    """One training step's gradients: odeint_adjoint over `ts`, the loss
+    `_sch_loss`, with respect to V's coefficients and psi0.  Returns (loss,
+    d coef, d psi0, the forward Stats)."""
+    from torchdiffeq_tpu_torch.adjoint import adjoint_solve
+    ts = SCH_TS[:SCH_STEP_T] if ts is None else ts
+    field, psi0, coef, xt, dx, _ = _schrodinger(torch, SCH_N, b, device)
+    psi0.requires_grad_(True)
+    coef.requires_grad_(True)
+    ys, st = adjoint_solve(
+        field, psi0, torch.from_numpy(ts), rtol=SCH_STEP_RTOL,
+        atol=SCH_STEP_ATOL, method="dopri5", options=None, event_fn=None,
+        args=(coef,), adjoint_rtol=SCH_STEP_RTOL, adjoint_atol=SCH_STEP_ATOL,
+        adjoint_method="dopri5", adjoint_options=dict(adjoint_options or {}))
+    loss = _sch_loss(torch, ys, xt, dx)
+    loss.backward()
+    return loss.detach(), coef.grad, psi0.grad, st
+
+
+def _sch_event(torch, device, b):
+    """`odeint_event` to the first time the mean position of wavepacket 0
+    crosses 0 (Re sum x |psi_0|^2 dx: a real event of the complex state)."""
+    from torchdiffeq_tpu_torch import odeint_event
+    field, psi0, coef, xt, dx, _ = _schrodinger(torch, SCH_N, b, device)
+    et, ys = odeint_event(
+        field, psi0, 0.0, args=(coef,), rtol=SCH_RTOL, atol=SCH_ATOL,
+        event_fn=lambda t, p: ((p[0].abs() ** 2) * xt).sum() * dx)
+    return et, ys[-1]
+
+
+def _sch_per_sample(torch, device, b):
+    """`odeint_per_sample_with_stats` on the batched driver: each wavepacket
+    its own controller and its own potential's curvature (c2 per sample,
+    args_axes=(0,))."""
+    from torchdiffeq_tpu_torch import odeint_per_sample_with_stats
+    _, psi0, _, xt, _, kinm = _schrodinger(torch, SCH_N, b, device)
+    c2 = torch.linspace(0.3, 0.7, SCH_B, dtype=torch.float64,
+                        device=device)[:b]
+
+    def one(t, p, c2_i):
+        return -1j * (p @ kinm + (c2_i * xt * xt) * p)
+
+    with torch.no_grad():
+        return odeint_per_sample_with_stats(
+            one, psi0, torch.from_numpy(SCH_TS), args=(c2,), args_axes=(0,),
+            rtol=SCH_RTOL, atol=SCH_ATOL)
+
+
+def _sch_implicit(torch, device, n, method, rtol=SCH_IMPL_RTOL,
+                  atol=SCH_IMPL_ATOL, options=None):
+    """One wavepacket of n points through `method`: (values, Stats)."""
+    from torchdiffeq_tpu_torch import odeint_with_stats
+    field, psi0, coef, _, _, _ = _schrodinger(torch, n, 1, device)
+    with torch.no_grad():
+        return odeint_with_stats(field, psi0[0], torch.from_numpy(
+            SCH_IMPL_TS), args=(coef,), method=method, rtol=rtol, atol=atol,
+            options=options)
+
+
+def _phase_complex(torch, dev, card):
+    """Phase 18 (a): complex states on the card (module docstring)."""
+    from torchdiffeq_tpu_torch import odeint_with_stats
+    from torchdiffeq_tpu_torch.solvers.solution import (
+        IMPLICIT_COUNTS, reset_implicit_counts)
+    clock = time.perf_counter()
+    ts = torch.from_numpy(SCH_TS)
+    rows = []
+
+    def solve(device, b, dtype=None, rtol=SCH_RTOL, atol=SCH_ATOL, t=ts):
+        field, psi0, coef, _, dx, _ = _schrodinger(torch, SCH_N, b, device,
+                                                   dtype)
+        with torch.no_grad():
+            ys, st = odeint_with_stats(field, psi0, t, args=(coef,),
+                                       rtol=rtol, atol=atol)
+        return ys, st, dx
+
+    # the main solve: B=64 complex128, card against CPU, timed
+    ys_g, st_g, dx = solve(dev, SCH_B)
+    err = _card_vs_cpu(torch, dev, lambda d: solve(d, SCH_B)[:2],
+                       "18a complex128 Schroedinger solve")
+    norm = (ys_g.abs() ** 2).sum(-1) * dx
+    drift = float((norm - 1.0).abs().max())
+    _check(drift <= SCH_NORM and ys_g.dtype == torch.complex128,
+           f"18a: norm drift {drift} (<= {SCH_NORM}), dtype {ys_g.dtype}")
+    solve_ms = _wall_stats(torch, lambda: solve(dev, SCH_B), SCH_STEP_REPS)
+    busy, n_k, wall = _profiled_step(torch, lambda: solve(
+        dev, SCH_B, t=ts[:SCH_PROF_T]), host=False)
+    rows.append(
+        f"solve complex128 B={SCH_B} N={SCH_N} dopri5 rtol={SCH_RTOL}: "
+        f"steps {int(st_g.n_steps)}, nfe {int(st_g.nfe)}, card vs CPU "
+        f"{err:.2e} of max|psi|, norm drift {drift:.2e}, wall median "
+        f"{solve_ms[0]:.1f} ms (min {solve_ms[1]:.1f}, max {solve_ms[2]:.1f})"
+        + (f", profiled to t={SCH_TS[SCH_PROF_T - 1]:.1f}: device "
+           f"{busy:.1f} ms in {n_k} kernels, busy share {busy / wall:.3f}"
+           if busy else ", device time not traced"))
+
+    # complex64 against complex128 at complex64's tolerance
+    y64, st64, _ = solve(dev, SCH_B, torch.complex64, SCH_RTOL_C64,
+                         SCH_ATOL_C64)
+    y128, st128, _ = solve(dev, SCH_B, torch.complex128, SCH_RTOL_C64,
+                           SCH_ATOL_C64)
+    e64 = float((y64.to(torch.complex128) - y128).abs().max()
+                / y128.abs().max())
+    _check(y64.dtype == torch.complex64 and e64 <= SCH_C64,
+           f"18a complex64 vs complex128: {e64} (<= {SCH_C64})")
+    rows.append(f"complex64 rtol={SCH_RTOL_C64}: steps {int(st64.n_steps)} "
+                f"(complex128 {int(st128.n_steps)}), vs complex128 "
+                f"{e64:.2e} of max|psi|")
+
+    # the training step, default and interpolated adjoint
+    for mode, opts in (("adjoint", None),
+                       ("interpolated", dict(interpolated=True))):
+        ts_c = SCH_TS[:SCH_CHECK_T]
+        with _BackwardStats() as bg:
+            lg, cg, pg, sg = _sch_step(torch, dev, SCH_CPU_B, opts, ts_c)
+        with _BackwardStats() as bc:
+            lc, cc, pc, sc = _sch_step(torch, "cpu", SCH_CPU_B, opts, ts_c)
+        gerr = float((pg.cpu() - pc).abs().max() / pc.abs().max())
+        cerr = float((cg.cpu() - cc).abs().max() / cc.abs().max())
+        same = (_stats_list(sg)[:4] == _stats_list(sc)[:4]
+                and bg.counters() == bc.counters())
+        print(f"[18a reading] {mode} step card vs CPU: forward "
+              f"{[int(x) for x in sg[:5]]} / {[int(x) for x in sc[:5]]}, "
+              f"backward {bg.counters()} / {bc.counters()}, loss "
+              f"{float(lg)!r} / {float(lc)!r}, d/dpsi0 {gerr}, d/dc {cerr}",
+              flush=True)
+        _check(same and abs(float(lg) - float(lc)) <= F64_VALUES * abs(
+            float(lc)) and max(gerr, cerr) <= SCH_GRAD,
+            f"18a {mode} step card vs CPU: counters equal {same}, loss "
+            f"{float(lg)} vs {float(lc)}, gradients {gerr}, {cerr}")
+        gerr = max(gerr, cerr)
+        ms = []
+        for _ in range(SCH_STEP_REPS):
+            w0 = time.perf_counter()
+            lb, cb, pb, stb = _sch_step(torch, dev, SCH_B, opts)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - w0) * 1e3)
+        ms = (float(np.median(ms)), min(ms), max(ms))
+        _check(bool(torch.isfinite(cb).all()) and bool(
+            torch.isfinite(pb).all()), f"18a {mode} B={SCH_B}: not finite")
+        busy, n_k, wall = _profiled_step(torch, lambda: _sch_step(
+            torch, dev, SCH_B, opts, SCH_TS[:SCH_PROF_T]), host=False)
+        rows.append(
+            f"{mode} step B={SCH_B} to t={SCH_TS[SCH_STEP_T - 1]:.1f} rtol="
+            f"{SCH_STEP_RTOL} (loss {float(lb):.6f}, d/dc "
+            f"{cb.cpu().numpy()}, forward steps {int(stb.n_steps)}): card vs"
+            f" CPU at B="
+            f"{SCH_CPU_B} to t={SCH_TS[SCH_CHECK_T - 1]:.1f} counters "
+            f"equal, gradients {gerr:.2e} (<= {SCH_GRAD}), "
+            f"wall median {ms[0]:.1f} ms (min {ms[1]:.1f}, max {ms[2]:.1f})"
+            + (f", profiled to t={SCH_TS[SCH_PROF_T - 1]:.1f}: device "
+               f"{busy:.1f} ms in {n_k} kernels, busy share "
+               f"{busy / wall:.3f}" if busy else ", device time not traced"))
+
+    # an event solve and the per-sample driver
+    eg, yeg = _sch_event(torch, dev, SCH_CPU_B)
+    ec, yec = _sch_event(torch, "cpu", SCH_CPU_B)
+    de = abs(float(eg) - float(ec))
+    dye = float((yeg.cpu() - yec).abs().max() / yec.abs().max())
+    _check(de <= SCH_ATOL and dye <= SCH_EVENT_STATE,
+           f"18a event card vs CPU: time {de}, state {dye}")
+    (vg, sg), (vc, sc) = (_sch_per_sample(torch, d, SCH_CPU_B)
+                          for d in (dev, "cpu"))
+    vg = vg.cpu()
+    same = torch.ones(SCH_CPU_B, dtype=torch.bool)
+    for a_, b_ in zip(_stats_list(sg), _stats_list(sc)):
+        same &= a_ == b_
+    d_s = ((vg - vc).abs().reshape(SCH_CPU_B, -1).amax(1)
+           / vc.abs().max())
+    pe = float(d_s[same].max()) if bool(same.any()) else 0.0
+    pe_flip = float(d_s[~same].max()) if bool((~same).any()) else 0.0
+    stp_c = torch.as_tensor(sc.n_steps).double()
+    dsteps = float(((torch.as_tensor(sg.n_steps).cpu() - stp_c).abs()
+                    / stp_c).max())
+    print(f"[18a reading] per-sample card vs CPU: steps "
+          f"{torch.as_tensor(sg.n_steps).tolist()} / "
+          f"{torch.as_tensor(sc.n_steps).tolist()}, accepted "
+          f"{torch.as_tensor(sg.n_accepted).tolist()} / "
+          f"{torch.as_tensor(sc.n_accepted).tolist()}, each sample's max|d| "
+          f"{d_s.tolist()}", flush=True)
+    _check(dsteps <= SCH_PS_STEP_SHARE and pe <= F64_VALUES
+           and pe_flip <= SCH_PS_FLIP_VALUES,
+           f"18a per-sample card vs CPU: samples with other counts "
+           f"{int((~same).sum())} (steps within {dsteps}), the others {pe}, "
+           f"those {pe_flip}")
+    w0 = time.perf_counter()
+    ps = _sch_per_sample(torch, dev, SCH_B)
+    torch.cuda.synchronize()
+    ps_ms = (time.perf_counter() - w0) * 1e3
+    _check(bool(torch.isfinite(ps[0]).all()),
+           f"18a per-sample B={SCH_B}: not finite")
+    rows.append(f"event at t={float(eg):.6f} card vs CPU {de:.1e}; "
+                f"per-sample B={SCH_B} steps {_spread(ps[1].n_steps)}, "
+                f"{ps_ms:.0f} ms, card vs CPU at B={SCH_CPU_B}: samples "
+                f"with other counts {int((~same).sum())} (within "
+                f"{pe_flip:.2e}, steps within {dsteps:.3f} of the CPU's), "
+                f"the others {pe:.2e}")
+
+    # the implicit tiers: card against CPU at a small n, then one
+    # wavepacket of SCH_IMPL_N points against dopri5 at rtol 1e-10
+    impl = (("kvaerno5", None), ("radau5a", None),
+            ("gl4", dict(num_steps=40, root_solver="newton")))
+    for method, opts in impl:
+        _card_vs_cpu(torch, dev, lambda d: _sch_implicit(
+            torch, d, SCH_IMPL_CPU_N, method, options=opts),
+            f"18a {method} n={SCH_IMPL_CPU_N}")
+    ref, _ = _sch_implicit(torch, dev, SCH_IMPL_N, "dopri5", 1e-10, 1e-12)
+    for method, opts in impl:
+        reset_implicit_counts()
+        w0 = time.perf_counter()
+        ys, st = _sch_implicit(torch, dev, SCH_IMPL_N, method, options=opts)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - w0
+        counts = dict(IMPLICIT_COUNTS)
+        e = float((ys - ref).abs().max() / ref.abs().max())
+        _check(e <= SCH_IMPL and int(st.error_code) == 0,
+               f"18a {method} n={SCH_IMPL_N}: vs dopri5 {e} (<= {SCH_IMPL}),"
+               f" code {int(st.error_code)}")
+        shares = _profiled_shares(torch, lambda: _sch_implicit(
+            torch, dev, SCH_IMPL_N, method, options=opts))
+        share = ("not traced" if shares is None else
+                 f"device {shares[0]:.1f} ms, linear solves "
+                 f"{shares[1] / shares[0]:.3f}, Jacobians "
+                 f"{shares[2] / shares[0]:.3f} of it")
+        rows.append(
+            f"{method} one wavepacket N={SCH_IMPL_N} ({2 * SCH_IMPL_N} real "
+            f"unknowns a stage): steps {int(st.n_steps)}, vs dopri5 {e:.2e}, "
+            f"wall {wall_s:.2f} s, iterations {counts['iterations']}, linear "
+            f"solves {counts['linear_solves']}, Jacobians "
+            f"{counts['jacobians']}; {share}")
+    print(f"[18a complex states] {card} | " + " | ".join(rows)
+          + f" | {time.perf_counter() - clock:.1f} s", flush=True)
+
+
+def _phase_traced16(torch, kernels, dev, card):
+    """Phase 18 (b): the bfloat16 and float16 traced instances of K-dopri5
+    and K-events on examples/ensemble.py's field and event, through
+    `odeint_per_sample(pallas=True)` with the traced launch counts reset
+    before and read after, each against its plain version on the same CUDA
+    tensors at B and BIG_B, timed three ways.  Returns four JSON entries."""
+    from torchdiffeq_tpu_torch import odeint_per_sample_with_stats
+    from torchdiffeq_tpu_torch.examples import ensemble
+    from torchdiffeq_tpu_torch.ops import _build, traced
+    from torchdiffeq_tpu_torch.ops.tableaus import DOPRI5 as DOPRI5_TAB
+    clock = time.perf_counter()
+    entries, rows = [], []
+    for dtype, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        t1 = 2.0 if dtype == torch.bfloat16 else TR16_T_F16
+        ts = np.linspace(0.0, t1, 5)
+        def problem(b):
+            omega, y0, _ = ensemble.make_problem(b, dev, dtype)
+            if dtype == torch.float16:
+                rng = np.random.RandomState(0)
+                omega = torch.from_numpy(np.exp(rng.uniform(
+                    *np.log(TR16_OMEGA_F16), b))).to(dev, dtype)
+            return omega, y0
+        omega, y0 = problem(B)
+        kernels.reset_launch_counts()
+        builds0 = len(_build.traced_builds)
+        w0 = time.perf_counter()
+        with torch.no_grad():
+            ys_r, st_r = odeint_per_sample_with_stats(
+                ensemble.field, y0, torch.from_numpy(ts), args=(omega,),
+                args_axes=(-1,), rtol=LANE16_RTOL, atol=LANE16_ATOL,
+                options=dict(pallas=True))
+            (et_r, _), st_e = odeint_per_sample_with_stats(
+                ensemble.field, y0, torch.tensor([0.0, 2.0]), args=(omega,),
+                args_axes=(-1,), rtol=LANE16_RTOL, atol=LANE16_ATOL,
+                event_fn=ensemble.event_fn,
+                options=dict(pallas=True, max_num_steps=TR16_MAX_STEPS))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - w0
+        launched = dict(kernels.traced_launch_counts)
+        builds = list(_build.traced_builds.values())[builds0:]
+        _check(launched["dopri5_integrate_batched"] == 1
+               and launched["dopri5_events_batched"] == 1
+               and ys_r.dtype == dtype and bool(torch.isfinite(ys_r).all())
+               and bool(torch.isfinite(et_r).all()),
+               f"18b {tag}: traced launches {launched}, finite "
+               f"{bool(torch.isfinite(ys_r).all())}, events found "
+               f"{bool(torch.isfinite(et_r).all())}")
+        for events in (False, True):
+            name = ("dopri5_events_batched" if events
+                    else "dopri5_integrate_batched")
+            times, flips, errs, stp, bounds = {}, {}, {}, {}, {}
+            for b in (B, BIG_B):
+                om_b, y_b = problem(b)
+                y0T = y_b.T.contiguous()
+                field = traced.PerSampleField(ensemble.field, (om_b,), (-1,))
+                if events:
+                    event = traced.PerSampleEvent(ensemble.event_fn)
+                    kw = dict(rtol=LANE16_RTOL, atol=LANE16_ATOL,
+                              max_steps=TR16_MAX_STEPS, ev_params=(
+                                  torch.sign(y0T[:1]).contiguous(),))
+                    wrapped = lambda: kernels.dopri5_events_batched(
+                        field, y0T, 0.0, event, **kw)
+                    bare, outs = kernels._events_launch(field, y0T, 0.0,
+                                                        event, **kw)
+                    plain = lambda: kernels.dopri5_events_batched_ref(
+                        field, y0T, 0.0, event, **kw)
+                    vals, cnts = (0, 1), (2, 3, 4)
+                else:
+                    kw = dict(ts=ts, rtol=LANE16_RTOL, atol=LANE16_ATOL,
+                              max_steps=TR16_MAX_STEPS)
+                    wrapped = lambda: kernels.dopri5_integrate_batched(
+                        field, y0T, 0.0, t1, **kw)
+                    bare, outs = kernels._lanes_launch(field, y0T, 0.0, t1,
+                                                       **kw)
+                    plain = lambda: kernels.dopri5_integrate_batched_ref(
+                        field, y0T, 0.0, t1, **kw)
+                    vals, cnts = (0,), (1, 2)
+                with torch.no_grad():
+                    got = wrapped()
+                    a, e_ = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(2))
+                    a.record()
+                    want = plain()
+                    e_.record()
+                    torch.cuda.synchronize()
+                    plain_ms = a.elapsed_time(e_)
+                    flips[b], errs[b] = traced16_flips_and_ulps(
+                        torch, dtype, [got[i] for i in vals],
+                        [want[i].cpu() for i in vals],
+                        [got[i] for i in cnts],
+                        [want[i].cpu() for i in cnts])
+                    _check(flips[b] <= TR16_FLIP_LANES
+                           and errs[b] <= TR16_ULPS,
+                           f"18b {tag} {name} B={b}: lanes with other "
+                           f"counts {flips[b]} (<= {TR16_FLIP_LANES}), the "
+                           f"others within {errs[b]} ULPs of their own "
+                           f"magnitude (<= {TR16_ULPS})")
+                    times[b] = dict(group_width=1,
+                                    ms=_time_ms(torch, wrapped, 10),
+                                    bare_ms=_time_ms(torch, bare, 10),
+                                    device_ms=_device_ms(torch, bare, 10),
+                                    plain_ms=plain_ms)
+                stp[b] = got[-1]
+                src = bare.source
+                bounds[b] = _traced_bound(
+                    got[-1], DOPRI5_TAB, 2, src.field_ops, PEAK_F16, 2,
+                    S=0 if events else len(ts),
+                    event_ops=src.event_ops if events else None, K=src.K)
+            entry = dict(
+                name=f"{name}_traced[{tag}]", route="cuda",
+                source=("torchdiffeq_tpu_torch/csrc/dopri5_events.cuh"
+                        if events else
+                        "torchdiffeq_tpu_torch/csrc/dopri5_lanes.cuh"),
+                replaces=("torchdiffeq_tpu/ops/pallas_kernels.py:580"
+                          if events else
+                          "torchdiffeq_tpu/ops/pallas_kernels.py:336"),
+                emitted_by="torchdiffeq_tpu_torch/ops/traced.py",
+                field="examples/ensemble.py's oscillators"
+                + (", omega in [0.3, 1.2]" if tag == "f16" else "")
+                + ("" if events else f", t in [0, {t1:g}]"),
+                launches=launched[name], max_abs_err=errs[B],
+                max_err_unit="16-bit ULPs of each component's own magnitude "
+                "in its lane, over every lane whose counts equal the plain "
+                "version's",
+                count_flip_lanes=flips[B], count_flip_lanes_65536=flips[BIG_B],
+                max_abs_err_65536=errs[BIG_B],
+                steps=_spread(stp[B]), steps_65536=_spread(stp[BIG_B]),
+                **_times_entry(times),
+                bound_ms=bounds[B][0], bound_by=bounds[B][1],
+                bound_ms_65536=bounds[BIG_B][0], first_build_s=builds,
+                library_ms=None)
+            entries.append(entry)
+            rows.append(
+                f"{name}_traced[{tag}]: launches {launched[name]}, lanes with"
+                f" other counts {flips[B]} / {flips[BIG_B]} (<= "
+                f"{TR16_FLIP_LANES}), the others within {errs[B]:.2f} / "
+                f"{errs[BIG_B]:.2f} ULPs of their own magnitude (<= "
+                f"{TR16_ULPS}), "
+                f"steps {_spread(stp[B])}, bound {bounds[B][0]:.2e} / "
+                f"{bounds[BIG_B][0]:.2e} ms ({bounds[B][1]}) | "
+                + " | ".join(_times_row(b, t) for b, t in times.items()))
+        rows.append(f"{tag}: first-use builds "
+                    + ", ".join(f"{s:.1f} s" for s in builds)
+                    + f", first calls {first_s:.1f} s")
+    print(f"[18b 16-bit traced] {card} | examples/ensemble.py field and "
+          f"event, rtol=atol={LANE16_RTOL}, kernels against their plain "
+          f"versions on the card | " + " | ".join(rows)
+          + f" | {time.perf_counter() - clock:.1f} s", flush=True)
+    return entries
+
+
+def _phase_dtypes(torch, kernels, dev):
+    """Phase 18: complex states (a) and the 16-bit traced instances (b).
+    Returns (b)'s JSON entries."""
+    card = _card()
+    p0 = time.perf_counter()
+    _phase_complex(torch, dev, card)
+    entries = _phase_traced16(torch, kernels, dev, card)
+    print(f"[18c dtypes] {card} | phase 18 {time.perf_counter() - p0:.1f} s",
+          flush=True)
+    return entries
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3688,6 +4261,8 @@ def main():
     summary.extend(_phase_per_sample_stiff(torch, kernels, dev, walls_12c))
 
     summary.extend(_phase_examples(torch, kernels, dev, driver_ms))
+
+    summary.extend(_phase_dtypes(torch, kernels, dev))
 
     torch.cuda.synchronize()
     print(_card())

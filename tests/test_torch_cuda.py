@@ -1725,3 +1725,129 @@ def test_per_sample_stiff_gradient_cuda_matches_cpu(cuda):
         grads[str(dev)] = [y0.grad.cpu(), lam.grad.cpu()]
     for g, w in zip(grads[str(cuda)], grads["cpu"]):
         assert float((g - w).abs().max()) <= 1e-9 * float(w.abs().max())
+
+
+# ---- the 16-bit traced instances and complex states -----------------------
+
+def _scalars(t, y, om):
+    """A field whose scalar operands are not exact in a 16-bit dtype, and a
+    cube (tests/test_torch_traced_16bit.py)."""
+    return torch.stack([y[1], -om ** 2 * y[0] - 0.3 * y[1]
+                        - 0.1 * y[0] ** 3])
+
+
+# A traced 16-bit instance and its plain version run the same operations in
+# the same order, each rounded to the state dtype, and every reading on an
+# H100 was bit for bit (PERF.md §6, PR 13).  So, as chip_smoke.py's phase
+# 18 (b), each lane is held to TRACED16_ULPS units in the last place of each
+# component's own magnitude in that lane (an output's largest |y| over the
+# output times; an event time or state its own), and at most
+# TRACED16_FLIP_LANES lanes may take other counts.  A unit set by max|y| over
+# the whole output would leave x (|x| <= 1 beside |v| up to omega ~ 20) and
+# most event times unchecked.
+TRACED16_ULPS, TRACED16_FLIP_LANES = 2, 2
+
+
+def _traced16_flips_and_ulps(vals, want_vals, counts, want_counts, dtype):
+    """(the number of lanes whose counts differ from the plain version's,
+    the largest distance over the other lanes in units in the last place
+    of each component's own magnitude in that lane, never below the
+    dtype's subnormal spacing)."""
+    same = None
+    for g, w in zip(counts, want_counts):
+        e = (g.cpu() == w).reshape(-1)
+        same = e if same is None else same & e
+    mant = 7 if dtype == torch.bfloat16 else 10
+    least = torch.finfo(dtype).tiny * 2.0 ** -mant
+    dist = torch.zeros(same.shape[0], dtype=torch.float64)
+    for g, w in zip(vals, want_vals):
+        g, w = g.cpu().double(), w.double()
+        ok = torch.isfinite(w)
+        assert torch.equal(torch.isfinite(g)[..., same], ok[..., same])
+        mag = torch.where(ok, w.abs(), torch.zeros_like(w))
+        if mag.dim() == 3:
+            mag = mag.amax(0, keepdim=True)
+        unit = torch.exp2(torch.floor(torch.log2(mag.clamp_min(least)))
+                          - mant).clamp_min(least)
+        d = torch.where(ok, (g - w).abs(), torch.zeros_like(w)) / unit
+        dist = torch.maximum(dist, d.reshape(-1, same.shape[0]).amax(0))
+    kept = dist[same]
+    return int((~same).sum()), float(kept.max()) if kept.numel() else 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("func", [_osc, _scalars])
+@pytest.mark.parametrize("events", [False, True])
+def test_traced_16bit_instances_match_plain(cuda, dtype, func, events):
+    """The bfloat16 and float16 traced instances of K-dopri5 and K-events
+    against their plain versions (the traced graph run op by op in the
+    state dtype) on the same CUDA tensors: at most TRACED16_FLIP_LANES lanes
+    with other counts, the others within TRACED16_ULPS of each component's
+    own magnitude in the lane.  omega in [1, 20] (bfloat16) and in
+    [0.3, 1.2] (float16, whose Hairer step overflows past about 1.5 at
+    these tolerances and stalls a lane in both versions)."""
+    B = 2048
+    rng = np.random.RandomState(7)
+    hi = (0.0, np.log(20.0)) if dtype == torch.bfloat16 else (
+        np.log(0.3), np.log(1.2))
+    om = torch.from_numpy(np.exp(rng.uniform(*hi, B))).to(cuda, dtype)
+    y0 = torch.stack([torch.ones(B), torch.zeros(B)]).to(cuda, dtype)
+    field = PerSampleField(func, (om,), (-1,))
+    kw = dict(rtol=1e-2, atol=1e-2)
+    before = dict(kernels.traced_launch_counts)
+    with torch.no_grad():
+        if events:
+            event = PerSampleEvent(lambda t, y: y[0])
+            sign0 = torch.ones(1, B, dtype=dtype, device=cuda)
+            kw.update(ev_params=(sign0,), max_steps=2000)
+            got = kernels.dopri5_events_batched(field, y0, 0.0, event, **kw)
+            want = kernels.dopri5_events_batched_ref(field, y0, 0.0, event,
+                                                     **kw)
+            vals, counts, name = (0, 1), (2, 3, 4), "dopri5_events_batched"
+        else:
+            kw['ts'] = np.linspace(0.0, 2.0, 5)
+            got = kernels.dopri5_integrate_batched(field, y0, 0.0, 2.0, **kw)
+            want = kernels.dopri5_integrate_batched_ref(field, y0, 0.0, 2.0,
+                                                        **kw)
+            vals, counts, name = (0,), (1, 2), "dopri5_integrate_batched"
+    torch.cuda.synchronize()
+    assert kernels.traced_launch_counts[name] == before[name] + 1
+    assert got[0].dtype == dtype
+    flips, ulps = _traced16_flips_and_ulps(
+        [got[i] for i in vals], [want[i].cpu() for i in vals],
+        [got[i] for i in counts], [want[i].cpu() for i in counts], dtype)
+    print(f"traced 16-bit {dtype} {func.__name__} events={events}: lanes "
+          f"with other counts {flips}, the others within {ulps:.2f} ULPs "
+          f"of their own magnitude")   # shown with -s
+    assert flips <= TRACED16_FLIP_LANES and ulps <= TRACED16_ULPS
+
+
+def test_complex_states_cuda_match_cpu(cuda):
+    """A complex128 state on the card against the CPU: dopri5 and kvaerno5
+    (its stage systems on the stacked real view) with Stats equal and
+    values within F64, and the adjoint's gradients (torch's convention on
+    both) within 1e-9 of max|g|."""
+    rng = np.random.RandomState(2)
+    y0 = rng.randn(4, 3) + 1j * rng.randn(4, 3)
+    w = rng.uniform(0.5, 2.0, 3)
+
+    def f(t, y, ww):
+        return 1j * ww * y - 0.1 * y * y.abs() ** 2 + 0.05 * torch.conj(y) * t
+
+    out = {}
+    for dev in ("cpu", cuda):
+        yy = torch.from_numpy(y0).to(dev).requires_grad_(True)
+        ww = torch.from_numpy(w).to(dev).requires_grad_(True)
+        t = torch.linspace(0.0, 1.0, 4, dtype=torch.float64)
+        ys, st = odeint_with_stats(f, yy.detach(), t, args=(ww.detach(),),
+                                   method='kvaerno5', rtol=1e-8, atol=1e-10)
+        from torchdiffeq_tpu_torch import odeint_adjoint
+        ys2 = odeint_adjoint(f, yy, t, args=(ww,), rtol=1e-8, atol=1e-10)
+        (ys2[-1].abs() ** 2).sum().backward()
+        out[str(dev)] = (ys.cpu(), [int(x) for x in st[:5]], ys2.detach().cpu(),
+                         yy.grad.cpu(), ww.grad.cpu())
+    c, g = out["cpu"], out[str(cuda)]
+    assert g[1] == c[1]
+    for i in (0, 2, 3, 4):
+        assert float((g[i] - c[i]).abs().max()) <= 1e-9 * max(
+            1.0, float(c[i].abs().max()))

@@ -210,9 +210,18 @@ def test_bf16_fixed_grid_gradient_through_the_loop():
 
 
 def test_complex_state_still_refused():
-    """Complex states are ROADMAP A2 (their gradients follow torch's
-    conjugate Wirtinger convention, not JAX's)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tt.odeint(lambda t, y: 1j * y,
-                  torch.ones(1, dtype=torch.complex128),
-                  torch.linspace(0.0, 1.0, 3, dtype=torch.float64))
+    """Formerly the refusal of complex states; the port now takes them
+    (tests/test_torch_complex.py has the rest), so the same call is held to
+    JAX's: complex128 values within 1e-12 of max|y|, the counters exactly.
+    (The name is kept so that the test's history stays in one place.)"""
+    t = np.linspace(0.0, 1.0, 3)
+    ys_j, st_j = tde.odeint_with_stats(lambda t_, y: 1j * y,
+                                       jnp.ones(1, jnp.complex128),
+                                       jnp.asarray(t))
+    ys_t, st_t = tt.odeint_with_stats(lambda t_, y: 1j * y,
+                                      torch.ones(1, dtype=torch.complex128),
+                                      torch.from_numpy(t))
+    assert ys_t.dtype == torch.complex128
+    assert _counters(st_t) == _counters(st_j)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=0,
+                               atol=1e-12)

@@ -6,14 +6,16 @@ in float64.
 The forward is one dense recording and the backward one reduced sweep with
 y read from its interpolant, in both packages with the same steps: the
 forward values agree to 1e-12, the gradients to 1e-9 of their largest
-entry, and the forward and backward Stats exactly.  Complex states stay
-refused (ROADMAP A2); JAX's vmap row is ROADMAP A6."""
+entry, and the forward and backward Stats exactly; a complex state's
+gradients are torch's conjugate of JAX's (`test_complex_state_matches_
+jax`).  JAX's vmap row is ROADMAP A6."""
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import torchdiffeq_tpu as tde
 import torchdiffeq_tpu.adjoint as jadj
 import torchdiffeq_tpu_torch as tt
 import torchdiffeq_tpu_torch.adjoint as tadj
@@ -276,19 +278,45 @@ def test_reduced_state_callbacks():
     (dict(adjoint_options=dict(INTERP, step_t=[0.5])), ValueError, "step_t"),
     (dict(adjoint_options=dict(INTERP, jump_t=[0.5])), ValueError, "jump_t"),
     (dict(event_fn=lambda t, y: y[0] - 0.5), ValueError, "event mode"),
-    (dict(y0=torch.tensor([1.0 + 0.5j, 0.5 - 0.25j], dtype=torch.complex128)),
-     NotImplementedError, "ROADMAP A2"),
 ])
 def test_refusals(call, err, match):
     """test_invalid_configs_raise and the compat matrix's "raises" cells
     (events, a fixed-grid forward or adjoint method, a callable norm, an
-    adjoint step_t or jump_t), JAX's messages; a complex state names A2."""
+    adjoint step_t or jump_t), JAX's messages."""
     kw = dict(adjoint_options=INTERP)
     kw.update(call)
     y0 = kw.pop('y0', _t(Y0, True))
     t = _t([0.0, 10.0]) if 'event_fn' in kw else _t(T5)
     with pytest.raises(err, match=match):
         tt.odeint_adjoint(lambda s, y: -y, y0, t, **kw)
+
+
+def test_complex_state_matches_jax():
+    """The compat matrix's complex cell (tests/test_compat_matrix.py:138),
+    once a refusal here: the interpolated adjoint of a complex state with a
+    real parameter, the gradients in y0 (conjugated: torch's convention is
+    the conjugate of jax.grad's), the parameter and the output times
+    against JAX's interpolated adjoint."""
+    y0 = np.array([1.0 + 0.5j, 0.5 - 0.25j])
+    w = np.array([1.0, 0.3])
+
+    def loss(ys, lib):
+        return lib.sum(abs(ys[-1]) ** 2) + lib.sum((ys[1] * ys[2]).real)
+
+    g_j = jax.grad(lambda y, w_, t_: loss(tde.odeint_adjoint(
+        lambda s, y_, ww: 1j * ww * y_ - 0.1 * y_ * s, y, t_, args=(w_,),
+        adjoint_options=dict(interpolated=True)), jnp), argnums=(0, 1, 2))(
+        jnp.asarray(y0), jnp.asarray(w), jnp.asarray(T5))
+    yt = torch.tensor(y0, requires_grad=True)
+    wt, tt_ = _t(w, True), _t(T5, True)
+    loss(tt.odeint_adjoint(lambda s, y_, ww: 1j * ww * y_ - 0.1 * y_ * s, yt,
+                           tt_, args=(wt,), adjoint_options=INTERP),
+         torch).backward()
+    for got, want in ((np.conj(yt.grad.numpy()), g_j[0]),
+                      (wt.grad.numpy(), g_j[1]), (tt_.grad.numpy(), g_j[2])):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=0,
+                                   atol=1e-9 * max(1.0, float(np.abs(
+                                       np.asarray(want)).max())))
 
 
 def test_event_interface_refused():

@@ -138,16 +138,40 @@ def test_ops_outside_the_set_raise_naming_them(func, op):
 
 
 def test_event_outside_the_set_and_16bit_states_raise():
+    """An event outside the traced op set and a per-lane arg of another
+    dtype raise.  A bfloat16 state, refused here until the 16-bit traced
+    instances, now traces (the name is kept): its instance computes on
+    tdt::bf16, and the plain route of the same field equals JAX's Pallas
+    kernel in interpret mode bit for bit, compiled as
+    tests/test_torch_lanes_16bit.py compiles it (ROADMAP C11)."""
+    from test_torch_lanes_16bit import _jax_exact
     y0, om = _lanes()
     with pytest.raises(TypeError, match=r"aten\.erf"):
         traced.events_source(PerSampleField(osc, (om,), (-1,)),
                              PerSampleEvent(lambda t, y: torch.erf(y[0])),
                              y0, 6)
-    with pytest.raises(TypeError, match="float32 or float64"):
-        traced.field_source(PerSampleField(lambda t, y: -y),
-                            y0.to(torch.bfloat16), 6)
     with pytest.raises(TypeError, match="per-lane arg"):
         traced.field_source(PerSampleField(osc, (om.float(),), (-1,)), y0, 6)
+    src = traced.field_source(PerSampleField(osc, (om.bfloat16(),), (-1,)),
+                              y0.to(torch.bfloat16), 6)
+    assert "using T = tdt::bf16;" in src.source
+    t = np.linspace(0.0, 1.5, 4)
+    y0n = np.stack([np.linspace(0.5, 1.5, 12), np.zeros(12)], axis=1)
+    omn = np.linspace(1.0, 9.0, 12)
+    kw = dict(args_axes=(-1,), rtol=1e-2, atol=1e-3,
+              options=dict(pallas=True, interpret=True))
+    ys_j, st_j = _jax_exact(
+        lambda y, w: j_per_sample(CASES["oscillators"][1], y, t, args=(w,),
+                                  **kw),
+        jnp.asarray(y0n, jnp.bfloat16), jnp.asarray(omn, jnp.bfloat16))
+    with torch.no_grad():
+        ys_t, st_t = tt.odeint_per_sample_with_stats(
+            osc, torch.from_numpy(y0n).bfloat16(), torch.from_numpy(t),
+            args=(torch.from_numpy(omn).bfloat16(),), **kw)
+    for a, b in zip(st_t[:5], st_j[:5]):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    np.testing.assert_array_equal(
+        ys_t.float().numpy(), np.asarray(ys_j.astype(jnp.float32)))
 
 
 CASES = {

@@ -64,7 +64,8 @@ import numpy as np
 import torch
 
 from .misc import (CALLBACK_NAMES, check_inputs, flatten_state, host_times,
-                   is_tuple_state, mixed_norm, rms_norm, time_sign)
+                   is_tuple_state, mixed_norm, real_dtype, real_part,
+                   rms_norm, time_effect, time_sign)
 from .solvers import SOLVERS, needs_jacobian
 
 
@@ -111,7 +112,8 @@ def _adjoint_params(func, args, adjoint_params):
     params = []
     if isinstance(func, torch.nn.Module):
         params = fresh(p for p in func.parameters() if p.requires_grad)
-    arg_tensors = fresh(x for x in _tensors_in(args) if x.is_floating_point())
+    arg_tensors = fresh(x for x in _tensors_in(args)
+                        if x.is_floating_point() or x.is_complex())
     return params, arg_tensors
 
 
@@ -310,7 +312,10 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
             y = y_of(s)
         adt = aug.dtype
         with torch.enable_grad():
-            s_d = torch.full((), float(s), dtype=adt, device=dev,
+            # the time is real whatever the state: torch then returns its
+            # gradient as Re sum(conj(-adj_y) df/ds), the real time's own
+            # (`time_effect`)
+            s_d = torch.full((), float(s), dtype=real_dtype(adt), device=dev,
                              requires_grad=True)
             y_d = y.detach().requires_grad_(True)
             f = f_dir(s_d, y_d)
@@ -344,10 +349,9 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
 
     # the effect of moving each output time: one batched field call
     with torch.no_grad():
-        t_out = torch.tensor(t_int[1:], dtype=sdt, device=dev)
+        t_out = torch.tensor(t_int[1:], dtype=real_dtype(sdt), device=dev)
         f_at_out = torch.func.vmap(f_dir)(t_out, ys[1:])
-        dLds = torch.einsum('tn,tn->t', f_at_out.reshape(T - 1, -1),
-                            g_ys[1:].reshape(T - 1, -1).to(f_at_out.dtype))
+        dLds = time_effect(f_at_out, g_ys[1:])
 
     def aug_state(vt, y, adj_y, th=None):
         th = adj_y.new_zeros(n_th) if th is None else th
@@ -474,7 +478,8 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None):
         adt = aug.dtype
         # a copy to the device, not a host read (`misc.lane_jacobian` refuses
         # reads); non-blocking, so that it does not wait for the stream
-        s_d = torch.as_tensor(s).to(device=dev, dtype=adt, non_blocking=True)
+        s_d = torch.as_tensor(s).to(device=dev, dtype=real_dtype(adt),
+                                    non_blocking=True)
         f, pullback = torch.func.vjp(lambda s_, y_, *ps_: f_dir(s_, y_, ps_),
                                      s_d, y, *(ps or detached))
         grads = pullback(-adj_y)
@@ -549,9 +554,10 @@ class _AdjointOp(torch.autograd.Function):
             else:
                 g_t = torch.cat([vt.reshape(1), vt.new_zeros(
                     t_ref.shape[0] - 1)])
-            t_grad = (ctx.sign * g_t).to(device=t_ref.device,
-                                         dtype=t_ref.dtype)
-        th_grads = [g.to(p.dtype) for g, p in
+            t_grad = (ctx.sign * real_part(g_t)).to(device=t_ref.device,
+                                                     dtype=t_ref.dtype)
+        th_grads = [(g if p.is_complex() else real_part(g)).to(p.dtype)
+                    for g, p in
                     zip(th, list(spec.module_params) + spec.arg_tensors)]
         return (None, adj_y.reshape(ys.shape[1:]) if t_in[1] else None,
                 t_grad, *th_grads)

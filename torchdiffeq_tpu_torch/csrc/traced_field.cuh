@@ -1,6 +1,8 @@
 // What a traced instance of K-dopri5 and K-events includes: the two lane
-// templates and the math of the traced op set (ops/traced.py), in float and
-// double.
+// templates and the math of the traced op set (ops/traced.py), in float,
+// double, bfloat16 and float16 (tdt::Lo, mlp_field.cuh: each operation in
+// float, rounded once to the state dtype; a sum or a matrix product
+// accumulated in float and rounded once).
 //
 // ops/traced.py traces a per-sample field f(t, y, *args) (and an event
 // function e(t, y)) with torch.fx into a graph of ATen operations and emits
@@ -39,6 +41,17 @@ template <> __device__ __forceinline__ float texp<float>(float x) { return expf(
 template <> __device__ __forceinline__ double texp<double>(double x) { return exp(x); }
 template <> __device__ __forceinline__ float tlog<float>(float x) { return logf(x); }
 template <> __device__ __forceinline__ double tlog<double>(double x) { return log(x); }
+// bfloat16 and float16 (tdt::Lo): computed in float, rounded once to the
+// state dtype, as PyTorch's 16-bit kernels and JAX's arithmetic in that
+// dtype compute them.
+#define TDT_LO_TRACED_MATH(TYPE)                                                     \
+  template <> __device__ __forceinline__ TYPE tsin<TYPE>(TYPE x) { return TYPE(sinf(x.f())); } \
+  template <> __device__ __forceinline__ TYPE tcos<TYPE>(TYPE x) { return TYPE(cosf(x.f())); } \
+  template <> __device__ __forceinline__ TYPE texp<TYPE>(TYPE x) { return TYPE(expf(x.f())); } \
+  template <> __device__ __forceinline__ TYPE tlog<TYPE>(TYPE x) { return TYPE(logf(x.f())); }
+TDT_LO_TRACED_MATH(bf16)
+TDT_LO_TRACED_MATH(f16)
+#undef TDT_LO_TRACED_MATH
 
 }  // namespace tdt
 

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .misc import check_inputs, nan_sign
+from .misc import check_inputs, nan_sign, real_dtype
 from .ops.interp import interp_evaluate, interp_evaluate_at
 from .solvers import SOLVERS
 from .solvers import adaptive_rk
@@ -85,12 +85,13 @@ class DenseSolution:
         t_eval = self._user_times(t_eval)
         tt, t0, t1, coeff = self._segments(t_eval)
         rows = coeff.unbind(dim=t_eval.dim())
-        x = self._bcast(((tt - t0) / (t1 - t0)).to(coeff.dtype), coeff)
+        tdt = real_dtype(coeff.dtype)
+        x = self._bcast(((tt - t0) / (t1 - t0)).to(tdt), coeff)
         # jnp.polyval over [4a, 3b, 2c, d], starting from zero
         dy_dx = torch.zeros_like(rows[0])
         for k in range(len(rows) - 1, 0, -1):
             dy_dx = dy_dx * x + rows[k] * float(k)
-        scale = self._bcast((self.t_sign / (t1 - t0)).to(coeff.dtype), coeff)
+        scale = self._bcast((self.t_sign / (t1 - t0)).to(tdt), coeff)
         return dy_dx * scale
 
     def find_event(self, event_fn, tol=1e-6):

@@ -14,7 +14,8 @@ import math
 import numpy as np
 import torch
 
-from .misc import check_inputs, nan_sign, scalar_type, smax, time_tensor
+from .misc import (check_inputs, nan_sign, real_part, scalar_type, smax,
+                   time_effect, time_tensor)
 
 
 def find_event(interp_fn, sign0, t0, t1, event_fn, tol, dtype=torch.float64):
@@ -102,12 +103,18 @@ class _ImplicitFnGradientRerouting(torch.autograd.Function):
             par_dt = torch.zeros_like(event_t)
         if dstate is None:
             dstate = torch.zeros_like(state_t)
-        # total derivative of the event function in t at the event
-        dcdt = par_dt + torch.sum(dstate * f_val)
-        # gradient from the final state to the final time, as for odeint
-        grad_t_total = grad_t + torch.sum(grad_state * f_val)
+        # total derivative of the event function in t at the event, and
+        # the gradient from the final state to the final time, as for
+        # odeint: real inner products, Re sum(conj(g) f) for a complex
+        # state (`misc.time_effect`)
+        dcdt = par_dt + _inner(f_val, dstate)
+        grad_t_total = grad_t + _inner(f_val, grad_state)
         grad_state = grad_state + dstate * (-grad_t_total / (dcdt + 1e-12))
         return None, None, torch.zeros_like(event_t), grad_state
+
+
+def _inner(f, g):
+    return real_part(time_effect(f.reshape(1, -1), g.reshape(1, -1))[0])
 
 
 def _implicit_fn_gradient_rerouting(func, event_fn, event_t, state_t):

@@ -4,10 +4,10 @@
 What this port carries of the JAX `check_inputs`: a single-tensor state,
 kept in its own shape, or a tuple (or list) of tensors, flattened to one
 1-D tensor with an `unravel` that restores the tuple (JAX's
-``ravel_state=True`` path, misc.py:250-270); float16, bfloat16, float32 and
-float64 states; scalar or per-leaf tolerances; the RMS norm, the max of
-per-leaf RMS norms (`mixed_norm`) for a tuple, or a user norm; forward and
-reversed time (integration always runs over ``t_sign * t`` with the field
+``ravel_state=True`` path, misc.py:250-270); float16, bfloat16, float32,
+float64, complex64 and complex128 states; scalar or per-leaf tolerances;
+the RMS norm, the max of per-leaf RMS norms (`mixed_norm`) for a tuple, or
+a user norm; forward and reversed time (integration always runs over ``t_sign * t`` with the field
 conjugated by the sign), with ``time_direction`` to force the reverse;
 ``step_t``/``jump_t`` and a ``grid_constructor`` mapped into the internal
 frame; the time dtype, the event function of an event solve, and the
@@ -15,8 +15,10 @@ frame; the time dtype, the event function of an event solve, and the
 step, with the user's time frame and state structure).  Time stays float64
 on the host, as in the reference (rk_common.py:180-182), so the JAX
 package's double-word time and its arithmetic ``nextafter`` are not
-needed.  Complex states are ROADMAP A2.  `lane_jacobian` is the implicit
-tiers' Jacobian of a stage residual, each sample's own.
+needed.  A complex64 or complex128 state keeps its timelike values (times,
+steps, tolerances) in its real dtype (`real_dtype`), as in JAX.
+`lane_jacobian` is the implicit tiers' Jacobian of a stage residual, each
+sample's own.
 """
 from __future__ import annotations
 
@@ -34,7 +36,8 @@ import torch
 # float64 alone (`np_dtype`).
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 _SCALAR_TYPES = {**_NP_DTYPES, torch.float16: np.float16}
-STATE_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64)
+STATE_DTYPES = (torch.float16, torch.bfloat16, torch.float32, torch.float64,
+                torch.complex64, torch.complex128)
 
 
 def np_dtype(torch_dtype):
@@ -49,12 +52,47 @@ def np_dtype(torch_dtype):
 
 
 def check_state_dtype(torch_dtype):
-    """Refuse a state dtype the solvers do not take: complex states are
-    ROADMAP A2."""
+    """Refuse a state dtype the solvers do not take (JAX's `check_inputs`
+    takes floating and complex leaves, misc.py:243-247)."""
     if torch_dtype not in STATE_DTYPES:
         raise NotImplementedError(
             f"state dtype {torch_dtype}: the port takes float16, bfloat16, "
-            "float32 and float64 states; complex states are ROADMAP A2")
+            "float32, float64, complex64 and complex128 states")
+
+
+def real_dtype(torch_dtype):
+    """The real dtype of a state dtype: timelike values (times, steps,
+    tolerances, the error ratio) of a complex state live in it (JAX
+    `real_dtype`, misc.py:105-112; reference ``y0.abs().dtype``,
+    rk_common.py:63)."""
+    return torch_dtype.to_real() if torch_dtype.is_complex else torch_dtype
+
+
+def time_effect(f, g):
+    """The effect on a real loss of moving a time at which the state's
+    slope is `f` and its cotangent is `g`, summed over all but the leading
+    axis.
+
+    For a complex state z = x + iy, torch's gradient of a real loss L is
+    g = dL/dx + i dL/dy (the conjugate Wirtinger convention; `jax.grad`
+    gives its conjugate, dL/dx - i dL/dy).  Moving the time moves z by f, so
+    dL/dt = sum(dL/dx Re f + dL/dy Im f) = Re sum(conj(g) f); Re sum(g f)
+    would flip the sign of the dL/dy terms.  JAX forms sum(f g_jax) =
+    sum(conj(g) f), complex, carries it in the augmented state's vjp_t and
+    keeps its real part only at the end (`_time_grad_cast`, adjoint.py:43-
+    48).  This returns the same complex sum, so that |vjp_t|, which the
+    adjoint norm reads, and with it every backward step, is JAX's; the
+    caller takes the real part (`real_part`).  A real state takes the
+    plain sum."""
+    prod = (g.conj() * f) if g.is_complex() else g.to(f.dtype) * f
+    return prod.reshape(prod.shape[0], -1).sum(1)
+
+
+def real_part(x):
+    """`x` as its real part: a time or real parameter's gradient carried in
+    a complex augmented state, whose imaginary part is 0 (JAX
+    `_time_grad_cast`, adjoint.py:43-48)."""
+    return x.real if x.is_complex() else x
 
 
 def _bf16_scalar(x):
@@ -66,14 +104,14 @@ def _bf16_scalar(x):
 
 def scalar_type(torch_dtype):
     """A callable that rounds a number to a host scalar of `torch_dtype`
-    (float16 to float64, bfloat16 included), for timelike and
-    ``coefficient * dt`` arithmetic in that dtype: numpy's scalar type, or
-    `_bf16_scalar`.  ``float(sd(c) * dt)`` is then JAX's weakly typed
+    (float16 to float64, bfloat16 included; a complex dtype's real one),
+    for timelike and ``coefficient * dt`` arithmetic in that dtype: numpy's
+    scalar type, or `_bf16_scalar`.  ``float(sd(c) * dt)`` is then JAX's weakly typed
     ``float(c) * dt``: c rounded to the dtype, then the product rounded."""
     if torch_dtype == torch.bfloat16:
         return _bf16_scalar
     check_state_dtype(torch_dtype)
-    return _SCALAR_TYPES[torch_dtype]
+    return _SCALAR_TYPES[real_dtype(torch_dtype)]
 
 
 def coef(c, torch_dtype):
@@ -167,14 +205,19 @@ def flatten_state(y):
     shapes = [x.shape for x in leaves]
     sizes = [x.numel() for x in leaves]
     kind = type(y) if isinstance(y, list) else tuple
+    # a real leaf of a complex flat state comes back real, as JAX's unravel
+    # casts each leaf back to its own dtype
+    real_leaf = [dtype.is_complex and not x.is_complex() for x in leaves]
 
     def unravel(flat):
         """The tuple from a tensor of the flat layout, with any leading
         axes kept on each leaf (a (T, n) solution gives (T, *shape)
         leaves)."""
         lead = tuple(flat.shape[:-1])
-        return kind(part.reshape(lead + tuple(shape)) for part, shape in
-                    zip(torch.split(flat, sizes, dim=-1), shapes))
+        return kind((part.real if real and part.is_complex() else part)
+                    .reshape(lead + tuple(shape))
+                    for part, shape, real in
+                    zip(torch.split(flat, sizes, dim=-1), shapes, real_leaf))
 
     flat = torch.cat([x.reshape(-1).to(dtype) for x in leaves])
     return flat, unravel
@@ -201,11 +244,12 @@ def carries_derivative(x):
 
 
 def tcast(t, dtype):
-    """A time scalar in `dtype`: a host scalar rounded by `scalar_type`, or
+    """A time scalar in `dtype` (its real dtype for a complex one): a host
+    scalar rounded by `scalar_type`, or
     a tensor time (one that carries a tangent, `adaptive_rk`'s
     ``forward_grad``) cast with its derivative."""
     if isinstance(t, torch.Tensor):
-        return t.to(dtype)
+        return t.to(real_dtype(dtype))
     return scalar_type(dtype)(t)
 
 
@@ -328,7 +372,8 @@ def _user_frame_callback(cb, t_sign, unravel):
 class PerturbedFunc:
     """Wraps a vector field with `perturb` support and the time sign
     (``_PerturbFunc``, reference misc.py:174-197): the evaluation time is
-    cast to the state dtype, optionally nudged by one ULP with
+    cast to the state's real dtype (a complex time cut to its real part, JAX
+    misc.py:446-451), optionally nudged by one ULP with
     ``torch.nextafter``, then mapped back to the user's time frame.  The
     field gets its time as a 0-d CPU tensor, which mixes with state on any
     device.  `check_inputs` sets the callbacks the solver fires as its
@@ -341,8 +386,11 @@ class PerturbedFunc:
     def __call__(self, t, y, perturb=Perturb.NONE):
         if not isinstance(perturb, Perturb):
             raise TypeError("perturb argument must be of type Perturb enum")
-        t = (t.to(y.dtype) if isinstance(t, torch.Tensor)
-             else torch.as_tensor(t, dtype=y.dtype))
+        dtype = real_dtype(y.dtype)
+        if isinstance(t, torch.Tensor):
+            t = (t.real if t.is_complex() else t).to(dtype)
+        else:
+            t = torch.as_tensor(t, dtype=dtype)
         if perturb is not Perturb.NONE:
             t = _nextafter(t, perturb is Perturb.NEXT)
         if self.t_sign < 0:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ..misc import scalar_type, tcast, tval
+from ..misc import real_dtype, scalar_type, tcast, tval
 from .rk_step import weighted_sum
 
 
@@ -90,7 +90,7 @@ def interp_evaluate_at(coefficients, t0, t1, t):
     an interval with ``t1 == t0`` gives NaN.  `t` may have leading axes
     that the coefficient rows share (one interval per time, `t0` and `t1`
     broadcasting with `t`)."""
-    x = ((t - t0) / (t1 - t0)).to(coefficients.dtype)
+    x = ((t - t0) / (t1 - t0)).to(real_dtype(coefficients.dtype))
     x = x.reshape(x.shape + (1,) * (coefficients.dim() - 1 - x.dim()))
     total = coefficients[0] + x * coefficients[1]
     x_power = x
@@ -102,8 +102,10 @@ def interp_evaluate_at(coefficients, t0, t1, t):
 
 def _rows(x, like, dtype=None):
     """A (T,) tensor of per-output scalars on `like`'s device, in `dtype`
-    (default `like`'s), shaped to broadcast against (T, *state) rows."""
-    x = x.to(device=like.device, dtype=like.dtype if dtype is None else dtype)
+    (default `like`'s real dtype), shaped to broadcast against (T, *state)
+    rows."""
+    x = x.to(device=like.device,
+             dtype=real_dtype(like.dtype) if dtype is None else dtype)
     return x.reshape(x.shape + (1,) * (like.dim() - 1))
 
 

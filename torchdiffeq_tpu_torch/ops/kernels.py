@@ -23,8 +23,9 @@ a Python callable.  So the kernels take two kinds of field on the card:
 * for K-dopri5 and K-events, any per-sample field ``func(t, y_i, *args_i)``
   (`ops.traced.PerSampleField`, with shared and per-lane args) and event
   function (`ops.traced.PerSampleEvent`), traced by ``torch.fx`` into a
-  C++ functor and compiled at first use into an instance of its own (float32
-  and float64; the traced op set is in ``ops/traced.py``: indexing, stack,
+  C++ functor and compiled at first use into an instance of its own (every
+  dtype, a 16-bit one on ``tdt::Lo``; the traced op set is in
+  ``ops/traced.py``: indexing, stack,
   + - * / and powers, sin cos exp log tanh sqrt abs minimum maximum where,
   @ by a shared matrix and sum).  A field outside the set raises
   ``TypeError`` naming the operation.
@@ -622,7 +623,7 @@ def dopri5_integrate_batched(field, y0, t0, t1, *, ts=None, rtol=1e-4,
     Args:
         field: an `MLPField` (CPU or CUDA; on CUDA tanh), a
             `traced.PerSampleField` (CPU or CUDA: on CUDA a traced instance,
-            float32 or float64, group 1), or any lane-layout callable
+            any of the four dtypes, group 1), or any lane-layout callable
             ``field(t (1, B), y (D, B), *params)`` (CPU only).
         y0: (D, B) initial states, batch on the LAST axis.
         t0, t1: scalars; ts: optional increasing (S,) output times in
@@ -949,7 +950,7 @@ def _traced_threads(B):
 
 def _traced_common(field, y0, params, group, kernel, method):
     """Checks shared by both traced launches; returns the tableau."""
-    _check_cuda_state(y0, kernel)
+    _check_cuda_state(y0, kernel, LANE_DTYPES)
     if params:
         raise TypeError(f"{kernel}: a traced field carries its own args "
                         f"(PerSampleField(func, args, axes)), not params")

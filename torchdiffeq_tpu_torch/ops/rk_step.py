@@ -23,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import Perturb, carries_derivative, coef, scalar_type, tcast
+from ..misc import (Perturb, carries_derivative, coef, real_dtype, scalar_type,
+                    tcast)
 from .tableaus import ButcherTableau
 
 
@@ -43,7 +44,7 @@ def weighted_sum(coeffs, vecs, dt=None, base=None):
     sd = scalar_type(dtype)
     timed = isinstance(dt, torch.Tensor) and carries_derivative(dt)
     if timed:
-        dt = dt.to(dtype)
+        dt = dt.to(real_dtype(dtype))
     elif dt is not None:
         dt = sd(float(dt))
     total = None

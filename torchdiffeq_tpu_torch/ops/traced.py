@@ -37,7 +37,20 @@ Arguments are per-lane (``args_axes=-1``: one value, or one small vector, a
 lane, read lanes-major like the state, (P, B)) or shared (read whole by
 every lane).  Anything outside the set -- another ATen operation, a dtype
 conversion, data-dependent control flow -- raises ``TypeError`` naming it.
-The traced instances take float32 and float64 states.
+
+The traced instances take float32, float64, bfloat16 and float16 states.
+A 16-bit instance computes on ``tdt::Lo`` (``csrc/mlp_field.cuh``): each
+operation in float, rounded once to the state dtype, as the TPU kernel's
+arithmetic in that dtype (``pallas_kernels.py:336-361``) and PyTorch's
+16-bit operations round it; the sum of a matrix product or of ``sum``
+accumulates in float and rounds once, as the hand-written 16-bit instances
+do.  Where the two frameworks round differently the instance follows JAX:
+a Python float operand is rounded to the state dtype first (JAX's weakly
+typed scalar; PyTorch would keep ``0.1 * y`` a float32 product rounded
+once), and a power by 3 is two rounded products (JAX's integer power).  Its
+plain version (`PerSampleField` and `PerSampleEvent` on a 16-bit state)
+runs the same traced graph with PyTorch, op by op in the state dtype, with
+the same two rules (`_InStateDtype`).
 """
 from __future__ import annotations
 
@@ -46,8 +59,13 @@ import math
 import numpy as np
 import torch
 
+from ..misc import coef
+
 # the kernels' C type of each state dtype a traced instance takes
-_C_TYPES = {torch.float32: 'float', torch.float64: 'double'}
+_C_TYPES = {torch.float32: 'float', torch.float64: 'double',
+            torch.bfloat16: 'tdt::bf16', torch.float16: 'tdt::f16'}
+# the 16-bit state dtypes, whose instances compute on tdt::Lo
+LOW_DTYPES = (torch.bfloat16, torch.float16)
 # a field of more emitted values than this is no longer "small"
 MAX_VALUES = 1 << 14
 
@@ -58,8 +76,9 @@ class PerSampleField:
     ``parallel.odeint_per_sample`` hands it to the per-lane kernels.
 
     Called on the lane layout, ``field(t (1, B), y (D, B))``, it is the
-    plain versions' field (``torch.func.vmap`` over the samples); on the
-    card the kernels trace `func` (`field_source`)."""
+    plain versions' field (``torch.func.vmap`` over the samples; a 16-bit
+    state runs the traced graph op by op in its dtype, `_InStateDtype`); on
+    the card the kernels trace `func` (`field_source`)."""
 
     def __init__(self, func, args=(), axes=None):
         self.func = func
@@ -73,6 +92,14 @@ class PerSampleField:
         self._lanes = torch.func.vmap(func, in_dims=(0, 1) + dims, out_dims=1)
 
     def __call__(self, tv, yv):
+        if yv.dtype in LOW_DTYPES:
+            samples = [tv[0, 0], yv[:, 0]] + [
+                a if ax is None else a[..., 0]
+                for a, ax in zip(self.args, self.axes)]
+            dims = tuple(None if a is None else -1 for a in self.axes)
+            return torch.func.vmap(_in_state_dtype(self.func, samples),
+                                   in_dims=(0, 1) + dims, out_dims=1)(
+                                       tv[0], yv, *self.args)
         return self._lanes(tv[0], yv, *self.args)
 
 
@@ -83,12 +110,26 @@ class PerSampleEvent:
 
     def __init__(self, event_fn):
         self.event_fn = event_fn
-        one = lambda tt, yy, s_i: torch.min(
-            torch.atleast_1d(event_fn(tt, yy)) * s_i)
-        self._lanes = torch.func.vmap(one, in_dims=(0, 1, 1), out_dims=0)
+
+    def _fn(self, tv, yv):
+        """The per-sample event function: itself, or on a 16-bit state its
+        traced graph op by op in that dtype (`_InStateDtype`)."""
+        if yv.dtype in LOW_DTYPES:
+            return _in_state_dtype(self.event_fn, [tv[0, 0], yv[:, 0]])
+        return self.event_fn
+
+    def values(self, tv, yv):
+        """Every output of every lane, (K, B), before the sign-combine."""
+        fn = self._fn(tv, yv)
+        return torch.func.vmap(lambda tt, yy: torch.atleast_1d(fn(tt, yy)),
+                               in_dims=(0, 1), out_dims=1)(tv[0], yv)
 
     def __call__(self, tv, yv, sign0):
-        return self._lanes(tv[0], yv, sign0)[None]
+        fn = self._fn(tv, yv)
+        one = lambda tt, yy, s_i: torch.min(
+            torch.atleast_1d(fn(tt, yy)) * s_i)
+        return torch.func.vmap(one, in_dims=(0, 1, 1), out_dims=0)(
+            tv[0], yv, sign0)[None]
 
 
 def _name(func):
@@ -117,12 +158,52 @@ def _trace(func, inputs):
                 "flow cannot be traced)", func)
 
 
-def _lit(x):
+class _InStateDtype(torch.fx.Interpreter):
+    """A traced graph run by PyTorch op by op in its 16-bit dtype, as the
+    emitted functor computes it and as JAX's arithmetic in that dtype
+    rounds: a Python float operand rounded to the dtype first (JAX's weakly
+    typed scalar), and an int power by rounded products (`_int_pow`).
+    Every other operation is PyTorch's own, which computes a 16-bit
+    operation in float and rounds once (a sum and a matrix product
+    accumulate in float)."""
+
+    def __init__(self, gm, dtype):
+        super().__init__(gm)
+        self.dtype = dtype
+
+    def call_function(self, target, args, kwargs):
+        packet = getattr(target, '_overloadpacket', None)
+        if (packet is torch.ops.aten.pow
+                and target._overloadname == 'Tensor_Scalar'
+                and type(args[1]) is int and args[1] != 0):
+            return _int_pow(args[0], args[1], torch.mul, torch.reciprocal)
+
+        def rnd(a):
+            return coef(a, self.dtype) if type(a) is float else a
+        return super().call_function(
+            target, tuple(rnd(a) for a in args),
+            {k: rnd(v) for k, v in kwargs.items()})
+
+
+def _in_state_dtype(func, samples):
+    """`func` on one sample, run as `_InStateDtype` runs its graph: traced
+    once on `samples` (its inputs for one sample, the state's dtype 16-bit)
+    and kept for the next call with the same function and shapes."""
+    key = ('plain', _func_key(func), tuple(
+        (tuple(x.shape), x.dtype, x.device) for x in samples))
+    gm = _cached(key, lambda: _trace(func, samples))
+    dtype = samples[1].dtype
+    return lambda *xs: _InStateDtype(gm, dtype).run(*xs)
+
+
+def _lit(x, dtype=None):
     """A Python number as a literal of the state type (PyTorch casts a
-    scalar operand to the tensor's dtype the same way)."""
+    scalar operand to the tensor's dtype the same way); for a 16-bit
+    `dtype`, the number rounded to it first, as JAX's weakly typed scalar
+    is (`_InStateDtype`)."""
     if isinstance(x, bool):
         return 'true' if x else 'false'
-    x = float(x)
+    x = coef(x, dtype) if dtype in LOW_DTYPES else float(x)
     if math.isnan(x):
         return 'T(NAN)'
     if math.isinf(x):
@@ -181,12 +262,16 @@ def _elementwise(em, fmt, vals, kind='T', ops=1):
 
 def _chain(em, terms, op):
     """`terms` combined in order: ``((t0 op t1) op t2) ...``, or by
-    tdt::nmin / tdt::nmax."""
+    tdt::nmin / tdt::nmax; a 16-bit sum in float, rounded once."""
+    if len(terms) < 2:
+        return terms[0]
+    low_sum = op == '+' and em.dtype in LOW_DTYPES
+    if low_sum:
+        terms = [f"tdt::acc({x})" for x in terms]
     acc = terms[0]
     for x in terms[1:]:
         acc = f"({acc} {op} {x})" if op in '+*' else f"{op}({acc}, {x})"
-    return em.let(acc, 'T', max(len(terms) - 1, 0)) if len(terms) > 1 \
-        else acc
+    return em.let(f"T({acc})" if low_sum else acc, 'T', len(terms) - 1)
 
 
 def _reduce(em, val, dims, keepdim, op):
@@ -217,13 +302,18 @@ def _matmul(em, a, b):
     if A2.ndim != 2 or B2.ndim != 2 or A2.shape[1] != B2.shape[0]:
         _refuse(f"a matrix product of shapes {A.shape} and {B.shape}", em.func)
     out = np.empty((A2.shape[0], B2.shape[1]), dtype=object)
+    # a 16-bit product's terms and sum in float, rounded once
+    low = em.dtype in LOW_DTYPES
     for i in range(A2.shape[0]):
         for j in range(B2.shape[1]):
-            terms = [f"{A2[i, k]} * {B2[k, j]}" for k in range(A2.shape[1])]
+            terms = [f"tdt::acc({A2[i, k]}) * tdt::acc({B2[k, j]})" if low
+                     else f"{A2[i, k]} * {B2[k, j]}"
+                     for k in range(A2.shape[1])]
             acc = f"({terms[0]})"
             for term in terms[1:]:
                 acc = f"({acc} + {term})"
-            out[i, j] = em.let(acc, 'T', 2 * len(terms) - 1)
+            out[i, j] = em.let(f"T({acc})" if low else acc, 'T',
+                               2 * len(terms) - 1)
     if va:
         out = out[0]
     if vb:
@@ -231,16 +321,40 @@ def _matmul(em, a, b):
     return out, 'T'
 
 
+def _int_pow(x, n, mul, recip):
+    """``x ** n`` for an int `n` != 0 as JAX's ``lax.integer_pow`` forms it:
+    binary exponentiation by rounded products, then a reciprocal for a
+    negative `n`."""
+    m, acc = abs(n), None
+    while m > 0:
+        if m & 1:
+            acc = x if acc is None else mul(acc, x)
+        m >>= 1
+        if m > 0:
+            x = mul(x, x)
+    return recip(acc) if n < 0 else acc
+
+
 def _pow_scalar(em, x, e):
     """``x ** e`` as PyTorch's kernel computes it (a product for 2 and 3,
-    the square root for 0.5, a reciprocal for -1 and -2)."""
+    the square root for 0.5, a reciprocal for -1 and -2).  In a 16-bit
+    dtype, as JAX computes it: an int power by rounded products
+    (`_int_pow`), any other one `dpow` rounded once."""
+    if em.dtype in LOW_DTYPES and e != 0.5:
+        if isinstance(e, int) and e != 0:
+            return _elementwise(em, _int_pow(
+                "{0}", e, lambda a, b: f"({a} * {b})",
+                lambda a: f"T(1) / {a}"), [x])
+        if not isinstance(e, int):
+            return _elementwise(em, "tdt::dpow<T>({0}, %s)" % _lit(
+                e, em.dtype), [x])
     forms = {2.0: "{0} * {0}", 3.0: "{0} * {0} * {0}", 0.5: "tdt::dsqrt<T>({0})",
              -0.5: "T(1) / tdt::dsqrt<T>({0})", -1.0: "T(1) / {0}",
              -2.0: "T(1) / ({0} * {0})", 1.0: "{0}"}
     e = float(e)
     if e == 0.0:
         return np.full(x[0].shape, 'T(1)', dtype=object), 'T'
-    fmt = forms.get(e, "tdt::dpow<T>({0}, %s)" % _lit(e))
+    fmt = forms.get(e, "tdt::dpow<T>({0}, %s)" % _lit(e, em.dtype))
     return _elementwise(em, fmt, [x])
 
 
@@ -270,7 +384,7 @@ def _emit_node(em, node, env):
         if isinstance(a, torch.fx.Node):
             return env[a]
         if isinstance(a, (bool, int, float)):
-            return np.asarray(_lit(a), dtype=object), \
+            return np.asarray(_lit(a, em.dtype), dtype=object), \
                 'bool' if isinstance(a, bool) else 'T'
         _refuse(f"{qual} with an argument {a!r}", em.func)
 
@@ -382,13 +496,13 @@ def _emit_node(em, node, env):
         arr, _ = val(args[0])
         fill = {'zeros_like': 0.0, 'ones_like': 1.0}.get(
             name, args[1] if len(args) > 1 else None)
-        return np.full(arr.shape, _lit(fill), dtype=object), 'T'
+        return np.full(arr.shape, _lit(fill, em.dtype), dtype=object), 'T'
     if name in ('zeros', 'ones', 'full', 'scalar_tensor'):
         size = () if name == 'scalar_tensor' else tuple(args[0])
         fill = {'zeros': 0.0, 'ones': 1.0}.get(name)
         if fill is None:
             fill = args[0] if name == 'scalar_tensor' else args[1]
-        return np.full(size, _lit(fill), dtype=object), 'T'
+        return np.full(size, _lit(fill, em.dtype), dtype=object), 'T'
     _refuse(qual, em.func)
 
 
@@ -615,8 +729,8 @@ extern "C" int tdt_traced_events(int B, const void* y0, double t0, double rtol,
 def _check_state(y0_lanes, func):
     if y0_lanes.dtype not in _C_TYPES:
         raise TypeError(
-            f"a traced field takes a float32 or float64 state, got "
-            f"{y0_lanes.dtype} (16-bit traced instances: ROADMAP)")
+            f"a traced field takes a float32, float64, bfloat16 or float16 "
+            f"state, got {y0_lanes.dtype}")
     if y0_lanes.dim() != 2 or y0_lanes.shape[1] < 1:
         raise ValueError(f"a (D, B) state with B >= 1, got "
                          f"{tuple(y0_lanes.shape)}")

@@ -64,7 +64,8 @@ rules (`_pallas_qualifies`, batched.py:57-78):
     steps.
 
 What the route refuses: ``scipy_solver``, as JAX's vmap route does (its
-host callback cannot be batched), and complex states (ROADMAP A2).
+host callback cannot be batched).  Complex states take the driver on every
+tier, never the kernel route (JAX batched.py:70).
 """
 from __future__ import annotations
 
@@ -74,14 +75,12 @@ import numpy as np
 import torch
 
 from ..misc import (check_inputs, host_times, is_tuple_state, nan_sign,
-                    needs_autograd, solver_callbacks)
+                    needs_autograd, real_part, solver_callbacks, time_effect)
 from ..models.neural_ode import LinearEvent, is_kernel_mlp
 from ..solvers import SOLVERS, DIRECT_DIFF_KINDS
 from ..solvers import batched_rk
 from ..solvers.batched_rk import LaneField, lane_norm
 from ..solvers.solution import Stats, OK, ERR_MAX_NUM_STEPS
-
-A2 = "ROADMAP A2"
 
 # options the per-lane kernel route understands (JAX's set; `interpret`,
 # the Pallas interpreter switch, is accepted and dropped)
@@ -185,11 +184,17 @@ def _kernel_route(func, y0, t_np, rtol, atol, method, options, event_fn,
                 "per-sample event solves require t of shape (2,) "
                 f"(t0 and a horizon/direction point), got {t_np.shape}")
         t0 = torch.full((), float(ts[0]), dtype=y0.dtype, device=y0.device)
-        sign0 = nan_sign(torch.func.vmap(
-            lambda yy: torch.atleast_1d(event_fn(t0, yy)))(y0)).T.contiguous()
+        lane_ev = _lane_event(event_fn)
+        if isinstance(lane_ev, LinearEvent):
+            sign0 = nan_sign(torch.func.vmap(
+                lambda yy: torch.atleast_1d(event_fn(t0, yy)))(y0)).T
+        else:
+            # as the plain version evaluates it (a 16-bit state's event in
+            # its dtype, ops/traced.py)
+            sign0 = nan_sign(lane_ev.values(t0.expand(1, y0.shape[0]), y0.T))
         et, ye, found, acc, stp = dopri5_events_batched(
-            field, y0.T.contiguous(), ts[0], _lane_event(event_fn),
-            ev_params=(sign0,), **control)
+            field, y0.T.contiguous(), ts[0], lane_ev,
+            ev_params=(sign0.contiguous(),), **control)
         result = (et[0], torch.stack([y0, ye.T], dim=1))
         failed = found[0] == 0
     else:
@@ -218,7 +223,7 @@ def _check_event_times(t_np):
 
 def _refuse(y0, method):
     """What the per-sample route does not take: the SciPy bridge, which
-    JAX's vmap route refuses itself, and complex states (ROADMAP A2)."""
+    JAX's vmap route refuses itself."""
     name = method or 'dopri5'
     spec = SOLVERS.get(name)
     if spec is None:
@@ -231,10 +236,6 @@ def _refuse(y0, method):
             "jax.pure_callback that vmap cannot batch, "
             "solvers/scipy_wrapper.py:67); solve the samples one by one "
             "with odeint")
-    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
-    if any(isinstance(x, torch.Tensor) and x.is_complex() for x in leaves):
-        raise NotImplementedError(
-            f"complex states on the per-sample route ({A2})")
     return name, spec
 
 
@@ -598,7 +599,8 @@ def _lane_adjoint(lp, spec, func, t, args, axes, options, event_fn=None):
     # the per-sample tensors that get no gradient (integer ones): the
     # backward's field takes each sample's row of them too
     fixed = [(x, axis_of[id(x)]) for a in args for x in _tensors_in(a)
-             if axis_of.get(id(x)) is not None and not x.is_floating_point()]
+             if axis_of.get(id(x)) is not None
+             and not (x.is_floating_point() or x.is_complex())]
     t_tensor = (t if isinstance(t, torch.Tensor)
                 else torch.as_tensor(host_times(t), dtype=torch.float64))
     ctx = SimpleNamespace(
@@ -655,13 +657,14 @@ class _LaneAdjointOp(torch.autograd.Function):
                 # the event time's own effect is not differentiated
                 dLds = torch.zeros_like(dLds)
             g_t = (sign * torch.cat([vt[:, None], dLds], dim=1)).sum(0)
-            t_grad = g_t.to(device=spec.t_tensor.device,
-                            dtype=spec.t_tensor.dtype)
+            t_grad = real_part(g_t).to(device=spec.t_tensor.device,
+                                        dtype=spec.t_tensor.dtype)
         p_grads = []
         for th, p, dim in zip(ths, list(spec.module_params)
                               + list(spec.arg_tensors), spec.p_dims):
             # a shared parameter's gradient is the sum over the samples
             g = th.sum(0) if dim is None else th.movedim(0, dim)
+            g = g if p.is_complex() else real_part(g)
             p_grads.append(g.reshape(p.shape).to(p.dtype))
         return (None, adj_y if ctx.needs_input_grad[1] else None, t_grad,
                 *p_grads)
@@ -687,7 +690,7 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
     t_int = lp.prob.t
     sign = lp.prob.t_sign
     T, B = t_int.shape[0], ys.shape[0]
-    sdt, dev = ys.dtype, ys.device
+    dev = ys.device
     params = list(spec.module_params) + list(spec.arg_tensors)
     reps = [p if d is None else p.select(d, 0)
             for p, d in zip(params, spec.p_dims)]
@@ -714,10 +717,8 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
 
     # the effect of moving each output time: one field call a time
     field = LaneField(lp.one, lp.args, lp.axes, sign)
-    dLds = torch.stack([
-        (field(t_out(j), ys[:, j]).reshape(B, -1)
-         * g_ys[:, j].reshape(B, -1).to(sdt)).sum(1)
-        for j in range(1, T)], dim=1)
+    dLds = torch.stack([time_effect(field(t_out(j), ys[:, j]), g_ys[:, j])
+                        for j in range(1, T)], dim=1)
     rows = torch.arange(B, device=dev)
 
     def aug_state(vt, y, adj_y, th=None):

@@ -11,7 +11,9 @@ there the order rises with the history to ``max_order``.
 
 Arithmetic follows JAX's promotion: `dt` is cast to the state dtype, the
 coefficient tables are float64, so a float32 state's increment is formed
-in float64 and rounded back to float32 (the reference's ``.type_as(y0)``);
+in float64 (a complex state's in complex128, with `dt` and the history
+times real) and rounded back to the state dtype (the reference's
+``.type_as(y0)``);
 this is not the explicit fixed grid's promotion through the float64 grid
 (`ops/rk_step.tmul`).
 
@@ -33,7 +35,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..misc import Perturb, linf_norm, scalar_type
+from ..misc import Perturb, linf_norm, real_dtype, scalar_type
 from ..ops import rk_step
 from ..ops.adams_coeffs import (BASHFORTH, MOULTON, MIN_ORDER, MAX_ORDER,
                                 MAX_ITERS)
@@ -48,7 +50,7 @@ def _dt_in(dt, dtype):
     a time gradient.  Every product with it is then float64, as JAX
     promotes the state-dtype `dt` against the float64 tables."""
     if isinstance(dt, torch.Tensor) and dt.requires_grad:
-        return dt.to(dtype).to(torch.float64)
+        return dt.to(real_dtype(dtype)).to(torch.float64)
     return float(scalar_type(dtype)(float(dt)))
 
 
@@ -65,10 +67,17 @@ def _coeffs(table, row, width, device):
     return _COEFFS[key]
 
 
+def _wide(dtype):
+    """The dtype JAX forms an increment in, the float64 tables promoted
+    against the state: float64, or complex128 for a complex state."""
+    return torch.complex128 if dtype.is_complex else torch.float64
+
+
 def _increment(dt_y, c, hist, dtype):
-    """``(dt_y * tensordot(c, hist)).astype(dtype)``, in float64."""
-    h = torch.stack(hist).to(torch.float64)
-    return (dt_y * torch.tensordot(c, h, dims=1)).to(dtype)
+    """``(dt_y * tensordot(c, hist)).astype(dtype)``, in float64 (complex128
+    for a complex state)."""
+    h = torch.stack(hist).to(_wide(dtype))
+    return (dt_y * torch.tensordot(c.to(h.dtype), h, dims=1)).to(dtype)
 
 
 def make_adams_method(*, implicit, rtol, atol, max_iters=MAX_ITERS,
@@ -128,7 +137,7 @@ def make_adams_method(*, implicit, rtol, atol, max_iters=MAX_ITERS,
         while n_ev < max_iters and not converged:
             n_ev += 1
             f = func(t1, y0 + dy, perturb=p1)
-            dy_new = (c0 * f.to(torch.float64)).to(yd) + delta
+            dy_new = (c0 * f.to(_wide(yd))).to(yd) + delta
             converged = _has_converged(dy, dy_new)
             dy = dy_new
         COUNTS['corrector_steps'] += 1
@@ -185,7 +194,7 @@ def make_lane_adams_method(*, implicit, rtol, atol, max_iters=MAX_ITERS,
         float64."""
         total = None
         for j, h in enumerate(hist):
-            term = lanes_of(c[j], h) * h.to(torch.float64)
+            term = lanes_of(c[j], h) * h.to(_wide(dtype))
             total = term if total is None else total + term
         return (dt_y * total).to(dtype)
 
@@ -237,7 +246,7 @@ def make_lane_adams_method(*, implicit, rtol, atol, max_iters=MAX_ITERS,
                 it += 1
                 n_ev = n_ev + (~converged).to(torch.int32)
                 f = func(t1, y0 + dy_ad, perturb=p1)
-                dy_new = (c0 * f.to(torch.float64)).to(yd) + delta
+                dy_new = (c0 * f.to(_wide(yd))).to(yd) + delta
                 conv_now = has_converged(dy_ad, dy_new)
                 dy_ad = torch.where(lanes_of(converged, dy_ad), dy_ad,
                                     dy_new)

@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import Perturb, coef, scalar_type, tcast, tval
+from ..misc import Perturb, coef, real_dtype, scalar_type, tcast, tval
 from ..ops.rk_step import weighted_sum
 from .fixed_grid_implicit import root_solve, solve_tol
 
@@ -178,7 +178,7 @@ def make_lane_step_fn(tab, stage_tol=None, max_iters=100, error_dtype=None):
 
     def step_fn(func, y0, f0, t0, dt, t1, tab_, active=None):
         dtype = y0.dtype
-        t0c, dtc, t1c = (v.to(dtype) for v in (t0, dt, t1))
+        t0c, dtc, t1c = (v.to(real_dtype(dtype)) for v in (t0, dt, t1))
         tol = solve_tol(dtype) if stage_tol is None else stage_tol
         B, shape = y0.shape[0], y0.shape
         converged = torch.ones(B, dtype=torch.bool, device=y0.device)

@@ -48,7 +48,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..misc import Perturb, _nextafter, coef, nan_sign, rms_norm, scalar_type
+from ..misc import (Perturb, _nextafter, coef, nan_sign, real_dtype, rms_norm,
+                    scalar_type)
 from ..ops.interp import coeff_dtype, cubic_hermite_interp, linear_interp
 from ..ops.step_control import error_scale
 from .adaptive_rk import (AdaptiveConfig, _check_no_duplicates,
@@ -84,7 +85,7 @@ class LaneField:
     """The batched field ``field(t (B,), y (B, ...), perturb)`` of a
     per-sample ``fn(t_i, y_i, *args_i)``, vectorised by ``torch.func.vmap``
     with `in_dims` for the args (None: shared).  As `misc.PerturbedFunc`,
-    the time is cast to the state dtype and nudged one ULP for a
+    the time is cast to the state's real dtype and nudged one ULP for a
     perturbed evaluation, and `t_sign` maps the internal frame to the
     user's."""
 
@@ -96,7 +97,7 @@ class LaneField:
         self.callbacks = callbacks or {}
 
     def __call__(self, t, y, perturb=Perturb.NONE):
-        t = t.to(y.dtype)
+        t = t.to(real_dtype(y.dtype))
         if perturb is not Perturb.NONE:
             t = _nextafter(t, perturb is Perturb.NEXT)
         if self.t_sign < 0:
@@ -144,7 +145,7 @@ def lane_weighted_sum(coeffs, vecs, dt=None, base=None):
     multiply-accumulate."""
     dtype = vecs[0].dtype
     if dt is not None:
-        dt = dt.to(dtype)
+        dt = dt.to(real_dtype(dtype))
     total = None
     for c, v in zip(coeffs, vecs):
         if c == 0.0:
@@ -161,10 +162,10 @@ def lane_weighted_sum(coeffs, vecs, dt=None, base=None):
 
 def lane_rk_step(func, y0, f0, t0, dt, t1, tableau, error_dtype=None):
     """`ops.rk_step.runge_kutta_step` with (B,) float64 times `t0`, `dt`,
-    `t1`, cast to the state dtype as there.  Returns (y1, f1, y1_error,
-    k)."""
+    `t1`, cast to the state's real dtype as there.  Returns (y1, f1,
+    y1_error, k)."""
     dtype = y0.dtype
-    t0, dt, t1 = (x.to(dtype) for x in (t0, dt, t1))
+    t0, dt, t1 = (x.to(real_dtype(dtype)) for x in (t0, dt, t1))
     k = [f0]
     yi = y0
     for i in range(len(tableau.alpha)):
@@ -206,7 +207,7 @@ def lane_interp_fit_step(y0, y1, k, dt, tableau):
 def _lane_yform_fit(y0, y1, k, dt, tableau):
     """The quartic's y-form coefficients in the state dtype
     (`ops.interp.interp_fit` of ``y_mid = y0 + sum((c_mid * dt) * k)``)."""
-    dt = dt.to(y0.dtype)
+    dt = dt.to(real_dtype(y0.dtype))
     y_mid = lane_weighted_sum(tableau.c_mid, k, dt, base=y0)
     f0, f1 = k[0], k[-1]
     two_dt = lanes(coef(2.0, y0.dtype) * dt, y0)
@@ -231,7 +232,7 @@ def _horner(coeff, x):
 def lane_interp_at(coeff, t0, t1, t):
     """`ops.interp.interp_evaluate_at` with (B,) float64 `t0`, `t1`, `t`:
     no zero-width guard, as there."""
-    x = ((t - t0) / (t1 - t0)).to(coeff.dtype)
+    x = ((t - t0) / (t1 - t0)).to(real_dtype(coeff.dtype))
     return _horner(coeff, lanes(x, coeff[0]))
 
 
@@ -240,17 +241,18 @@ def _lane_outputs(coeff, t0, t1, ts):
     zero-width guard of `ops.interp.interp_evaluate` (a rejected step has
     ``t1 == t0``)."""
     denom = torch.where(t1 > t0, t1 - t0, torch.ones_like(t1))
-    x = ((ts[None, :] - t0[:, None]) / denom[:, None]).to(coeff.dtype)
+    x = ((ts[None, :] - t0[:, None]) / denom[:, None]).to(
+        real_dtype(coeff.dtype))
     rows = coeff[:, :, None]
     return _horner(rows, x.reshape(x.shape + (1,) * (rows.dim() - 3)))
 
 
 def lane_initial_step(func, t0, y0, order, rtol, atol, norm, f0):
     """`ops.step_control.select_initial_step` for every sample: its norms
-    over that sample alone, the arithmetic in the state dtype.  `t0` (B,)
-    float64; returns the (B,) float64 steps (one field evaluation, no host
-    read)."""
-    dtype = y0.dtype
+    over that sample alone, the arithmetic in the state's real dtype.  `t0`
+    (B,) float64; returns the (B,) float64 steps (one field evaluation, no
+    host read)."""
+    dtype = real_dtype(y0.dtype)
 
     def c(v):
         return torch.full_like(d0, coef(v, dtype))

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..misc import Perturb, nan_sign, scalar_type
+from ..misc import Perturb, nan_sign, real_dtype, scalar_type
 from ..ops import rk_step
 from ..ops.interp import linear_interp, cubic_hermite_interp
 from ..ops.rk_step import tmul, tscale
@@ -276,7 +276,7 @@ def integrate_until_event_fixed_grid(method: FixedStepMethod, func, y0, t0,
     if interp not in ("linear", "cubic"):
         raise ValueError(f"Unknown interpolation method {interp}")
     cubic = interp == "cubic"
-    tdt = y0.dtype
+    tdt = real_dtype(y0.dtype)
     sd = scalar_type(tdt)
 
     def time(t):

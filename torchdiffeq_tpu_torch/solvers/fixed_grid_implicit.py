@@ -15,8 +15,9 @@ torchdiffeq/_impl/rk_common.py:378-558).
   ``n`` system per stage.  A stage at alpha 1 evaluates the field just
   below t1 (`misc.nextafter_down`); a stage with alpha 0 and no coupling is
   pinned to ``f(t0, y0)`` (FIRK) or to the step's first slope (DIRK).
-  Time is in the state dtype (JAX's ``real_dtype``), not the grid's
-  float64.
+  Time is in the state's real dtype (JAX's ``real_dtype``), not the
+  grid's float64.  A complex state's stage systems are solved on their
+  stacked real view (`_complex_root_solve`).
 * **Gradients.**  The iterations run with no graph.  Under autograd the
   residual is evaluated once more at the converged stages ``K*``, recording
   how it depends on y0, the times and the field's parameters, and the
@@ -37,7 +38,7 @@ import numpy as np
 import torch
 
 from ..misc import (Perturb, carries_derivative, coef, lane_jacobian,
-                    nextafter_down, scalar_type)
+                    nextafter_down, real_dtype, scalar_type)
 from ..ops import linsolve
 from ..ops.rk_step import weighted_sum
 from .fixed_grid import FixedStepMethod, construct_grid, integrate_fixed_grid
@@ -150,6 +151,9 @@ def root_solve(residual, x0, tol, max_iters, newton, lanes=False,
     (`active` as `_iterate`'s), its implicit-function derivative through
     its own Jacobian.  Returns (x, converged: a bool, or (B,) with
     `lanes`)."""
+    if x0.is_complex():
+        return _complex_root_solve(residual, x0, tol, max_iters, newton,
+                                   lanes, active)
     if not lanes:
         one, residual = residual, lambda xb: one(xb[0])[None]
         x0 = x0[None]
@@ -165,6 +169,29 @@ def root_solve(residual, x0, tol, max_iters, newton, lanes=False,
                     return lane_jacobian(residual, root)
             x = x + _IFT.apply(r, jac)
     return (x, conv) if lanes else (x[0], all_conv)
+
+
+def _complex_root_solve(residual, x0, tol, max_iters, newton, lanes, active):
+    """`root_solve` of a complex system on its stacked real view ``[Re x,
+    Im x]`` (JAX `_make_root_solver(complex_state=True)`,
+    fixed_grid_implicit.py:102-126; `_stage_root`, adaptive_implicit.py:70-
+    103): Newton's Jacobian, Broyden's rank-1 update and the implicit-
+    function derivative are then those of a real function, with no
+    assumption that the field is holomorphic (``torch.func`` would take a
+    complex function's derivative as if it were).  The packing and
+    unpacking stay outside `_IFT`, which sees real tensors only; autograd
+    carries derivatives through them in its own convention."""
+    m = x0.shape[-1]
+
+    def pack(z):
+        return torch.cat([z.real, z.imag], dim=-1)
+
+    def unpack(xr):
+        return torch.complex(xr[..., :m], xr[..., m:])
+
+    xr, conv = root_solve(lambda xr: pack(residual(unpack(xr))), pack(x0),
+                          tol, max_iters, newton, lanes, active)
+    return unpack(xr), conv
 
 
 def _stage_times(tableau):
@@ -184,10 +211,10 @@ def _stage_times(tableau):
 
 
 def _cast_time(t, dtype):
-    """A grid time in the state dtype (JAX's ``astype(real_dtype)``): a host
-    scalar, or a 0-d tensor when it carries a gradient."""
+    """A grid time in the state's real dtype (JAX's ``astype(real_dtype)``):
+    a host scalar, or a 0-d tensor when it carries a gradient."""
     if isinstance(t, torch.Tensor) and t.requires_grad:
-        return t.to(dtype)
+        return t.to(real_dtype(dtype))
     return scalar_type(dtype)(float(t))
 
 
