@@ -131,6 +131,22 @@ benchmarks/bench_fused_field.py at its full width:
      reset before and read after, each against its plain version on the
      card and timed three ways at B=1024 and B=65536; (c) the phase's
      seconds.
+ 19. Parareal and the training loops (no kernel; the launch counts reset
+     before and read after): (a) `odeint_parareal_with_info` on phase
+     10's spiral field (H=64) with its B=1024 spirals as one state of 2048
+     values, t = linspace(0, 1, 10) (9 slices), dopri5 fine at rtol 1e-7,
+     atol 1e-9, rk4 coarse with 2 steps: in float64 with n_iters = 9 its
+     values and the gradient of sum(ys[-1]**2) in y0, the MLP's
+     parameters and t against the slice-restarted chain of `odeint` /
+     `odeint_adjoint`; in float32 with n_iters = 3 its correction norms,
+     the driver's iterations, device time (CUDA events), wall time and
+     busy share beside the chain's; (b) the parareal_demo's `main` whole;
+     (c) phase 10's training step through `training.make_sgd_step` under
+     `scan_steps` (3 steps) against the same step by hand, `fit` (5 steps,
+     2 a dispatch) against one scan, `make_optax_step` with the port's
+     Adam in float64 against the same optimizer by hand, a bfloat16
+     parameter kept bfloat16, and the time a step beside phase 10's; the
+     phase's seconds (budget PAR_BUDGET_S).
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -354,6 +370,19 @@ LANE16_TS = np.linspace(0.0, 10.0, 5)
 LANE16_FLIP_SHARE = 0.025
 LANE16_ULPS = {"bf16": 32, "f16": 256}
 PS_BUDGET_S = 60
+# - phase 19, Parareal and the training loops.  With n_iters = S the
+#   scheme's iterate is the slice-restarted fine chain exactly (finite
+#   termination; the last correction adds F - G to the G of the same
+#   state), so float64 values agree with the chain's to rounding: 1e-10 of
+#   max|y| (PAR_VALUES).  The gradient is the linearised recursion's, which
+#   terminates at the same iteration; each slice's continuous adjoint is
+#   the chain's, solved in a batch, so rounding carried through S backward
+#   solves: 1e-8 of max|g| (PAR_GRAD_REL).  The training loops run the same
+#   operations on the same tensors as the steps by hand: bit for bit.
+PAR_T, PAR_FAST_ITERS = 10, 3
+PAR_VALUES = 1e-10
+PAR_GRAD_REL = 1e-8
+PAR_BUDGET_S = 90
 
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
@@ -1064,6 +1093,7 @@ def _phase_train(torch, kernels, dev):
           f"{np.median(wall_ms):.2f} ms | forward steps {st32.n_steps} nfe "
           f"{st32.nfe}, backward steps {bwd_st.n_steps} nfe {bwd_st.nfe} | "
           f"{nfe * B / (med / 1e3):.4g} VF evals/s | device busy: {busy}")
+    return med
 
 
 FIXED = ("euler", "midpoint", "heun2", "heun3", "rk4")
@@ -3836,6 +3866,248 @@ def _phase_dtypes(torch, kernels, dev):
     return entries
 
 
+def _par_setup(torch, npd, device, b):
+    """Phase 19's problem: phase 10's spiral field and its first `b`
+    spirals as one state, and t = linspace(0, 1, PAR_T) (float64, CPU)."""
+    model, y0, _, _ = _train_setup(torch, npd, device)
+    t = torch.linspace(0.0, 1.0, PAR_T, dtype=torch.float64)
+    return model, y0[:b].contiguous(), t
+
+
+def _par_chain(torch, model, y0, t, solver):
+    """The slice-restarted sequential fine chain: (T, ...) values."""
+    u, out = y0, [y0]
+    for s in range(t.shape[0] - 1):
+        u = solver(model, u, t[s:s + 2], rtol=RTOL, atol=ATOL)[-1]
+        out.append(u)
+    return torch.stack(out)
+
+
+def _par_finite_termination(torch, device, b):
+    """float64, n_iters = S: Parareal's values and the gradients of
+    sum(ys[-1]**2) in y0, the parameters and t against the chain's
+    (`odeint_adjoint` slice by slice).  Returns (value error relative to
+    max|y|, the largest gradient error relative to its max|g|, deltas)."""
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    from torchdiffeq_tpu_torch.parallel import odeint_parareal_with_info
+    runs = []
+    for par in (True, False):
+        model, y0, t = _par_setup(torch, np.float64, device, b)
+        y0.requires_grad_(True)
+        t.requires_grad_(True)
+        if par:
+            ys, deltas = odeint_parareal_with_info(
+                model, y0, t, rtol=RTOL, atol=ATOL, n_iters=PAR_T - 1)
+        else:
+            ys = _par_chain(torch, model, y0, t, odeint_adjoint)
+        (ys[-1] ** 2).sum().backward()
+        runs.append((ys.detach(), [y0.grad, *(p.grad for p in
+                                             model.parameters()), t.grad]))
+    (ys_p, g_p), (ys_c, g_c) = runs
+    err = float((ys_p - ys_c).abs().max() / ys_c.abs().max())
+    return err, _max_rel(g_p, g_c), deltas.detach()
+
+
+def _sgd_problem(torch, npd, device):
+    """Phase 10's training step as a loss of a params tuple (w1, b1, w2,
+    b2): `odeint_adjoint` of the spiral field with the params as an arg."""
+    from types import SimpleNamespace
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    from torchdiffeq_tpu_torch.models.neural_ode import mlp_apply
+    model, y0, target, t = _train_setup(torch, npd, device)
+    params = tuple(p.detach().clone() for p in (
+        model.weights[0], model.biases[0], model.weights[1],
+        model.biases[1]))
+
+    def field(tt, yy, p):
+        return mlp_apply(SimpleNamespace(weights=p[0::2], biases=p[1::2]),
+                         yy ** 3)
+
+    def loss_fn(p, _batch):
+        ys = odeint_adjoint(field, y0, t, rtol=RTOL, atol=ATOL,
+                            method="dopri5", args=(p,))
+        return ((ys - target[None]) ** 2).mean()
+
+    return params, loss_fn
+
+
+def _by_hand(torch, loss_fn, params, n, update):
+    """`n` steps of `loss_fn` by hand: backward on leaf tensors, then
+    `update(leaves)` under no_grad.  Returns (leaves, losses)."""
+    ps = [p.clone().requires_grad_(True) for p in params]
+    losses = []
+    for _ in range(n):
+        loss = loss_fn(tuple(ps), None)
+        loss.backward()
+        with torch.no_grad():
+            update(ps)
+        for p in ps:
+            p.grad = None
+        losses.append(loss.detach())
+    return [p.detach() for p in ps], torch.stack(losses)
+
+
+def _training_loops(torch, device):
+    """Phase 19 (c)'s equalities: (sgd scan vs hand, fit vs scan, adam vs
+    hand, bfloat16 kept, seconds a step of the scan)."""
+    from torchdiffeq_tpu_torch import training
+    from torchdiffeq_tpu_torch.examples._optim import Adam
+    params, loss_fn = _sgd_problem(torch, np.float32, device)
+    step = training.make_sgd_step(loss_fn, lr=1e-3)
+    _sync(torch, device)
+    w0 = time.perf_counter()
+    p_scan, l_scan = training.scan_steps(step, params, length=3)
+    _sync(torch, device)
+    step_s = (time.perf_counter() - w0) / 3
+
+    def sgd(ps):
+        for p in ps:
+            p -= 1e-3 * p.grad
+    p_hand, l_hand = _by_hand(torch, loss_fn, params, 3, sgd)
+    sgd_equal = (all(torch.equal(a, b) for a, b in zip(p_scan, p_hand))
+                 and torch.equal(l_scan, l_hand))
+    p_fit, l_fit = training.fit(step, params, num_steps=5,
+                                steps_per_dispatch=2)
+    p_one, l_one = training.scan_steps(step, params, length=5)
+    fit_equal = (all(torch.equal(a, b) for a, b in zip(p_fit, p_one))
+                 and np.array_equal(l_fit, l_one.cpu().numpy()))
+    # the port's Adam, float64: the functional transform against the
+    # torch.optim form of the same rule
+    params64, loss64 = _sgd_problem(torch, np.float64, device)
+    init, astep = training.make_optax_step(loss64, training.adam(1e-3))
+    (p_adam, _), l_adam = training.scan_steps(astep, init(params64),
+                                              length=3)
+    opt = {}
+
+    def adam(ps):
+        if not opt:
+            opt['o'] = Adam(ps, lr=1e-3)
+        opt['o'].step()
+    p_ah, l_ah = _by_hand(torch, loss64, params64, 3, adam)
+    adam_equal = (all(torch.equal(a, b) for a, b in zip(p_adam, p_ah))
+                  and torch.equal(l_adam, l_ah))
+    adam_rel = _max_rel(p_adam, p_ah)
+    binit, bstep = training.make_optax_step(
+        lambda w, _: ((w - 1.0) ** 2).sum().float(), training.adam(1e-2))
+    (wb, _), _ = training.scan_steps(
+        bstep, binit(torch.zeros(4, dtype=torch.bfloat16, device=device)),
+        length=3)
+    return dict(sgd_equal=sgd_equal, fit_equal=fit_equal,
+                adam_equal=adam_equal, adam_rel=adam_rel,
+                bf16=wb.dtype == torch.bfloat16, step_s=step_s,
+                losses=l_scan.cpu().tolist())
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _phase_parareal(torch, kernels, dev, train_ms):
+    """Phase 19: Parareal (`parallel/parareal.py`, its fine sweep the
+    per-sample-span driver), the parareal_demo, and the training loops
+    (`training.py`), on the card."""
+    import contextlib
+    import io
+    from torchdiffeq_tpu_torch import odeint
+    from torchdiffeq_tpu_torch.examples import parareal_demo
+    from torchdiffeq_tpu_torch.parallel import odeint_parareal_with_info
+    from torchdiffeq_tpu_torch.solvers import batched_rk
+    p0 = time.perf_counter()
+    card = _card()
+    kernels.reset_launch_counts()
+
+    # (a) float64, n_iters = S: the chain's values and gradients
+    err64, grad64, d64 = _par_finite_termination(torch, dev, B)
+    _check(err64 <= PAR_VALUES and grad64 <= PAR_GRAD_REL,
+           f"Parareal float64 n_iters={PAR_T - 1} vs the chain: values "
+           f"{err64}, gradients {grad64} of max|g|")
+
+    # float32, n_iters = 3: its time beside the chain's
+    model, y0, t = _par_setup(torch, np.float32, dev, B)
+    with torch.no_grad():
+        _par_chain(torch, model, y0, t, odeint)          # warm
+        odeint_parareal_with_info(model, y0, t, rtol=RTOL, atol=ATOL,
+                                  n_iters=PAR_FAST_ITERS)
+        rows = {}
+        for name, run in (
+                ("parareal", lambda: odeint_parareal_with_info(
+                    model, y0, t, rtol=RTOL, atol=ATOL,
+                    n_iters=PAR_FAST_ITERS)),
+                ("chain", lambda: (_par_chain(torch, model, y0, t, odeint),
+                                   None))):
+            batched_rk.reset_lane_counts()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            ev[0].record()
+            ys32, d32 = run()
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - w0) * 1e3
+            iters = batched_rk.LANE_COUNTS["iterations"]
+            busy_ms, n_k, pwall = _profiled_step(torch, run, host=False)
+            rows[name] = (ev[0].elapsed_time(ev[1]), wall, busy_ms, n_k,
+                          pwall, iters, ys32, d32)
+    ys_par, ys_seq = rows["parareal"][6], rows["chain"][6]
+    err32 = float((ys_par - ys_seq).abs().max() / ys_seq.abs().max())
+    _check(bool(torch.isfinite(ys_par).all()) and ys_par.is_cuda
+           and tuple(ys_par.shape) == (PAR_T, B, 2),
+           f"Parareal float32: {tuple(ys_par.shape)}")
+
+    def row(name):
+        ev_ms, wall, busy_ms, n_k, pwall, iters = rows[name][:6]
+        busy = ("busy not measured (no device time in the trace)"
+                if busy_ms is None else
+                f"busy {busy_ms:.2f} ms in {n_k} kernels, {busy_ms / pwall:.1%}"
+                f" of the traced {pwall:.1f} ms")
+        return (f"{name}: device (CUDA events) {ev_ms:.1f} ms, wall "
+                f"{wall:.1f} ms, {busy}, driver iterations {iters}")
+
+    # (b) the demo, whole
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        demo = parareal_demo.main(["--device", "cuda"])
+    demo_out = buf.getvalue().strip().splitlines()
+    _check(demo_out[-1] == "ok", f"parareal_demo: {demo_out[-3:]}")
+
+    # (c) the training loops
+    tr = _training_loops(torch, dev)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    _check(tr["sgd_equal"] and tr["fit_equal"] and tr["bf16"]
+           and tr["adam_rel"] <= GRAD_F64_REL,
+           f"training loops: {tr}")
+    total = time.perf_counter() - p0
+    print(f"[19a parareal] {card} | spiral H={H}, B={B} spirals as one state "
+          f"of {2 * B}, t = linspace(0, 1, {PAR_T}) ({PAR_T - 1} slices), "
+          f"dopri5 rtol={RTOL} atol={ATOL}, rk4 coarse 2 steps | float64 "
+          f"n_iters={PAR_T - 1} vs the slice-restarted chain: values "
+          f"{err64:.2e} of max|y| (<= {PAR_VALUES}), gradients in y0, the "
+          f"MLP and t {grad64:.2e} of max|g| (<= {PAR_GRAD_REL}); deltas "
+          f"{['%.2e' % d for d in d64.cpu().tolist()]} | float32 "
+          f"n_iters={PAR_FAST_ITERS}: deltas "
+          f"{['%.2e' % d for d in rows['parareal'][7].cpu().tolist()]}, "
+          f"{err32:.2e} of max|y| from the chain | {row('parareal')} | "
+          f"{row('chain')}")
+    print(f"[19b parareal_demo] {card} | main() on the card, float32, 16 "
+          f"slices, 5 iterations: {demo_out[-3]} | {demo_out[-2]} | "
+          f"{demo_out[-1]}")
+    print(f"[19c training loops] {card} | phase 10's step (odeint_adjoint, "
+          f"spiral B={B}, SGD lr 1e-3) by make_sgd_step + scan_steps, 3 "
+          f"steps: equal to the step by hand bit for bit {tr['sgd_equal']}, "
+          f"losses {['%.7f' % x for x in tr['losses']]}; fit(5, 2 a "
+          f"dispatch) == scan_steps(5) bit for bit {tr['fit_equal']}; "
+          f"make_optax_step(adam) float64 3 steps vs torch.optim Adam by "
+          f"hand: bit for bit {tr['adam_equal']}, {tr['adam_rel']:.2e} of "
+          f"max|p| (<= {GRAD_F64_REL}); bfloat16 kept {tr['bf16']} | "
+          f"{tr['step_s'] * 1e3:.2f} ms a step under scan_steps (host wall), "
+          f"phase 10's median {train_ms:.2f} ms | kernel launches "
+          f"{launches or 'none'} (no kernel on this path)")
+    print(f"[19 budget] phase 19 took {total:.1f} s (budget {PAR_BUDGET_S} s)")
+    _check(total <= PAR_BUDGET_S, f"phase 19 took {total:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4248,7 +4520,7 @@ def main():
 
     summary.append(_phase_fused(torch, fused_field, kernels, DOPRI5, dev))
 
-    _phase_train(torch, kernels, dev)
+    train_ms = _phase_train(torch, kernels, dev)
 
     _phase_fixed(torch, kernels, dev)
 
@@ -4263,6 +4535,8 @@ def main():
     summary.extend(_phase_examples(torch, kernels, dev, driver_ms))
 
     summary.extend(_phase_dtypes(torch, kernels, dev))
+
+    _phase_parareal(torch, kernels, dev, train_ms)
 
     torch.cuda.synchronize()
     print(_card())

@@ -1851,3 +1851,99 @@ def test_complex_states_cuda_match_cpu(cuda):
     for i in (0, 2, 3, 4):
         assert float((g[i] - c[i]).abs().max()) <= 1e-9 * max(
             1.0, float(c[i].abs().max()))
+
+
+def _parareal_grads(device):
+    """Parareal (float64, 4 slices, n_iters 3) on a small spiral MLP field
+    with 16 trajectories as one state: (ys, deltas, gradients of
+    sum(ys[-1]**2) in y0, the parameters and t)."""
+    from torchdiffeq_tpu_torch.parallel import odeint_parareal_with_info
+    model, rng = _model(device, torch.float64, H=16, scale=0.3)
+    model.requires_grad_(True)
+    y0 = torch.from_numpy(rng.randn(16, 2) * 0.8).to(device).requires_grad_()
+    t = torch.linspace(0.0, 1.0, 5, dtype=torch.float64, requires_grad=True)
+    ys, deltas = odeint_parareal_with_info(model, y0, t, rtol=1e-8,
+                                           atol=1e-10, n_iters=3)
+    (ys[-1] ** 2).sum().backward()
+    return ys.detach(), deltas.detach(), [y0.grad, *(p.grad for p in
+                                            model.parameters()), t.grad]
+
+
+def test_parareal_cuda_matches_cpu(cuda):
+    """odeint_parareal on the card against the CPU, float64: values and
+    correction norms to 1e-10 of their max, gradients in y0, the module's
+    parameters and t to 1e-9 of max|g| (chip_smoke.py's GRAD_F64_REL)."""
+    ys_g, d_g, g_g = _parareal_grads(cuda)
+    ys_c, d_c, g_c = _parareal_grads("cpu")
+    assert ys_g.is_cuda and d_g.is_cuda and d_g.shape == (3,)
+    torch.testing.assert_close(ys_g.cpu(), ys_c, rtol=0,
+                               atol=F64 * float(ys_c.abs().max()))
+    torch.testing.assert_close(d_g.cpu(), d_c, rtol=0,
+                               atol=F64 * float(ys_c.abs().max()))
+    for a, b in zip(g_g, g_c):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-9 * float(b.abs().max()))
+
+
+def test_span_driver_cuda_matches_cpu(cuda):
+    """The per-sample-span driver (Parareal's fine sweep) on the card:
+    each lane over its own (t0, t1), float64, counters equal to the
+    CPU's, values to 1e-10."""
+    from torchdiffeq_tpu_torch.parallel.batched import (
+        odeint_spans_with_stats)
+    model, rng = _model(cuda, torch.float64)
+    y0 = rng.randn(6, 2)
+    grid = np.linspace(0.0, 3.0, 7)
+    spans = np.stack([grid[:-1], grid[1:]], 1)
+    runs = []
+    for device in (cuda, "cpu"):
+        m, _ = _model(device, torch.float64)
+        with torch.no_grad():
+            runs.append(odeint_spans_with_stats(
+                m, torch.from_numpy(y0).to(device), torch.from_numpy(spans),
+                rtol=1e-8, atol=1e-10))
+    (ys_g, st_g), (ys_c, st_c) = runs
+    for a, b in zip(st_g[:5], st_c[:5]):
+        assert torch.equal(a.cpu(), b)
+    torch.testing.assert_close(ys_g.cpu(), ys_c, rtol=0, atol=F64)
+
+
+def _training_run(device):
+    """The three training entry points on a small spiral loss (float64):
+    make_sgd_step under scan_steps, fit, make_optax_step with Adam."""
+    from types import SimpleNamespace
+    from torchdiffeq_tpu_torch import odeint_adjoint, training
+    from torchdiffeq_tpu_torch.models.neural_ode import mlp_apply
+    model, rng = _model(device, torch.float64, H=16, scale=0.3)
+    params = tuple(p.detach().clone() for p in (
+        model.weights[0], model.biases[0], model.weights[1],
+        model.biases[1]))
+    y0 = torch.from_numpy(rng.randn(8, 2) * 0.8).to(device)
+    target = torch.from_numpy(rng.randn(8, 2)).to(device)
+    t = torch.linspace(0.0, 1.0, 4, dtype=torch.float64)
+
+    def loss_fn(p, _batch):
+        field = lambda tt, yy, q: mlp_apply(   # noqa: E731
+            SimpleNamespace(weights=q[0::2], biases=q[1::2]), yy ** 3)
+        ys = odeint_adjoint(field, y0, t, rtol=1e-8, atol=1e-10, args=(p,))
+        return ((ys[-1] - target) ** 2).mean()
+
+    step = training.make_sgd_step(loss_fn, lr=1e-2)
+    p_scan, l_scan = training.scan_steps(step, params, length=3)
+    p_fit, l_fit = training.fit(step, params, num_steps=3,
+                                steps_per_dispatch=2)
+    init, astep = training.make_optax_step(loss_fn, training.adam(1e-2))
+    (p_adam, _), l_adam = training.scan_steps(astep, init(params), length=3)
+    return [l_scan, torch.from_numpy(l_fit), l_adam, *p_scan, *p_fit,
+            *p_adam]
+
+
+def test_training_loops_cuda_match_cpu(cuda):
+    """make_sgd_step/scan_steps, fit and make_optax_step on the card
+    against the CPU, float64: losses and parameters to 1e-9 of their max
+    (GRAD_F64_REL: three adjoint gradients apart by rounding)."""
+    got, want = _training_run(cuda), _training_run("cpu")
+    assert got[0].is_cuda and got[3].is_cuda
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-9 * float(b.abs().max()))

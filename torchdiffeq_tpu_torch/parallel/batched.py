@@ -269,9 +269,11 @@ def _lane_problem(func, y0, t, rtol, atol, method, options, args, axes,
             out = torch.cat([o.reshape(-1) for o in out])
         return out
 
+    # `ts_lanes`: per-sample output times, (B, T) internal float64 on the
+    # state's device, in place of `prob.t` (`odeint_spans_with_stats`)
     return SimpleNamespace(
         prob=prob, y0=y0_b, B=B, one=one, args=args, axes=axes,
-        unravel=unravel,
+        unravel=unravel, ts_lanes=None,
         callbacks=solver_callbacks(func, method, SOLVERS, prob.t_sign,
                                    unravel))
 
@@ -378,8 +380,9 @@ def _solve_lanes(lp, spec, y0_b=None, ts_t=None):
     and the emission times theirs."""
     y0_b = lp.y0 if y0_b is None else y0_b
     prob = lp.prob
+    ts = prob.t if lp.ts_lanes is None else lp.ts_lanes
     with torch.no_grad():
-        return batched_rk.integrate_lanes(_lane_field_of(lp), y0_b, prob.t,
+        return batched_rk.integrate_lanes(_lane_field_of(lp), y0_b, ts,
                                           _adaptive_cfg(lp, spec),
                                           lane_norm(prob.norm), ts_t=ts_t)
 
@@ -439,12 +442,13 @@ def _event_solve(lp, spec, event_fn, y0_b):
 
 
 def _per_sample_solves(func, y0, t, rtol, atol, method, options, event_fn,
-                       args, axes):
+                       args, axes, spans=False):
     """Every sample solved alone by `odeint_with_stats` (its values, Stats
     and gradients those of its own solve, which is what JAX's vmap gives
     each sample), the results stacked as the driver returns them.  A host
     loop over the samples: the route of the problems whose samples do not
-    share a grid of steps (module docstring)."""
+    share a grid of steps (module docstring).  With `spans`, `t` holds a
+    row of times a sample."""
     from ..odeint import odeint_with_stats
     leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
     B = leaves[0].shape[0]
@@ -454,7 +458,8 @@ def _per_sample_solves(func, y0, t, rtol, atol, method, options, event_fn,
                 else y0[b])
         args_b = tuple(a if ax is None else a.select(ax, b)
                        for a, ax in zip(args, axes))
-        res, st = odeint_with_stats(func, y0_b, t, rtol=rtol, atol=atol,
+        res, st = odeint_with_stats(func, y0_b, t[b] if spans else t,
+                                    rtol=rtol, atol=atol,
                                     method=method, options=options,
                                     event_fn=event_fn, args=args_b)
         results.append(res)
@@ -656,7 +661,9 @@ class _LaneAdjointOp(torch.autograd.Function):
             if ctx.event_t is not None:
                 # the event time's own effect is not differentiated
                 dLds = torch.zeros_like(dLds)
-            g_t = (sign * torch.cat([vt[:, None], dLds], dim=1)).sum(0)
+            g_t = sign * torch.cat([vt[:, None], dLds], dim=1)
+            if spec.lp.ts_lanes is None:
+                g_t = g_t.sum(0)    # the samples share the times
             t_grad = real_part(g_t).to(device=spec.t_tensor.device,
                                         dtype=spec.t_tensor.dtype)
         p_grads = []
@@ -682,14 +689,16 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
     whose interior output times are `jump_t` points, the cotangents
     injected by each sample's own jump index.  With `event_t` (B,), the
     internal-frame event times, each sample's backward runs from its own
-    event time to t0.  Returns (adj_y0 (B, ...), [theta_bar (B, ...) per
+    event time to t0; with per-sample times (`lp.ts_lanes`), from its own
+    last time to its own first.  Returns (adj_y0 (B, ...), [theta_bar (B, ...) per
     parameter], vjp_t (B,), dLds (B, T-1))."""
     from ..adjoint import (_Layout, _functional_aug_dyn, _make_adjoint_norm,
                            _replace_tensors)
     lp = spec.lp
     t_int = lp.prob.t
+    t_lanes = lp.ts_lanes
     sign = lp.prob.t_sign
-    T, B = t_int.shape[0], ys.shape[0]
+    T, B = ys.shape[1], ys.shape[0]
     dev = ys.device
     params = list(spec.module_params) + list(spec.arg_tensors)
     reps = [p if d is None else p.select(d, 0)
@@ -712,6 +721,8 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
     def t_out(j):
         if event_t is not None:
             return event_t
+        if t_lanes is not None:
+            return t_lanes[:, j]
         return torch.full((B,), float(t_int[j]), dtype=torch.float64,
                           device=dev)
 
@@ -738,7 +749,9 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
                                        + g_ys[rows, j].reshape(B, -1))
             return out
 
-        opts.update(jump_t=t_int[1:-1], jump_state_fn=inject)
+        opts.update(jump_t=t_int[1:-1] if t_lanes is None
+                    else t_lanes[:, 1:-1].cpu().numpy(),
+                    jump_state_fn=inject)
         aug0 = aug_state(-dLds[:, -1], ys[:, -1], g_ys[:, -1])
     else:
         aug0 = aug_state(-dLds[:, 0], ys[:, 1], g_ys[:, 1])
@@ -756,8 +769,11 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
         aug_field = LaneField(aug_one, ps, list(spec.p_dims)
                               + [ax for _, ax in spec.fixed],
                               back.prob.t_sign)
+        # each sample's own span reversed, in the backward's frame
+        grid = (back.prob.t if t_lanes is None
+                else back.prob.t_sign * t_lanes[:, [T - 1, 0]])
         sol, _ = batched_rk.integrate_lanes(
-            aug_field, aug0, back.prob.t, _adaptive_cfg(back, spec.spec),
+            aug_field, aug0, grid, _adaptive_cfg(back, spec.spec),
             lane_norm(back.prob.norm),
             t0=None if event_t is None else back.prob.t_sign * event_t)
         end = sol[:, 1]
@@ -766,6 +782,64 @@ def _lane_backward_pass(spec, ys, g_ys, event_t=None):
     ths = [part.reshape((B,) + tuple(r.shape)) for part, r in
            zip(torch.split(th, layout.p_sizes, dim=1), reps)]
     return adj_y.reshape(ys[:, 0].shape), ths, end[:, 0], dLds
+
+
+# ---- per-sample time spans (Parareal's fine sweep) ---------------------------
+
+def _span_times(t, B):
+    """The per-sample times as a (B, T) float64 host array (one read),
+    each row strictly monotonic and every row in one direction."""
+    if isinstance(t, torch.Tensor):
+        t = t.detach().to('cpu', torch.float64).numpy()
+    t = np.asarray(t, dtype=np.float64)
+    if t.ndim != 2 or t.shape[0] != B or t.shape[1] < 2:
+        raise ValueError(f"per-sample times must be ({B}, T) with T >= 2, "
+                         f"got {t.shape}")
+    d = np.diff(t, axis=1)
+    if not ((d > 0).all() or (d < 0).all()):
+        raise ValueError("every sample's times must be strictly increasing, "
+                         "or every sample's strictly decreasing")
+    return t
+
+
+def odeint_spans_with_stats(func, y0, t, *, rtol=1e-7, atol=1e-9,
+                            method=None, options=None, args=()):
+    """Every sample of `y0` (B, ...) solved over its own output times, the
+    row b of `t` (B, T): ``jax.vmap(odeint_with_stats)`` over per-sample
+    `t` and `y0` with shared `args` (the fine sweep of Parareal, JAX
+    parallel/parareal.py:99-102, 128).  Returns (ys (B, T, ...), Stats of
+    (B,) counters).
+
+    An adaptive method without ``replay_grad``/``forward_grad`` runs as one
+    batched solve (`batched_rk.integrate_lanes` with a row of times a
+    sample: each sample starts, emits and stops at its own times) and takes
+    its gradients in y0, `t`, the tensors in `args` and an ``nn.Module``
+    field's parameters from each sample's own continuous adjoint, run from
+    its own last time back to its first in one batched backward solve;
+    `t`'s gradient is each sample's row.  Any other method or gradient mode
+    solves the samples one by one with `odeint_with_stats`, as the driver
+    does for samples that do not share a grid (`_per_sample_solves`).  The
+    samples share one direction of time.  Internal: the public per-sample
+    entry points take JAX's one shared `t`."""
+    args = tuple(args)
+    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    t_np = _span_times(t, leaves[0].shape[0])
+    name, spec = _refuse(y0, method)
+    opts = dict(options) if isinstance(options, dict) else {}
+    axes = (None,) * len(args)
+    if (spec['kind'] != 'adaptive' or opts.get('replay_grad')
+            or opts.get('forward_grad')):
+        return _per_sample_solves(func, y0, t, rtol, atol, name, opts, None,
+                                  args, axes, spans=True)
+    from ..adjoint import _tensors_in
+    lp = _lane_problem(func, y0, t_np[0], rtol, atol, name, opts, args, axes)
+    lp.ts_lanes = torch.from_numpy(lp.prob.t_sign * t_np).to(lp.y0.device)
+    if needs_autograd(func, *leaves, t, *_tensors_in(args)):
+        t_tensor = (t if isinstance(t, torch.Tensor)
+                    else torch.from_numpy(t_np))
+        return _lane_adjoint(lp, spec, func, t_tensor, args, axes, opts)
+    ys, stats = _solve_lanes(lp, spec)
+    return _unravel_rows(lp, ys), stats
 
 
 # ---- the entry points ----------------------------------------------------------

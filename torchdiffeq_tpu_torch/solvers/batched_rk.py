@@ -237,11 +237,13 @@ def lane_interp_at(coeff, t0, t1, t):
 
 
 def _lane_outputs(coeff, t0, t1, ts):
-    """Every sample's quartic at every output time: (B, T, ...), with the
+    """Every sample's quartic at every output time (`ts` (T,) or a row a
+    sample, (B, T)): (B, T, ...), with the
     zero-width guard of `ops.interp.interp_evaluate` (a rejected step has
     ``t1 == t0``)."""
     denom = torch.where(t1 > t0, t1 - t0, torch.ones_like(t1))
-    x = ((ts[None, :] - t0[:, None]) / denom[:, None]).to(
+    ts = ts if ts.dim() == 2 else ts[None, :]
+    x = ((ts - t0[:, None]) / denom[:, None]).to(
         real_dtype(coeff.dtype))
     rows = coeff[:, :, None]
     return _horner(rows, x.reshape(x.shape + (1,) * (rows.dim() - 3)))
@@ -306,15 +308,28 @@ def _lane_next_dt(cfg, dt, ratio, prev, prev2):
 # ---- the carry and one iteration --------------------------------------------
 
 def _lane_tvals(tvals, t0):
-    """A sorted step_t or jump_t array on the device and each sample's
-    index of its first entry past the sample's start `t0` (B,)
-    (`adaptive_rk._prep_tvals` per sample)."""
+    """A step_t or jump_t array on the device, (B, K) with each row sorted,
+    and each sample's index of its first entry past the sample's start `t0`
+    (B,) (`adaptive_rk._prep_tvals` per sample).  `tvals` is one array the
+    samples share, or a (B, K) array, a row a sample (per-sample output
+    times, `integrate_lanes`)."""
     if tvals is None or np.size(tvals) == 0:
         return None, None
-    tv, _ = _prep_tvals(tvals, 0.0)
-    tv = torch.tensor(tv, dtype=F64, device=t0.device)
-    idx = torch.searchsorted(tv, t0, right=True)
-    return tv, torch.clamp(idx, 0, tv.shape[0] - 1)
+    B, dev = t0.shape[0], t0.device
+    tv = np.asarray(tvals, dtype=np.float64)
+    if tv.ndim < 2:
+        tv = torch.tensor(_prep_tvals(tv, 0.0)[0], dtype=F64, device=dev)
+        idx = torch.searchsorted(tv, t0, right=True)
+        tv = tv.expand(B, -1)
+    else:
+        tv = torch.tensor(np.sort(tv, axis=1), dtype=F64, device=dev)
+        idx = torch.searchsorted(tv, t0[:, None].contiguous(), right=True)[:, 0]
+    return tv, torch.clamp(idx, 0, tv.shape[1] - 1)
+
+
+def _next_tval(tvals, idx):
+    """Each sample's entry `idx` (B,) of its row of `tvals` (B, K)."""
+    return tvals.gather(1, idx[:, None])[:, 0]
 
 
 def _lane_carry(func, y0, t0, cfg: AdaptiveConfig, norm):
@@ -352,7 +367,7 @@ def _lane_carry(func, y0, t0, cfg: AdaptiveConfig, norm):
 def _advance(idx, mask, tvals):
     if tvals is None:
         return idx
-    return torch.where(mask & (idx != tvals.shape[0] - 1), idx + 1, idx)
+    return torch.where(mask & (idx != tvals.shape[1] - 1), idx + 1, idx)
 
 
 def _lane_step(c, func, cfg: AdaptiveConfig, norm, run):
@@ -382,11 +397,11 @@ def _lane_step(c, func, cfg: AdaptiveConfig, norm, run):
     # --- step_t / jump_t truncation (JAX adaptive_rk.py:212-258) ----------
     on_step = on_jump = None
     if c.step_t is not None:
-        v = c.step_t[c.step_idx]
+        v = _next_tval(c.step_t, c.step_idx)
         on_step = (t0 < v) & (v < t1)
         t1 = torch.where(on_step, v, t1)
     if c.jump_t is not None:
-        v = c.jump_t[c.jump_idx]
+        v = _next_tval(c.jump_t, c.jump_idx)
         on_jump = (t0 < v) & (v < t1)
         if cfg.jump_state_fn is not None:
             on_jump = on_jump | ((t0 < v) & (v == t1))
@@ -467,34 +482,64 @@ def _stats(c):
 
 # ---- the solves ---------------------------------------------------------------
 
+def _row(tvals, b):
+    """Sample b's step_t or jump_t: its row of a (B, K) array, or the one
+    array every sample shares."""
+    return tvals[b] if tvals is not None and np.ndim(tvals) == 2 else tvals
+
+
+def _lane_merged_cfg(cfg, ts_np):
+    """The configuration of a solve with per-sample output times `ts_np`
+    (B, T): step_to_end's forced boundaries (`_merged_step_t`) a row a
+    sample, each row checked for a time in both step_t and jump_t."""
+    rows = []
+    for b in range(ts_np.shape[0]):
+        cfg_b = cfg._replace(step_t=_row(cfg.step_t, b),
+                             jump_t=_row(cfg.jump_t, b))
+        _check_no_duplicates(cfg_b.step_t, cfg_b.jump_t)
+        if cfg.step_to_end:
+            rows.append(_merged_step_t(cfg_b, ts_np[b]))
+    return cfg._replace(step_t=np.stack(rows)) if rows else cfg
+
+
 def integrate_lanes(func, y0, ts, cfg: AdaptiveConfig, norm, t0=None,
                     ts_t=None):
-    """Integrate every sample of `y0` (B, ...) to every time in `ts`
-    (increasing float64 host array), each with its own controller:
-    `adaptive_rk.integrate` per sample.  `func` and `norm` are batched
-    (module docstring).  Each sample writes output j when its accepted
-    step covers ``ts[j]``, from its own quartic (or copies its state, with
-    ``step_to_end``); a sample whose error code is set has its unwritten
-    outputs NaN.  `t0`, (B,) float64, starts each sample at its own time
-    in place of ``ts[0]`` (the backward solve of a per-sample event, from
-    each sample's event time).  `ts_t`, the same times as a float64 tensor
-    carrying tangents (``forward_grad``), gives the start and the emission
-    times theirs, as `adaptive_rk.integrate`'s `ts_d`.  Returns (ys (B, T,
-    ...), Stats of (B,) counters)."""
-    B, T, dev = y0.shape[0], ts.shape[0], y0.device
-    _check_no_duplicates(cfg.step_t, cfg.jump_t)
-    if cfg.step_to_end:
-        cfg = cfg._replace(step_t=_merged_step_t(cfg, ts))
-    if ts_t is not None:
-        ts_d = ts_t.to(device=dev, dtype=F64)
-        t0 = ts_d[0].expand(B)
+    """Integrate every sample of `y0` (B, ...) to every time in `ts`, each
+    with its own controller: `adaptive_rk.integrate` per sample.  `ts` is
+    one increasing float64 host array that the samples share, or a (B, T)
+    float64 tensor, a row of increasing times a sample, from which each
+    sample starts, to which it emits and at whose end it stops (JAX's vmap
+    of a solve over per-sample `t`, the fine sweep of Parareal).  `func`
+    and `norm` are batched (module docstring).  Each sample writes output
+    j when its accepted step covers its time j, from its own quartic (or
+    copies its state, with ``step_to_end``); a sample whose error code is
+    set has its unwritten outputs NaN.  `t0`, (B,) float64, starts each
+    sample at its own time in place of ``ts[0]`` (the backward solve of a
+    per-sample event, from each sample's event time).  `ts_t`, the shared
+    times as a float64 tensor carrying tangents (``forward_grad``), gives
+    the start and the emission times theirs, as `adaptive_rk.integrate`'s
+    `ts_d`.  Returns (ys (B, T, ...), Stats of (B,) counters)."""
+    B, dev = y0.shape[0], y0.device
+    if isinstance(ts, torch.Tensor):
+        ts_d = ts.to(device=dev, dtype=F64)
+        cfg = _lane_merged_cfg(cfg, ts_d.cpu().numpy())
+        t0 = ts_d[:, 0] if t0 is None else t0
+        t_end = ts_d[:, -1]
     else:
-        ts_d = torch.tensor(ts, dtype=F64, device=dev)
+        _check_no_duplicates(cfg.step_t, cfg.jump_t)
+        if cfg.step_to_end:
+            cfg = cfg._replace(step_t=_merged_step_t(cfg, ts))
+        if ts_t is not None:
+            ts_d = ts_t.to(device=dev, dtype=F64)
+            t0 = ts_d[0].expand(B)
+        else:
+            ts_d = torch.tensor(ts, dtype=F64, device=dev)
+        t_end = float(ts[-1])
+    T = ts_d.shape[-1]
     c = _lane_carry(func, y0, ts[0] if t0 is None else t0, cfg, norm)
     out = y0.new_zeros((B, T) + tuple(y0.shape[1:]))
     out[:, 0] = y0
     i_out = torch.ones(B, dtype=torch.long, device=dev)
-    t_end = float(ts[-1])
     while True:
         run = (c.t1 < t_end) & (c.err == OK)
         if not _any(run):
