@@ -147,6 +147,20 @@ benchmarks/bench_fused_field.py at its full width:
      Adam in float64 against the same optimizer by hand, a bfloat16
      parameter kept bfloat16, and the time a step beside phase 10's; the
      phase's seconds (budget PAR_BUDGET_S).
+ 20. the device mesh on torch.distributed (`parallel/sharding.py`, one
+     process a rank): (a) a world of one rank with NCCL on the card:
+     `data_parallel_odeint`, `sharded_independent_odeint` and Parareal's
+     ``mesh=`` against their unsharded solves bit for bit, and the
+     per-sample K-dopri5 route under `sharded_independent_odeint` (its
+     launch count reset before and read after) against its plain version;
+     (b) MESH_RANKS ranks on the one card, subprocesses on gloo (NCCL
+     refuses two ranks on one device): `data_parallel_odeint` in float64
+     against the single solve on the card, each rank's result; a
+     collective that gloo refuses on CUDA tensors fails the phase, named;
+     (c) the phase's seconds (budget MESH_BUDGET_S).
+
+``torchrun --nproc_per_node=N chip_smoke.py --mesh-cards`` instead runs
+the device mesh across N cards, one rank a card (`_mesh_cards`).
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -336,7 +350,7 @@ CONV_STEPS = 12
 ENS_B, ENS_RTOL, ENS_OMEGA_MAX = 1024, 1e-6, 60.0   # examples/ensemble.py
 ENS_EXACT = 1e-3
 ENS_EVENT_REL = 0.05
-ENS_REPS = 3
+ENS_REPS = 2     # timed repetitions, few to keep the script in its limit
 SCALAR_B, SCALAR_LAM_MAX = 65536, 300.0     # benchmarks/bench_ensemble.py
 SCALAR_RTOL, SCALAR_ATOL = 1e-4, 1e-6
 SCALAR_EXACT = 1e-3
@@ -383,6 +397,19 @@ PAR_T, PAR_FAST_ITERS = 10, 3
 PAR_VALUES = 1e-10
 PAR_GRAD_REL = 1e-8
 PAR_BUDGET_S = 90
+
+# - phase 20, the device mesh.  (a) A world of one rank: the wrappers and
+#   Parareal's mesh run the unsharded solve's operations on the same
+#   tensors (the global norm of one shard is `rms_norm` bit for bit), so
+#   bit for bit.  The sharded K-dopri5 route against its plain version: as
+#   phase 6 (F32_ADAPTIVE_VALUES, F32_ADAPTIVE_STEPS).  (b) Two ranks on
+#   the card: each sums its block's squares, so the global norm differs
+#   from the one-rank sum in its last bits, and the same steps give float64
+#   values within 1e-12 of max|y| (MESH_F64_REL; 1.5e-15 measured between 2
+#   CPU ranks and one process on the tests' problem).
+MESH_B, MESH_RANKS = 1024, 2
+MESH_F64_REL = 1e-12
+MESH_BUDGET_S = 45
 
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
@@ -587,7 +614,7 @@ def _three_times(torch, wrapped, bare, plain, group):
     return dict(group_width=group, ms=_time_ms(torch, wrapped, 20),
                 bare_ms=_time_ms(torch, bare, 20),
                 device_ms=_device_ms(torch, bare, 20),
-                plain_ms=_time_ms(torch, plain, 2))
+                plain_ms=_time_ms(torch, plain, 1))
 
 
 def _times_row(b, t):
@@ -2849,7 +2876,8 @@ EX_LOSS_F64 = 1e-10
 EX_GRAD_F64 = 1e-8
 PEAK_F64 = 34e12   # float64 FLOP/s outside the tensor cores (data sheet, SXM)
 EX_ITERS = 20      # ode_demo's timed iterations (of 2000)
-EX_STEPS = 5       # latent_ode, cnf and odenet_mnist's timed steps
+EX_STEPS = 3       # latent_ode, cnf and odenet_mnist's timed steps (few
+#                    to keep the script in its time limit)
 LATENT_CPU_B = 8   # latent_ode's card-vs-CPU batch (the CPU side's cost)
 CNF_CPU_B = 64     # cnf's card-vs-CPU batch
 LEARN_BUDGET_S = 60.0   # learn_physics runs whole (300 iterations) if a
@@ -3402,7 +3430,7 @@ SCH_NORM = 1e-6
 SCH_C64 = 5e-3
 SCH_IMPL = 3 * SCH_IMPL_RTOL * 10
 SCH_WINDOW = (1.0, 4.0)  # the loss's window: |psi|^2 over 1 <= x <= 4
-SCH_STEP_REPS = 2
+SCH_STEP_REPS = 1     # timed repetitions, few to keep the script in its limit
 # - phase 18 (b), the 16-bit traced instances: examples/ensemble.py's field
 #   and first-zero event at rtol = atol = LANE16_RTOL, against their plain
 #   versions on the same CUDA tensors, under phase 15 (f)'s gates
@@ -4108,6 +4136,216 @@ def _phase_parareal(torch, kernels, dev, train_ms):
     _check(total <= PAR_BUDGET_S, f"phase 19 took {total:.1f} s")
 
 
+def _mesh_rank(rank, world, store, out):
+    """One rank of phase 20 (b), run as ``chip_smoke.py --mesh-rank RANK
+    WORLD STORE OUT``: gloo on the card, `data_parallel_odeint` of phase
+    4's float64 spiral solve; writes its values and counters to OUT."""
+    import torch
+    import torch.distributed as dist
+    from torchdiffeq_tpu_torch import odeint_with_stats
+    from torchdiffeq_tpu_torch.parallel import data_parallel_odeint, make_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh({"data": world})
+        model, y_big = _spiral(torch, torch.float64, mesh.device)
+        t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+        with torch.no_grad():
+            ys, st = data_parallel_odeint(odeint_with_stats, mesh)(
+                model, y_big[:MESH_B].contiguous(), t, rtol=RTOL, atol=ATOL)
+        torch.save(dict(ys=ys.cpu(), st=list(st[:5]),
+                        device=str(ys.device)), out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_cards():
+    """``torchrun --nproc_per_node=N chip_smoke.py --mesh-cards``: the
+    device mesh across N cards, one rank a card, on NCCL (no timing):
+    phase 4's float64 spiral through `data_parallel_odeint` against the
+    single solve, `sharded_independent_odeint` against each block's own
+    solve (bit for bit, counters equal), Parareal's `mesh=` on 2N slices
+    against the one-device scheme (bit for bit), and the gradient of
+    sum(ys[-1]**2) in the MLP's parameters through the sharded gather,
+    all-reduced, against the blocks' gradients summed on one rank.  Rank
+    0 prints every rank's results and a last line ``mesh-cards ok``;
+    exits non-zero otherwise."""
+    import torch
+    import torch.distributed as dist
+    from torchdiffeq_tpu_torch import odeint_adjoint, odeint_with_stats
+    from torchdiffeq_tpu_torch.parallel import (
+        data_parallel_odeint, make_mesh, odeint_parareal,
+        sharded_independent_odeint)
+    mesh = make_mesh({"data": -1})
+    n, dev = mesh.shape["data"], mesh.device
+    model, y_big = _spiral(torch, torch.float64, dev)
+    y0 = y_big[:B].contiguous()
+    t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+    kw = dict(rtol=RTOL, atol=ATOL)
+    b = B // n
+    out = {}
+    with torch.no_grad():
+        ref, st = odeint_with_stats(model, y0, t, **kw)
+        ys, st_dp = data_parallel_odeint(odeint_with_stats, mesh)(
+            model, y0, t, **kw)
+        out["data_parallel_rel"] = float((ys - ref).abs().max()
+                                         / ref.abs().max())
+        out["data_parallel_counters"] = list(st_dp[:5]) == list(st[:5])
+        ys, sts = sharded_independent_odeint(odeint_with_stats, mesh)(
+            model, y0, t, **kw)
+        blocks = [odeint_with_stats(model, y0[i * b:(i + 1) * b], t, **kw)
+                  for i in range(n)]
+        out["sharded_bitwise"] = torch.equal(
+            ys, torch.cat([x[0] for x in blocks], 1))
+        out["sharded_counters"] = ([list(x[:5]) for x in sts]
+                                   == [list(x[1][:5]) for x in blocks])
+        tp = torch.linspace(0.0, 1.0, 2 * n + 1, dtype=torch.float64)
+        par = [odeint_parareal(model, y0[:64], tp, n_iters=2, **kw, **m)
+               for m in (dict(mesh=make_mesh({"time": -1}), axis="time"),
+                         {})]
+        out["parareal_bitwise"] = torch.equal(*par)
+    model.requires_grad_(True)
+
+    def grad_of(ys):
+        (ys[-1] ** 2).sum().backward()
+        g = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+        model.zero_grad(set_to_none=True)
+        return g
+
+    g = grad_of(sharded_independent_odeint(
+        lambda f, y, tt, **k: odeint_adjoint(f, y, tt, **k), mesh)(
+            model, y0, t, **kw))
+    dist.all_reduce(g, group=mesh.group("data"))
+    g1 = sum(grad_of(odeint_adjoint(model, y0[i * b:(i + 1) * b], t, **kw))
+             for i in range(n))
+    out["sharded_grad_rel"] = float((g - g1).abs().max() / g1.abs().max())
+    res = [None] * dist.get_world_size()
+    dist.all_gather_object(res, out)
+    ok = all(r["data_parallel_rel"] <= MESH_F64_REL
+             and r["sharded_grad_rel"] <= MESH_F64_REL
+             and all(v for k, v in r.items() if not k.endswith("_rel"))
+             for r in res)
+    if dist.get_rank() == 0:
+        print(f"[mesh-cards] {_card()} | mesh {mesh.shape} on "
+              f"{dist.get_backend()}, {torch.cuda.get_device_name(0)} x"
+              f"{torch.cuda.device_count()}: {res}")
+        print("mesh-cards " + ("ok" if ok else "FAILED"))
+    dist.destroy_process_group()
+    return 0 if ok else 1
+
+
+def _phase_mesh(torch, kernels, dev, summary):
+    """Phase 20: the device mesh (`parallel/sharding.py`) on the card."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torchdiffeq_tpu_torch import odeint_per_sample, odeint_with_stats
+    from torchdiffeq_tpu_torch.parallel import (
+        data_parallel_odeint, make_mesh, odeint_parareal,
+        sharded_independent_odeint)
+    p0 = time.perf_counter()
+    card = _card()
+
+    # (a) a world of one rank, NCCL
+    mesh = make_mesh({"data": 1})
+    backend = dist.get_backend()
+    model64, y64 = _spiral(torch, torch.float64, dev)
+    y0 = y64[:MESH_B].contiguous()
+    t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+    with torch.no_grad():
+        ref, st_ref = odeint_with_stats(model64, y0, t, rtol=RTOL, atol=ATOL)
+        ys_dp, st_dp = data_parallel_odeint(odeint_with_stats, mesh)(
+            model64, y0, t, rtol=RTOL, atol=ATOL)
+        ys_sh, st_sh = sharded_independent_odeint(odeint_with_stats, mesh)(
+            model64, y0, t, rtol=RTOL, atol=ATOL)
+        tmesh = make_mesh({"time": 1})
+        par_kw = dict(rtol=RTOL, atol=ATOL, n_iters=2)
+        par_m = odeint_parareal(model64, y0[:64], t, mesh=tmesh, axis="time",
+                                **par_kw)
+        par_v = odeint_parareal(model64, y0[:64], t, **par_kw)
+    same = dict(data_parallel=torch.equal(ys_dp, ref)
+                and list(st_dp) == list(st_ref),
+                sharded=torch.equal(ys_sh, ref) and st_sh == (st_ref,),
+                parareal=torch.equal(par_m, par_v))
+    _check(all(same.values()) and ys_dp.is_cuda,
+           f"world of one ({backend}) vs unsharded, bit for bit: {same}")
+
+    # the per-sample K-dopri5 route under the mesh, counted
+    model32, y32 = _spiral(torch, torch.float32, dev)
+    yk = y32[:MESH_B].contiguous()
+    per_sample = sharded_independent_odeint(
+        lambda f, y, tt, **kw: odeint_per_sample(f, y, tt, **kw)
+        .transpose(0, 1), mesh)
+    with torch.no_grad():
+        kernels.reset_launch_counts()
+        ys_k = per_sample(model32, yk, t, rtol=RTOL, atol=ATOL,
+                          options=dict(pallas=True))
+        torch.cuda.synchronize()
+        k_launches = kernels.launch_counts["dopri5_integrate_batched"]
+        ts = np.linspace(0.0, 1.0, T).astype(np.float32)
+        ys_r, _, stp_r = kernels.dopri5_integrate_batched_ref(
+            model32, yk.T.contiguous(), 0.0, 1.0, ts=ts, rtol=RTOL,
+            atol=ATOL)
+    _check(k_launches > 0, "kernel dopri5_integrate_batched was not launched "
+           "on the sharded per-sample route")
+    err_k = float((ys_k.permute(0, 2, 1) - ys_r).abs().max())
+    _check(tuple(ys_k.shape) == (T, MESH_B, 2)
+           and err_k <= F32_ADAPTIVE_VALUES,
+           f"sharded K-dopri5 vs plain: max|dy|={err_k}")
+    entry = next(e for e in summary
+                 if e["name"] == "dopri5_integrate_batched")
+    entry.update(launches_mesh=k_launches, max_abs_err_mesh=err_k)
+    dist.destroy_process_group()
+    a_s = time.perf_counter() - p0
+
+    # (b) MESH_RANKS ranks on the card, gloo
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    procs = []
+    try:
+        for r in range(MESH_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 str(r), str(MESH_RANKS), os.path.join(tmp, "store"),
+                 os.path.join(tmp, f"rank{r}.pt")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=MESH_BUDGET_S)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            _check(p.returncode == 0,
+                   f"mesh rank {r} of {MESH_RANKS} (gloo on the card) "
+                   f"failed:\n{log[-3000:]}")
+        res = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+               for r in range(MESH_RANKS)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    scale = float(ref.abs().max())
+    errs = [float((x["ys"] - ref.cpu()).abs().max()) / scale for x in res]
+    _check(all(e <= MESH_F64_REL for e in errs)
+           and all(x["st"] == list(st_ref[:5]) for x in res)
+           and all(x["device"].startswith("cuda") for x in res),
+           f"{MESH_RANKS} ranks data_parallel vs single: {errs} of max|y|, "
+           f"counters {[x['st'] for x in res]} vs {list(st_ref[:5])}")
+    total = time.perf_counter() - p0
+    print(f"[20a mesh, world of one] {card} | make_mesh on {backend}: "
+          f"data_parallel_odeint, sharded_independent_odeint (spiral float64 "
+          f"B={MESH_B}, dopri5) and odeint_parareal(mesh=) (64 spirals, 2 "
+          f"iterations) equal their unsharded solves bit for bit {same} | "
+          f"per-sample K-dopri5 under sharded_independent_odeint, float32 "
+          f"B={MESH_B}: launches {k_launches}, vs plain max|dy|={err_k:.3e} "
+          f"(<= {F32_ADAPTIVE_VALUES}) | {a_s:.1f} s")
+    print(f"[20b mesh, {MESH_RANKS} ranks on one card] {card} | gloo, "
+          f"data_parallel_odeint spiral float64 B={MESH_B} dopri5: each rank "
+          f"vs the single solve {['%.2e' % e for e in errs]} of max|y| (<= "
+          f"{MESH_F64_REL}), counters {res[0]['st']} equal on every rank")
+    print(f"[20 budget] phase 20 took {total:.1f} s (budget "
+          f"{MESH_BUDGET_S} s)")
+    _check(total <= MESH_BUDGET_S, f"phase 20 took {total:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4538,6 +4776,8 @@ def main():
 
     _phase_parareal(torch, kernels, dev, train_ms)
 
+    _phase_mesh(torch, kernels, dev, summary)
+
     torch.cuda.synchronize()
     print(_card())
     print(json.dumps({"kernels": summary}))
@@ -4548,4 +4788,9 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        a = sys.argv[2:]
+        sys.exit(_mesh_rank(int(a[0]), int(a[1]), a[2], a[3]))
+    if sys.argv[1:2] == ["--mesh-cards"]:
+        sys.exit(_mesh_cards())
     sys.exit(main())

@@ -1947,3 +1947,71 @@ def test_training_loops_cuda_match_cpu(cuda):
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=0,
                                    atol=1e-9 * float(b.abs().max()))
+
+
+def _pytree_and_closure(device):
+    """A nested-dict state through dopri5 and kvaerno5, and a closure
+    field's d/dw under kvaerno5's adjoint, float64, on `device`."""
+    y0 = {'a': torch.tensor([1.0, 0.4], dtype=torch.float64, device=device),
+          'b': {'c': torch.tensor([[1.0, 2.0]], dtype=torch.float64,
+                                  device=device)}}
+    f = lambda s, y: {'a': -y['a'], 'b': {'c': -y['b']['c'] * y['a'][0]}}  # noqa
+    t = torch.linspace(0.0, 1.0, 3, dtype=torch.float64)
+    out = []
+    for method in ('dopri5', 'kvaerno5'):
+        ys, st = odeint_with_stats(f, y0, t, method=method, rtol=1e-9,
+                                   atol=1e-11)
+        out += [ys['a'], ys['b']['c'], list(st[:5])]
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    w = torch.tensor(0.7, dtype=torch.float64, device=device,
+                     requires_grad=True)
+    ys = odeint_adjoint(lambda s, y: -w * y * y, y0['a'], t,
+                        method='kvaerno5', adjoint_params=(w,))
+    ys[-1].sum().backward()
+    return out + [w.grad]
+
+
+def test_pytree_state_and_closure_adjoint_cuda_match_cpu(cuda):
+    """C19 and C20 on the card: a nested-dict state (its structure back,
+    counters equal to the CPU's) and an implicit adjoint through a closure
+    field, values and the gradient to 1e-10 of their max."""
+    got, want = _pytree_and_closure(cuda), _pytree_and_closure("cpu")
+    assert got[0].is_cuda and got[1].shape == (3, 1, 2)
+    for a, b in zip(got, want):
+        if isinstance(b, list):
+            assert a == b
+        else:
+            torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                       atol=F64 * float(b.abs().max()))
+
+
+def test_mesh_world_of_one_nccl(cuda):
+    """make_mesh's world of one on NCCL: data_parallel_odeint,
+    sharded_independent_odeint and Parareal's mesh equal their unsharded
+    solves on the card bit for bit (chip_smoke.py phase 20 (a))."""
+    import torch.distributed as dist
+    from torchdiffeq_tpu_torch.parallel import (
+        data_parallel_odeint, make_mesh, odeint_parareal,
+        sharded_independent_odeint)
+    if dist.is_initialized():
+        pytest.skip("a process group is already set up in this process")
+    try:
+        mesh = make_mesh({'data': 1})
+        assert dist.get_backend() == 'nccl' and mesh.device.type == 'cuda'
+        model, rng = _model(cuda, torch.float64)
+        y0 = torch.from_numpy(rng.randn(16, 2)).to(cuda)
+        t = torch.linspace(0.0, 1.0, 4, dtype=torch.float64)
+        ref, st = odeint_with_stats(model, y0, t)
+        ys, st_dp = data_parallel_odeint(odeint_with_stats, mesh)(model, y0,
+                                                                 t)
+        assert torch.equal(ys, ref) and list(st_dp) == list(st)
+        ys, sts = sharded_independent_odeint(odeint_with_stats, mesh)(
+            model, y0, t)
+        assert torch.equal(ys, ref) and sts == (st,)
+        tm = make_mesh({'time': 1})
+        assert torch.equal(
+            odeint_parareal(model, y0[:4], t, n_iters=2, mesh=tm),
+            odeint_parareal(model, y0[:4], t, n_iters=2))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -14,7 +14,6 @@ import torch
 
 from torchdiffeq_tpu.parallel import odeint_parareal_with_info as j_info
 from torchdiffeq_tpu_torch.examples import parareal_demo
-from torchdiffeq_tpu_torch.parallel import odeint_parareal
 from test_torch_examples import one_thread  # noqa: F401 (autouse)
 
 
@@ -51,15 +50,15 @@ def test_main_float32_defaults_and_mesh_on_one_device(capsys):
 
 
 def test_mesh_over_several_cards_raises(monkeypatch):
-    """With several cards the demo asks for a mesh, which the port's
-    Parareal refuses, naming the sharding slice."""
-    monkeypatch.setattr(torch.cuda, 'device_count', lambda: 4)
+    """With several ranks in the launch (torchrun's WORLD_SIZE) the demo
+    builds a mesh of cards over them, which with no card raises rather
+    than fall back to the CPU (its 2-rank CPU run is in
+    tests/test_torch_sharding.py)."""
+    monkeypatch.setenv('WORLD_SIZE', '4')
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     args = parareal_demo.parser.parse_args(['--mesh', '--slices', '8'])
-    mesh = parareal_demo._mesh(args, torch.device('cuda'))
-    assert mesh == {'time': 4}
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        odeint_parareal(parareal_demo.field, torch.tensor([1.0, 0.0]),
-                        torch.linspace(0.0, 20.0, 9), mesh=mesh)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parareal_demo._mesh(args, torch.device('cuda'))
 
 
 def test_default_device_is_the_card():

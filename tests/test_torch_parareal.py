@@ -171,6 +171,21 @@ def test_tuple_state_matches_jax_dict():
     np.testing.assert_allclose(_np(ys[0][-1, 0]), np.exp(-1.0), rtol=1e-6)
 
 
+def test_dict_state_matches_jax_dict():
+    """JAX's dict state itself (and a nested one), through the flattening:
+    the structure back, each leaf to 1e-10 of JAX's."""
+    t = np.linspace(0., 1., 5)
+    kw = dict(rtol=1e-8, atol=1e-10, n_iters=4)
+    f = lambda s, y: dict(a=-y['a'], b=dict(c=-2.0 * y['b']['c']))  # noqa
+    y0 = dict(a=np.array([1.0]), b=dict(c=np.array([2.0, 3.0])))
+    ys = odeint_parareal(f, jax.tree_util.tree_map(_t, y0), _t(t), **kw)
+    ys_j = j_parareal(f, jax.tree_util.tree_map(jnp.asarray, y0),
+                      jnp.asarray(t), **kw)
+    assert isinstance(ys['b'], dict) and ys['b']['c'].shape == (5, 2)
+    _close(ys['a'], ys_j['a'], 1e-10)
+    _close(ys['b']['c'], ys_j['b']['c'], 1e-10)
+
+
 def test_input_validation_and_mesh():
     f = lambda s, y: -y   # noqa: E731
     for fn in (odeint_parareal, j_parareal):
@@ -178,7 +193,9 @@ def test_input_validation_and_mesh():
             fn(f, np.ones(1), np.array([0.]), n_iters=2)
         with pytest.raises(ValueError):
             fn(f, np.ones(1), np.linspace(0., 1., 4), n_iters=0)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    # the mesh is a `parallel.Mesh` of ranks (tests/test_torch_sharding.py
+    # runs it); a dict is not one
+    with pytest.raises(TypeError, match="make_mesh"):
         odeint_parareal(f, _t([1.0]), _t(np.linspace(0., 1., 5)),
                         n_iters=1, mesh={'time': 4}, axis='time')
 

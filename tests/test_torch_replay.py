@@ -281,8 +281,8 @@ def test_replay_event_solve():
 
 
 def test_replay_tuple_state_and_custom_norm():
-    """The compat matrix's test_replay_pytree_state_works (a tuple state
-    here; dict states are not the port's): the same gradients as the same
+    """The compat matrix's test_replay_pytree_state_works on a tuple state
+    (its dict state in the next test): the same gradients as the same
     problem on one flat state; test_replay_custom_norm_works: a user norm,
     against the closed form (JAX's test holds it to the adjoint's)."""
     t = np.linspace(0., 1., 5)
@@ -302,3 +302,31 @@ def test_replay_tuple_state_and_custom_norm():
     tt.odeint(lambda s, yy: -0.5 * yy, y, _t(t), options=dict(
         replay_grad=True, norm=lambda x: x.abs().max()))[-1].sum().backward()
     np.testing.assert_allclose(y.grad.numpy(), np.exp(-0.5), rtol=1e-6)
+
+
+def test_replay_dict_state_matches_jax():
+    """The compat matrix's test_replay_pytree_state_works on its dict
+    state: values, Stats and the gradients in both leaves against JAX's
+    replay."""
+    t = np.linspace(0., 1., 5)
+    f = lambda s, y: {'x': -y['x'], 'v': 0.1 * y['v'] * y['x'][:1]}  # noqa
+    opts = dict(replay_grad=True)
+
+    def j_loss(x0, v0):
+        ys = tde.odeint(f, {'x': x0, 'v': v0}, jnp.asarray(t), options=opts)
+        return jnp.sum(ys['x'][-1]) + jnp.sum(ys['v'][-1] ** 2)
+
+    x0, v0 = np.array([1.0, 2.0]), np.array([0.5])
+    g_j = jax.jit(jax.grad(j_loss, argnums=(0, 1)))(jnp.asarray(x0),
+                                                      jnp.asarray(v0))
+    ys_j, st_j = tde.odeint_with_stats(f, {'x': jnp.asarray(x0),
+                                           'v': jnp.asarray(v0)},
+                                       jnp.asarray(t), options=opts)
+    x, v = _t(x0, True), _t(v0, True)
+    ys, st = tt.odeint_with_stats(f, {'x': x, 'v': v}, _t(t), options=opts)
+    assert counters(st) == counters(st_j)
+    _close(ys['x'].detach().numpy(), ys_j['x'], VAL)
+    _close(ys['v'].detach().numpy(), ys_j['v'], VAL)
+    (ys['x'][-1].sum() + (ys['v'][-1] ** 2).sum()).backward()
+    _close(x.grad.numpy(), g_j[0], GRAD)
+    _close(v.grad.numpy(), g_j[1], GRAD)

@@ -1,0 +1,276 @@
+"""The ranks of tests/test_torch_sharding.py: one process a rank, on the CPU
+with gloo, each running every case of a suite and writing its results to
+``OUT/rank<r>.pkl`` for the tests to read.  Imports no JAX.
+
+    python tests/torch_sharding_ranks.py OUT SUITE RANK WORLD [STORE]
+
+With STORE the ranks meet on a ``FileStore`` there; without it they take
+torchrun's environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT), as
+`parallel.make_mesh` does.  A case that raises records its traceback
+under ``'error'``, so each test reports its own case.
+"""
+import os
+import pickle
+import sys
+import traceback
+from datetime import timedelta
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+import torchdiffeq_tpu_torch as tt  # noqa: E402
+from torchdiffeq_tpu_torch.parallel import (  # noqa: E402
+    data_parallel_odeint, make_mesh, odeint_parareal,
+    odeint_per_sample_with_stats, shard_params, sharded_independent_odeint)
+
+F64 = torch.float64
+
+
+def _np(x):
+    return x.detach().cpu().numpy()
+
+
+def _counters(st):
+    return [int(x) for x in st[:5]]
+
+
+def _raises(fn, kind):
+    """The message of the `kind` exception `fn` raises, or None."""
+    try:
+        fn()
+    except kind as err:
+        return str(err)
+    return None
+
+
+def case_mesh(rank):
+    m = make_mesh({'data': 2, 'model': 2}, device_type='cpu')
+    wild = make_mesh({'data': -1, 'model': 2}, device_type='cpu')
+    line = make_mesh({'data': 4}, device_type='cpu')
+    sub = make_mesh({'data': 2}, devices=[0, 1], device_type='cpu')
+    return dict(
+        shape=m.shape, wild=wild.shape, line=line.shape,
+        coord=(m.coordinate('data'), m.coordinate('model')),
+        line_coord=line.coordinate('data'), sub_coord=sub.coordinate('data'),
+        device=str(m.device),
+        bad=_raises(lambda: make_mesh({'data': 3}, device_type='cpu'),
+                    ValueError))
+
+
+def _dp_problem():
+    t = torch.linspace(0., 1., 4, dtype=F64)
+    y0 = torch.arange(1.0, 17.0, dtype=F64).reshape(16, 1)
+    return t, y0
+
+
+# data_parallel_odeint's routes beyond dopri5, and the solves it refuses
+DP_ROUTES = [('tsit5', None), ('rk4', dict(num_steps=8))]
+DP_REFUSED = [('kvaerno5', dict(method='kvaerno5')),
+              ('implicit_euler', dict(method='implicit_euler',
+                                      options=dict(num_steps=8))),
+              ('implicit_adams', dict(method='implicit_adams')),
+              ('scipy_solver', dict(method='scipy_solver',
+                                    options=dict(solver='RK45'))),
+              ('event_fn', dict(event_fn=lambda s, y: y[0, 0] - 0.5))]
+
+
+def case_data_parallel(rank):
+    mesh = make_mesh({'data': 4}, device_type='cpu')
+    t, y0 = _dp_problem()
+    kw = dict(rtol=1e-8, atol=1e-10)
+    solve = data_parallel_odeint(tt.odeint_with_stats, mesh)
+    ys, st = solve(lambda s, y: -y, y0, t, **kw)
+    ys1, st1 = tt.odeint_with_stats(lambda s, y: -y, y0, t, **kw)
+    # a pytree state: each leaf's global RMS, then the max
+    fd = lambda s, y: {'p': -y['p'], 'q': -3.0 * y['q'] * y['p']}  # noqa
+    y0d = {'p': y0 / 16.0, 'q': torch.linspace(0.1, 2.0, 32, dtype=F64)
+           .reshape(16, 2)}
+    ysd, std = solve(fd, y0d, t, **kw)
+    # the other routes it keeps: another explicit tableau, a fixed grid
+    routes = {}
+    for method, opts in DP_ROUTES:
+        kwm = dict(kw, method=method, options=opts)
+        ysm, stm = solve(lambda s, y: -y * y, y0 / 16.0, t, **kwm)
+        ysm1, stm1 = tt.odeint_with_stats(lambda s, y: -y * y, y0 / 16.0,
+                                          t, **kwm)
+        routes[method] = dict(ys=_np(ysm), st=_counters(stm), ys1=_np(ysm1),
+                              st1=_counters(stm1))
+    # the solves with decisions other than the norm's raise, before any
+    # collective
+    refused = {name: _raises(lambda: solve(lambda s, y: -y, y0, t, **kwr),
+                             NotImplementedError)
+               for name, kwr in DP_REFUSED}
+    w = torch.tensor(1.0, dtype=F64, requires_grad=True)
+    return dict(
+        ys=_np(ys), st=_counters(st), ys1=_np(ys1), st1=_counters(st1),
+        ysd={k: _np(v) for k, v in ysd.items()}, std=_counters(std),
+        routes=routes, refused=refused,
+        user_norm=_raises(lambda: solve(lambda s, y: -y, y0, t, options=dict(
+            norm=lambda x: x.abs().max())), NotImplementedError),
+        indivisible=_raises(lambda: solve(lambda s, y: -y, y0[:6], t),
+                            ValueError),
+        autograd=_raises(lambda: solve(lambda s, y, ww: -ww * y, y0, t,
+                                       args=(w,)), NotImplementedError))
+
+
+KS = np.array([1.0] * 4 + [200.0] * 4)
+
+
+def case_sharded(rank):
+    """JAX's easy/stiff problem: each block of 2 samples its own k."""
+    mesh = make_mesh({'data': 4}, device_type='cpu')
+    c = mesh.coordinate('data')
+    kb = torch.tensor(KS[2 * c:2 * c + 2], dtype=F64)
+    t = torch.tensor([0.0, 1.0], dtype=F64)
+    solve = sharded_independent_odeint(tt.odeint_with_stats, mesh)
+    ys, stats = solve(lambda s, y: -kb[:, None] * y,
+                      torch.ones(8, 1, dtype=F64), t, rtol=1e-6, atol=1e-8)
+    return dict(ys=_np(ys), stats=[_counters(s) for s in stats],
+                indivisible=_raises(lambda: solve(
+                    lambda s, y: -y, torch.ones(6, 1, dtype=F64), t),
+                    ValueError))
+
+
+W = np.array([[-0.5, 0.8], [-0.8, -0.5]])
+
+
+def _grad_problem():
+    y0 = torch.arange(1.0, 33.0, dtype=F64).reshape(16, 2) / 16.0
+    tgt = torch.full((16, 2), 0.3, dtype=F64)
+    return y0, tgt, torch.linspace(0., 1., 3, dtype=F64)
+
+
+def _field(s, y, W_):
+    return torch.tanh(y) @ W_.T
+
+
+def case_adjoint(rank):
+    """Per-shard adjoint gradients with an explicit all_reduce (JAX's
+    shard_map + psum), the continuous and the interpolated adjoint; and
+    the gradient through `sharded_independent_odeint`'s gather."""
+    mesh = make_mesh({'data': 4}, device_type='cpu')
+    c = mesh.coordinate('data')
+    y0, tgt, t = _grad_problem()
+    blk = slice(4 * c, 4 * c + 4)
+    out = {}
+    for name, opts in (('continuous', None),
+                       ('interpolated', dict(interpolated=True))):
+        Wt = torch.tensor(W, requires_grad=True)
+        ys = tt.odeint_adjoint(_field, y0[blk], t, rtol=1e-8, atol=1e-10,
+                               args=(Wt,), adjoint_options=opts)
+        ((ys[-1] - tgt[blk]) ** 2).sum().backward()
+        g = Wt.grad.clone()
+        dist.all_reduce(g, group=mesh.group('data'))
+        out[name] = _np(g)
+    Wt = torch.tensor(W, requires_grad=True)
+    solve = sharded_independent_odeint(
+        lambda func, y, tt_, **kw: tt.odeint_adjoint(func, y, tt_, **kw),
+        mesh)
+    ys = solve(_field, y0, t, rtol=1e-8, atol=1e-10, args=(Wt,))
+    ((ys[-1] - tgt) ** 2).sum().backward()
+    g = Wt.grad.clone()
+    dist.all_reduce(g, group=mesh.group('data'))
+    out['gathered'] = _np(g)
+    return out
+
+
+def case_events(rank):
+    """Per-sample event times on a sharded batch of 8."""
+    mesh = make_mesh({'data': 4}, device_type='cpu')
+    y0 = torch.linspace(1.5, 4.0, 8, dtype=F64)[:, None]
+
+    def per_sample(func, y, t, **kw):
+        (et, ys), _ = odeint_per_sample_with_stats(
+            func, y, t, event_fn=lambda s, yy: yy[0] - 1.0, **kw)
+        return et, ys.transpose(0, 1)     # (B,) and odeint's (2, B, 1)
+
+    with torch.no_grad():
+        et, ys = sharded_independent_odeint(per_sample, mesh)(
+            lambda s, y: -y, y0, torch.tensor([0.0, 1.0], dtype=F64),
+            rtol=1e-8, atol=1e-10)
+    return dict(et=_np(et), ys=_np(ys))
+
+
+def stiffish(s, y):
+    """tests/test_parareal.py's `_stiffish_field`."""
+    return torch.stack([-0.5 * y[0] + 2.0 * y[1], -2.0 * y[0] - 0.5 * y[1]])
+
+
+def case_parareal(rank):
+    """8 slices over 4 ranks, against the one-device scheme; 6 slices do
+    not divide."""
+    mesh = make_mesh({'time': 4}, device_type='cpu')
+    y0 = torch.tensor([1.0, 0.3], dtype=F64)
+    t = torch.linspace(0., 4., 9, dtype=F64)
+    kw = dict(rtol=1e-8, atol=1e-10, n_iters=3)
+    ys_m = odeint_parareal(stiffish, y0, t, mesh=mesh, axis='time', **kw)
+    ys_v = odeint_parareal(stiffish, y0, t, **kw)
+    y0g = y0.clone().requires_grad_(True)
+    return dict(
+        ys_m=_np(ys_m), ys_v=_np(ys_v),
+        indivisible=_raises(lambda: odeint_parareal(
+            stiffish, y0, torch.linspace(0., 4., 7, dtype=F64), mesh=mesh,
+            axis='time', **kw), ValueError),
+        autograd=_raises(lambda: odeint_parareal(
+            stiffish, y0g, t, mesh=mesh, axis='time', **kw),
+            NotImplementedError))
+
+
+def case_shard_params(rank):
+    mesh = make_mesh({'data': 2, 'model': 2}, device_type='cpu')
+    rng = np.random.RandomState(0)
+    params = [dict(w=torch.from_numpy(rng.randn(256, 128)),
+                   b=torch.from_numpy(rng.randn(128)),
+                   v=torch.from_numpy(rng.randn(8, 4)))]
+    sh = shard_params(params, mesh, 'model', min_size=1024)
+    return {k: dict(placements=[str(p) for p in d.placements],
+                    local=tuple(d.to_local().shape),
+                    equal=bool(torch.equal(d.full_tensor(), params[0][k])))
+            for k, d in sh[0].items()}
+
+
+def case_demo(rank):
+    """examples/parareal_demo.py --mesh over the launch's ranks."""
+    from torchdiffeq_tpu_torch.examples import parareal_demo
+    out = parareal_demo.main(['--mesh', '--device', 'cpu', '--slices', '8',
+                              '--iters', '3'])
+    return dict(ys=_np(out['ys']), err=out['err'])
+
+
+SUITES = {
+    'mesh': [('mesh', case_mesh), ('data_parallel', case_data_parallel),
+             ('sharded', case_sharded), ('adjoint', case_adjoint),
+             ('events', case_events), ('parareal', case_parareal),
+             ('shard_params', case_shard_params)],
+    'demo': [('demo', case_demo)],
+}
+
+
+def main(out, suite, rank, world, store=None):
+    torch.set_num_threads(1)
+    if store is not None:
+        dist.init_process_group('gloo', store=dist.FileStore(store, world),
+                                rank=rank, world_size=world,
+                                timeout=timedelta(seconds=90))
+    results = {}
+    for name, case in SUITES[suite]:
+        try:
+            results[name] = case(rank)
+        except Exception:
+            results[name] = dict(error=traceback.format_exc())
+    results['jax_modules'] = sorted(m for m in sys.modules
+                                    if m == 'jax' or m.startswith('jax.')
+                                    or m.startswith('torchdiffeq_tpu.'))
+    with open(os.path.join(out, f'rank{rank}.pkl'), 'wb') as fh:
+        pickle.dump(results, fh)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+if __name__ == '__main__':
+    a = sys.argv[1:]
+    main(a[0], a[1], int(a[2]), int(a[3]), a[4] if len(a) > 4 else None)

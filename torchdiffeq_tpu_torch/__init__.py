@@ -3,13 +3,12 @@
 The JAX package `torchdiffeq_tpu` is the reference; this package mirrors
 its module paths and calling conventions (``func(t, y, *args)``, the
 ``(T, B, D)``, ``(D, B)`` and ``(B, T, D)`` layouts) in PyTorch, and never
-imports JAX.  The explicit tier is ported whole: the adaptive and
-fixed-grid methods with every option they take (the PI/PID controllers,
-callbacks, 16-bit states with ``error_dtype``), their events, dense
-output, and both gradient routes (the continuous adjoint, and backprop
-through the fixed-grid loop), with the CUDA kernels of their routes.
-What is still to come is listed in ROADMAP.md and raises
-`NotImplementedError` naming its ROADMAP item.
+imports JAX.  Every JAX module has its counterpart here but those
+ROADMAP.md lists as not to port: every solver tier and gradient mode on
+tensor and pytree states, events, dense output, the per-sample route and
+its CUDA kernels, Parareal, the training loops, the examples, and the
+device mesh (`parallel.sharding`, on torch.distributed, one process a
+rank).
 """
 from .misc import Perturb
 from .odeint import odeint, odeint_with_stats

@@ -63,9 +63,10 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .misc import (CALLBACK_NAMES, check_inputs, flatten_state, host_times,
-                   is_tuple_state, mixed_norm, real_dtype, real_part,
-                   rms_norm, time_effect, time_sign)
+from .misc import (CALLBACK_NAMES, autograd_lane_jacobian, check_inputs,
+                   flatten_state, host_times, is_tree_state, mixed_norm,
+                   ravel_leaves, real_dtype, real_part, rms_norm, time_effect,
+                   time_sign, tree_leaves)
 from .solvers import SOLVERS, needs_jacobian
 
 
@@ -160,7 +161,7 @@ def _noise_floor(spec, y0_leaves, rtol, atol):
 
 class _Layout:
     """The flat augmented state ``[vjp_t | y | adj_y | theta_bar]`` and its
-    views in the user's structure (the state's shape, or its tuple); the
+    views in the user's structure (the state's shape, or its pytree); the
     interpolated adjoint's ``[vjp_t | adj_y | theta_bar]`` has no y
     (`has_y` False)."""
 
@@ -192,7 +193,7 @@ def _make_adjoint_norm(norm_spec, user_state_norm, layout):
     """The norm of the backward solve on the flat augmented state (JAX
     `_make_adjoint_norm`, adjoint.py:64-118): the default, ``'seminorm'``,
     or a user callable, which sees ``(vjp_t, y, adj_y, *theta_bar)``, y and
-    adj_y splatted per leaf for a tuple state."""
+    adj_y splatted per leaf for a pytree state."""
     single = layout.unravel is None
     if user_state_norm is None:
         state_norm = rms_norm if single else mixed_norm
@@ -231,7 +232,7 @@ def _make_adjoint_norm(norm_spec, user_state_norm, layout):
         vt, (y, adj_y), th = states(aug)
         if single:
             return norm_spec((vt, y, adj_y) + tuple(th))
-        return norm_spec((vt,) + tuple(y) + tuple(adj_y) + tuple(th))
+        return norm_spec((vt, *tree_leaves(y), *tree_leaves(adj_y), *th))
 
     return wrapped
 
@@ -239,7 +240,7 @@ def _make_adjoint_norm(norm_spec, user_state_norm, layout):
 def _forward(spec, y0, t):
     """The primal solve: (ys, Stats), or (event_t, ys2, Stats) with event_t
     in the internal frame.  ys in the solver's state layout (flat for a
-    tuple state)."""
+    pytree state)."""
     from .odeint import _solve_normalised, _solve_event_normalised
     if spec.unravel is not None:
         y0 = spec.unravel(y0)
@@ -270,7 +271,7 @@ def _record_dense(spec, y0, t_user):
         t_user[0], t_user[-1], rtol=spec.rtol, atol=spec.atol,
         method=spec.method, options=opts, args=spec.args,
         max_segments=spec.interp_max_segments, _return_stats=True)
-    ys = sol(torch.from_numpy(t_user))
+    ys = sol.flat(torch.from_numpy(t_user))
     if stats.error_code != 0:
         uncovered = torch.from_numpy(sol.t_sign * t_user > sol.t_hi)
         ys[uncovered.to(ys.device)] = float('nan')
@@ -301,39 +302,53 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
         """The field in the internal increasing frame: sign * f(sign * s)."""
         out = func(s if sign > 0 else -s, layout.user(y), *args_d)
         if spec.unravel is not None:
-            out = torch.cat([o.reshape(-1) for o in out])
+            out = ravel_leaves(out)
         return out if sign > 0 else -out
 
     def aug_dyn(s, aug):
         # in the augmented state's dtype: a fixed-grid backward's stages
-        # are float64 for a float32 state, as in JAX
+        # are float64 for a float32 state, as in JAX.  Inside
+        # `misc.autograd_lane_jacobian` the augmented state carries a graph,
+        # which the result keeps (create_graph): the Jacobian of the
+        # parameter term -adj_y df/dtheta then reaches tensors the field
+        # captures
         _, y, adj_y, _ = layout.split(aug)
         if y_of is not None:
             y = y_of(s)
         adt = aug.dtype
+        graph = aug.requires_grad
         with torch.enable_grad():
             # the time is real whatever the state: torch then returns its
             # gradient as Re sum(conj(-adj_y) df/ds), the real time's own
             # (`time_effect`)
             s_d = torch.full((), float(s), dtype=real_dtype(adt), device=dev,
                              requires_grad=True)
-            y_d = y.detach().requires_grad_(True)
+            y_d = y if y.requires_grad else y.detach().requires_grad_(True)
             f = f_dir(s_d, y_d)
             grads = torch.autograd.grad(f, (s_d, y_d, *params), -adj_y,
-                                        allow_unused=True)
+                                        allow_unused=True, create_graph=graph)
         grads = [torch.zeros_like(x) if g is None else g
                  for g, x in zip(grads, (s_d, y_d, *params))]
-        dy = [] if y_of is not None else [f.detach().reshape(-1).to(adt)]
+        dy = [] if y_of is not None else [
+            (f if graph else f.detach()).reshape(-1).to(adt)]
         return torch.cat([grads[0].reshape(1).to(adt), *dy,
                           *(g.reshape(-1).to(adt) for g in grads[1:])])
 
     if needs_jacobian(spec.adjoint_method):
-        # inside a stage solve's Jacobian the time is a tensor torch.func
-        # made, which may not be read: the interpolant is looked up on the
-        # device there
-        aug_dyn = _functional_aug_dyn(
-            spec, layout, sign, args_d, params, dev,
-            None if rec_sol is None else (lambda s: rec_sol(sign * s)))
+        names = _module_param_names(spec.func, spec.module_params)
+        if names is None:
+            # a tensor the field captures, given in `adjoint_params`, which
+            # torch.func cannot swap into a closure: the stage solves take
+            # the Jacobian of `aug_dyn` above with torch.autograd.grad
+            aug_dyn.lane_jacobian = autograd_lane_jacobian
+        else:
+            # inside a stage solve's Jacobian the time is a tensor
+            # torch.func made, which may not be read: the interpolant is
+            # looked up on the device there
+            aug_dyn = _functional_aug_dyn(
+                spec, layout, sign, args_d, params, dev,
+                None if rec_sol is None
+                else (lambda s: rec_sol.flat(sign * s)), names)
 
     # the `*_adjoint` callbacks fire as the backward solve's own (JAX
     # adjoint.py:356-358), with the augmented state as a tuple
@@ -358,6 +373,11 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
         ys_ = [] if y is None else [y.reshape(-1)]
         return torch.cat([vt.reshape(1), *ys_, adj_y.reshape(-1), th])
 
+    def reverse_solve(aug0, t_pair, opts):
+        return _raw_odeint(aug_dyn, aug0, t_pair, spec.adjoint_rtol,
+                           spec.adjoint_atol, spec.adjoint_method, opts,
+                           'reverse')
+
     if rec_sol is not None:
         # the interpolated adjoint (JAX adjoint.py:394-460): one reduced
         # reverse sweep, the output cotangents injected at jump_t points
@@ -374,10 +394,8 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
             if 'max_num_steps' in adj_opts:
                 adj_opts['max_num_steps'] = min(
                     int(adj_opts['max_num_steps']) * (T - 1), 2 ** 31 - 1)
-        sol, _ = _raw_odeint(aug_dyn, aug_state(-dLds[-1], None, g_ys[-1]),
-                             np.array([t_int[-1], t_int[0]]),
-                             spec.adjoint_rtol, spec.adjoint_atol,
-                             spec.adjoint_method, adj_opts, 'reverse')
+        sol, _ = reverse_solve(aug_state(-dLds[-1], None, g_ys[-1]),
+                               np.array([t_int[-1], t_int[0]]), adj_opts)
         vt, _, adj_y, th = layout.split(sol[1])
         return adj_y + g_ys[0], th, vt, dLds
 
@@ -405,10 +423,8 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
             # a per-interval budget over T-1 intervals
             opts['max_num_steps'] = min(int(opts['max_num_steps']) * (T - 1),
                                         2 ** 31 - 1)
-        sol, _ = _raw_odeint(aug_dyn, aug_state(-dLds[-1], ys[-1], g_ys[-1]),
-                             np.array([t_int[-1], t_int[0]]),
-                             spec.adjoint_rtol, spec.adjoint_atol,
-                             spec.adjoint_method, opts, 'reverse')
+        sol, _ = reverse_solve(aug_state(-dLds[-1], ys[-1], g_ys[-1]),
+                               np.array([t_int[-1], t_int[0]]), opts)
         vt, _, adj_y, th = layout.split(sol[1])
         return adj_y + g_ys[0], th, vt, dLds
 
@@ -422,10 +438,8 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
         aug = aug.clone()
         aug[0] = aug[0] - dLds[i - 1]
         if t_int[i] != t_int[i - 1]:   # equal only for an event at t0
-            sol, st = _raw_odeint(aug_dyn, aug,
-                                  np.array([t_int[i], t_int[i - 1]]),
-                                  spec.adjoint_rtol, spec.adjoint_atol,
-                                  spec.adjoint_method, opts, 'reverse')
+            sol, st = reverse_solve(aug, np.array([t_int[i], t_int[i - 1]]),
+                                    opts)
             aug, dt_prev = sol[1], st.final_dt
         vt, _, adj_y, _ = layout.split(aug)
         # reset y to the forward estimate; add the output's cotangent
@@ -435,24 +449,29 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     return adj_y, th, vt, dLds
 
 
-def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None):
+def _module_param_names(func, module_params):
+    """The names under which ``torch.func.functional_call`` swaps each of
+    `module_params` into an ``nn.Module`` `func`, or None when one is not a
+    parameter of it (a tensor of `adjoint_params` that the field captures
+    in a closure)."""
+    by_id = ({id(p): name for name, p in func.named_parameters()}
+             if isinstance(func, torch.nn.Module) else {})
+    names = [by_id.get(id(p)) for p in module_params]
+    return None if None in names else names
+
+
+def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None,
+                        names=None):
     """The augmented field written with ``torch.func.vjp``, the
     differentiated tensors passed to the field explicitly (module
-    docstring), so that ``torch.func.jacrev`` can take its Jacobian.  With
-    `y_of` (the interpolated adjoint) y is read from it, not the state."""
+    docstring), so that ``torch.func.jacrev`` can take its Jacobian: the
+    parameters of an ``nn.Module`` field by their `names`
+    (`_module_param_names`), the tensors in `args` in place.  With `y_of`
+    (the interpolated adjoint) y is read from it, not the state."""
     func = spec.func
     n_mod = len(spec.module_params)
-    names = []
-    if n_mod:
-        by_id = ({id(p): name for name, p in func.named_parameters()}
-                 if isinstance(func, torch.nn.Module) else {})
-        names = [by_id.get(id(p)) for p in spec.module_params]
-        if None in names:
-            raise NotImplementedError(
-                "an implicit adjoint method takes the augmented field's "
-                "Jacobian with torch.func, which reaches the parameters of "
-                "an nn.Module field and the tensors in `args`: pass the "
-                "other adjoint_params in `args`")
+    if names is None:
+        names = _module_param_names(func, spec.module_params)
     arg_ids = [id(p) for p in params[n_mod:]]
     detached = [p.detach() for p in params]
 
@@ -465,7 +484,7 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None):
         else:
             out = func(*inputs)
         if spec.unravel is not None:
-            out = torch.cat([o.reshape(-1) for o in out])
+            out = ravel_leaves(out)
         return out if sign > 0 else -out
 
     def aug_dyn(s, aug, *ps):
@@ -602,7 +621,7 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
     adjoint_method = _check_method(adjoint_method)
     args = tuple(args)
     adjoint_options = {} if adjoint_options is None else dict(adjoint_options)
-    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    leaves = tree_leaves(y0)
     nf = adjoint_options.pop('noise_floor', False)
     if nf:
         adjoint_rtol, adjoint_atol = _noise_floor(nf, leaves, adjoint_rtol,
@@ -616,8 +635,8 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
     module_params, arg_tensors = _adjoint_params(func, args, adjoint_params)
     t_tensor = (t if isinstance(t, torch.Tensor)
                 else torch.as_tensor(host_times(t), dtype=torch.float64))
-    if is_tuple_state(y0):
-        y0_in, unravel = flatten_state(leaves)
+    if is_tree_state(y0):
+        y0_in, unravel = flatten_state(y0)
     else:
         y0_in, unravel = y0, None
     # what the autograd Function needs besides its tensor inputs; its

@@ -28,10 +28,13 @@ class DenseSolution:
     numpy and, as `times_d`, on the state's device), `coeffs` the (M, 5,
     *state) quartic coefficients of the M segments; `count` is M, or 0 for
     a solve that accepted no step (then one zero segment spans [t0, inf],
-    as JAX's unfilled buffers do).
+    as JAX's unfilled buffers do).  A pytree state's coefficients are
+    flat, and `unravel` gives its values, derivatives and event states
+    back in its structure.
     """
 
-    def __init__(self, times, coeffs, count, t_lo, t_hi, t_sign, error_code):
+    def __init__(self, times, coeffs, count, t_lo, t_hi, t_sign, error_code,
+                 unravel=None):
         self.times = times          # (M + 1,) host float64, internal frame
         self.times_d = torch.from_numpy(times).to(coeffs.device)
         self.coeffs = coeffs
@@ -40,6 +43,7 @@ class DenseSolution:
         self.t_hi = t_hi
         self.t_sign = t_sign        # internal time = t_sign * user time
         self.error_code = error_code
+        self.unravel = unravel or (lambda x: x)
 
     def _segments(self, t_eval):
         """Internal times, the containing segments' bounds and coefficients
@@ -76,8 +80,13 @@ class DenseSolution:
         tt, t0, t1, coeff = self._segments(t_eval)
         return interp_evaluate_at(coeff.movedim(t_eval.dim(), 0), t0, t1, tt)
 
-    def __call__(self, t_eval):
+    def flat(self, t_eval):
+        """The solution at `t_eval` in the flat layout of a pytree
+        state."""
         return self._eval(self._user_times(t_eval))
+
+    def __call__(self, t_eval):
+        return self.unravel(self.flat(t_eval))
 
     def derivative(self, t_eval):
         """d(sol)/dt at `t_eval` (scalar or batched): the exact derivative of
@@ -92,7 +101,7 @@ class DenseSolution:
         for k in range(len(rows) - 1, 0, -1):
             dy_dx = dy_dx * x + rows[k] * float(k)
         scale = self._bcast((self.t_sign / (t1 - t0)).to(tdt), coeff)
-        return dy_dx * scale
+        return self.unravel(dy_dx * scale)
 
     def find_event(self, event_fn, tol=1e-6):
         """The first zero of ``event_fn(t, y(t))`` on the solution, without
@@ -105,7 +114,8 @@ class DenseSolution:
         from .events import combine_event_functions, find_event as _bisect
 
         user_t = self.t_sign * self.times_d[:self.count + 1]
-        combined = combine_event_functions(event_fn, user_t[0],
+        user_fn = lambda tt, yy: event_fn(tt, self.unravel(yy))
+        combined = combine_event_functions(user_fn, user_t[0],
                                            self._eval(user_t[0]))
         ys = self._eval(user_t)
         vals = torch.stack([combined(user_t[i], ys[i])
@@ -123,7 +133,7 @@ class DenseSolution:
         event_t, _ = _bisect(self._eval, one, t_lo_u, t_hi_u, combined, tol)
         if not found:
             event_t = torch.full_like(event_t, float('nan'))
-        return event_t, self._eval(event_t)
+        return event_t, self.unravel(self._eval(event_t))
 
 
 def odeint_dense(func, y0, t0, t1, *, rtol=1e-7, atol=1e-9, method=None,
@@ -172,5 +182,5 @@ def odeint_dense(func, y0, t0, t1, *, rtol=1e-7, atol=1e-9, method=None,
                                    dtype=prob.y0.dtype)
     c.err = err
     sol = DenseSolution(np.asarray(times, np.float64), coeffs, c.n_acc,
-                        prob.t[0], c.t1, prob.t_sign, err)
+                        prob.t[0], c.t1, prob.t_sign, err, prob.unravel)
     return (sol, c.stats()) if _return_stats else sol

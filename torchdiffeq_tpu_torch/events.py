@@ -14,8 +14,9 @@ import math
 import numpy as np
 import torch
 
-from .misc import (check_inputs, nan_sign, real_part, scalar_type, smax,
-                   time_effect, time_tensor)
+from .misc import (check_inputs, nan_sign, ravel_leaves, real_part,
+                   scalar_type, smax, time_effect, time_tensor, tree_flatten,
+                   tree_leaves, tree_map, tree_unflatten)
 
 
 def find_event(interp_fn, sign0, t0, t1, event_fn, tol, dtype=torch.float64):
@@ -131,7 +132,7 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
 
     Returns ``(event_t, solution)``: `event_t` a 0-d float64 tensor on the
     state's device, and `solution` stacking ``[y(t0), y(event_t)]`` on a new
-    leading axis (on each leaf of a tuple state).
+    leading axis (on each leaf of a pytree state).
 
     Gradients: the solve's come from the continuous adjoint, as if it had
     integrated up to the event time (`odeint` or `odeint_adjoint` as
@@ -173,7 +174,7 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
     if prob.unravel is None:
         state_t = solution[-1]
     else:
-        state_t = torch.cat([s[-1].reshape(-1) for s in solution])
+        state_t = ravel_leaves(tree_map(lambda s: s[-1], solution))
     if reverse_time:
         event_t = -event_t
     event_t, state_t = _implicit_fn_gradient_rerouting(
@@ -184,6 +185,7 @@ def odeint_event(func, y0, t0, *, event_fn, reverse_time=False,
     # splice the rerouted final state back into the solution
     if prob.unravel is None:
         return event_t, torch.cat([solution[:-1], state_t[None]], dim=0)
-    return event_t, type(solution)(
+    leaves, treedef = tree_flatten(solution)
+    return event_t, tree_unflatten(treedef, [
         torch.cat([s[:-1], s_t[None]], dim=0)
-        for s, s_t in zip(solution, prob.unravel(state_t)))
+        for s, s_t in zip(leaves, tree_leaves(prob.unravel(state_t)))])

@@ -11,23 +11,27 @@
   correction norm and the error against the slice-restarted sequential
   solve, and asserts it is below 100 * rtol.
 
-``--mesh`` shards the slices over several devices in the JAX package; the
-port's device mesh is still to come (ROADMAP queue A, the sharding slice):
-with one device the flag is ignored, as in JAX, and with several it raises
-`NotImplementedError`.
+``--mesh`` shards the slices over the ranks of a launch, one process a
+rank (`parallel.make_mesh`): each rank fine-solves its block of slices on
+its own device, and every rank returns the whole result (rank 0 prints
+it).  With one rank the flag is ignored, as JAX ignores it on one device.
 
 Run:  python -m torchdiffeq_tpu_torch.examples.parareal_demo [--slices 16]
       [--iters 5] [--rtol 1e-6] [--mesh] [--device cpu]
+      torchrun --nproc_per_node=4 -m torchdiffeq_tpu_torch.examples.\
+parareal_demo --mesh
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..odeint import odeint
-from ..parallel import odeint_parareal_with_info
+from ..parallel import make_mesh, odeint_parareal_with_info
 from ._common import add_device_flag, device_of
 
 parser = add_device_flag(argparse.ArgumentParser())
@@ -35,7 +39,8 @@ parser.add_argument('--slices', type=int, default=16)
 parser.add_argument('--iters', type=int, default=5)
 parser.add_argument('--rtol', type=float, default=1e-6)
 parser.add_argument('--mesh', action='store_true',
-                    help='shard the slice axis over all visible devices')
+                    help='shard the slice axis over the ranks of the '
+                    'launch (torchrun --nproc_per_node=N)')
 
 
 def field(t, y):
@@ -55,20 +60,28 @@ def sequential(y0, t, rtol):
 
 
 def _mesh(args, device):
-    """JAX's choice of mesh: the slices over every visible device when
-    they divide evenly, else None with its message."""
+    """JAX's choice of mesh: the slices over every rank of the launch (one
+    device a rank) when they divide evenly, else None with its message."""
     if not args.mesh:
         return None
-    n_dev = torch.cuda.device_count() if device.type == 'cuda' else 1
+    n_dev = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ.get('WORLD_SIZE', 1)))
     if args.slices % n_dev == 0 and n_dev > 1:
-        print(f"sharding {args.slices} slices over {n_dev} devices")
-        return {'time': n_dev}    # odeint_parareal raises: still to come
+        mesh = make_mesh({'time': n_dev}, device_type=device.type)
+        _say(f"sharding {args.slices} slices over {n_dev} devices")
+        return mesh
     if n_dev == 1:
-        print("--mesh ignored: only one device visible")
+        _say("--mesh ignored: only one device visible")
     else:
-        print(f"--mesh ignored: {args.slices} slices not divisible by "
+        _say(f"--mesh ignored: {args.slices} slices not divisible by "
               f"{n_dev} device(s)")
     return None
+
+
+def _say(msg):
+    """Print once a launch: on rank 0, or with no process group."""
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        print(msg)
 
 
 def main(argv=None, dtype=torch.float32):
@@ -77,6 +90,8 @@ def main(argv=None, dtype=torch.float32):
     args = parser.parse_args(argv)
     device = device_of(args.device)
     mesh = _mesh(args, device)
+    if mesh is not None:
+        device = mesh.device          # this rank's card
     y0 = torch.tensor([1.0, 0.0], dtype=dtype, device=device)
     t = torch.linspace(0.0, 20.0, args.slices + 1, dtype=dtype,
                        device=device)
@@ -87,12 +102,12 @@ def main(argv=None, dtype=torch.float32):
     seq = sequential(y0, t, args.rtol)
 
     err = float((ys_par - seq).abs().max())
-    print("per-iteration correction norms:",
-          ["%.2e" % d for d in deltas.cpu().tolist()])
-    print(f"max |parareal - sequential| after {args.iters} iterations: "
-          f"{err:.2e}")
+    _say("per-iteration correction norms: "
+         + str(["%.2e" % d for d in deltas.cpu().tolist()]))
+    _say(f"max |parareal - sequential| after {args.iters} iterations: "
+         f"{err:.2e}")
     assert err < 100 * args.rtol, err
-    print("ok")
+    _say("ok")
     return dict(ys=ys_par, deltas=deltas, seq=seq, err=err)
 
 

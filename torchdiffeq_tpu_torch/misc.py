@@ -2,11 +2,13 @@
 ``torchdiffeq_tpu/misc.py``).
 
 What this port carries of the JAX `check_inputs`: a single-tensor state,
-kept in its own shape, or a tuple (or list) of tensors, flattened to one
-1-D tensor with an `unravel` that restores the tuple (JAX's
-``ravel_state=True`` path, misc.py:250-270); float16, bfloat16, float32,
+kept in its own shape, or a pytree of tensors (dicts, tuples, lists and
+namedtuples, nested; the port's own small flattener, `tree_flatten`, with
+JAX's leaf order), flattened to one 1-D tensor with an `unravel` that
+restores the structure and each leaf's dtype (JAX's ``ravel_pytree``,
+``ravel_state=True``, misc.py:250-270); float16, bfloat16, float32,
 float64, complex64 and complex128 states; scalar or per-leaf tolerances;
-the RMS norm, the max of per-leaf RMS norms (`mixed_norm`) for a tuple, or
+the RMS norm, the max of per-leaf RMS norms (`mixed_norm`) for a pytree, or
 a user norm; forward and reversed time (integration always runs over ``t_sign * t`` with the field
 conjugated by the sign), with ``time_direction`` to force the reverse;
 ``step_t``/``jump_t`` and a ``grid_constructor`` mapped into the internal
@@ -24,6 +26,7 @@ from __future__ import annotations
 
 import enum
 import warnings
+from collections import OrderedDict
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
@@ -183,48 +186,124 @@ def zero_norm(x):
 
 
 def mixed_norm(tensors):
-    """Max over per-tensor RMS norms (reference ``_mixed_norm``,
-    misc.py:30-33; JAX misc.py:147).  A 0-d tensor of the default float
-    dtype for an empty sequence."""
-    tensors = list(tensors)
+    """Max over per-leaf RMS norms of a pytree of tensors (reference
+    ``_mixed_norm``, misc.py:30-33; JAX misc.py:147).  A 0-d tensor of the
+    default float dtype for an empty one."""
+    tensors = tree_leaves(tensors)
     if not tensors:
         return torch.zeros(())
     return torch.max(torch.stack([rms_norm(x) for x in tensors]))
 
 
+_LEAF = 'leaf'     # a treedef's leaf node
+
+
+def _flatten(tree, leaves):
+    """The treedef of `tree`, its leaves appended to `leaves` in the order
+    of ``jax.tree_util``: a dict's values by sorted key (an OrderedDict's
+    in its own order), a tuple's, list's or namedtuple's in order, None no
+    leaf, anything else one leaf."""
+    if isinstance(tree, dict):
+        keys = (list(tree) if isinstance(tree, OrderedDict)
+                else sorted(tree))
+        return (type(tree), tuple(keys),
+                tuple(_flatten(tree[k], leaves) for k in keys))
+    if isinstance(tree, (tuple, list)):
+        return (type(tree), None, tuple(_flatten(x, leaves) for x in tree))
+    if tree is None:
+        return (None, None, ())
+    leaves.append(tree)
+    return _LEAF
+
+
+def tree_flatten(tree):
+    """(leaves, treedef) of a pytree state (`_flatten`): the port's own
+    small counterpart of ``jax.tree_util.tree_flatten`` on the containers
+    a state is made of."""
+    leaves = []
+    return leaves, _flatten(tree, leaves)
+
+
+def tree_unflatten(treedef, leaves):
+    """The pytree of `treedef` with `leaves` in flattening order."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is _LEAF:
+            return next(it)
+        kind, keys, children = node
+        if kind is None:
+            return None
+        values = [build(c) for c in children]
+        if keys is not None:
+            return kind(zip(keys, values))
+        if hasattr(kind, '_fields'):          # a namedtuple
+            return kind(*values)
+        return kind(values)
+
+    return build(treedef)
+
+
+def tree_leaves(tree):
+    """The leaves of `tree` in flattening order; one tensor is its own."""
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn, tree):
+    """`tree` with `fn` applied to every leaf."""
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(x) for x in leaves])
+
+
+def is_tree_state(y):
+    """Whether `y` is a container state (a dict, tuple, list or
+    namedtuple, nested or not), which the solvers ravel, and not one
+    tensor, which they keep in its shape."""
+    return isinstance(y, (tuple, list, dict))
+
+
+def ravel_leaves(tree):
+    """The leaves of a pytree (a field's output) as one 1-D tensor, their
+    dtypes promoted to one (JAX ``ravel_pytree(f)[0]``)."""
+    return torch.cat([x.reshape(-1) for x in tree_leaves(tree)])
+
+
 def flatten_state(y):
-    """A tuple (or list) of tensors as one 1-D tensor and the `unravel`
-    that restores it from any tensor of that layout (views, no copy; the
-    leaves' dtypes promoted to one).  JAX's ``ravel_pytree`` on a tuple."""
-    leaves = tuple(y)
+    """A pytree state as one 1-D tensor and the `unravel` that restores it
+    from any tensor of that layout (the leaves' dtypes promoted to one).
+    JAX's ``ravel_pytree``: leaves in `tree_flatten` order, and `unravel`
+    gives each leaf back in its own dtype (a real leaf of a complex state
+    its real part)."""
+    leaves, treedef = tree_flatten(y)
     if not leaves or not all(isinstance(x, torch.Tensor) for x in leaves):
-        raise TypeError("a tuple state must hold one or more tensors")
+        raise TypeError("a pytree state must hold one or more tensors, and "
+                        "only tensors")
     dtype = leaves[0].dtype
     for x in leaves[1:]:
         dtype = torch.promote_types(dtype, x.dtype)
     shapes = [x.shape for x in leaves]
     sizes = [x.numel() for x in leaves]
-    kind = type(y) if isinstance(y, list) else tuple
-    # a real leaf of a complex flat state comes back real, as JAX's unravel
-    # casts each leaf back to its own dtype
-    real_leaf = [dtype.is_complex and not x.is_complex() for x in leaves]
+    dtypes = [x.dtype for x in leaves]
 
     def unravel(flat):
-        """The tuple from a tensor of the flat layout, with any leading
+        """The pytree from a tensor of the flat layout, with any leading
         axes kept on each leaf (a (T, n) solution gives (T, *shape)
-        leaves)."""
+        leaves).  A flat tensor in the raveled dtype gives each leaf its
+        own dtype back; one a solver promoted (a fixed grid's float64
+        stages of a float32 state) keeps the promoted dtype."""
         lead = tuple(flat.shape[:-1])
-        return kind((part.real if real and part.is_complex() else part)
-                    .reshape(lead + tuple(shape))
-                    for part, shape, real in
-                    zip(torch.split(flat, sizes, dim=-1), shapes, real_leaf))
+        own = flat.dtype == dtype
+        out = []
+        for part, shape, d in zip(torch.split(flat, sizes, dim=-1), shapes,
+                                  dtypes):
+            if part.is_complex() and not d.is_complex:
+                part = part.real
+            out.append((part.to(d) if own else part).reshape(
+                lead + tuple(shape)))
+        return tree_unflatten(treedef, out)
 
     flat = torch.cat([x.reshape(-1).to(dtype) for x in leaves])
     return flat, unravel
-
-
-def is_tuple_state(y):
-    return isinstance(y, (tuple, list))
 
 
 def time_sign(t):
@@ -297,6 +376,34 @@ class _NoHostReads(torch.overrides.TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+def autograd_lane_jacobian(fn, x):
+    """`lane_jacobian` by ``torch.autograd.grad``, for a function that
+    differentiates itself with autograd, which torch.func cannot transform
+    (an implicit adjoint's augmented field whose parameters the field
+    captures in a closure, where ``torch.func.functional_call`` cannot swap
+    them in): every row, one basis cotangent put in every sample, in one
+    batched backward (``is_grads_batched``).  The same matrix."""
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_(True)
+        out = fn(xd)
+        m = out.shape[-1]
+        basis = torch.eye(m, dtype=out.dtype, device=out.device)
+        (g,) = torch.autograd.grad(
+            out, xd, basis[:, None, :].expand((m,) + tuple(out.shape)),
+            is_grads_batched=True, allow_unused=True)
+    if g is None:
+        return x.new_zeros(x.shape[:1] + (m, x.shape[-1]))
+    return g.transpose(0, 1).detach()
+
+
+def stage_jacobian(func):
+    """The Jacobian route of `func`'s stage solves: the field's own
+    ``lane_jacobian`` attribute (seen through `PerturbedFunc`; the implicit
+    adjoint sets `autograd_lane_jacobian` there), else `lane_jacobian`."""
+    return getattr(getattr(func, 'base_func', func), 'lane_jacobian',
+                   lane_jacobian)
+
+
 def lane_jacobian(fn, x):
     """The Jacobian of every sample of a batched ``fn: (B, m) -> (B, m)``
     whose row b depends on row b of `x` alone: (B, m, m).  Row i of every
@@ -309,7 +416,8 @@ def lane_jacobian(fn, x):
     host read of a tensor (``.item()``, ``float()``, ``bool()``; a branch
     on the time is ``torch.where``) and no in-place update of a tensor it
     captures.  One that is not raises here, naming that requirement,
-    instead of giving a Jacobian with terms missing."""
+    instead of giving a Jacobian with terms missing (such a field may
+    name its own route, `stage_jacobian`)."""
     try:
         with _NoHostReads():
             out, pullback = torch.func.vjp(fn, x)
@@ -400,23 +508,31 @@ class PerturbedFunc:
 
 class NormalisedProblem(NamedTuple):
     func: Callable        # PerturbedFunc in the internal (increasing) frame
-    y0: torch.Tensor      # the state, or a tuple state flattened to 1-D
+    y0: torch.Tensor      # the state, or a pytree state flattened to 1-D
     t: np.ndarray         # (T,) increasing host times, float64
-    rtol: Any             # float, or a per-element tensor (tuple state)
+    rtol: Any             # float, or a per-element tensor (per leaf)
     atol: Any
     method: str
     options: dict
     event_fn: Any         # combined event fn of internal time, or None
     t_sign: float         # +1/-1: t_internal = t_sign * t_user
     norm: Callable
-    unravel: Any = None   # flat -> the user's tuple; None for one tensor
+    unravel: Any = None   # flat -> the user's pytree; None for one tensor
 
 
-def _leaf_tol(name, tol, leaves, like):
-    """A scalar tolerance as a float; a per-leaf sequence as one per-element
+def _leaf_tol(name, tol, state, leaves, like):
+    """A scalar tolerance as a float; a per-leaf one as one per-element
     tensor in the state's dtype and device (JAX `_tree_tol`,
-    misc.py:155-172)."""
-    if _is_scalar(tol):
+    misc.py:155-172): a flat sequence in the leaves' order of the `state`
+    (JAX's form), or a tree of the state's own structure."""
+    if is_tree_state(tol):
+        tol, treedef = tree_flatten(tol)
+        flat = treedef[0] in (tuple, list) and all(
+            c is _LEAF for c in treedef[2])
+        if not flat and treedef != tree_flatten(state)[1]:
+            raise ValueError(f"per-leaf {name} given as a tree must have "
+                             "the state's structure")
+    elif _is_scalar(tol):
         return float(tol)
     tol = list(tol)
     if len(tol) != len(leaves):
@@ -464,8 +580,8 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
     """Normalise user inputs to solver form (the JAX ``check_inputs``,
     torchdiffeq_tpu/misc.py:212-402, on the parts this slice carries).
 
-    A tuple state is flattened to one 1-D tensor; the field then sees the
-    tuple and its output is flattened (JAX's ``ravel_state=True``).  With
+    A pytree state is flattened to one 1-D tensor; the field then sees the
+    pytree and its output is flattened (JAX's ``ravel_state=True``).  With
     `event_fn`, `t` must hold two times, and the problem's event function
     takes the internal time: it hands the user's function the user's time
     (negated back when time is reversed) and the user's state, and combines
@@ -479,19 +595,21 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
         raise ValueError("We require len(t) == 2 when in event handling "
                          f"mode, but got len(t)={host_times(t).shape[0]}.")
     unravel = None
-    if is_tuple_state(y0):
-        leaves = tuple(y0)
-        y0, unravel = flatten_state(leaves)
+    state = y0
+    if is_tree_state(y0):
+        leaves = tree_leaves(y0)
+        y0, unravel = flatten_state(y0)
     elif isinstance(y0, torch.Tensor):
         leaves = (y0,)
     else:
-        raise TypeError("y0 must be a torch.Tensor or a tuple of tensors")
+        raise TypeError("y0 must be a torch.Tensor or a pytree (dict, "
+                        "tuple, list or namedtuple) of tensors")
     for leaf in leaves:
         if not (leaf.is_floating_point() or leaf.is_complex()):
             raise TypeError(f"y0 must be floating point, got {leaf.dtype}")
     check_state_dtype(y0.dtype)
-    rtol = _leaf_tol('rtol', rtol, leaves, y0)
-    atol = _leaf_tol('atol', atol, leaves, y0)
+    rtol = _leaf_tol('rtol', rtol, state, leaves, y0)
+    atol = _leaf_tol('atol', atol, state, leaves, y0)
 
     options = {} if options is None else dict(options)
     if method is None:
@@ -544,8 +662,7 @@ def check_inputs(func, y0, t, rtol, atol, method, options, event_fn, solvers,
         base_func = func
     if unravel is not None:
         user_func = base_func
-        base_func = lambda tt, yy: torch.cat(
-            [f.reshape(-1) for f in user_func(tt, unravel(yy))])
+        base_func = lambda tt, yy: ravel_leaves(user_func(tt, unravel(yy)))
 
     flat_event_fn = None
     if event_fn is not None:

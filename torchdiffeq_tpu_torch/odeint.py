@@ -37,7 +37,7 @@ import warnings
 import numpy as np
 import torch
 
-from .misc import check_inputs, host_times, is_tuple_state, needs_autograd
+from .misc import check_inputs, host_times, needs_autograd, tree_leaves
 from .solvers import SOLVERS, DIRECT_DIFF_KINDS
 from .solvers import (adams, adaptive_rk, fixed_grid, fixed_grid_implicit,
                       replay, scipy_wrapper)
@@ -50,8 +50,7 @@ _KERNEL_OPTIONS = ('pallas', 'interpret', 'block_b')
 def _differentiable(func, y0, t, args):
     """Whether autograd would have to record through a solve."""
     from .adjoint import _tensors_in
-    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
-    return needs_autograd(func, *leaves, t, *_tensors_in(args))
+    return needs_autograd(func, *tree_leaves(y0), t, *_tensors_in(args))
 
 
 def _refuse_autograd(func, y0, t, args):
@@ -179,7 +178,8 @@ def odeint(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None, options=None,
     (JAX `odeint`, torchdiffeq_tpu/odeint.py:162; reference odeint.py:49).
 
     `y0` is one float16/bfloat16/float32/float64 tensor on any device, or
-    a tuple of them; `t` is strictly monotonic (decreasing time integrates
+    a pytree of them (dicts, tuples, lists, namedtuples; the result has
+    its structure); `t` is strictly monotonic (decreasing time integrates
     backwards).  Time is float64.  Under autograd a fixed-grid solve is
     differentiated through its loop, and any other solve takes its
     gradients from the continuous adjoint (`odeint_adjoint` at the same

@@ -74,8 +74,9 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..misc import (check_inputs, host_times, is_tuple_state, nan_sign,
-                    needs_autograd, real_part, solver_callbacks, time_effect)
+from ..misc import (check_inputs, host_times, nan_sign, needs_autograd,
+                    ravel_leaves, real_part, solver_callbacks, time_effect,
+                    tree_flatten, tree_leaves, tree_map, tree_unflatten)
 from ..models.neural_ode import LinearEvent, is_kernel_mlp
 from ..solvers import SOLVERS, DIRECT_DIFF_KINDS
 from ..solvers import batched_rk
@@ -243,17 +244,17 @@ def _lane_problem(func, y0, t, rtol, atol, method, options, args, axes,
                   time_direction='auto'):
     """The per-sample normalised problem: `check_inputs` on one sample (the
     internal times, tolerances, options and the per-sample norm and tuple
-    layout), the batch in the solver's layout (a tuple state flattened per
-    sample to (B, n)) and the batched field."""
-    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    layout), the batch in the solver's layout (a pytree state flattened
+    per sample to (B, n)) and the batched field."""
+    leaves = tree_leaves(y0)
     if not all(isinstance(x, torch.Tensor) and x.dim() >= 1
                for x in leaves):
-        raise TypeError("y0 must be a tensor, or a tuple of tensors, with a "
-                        "leading batch axis")
+        raise TypeError("y0 must be a tensor, or a pytree of tensors, with "
+                        "a leading batch axis")
     B = leaves[0].shape[0]
     if any(x.shape[0] != B for x in leaves):
         raise ValueError("every leaf of y0 must have the same batch size")
-    sample = type(y0)(x[0] for x in leaves) if is_tuple_state(y0) else y0[0]
+    sample = tree_map(lambda x: x[0], y0)
     prob = check_inputs(lambda tt, yy: yy, sample, t, rtol, atol, method,
                         options, None, SOLVERS, time_direction=time_direction)
     unravel = prob.unravel
@@ -265,9 +266,7 @@ def _lane_problem(func, y0, t, rtol, atol, method, options, args, axes,
 
     def one(tt, yy, *aa):
         out = func(tt, yy if unravel is None else unravel(yy), *aa)
-        if unravel is not None:
-            out = torch.cat([o.reshape(-1) for o in out])
-        return out
+        return out if unravel is None else ravel_leaves(out)
 
     # `ts_lanes`: per-sample output times, (B, T) internal float64 on the
     # state's device, in place of `prob.t` (`odeint_spans_with_stats`)
@@ -450,12 +449,11 @@ def _per_sample_solves(func, y0, t, rtol, atol, method, options, event_fn,
     share a grid of steps (module docstring).  With `spans`, `t` holds a
     row of times a sample."""
     from ..odeint import odeint_with_stats
-    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    leaves = tree_leaves(y0)
     B = leaves[0].shape[0]
     results, stats = [], []
     for b in range(B):
-        y0_b = (type(y0)(x[b] for x in leaves) if is_tuple_state(y0)
-                else y0[b])
+        y0_b = tree_map(lambda x: x[b], y0)
         args_b = tuple(a if ax is None else a.select(ax, b)
                        for a, ax in zip(args, axes))
         res, st = odeint_with_stats(func, y0_b, t[b] if spans else t,
@@ -466,12 +464,9 @@ def _per_sample_solves(func, y0, t, rtol, atol, method, options, event_fn,
         stats.append(st)
     dev = leaves[0].device
 
-    def stack(xs):
-        if isinstance(xs[0], tuple):
-            return type(xs[0])(stack(list(p)) for p in zip(*xs))
-        return torch.stack(xs)
-
-    out = stack(results)
+    _, treedef = tree_flatten(results[0])
+    out = tree_unflatten(treedef, [torch.stack(xs) for xs in
+                                   zip(*map(tree_leaves, results))])
     fields = [torch.as_tensor([int(st[i]) for st in stats], dtype=torch.int32,
                               device=dev) for i in range(5)]
     final_dt = torch.as_tensor([float(st.final_dt) for st in stats],
@@ -511,8 +506,7 @@ def _driver(func, y0, t, rtol, atol, method, options, event_fn, args, axes):
         return _replay_driver(func, y0, t, rtol, atol, name, spec, opts,
                               args, axes)
     from ..adjoint import _tensors_in
-    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
-    grad = needs_autograd(func, *leaves, t, *_tensors_in(args))
+    grad = needs_autograd(func, *tree_leaves(y0), t, *_tensors_in(args))
     if direct and event_fn is not None and grad:
         # JAX's gradient here is each sample's event-mode adjoint on its
         # own grid from its own event time back to t0
@@ -615,7 +609,7 @@ def _lane_adjoint(lp, spec, func, t, args, axes, options, event_fn=None):
         + [axis_of.get(id(x)) for x in arg_tensors],
         user_state_norm=(options or {}).get('norm'), event_fn=event_fn,
         t_tensor=t_tensor, stats=None, fixed=fixed)
-    # lp.y0, a tuple state's leaves concatenated under autograd, carries
+    # lp.y0, a pytree state's leaves concatenated under autograd, carries
     # the gradient back to them
     out = _LaneAdjointOp.apply(ctx, lp.y0, t_tensor, *module_params,
                                *arg_tensors)
@@ -822,7 +816,7 @@ def odeint_spans_with_stats(func, y0, t, *, rtol=1e-7, atol=1e-9,
     samples share one direction of time.  Internal: the public per-sample
     entry points take JAX's one shared `t`."""
     args = tuple(args)
-    leaves = tuple(y0) if is_tuple_state(y0) else (y0,)
+    leaves = tree_leaves(y0)
     t_np = _span_times(t, leaves[0].shape[0])
     name, spec = _refuse(y0, method)
     opts = dict(options) if isinstance(options, dict) else {}
@@ -851,7 +845,7 @@ def odeint_per_sample(func, y0, t, args=(), args_axes=None, **kwargs):
         func: vector field per sample, ``func(t, y_i, *args)`` with `y_i`
             one sample (no batch axis).
         y0: initial states with a leading batch axis: one tensor, or a
-            tuple of them.
+            pytree of them.
         t: (T,) shared output times.
         args: extra tensors passed to `func`, shared across samples unless
             mapped by `args_axes`.
@@ -864,7 +858,7 @@ def odeint_per_sample(func, y0, t, args=(), args_axes=None, **kwargs):
             qualify takes the batched driver.
 
     Returns:
-        ys of shape (B, T, ...) (per leaf of a tuple state).
+        ys of shape (B, T, ...) (per leaf of a pytree state).
     """
     ys, _ = odeint_per_sample_with_stats(func, y0, t, args=args,
                                          args_axes=args_axes, **kwargs)

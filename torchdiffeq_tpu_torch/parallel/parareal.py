@@ -1,5 +1,5 @@
-"""Parallel-in-time integration (Parareal) on one device (counterpart of
-``torchdiffeq_tpu/parallel/parareal.py``).
+"""Parallel-in-time integration (Parareal) on one device or over a mesh
+of ranks (counterpart of ``torchdiffeq_tpu/parallel/parareal.py``).
 
 The classic Parareal scheme (Lions, Maday & Turinici, C. R. Acad. Sci.
 2001; Gander & Vandewalle 2007), as the JAX package runs it on one device:
@@ -24,17 +24,23 @@ runs once a slice an iteration.  Gradients reach y0, the tensors in
 each slice's continuous adjoint, the coarse sweeps by autograd through
 their fixed-grid loops.
 
-The JAX package's ``mesh=`` path (the slices sharded over devices with
-``shard_map``) is still to come (ROADMAP queue A, the sharding slice) and
-raises `NotImplementedError`.
+With ``mesh=`` (a `sharding.Mesh` of ranks, `sharding.make_mesh`) each
+rank fine-solves its contiguous block of slices with its own controllers
+and the slice ends are gathered over ``mesh[axis]`` (JAX's ``shard_map``
+of the fine sweep, parareal.py:111-126); the coarse sweep runs replicated
+on every rank.  Every slice has its own controller either way, so the
+result is the one-device one.  The mesh path is forward-only: under
+autograd it raises `NotImplementedError` (`sharding` module docstring).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..misc import flatten_state, is_tuple_state
+from ..misc import (flatten_state, is_tree_state, needs_autograd,
+                    ravel_leaves, tree_leaves)
 from .batched import odeint_spans_with_stats
+from .sharding import _all_gather_blocks, _axis
 
 
 class _FlatField(nn.Module):
@@ -50,8 +56,8 @@ class _FlatField(nn.Module):
 
     def forward(self, t, y, *args):
         out = self.func(t, self.unravel(y), *args)
-        if is_tuple_state(out):
-            return flatten_state(out)[0]
+        if is_tree_state(out):
+            return ravel_leaves(out)
         return out.reshape(-1)
 
 
@@ -59,20 +65,15 @@ def _flat_problem(func, y0):
     """Ravel the state once: (flat field, y0 flat (n,), unravel), the
     unravel keeping leading axes and each leaf's dtype (JAX's
     ``ravel_pytree``)."""
-    if is_tuple_state(y0):
-        y0_flat, unravel_leaves = flatten_state(y0)
-        dtypes = [x.dtype for x in y0]
-
-        def unravel(flat):
-            return type(y0)(x.to(d) for x, d in
-                            zip(unravel_leaves(flat), dtypes))
+    if is_tree_state(y0):
+        y0_flat, unravel = flatten_state(y0)
     elif isinstance(y0, torch.Tensor):
         y0_flat, shape = y0.reshape(-1), tuple(y0.shape)
 
         def unravel(flat):
             return flat.reshape(tuple(flat.shape[:-1]) + shape)
     else:
-        raise TypeError("y0 must be a torch.Tensor or a tuple of tensors")
+        raise TypeError("y0 must be a torch.Tensor or a pytree of tensors")
     return _FlatField(func, unravel), y0_flat, unravel
 
 
@@ -85,9 +86,11 @@ def odeint_parareal(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None,
     (``method`` at rtol/atol, default dopri5, one batched solve of the
     slices) and stitched by `n_iters` sequential coarse corrections
     (``coarse_method`` with ``coarse_num_steps`` fixed steps a slice).
-    `y0` is a tensor or a tuple of tensors; `t` is strictly monotonic.
-    ``mesh`` is the JAX package's device mesh, still to come here: any
-    value but None raises `NotImplementedError`.
+    `y0` is a tensor or a pytree of tensors; `t` is strictly monotonic.
+    ``mesh`` (a `sharding.Mesh`) shards the slices over ``mesh[axis]``,
+    whose size must divide the T-1 slices; every rank calls with the same
+    inputs, on its device, and gets the whole result (module
+    docstring).
 
     Returns ``ys`` like `odeint`.  Use `odeint_parareal_with_info` for the
     per-iteration correction norms.
@@ -118,23 +121,32 @@ def odeint_parareal_with_info(func, y0, t, *, rtol=1e-7, atol=1e-9,
     n_iters = int(n_iters)
     if n_iters < 1:
         raise ValueError("n_iters must be >= 1")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"odeint_parareal(mesh=..., axis={axis!r}): the slices sharded "
-            "over a device mesh are ROADMAP queue A's sharding slice "
-            "(parallel/sharding.py on torch.distributed), still to come; "
-            "mesh=None solves every slice on the state's device")
     args = tuple(args)
+    mine = slice(None)            # the slices this process fine-solves
+    if mesh is not None:
+        group, n_shards, coord = _axis(mesh, axis)
+        if S % n_shards != 0:
+            raise ValueError(
+                f"the mesh axis '{axis}' size ({n_shards}) must divide "
+                f"the T-1={S} time slices")
+        from ..adjoint import _tensors_in
+        if needs_autograd(func, *tree_leaves(y0), t, *_tensors_in(args)):
+            raise NotImplementedError(
+                "odeint_parareal(mesh=...) is forward-only: mesh=None "
+                "differentiates the one-device scheme")
+        per = S // n_shards
+        mine = slice(coord * per, (coord + 1) * per)
     flat_func, y0_flat, unravel = _flat_problem(func, y0)
     fine_opts = dict(options) if options else {}
     coarse_opts = dict(num_steps=int(coarse_num_steps))
     spans = torch.stack([t[:-1], t[1:]], dim=1)      # (S, 2)
 
     def fine_all(U_heads):
-        ys, _ = odeint_spans_with_stats(flat_func, U_heads, spans, rtol=rtol,
-                                        atol=atol, method=method,
-                                        options=fine_opts, args=args)
-        return ys[:, -1]
+        ys, _ = odeint_spans_with_stats(
+            flat_func, U_heads[mine], spans[mine], rtol=rtol, atol=atol,
+            method=method, options=fine_opts, args=args)
+        ends = ys[:, -1]
+        return ends if mesh is None else _all_gather_blocks(ends, group, 0)
 
     def coarse(s, u):
         return odeint(flat_func, u, t[s:s + 2], method=coarse_method,

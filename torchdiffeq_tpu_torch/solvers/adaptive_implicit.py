@@ -30,7 +30,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import Perturb, coef, real_dtype, scalar_type, tcast, tval
+from ..misc import (Perturb, coef, real_dtype, scalar_type, stage_jacobian,
+                    tcast, tval)
 from ..ops.rk_step import weighted_sum
 from .fixed_grid_implicit import root_solve, solve_tol
 
@@ -91,7 +92,8 @@ def make_esdirk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
 
             # the previous stage's slope is the predictor
             k_i, conv = root_solve(residual, k[i - 1].reshape(-1), tol,
-                                   max_iters, newton=True)
+                                   max_iters, newton=True,
+                                   jacobian=stage_jacobian(func))
             k.append(k_i.view(shape))
             converged = converged and conv
         y1 = y0 + weighted_sum(tab.c_sol, k, dtc)
@@ -132,7 +134,7 @@ def make_firk_step_fn(stage_tol=None, max_iters=100, error_dtype=None):
             return torch.cat(res)
 
         Kr, converged = root_solve(residual, f0f.repeat(m), tol, max_iters,
-                                   newton=True)
+                                   newton=True, jacobian=stage_jacobian(func))
         k = tuple([f0] + [x.view(shape) for x in Kr.view(m, n).unbind(0)])
         y1 = weighted_sum(tab.c_sol, k, dtc, base=y0)
         y1_error = _error_sum(tab, k, dtc, error_dtype)
@@ -185,7 +187,8 @@ def make_lane_step_fn(tab, stage_tol=None, max_iters=100, error_dtype=None):
 
         def solve(residual, x0):
             return root_solve(residual, x0, tol, max_iters, newton=True,
-                              lanes=True, active=active)
+                              lanes=True, active=active,
+                              jacobian=stage_jacobian(func))
 
         if tab.sdirk:
             k = [f0]

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..misc import (Perturb, carries_derivative, coef, lane_jacobian,
-                    nextafter_down, real_dtype, scalar_type)
+                    nextafter_down, real_dtype, scalar_type, stage_jacobian)
 from ..ops import linsolve
 from ..ops.rk_step import weighted_sum
 from .fixed_grid import FixedStepMethod, construct_grid, integrate_fixed_grid
@@ -81,7 +81,8 @@ class _IFT(torch.autograd.Function):
         return -linsolve.solve(J, r_t)
 
 
-def _iterate(residual, x0, tol, max_iters, newton, active=None):
+def _iterate(residual, x0, tol, max_iters, newton, active=None,
+             jacobian=lane_jacobian):
     """Broyden's (JAX `_broyden`, fixed_grid_implicit.py:41-69) or Newton's
     (`_newton`, :72-98) method for every sample of a batch at once (JAX's
     solves under vmap), with no graph: ``residual: (B, m) -> (B, m)`` row
@@ -90,7 +91,8 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None):
     while its own 2-norm is at least `tol`, it has not bailed out and it
     has taken fewer than `max_iters` iterations; then it keeps its values,
     as a lane of JAX's batched while_loop keeps its carry.  Newton's
-    Jacobians are `misc.lane_jacobian`, the linear solves one batched
+    Jacobians are `jacobian` (`misc.lane_jacobian` unless the field names
+    its own, `misc.stage_jacobian`), the linear solves one batched
     `ops.linsolve.solve`.  One host read an iteration: whether any sample
     still iterates, and whether all have converged.  `active` (B,) bool
     leaves the other samples out from the start (an adaptive step's
@@ -118,7 +120,7 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None):
             break
         if newton:
             COUNTS['jacobians'] += 1
-            J = lane_jacobian(residual, x)
+            J = jacobian(residual, x)
         s = -linsolve.solve(J, f)
         COUNTS['linear_solves'] += 1
         COUNTS['iterations'] += 1
@@ -142,36 +144,38 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None):
 
 
 def root_solve(residual, x0, tol, max_iters, newton, lanes=False,
-               active=None):
+               active=None, jacobian=lane_jacobian):
     """Solve ``residual(x) = 0`` from `x0` (`_iterate`); under autograd,
     or when the problem carries forward-mode tangents (``forward_grad``),
     the root carries the implicit-function-theorem derivative (module
     docstring), not that of the iterations.  `x0` is (m,), a batch of one;
     with `lanes` it is (B, m) and every sample solves its own system
     (`active` as `_iterate`'s), its implicit-function derivative through
-    its own Jacobian.  Returns (x, converged: a bool, or (B,) with
+    its own Jacobian.  `jacobian(fn, x)` takes the Jacobians
+    (`misc.stage_jacobian`).  Returns (x, converged: a bool, or (B,) with
     `lanes`)."""
     if x0.is_complex():
         return _complex_root_solve(residual, x0, tol, max_iters, newton,
-                                   lanes, active)
+                                   lanes, active, jacobian)
     if not lanes:
         one, residual = residual, lambda xb: one(xb[0])[None]
         x0 = x0[None]
     with torch.no_grad():
         x, conv, all_conv = _iterate(residual, x0.detach(), tol, max_iters,
-                                     newton, active)
+                                     newton, active, jacobian)
     if torch.is_grad_enabled() or carries_derivative(x0):
         x = x.detach()
         r = residual(x)
         if carries_derivative(r):
             def jac(root=x):
                 with torch.no_grad():
-                    return lane_jacobian(residual, root)
+                    return jacobian(residual, root)
             x = x + _IFT.apply(r, jac)
     return (x, conv) if lanes else (x[0], all_conv)
 
 
-def _complex_root_solve(residual, x0, tol, max_iters, newton, lanes, active):
+def _complex_root_solve(residual, x0, tol, max_iters, newton, lanes, active,
+                        jacobian):
     """`root_solve` of a complex system on its stacked real view ``[Re x,
     Im x]`` (JAX `_make_root_solver(complex_state=True)`,
     fixed_grid_implicit.py:102-126; `_stage_root`, adaptive_implicit.py:70-
@@ -190,7 +194,7 @@ def _complex_root_solve(residual, x0, tol, max_iters, newton, lanes, active):
         return torch.complex(xr[..., :m], xr[..., m:])
 
     xr, conv = root_solve(lambda xr: pack(residual(unpack(xr))), pack(x0),
-                          tol, max_iters, newton, lanes, active)
+                          tol, max_iters, newton, lanes, active, jacobian)
     return unpack(xr), conv
 
 
@@ -266,8 +270,9 @@ def make_fixed_step_method(prob, tableau, sequential, lanes=False):
     def flat(x):
         return x.reshape(x.shape[:lead] + (-1,))
 
-    def solve(residual, x0):
-        return root_solve(residual, x0, tol, max_iters, newton, lanes=lanes)
+    def solve(func, residual, x0):
+        return root_solve(residual, x0, tol, max_iters, newton, lanes=lanes,
+                          jacobian=stage_jacobian(func))
 
     if not sequential:
         def step(func, t0, dt, t1, y0, perturb, state):
@@ -289,7 +294,7 @@ def make_fixed_step_method(prob, tableau, sequential, lanes=False):
                     res.append(K[i] - eval_f(times[i], yi))
                 return torch.cat(res, dim=-1)
 
-            Kf, conv = solve(residual, flat(f0).repeat(
+            Kf, conv = solve(func, residual, flat(f0).repeat(
                 *((1,) * lead), s))
             dy = weighted_sum(tableau.c_sol,
                               list(Kf.unflatten(-1, (s, n)).unbind(-2)), dtc)
@@ -310,7 +315,7 @@ def make_fixed_step_method(prob, tableau, sequential, lanes=False):
                                             dtc)
                     return k - eval_f(times[i], yi)
 
-                ki, conv = solve(residual_i, f0f)
+                ki, conv = solve(func, residual_i, f0f)
                 conv_all = conv_all & conv
                 K.append(ki)
             return weighted_sum(tableau.c_sol, K, dtc).view(y0.shape), f0, \
