@@ -158,9 +158,21 @@ benchmarks/bench_fused_field.py at its full width:
      against the single solve on the card, each rank's result; a
      collective that gloo refuses on CUDA tensors fails the phase, named;
      (c) the phase's seconds (budget MESH_BUDGET_S).
+ 21. the sharded training step of the JAX package's
+     `__graft_entry__.dryrun_multichip` (examples/sharded_step.py; no
+     kernel, the launch counts reset before and read after): (a) a world
+     of one rank on NCCL, mesh {'data': 1, 'model': 1}: phase 10's step
+     through `data_parallel_odeint` and `tensor_parallel_mlp` against the
+     unsharded step, bit for bit with equal forward and backward counters,
+     and its median time a step beside phase 10's; (b) STEP_RANKS ranks on
+     the card, subprocesses on gloo: the dry run's float64 step on
+     {'data': 1, 'model': 2} and {'data': 2, 'model': 1} against the single
+     step (STEP_F64_REL, counters equal), and every refused gradient route
+     raising on every rank; the phase's seconds (budget STEP_BUDGET_S).
 
 ``torchrun --nproc_per_node=N chip_smoke.py --mesh-cards`` instead runs
-the device mesh across N cards, one rank a card (`_mesh_cards`).
+the device mesh and the sharded training step across N cards, one rank a
+card (`_mesh_cards`).
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -410,6 +422,23 @@ PAR_BUDGET_S = 90
 MESH_B, MESH_RANKS = 1024, 2
 MESH_F64_REL = 1e-12
 MESH_BUDGET_S = 45
+
+# - phase 21, the sharded training step (examples/sharded_step.py).  (a) A
+#   world of one rank: the tensor-parallel field runs the MLPField's
+#   operations, and every collective sums over one rank, so the step is
+#   the unsharded one's bit for bit.  (b) Two ranks on the card: each
+#   block's batch sums and each shard's partial products add in another
+#   order than one process's, carried through a forward and a backward
+#   solve with the same steps: float64 losses and gradients within 1e-12
+#   of max|g| (STEP_F64_REL; 3.8e-16 measured between 4 CPU ranks and one
+#   process on the dry run's problem), counters equal.  Across cards
+#   (--mesh-cards) the float32 step is held to the JAX dry run's own
+#   bounds against one device (examples/sharded_step.py LOSS_REL,
+#   GRAD_REL).
+STEP_RANKS = 2
+STEP_F64_REL = 1e-12
+STEP_TIMED = 5           # phase 21 (a)'s timed steps
+STEP_BUDGET_S = 30
 
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
@@ -4161,15 +4190,16 @@ def _mesh_rank(rank, world, store, out):
 
 def _mesh_cards():
     """``torchrun --nproc_per_node=N chip_smoke.py --mesh-cards``: the
-    device mesh across N cards, one rank a card, on NCCL (no timing):
-    phase 4's float64 spiral through `data_parallel_odeint` against the
-    single solve, `sharded_independent_odeint` against each block's own
-    solve (bit for bit, counters equal), Parareal's `mesh=` on 2N slices
-    against the one-device scheme (bit for bit), and the gradient of
-    sum(ys[-1]**2) in the MLP's parameters through the sharded gather,
-    all-reduced, against the blocks' gradients summed on one rank.  Rank
-    0 prints every rank's results and a last line ``mesh-cards ok``;
-    exits non-zero otherwise."""
+    device mesh across N cards, one rank a card, on NCCL: phase 4's
+    float64 spiral through `data_parallel_odeint` against the single
+    solve, `sharded_independent_odeint` against each block's own solve
+    (bit for bit, counters equal), Parareal's `mesh=` on 2N slices against
+    the one-device scheme (bit for bit), the gradient of sum(ys[-1]**2) in
+    the MLP's parameters through the sharded gather, all-reduced, against
+    the blocks' gradients summed on one rank, and the JAX dry run's
+    sharded training step (`_mesh_cards_step`; its ``--full-width`` step
+    timed, the only time taken).  Rank 0 prints every rank's results and
+    a last line ``mesh-cards ok``; exits non-zero otherwise."""
     import torch
     import torch.distributed as dist
     from torchdiffeq_tpu_torch import odeint_adjoint, odeint_with_stats
@@ -4219,11 +4249,18 @@ def _mesh_cards():
     g1 = sum(grad_of(odeint_adjoint(model, y0[i * b:(i + 1) * b], t, **kw))
              for i in range(n))
     out["sharded_grad_rel"] = float((g - g1).abs().max() / g1.abs().max())
+    out.update(_mesh_cards_step(torch, n))
     res = [None] * dist.get_world_size()
     dist.all_gather_object(res, out)
     ok = all(r["data_parallel_rel"] <= MESH_F64_REL
              and r["sharded_grad_rel"] <= MESH_F64_REL
-             and all(v for k, v in r.items() if not k.endswith("_rel"))
+             and max(r["step_f64_rel"]) <= STEP_F64_REL
+             and r["step_f32_rel"][0] < r["jax_bounds"][0]
+             and r["step_f32_rel"][1] < r["jax_bounds"][1]
+             and r["full_width_rel"][0] < r["jax_bounds"][0]
+             and r["full_width_rel"][1] < r["jax_bounds"][1]
+             and all(v for k, v in r.items()
+                     if not k.endswith(("_rel", "_ms", "_bounds", "mesh")))
              for r in res)
     if dist.get_rank() == 0:
         print(f"[mesh-cards] {_card()} | mesh {mesh.shape} on "
@@ -4232,6 +4269,43 @@ def _mesh_cards():
         print("mesh-cards " + ("ok" if ok else "FAILED"))
     dist.destroy_process_group()
     return 0 if ok else 1
+
+
+def _mesh_cards_step(torch, n):
+    """`--mesh-cards`' sharded step (examples/sharded_step.py) on the JAX
+    dry run's mesh for `n` cards ({'data': 2, 'model': 2} at 4): its
+    float32 step against the unsharded one within the dry run's bounds, its
+    float64 step within STEP_F64_REL with equal counters, and
+    ``--full-width`` (bench.py's main cell) with its ms a step."""
+    from torchdiffeq_tpu_torch.examples import sharded_step
+    from torchdiffeq_tpu_torch.parallel import make_mesh
+    out = {}
+    for full in (False, True):
+        cfg = sharded_step.config(n, full)
+        mesh = make_mesh(cfg["mesh"])
+        out["step_mesh"] = cfg["mesh"]
+        kw = {k: cfg[k] for k in ("rtol", "atol", "lr", "last_only")}
+        for dtype in ((torch.float32,) if full
+                      else (torch.float32, torch.float64)):
+            field, y0, tgt = sharded_step.make_problem(
+                cfg["hidden"], cfg["batch"], dtype, mesh.device)
+            if full:
+                r = sharded_step.run(mesh, field, y0, tgt, cfg)
+                out["full_width_rel"] = (r["loss_rel_diff"],
+                                         r["grad_rel_diff"])
+                out["full_width_step_ms"] = r["step_ms"]
+                continue
+            r, _ = _sharded_vs_single(torch, mesh, field, y0, tgt,
+                                      cfg["t"], **kw)
+            if dtype == torch.float32:
+                out["step_f32_rel"] = _step_rels(r)
+                continue
+            out["step_f64_rel"] = _step_rels(r)
+            out["step_f64_counters"] = (
+                r["sharded"]["fwd"] == r["single"]["fwd"]
+                and r["sharded"]["bwd"] == r["single"]["bwd"])
+    out["jax_bounds"] = (sharded_step.LOSS_REL, sharded_step.GRAD_REL)
+    return out
 
 
 def _phase_mesh(torch, kernels, dev, summary):
@@ -4344,6 +4418,215 @@ def _phase_mesh(torch, kernels, dev, summary):
     print(f"[20 budget] phase 20 took {total:.1f} s (budget "
           f"{MESH_BUDGET_S} s)")
     _check(total <= MESH_BUDGET_S, f"phase 20 took {total:.1f} s")
+
+
+# the gradient routes data_parallel_odeint refuses (phase 21 (b)), each
+# under autograd: (name, entry point, keywords)
+STEP_REFUSED = (
+    ("fixed_grid", "odeint", dict(method="rk4", options=dict(num_steps=4))),
+    ("replay_grad", "odeint", dict(options=dict(replay_grad=True))),
+    ("forward_grad", "odeint", dict(options=dict(forward_grad=True))),
+    ("interpolated", "odeint_adjoint",
+     dict(adjoint_options=dict(interpolated=True))),
+    ("implicit_adjoint", "odeint_adjoint", dict(adjoint_method="kvaerno5")),
+    ("callable_norm", "odeint_adjoint",
+     dict(adjoint_options=dict(norm=lambda x: x[0].abs()))))
+
+
+def _sharded_vs_single(torch, mesh, field, y0, target, t, **kw):
+    """One training step of `field` (an MLPField) split by
+    `tensor_parallel_mlp` over `mesh`'s 'model' axis with the batch over
+    'data' (`data_parallel_odeint` of `odeint_adjoint`), and the same step
+    of an unsharded copy: {'sharded'|'single': dict(loss, grads (the
+    sharded ones gathered), fwd and bwd counters)} and the sharded field.
+    `kw` is `sharded_step.train_step`'s rtol, atol, lr, last_only."""
+    import copy
+    from torchdiffeq_tpu_torch import odeint_adjoint, odeint_with_stats
+    from torchdiffeq_tpu_torch.examples.sharded_step import train_step
+    from torchdiffeq_tpu_torch.parallel import (data_parallel_odeint,
+                                                tensor_parallel_mlp)
+    tp = tensor_parallel_mlp(field, mesh)
+    out = {}
+    for name, f, solve, stats in (
+            ("sharded", tp, data_parallel_odeint(odeint_adjoint, mesh),
+             data_parallel_odeint(odeint_with_stats, mesh)),
+            ("single", copy.deepcopy(field), odeint_adjoint,
+             odeint_with_stats)):
+        with torch.no_grad():
+            _, st = stats(f, y0, t, rtol=kw["rtol"], atol=kw["atol"])
+        with _BackwardStats() as bwd:
+            loss, grads = train_step(f, solve, y0, target, t, **kw)
+        if name == "sharded":
+            grads = tp.gather(grads)
+        out[name] = dict(loss=loss, grads=grads, bwd=bwd.counters(),
+                         fwd=[int(x) for x in st[:5]])
+    return out, tp
+
+
+def _step_rels(res):
+    """(|loss - single| / |single|, max|g - single| / max|single|)."""
+    from torchdiffeq_tpu_torch.examples.sharded_step import rel_diffs
+    sh, one = res["sharded"], res["single"]
+    return rel_diffs(sh["loss"], sh["grads"], one["loss"], one["grads"])
+
+
+def _step_rank(rank, world, store, out):
+    """One rank of phase 21 (b), run as ``chip_smoke.py --step-rank RANK
+    WORLD STORE OUT``: gloo on the card, the JAX dry run's float64 step on
+    {'data': 1, 'model': WORLD} and {'data': WORLD, 'model': 1} against the
+    unsharded step, and each refused gradient route's message; writes them
+    to OUT."""
+    import torch
+    import torch.distributed as dist
+    import torchdiffeq_tpu_torch as tt
+    from torchdiffeq_tpu_torch.examples import sharded_step
+    from torchdiffeq_tpu_torch.parallel import data_parallel_odeint, make_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        cfg = sharded_step.config(world)
+        kw = {k: cfg[k] for k in ("rtol", "atol", "lr", "last_only")}
+        res = {}
+        for shape in ({"data": 1, "model": world},
+                      {"data": world, "model": 1}):
+            mesh = make_mesh(shape)
+            field, y0, tgt = sharded_step.make_problem(
+                cfg["hidden"], cfg["batch"], torch.float64, mesh.device)
+            r, _ = _sharded_vs_single(torch, mesh, field, y0, tgt, cfg["t"],
+                                      **kw)
+            res[f"data{shape['data']}"] = dict(
+                rels=_step_rels(r), fwd=(r["sharded"]["fwd"],
+                                         r["single"]["fwd"]),
+                bwd=(r["sharded"]["bwd"], r["single"]["bwd"]),
+                device=str(r["sharded"]["loss"].device))
+        refused = {}
+        y0 = torch.ones(4 * world, 1, dtype=torch.float64, device=mesh.device)
+        for name, entry, kwr in STEP_REFUSED:
+            w = torch.tensor(1.0, dtype=torch.float64, device=mesh.device,
+                             requires_grad=True)
+            try:
+                data_parallel_odeint(getattr(tt, entry), mesh)(
+                    lambda s, y, ww: -ww * y, y0, cfg["t"], args=(w,), **kwr)
+                refused[name] = None
+            except NotImplementedError as err:
+                refused[name] = str(err)
+        res["refused"] = refused
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _check_step_ranks(ranks, device_type):
+    """Phase 21 (b)'s checks of every rank's `_step_rank` results: each
+    mesh's step within STEP_F64_REL of the single step, its forward and
+    backward counters equal, on a `device_type` device, and every refused
+    route refused.  Returns {mesh: every rank's rel diffs}."""
+    meshes = [k for k in ranks[0] if k != "refused"]
+    rels = {k: [x[k]["rels"] for x in ranks] for k in meshes}
+    pairs = [x[k][c] for x in ranks for k in meshes for c in ("fwd", "bwd")]
+    _check(all(max(r) <= STEP_F64_REL for k in meshes for r in rels[k])
+           and all(sharded == single for sharded, single in pairs)
+           and all(x[k]["device"].startswith(device_type)
+                   for x in ranks for k in meshes),
+           f"{len(ranks)} ranks sharded step vs single: {rels}, counters "
+           f"(sharded, single) {pairs}")
+    unrefused = [(r, k) for r, x in enumerate(ranks)
+                 for k, v in x["refused"].items() if v is None]
+    _check(not unrefused, f"gradient routes not refused: {unrefused}")
+    return rels
+
+
+def _phase_sharded_step(torch, kernels, dev, train_ms):
+    """Phase 21: the sharded training step of the JAX package's
+    `__graft_entry__.dryrun_multichip` (examples/sharded_step.py) on the
+    card."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torchdiffeq_tpu_torch.examples.sharded_step import train_step
+    from torchdiffeq_tpu_torch import odeint_adjoint
+    from torchdiffeq_tpu_torch.parallel import data_parallel_odeint, make_mesh
+    p0 = time.perf_counter()
+    card = _card()
+
+    # (a) phase 10's step through the mesh's world of one rank, NCCL
+    mesh = make_mesh({"data": 1, "model": 1})
+    backend = dist.get_backend()
+    model, y0, target, t = _train_setup(torch, np.float32, dev)
+    kw = dict(rtol=RTOL, atol=ATOL, lr=1e-3, last_only=False)
+    kernels.reset_launch_counts()
+    res, tp = _sharded_vs_single(torch, mesh, model, y0, target, t, **kw)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in (*kernels.launch_counts.items(),
+                                  *kernels.traced_launch_counts.items())
+                if v}
+    sh, one = res["sharded"], res["single"]
+    same = dict(loss=torch.equal(sh["loss"], one["loss"]),
+                grads=all(torch.equal(a, b)
+                          for a, b in zip(sh["grads"], one["grads"])),
+                fwd=sh["fwd"] == one["fwd"], bwd=sh["bwd"] == one["bwd"])
+    _check(all(same.values()) and sh["loss"].is_cuda and not launches,
+           f"sharded step, world of one ({backend}) vs unsharded, bit for "
+           f"bit: {same}; kernel launches {launches}")
+    solve = data_parallel_odeint(odeint_adjoint, mesh)
+    ms = []
+    for _ in range(STEP_TIMED):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        train_step(tp, solve, y0, target, t, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    dist.destroy_process_group()
+    a_s = time.perf_counter() - p0
+
+    # (b) STEP_RANKS ranks on the card, gloo
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_step_")
+    procs = []
+    try:
+        for r in range(STEP_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--step-rank",
+                 str(r), str(STEP_RANKS), os.path.join(tmp, "store"),
+                 os.path.join(tmp, f"rank{r}.pt")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=STEP_BUDGET_S)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            _check(p.returncode == 0,
+                   f"step rank {r} of {STEP_RANKS} (gloo on the card) "
+                   f"failed:\n{log[-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(STEP_RANKS)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    rels = _check_step_ranks(ranks, "cuda")
+    total = time.perf_counter() - p0
+    print(f"[21a sharded step, world of one] {card} | make_mesh({{'data': 1, "
+          f"'model': 1}}) on {backend}: phase 10's step (B={B} H={H} T={T} "
+          f"float32, odeint_adjoint rtol={RTOL} atol={ATOL}, SGD lr 1e-3) "
+          f"through data_parallel_odeint and tensor_parallel_mlp equals the "
+          f"unsharded step bit for bit {same} (forward {sh['fwd']}, backward "
+          f"{sh['bwd']}); kernel launches {launches} (the step runs none) | "
+          f"step over {STEP_TIMED}: median {np.median(ms):.2f} ms (min "
+          f"{min(ms):.2f}, max {max(ms):.2f}) beside phase 10's "
+          f"{train_ms:.2f} ms | {a_s:.1f} s")
+    print(f"[21b sharded step, {STEP_RANKS} ranks on one card] {card} | "
+          f"gloo, the dry run's float64 step (hidden 128, batch 32, dopri5 "
+          f"rtol 1e-2 atol 1e-3): (loss, gradient) rel diffs vs the single "
+          f"step per rank "
+          + "; ".join(f"{k}: " + ", ".join("(%.2e, %.2e)" % r for r in v)
+                      for k, v in rels.items())
+          + f" (<= {STEP_F64_REL}), counters equal; refused on every rank: "
+          f"{sorted(ranks[0]['refused'])}")
+    print(f"[21 budget] phase 21 took {total:.1f} s (budget "
+          f"{STEP_BUDGET_S} s)")
+    _check(total <= STEP_BUDGET_S, f"phase 21 took {total:.1f} s")
 
 
 def main():
@@ -4778,6 +5061,8 @@ def main():
 
     _phase_mesh(torch, kernels, dev, summary)
 
+    _phase_sharded_step(torch, kernels, dev, train_ms)
+
     torch.cuda.synchronize()
     print(_card())
     print(json.dumps({"kernels": summary}))
@@ -4791,6 +5076,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         a = sys.argv[2:]
         sys.exit(_mesh_rank(int(a[0]), int(a[1]), a[2], a[3]))
+    if sys.argv[1:2] == ["--step-rank"]:
+        a = sys.argv[2:]
+        sys.exit(_step_rank(int(a[0]), int(a[1]), a[2], a[3]))
     if sys.argv[1:2] == ["--mesh-cards"]:
         sys.exit(_mesh_cards())
     sys.exit(main())

@@ -1985,6 +1985,27 @@ def test_pytree_state_and_closure_adjoint_cuda_match_cpu(cuda):
                                        atol=F64 * float(b.abs().max()))
 
 
+def test_sharded_step_world_of_one_nccl(cuda):
+    """examples/sharded_step.py as a world of one on NCCL, mesh {'data': 1,
+    'model': 1}: the JAX dry run's step through data_parallel_odeint and
+    the tensor-parallel field equals the unsharded step on the card bit
+    for bit (chip_smoke.py phase 21 (a)), in float64 and float32."""
+    import torch.distributed as dist
+    from torchdiffeq_tpu_torch.examples import sharded_step
+    if dist.is_initialized():
+        pytest.skip("a process group is already set up in this process")
+    try:
+        for dtype in ('float64', 'float32'):
+            out = sharded_step.main(['--dtype', dtype, '--steps', '1'])
+            assert dist.get_backend() == 'nccl' and out['loss'].is_cuda
+            assert torch.equal(out['loss'], out['ref_loss'])
+            assert all(torch.equal(a, b) for a, b in
+                       zip(out['grads'], out['ref_grads']))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
 def test_mesh_world_of_one_nccl(cuda):
     """make_mesh's world of one on NCCL: data_parallel_odeint,
     sharded_independent_odeint and Parareal's mesh equal their unsharded

@@ -1,6 +1,8 @@
 """The device mesh on torch.distributed (`parallel/sharding.py`, Parareal's
-``mesh=`` and ``parareal_demo --mesh``) against the JAX package's mesh,
-mirroring tests/test_sharding.py and
+``mesh=``, ``parareal_demo --mesh`` and the sharded training step of
+``examples/sharded_step.py``) against the JAX package's mesh, mirroring
+tests/test_sharding.py (`test_sharded_training_step` against JAX's
+one-device step, as the dry run compares) and
 tests/test_parareal.py::test_mesh_execution_matches_vmap.
 
 The port runs one process a rank: one module-wide launch of 4 CPU ranks
@@ -12,7 +14,14 @@ conftest.py makes, so the shard counts match.  The ranks import no JAX.
 Tolerances: values to 1e-12 of the largest (rtol 1e-10 for Parareal, as
 JAX's own test), Stats counters exactly, gradients to 1e-9 of the largest
 against JAX's shard_map + psum and to JAX's own 1e-5 against one
-device."""
+device.  The sharded training step: float64 losses and gradients to
+1e-12 of the largest against JAX's one-device step (its shared
+controller takes the one-device steps, so only the blocks' and shards'
+summation order differs: 3.8e-16 measured), float32 to the dry run's own
+bounds (`__graft_entry__.py:134-135`) against JAX and to 1e-5 against
+the port's one-device step (the float32 step's rounding, 1.6e-7
+measured), the tensor-parallel field alone to 1e-15."""
+import functools
 import os
 import pickle
 import socket
@@ -29,16 +38,19 @@ import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
 
 import torchdiffeq_tpu as tde
+from torchdiffeq_tpu.models import init_spiral_model, spiral_field
 from torchdiffeq_tpu.parallel import (make_mesh as j_make_mesh,
                                       odeint_parareal as j_parareal,
                                       odeint_per_sample_with_stats as
                                       j_per_sample,
                                       shard_params as j_shard_params)
 import torchdiffeq_tpu_torch as tt
-from torchdiffeq_tpu_torch.examples import parareal_demo
+from torchdiffeq_tpu_torch.examples import parareal_demo, sharded_step
+from torchdiffeq_tpu_torch.models import MLPField
 from torchdiffeq_tpu_torch.parallel import (data_parallel_odeint, make_mesh,
                                             odeint_parareal,
-                                            sharded_independent_odeint)
+                                            sharded_independent_odeint,
+                                            tensor_parallel_mlp)
 
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      'torch_sharding_ranks.py')
@@ -105,9 +117,24 @@ class _Launch:
                 p.communicate()
 
 
+def _spiral_params(dtype):
+    """`__graft_entry__`'s dry-run weights: the JAX package's
+    `init_spiral_model(PRNGKey(0), 128)` in `dtype`."""
+    return init_spiral_model(jax.random.PRNGKey(0), hidden=128,
+                             dtype=dtype)
+
+
 @pytest.fixture(scope='module')
 def ranks(tmp_path_factory):
-    launch = _Launch(tmp_path_factory.mktemp('ranks'), 'mesh', WORLD)
+    out = tmp_path_factory.mktemp('ranks')
+    # the ranks import no JAX: the dry run's weights go to them in a file
+    arrays = {}
+    for name, dtype in (('float64', jnp.float64), ('float32', jnp.float32)):
+        for i, layer in enumerate(_spiral_params(dtype)):
+            for k, v in layer.items():
+                arrays[f'{k}{i + 1}_{name}'] = np.asarray(v)
+    np.savez(os.path.join(out, 'spiral_params.npz'), **arrays)
+    launch = _Launch(out, 'mesh', WORLD)
     yield launch
     launch.close()
 
@@ -260,7 +287,9 @@ def test_data_parallel_matches_single_device(ranks):
     controller over the global batch, its norm all-reduced, equal to the
     single-device solve (JAX's and the port's) at 1e-12 with the counters
     exact; a dict state takes each leaf's global RMS, then the max; a
-    user norm, an indivisible batch and autograd are refused."""
+    user norm and an indivisible batch are refused.  Under autograd
+    (plain odeint's continuous adjoint) every rank gets the global
+    gradient of an args tensor, the single-device solve's."""
     t = jnp.linspace(0., 1., 4)
     y0 = jnp.arange(1.0, 17.0).reshape(16, 1)
     kw = dict(rtol=1e-8, atol=1e-10)
@@ -279,7 +308,10 @@ def test_data_parallel_matches_single_device(ranks):
         assert res['std'] == _counters(std_j)
         assert 'norm' in res['user_norm']
         assert 'not divisible' in res['indivisible']
-        assert 'forward-only' in res['autograd']
+        g_dp, g_one = res['autograd']
+        _rel(g_dp, g_one, 1e-12)
+    assert len({res['autograd'][0] for res in _case(ranks,
+                                                    'data_parallel')}) == 1
 
 
 @pytest.mark.parametrize("method", ['tsit5', 'rk4'])
@@ -314,6 +346,152 @@ def test_data_parallel_refuses_local_decisions(ranks, name):
         msg = res['refused'][name]
         assert msg is not None and 'one' in msg and 'block' in msg
         assert ('event function' in msg) == (name == 'event_fn')
+
+
+# ---- the sharded training step of __graft_entry__.dryrun_multichip ----------
+
+_T_STEP = 0.5           # the dry run's t = [0, 0.5]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(dtype, argnums=(0,)):
+    """JAX's one-device step of the dry run at n=4 (hidden 128, batch 64)
+    on its weights, y0 and target from numpy seeds 1 and 2: the loss, the
+    gradients in `argnums` of (params, y0, t), and the forward counters."""
+    params = _spiral_params(dtype)
+    y0 = jnp.asarray(np.random.RandomState(1).randn(64, 2), dtype)
+    tgt = jnp.asarray(np.random.RandomState(2).randn(64, 2), dtype)
+    t = jnp.linspace(0.0, _T_STEP, 2, dtype=dtype)
+    func = lambda tt_, yy, p: spiral_field(p, tt_, yy)  # noqa: E731
+
+    def loss_fn(p, y, tt_):
+        ys = tde.odeint_adjoint(func, y, tt_, rtol=1e-2, atol=1e-3,
+                                method='dopri5', args=(p,))
+        return jnp.mean((ys[-1] - tgt) ** 2)
+
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn, argnums=argnums))(
+        params, y0, t)
+    _, st = jax.jit(lambda p, y: tde.odeint_with_stats(
+        func, y, t, rtol=1e-2, atol=1e-3, method='dopri5', args=(p,)))(
+            params, y0)
+    g_params = [np.asarray(x) for layer in grads[0]
+                for x in (layer['w'], layer['b'])]
+    return float(loss), g_params, [np.asarray(g) for g in grads[1:]], \
+        _counters(st)
+
+
+def _flat(grads):
+    return np.concatenate([np.asarray(g, np.float64).ravel() for g in grads])
+
+
+def _same_on_every_rank(values):
+    assert all(np.array_equal(v, values[0]) for v in values[1:])
+
+
+def test_sharded_step_float64_matches_jax(ranks):
+    """The dry run's step at n=4, {'data': 2, 'model': 2} (hidden 128 split
+    over 'model', batch 64 over 'data'), in float64: the loss and the
+    gathered gradients within 1e-12 of JAX's one-device value_and_grad in
+    x64 (of max|g|), y0's and t's gradients the same on every rank and
+    within 1e-12 of JAX's, the forward counters JAX's odeint_with_stats',
+    and the forward and backward counters the port's one-device step's."""
+    loss_j, g_j, (gy_j, gt_j), st_j = _jax_step(jnp.float64, (0, 1, 2))
+    out = [res['float64'] for res in _case(ranks, 'step')]
+    for res in out:
+        sh, one = res['sharded'], res['single']
+        assert abs(sh['loss'] - loss_j) <= 1e-12 * abs(loss_j)
+        _rel(_flat(sh['grads']), _flat(g_j), 1e-12)
+        _rel(sh['y0'], gy_j, 1e-12)
+        _rel(sh['t'], gt_j, 1e-12)
+        assert sh['st'] == st_j == one['st']
+        assert sh['bwd'] == one['bwd'] and len(sh['bwd']) == 1
+    for key in ('y0', 't'):
+        _same_on_every_rank([res['sharded'][key] for res in out])
+    _same_on_every_rank([_flat(res['sharded']['grads']) for res in out])
+
+
+def test_sharded_step_float32_within_dryrun_bounds(ranks):
+    """The same step in float32, as the dry run runs it: within
+    `__graft_entry__.py:134-135`'s bounds (loss 1e-3, gradients 5e-2 of
+    max|g|) of JAX's one-device float32 step, the comparison the dry run
+    makes, and within 1e-5 of the port's own one-rank float32 step."""
+    loss_j, g_j, _, _ = _jax_step(jnp.float32)
+    for res in _case(ranks, 'step'):
+        sh, one = res['float32']['sharded'], res['float32']['single']
+        ld, gd = sharded_step.rel_diffs(
+            sh['loss'], [torch.from_numpy(g) for g in sh['grads']], loss_j,
+            [torch.from_numpy(np.array(g)) for g in g_j])
+        assert ld < sharded_step.LOSS_REL and gd < sharded_step.GRAD_REL
+        assert abs(sh['loss'] - one['loss']) <= 1e-5 * abs(one['loss'])
+        _rel(_flat(sh['grads']), _flat(one['grads']), 1e-5)
+
+
+@pytest.mark.parametrize("mesh", ['data4', 'data1'])
+@pytest.mark.parametrize("norm", ['default', 'seminorm'])
+def test_sharded_step_other_meshes(ranks, mesh, norm):
+    """The step on {'data': 4, 'model': 1} and {'data': 1, 'model': 4}, with
+    the default adjoint norm and 'seminorm', float64: the loss, the
+    gathered gradients and y0's and t's within 1e-12 of the port's
+    one-device step with the same norm, its forward and backward counters
+    equal; with the default norm JAX's step within 1e-12 too."""
+    ref = _jax_step(jnp.float64, (0, 1, 2)) if norm == 'default' else None
+    for res in _case(ranks, 'step'):
+        sh, one = (res[f'{mesh}_{norm}'][k] for k in ('sharded', 'single'))
+        assert abs(sh['loss'] - one['loss']) <= 1e-12 * abs(one['loss'])
+        for key in ('grads', 'y0', 't'):
+            _rel(_flat(sh[key]), _flat(one[key]), 1e-12)
+        assert sh['st'] == one['st'] and sh['bwd'] == one['bwd']
+        if ref is not None:
+            _rel(_flat(sh['grads']), _flat(ref[1]), 1e-12)
+            assert sh['st'] == ref[3]
+
+
+def test_tensor_parallel_field_matches_mlp(ranks):
+    """`tensor_parallel_mlp` alone on each rank of {'data': 2, 'model': 2}:
+    its values and its VJP in y and in the gathered parameters equal the
+    `MLPField`'s within 1e-15 of the largest, float64; each rank holds
+    only its shards (W1 (2, 64), W2 (64, 2), b1 (64,), b2 (2,) whole) and
+    gathers back the whole field; another depth is refused."""
+    for res in _case(ranks, 'tensor_parallel'):
+        _rel(res['tp']['f'], res['mlp']['f'], 1e-15)
+        for got, want in zip(res['tp']['grads'], res['mlp']['grads']):
+            _rel(got, want, 1e-15)
+        assert res['local_shapes'] == [(2, 64), (64, 2), (64,), (2,)]
+        assert res['full_equal']
+        assert 'hidden layer' in res['deeper']
+
+
+@pytest.mark.parametrize("name", ['fixed_grid', 'replay_grad',
+                                  'forward_grad', 'interpolated',
+                                  'implicit_adjoint', 'callable_norm'])
+def test_data_parallel_refuses_gradient_routes(ranks, name):
+    """The gradient routes data_parallel_odeint does not take raise
+    NotImplementedError on all 4 ranks, from the arguments alone, before
+    any collective: the ranks' all-reduce after them completes."""
+    for res in _case(ranks, 'grad_routes'):
+        msg = res['refused'][name]
+        assert msg is not None and msg.startswith('data_parallel_odeint')
+        assert res['after'] == WORLD
+
+
+def test_data_parallel_closure_gradient_matches_jax(ranks):
+    """A closure field whose W is given in `adjoint_params`, at
+    {'data': 4}: every rank's d/dW is JAX's one-device gradient within
+    1e-12 of its largest, the same on every rank."""
+    mesh_free = jnp.arange(1.0, 33.0).reshape(16, 2) / 16.0
+    tgt = jnp.ones((16, 2)) * 0.3
+    t = jnp.linspace(0., 1., 3)
+
+    def loss(W_):
+        ys = tde.odeint_adjoint(lambda s, y: jnp.tanh(y) @ W_.T, mesh_free, t,
+                                rtol=1e-8, atol=1e-10)
+        return jnp.sum((ys[-1] - tgt) ** 2)
+
+    g_j = np.asarray(jax.jit(jax.grad(loss))(jnp.asarray(W)))
+    out = [res['closure'] for res in _case(ranks, 'grad_routes')]
+    for g in out:
+        _rel(g, g_j, 1e-12)
+    _same_on_every_rank(out)
 
 
 def test_make_mesh_shapes_and_coordinates(ranks):
@@ -394,6 +572,50 @@ def test_gather_refuses_what_it_cannot_place():
                 lambda f, y, tt_, **k: ret(tt.odeint(f, y, tt_, **k)), mesh)
             with pytest.raises(TypeError, match=what):
                 solve(lambda s, y: -y, y0, t)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_sharded_step_world_of_one_in_process():
+    """examples/sharded_step.py with no launch: a world of one process on
+    {'data': 1, 'model': 1}, whose step equals the one-device step bit for
+    bit (the tensor-parallel field is the MLPField's operations, and the
+    collectives over one rank are the identity)."""
+    assert not dist.is_initialized()
+    try:
+        out = sharded_step.main(['--device', 'cpu', '--dtype', 'float64',
+                                 '--steps', '1'])
+        assert out['mesh'].shape == {'data': 1, 'model': 1}
+        assert out['loss_rel_diff'] == 0.0 and out['grad_rel_diff'] == 0.0
+        assert torch.equal(out['loss'], out['ref_loss'])
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_tensor_parallel_mlp_takes_shard_params_dtensors():
+    """`tensor_parallel_mlp` from the JAX-layout parameters as
+    `shard_params` places them (W1 sharded by column, the rest
+    replicated) on a world of one: the `MLPField` bit for bit; an MLP of
+    another depth raises."""
+    assert not dist.is_initialized()
+    try:
+        from torchdiffeq_tpu_torch.parallel import shard_params
+        mesh = make_mesh({'data': 1, 'model': 1}, device_type='cpu')
+        mlp = MLPField([2, 16, 2], power=3, dtype=torch.float64,
+                       device='cpu',
+                       generator=torch.Generator().manual_seed(0))
+        layers = [dict(w=w.detach(), b=b.detach())
+                  for w, b in zip(mlp.weights, mlp.biases)]
+        tp = tensor_parallel_mlp(shard_params(layers, mesh, min_size=1),
+                                 mesh, power=3)
+        y = torch.randn(8, 2, dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(1))
+        zero = torch.zeros((), dtype=torch.float64)
+        assert torch.equal(tp(zero, y), mlp(zero, y))
+        with pytest.raises(NotImplementedError, match='hidden layer'):
+            tensor_parallel_mlp(layers[:1], mesh)
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

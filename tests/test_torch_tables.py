@@ -127,7 +127,8 @@ def test_import_leaves_jax_out():
             "torchdiffeq_tpu_torch.examples.cnf, "
             "torchdiffeq_tpu_torch.examples.odenet_mnist, "
             "torchdiffeq_tpu_torch.examples.bouncing_ball, "
-            "torchdiffeq_tpu_torch.examples.learn_physics; "
+            "torchdiffeq_tpu_torch.examples.learn_physics, "
+            "torchdiffeq_tpu_torch.examples.sharded_step; "
             "from torchdiffeq_tpu_torch.ops.kernels import "
             "dopri5_events_batched; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"

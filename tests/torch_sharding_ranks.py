@@ -25,9 +25,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 import torchdiffeq_tpu_torch as tt  # noqa: E402
 from torchdiffeq_tpu_torch.parallel import (  # noqa: E402
     data_parallel_odeint, make_mesh, odeint_parareal,
-    odeint_per_sample_with_stats, shard_params, sharded_independent_odeint)
+    odeint_per_sample_with_stats, shard_params, sharded_independent_odeint,
+    tensor_parallel_mlp)
 
 F64 = torch.float64
+OUT = None       # the launch's output directory (main)
 
 
 def _np(x):
@@ -104,7 +106,15 @@ def case_data_parallel(rank):
     refused = {name: _raises(lambda: solve(lambda s, y: -y, y0, t, **kwr),
                              NotImplementedError)
                for name, kwr in DP_REFUSED}
-    w = torch.tensor(1.0, dtype=F64, requires_grad=True)
+    # under autograd (plain odeint, the continuous adjoint): the global
+    # gradient of an args tensor on every rank, the one-device solve's
+    grads = []
+    for run in (solve, tt.odeint_with_stats):
+        w = torch.tensor(1.0, dtype=F64, requires_grad=True)
+        ysw, _ = run(lambda s, y, ww: -ww * y * y, y0 / 16.0, t, args=(w,),
+                     **kw)
+        (ysw[-1] ** 2).sum().backward()
+        grads.append(float(w.grad))
     return dict(
         ys=_np(ys), st=_counters(st), ys1=_np(ys1), st1=_counters(st1),
         ysd={k: _np(v) for k, v in ysd.items()}, std=_counters(std),
@@ -113,8 +123,7 @@ def case_data_parallel(rank):
             norm=lambda x: x.abs().max())), NotImplementedError),
         indivisible=_raises(lambda: solve(lambda s, y: -y, y0[:6], t),
                             ValueError),
-        autograd=_raises(lambda: solve(lambda s, y, ww: -ww * y, y0, t,
-                                       args=(w,)), NotImplementedError))
+        autograd=grads)
 
 
 KS = np.array([1.0] * 4 + [200.0] * 4)
@@ -233,6 +242,162 @@ def case_shard_params(rank):
             for k, d in sh[0].items()}
 
 
+class _BackwardStats:
+    """While active, the `Stats` counters of every backward solve (each
+    call of the adjoint's `_raw_odeint`)."""
+
+    def __enter__(self):
+        from torchdiffeq_tpu_torch import adjoint
+        self.module, self.raw, self.counters = adjoint, adjoint._raw_odeint, []
+
+        def recorded(*a, **k):
+            ys, st = self.raw(*a, **k)
+            self.counters.append(_counters(st))
+            return ys, st
+        adjoint._raw_odeint = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.module._raw_odeint = self.raw
+
+
+def _spiral_params(dtype):
+    """The JAX package's `init_spiral_model(PRNGKey(0), 128)` in `dtype`,
+    written by the test before the launch."""
+    p = np.load(os.path.join(OUT, 'spiral_params.npz'))
+    return [dict(w=p[f'w1_{dtype}'], b=p[f'b1_{dtype}']),
+            dict(w=p[f'w2_{dtype}'], b=p[f'b2_{dtype}'])]
+
+
+def _step(mesh, dtype, adjoint_options=None):
+    """The dry run's step (hidden 128, batch 64, y0 and target from numpy
+    seeds 1 and 2) sharded on `mesh`, and the one-device step of the same
+    weights: loss, gradients (gathered, in JAX's [W1, b1, W2, b2] order),
+    y0's and t's gradients, and forward and backward counters of each."""
+    from torchdiffeq_tpu_torch.examples import sharded_step
+    from torchdiffeq_tpu_torch.models import mlp_params_from_jax
+    cfg = sharded_step.config(4)
+    npd = np.dtype(dtype)
+    y0 = torch.from_numpy(np.random.RandomState(1).randn(64, 2).astype(npd))
+    tgt = torch.from_numpy(np.random.RandomState(2).randn(64, 2)
+                           .astype(npd))
+    kw = dict(rtol=cfg['rtol'], atol=cfg['atol'], lr=cfg['lr'],
+              adjoint_options=adjoint_options)
+    out = {}
+    for name in ('sharded', 'single'):
+        field = mlp_params_from_jax(_spiral_params(dtype), power=3,
+                                    device='cpu')
+        if name == 'sharded':
+            field = tensor_parallel_mlp(field, mesh)
+            solve = data_parallel_odeint(tt.odeint_adjoint, mesh)
+            stats = data_parallel_odeint(tt.odeint_with_stats, mesh)
+        else:
+            solve, stats = tt.odeint_adjoint, tt.odeint_with_stats
+        with torch.no_grad():
+            _, st = stats(field, y0, cfg['t'], rtol=cfg['rtol'],
+                          atol=cfg['atol'])
+        yg = y0.clone().requires_grad_(True)
+        tg = cfg['t'].clone().requires_grad_(True)
+        with _BackwardStats() as bwd:
+            loss, grads = sharded_step.train_step(field, solve, yg, tgt, tg,
+                                                  **kw)
+        if name == 'sharded':
+            grads = field.gather(grads)
+        w1, w2, b1, b2 = grads
+        out[name] = dict(loss=float(loss),
+                         grads=[_np(x) for x in (w1, b1, w2, b2)],
+                         y0=_np(yg.grad), t=_np(tg.grad), st=_counters(st),
+                         bwd=bwd.counters)
+    return out
+
+
+def case_step(rank):
+    """The dry run's step at n=4 ({'data': 2, 'model': 2}) in float64 and
+    float32, and on {'data': 4, 'model': 1} and {'data': 1, 'model': 4}
+    with the default norm and 'seminorm' in float64."""
+    out = {}
+    mesh = make_mesh({'data': 2, 'model': 2}, device_type='cpu')
+    for dtype in ('float64', 'float32'):
+        out[dtype] = _step(mesh, dtype)
+    for shape in ({'data': 4, 'model': 1}, {'data': 1, 'model': 4}):
+        m = make_mesh(shape, device_type='cpu')
+        for norm in ('default', 'seminorm'):
+            out[f"data{shape['data']}_{norm}"] = _step(
+                m, 'float64', None if norm == 'default' else dict(norm=norm))
+    return out
+
+
+def case_tensor_parallel(rank):
+    """The tensor-parallel field alone on {'data': 2, 'model': 2}: its
+    values and its VJP in y0 and the (gathered) parameters against the
+    `MLPField`'s, float64; another depth refused."""
+    from torchdiffeq_tpu_torch.models import mlp_params_from_jax
+    mesh = make_mesh({'data': 2, 'model': 2}, device_type='cpu')
+    rng = np.random.RandomState(3)
+    y = torch.from_numpy(rng.randn(64, 2))
+    ct = torch.from_numpy(rng.randn(64, 2))
+    out = {}
+    for name in ('tp', 'mlp'):
+        field = mlp_params_from_jax(_spiral_params('float64'), power=3,
+                                    device='cpu')
+        if name == 'tp':
+            field = tensor_parallel_mlp(field, mesh)
+        yg = y.clone().requires_grad_(True)
+        f = field(torch.zeros((), dtype=F64), yg)
+        params = list(field.parameters())
+        grads = torch.autograd.grad(f, [yg] + params, ct)
+        if name == 'tp':
+            grads = grads[:1] + tuple(field.gather(grads[1:]))
+            out['full_equal'] = all(
+                torch.equal(a, b) for a, b in zip(
+                    field.full_field().parameters(),
+                    mlp_params_from_jax(_spiral_params('float64'), power=3,
+                                        device='cpu').parameters()))
+            out['local_shapes'] = [tuple(p.shape) for p in params]
+        out[name] = dict(f=_np(f), grads=[_np(g) for g in grads])
+    deep = tt.models.MLPField([2, 8, 8, 2], device='cpu', dtype=F64)
+    out['deeper'] = _raises(lambda: tensor_parallel_mlp(deep, mesh),
+                            NotImplementedError)
+    return out
+
+
+# the gradient routes data_parallel_odeint refuses, each under autograd
+DP_GRAD_REFUSED = [
+    ('fixed_grid', tt.odeint, dict(method='rk4', options=dict(num_steps=4))),
+    ('replay_grad', tt.odeint, dict(options=dict(replay_grad=True))),
+    ('forward_grad', tt.odeint, dict(options=dict(forward_grad=True))),
+    ('interpolated', tt.odeint_adjoint,
+     dict(adjoint_options=dict(interpolated=True))),
+    ('implicit_adjoint', tt.odeint_adjoint, dict(adjoint_method='kvaerno5')),
+    ('callable_norm', tt.odeint_adjoint,
+     dict(adjoint_options=dict(norm=lambda x: x[0].abs()))),
+]
+
+
+def case_grad_routes(rank):
+    """Every refused gradient route raises NotImplementedError on every
+    rank before any collective (the all-reduce after them would hang
+    otherwise); a closure field whose W is given in `adjoint_params` gets
+    the global d/dW on every rank."""
+    mesh = make_mesh({'data': 4}, device_type='cpu')
+    t, y0 = _dp_problem()
+    refused = {}
+    for name, fn, kwr in DP_GRAD_REFUSED:
+        w = torch.tensor(1.0, dtype=F64, requires_grad=True)
+        refused[name] = _raises(lambda: data_parallel_odeint(fn, mesh)(
+            lambda s, y, ww: -ww * y, y0, t, args=(w,), **kwr),
+            NotImplementedError)
+    after = torch.ones(1)
+    dist.all_reduce(after, group=mesh.group('data'))
+    y0c, tgt, tc = _grad_problem()
+    Wt = torch.tensor(W, requires_grad=True)
+    ys = data_parallel_odeint(tt.odeint_adjoint, mesh)(
+        lambda s, y: torch.tanh(y) @ Wt.T, y0c, tc, rtol=1e-8, atol=1e-10,
+        adjoint_params=(Wt,))
+    ((ys[-1] - tgt) ** 2).sum().backward()
+    return dict(refused=refused, after=float(after), closure=_np(Wt.grad))
+
+
 def case_demo(rank):
     """examples/parareal_demo.py --mesh over the launch's ranks."""
     from torchdiffeq_tpu_torch.examples import parareal_demo
@@ -245,12 +410,16 @@ SUITES = {
     'mesh': [('mesh', case_mesh), ('data_parallel', case_data_parallel),
              ('sharded', case_sharded), ('adjoint', case_adjoint),
              ('events', case_events), ('parareal', case_parareal),
-             ('shard_params', case_shard_params)],
+             ('shard_params', case_shard_params), ('step', case_step),
+             ('tensor_parallel', case_tensor_parallel),
+             ('grad_routes', case_grad_routes)],
     'demo': [('demo', case_demo)],
 }
 
 
 def main(out, suite, rank, world, store=None):
+    global OUT
+    OUT = out
     torch.set_num_threads(1)
     if store is not None:
         dist.init_process_group('gloo', store=dist.FileStore(store, world),

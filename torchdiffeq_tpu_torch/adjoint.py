@@ -189,21 +189,31 @@ class _Layout:
         return y if self.unravel is None else self.unravel(y)
 
 
-def _make_adjoint_norm(norm_spec, user_state_norm, layout):
+def _make_adjoint_norm(norm_spec, user_state_norm, layout, field=None,
+                       params=()):
     """The norm of the backward solve on the flat augmented state (JAX
     `_make_adjoint_norm`, adjoint.py:64-118): the default, ``'seminorm'``,
     or a user callable, which sees ``(vjp_t, y, adj_y, *theta_bar)``, y and
-    adj_y splatted per leaf for a pytree state."""
+    adj_y splatted per leaf for a pytree state.  A `field` whose
+    parameters are sharded over ranks carries ``param_norm(theta_bar,
+    params)``, the parameter term over each parameter's global extent
+    (`parallel.sharding.TensorParallelMLP`), used in place of
+    `mixed_norm`."""
     single = layout.unravel is None
     if user_state_norm is None:
         state_norm = rms_norm if single else mixed_norm
     else:
         state_norm = user_state_norm
+    param_norm = getattr(field, 'param_norm', None)
 
     def states(aug):
         vt, y, adj_y, th = layout.split(aug)
         return vt, tuple(layout.user(s) for s in (y, adj_y)
                          if s is not None), th
+
+    def param_term(th):
+        return (mixed_norm(th) if param_norm is None
+                else param_norm(th, params))
 
     def default_adjoint_norm(aug):
         vt, ss, th = states(aug)
@@ -211,7 +221,7 @@ def _make_adjoint_norm(norm_spec, user_state_norm, layout):
         for s in ss:
             out = torch.maximum(out, state_norm(s))
         # with no parameters the term is 0, which a max of norms ignores
-        return torch.maximum(out, mixed_norm(th)) if th else out
+        return torch.maximum(out, param_term(th)) if th else out
 
     def adjoint_seminorm(aug):
         vt, ss, _ = states(aug)
@@ -298,6 +308,15 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     y_of = None if rec_sol is None else (
         lambda s: rec_sol._eval_internal(float(s)))
 
+    # a rank of a data-parallel solve holds one block of the batch
+    # (`parallel.sharding`'s `batch_sum`): the rates of vjp_t and theta_bar,
+    # sums over the batch, are summed over the blocks at every evaluation,
+    # as XLA's partitioning sums them, so that every rank carries the
+    # global vjp_t and theta_bar.  Summing shares at the norm instead would
+    # not do: the error control scales each entry by atol + rtol * |entry|
+    # before the norm sees it, and a share's scale is not the sum's.
+    batch_sum = getattr(func, 'batch_sum', None)
+
     def f_dir(s, y):
         """The field in the internal increasing frame: sign * f(sign * s)."""
         out = func(s if sign > 0 else -s, layout.user(y), *args_d)
@@ -331,8 +350,14 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
                  for g, x in zip(grads, (s_d, y_d, *params))]
         dy = [] if y_of is not None else [
             (f if graph else f.detach()).reshape(-1).to(adt)]
-        return torch.cat([grads[0].reshape(1).to(adt), *dy,
-                          *(g.reshape(-1).to(adt) for g in grads[1:])])
+        if batch_sum is None:
+            return torch.cat([grads[0].reshape(1).to(adt), *dy,
+                              *(g.reshape(-1).to(adt) for g in grads[1:])])
+        sums = batch_sum(torch.cat([grads[0].reshape(1).to(adt),
+                                    *(g.reshape(-1).to(adt)
+                                      for g in grads[2:])]))
+        return torch.cat([sums[:1], *dy, grads[1].reshape(-1).to(adt),
+                          sums[1:]])
 
     if needs_jacobian(spec.adjoint_method):
         names = _module_param_names(spec.func, spec.module_params)
@@ -359,7 +384,8 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
 
     adj_opts = dict(spec.adjoint_options)
     adj_opts['norm'] = _make_adjoint_norm(adj_opts.get('norm'),
-                                          spec.user_state_norm, layout)
+                                          spec.user_state_norm, layout,
+                                          func, params)
     n_th = sum(layout.p_sizes)
 
     # the effect of moving each output time: one batched field call
@@ -367,6 +393,8 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
         t_out = torch.tensor(t_int[1:], dtype=real_dtype(sdt), device=dev)
         f_at_out = torch.func.vmap(f_dir)(t_out, ys[1:])
         dLds = time_effect(f_at_out, g_ys[1:])
+        if batch_sum is not None:
+            dLds = batch_sum(dLds)
 
     def aug_state(vt, y, adj_y, th=None):
         th = adj_y.new_zeros(n_th) if th is None else th

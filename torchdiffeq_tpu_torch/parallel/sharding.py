@@ -31,17 +31,69 @@ wants one process a device; one process a rank gives each card its own.
   Newton or corrector convergence test, or an event function, would see
   one rank's block, and the ranks would part ways (on NCCL a rank still
   stepping would wait in the norm's all-reduce for ever): those raise.
+  Under autograd it gives global gradients (below).
 * `shard_params`: large 2-D leaves as DTensors sharded by column over the
   model axis, the rest replicated.
+* `tensor_parallel_mlp`: an `MLPField` of one hidden layer split over the
+  model axis as JAX's dryrun places it (`__graft_entry__.py:73-74`): each
+  rank holds W1's columns, b1's entries and W2's rows for its coordinate,
+  b2 replicated, and computes the MLP with Megatron's pair of autograd
+  Functions: the input enters through "copy" (forward identity, backward
+  all-reduce over the model axis) and the partial product ``h @ W2_rows``
+  leaves through "reduce" (forward all-reduce, backward identity), then b2
+  is added.  One model all-reduce a forward evaluation and one a backward
+  evaluation; on a model axis of one it is the `MLPField` bit for bit.
 
-Gradients.  Under `sharded_independent_odeint` each rank's gradients are
-its own block's contribution (the gather's backward hands each rank the
-cotangent of its rows), as DDP's are before its all-reduce: ``all_reduce``
-them (SUM) over the axis for the global gradient, the port of JAX's
-``shard_map`` + ``psum``.  `data_parallel_odeint` and Parareal's mesh are
-forward-only and raise under autograd: a backward solve's norm would mix
-each rank's own parameter term into the shared controller, and the ranks
-would part ways.
+Gradients.  JAX runs one controller, so every rank calls with the same
+global inputs and computes the loss from the same gathered global result.
+The two wrappers differ in what a rank then receives.
+
+* Under `sharded_independent_odeint` each rank's gradients are its own
+  block's contribution (the gather's backward hands each rank the
+  cotangent of its rows), as DDP's are before its all-reduce: the caller
+  ``all_reduce``s them (SUM) over the axis for the global gradient, the
+  port of JAX's ``shard_map`` + ``psum``.
+* Under `data_parallel_odeint` every rank receives the global gradient,
+  the one-device step's, counted once, and the caller all-reduces
+  nothing; a parameter of a `tensor_parallel_mlp` receives the global
+  gradient of its own shard.
+
+Why that is more than autograd: a continuous-adjoint backward must take the
+same steps on every rank, or a rank still stepping waits for ever in a
+collective, and its error control reads vjp_t and the parameter
+accumulator theta_bar, sums over the batch of which each rank's block
+holds a share.  Summing the shares where the norm reads them would not
+do: the controller scales each entry by ``atol + rtol * |entry|`` before
+the norm sees it, and a share's scale is not the sum's (at 4 CPU ranks
+that took 22 backward steps where the one-device solve takes 20).  So
+under autograd `data_parallel_odeint` hands `odeint_fn` a field module
+(`_DataParallelField`) that holds the user's field (a submodule, so the
+adjoint finds its parameters), passes its calls and its ``callback_*`` and
+``*_adjoint`` callbacks through, and carries one attribute,
+``batch_sum(x)``: an all-reduce (SUM) over the data axis.  The adjoint
+reads it (`adjoint._backward_pass`): at every evaluation of the augmented
+field the rates of vjp_t and theta_bar go through one ``batch_sum`` (1 + P
+values, P the parameters' size), as XLA's partitioning sums them in JAX,
+and so do the output times' effects once, so that every rank carries the
+global vjp_t and theta_bar and takes the one-device solve's steps; y and
+adj_y stay each rank's block under the global state norm that the wrapper
+sets as ``options['norm']``, and a sharded field's parameter term is its
+``param_norm`` (a `tensor_parallel_mlp`'s: one model all-reduce a norm
+call).  The time and parameter gradients then come out global, and the
+backward of y0's rows all-gathers every rank's cotangent block, so that
+every rank's y0 gradient is the whole one.
+
+Taken under autograd: the continuous adjoint, through `odeint_adjoint`
+(default norm or ``'seminorm'``) and through plain `odeint` with an
+explicit adaptive method, for parameters of an ``nn.Module`` field,
+tensors in `args`, and closure tensors given in ``adjoint_params``.
+Refused with `NotImplementedError`, from the arguments alone, on every
+rank and before any collective: autograd through a fixed-grid solve
+(autograd differentiates its loop, which would give each rank its share),
+``replay_grad`` and ``forward_grad``, the interpolated adjoint, an implicit,
+Adams or SciPy adjoint method, and a callable adjoint norm (each would see
+one rank's block).  Parareal's mesh is forward-only and raises under
+autograd.
 """
 from __future__ import annotations
 
@@ -55,7 +107,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..misc import is_tree_state, needs_autograd, tree_leaves, tree_map
+from ..misc import (CALLBACK_NAMES, is_tree_state, needs_autograd,
+                    tree_leaves, tree_map)
 from ..solvers import SOLVERS
 from ..solvers.solution import Stats
 
@@ -148,15 +201,40 @@ def _axis(mesh, axis):
     return mesh.group(axis), mesh.shape[axis], mesh.coordinate(axis)
 
 
-def _block(y0, n, c, axis, device):
+def _block(y0, n, c, axis, device, group=None):
     """This rank's contiguous block of the leading batch axis of every leaf
-    of `y0`, on its device."""
+    of `y0`, on its device.  With `group` (`data_parallel_odeint` under
+    autograd) each leaf's backward gathers every rank's block cotangent
+    over it (`_Rows`), so that each rank's gradient is the whole batch's;
+    without, a rank's gradient is its own block's."""
     B = tree_leaves(y0)[0].shape[0]
     if B % n:
         raise ValueError(f"the batch ({B}) is not divisible by the mesh "
                          f"axis '{axis}' size ({n})")
     b = B // n
-    return tree_map(lambda x: x[c * b:(c + 1) * b].to(device), y0)
+    if group is None:
+        return tree_map(lambda x: x[c * b:(c + 1) * b].to(device), y0)
+    return tree_map(lambda x: _Rows.apply(x, c * b, b, group, device), y0)
+
+
+class _Rows(torch.autograd.Function):
+    """Rows ``start:start + b`` of `x` on `device`; the backward gathers
+    every rank's cotangent of its rows over `group`, in rank order: the
+    whole batch's gradient, when each rank's rows are its own block's and
+    its cotangent that block's whole (the loss is computed on every rank
+    from the gathered result)."""
+
+    @staticmethod
+    def forward(ctx, x, start, b, group, device):
+        ctx.group, ctx.device = group, x.device
+        return x[start:start + b].to(device, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        parts = [torch.empty_like(g)
+                 for _ in range(dist.get_world_size(ctx.group))]
+        dist.all_gather(parts, g.contiguous(), group=ctx.group)
+        return torch.cat(parts).to(ctx.device), None, None, None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -260,6 +338,82 @@ def _global_norm(group, n):
     return norm
 
 
+class _DataParallelField(torch.nn.Module):
+    """The field `data_parallel_odeint` hands `odeint_fn` under autograd
+    (module docstring): the user's `func` (a submodule when it is an
+    ``nn.Module``, so that the adjoint finds its parameters), called as it
+    is, with its callbacks and its ``param_norm`` passed through, and
+    ``batch_sum``, which the adjoint reads."""
+
+    _PASSED = (CALLBACK_NAMES + tuple(n + '_adjoint' for n in CALLBACK_NAMES)
+               + ('param_norm',))
+
+    def __init__(self, func, group):
+        super().__init__()
+        self.func = func
+        self.group = group
+        for name in self._PASSED:
+            value = getattr(func, name, None)
+            if value is not None:
+                setattr(self, name, value)
+
+    def forward(self, t, y, *args):
+        return self.func(t, y, *args)
+
+    def batch_sum(self, x):
+        """`x` summed over the data axis (one all-reduce): each rank's
+        share of a sum over the batch made the global sum."""
+        out = x.clone()
+        dist.all_reduce(out, group=self.group)
+        return out
+
+
+def _shared_decisions(method):
+    """Whether every decision of `method`'s solve is the error norm's (an
+    explicit adaptive tableau) or there is none (a fixed grid); a name
+    the registry does not know passes, for the solve to reject."""
+    spec = SOLVERS.get(method)
+    return spec is None or spec['kind'] == 'fixed' or (
+        spec['kind'] == 'adaptive' and not spec['tableau'].implicit)
+
+
+def _refuse_gradient_routes(method, options, kwargs, grad):
+    """The gradient routes `data_parallel_odeint` does not take, refused
+    from the arguments alone (module docstring): `grad` says whether
+    autograd would record through the solve."""
+    for key in ('replay_grad', 'forward_grad'):
+        if options.get(key):
+            raise NotImplementedError(
+                f"data_parallel_odeint: {key} differentiates the solve's "
+                "own steps on each rank, which would give each rank its "
+                "block's share of the gradient; use the continuous adjoint "
+                "(odeint_adjoint, or odeint with an adaptive method)")
+    if not grad:
+        return
+    if SOLVERS.get(method, {}).get('kind') == 'fixed':
+        raise NotImplementedError(
+            "data_parallel_odeint: gradients through a fixed-grid solve "
+            "come from autograd through its loop, which would give each "
+            "rank its block's share; use an explicit adaptive method "
+            "under the continuous adjoint")
+    adj = dict(kwargs.get('adjoint_options') or {})
+    if adj.get('interpolated'):
+        raise NotImplementedError(
+            "data_parallel_odeint: the interpolated adjoint is not taken "
+            "under the mesh; drop adjoint_options['interpolated']")
+    if callable(adj.get('norm')):
+        raise NotImplementedError(
+            "data_parallel_odeint: a callable adjoint norm would see one "
+            "rank's block of y and adj_y; use the default norm or "
+            "'seminorm'")
+    adjoint_method = kwargs.get('adjoint_method') or method
+    if not _shared_decisions(adjoint_method):
+        raise NotImplementedError(
+            f"data_parallel_odeint: adjoint method {adjoint_method!r} makes "
+            "decisions other than the error norm's, which would see one "
+            "rank's block; use an explicit adaptive adjoint method")
+
+
 def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
     """Wrap an odeint-like ``odeint_fn(func, y0, t, **kwargs)`` as one
     shared controller over the global batch (JAX `data_parallel_odeint`,
@@ -272,16 +426,15 @@ def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
     ``method`` must be an explicit adaptive or fixed-grid one, and an
     ``event_fn`` is refused: a stage solve's Newton test, an Adams
     corrector's, SciPy's controller or an event function would see one
-    block (module docstring).  Those raise `NotImplementedError`, and so do
-    a user ``options['norm']`` (it too would see one block) and a call
-    under autograd."""
+    block (module docstring).  Those raise `NotImplementedError`, and so
+    does a user ``options['norm']`` (it too would see one block).  Under
+    autograd every rank receives the global gradients, the one-device
+    solve's; the gradient routes it does not take raise
+    `NotImplementedError` (module docstring)."""
     def solve(func, y0, t, **kwargs):
         group, n, c = _axis(mesh, axis)
         method = kwargs.get('method') or 'dopri5'
-        spec = SOLVERS.get(method)
-        if spec is not None and not (spec['kind'] == 'fixed' or (
-                spec['kind'] == 'adaptive'
-                and not spec['tableau'].implicit)):
+        if not _shared_decisions(method):
             raise NotImplementedError(
                 f"data_parallel_odeint: method {method!r} makes decisions "
                 "other than the error norm's (a stage solve's or corrector's "
@@ -303,14 +456,17 @@ def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
                 "the global RMS itself (drop options['norm'], or use "
                 "sharded_independent_odeint for per-block controllers)")
         from ..adjoint import _tensors_in
-        if needs_autograd(func, *tree_leaves(y0), t,
-                          *_tensors_in(kwargs.get('args', ()))):
-            raise NotImplementedError(
-                "data_parallel_odeint is forward-only: for gradients solve "
-                "each block with sharded_independent_odeint (or per rank) "
-                "and all_reduce the gradients over the axis")
+        if kwargs.get('adjoint_params') is not None:
+            kwargs['adjoint_params'] = tuple(kwargs['adjoint_params'])
+        grad = needs_autograd(func, *tree_leaves(y0), t,
+                              *_tensors_in(kwargs.get('args', ())),
+                              *(kwargs.get('adjoint_params') or ()))
+        _refuse_gradient_routes(method, options, kwargs, grad)
         options['norm'] = _global_norm(group, n)
-        local = odeint_fn(func, _block(y0, n, c, axis, mesh.device), t,
+        if grad:
+            func = _DataParallelField(func, group)
+        local = odeint_fn(func, _block(y0, n, c, axis, mesh.device,
+                                       group if grad else None), t,
                           **dict(kwargs, options=options))
         return _gather_out(local, group, shards=False)
 
@@ -337,5 +493,192 @@ def shard_params(params, mesh: Mesh, axis: str = 'model', min_size=2 ** 14):
     return tree_map(place, params)
 
 
+def _all_reduce(x, group):
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _ModelCopy(torch.autograd.Function):
+    """Megatron's "copy" into a model-parallel region: the identity, whose
+    backward all-reduces the cotangent over `group` (each rank holds the
+    part that flowed through its shard).  Under ``torch.func.vmap`` (the
+    adjoint's batched field call) it acts on the whole batched tensor."""
+
+    @staticmethod
+    def forward(x, group):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.group), None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _ModelCopy.apply(x, group), in_dims[0]
+
+
+class _ModelReduce(torch.autograd.Function):
+    """Megatron's "reduce" out of a model-parallel region: the all-reduce
+    (SUM) over `group` of each rank's partial product, whose backward is
+    the identity; under ``torch.func.vmap`` one all-reduce of the whole
+    batched tensor."""
+
+    @staticmethod
+    def forward(x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _ModelReduce.apply(x, group), in_dims[0]
+
+
+class TensorParallelMLP(torch.nn.Module):
+    """``f(t, y) = tanh(y**power @ W1 + b1) @ W2 + b2`` with its hidden
+    units split over a mesh axis (module docstring; built by
+    `tensor_parallel_mlp`).  Its Parameters are this rank's shards, in the
+    `MLPField`'s order (weights, then biases): ``w1`` (in, H/n) columns,
+    ``w2`` (H/n, out) rows, ``b1`` (H/n,), and ``b2`` (out,) whole.
+    Operations and dtype promotion are `mlp_apply`'s, and the adjoint's
+    augmented state is laid out as the `MLPField`'s, so on an axis of one
+    it is the `MLPField` bit for bit."""
+
+    def __init__(self, w1, w2, b1, b2, *, power, activation, group, size):
+        super().__init__()
+        self.w1, self.w2, self.b1, self.b2 = (
+            torch.nn.Parameter(x) for x in (w1, w2, b1, b2))
+        self.power, self.activation = power, activation
+        self.group, self.size = group, size
+
+    def forward(self, t, y):
+        x = _ModelCopy.apply(y ** self.power if self.power != 1 else y,
+                             self.group)
+        dt = torch.promote_types(x.dtype, self.w1.dtype)
+        x = self.activation(x.to(dt) @ self.w1.to(dt) + self.b1.to(dt))
+        dt = torch.promote_types(x.dtype, self.w2.dtype)
+        x = _ModelReduce.apply(x.to(dt) @ self.w2.to(dt), self.group)
+        return x + self.b2.to(dt)
+
+    def param_norm(self, th, params):
+        """The adjoint's parameter term (`adjoint._make_adjoint_norm`): the
+        max over leaves of each theta_bar leaf's RMS over its global
+        extent, `params` the tensors they belong to.  The means of squares
+        of this module's sharded leaves are summed over the axis in one
+        all-reduce and divided by its size, as `_global_norm` does (equal
+        shards); on an axis of one this is `misc.mixed_norm` bit for bit."""
+        sharded = {id(p) for p in (self.w1, self.w2, self.b1)}
+        split = ([], [])
+        for x, p in zip(th, params):
+            split[id(p) in sharded].append(torch.mean(x.abs() ** 2))
+        ms = [torch.stack(m) for m in split if m]
+        if split[1]:
+            dist.all_reduce(ms[-1], group=self.group)
+            ms[-1] = ms[-1] / self.size
+        # a max, so the leaves' order does not change its value
+        return torch.sqrt(torch.cat(ms)).max()
+
+    def gather(self, leaves=None):
+        """`leaves` shaped as this module's parameters and in their order
+        (default: the parameters; their ``.grad`` for the gradients)
+        gathered over the axis: the full ``[W1, W2, b1, b2]``, the order of
+        an `MLPField`'s ``parameters()``."""
+        leaves = list(self.parameters()) if leaves is None else list(leaves)
+        out = []
+        for x, dim in zip(leaves, (1, 0, 0, None)):
+            if dim is None:
+                out.append(x.detach().clone())
+                continue
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            dist.all_gather(parts, x.detach().contiguous(), group=self.group)
+            out.append(torch.cat(parts, dim))
+        return out
+
+    def full_field(self):
+        """The whole field as an `MLPField` on this rank's device, its
+        parameters gathered over the axis."""
+        from ..models.neural_ode import MLPField
+        w1, w2, b1, b2 = self.gather()
+        field = MLPField([w1.shape[0], w1.shape[1], w2.shape[1]],
+                         power=self.power, dtype=w1.dtype, device=w1.device,
+                         generator=torch.Generator(),  # overwritten below
+                         activation=self.activation)
+        with torch.no_grad():
+            for p, x in zip((*field.weights, *field.biases),
+                            (w1, w2, b1, b2)):
+                p.copy_(x)
+        return field
+
+
+def tensor_parallel_mlp(field, mesh: Mesh, axis: str = 'model', *,
+                        power=None, activation=None):
+    """`field` with its hidden units split over the mesh axis `axis` (the
+    port of ``jax.device_put(params, p_specs)`` and XLA's partitioning of
+    the spiral field in `__graft_entry__.py`'s dryrun): a
+    `TensorParallelMLP` holding this rank's shards, W1 column-split
+    (``P(None, axis)``), b1 split (``P(axis)``), W2 row-split
+    (``P(axis, None)``), b2 replicated, on the rank's device.
+
+    `field` is an `MLPField` of one hidden layer, or its JAX-layout
+    parameters ``[{'w', 'b'}, {'w', 'b'}]`` (tensors, or the DTensors of
+    `shard_params`: a leaf already placed as wanted gives its
+    ``to_local()``, any other its ``full_tensor()``'s block), with
+    `power` (default 1) and `activation` (default tanh).  Every rank of
+    the axis calls it with the same values.  Another depth raises
+    `NotImplementedError`; a hidden width the axis size does not divide,
+    `ValueError`."""
+    from ..models.neural_ode import MLPField
+    if isinstance(field, MLPField):
+        layers = [dict(w=w, b=b) for w, b in zip(field.weights,
+                                                 field.biases)]
+        power, activation = field.power, field.activation
+    else:
+        layers = list(field)
+        power = 1 if power is None else power
+        activation = torch.tanh if activation is None else activation
+    if len(layers) != 2:
+        raise NotImplementedError(
+            f"tensor_parallel_mlp: an MLP of {len(layers)} layers; only one "
+            "hidden layer (two weight matrices) is split so far")
+    group, n, c = _axis(mesh, axis)
+    H = layers[0]['w'].shape[1]
+    if H % n:
+        raise ValueError(f"the hidden width ({H}) is not divisible by the "
+                         f"mesh axis '{axis}' size ({n})")
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    names = list(mesh.shape)
+
+    def local(leaf, dim):
+        if isinstance(leaf, DTensor):
+            want = [Replicate()] * len(names)
+            if dim is not None:
+                want[names.index(axis)] = Shard(dim)
+            if list(leaf.placements) == want:
+                return leaf.to_local().detach().clone().to(mesh.device)
+            leaf = leaf.full_tensor()
+        leaf = leaf.detach()
+        if dim is not None:
+            h = leaf.shape[dim] // n
+            leaf = leaf.narrow(dim, c * h, h)
+        return leaf.clone().to(mesh.device)
+
+    return TensorParallelMLP(
+        local(layers[0]['w'], 1), local(layers[1]['w'], 0),
+        local(layers[0]['b'], 0), local(layers[1]['b'], None),
+        power=power, activation=activation, group=group, size=n)
+
+
 __all__ = ['Mesh', 'make_mesh', 'data_parallel_odeint',
-           'sharded_independent_odeint', 'shard_params']
+           'sharded_independent_odeint', 'shard_params',
+           'tensor_parallel_mlp', 'TensorParallelMLP']
