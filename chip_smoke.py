@@ -2901,6 +2901,11 @@ def _phase_lanes16(torch, kernels, dev, card):
 #   hypernetwork's jvp probes inside the field, all through the adjoint's
 #   backward).  (f) bouncing_ball's five gradients card against CPU within
 #   EX_GRAD_F64; against finite differences within the example's own 1e-3.
+#   Each traced entry of (a) and of phase 18 (b) gives its slowest lane's
+#   steps and the device ns a step of that lane (`_slowest_lane`): an
+#   instance runs one lane a trajectory and lasts as long as that lane's
+#   chain of steps, which the redesigned instances shorten (the tableau
+#   compiled into the instance; `redesigned` names the change).
 EX_LOSS_F64 = 1e-10
 EX_GRAD_F64 = 1e-8
 PEAK_F64 = 34e12   # float64 FLOP/s outside the tensor cores (data sheet, SXM)
@@ -2930,6 +2935,14 @@ def _traced_bound(n_steps, tableau, D, field_ops, peak, esize, S=0,
         ops += n * event_ops + 40 * b * (8 * D + event_ops)
         nbytes += K * b * esize + (1 + D) * b * esize + b * 4
     return _bound(ops, nbytes, peak)
+
+
+def _slowest_lane(n_steps, device_ms):
+    """(the slowest lane's steps, the device ns a step of that lane): a
+    traced instance runs one lane a trajectory, so it lasts as long as its
+    slowest lane's chain of steps."""
+    worst = int(n_steps.max())
+    return worst, device_ms * 1e6 / max(worst, 1)
 
 
 def _flips(got, want):
@@ -3051,18 +3064,23 @@ def _ex_traced(torch, kernels, dev, driver_ms, card):
     first = ", ".join(f"{s:.1f} s" for s in first_builds.values())
     rows = []
     for tag, r in res.items():
+        r["slow_l"] = _slowest_lane(r["steps"], r["t_l"]["device_ms"])
+        r["slow_e"] = _slowest_lane(r["steps_e"], r["t_e"]["device_ms"])
         rows.append(
             f"{tag}: K-dopri5 traced max|d| {r['err_l']:.3e}, lanes whose "
             f"counts differ {r['flip_l']:.4f}, steps {_spread(r['steps'])}, "
             f"wrapper {r['t_l']['ms']:.4f} ms, bare {r['t_l']['bare_ms']:.4f}"
-            f" ms, device {r['t_l']['device_ms']:.4f} ms, plain "
+            f" ms, device {r['t_l']['device_ms']:.4f} ms ({r['slow_l'][1]:.1f}"
+            f" ns a step of the slowest lane's {r['slow_l'][0]}), plain "
             f"{r['t_l']['plain_ms']:.1f} ms, bound {r['bound_l'][0]:.4f} ms "
             f"({r['bound_l'][1]}); K-events traced max|d event_t| "
             f"{r['err_e']:.3e}, lanes whose counts differ {r['flip_e']:.4f}, "
             f"steps {_spread(r['steps_e'])}, wrapper {r['t_e']['ms']:.4f} ms,"
             f" bare {r['t_e']['bare_ms']:.4f} ms, device "
-            f"{r['t_e']['device_ms']:.4f} ms, plain {r['t_e']['plain_ms']:.1f}"
-            f" ms, bound {r['bound_e'][0]:.4f} ms ({r['bound_e'][1]})")
+            f"{r['t_e']['device_ms']:.4f} ms ({r['slow_e'][1]:.1f} ns a step "
+            f"of the slowest lane's {r['slow_e'][0]}), plain "
+            f"{r['t_e']['plain_ms']:.1f} ms, bound {r['bound_e'][0]:.4f} ms "
+            f"({r['bound_e'][1]})")
     print(f"[17a traced kernels] {card} | examples/ensemble.py main B={ENS_B}"
           f" float32 on the card {main_s:.1f} s (kernel vs driver max diff "
           f"{out['err']:.2e} < 1e-2, events max rel dev {out['rel']:.2%} < "
@@ -3094,6 +3112,10 @@ def _ex_traced(torch, kernels, dev, driver_ms, card):
             ms_f64=f64[times]["ms"], bare_ms_f64=f64[times]["bare_ms"],
             device_ms_f64=f64[times]["device_ms"],
             plain_ms_f64=f64[times]["plain_ms"], bound_ms_f64=f64[bound][0],
+            max_lane_steps=f32["slow_" + key][0],
+            ns_per_step=f32["slow_" + key][1],
+            max_lane_steps_f64=f64["slow_" + key][0],
+            ns_per_step_f64=f64["slow_" + key][1], redesigned="PR 19",
             first_build_s=list(first_builds.values()),
             driver_ms=driver_ms, library_ms=None))
     return entries
@@ -3868,6 +3890,8 @@ def _phase_traced16(torch, kernels, dev, card):
                     got[-1], DOPRI5_TAB, 2, src.field_ops, PEAK_F16, 2,
                     S=0 if events else len(ts),
                     event_ops=src.event_ops if events else None, K=src.K)
+            slow = {b: _slowest_lane(stp[b], times[b]["device_ms"])
+                    for b in (B, BIG_B)}
             entry = dict(
                 name=f"{name}_traced[{tag}]", route="cuda",
                 source=("torchdiffeq_tpu_torch/csrc/dopri5_events.cuh"
@@ -3889,8 +3913,11 @@ def _phase_traced16(torch, kernels, dev, card):
                 steps=_spread(stp[B]), steps_65536=_spread(stp[BIG_B]),
                 **_times_entry(times),
                 bound_ms=bounds[B][0], bound_by=bounds[B][1],
-                bound_ms_65536=bounds[BIG_B][0], first_build_s=builds,
-                library_ms=None)
+                bound_ms_65536=bounds[BIG_B][0],
+                max_lane_steps=slow[B][0], ns_per_step=slow[B][1],
+                max_lane_steps_65536=slow[BIG_B][0],
+                ns_per_step_65536=slow[BIG_B][1], redesigned="PR 19",
+                first_build_s=builds, library_ms=None)
             entries.append(entry)
             rows.append(
                 f"{name}_traced[{tag}]: launches {launched[name]}, lanes with"
@@ -3898,7 +3925,9 @@ def _phase_traced16(torch, kernels, dev, card):
                 f"{TR16_FLIP_LANES}), the others within {errs[B]:.2f} / "
                 f"{errs[BIG_B]:.2f} ULPs of their own magnitude (<= "
                 f"{TR16_ULPS}), "
-                f"steps {_spread(stp[B])}, bound {bounds[B][0]:.2e} / "
+                f"steps {_spread(stp[B])}, slowest lane {slow[B][0]} / "
+                f"{slow[BIG_B][0]} steps at {slow[B][1]:.1f} / "
+                f"{slow[BIG_B][1]:.1f} ns a step, bound {bounds[B][0]:.2e} / "
                 f"{bounds[BIG_B][0]:.2e} ms ({bounds[B][1]}) | "
                 + " | ".join(_times_row(b, t) for b, t in times.items()))
         rows.append(f"{tag}: first-use builds "

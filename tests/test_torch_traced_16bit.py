@@ -196,7 +196,7 @@ def test_16bit_source(dtype, ctype):
 
     src = traced.events_source(
         PerSampleField(f, (Wm, torch.ones(4, dtype=dtype)), (None, -1)),
-        PerSampleEvent(lambda t, y: y[0] - 0.3), y0, 6)
+        PerSampleEvent(lambda t, y: y[0] - 0.3), y0, 'dopri5')
     c03 = repr(float(torch.tensor(0.3).to(dtype)))
     c01 = repr(float(torch.tensor(0.1).to(dtype)))
     assert f"using T = {ctype};" in src.source

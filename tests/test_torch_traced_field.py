@@ -6,12 +6,18 @@
   order and PyTorch's rounding: a power by 2 as a product, a scalar over a
   tensor as a reciprocal times the scalar) and its entry points.  The card
   compiles and runs it (tests/test_torch_cuda.py).
+* The method's tableau compiled into the instance, for every explicit
+  method and state dtype: each constant bit for bit ``packed_tableau``'s
+  nonzero entry, no zero entry, and no tableau read from memory.
 * A field or event outside the traced op set raises ``TypeError`` naming
   the operation.
 * The per-lane route's plain version against JAX's Pallas kernel in
   interpret mode on the same ``pallas=True`` calls, for these fields: float64,
   every counter exactly, values to 1e-12.
 """
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +27,7 @@ from torchdiffeq_tpu.parallel import (
     odeint_per_sample_with_stats as j_per_sample)
 import torchdiffeq_tpu_torch as tt
 from torchdiffeq_tpu_torch.models import MLPField
-from torchdiffeq_tpu_torch.ops import traced
+from torchdiffeq_tpu_torch.ops import kernels, traced
 from torchdiffeq_tpu_torch.ops.traced import PerSampleEvent, PerSampleField
 from test_torch_examples import one_thread  # noqa: F401 (autouse)
 
@@ -62,7 +68,7 @@ def _lanes(B=8, dtype=torch.float64):
 def test_ensemble_field_and_event_source(dtype, ctype):
     y0, om = _lanes(dtype=dtype)
     src = traced.events_source(PerSampleField(osc, (om,), (-1,)),
-                               PerSampleEvent(lambda t, y: y[0]), y0, 6)
+                               PerSampleEvent(lambda t, y: y[0]), y0, 'dopri5')
     code = src.source
     assert f"using T = {ctype};" in code
     assert '#include "traced_field.cuh"' in code
@@ -79,21 +85,82 @@ def test_ensemble_field_and_event_source(dtype, ctype):
     event = code[code.index("struct Event"):]
     assert "T s0[1];" in event and "y[0] * s0[0]" in event
     assert "tdt_traced_events" in code
-    assert "tdt_events::launch_traced<T, 2, Field, Event>" in code
+    assert ("tdt_events::launch_traced<T, 2, Field, Event, MethodTableau>"
+            in code)
     assert src.K == 1 and src.field_ops == 5 and len(src.lane_args) == 1
+
+
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64,
+         torch.bfloat16: torch.int16, torch.float16: torch.int16}
+_CSRC = Path(kernels.__file__).resolve().parent.parent / "csrc"
+
+
+def _function(path, name):
+    """The text of the function `name` in a csrc header, up to its end."""
+    text = (_CSRC / path).read_text()
+    start = text.index(f"{name}(")
+    return text[start:text.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("method", kernels.PER_LANE_METHODS)
+def test_tableau_compiled_into_the_instance(method, dtype):
+    """A traced instance holds its method's tableau as constants of its
+    source (csrc/lane_ops.cuh's compiled kind, `MethodTableau`): every
+    nonzero entry of ``packed_tableau(method, dtype)`` by its packed index,
+    in order, as a double whose value in the state dtype has the packed
+    tensor's bits; no zero entry; n_alpha, fsal and 1/order.  The instance
+    reads no tableau from memory: its entry points and the traced kernels
+    take none, and stage none in shared memory."""
+    y0, om = _lanes(dtype=dtype)
+    field = PerSampleField(osc, (om.to(dtype),), (-1,))
+    code = traced.events_source(field, PerSampleEvent(lambda t, y: y[0]),
+                                y0.to(dtype), method).source
+    lanes = traced.field_source(field, y0.to(dtype), method).source
+    packed, n_alpha, order, fsal = kernels.packed_tableau(
+        method, dtype, torch.device("cpu"))
+    for src in (code, lanes):
+        struct = src[src.index("struct MethodTableau"):
+                     src.index("struct Field")]
+        cases = re.findall(r"case (\d+): return ([^;]+);", struct)
+        nonzero = torch.nonzero(packed).flatten().tolist()
+        assert [int(i) for i, _ in cases] == nonzero
+        vals = torch.tensor([float(v) for _, v in cases], dtype=torch.float64)
+        assert torch.equal(vals.to(dtype).double(), vals)
+        assert torch.equal(vals.to(dtype).view(_BITS[dtype]),
+                           packed[nonzero].view(_BITS[dtype]))
+        assert f"static constexpr int n_alpha = {n_alpha};" in struct
+        assert (f"static constexpr bool fsal = {str(fsal).lower()};"
+                in struct)
+        assert f"static constexpr double inv_order = {1.0 / order!r};" \
+            in struct
+        assert f"#define TDT_MAX_ALPHA {n_alpha}" in src
+    entries = (code[code.index('extern "C"'):],
+               lanes[lanes.index('extern "C"'):])
+    for entry in entries:
+        assert not re.search(r"\btab\b|n_alpha|order|fsal", entry)
+        assert "MethodTableau>(" in entry
+    for path, name in (("dopri5_lanes.cuh", "lanes_traced_kernel"),
+                       ("dopri5_lanes.cuh", "int launch_traced"),
+                       ("dopri5_events.cuh", "events_traced_kernel"),
+                       ("dopri5_events.cuh", "int launch_traced")):
+        text = _function(path, name)
+        assert not re.search(r"\btab\b|TDT_TAB_SIZE|tableau_from_shared",
+                             text), name
 
 
 def test_shared_matrix_field_source():
     y0, k = _lanes()
     Wt = torch.from_numpy(W)
     src = traced.field_source(PerSampleField(shared, (Wt, k), (None, -1)),
-                              y0, 6)
+                              y0, 'dopri5')
     code = src.source
     # y @ W: each output the ordered sum of its products of shared loads
     assert "((y[0] * s[0]) + y[1] * s[2])" in code
     assert "((y[0] * s[1]) + y[1] * s[3])" in code
     assert "tdt::dtanh<T>(" in code and "a[0]" in code
-    assert "tdt_lanes::launch_traced<T, 2, Field>" in code
+    assert "tdt_lanes::launch_traced<T, 2, Field, MethodTableau>" in code
     assert [tuple(x.shape) for x in src.shared] == [(2, 2)]
     assert torch.equal(src.buffer(src.shared, torch.float64, "cpu"),
                        Wt.reshape(-1))
@@ -104,7 +171,7 @@ def test_reciprocal_and_time_source():
     y0, k = _lanes()
     src = traced.field_source(PerSampleField(
         lambda t, y, kk: 1.0 / (1.0 + y * y) * kk + torch.cos(t), (k,),
-        (-1,)), y0, 6)
+        (-1,)), y0, 'dopri5')
     code = src.source
     # a scalar over a tensor: the reciprocal, then the product by 1.0, as
     # Tensor.__rtruediv__ computes it; the time reaches the functor
@@ -117,7 +184,7 @@ def test_mlp_field_source():
     y**3 as (y*y)*y, the products' ordered sums over the shared weights."""
     y0, _ = _lanes()
     model = MLPField([2, 3, 2], power=3, dtype=torch.float64, device="cpu")
-    src = traced.field_source(PerSampleField(model), y0, 6)
+    src = traced.field_source(PerSampleField(model), y0, 'dopri5')
     assert "y[0] * y[0] * y[0]" in src.source
     assert src.source.count("tdt::dtanh<T>(") == 3
     assert [tuple(x.shape) for x in src.shared] == [(2, 3), (3,), (3, 2),
@@ -134,7 +201,7 @@ def test_mlp_field_source():
 def test_ops_outside_the_set_raise_naming_them(func, op):
     y0, _ = _lanes()
     with pytest.raises(TypeError, match=op.replace(".", r"\.")):
-        traced.field_source(PerSampleField(func), y0, 6)
+        traced.field_source(PerSampleField(func), y0, 'dopri5')
 
 
 def test_event_outside_the_set_and_16bit_states_raise():
@@ -149,11 +216,12 @@ def test_event_outside_the_set_and_16bit_states_raise():
     with pytest.raises(TypeError, match=r"aten\.erf"):
         traced.events_source(PerSampleField(osc, (om,), (-1,)),
                              PerSampleEvent(lambda t, y: torch.erf(y[0])),
-                             y0, 6)
+                             y0, 'dopri5')
     with pytest.raises(TypeError, match="per-lane arg"):
-        traced.field_source(PerSampleField(osc, (om.float(),), (-1,)), y0, 6)
+        traced.field_source(PerSampleField(osc, (om.float(),), (-1,)), y0,
+                            'dopri5')
     src = traced.field_source(PerSampleField(osc, (om.bfloat16(),), (-1,)),
-                              y0.to(torch.bfloat16), 6)
+                              y0.to(torch.bfloat16), 'dopri5')
     assert "using T = tdt::bf16;" in src.source
     t = np.linspace(0.0, 1.5, 4)
     y0n = np.stack([np.linspace(0.5, 1.5, 12), np.zeros(12)], axis=1)

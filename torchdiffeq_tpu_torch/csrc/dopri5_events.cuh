@@ -59,7 +59,11 @@
 // (`events_traced_kernel`, one lane a trajectory): the same solve
 // (`events_solve`) for a field and an event functor that ops/traced.py emits,
 // the event's K outputs sign-combined inside its functor, as
-// parallel/batched.py combines them (min_k(e_k * sign0_k)); any K.
+// parallel/batched.py combines them (min_k(e_k * sign0_k)); any K.  As
+// K-dopri5's traced instance (dopri5_lanes.cuh), it lasts as long as its
+// slowest lane's steps times one step's dependent chain, then that lane's
+// bisection; its tableau is compiled into it, so it stages nothing in
+// shared memory and its stage sums are straight-line arithmetic.
 #pragma once
 
 #include "lane_ops.cuh"
@@ -115,9 +119,8 @@ struct SignedLinearEvent {
 // The solve of trajectory b to its event for the field f and the lane's
 // sign-combined event ev(t, y), then the bisection; `writer` (lane 0 of the
 // group) writes the outputs.
-template <typename T, int D, typename F, typename E>
-__device__ __forceinline__ void events_solve(const F& f, const E& ev,
-                                             const tdt::Tableau<T>& tb,
+template <typename T, int D, typename F, typename E, typename Tab>
+__device__ __forceinline__ void events_solve(const F& f, const E& ev, const Tab& tb,
                                              const T* __restrict__ y0, int B, int b,
                                              bool writer, T t0, T rtol, T atol,
                                              T safety, T ifactor, T dfactor,
@@ -135,7 +138,7 @@ __device__ __forceinline__ void events_solve(const F& f, const E& ev,
   f(t, y, fc);
   const T s0 = nsign<T>(ev(t, y));
   T dt = use_first_step ? first_step
-                        : tdt::hairer_dt<T, D>(f, t, y, fc, rtol, atol, tb.inv_order);
+                        : tdt::hairer_dt<T, D>(f, tb, t, y, fc, rtol, atol);
 
   int n_acc = 0, n_steps = 0;
   bool found = false;
@@ -162,7 +165,7 @@ __device__ __forceinline__ void events_solve(const F& f, const E& ev,
       }
       t = t_prop;
     }
-    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb);
   }
 
   T event_t = T(NAN);
@@ -246,13 +249,13 @@ __global__ void events_kernel(const T* __restrict__ y0, int B, T t0, T rtol, T a
 // The event solve for a traced field F and a traced event E (ops/traced.py):
 // one lane a trajectory, F built for lane b as in lanes_traced_kernel, E
 // from the lane's signs at t0 (`sign0`, (K, B)) and its own shared tensors;
-// E sign-combines its K outputs, min_k(e_k * s0_k).
-template <typename T, int D, typename F, typename E>
+// E sign-combines its K outputs, min_k(e_k * s0_k).  The tableau Tab is
+// compiled into the instance: the kernel stages nothing in shared memory.
+template <typename T, int D, typename F, typename E, typename Tab>
 __global__ void events_traced_kernel(const T* __restrict__ y0, int B, T t0, T rtol,
                                      T atol, T safety, T ifactor, T dfactor,
                                      T first_step, int use_first_step, int max_steps,
-                                     const T* __restrict__ tab, int n_alpha, int order,
-                                     int fsal, const T* __restrict__ lane,
+                                     const T* __restrict__ lane,
                                      const T* __restrict__ shared,
                                      const T* __restrict__ sign0,
                                      const T* __restrict__ ev_shared, int bisect_iters,
@@ -261,45 +264,38 @@ __global__ void events_traced_kernel(const T* __restrict__ y0, int B, T t0, T rt
                                      int* __restrict__ found_out,
                                      int* __restrict__ n_acc_out,
                                      int* __restrict__ n_steps_out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_tab = reinterpret_cast<T*>(smem_raw);
-  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
-  __syncthreads();
-
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
   const F f(lane, shared, b, B);
   const E ev(sign0, ev_shared, b, B);
-  events_solve<T, D>(f, ev, tb, y0, B, b, true, t0, rtol, atol, safety, ifactor, dfactor,
-                     first_step, use_first_step, max_steps, bisect_iters, event_t_out,
-                     y_event_out, found_out, n_acc_out, n_steps_out);
+  events_solve<T, D>(f, ev, Tab(), y0, B, b, true, t0, rtol, atol, safety, ifactor,
+                     dfactor, first_step, use_first_step, max_steps, bisect_iters,
+                     event_t_out, y_event_out, found_out, n_acc_out, n_steps_out);
 }
 
 // The host launch of a traced event instance: blocks of `threads`
 // trajectories.
-template <typename T, int D, typename F, typename E>
+template <typename T, int D, typename F, typename E, typename Tab>
 int launch_traced(int B, const void* y0, double t0, double rtol, double atol,
                   double safety, double ifactor, double dfactor, double first_step,
-                  int use_first_step, int max_steps, const void* tab, int n_alpha,
-                  int order, int fsal, const void* lane, const void* shared,
-                  const void* sign0, const void* ev_shared, int bisect_iters,
-                  int threads, void* event_t, void* y_event, void* found, void* n_acc,
-                  void* n_steps, void* stream) {
-  if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA || B <= 0 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0)
+                  int use_first_step, int max_steps, const void* lane,
+                  const void* shared, const void* sign0, const void* ev_shared,
+                  int bisect_iters, int threads, void* event_t, void* y_event,
+                  void* found, void* n_acc, void* n_steps, void* stream) {
+  static_assert(Tab::kCompiled && Tab::n_alpha >= 1 && Tab::n_alpha <= TDT_MAX_ALPHA,
+                "a traced instance's tableau is compiled into it, and its stage "
+                "slopes fit TDT_MAX_STAGES");
+  if (B <= 0 || threads < 32 || threads > 1024 || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + threads - 1) / threads;
-  events_traced_kernel<T, D, F, E>
-      <<<blocks, threads, (size_t)TDT_TAB_SIZE * sizeof(T),
-         static_cast<cudaStream_t>(stream)>>>(
+  events_traced_kernel<T, D, F, E, Tab>
+      <<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const T*>(y0), B, (T)t0, (T)rtol, (T)atol, (T)safety, (T)ifactor,
           (T)dfactor, (T)first_step, use_first_step, max_steps,
-          static_cast<const T*>(tab), n_alpha, order, fsal, static_cast<const T*>(lane),
-          static_cast<const T*>(shared), static_cast<const T*>(sign0),
-          static_cast<const T*>(ev_shared), bisect_iters, static_cast<T*>(event_t),
-          static_cast<T*>(y_event), static_cast<int*>(found), static_cast<int*>(n_acc),
-          static_cast<int*>(n_steps));
+          static_cast<const T*>(lane), static_cast<const T*>(shared),
+          static_cast<const T*>(sign0), static_cast<const T*>(ev_shared), bisect_iters,
+          static_cast<T*>(event_t), static_cast<T*>(y_event), static_cast<int*>(found),
+          static_cast<int*>(n_acc), static_cast<int*>(n_steps));
   return (int)cudaGetLastError();
 }
 
@@ -392,7 +388,7 @@ __global__ void events_wide_kernel(const T* __restrict__ y0, int B, int D, T t0,
       w.accept_step();
       t = t_prop;
     }
-    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb);
   }
 
   T event_t = T(NAN);

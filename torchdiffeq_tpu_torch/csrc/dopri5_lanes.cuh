@@ -24,7 +24,7 @@
 //
 // The tableau arrives as a small array (any explicit method of up to
 // TDT_PACK_STAGES stages: dopri5, tsit5, bosh3, fehlberg2, adaptive_heun,
-// dopri8).  The per-trajectory numerics live in lane_ops.cuh, shared with
+// dopri8; a traced instance has it compiled in instead, below).  The per-trajectory numerics live in lane_ops.cuh, shared with
 // the event kernel.  A problem of at most TDT_MAX_STAGES stages and D <=
 // TDT_REG_MAX_D runs an instance that holds its state and slopes in
 // registers (`lanes_kernel`, one per D); any other (dopri8's 14 stages, or
@@ -76,9 +76,26 @@
 // same solve (`lanes_solve`) for a field functor that ops/traced.py emits
 // from the Python field (its per-sample function traced by torch.fx into
 // straight-line code of the state dtype, in the traced graph's operation
-// order), one lane a trajectory: a traced field has no hidden units for a
-// group to split.  The tracer's source instantiates it, with its own C entry
-// point, and is built at first use into a library of its own.
+// order).  The tracer's source instantiates it, with its own C entry point,
+// and is built at first use into a library of its own.
+//
+// What bounds a traced instance on an H100: one lane a trajectory, so a
+// warp lasts as long as its slowest lane, and the kernel as long as the
+// slowest lane of the batch: that lane's steps times one step's dependent
+// chain (at B=1024 the batch is 32 warps, one an SM, with no other warp
+// to hide a stall).  Bytes and operations are thousands of times below
+// that.  So the design shortens the chain: the tableau is compiled into
+// the instance (lane_ops.cuh), so the stage sums hold no shared-memory load
+// and no branch on a coefficient, their zero terms are gone and the stage
+// times are constants; the next output time is held in a register
+// (`lanes_solve`), so shared memory is read only when an output is emitted.
+// What is left is the arithmetic: the field's evaluations and the stage
+// sums, then the error ratio's IEEE divides and square root and the
+// controller's pow.  It stays one lane a trajectory: a traced field is a
+// few operations on a state of a few rows (the ensemble's, 5 on D=2), so a
+// group of lanes split by output row would spend a shuffle round on every
+// stage, more than the work it splits; the hand-written instances' groups
+// split an MLP's hidden units, which a traced field does not have.
 #pragma once
 
 #include "lane_ops.cuh"
@@ -87,9 +104,10 @@ namespace tdt_lanes {
 
 // The solve of trajectory b for the field f (every lane of its group runs
 // it; `writer`, lane 0 of the group, writes the rows and counters), from the
-// tableau and output times staged in shared memory.
-template <typename T, int D, typename F>
-__device__ __forceinline__ void lanes_solve(const F& f, const tdt::Tableau<T>& tb,
+// tableau `tb` (either kind, lane_ops.cuh) and the output times staged in
+// shared memory.
+template <typename T, int D, typename F, typename Tab>
+__device__ __forceinline__ void lanes_solve(const F& f, const Tab& tb,
                                             const T* __restrict__ y0,
                                             const T* __restrict__ s_ts, int S, int B,
                                             int b, bool writer, T t0, T t1, T rtol,
@@ -103,19 +121,38 @@ __device__ __forceinline__ void lanes_solve(const F& f, const tdt::Tableau<T>& t
   for (int d = 0; d < D; ++d) y[d] = y0[d * B + b];
   T t = t0;
 
-  // outputs at or before the start time are the initial state
+  // The next output time, s_ts[s_next]: a traced instance (a compiled
+  // tableau) holds it in a register and reads shared memory only when an
+  // output is emitted; the hand-written instances read it at each test,
+  // their code as it was measured when they were redesigned.
   int s_next = 0;
-  while (s_next < S && s_ts[s_next] <= t0) {
+  T t_next;
+  if constexpr (Tab::kCompiled) t_next = S > 0 ? s_ts[0] : T(0);
+  const auto next_time = [&]() -> T {
+    if constexpr (Tab::kCompiled)
+      return t_next;
+    else
+      return s_ts[s_next];
+  };
+  const auto emitted = [&]() {
+    ++s_next;
+    if constexpr (Tab::kCompiled) {
+      if (s_next < S) t_next = s_ts[s_next];
+    }
+  };
+
+  // outputs at or before the start time are the initial state
+  while (s_next < S && next_time() <= t0) {
     if (writer) {
 #pragma unroll
       for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = y[d];
     }
-    ++s_next;
+    emitted();
   }
 
   f(t, y, fc);
   T dt = use_first_step ? first_step
-                        : tdt::hairer_dt<T, D>(f, t, y, fc, rtol, atol, tb.inv_order);
+                        : tdt::hairer_dt<T, D>(f, tb, t, y, fc, rtol, atol);
 
   int n_acc = 0, n_steps = 0;
   T k[TDT_MAX_STAGES][D];
@@ -127,18 +164,18 @@ __device__ __forceinline__ void lanes_solve(const F& f, const tdt::Tableau<T>& t
     const bool accept = ratio <= T(1);
 
     // dense output for the output times this step covers
-    if (accept && s_next < S && s_ts[s_next] <= t_prop) {
+    if (accept && s_next < S && next_time() <= t_prop) {
       tdt::Quartic<T, D> q;
       tdt::fit_quartic<T, D>(tb, k, y, y1, fc, f1, dt, q);
       const T dt_safe = dt > T(0) ? dt : T(1);
-      while (s_next < S && s_ts[s_next] <= t_prop) {
+      while (s_next < S && next_time() <= t_prop) {
         T val[D];
-        tdt::eval_quartic<T, D>(q, (s_ts[s_next] - t) / dt_safe, val);
+        tdt::eval_quartic<T, D>(q, (next_time() - t) / dt_safe, val);
         if (writer) {
 #pragma unroll
           for (int d = 0; d < D; ++d) ys[((size_t)s_next * D + d) * B + b] = val[d];
         }
-        ++s_next;
+        emitted();
       }
     }
 
@@ -151,7 +188,7 @@ __device__ __forceinline__ void lanes_solve(const F& f, const tdt::Tableau<T>& t
       t = t_prop;
       ++n_acc;
     }
-    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb);
     ++n_steps;
   }
 
@@ -211,56 +248,54 @@ __global__ void lanes_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
 // The solve for a traced field F (ops/traced.py): one lane a trajectory,
 // the field built for lane b from its per-lane values (`lane`, (P, B)
 // lanes-major like the state) and the shared tensors (`shared`), which it
-// reads from device memory.  F holds D and T; its instance is compiled on
-// its own, from the source the tracer emitted.
-template <typename T, int D, typename F>
+// reads from device memory; the tableau Tab compiled into the instance, so
+// only the output times are staged in shared memory.  F holds D and T; its
+// instance is compiled on its own, from the source the tracer emitted.
+template <typename T, int D, typename F, typename Tab>
 __global__ void lanes_traced_kernel(const T* __restrict__ y0, const T* __restrict__ ts,
                                     int S, int B, T t0, T t1, T rtol, T atol,
                                     T safety, T ifactor, T dfactor, T first_step,
                                     int use_first_step, int max_steps,
-                                    const T* __restrict__ tab, int n_alpha, int order,
-                                    int fsal, const T* __restrict__ lane,
+                                    const T* __restrict__ lane,
                                     const T* __restrict__ shared, T* __restrict__ ys,
                                     int* __restrict__ n_acc_out,
                                     int* __restrict__ n_steps_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_tab = reinterpret_cast<T*>(smem_raw);
-  T* s_ts = s_tab + TDT_TAB_SIZE;
-  for (int i = threadIdx.x; i < TDT_TAB_SIZE; i += blockDim.x) s_tab[i] = tab[i];
+  T* s_ts = reinterpret_cast<T*>(smem_raw);
   for (int i = threadIdx.x; i < S; i += blockDim.x) s_ts[i] = ts[i];
   __syncthreads();
 
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
-  const tdt::Tableau<T> tb = tdt::tableau_from_shared<T>(s_tab, n_alpha, order, fsal);
   const F f(lane, shared, b, B);
-  lanes_solve<T, D>(f, tb, y0, s_ts, S, B, b, true, t0, t1, rtol, atol, safety, ifactor,
-                    dfactor, first_step, use_first_step, max_steps, ys, n_acc_out,
-                    n_steps_out);
+  lanes_solve<T, D>(f, Tab(), y0, s_ts, S, B, b, true, t0, t1, rtol, atol, safety,
+                    ifactor, dfactor, first_step, use_first_step, max_steps, ys,
+                    n_acc_out, n_steps_out);
 }
 
 // The host launch of a traced instance: blocks of `threads` trajectories.
-template <typename T, int D, typename F>
+template <typename T, int D, typename F, typename Tab>
 int launch_traced(int B, const void* y0, const void* ts, int S, double t0, double t1,
                   double rtol, double atol, double safety, double ifactor,
                   double dfactor, double first_step, int use_first_step, int max_steps,
-                  const void* tab, int n_alpha, int order, int fsal, const void* lane,
-                  const void* shared, int threads, void* ys, void* n_acc,
-                  void* n_steps, void* stream) {
-  if (n_alpha < 1 || n_alpha > TDT_MAX_ALPHA || B <= 0 || threads < 32 ||
-      threads > 1024 || threads % 32 != 0)
+                  const void* lane, const void* shared, int threads, void* ys,
+                  void* n_acc, void* n_steps, void* stream) {
+  static_assert(Tab::kCompiled && Tab::n_alpha >= 1 && Tab::n_alpha <= TDT_MAX_ALPHA,
+                "a traced instance's tableau is compiled into it, and its stage "
+                "slopes fit TDT_MAX_STAGES");
+  if (B <= 0 || threads < 32 || threads > 1024 || threads % 32 != 0)
     return (int)cudaErrorInvalidValue;
   const int blocks = (B + threads - 1) / threads;
-  const size_t smem = (size_t)(TDT_TAB_SIZE + S) * sizeof(T);
-  auto kernel = lanes_traced_kernel<T, D, F>;
+  const size_t smem = (size_t)S * sizeof(T);
+  auto kernel = lanes_traced_kernel<T, D, F, Tab>;
   const int code = tdt::allow_shared(kernel, smem);
   if (code) return code;
   kernel<<<blocks, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y0), static_cast<const T*>(ts), S, B, (T)t0, (T)t1,
       (T)rtol, (T)atol, (T)safety, (T)ifactor, (T)dfactor, (T)first_step,
-      use_first_step, max_steps, static_cast<const T*>(tab), n_alpha, order, fsal,
-      static_cast<const T*>(lane), static_cast<const T*>(shared), static_cast<T*>(ys),
-      static_cast<int*>(n_acc), static_cast<int*>(n_steps));
+      use_first_step, max_steps, static_cast<const T*>(lane),
+      static_cast<const T*>(shared), static_cast<T*>(ys), static_cast<int*>(n_acc),
+      static_cast<int*>(n_steps));
   return (int)cudaGetLastError();
 }
 
@@ -334,7 +369,7 @@ __global__ void lanes_wide_kernel(const T* __restrict__ y0, const T* __restrict_
       t = t_prop;
       ++n_acc;
     }
-    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb.inv_order);
+    dt = tdt::next_dt<T>(dt, ratio, safety, ifactor, dfactor, tb);
     ++n_steps;
   }
   for (; s_next < S; ++s_next)

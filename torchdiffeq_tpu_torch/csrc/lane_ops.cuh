@@ -16,6 +16,24 @@
 // (ops/traced.py) emitted from a Python function.  The stage times
 // t + alpha_i * dt are formed as the TPU kernel forms them; a field that
 // never reads its time leaves them to the compiler to drop.
+//
+// The tableau is a type parameter `Tab` of every function here that reads
+// a coefficient (`stage_sweep`, `fit_quartic`, `hairer_dt`, `next_dt`, and
+// the sums under them), of one of two kinds:
+// - `Tableau<T>`, the packed tableau staged in shared memory and read at
+//   run time, each coefficient tested against zero as it is read: the
+//   hand-written instances, which take any method at run time;
+// - a tableau compiled into its instance (`kCompiled`): a traced instance
+//   is a translation unit of its own whose method is known when
+//   ops/traced.py emits it, as the TPU kernel's tableau was known when
+//   Pallas traced it (`_tableau_consts`, pallas_kernels.py:182-190).  Its
+//   coefficients are constants of the source, each the state dtype's value
+//   of the packed one, and its zero terms are dropped at compile time (as
+//   the TPU kernel's `if beta[i, j] == 0.0: continue`, :250-279), so a
+//   step's stage sums are straight-line arithmetic with no load and no
+//   branch between them.
+// Either way each sum runs over its nonzero terms in j order and is formed
+// before the dt multiply, so the two kinds compute the same bits.
 #pragma once
 
 #include "mlp_field.cuh"
@@ -50,9 +68,10 @@ template <> __device__ __forceinline__ double tiny<double>() { return 2.22507385
 template <> __device__ __forceinline__ bf16 tiny<bf16>() { return bf16(1.17549435e-38f); }
 template <> __device__ __forceinline__ f16 tiny<f16>() { return f16(6.103515625e-05f); }
 
-// The packed tableau, staged in shared memory.
+// The packed tableau, staged in shared memory (the run-time kind).
 template <typename T>
 struct Tableau {
+  static constexpr bool kCompiled = false;
   const T* alpha;
   const T* beta;
   const T* c_sol;
@@ -61,6 +80,9 @@ struct Tableau {
   int n_alpha;
   int fsal;
   T inv_order;  // 1 / order, in the state dtype
+
+  // the packed layout from entry `i` (alpha starts it)
+  __device__ __forceinline__ const T* row(int i) const { return alpha + i; }
 };
 
 template <typename T>
@@ -101,10 +123,88 @@ __device__ __forceinline__ void coeff_sum(const T* c, const T (&k)[TDT_MAX_STAGE
   }
 }
 
+// Compile-time iteration: f(Int<I>()) for I = B, ..., E - 1, in order.
+template <int I>
+struct Int {
+  static constexpr int value = I;
+};
+template <int B, int E, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (B < E) {
+    f(Int<B>());
+    static_for<B + 1, E>(f);
+  }
+}
+
+// The first nonzero entry of the n entries from `off` of a compiled
+// tableau's packed layout (n if none).
+template <typename Tab>
+__host__ __device__ constexpr int first_nonzero(int off, int n) {
+  int j = 0;
+  while (j < n && Tab::coef(off + j) == 0.0) ++j;
+  return j;
+}
+
+// coeff_sum of a compiled tableau's row at `Off` (N entries): its zero
+// terms dropped at compile time, each nonzero one a constant.
+template <typename Tab, int Off, int N, typename T, int D>
+__device__ __forceinline__ void compiled_sum(const T (&k)[TDT_MAX_STAGES][D], T (&acc)[D]) {
+  constexpr int first = first_nonzero<Tab>(Off, N);
+  static_for<0, N>([&](auto J) {
+    constexpr int j = decltype(J)::value;
+    constexpr double c = Tab::coef(Off + j);
+    if constexpr (c != 0.0) {
+      const T cj = T(c);
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if constexpr (j == first)
+          acc[d] = cj * k[j][d];
+        else
+          acc[d] = acc[d] + cj * k[j][d];
+      }
+    }
+  });
+}
+
+// Whether the method is FSAL, of either kind of tableau.
+template <typename Tab>
+__device__ __forceinline__ bool fsal_of(const Tab& tab) {
+  if constexpr (Tab::kCompiled)
+    return Tab::fsal;
+  else
+    return tab.fsal;
+}
+
+// x^(1/order), the power of the initial step and of the controller: with
+// a compiled tableau, as PyTorch's power by a scalar computes it (the
+// plain versions' `x ** inv_order`): the square root for order 2
+// (fehlberg2, adaptive_heun), pow otherwise.  A run-time tableau's order is
+// known only at run time, and the hand-written instances take pow.
+template <typename T, typename Tab>
+__device__ __forceinline__ T pow_inv_order(const Tab& tab, T x) {
+  if constexpr (!Tab::kCompiled)
+    return dpow<T>(x, tab.inv_order);
+  else if constexpr (Tab::inv_order == 0.5)
+    return dsqrt<T>(x);
+  else
+    return dpow<T>(x, T(Tab::inv_order));
+}
+
+// sum_j c[j] * k[j] over the n_alpha + 1 entries of the packed tableau's
+// row at `Off` (c_sol, c_err or c_mid), for either kind of tableau.
+template <int Off, typename T, int D, typename Tab>
+__device__ __forceinline__ void row_sum(const Tab& tab, const T (&k)[TDT_MAX_STAGES][D],
+                                        T (&acc)[D]) {
+  if constexpr (Tab::kCompiled)
+    compiled_sum<Tab, Off, Tab::n_alpha + 1>(k, acc);
+  else
+    coeff_sum<T, D>(tab.row(Off), k, tab.n_alpha + 1, acc);
+}
+
 // `hairer_dt` (pallas_kernels.py:305-321): the initial step from y, f(t, y).
-template <typename T, int D, typename F>
-__device__ __forceinline__ T hairer_dt(const F& f, T t, const T (&y)[D], const T (&fc)[D],
-                                       T rtol, T atol, T inv_order) {
+template <typename T, int D, typename F, typename Tab>
+__device__ __forceinline__ T hairer_dt(const F& f, const Tab& tab, T t, const T (&y)[D],
+                                       const T (&fc)[D], T rtol, T atol) {
   T scale[D], yp[D], fp[D], df[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) scale[d] = atol + rtol * dabs(y[d]);
@@ -120,46 +220,62 @@ __device__ __forceinline__ T hairer_dt(const F& f, T t, const T (&y)[D], const T
   const T d_max = nmax(d1, d2);
   const T h1 = (d1 <= T(1e-15) && d2 <= T(1e-15))
                    ? nmax(T(1e-6), h0 * T(1e-3))
-                   : dpow<T>(T(0.01) / nmax(d_max, tiny<T>()), inv_order);
+                   : pow_inv_order<T>(tab, T(0.01) / nmax(d_max, tiny<T>()));
   return nmin(T(100) * h0, h1);
 }
 
 // `stage_sweep` (pallas_kernels.py:250-279): the stages k (k[0] = fc), the
 // proposed y1 and f1 = f(t + dt, y1), and the embedded error estimate.
-template <typename T, int D, typename F>
-__device__ __forceinline__ void stage_sweep(const F& f, const Tableau<T>& tab, T t,
+template <typename T, int D, typename F, typename Tab>
+__device__ __forceinline__ void stage_sweep(const F& f, const Tab& tab, T t,
                                             const T (&y)[D], const T (&fc)[D], T dt,
                                             T (&k)[TDT_MAX_STAGES][D], T (&y1)[D],
                                             T (&f1)[D], T (&err)[D]) {
   T yi[D];
 #pragma unroll
   for (int d = 0; d < D; ++d) k[0][d] = fc[d];
-#pragma unroll
-  for (int i = 0; i < TDT_MAX_ALPHA; ++i) {
-    if (i < tab.n_alpha) {
+  if constexpr (Tab::kCompiled) {
+    // the stages unrolled at compile time: each row's sum over its nonzero
+    // betas, the stage time from its constant alpha
+    static_for<0, Tab::n_alpha>([&](auto I) {
+      constexpr int i = decltype(I)::value;
+      constexpr double alpha = Tab::coef(i);
       T acc[D];
-      coeff_sum<T, D>(tab.beta + i * TDT_PACK_ALPHA, k, i + 1, acc);
+      compiled_sum<Tab, TDT_TAB_BETA + i * TDT_PACK_ALPHA, i + 1>(k, acc);
 #pragma unroll
       for (int d = 0; d < D; ++d) yi[d] = y[d] + dt * acc[d];
-      f(t + tab.alpha[i] * dt, yi, k[i + 1]);
-      if (i + 1 == tab.n_alpha) {
+      f(t + T(alpha) * dt, yi, k[i + 1]);
+    });
 #pragma unroll
-        for (int d = 0; d < D; ++d) f1[d] = k[i + 1][d];
+    for (int d = 0; d < D; ++d) f1[d] = k[Tab::n_alpha][d];
+  } else {
+#pragma unroll
+    for (int i = 0; i < TDT_MAX_ALPHA; ++i) {
+      if (i < tab.n_alpha) {
+        T acc[D];
+        coeff_sum<T, D>(tab.beta + i * TDT_PACK_ALPHA, k, i + 1, acc);
+#pragma unroll
+        for (int d = 0; d < D; ++d) yi[d] = y[d] + dt * acc[d];
+        f(t + tab.alpha[i] * dt, yi, k[i + 1]);
+        if (i + 1 == tab.n_alpha) {
+#pragma unroll
+          for (int d = 0; d < D; ++d) f1[d] = k[i + 1][d];
+        }
       }
     }
   }
-  if (tab.fsal) {
+  if (fsal_of(tab)) {
 #pragma unroll
     for (int d = 0; d < D; ++d) y1[d] = yi[d];
   } else {
     T acc[D];
-    coeff_sum<T, D>(tab.c_sol, k, tab.n_alpha + 1, acc);
+    row_sum<TDT_TAB_CSOL, T, D>(tab, k, acc);
 #pragma unroll
     for (int d = 0; d < D; ++d) y1[d] = y[d] + dt * acc[d];
     f(t + dt, y1, f1);
   }
   T acc[D];
-  coeff_sum<T, D>(tab.c_err, k, tab.n_alpha + 1, acc);
+  row_sum<TDT_TAB_CERR, T, D>(tab, k, acc);
 #pragma unroll
   for (int d = 0; d < D; ++d) err[d] = dt * acc[d];
 }
@@ -176,11 +292,12 @@ __device__ __forceinline__ T error_ratio(const T (&y)[D], const T (&y1)[D],
 
 // The I-controller: dt * min(ifactor, max(safety / max(ratio, tiny)^(1/order),
 // dfactor on a rejected step else 1)), NaN-propagating like the TPU kernel.
-template <typename T>
+template <typename T, typename Tab>
 __device__ __forceinline__ T next_dt(T dt, T ratio, T safety, T ifactor, T dfactor,
-                                     T inv_order) {
+                                     const Tab& tab) {
   const T dfac = ratio < T(1) ? T(1) : dfactor;
-  return dt * nmin(ifactor, nmax(safety / dpow<T>(nmax(ratio, tiny<T>()), inv_order), dfac));
+  return dt * nmin(ifactor,
+                   nmax(safety / pow_inv_order<T>(tab, nmax(ratio, tiny<T>())), dfac));
 }
 
 // Quartic dense output on [t, t + dt], ascending powers of x in [0, 1]
@@ -190,14 +307,14 @@ struct Quartic {
   T e[D], d[D], c[D], b[D], a[D];
 };
 
-template <typename T, int D>
-__device__ __forceinline__ void fit_quartic(const Tableau<T>& tab,
+template <typename T, int D, typename Tab>
+__device__ __forceinline__ void fit_quartic(const Tab& tab,
                                             const T (&k)[TDT_MAX_STAGES][D],
                                             const T (&y)[D], const T (&y1)[D],
                                             const T (&fc)[D], const T (&f1)[D], T dt,
                                             Quartic<T, D>& q) {
   T mid[D];
-  coeff_sum<T, D>(tab.c_mid, k, tab.n_alpha + 1, mid);
+  row_sum<TDT_TAB_CMID, T, D>(tab, k, mid);
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     const T y_mid = y[d] + dt * mid[d];

@@ -9,11 +9,19 @@
 // it as a functor of straight-line code: one `const T vN = ...;` a value,
 // in the graph's order, each operation rounded to the state dtype as
 // PyTorch rounds it (the build's --fmad=false keeps every a*b+c two
-// roundings).  The emitted translation unit defines `Field` (and `Event`)
-// and the C entry points `tdt_traced_lanes` / `tdt_traced_events`, which
-// instantiate `tdt_lanes::launch_traced` / `tdt_events::launch_traced`;
-// ops/_build.py compiles it alone into a library keyed by the hash of its
-// source.
+// roundings).  The emitted translation unit defines `Field` (and `Event`),
+// the method's tableau compiled into the instance (`MethodTableau`, the
+// compiled kind of lane_ops.cuh: each nonzero coefficient a constant, the
+// zero ones dropped at compile time) and the C entry points
+// `tdt_traced_lanes` / `tdt_traced_events`, which instantiate
+// `tdt_lanes::launch_traced` / `tdt_events::launch_traced` and take no
+// tableau; ops/_build.py compiles it alone into a library keyed by the hash
+// of its source, which names the method.
+//
+// What bounds an instance is its slowest lane's steps times one step's
+// dependent chain (dopri5_lanes.cuh): with the tableau compiled in, that
+// chain is the field's straight-line code, the stage sums, and the error
+// ratio's and controller's divides, square root and pow.
 //
 // Replaces the "any traceable field(t, y, *params)" of the TPU kernels
 // torchdiffeq_tpu/ops/pallas_kernels.py:336 and :580, which trace a JAX

@@ -149,17 +149,16 @@ def library():
 # the traced instances' C entry points (ops/traced.py emits them)
 _TRACED_SIGNATURES = {
     # tdt_traced_lanes(B, y0, ts, S, t0, t1, rtol, atol, safety, ifactor,
-    #   dfactor, first_step, use_first_step, max_steps, tab, n_alpha, order,
-    #   fsal, lane, shared, threads, ys, n_acc, n_steps, stream)
+    #   dfactor, first_step, use_first_step, max_steps, lane, shared,
+    #   threads, ys, n_acc, n_steps, stream); the tableau is compiled in
     "tdt_traced_lanes": [_I, _P, _P, _I, _D, _D, _D, _D, _D, _D, _D, _D, _I,
-                         _I, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P],
+                         _I, _P, _P, _I, _P, _P, _P, _P],
     # tdt_traced_events(B, y0, t0, rtol, atol, safety, ifactor, dfactor,
-    #   first_step, use_first_step, max_steps, tab, n_alpha, order, fsal,
-    #   lane, shared, sign0, ev_shared, bisect_iters, threads, event_t,
-    #   y_event, found, n_acc, n_steps, stream)
-    "tdt_traced_events": [_I, _P, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _I,
-                          _I, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P,
-                          _P],
+    #   first_step, use_first_step, max_steps, lane, shared, sign0,
+    #   ev_shared, bisect_iters, threads, event_t, y_event, found, n_acc,
+    #   n_steps, stream)
+    "tdt_traced_events": [_I, _P, _D, _D, _D, _D, _D, _D, _D, _I, _I, _P, _P,
+                          _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
 }
 
 # the first-use build of each traced instance this process built: its

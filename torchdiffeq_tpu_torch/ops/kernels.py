@@ -948,8 +948,9 @@ def _traced_threads(B):
     return 32 if B < _TRACED_SMS * 128 else 128
 
 
-def _traced_common(field, y0, params, group, kernel, method):
-    """Checks shared by both traced launches; returns the tableau."""
+def _traced_common(field, y0, params, group, kernel):
+    """Checks shared by both traced launches (the method is checked where
+    its tableau is compiled into the instance, `traced.tableau_struct`)."""
     _check_cuda_state(y0, kernel, LANE_DTYPES)
     if params:
         raise TypeError(f"{kernel}: a traced field carries its own args "
@@ -957,7 +958,6 @@ def _traced_common(field, y0, params, group, kernel, method):
     if group not in (None, 1):
         raise ValueError(f"{kernel}: a traced field runs one lane a "
                          f"trajectory (group 1), got group={group}")
-    return packed_tableau(method, y0.dtype, y0.device)
 
 
 def _traced_lanes_launch(field, y0, t0, t1, *, ts, rtol, atol, method,
@@ -968,11 +968,10 @@ def _traced_lanes_launch(field, y0, t0, t1, *, ts, rtol, atol, method,
     launch (counted in `traced_launch_counts`) and the
     outputs."""
     kernel = 'dopri5_integrate_batched'
-    tab_d, n_alpha, order, fsal = _traced_common(field, y0, params, group,
-                                                 kernel, method)
+    _traced_common(field, y0, params, group, kernel)
     D, B = y0.shape
     dev = y0.device
-    src = traced.field_source(field, y0, n_alpha)
+    src = traced.field_source(field, y0, method)
     lib = _build.traced_library(src.source)
     lane = src.lane_buffer(B, y0.dtype, dev)
     shared = src.buffer(src.shared, y0.dtype, dev)
@@ -984,8 +983,8 @@ def _traced_lanes_launch(field, y0, t0, t1, *, ts, rtol, atol, method,
     args = (B, _ptr(y0), _ptr(ts_d), S,
             *_state_scalars(y0.dtype, t0, t1, rtol, atol, safety, ifactor,
                             dfactor, 0.0 if first_step is None else first_step),
-            int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
-            order, int(fsal), None if lane is None else _ptr(lane),
+            int(first_step is not None), int(max_steps),
+            None if lane is None else _ptr(lane),
             None if shared is None else _ptr(shared), _traced_threads(B),
             _ptr(ys), *_row_ptrs(counts), _stream(dev))
 
@@ -994,7 +993,7 @@ def _traced_lanes_launch(field, y0, t0, t1, *, ts, rtol, atol, method,
             _build.check(lib, lib.tdt_traced_lanes(*args), kernel)
             traced_launch_counts[kernel] += 1
 
-    launch.keep = (y0, ts_d, tab_d, lane, shared, ys, counts)
+    launch.keep = (y0, ts_d, lane, shared, ys, counts)
     launch.source = src
     return launch, (ys, counts[0:1], counts[1:2])
 
@@ -1017,11 +1016,10 @@ def _traced_events_launch(field, y0, t0, event_fn, *, rtol, atol, method,
             _kernel_event(event_fn, ev_params, y0.dtype, y0.device,
                           *y0.shape)   # raises, naming what is taken
         event_fn = PerSampleEvent(event_fn)
-    tab_d, n_alpha, order, fsal = _traced_common(field, y0, params, group,
-                                                 kernel, method)
+    _traced_common(field, y0, params, group, kernel)
     D, B = y0.shape
     dev = y0.device
-    src = traced.events_source(field, event_fn, y0, n_alpha)
+    src = traced.events_source(field, event_fn, y0, method)
     if len(ev_params) != 1 or tuple(ev_params[0].shape) != (src.K, B):
         raise ValueError(f"{kernel}: a traced event of {src.K} outputs takes "
                          f"ev_params=(sign0,) with sign0 of shape "
@@ -1036,8 +1034,8 @@ def _traced_events_launch(field, y0, t0, event_fn, *, rtol, atol, method,
     args = (B, _ptr(y0),
             *_state_scalars(y0.dtype, t0, rtol, atol, safety, ifactor,
                             dfactor, 0.0 if first_step is None else first_step),
-            int(first_step is not None), int(max_steps), _ptr(tab_d), n_alpha,
-            order, int(fsal), None if lane is None else _ptr(lane),
+            int(first_step is not None), int(max_steps),
+            None if lane is None else _ptr(lane),
             None if shared is None else _ptr(shared), _ptr(sign0),
             None if ev_shared is None else _ptr(ev_shared), int(bisect_iters),
             _traced_threads(B), *_row_ptrs(values)[:2], *_row_ptrs(counts),
@@ -1048,7 +1046,7 @@ def _traced_events_launch(field, y0, t0, event_fn, *, rtol, atol, method,
             _build.check(lib, lib.tdt_traced_events(*args), kernel)
             traced_launch_counts[kernel] += 1
 
-    launch.keep = (y0, tab_d, lane, shared, ev_shared, sign0, values, counts)
+    launch.keep = (y0, lane, shared, ev_shared, sign0, values, counts)
     launch.source = src
     return launch, (values[0:1], values[1:], counts[0:1], counts[1:2],
                     counts[2:3])

@@ -680,13 +680,14 @@ def _event_functor(event, y_sample, dtype):
 
 
 _HEAD = """// A traced instance of the per-lane kernels, emitted by
-// torchdiffeq_tpu_torch/ops/traced.py from {what} (see
-// csrc/traced_field.cuh).
+// torchdiffeq_tpu_torch/ops/traced.py from {what}, for
+// {method}'s tableau (see csrc/traced_field.cuh).
 #define TDT_MAX_ALPHA {n_alpha}
 #include "traced_field.cuh"
 
 namespace {{
 using T = {ctype};
+{tableau}
 {body}}}  // namespace
 """
 
@@ -695,14 +696,13 @@ extern "C" int tdt_traced_lanes(int B, const void* y0, const void* ts, int S,
                                 double t0, double t1, double rtol, double atol,
                                 double safety, double ifactor, double dfactor,
                                 double first_step, int use_first_step,
-                                int max_steps, const void* tab, int n_alpha,
-                                int order, int fsal, const void* lane,
+                                int max_steps, const void* lane,
                                 const void* shared, int threads, void* ys,
                                 void* n_acc, void* n_steps, void* stream) {{
-  return tdt_lanes::launch_traced<T, {D}, Field>(
+  return tdt_lanes::launch_traced<T, {D}, Field, MethodTableau>(
       B, y0, ts, S, t0, t1, rtol, atol, safety, ifactor, dfactor, first_step,
-      use_first_step, max_steps, tab, n_alpha, order, fsal, lane, shared,
-      threads, ys, n_acc, n_steps, stream);
+      use_first_step, max_steps, lane, shared, threads, ys, n_acc, n_steps,
+      stream);
 }}
 """
 
@@ -711,19 +711,65 @@ extern "C" int tdt_traced_events(int B, const void* y0, double t0, double rtol,
                                  double atol, double safety, double ifactor,
                                  double dfactor, double first_step,
                                  int use_first_step, int max_steps,
-                                 const void* tab, int n_alpha, int order,
-                                 int fsal, const void* lane, const void* shared,
+                                 const void* lane, const void* shared,
                                  const void* sign0, const void* ev_shared,
                                  int bisect_iters, int threads, void* event_t,
                                  void* y_event, void* found, void* n_acc,
                                  void* n_steps, void* stream) {{
-  return tdt_events::launch_traced<T, {D}, Field, Event>(
+  return tdt_events::launch_traced<T, {D}, Field, Event, MethodTableau>(
       B, y0, t0, rtol, atol, safety, ifactor, dfactor, first_step,
-      use_first_step, max_steps, tab, n_alpha, order, fsal, lane, shared,
-      sign0, ev_shared, bisect_iters, threads, event_t, y_event, found, n_acc,
-      n_steps, stream);
+      use_first_step, max_steps, lane, shared, sign0, ev_shared, bisect_iters,
+      threads, event_t, y_event, found, n_acc, n_steps, stream);
 }}
 """
+
+
+def _packed_entry(i, m):
+    """The name of entry `i` of the packed tableau of `m` alphas
+    (csrc/lane_ops.cuh's layout: alpha | beta | c_sol | c_err | c_mid)."""
+    if i < m:
+        return f"alpha[{i}]"
+    i -= m
+    if i < m * m:
+        return f"beta[{i // m}][{i % m}]"
+    i -= m * m
+    return f"{('c_sol', 'c_err', 'c_mid')[i // (m + 1)]}[{i % (m + 1)}]"
+
+
+def tableau_struct(method, dtype):
+    """The C++ of `method`'s tableau compiled into a traced instance
+    (``MethodTableau``, csrc/lane_ops.cuh's compiled kind) for a state of
+    the torch `dtype`, and its n_alpha.  Each nonzero entry of
+    ``packed_tableau(method, dtype)`` is a case of ``coef``, by its packed
+    index and in its order, as the double that holds that dtype's value
+    exactly (so ``T(coef(i))`` has the packed tensor's bits); the zero
+    entries are absent, and ``coef`` returns 0 for them, so the kernel's
+    sums drop them at compile time.  1/order is the double the
+    hand-written instances convert to the state dtype, ``1.0 / order``."""
+    from .kernels import _PACK_ALPHA, packed_tableau
+    packed, n_alpha, order, fsal = packed_tableau(method, dtype,
+                                                  torch.device('cpu'))
+    vals = packed.double().numpy()
+    cases = "\n".join(
+        f"      case {i}: return {float(vals[i])!r};  // "
+        f"{_packed_entry(i, _PACK_ALPHA)}"
+        for i in np.flatnonzero(vals))
+    name = str(dtype).replace('torch.', '')
+    return f"""// {method}'s tableau in {name}, compiled into the instance
+// (ops/kernels.py `packed_tableau`: its nonzero entries by packed index)
+struct MethodTableau {{
+  static constexpr bool kCompiled = true;
+  static constexpr int n_alpha = {n_alpha};
+  static constexpr bool fsal = {'true' if fsal else 'false'};
+  static constexpr double inv_order = {1.0 / order!r};
+  __host__ __device__ static constexpr double coef(int i) {{
+    switch (i) {{
+{cases}
+      default: return 0.0;
+    }}
+  }}
+}};
+""", n_alpha
 
 
 def _check_state(y0_lanes, func):
@@ -776,12 +822,12 @@ def _cached(key, build):
     return hit
 
 
-def _key(field, y0_lanes, n_alpha, event=None):
+def _key(field, y0_lanes, method, event=None):
     return (_func_key(field.func), field.axes,
             tuple((tuple(a.shape), a.dtype, a.device)
                   if isinstance(a, torch.Tensor) else _plain(a)
                   for a in field.args),
-            y0_lanes.shape[0], y0_lanes.dtype, y0_lanes.device, n_alpha,
+            y0_lanes.shape[0], y0_lanes.dtype, y0_lanes.device, method,
             None if event is None else _func_key(event.event_fn))
 
 
@@ -793,48 +839,53 @@ def _args_of(field, constants):
     return lane, [torch.as_tensor(a) for a in shared] + list(constants)
 
 
-def field_source(field, y0_lanes, n_alpha):
+def field_source(field, y0_lanes, method):
     """The traced K-dopri5 instance of `field` (a `PerSampleField`) for the
-    (D, B) state `y0_lanes` and a tableau of `n_alpha` stages after the
-    first: a `TracedSource`.  The trace is kept for the next call with the
-    same function, arg shapes and state."""
+    (D, B) state `y0_lanes` and the explicit `method`, whose tableau is
+    compiled into it (`tableau_struct`): a `TracedSource`.  The trace is
+    kept for the next call with the same function, arg shapes, state and
+    method."""
     _check_state(y0_lanes, field.func)
     dtype = y0_lanes.dtype
 
     def build():
+        tableau, n_alpha = tableau_struct(method, dtype)
         body, constants, ops = _field_functor(field, y0_lanes[:, 0], dtype)
         src = _HEAD.format(what=f"the field {_name(field.func)}",
-                           n_alpha=max(n_alpha, 1), ctype=_C_TYPES[dtype],
+                           method=method, n_alpha=n_alpha,
+                           ctype=_C_TYPES[dtype], tableau=tableau,
                            body=body) + _LANES_ENTRY.format(
                                D=y0_lanes.shape[0])
         return src, constants, ops
 
-    src, constants, ops = _cached(_key(field, y0_lanes, n_alpha), build)
+    src, constants, ops = _cached(_key(field, y0_lanes, method), build)
     lane_args, shared = _args_of(field, constants)
     return TracedSource(source=src, lane_args=lane_args, shared=shared,
                         ev_shared=[], field_ops=ops, event_ops=0, K=0)
 
 
-def events_source(field, event, y0_lanes, n_alpha):
+def events_source(field, event, y0_lanes, method):
     """The traced K-events instance of `field` and `event` (a
-    `PerSampleEvent`): a `TracedSource`, its trace kept as `field_source`
-    keeps one."""
+    `PerSampleEvent`) for `method`: a `TracedSource`, its trace kept as
+    `field_source` keeps one."""
     _check_state(y0_lanes, field.func)
     dtype = y0_lanes.dtype
 
     def build():
+        tableau, n_alpha = tableau_struct(method, dtype)
         y_sample = y0_lanes[:, 0]
         fbody, constants, fops = _field_functor(field, y_sample, dtype)
         ebody, ev_shared, eops, K = _event_functor(event, y_sample, dtype)
         src = _HEAD.format(
             what=f"the field {_name(field.func)} and the event "
-            f"{_name(event.event_fn)}", n_alpha=max(n_alpha, 1),
-            ctype=_C_TYPES[dtype], body=fbody + "\n" + ebody) \
+            f"{_name(event.event_fn)}", method=method, n_alpha=n_alpha,
+            ctype=_C_TYPES[dtype], tableau=tableau,
+            body=fbody + "\n" + ebody) \
             + _EVENTS_ENTRY.format(D=y0_lanes.shape[0])
         return src, constants, fops, ev_shared, eops, K
 
     src, constants, fops, ev_shared, eops, K = _cached(
-        _key(field, y0_lanes, n_alpha, event), build)
+        _key(field, y0_lanes, method, event), build)
     lane_args, shared = _args_of(field, constants)
     return TracedSource(source=src, lane_args=lane_args, shared=shared,
                         ev_shared=ev_shared, field_ops=fops, event_ops=eops,
