@@ -44,7 +44,10 @@ benchmarks/bench_fused_field.py at its full width:
      time cut-off that ends every lane, its launch count reset before and
      read after; the kernel against its plain version (per-lane `found`,
      step and accept counts), and both timed at B=1024 and B=65536, the
-     kernel three ways, as in phase 6, and dopri8 as there;
+     kernel three ways, as in phase 6, and dopri8 as there; (8b)
+     K-dopri5 and K-events in float64 with the order-2 methods (fehlberg2,
+     adaptive_heun) on a field with no sum to reorder, every output, count
+     and NaN equal to the plain version's (`_order2_vs_plain`);
   9. K-fused: the bench's chain at B=4096, D=256, H=1024 (tanh MLP field
      `ops.fused_field.mlp_field`, weights randn * 0.05 and biases 0, y0
      randn, all from numpy RandomState(1); the bfloat16 copies rounded from
@@ -155,8 +158,11 @@ benchmarks/bench_fused_field.py at its full width:
      launch count reset before and read after) against its plain version;
      (b) MESH_RANKS ranks on the one card, subprocesses on gloo (NCCL
      refuses two ranks on one device): `data_parallel_odeint` in float64
-     against the single solve on the card, each rank's result; a
-     collective that gloo refuses on CUDA tensors fails the phase, named;
+     against the single solve on the card, each rank's result, then the
+     decisions it makes global (kvaerno5, implicit_adams, an event solve)
+     and Parareal's mesh gradient against the single solve
+     (`_mesh_checks`); a collective that gloo refuses on CUDA tensors
+     fails the phase, named;
      (c) the phase's seconds (budget MESH_BUDGET_S).
  21. the sharded training step of the JAX package's
      `__graft_entry__.dryrun_multichip` (examples/sharded_step.py; no
@@ -172,7 +178,8 @@ benchmarks/bench_fused_field.py at its full width:
 
 ``torchrun --nproc_per_node=N chip_smoke.py --mesh-cards`` instead runs
 the device mesh and the sharded training step across N cards, one rank a
-card (`_mesh_cards`).
+card, with `_mesh_checks` and Parareal's forward and gradient step timed
+on the N cards against one (`_mesh_cards`).
 
 Each phase prints one line; any failure raises and the script exits
 non-zero.  It needs one CUDA device and the CUDA toolkit (nvcc), and
@@ -419,9 +426,17 @@ PAR_BUDGET_S = 90
 #   from the one-rank sum in its last bits, and the same steps give float64
 #   values within 1e-12 of max|y| (MESH_F64_REL; 1.5e-15 measured between 2
 #   CPU ranks and one process on the tests' problem).
+#   The same bound holds the decisions made global (kvaerno5's stage
+#   solves, implicit_adams' corrector, an event's signs) on MESH_DEC_B
+#   spirals, an event's time included (its bisection to atol 1e-12), and
+#   Parareal's mesh gradient on MESH_PAR_B spirals, 2 slices a rank,
+#   against mesh=None (the ranks' slices' parameter cotangents summed in
+#   another order).
 MESH_B, MESH_RANKS = 1024, 2
+MESH_DEC_B, MESH_PAR_B = 64, 4
 MESH_F64_REL = 1e-12
 MESH_BUDGET_S = 45
+MESH_PAR_REPS = 3        # --mesh-cards: timed Parareal steps
 
 # - phase 21, the sharded training step (examples/sharded_step.py).  (a) A
 #   world of one rank: the tensor-parallel field runs the MLPField's
@@ -4194,10 +4209,74 @@ def _phase_parareal(torch, kernels, dev, train_ms):
     _check(total <= PAR_BUDGET_S, f"phase 19 took {total:.1f} s")
 
 
+def _order2_vs_plain(torch, kernels, dev):
+    """Phase 8b (C22): the hand-written K-dopri5 and K-events in float64
+    with the order-2 methods (fehlberg2, adaptive_heun), whose initial
+    step and controller take x**(1/2) as the square root, as the plain
+    versions' power by 0.5 does: on a field with no sum to reorder (D=1,
+    H=1, power 1) every output, count and NaN equals the plain version's,
+    with the default controller and with a max_steps (the plain version's
+    median step count) that leaves half the lanes NaN.  Returns {kernel
+    name: [methods equal bit for bit]}."""
+    from torchdiffeq_tpu_torch.models import LinearEvent, mlp_params_from_jax
+    rng = np.random.RandomState(0)
+    model = mlp_params_from_jax(
+        [dict(w=rng.randn(1, 1), b=rng.randn(1) * 0.1),
+         dict(w=rng.randn(1, 1), b=rng.randn(1) * 0.1)], power=1,
+        device=dev).requires_grad_(False)
+    y0 = torch.from_numpy(rng.randn(1, B)).to(dev)
+    thr = -float(y0[0].median())
+    event = LinearEvent([[1.0], [0.0]], time_coef=[0.0, 1.0],
+                        bias=[thr, -1.0], dtype=torch.float64,
+                        device=dev).requires_grad_(False)
+    sign0 = torch.sign(event(torch.zeros((), dtype=torch.float64,
+                                         device=dev), y0.T)).T.contiguous()
+    kw = dict(ts=np.linspace(0.0, 1.0, 6), rtol=1e-5, atol=1e-7)
+    ekw = dict(rtol=1e-5, atol=1e-7, ev_params=(sign0,))
+    out = {"dopri5_integrate_batched": [], "dopri5_events_batched": []}
+    nan_rows = {}
+    with torch.no_grad():
+        for method in ("fehlberg2", "adaptive_heun"):
+            full = kernels.dopri5_integrate_batched_ref(
+                model, y0, 0.0, 1.0, method=method, **kw)
+            median = int(full[2].double().median())
+            same = {k: True for k in out}
+            for max_steps in (10_000, median):
+                for name, a, opts in (
+                        ("dopri5_integrate_batched", (1.0,), kw),
+                        ("dopri5_events_batched", (event,), ekw)):
+                    got, want = (getattr(kernels, name + suffix)(
+                        model, y0, 0.0, *a, method=method,
+                        max_steps=max_steps, **opts)
+                        for suffix in ("", "_ref"))
+                    same[name] &= all(
+                        torch.equal(torch.isnan(g), torch.isnan(w))
+                        and torch.equal(torch.nan_to_num(g),
+                                        torch.nan_to_num(w))
+                        for g, w in zip(got, want))
+                    if name == "dopri5_integrate_batched":
+                        nan_rows[(method, max_steps)] = float(
+                            torch.isnan(want[0][-1]).float().mean())
+            for k in out:
+                if same[k]:
+                    out[k].append(method)
+    torch.cuda.synchronize()
+    ok = all(v == ["fehlberg2", "adaptive_heun"] for v in out.values())
+    _check(ok, f"order-2 K-dopri5/K-events float64 vs plain, bit for bit: "
+           f"{out}")
+    print(f"[8b order 2 (C22)] K-dopri5 and K-events float64, fehlberg2 and "
+          f"adaptive_heun, D=1 H=1 B={B}: every output, count and NaN equal "
+          f"to the plain version's {out} | lanes NaN at the median max_steps "
+          + ", ".join(f"{m} {v:.3f}" for (m, k), v in nan_rows.items()
+                      if k != 10_000))
+    return out
+
+
 def _mesh_rank(rank, world, store, out):
     """One rank of phase 20 (b), run as ``chip_smoke.py --mesh-rank RANK
     WORLD STORE OUT``: gloo on the card, `data_parallel_odeint` of phase
-    4's float64 spiral solve; writes its values and counters to OUT."""
+    4's float64 spiral solve, and `_mesh_checks`; writes its values,
+    counters and checks to OUT."""
     import torch
     import torch.distributed as dist
     from torchdiffeq_tpu_torch import odeint_with_stats
@@ -4211,10 +4290,113 @@ def _mesh_rank(rank, world, store, out):
         with torch.no_grad():
             ys, st = data_parallel_odeint(odeint_with_stats, mesh)(
                 model, y_big[:MESH_B].contiguous(), t, rtol=RTOL, atol=ATOL)
+        checks = _mesh_checks(torch, mesh, make_mesh({"time": world}))
         torch.save(dict(ys=ys.cpu(), st=list(st[:5]),
-                        device=str(ys.device)), out)
+                        device=str(ys.device), checks=checks), out)
     finally:
         dist.destroy_process_group()
+
+
+def _mesh_checks(torch, mesh, tmesh):
+    """The decisions `data_parallel_odeint` makes global and Parareal's
+    mesh gradient (phase 20 (b), `--mesh-cards`), float64 on this rank's
+    card, each against the single-device solve on it: kvaerno5 (its
+    Newton stage solves), implicit_adams (its corrector) and a dopri5 event
+    solve (a threshold on y[0, 0] halfway to its value at t=1, bisected to
+    atol 1e-12) on MESH_DEC_B spirals; the values and the gradients of
+    sum(ys**2) in y0, the MLP's parameters and t through
+    `odeint_parareal(mesh=tmesh)` on MESH_PAR_B spirals, 2 slices a rank,
+    against mesh=None.  Returns {name: [error relative to the largest
+    value, counters equal (Parareal: its values under autograd those of
+    its forward without, bit for bit)]}."""
+    from torchdiffeq_tpu_torch import odeint_with_stats
+    from torchdiffeq_tpu_torch.parallel import (data_parallel_odeint,
+                                                odeint_parareal)
+    model, y_big = _spiral(torch, torch.float64, mesh.device)
+    yd = y_big[:MESH_DEC_B].contiguous()
+    t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+    solve = data_parallel_odeint(odeint_with_stats, mesh)
+    out = {}
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    with torch.no_grad():
+        end = odeint_with_stats(model, yd, t, rtol=RTOL, atol=ATOL)[0][-1]
+        thr = float(0.5 * (yd[0, 0] + end[0, 0]))
+        cases = (("kvaerno5", t, dict(method="kvaerno5")),
+                 ("implicit_adams", t, dict(method="implicit_adams",
+                                            options=dict(step_size=0.025))),
+                 ("event", t[[0, -1]], dict(
+                     event_fn=lambda s, y: y[0, 0] - thr, atol=1e-12)))
+        for name, tt, kw in cases:
+            kw = dict(dict(rtol=RTOL, atol=ATOL), **kw)
+            got, st = solve(model, yd, tt, **kw)
+            want, st1 = odeint_with_stats(model, yd, tt, **kw)
+            if name == "event":
+                err = max(rel(got[0], want[0]), rel(got[1], want[1]))
+            else:
+                err = rel(got, want)
+            out[name] = [err, list(st[:5]) == list(st1[:5])]
+    tp = torch.linspace(0.0, 1.0, 2 * tmesh.shape["time"] + 1,
+                        dtype=torch.float64)
+    par = dict(rtol=RTOL, atol=ATOL, n_iters=2, axis="time")
+    with torch.no_grad():
+        ys_fwd = odeint_parareal(model, y_big[:MESH_PAR_B], tp, mesh=tmesh,
+                                 **par)
+    model.requires_grad_(True)
+    grads = []
+    for m in (tmesh, None):
+        y0 = y_big[:MESH_PAR_B].clone().requires_grad_(True)
+        tg = tp.clone().requires_grad_(True)
+        ys = odeint_parareal(model, y0, tg, mesh=m, **par)
+        grads.append([ys.detach()] + list(torch.autograd.grad(
+            (ys ** 2).sum(), [y0, tg, *model.parameters()])))
+    # the mesh's forward under autograd is its forward without, bit for bit
+    out["parareal_grad"] = [max(rel(a, b) for a, b in zip(*grads)),
+                            torch.equal(grads[0][0], ys_fwd)]
+    return out
+
+
+def _mesh_checks_ok(checks):
+    return all(err <= MESH_F64_REL and same for err, same in checks.values())
+
+
+def _parareal_step_ms(torch, mesh, dev):
+    """`--mesh-cards`: Parareal's forward and gradient step (phase 19's
+    float32 spiral field and B spirals as one state, 2 slices a card,
+    n_iters PAR_FAST_ITERS; the gradient of sum(ys[-1]**2) in y0 and the
+    parameters) on the cards' mesh and on this rank's card alone (every
+    rank at once), each the median of MESH_PAR_REPS after a warm one:
+    (mesh ms, one-card ms, the steps' values' relative difference)."""
+    from torchdiffeq_tpu_torch.parallel import odeint_parareal
+    model, y_big = _spiral(torch, torch.float32, dev)
+    model.requires_grad_(True)
+    y0 = y_big[:B].clone().requires_grad_(True)
+    tp = torch.linspace(0.0, 1.0, 2 * mesh.shape["time"] + 1,
+                        dtype=torch.float64)
+
+    def step(m):
+        ys = odeint_parareal(model, y0, tp, rtol=RTOL, atol=ATOL,
+                             n_iters=PAR_FAST_ITERS, mesh=m, axis="time")
+        g = torch.autograd.grad((ys[-1] ** 2).sum(),
+                                [y0, *model.parameters()])
+        return ys.detach(), g
+
+    out = {}
+    for name, m in (("mesh", mesh), ("one", None)):
+        step(m)
+        ms = []
+        for _ in range(MESH_PAR_REPS):
+            torch.cuda.synchronize()
+            w0 = time.perf_counter()
+            res = step(m)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - w0) * 1e3)
+        out[name] = (float(np.median(ms)), res[0])
+    diff = float((out["mesh"][1] - out["one"][1]).abs().max()
+                 / out["one"][1].abs().max())
+    return out["mesh"][0], out["one"][0], diff
 
 
 def _mesh_cards():
@@ -4225,10 +4407,13 @@ def _mesh_cards():
     (bit for bit, counters equal), Parareal's `mesh=` on 2N slices against
     the one-device scheme (bit for bit), the gradient of sum(ys[-1]**2) in
     the MLP's parameters through the sharded gather, all-reduced, against
-    the blocks' gradients summed on one rank, and the JAX dry run's
-    sharded training step (`_mesh_cards_step`; its ``--full-width`` step
-    timed, the only time taken).  Rank 0 prints every rank's results and
-    a last line ``mesh-cards ok``; exits non-zero otherwise."""
+    the blocks' gradients summed on one rank, the decisions
+    `data_parallel_odeint` makes global and Parareal's mesh gradient
+    (`_mesh_checks`), Parareal's forward and gradient step on the N cards
+    against one (`_parareal_step_ms`), and the JAX dry run's sharded
+    training step (`_mesh_cards_step`; its ``--full-width`` step timed).
+    Rank 0 prints every rank's results and a last line ``mesh-cards ok``;
+    exits non-zero otherwise."""
     import torch
     import torch.distributed as dist
     from torchdiffeq_tpu_torch import odeint_adjoint, odeint_with_stats
@@ -4278,6 +4463,11 @@ def _mesh_cards():
     g1 = sum(grad_of(odeint_adjoint(model, y0[i * b:(i + 1) * b], t, **kw))
              for i in range(n))
     out["sharded_grad_rel"] = float((g - g1).abs().max() / g1.abs().max())
+    model.requires_grad_(False)
+    tmesh = make_mesh({"time": -1})
+    out["checks"] = _mesh_checks(torch, mesh, tmesh)
+    (out["parareal_step_mesh_ms"], out["parareal_step_one_ms"],
+     out["parareal_step_rel"]) = _parareal_step_ms(torch, tmesh, dev)
     out.update(_mesh_cards_step(torch, n))
     res = [None] * dist.get_world_size()
     dist.all_gather_object(res, out)
@@ -4288,8 +4478,10 @@ def _mesh_cards():
              and r["step_f32_rel"][1] < r["jax_bounds"][1]
              and r["full_width_rel"][0] < r["jax_bounds"][0]
              and r["full_width_rel"][1] < r["jax_bounds"][1]
+             and _mesh_checks_ok(r["checks"])
              and all(v for k, v in r.items()
-                     if not k.endswith(("_rel", "_ms", "_bounds", "mesh")))
+                     if not k.endswith(("_rel", "_ms", "_bounds", "mesh",
+                                        "checks")))
              for r in res)
     if dist.get_rank() == 0:
         print(f"[mesh-cards] {_card()} | mesh {mesh.shape} on "
@@ -4432,6 +4624,11 @@ def _phase_mesh(torch, kernels, dev, summary):
            and all(x["device"].startswith("cuda") for x in res),
            f"{MESH_RANKS} ranks data_parallel vs single: {errs} of max|y|, "
            f"counters {[x['st'] for x in res]} vs {list(st_ref[:5])}")
+    checks = [x["checks"] for x in res]
+    _check(all(_mesh_checks_ok(c) for c in checks),
+           f"{MESH_RANKS} ranks, global decisions and Parareal's mesh "
+           f"gradient vs single (<= {MESH_F64_REL}, counters equal): "
+           f"{checks}")
     total = time.perf_counter() - p0
     print(f"[20a mesh, world of one] {card} | make_mesh on {backend}: "
           f"data_parallel_odeint, sharded_independent_odeint (spiral float64 "
@@ -4443,7 +4640,13 @@ def _phase_mesh(torch, kernels, dev, summary):
     print(f"[20b mesh, {MESH_RANKS} ranks on one card] {card} | gloo, "
           f"data_parallel_odeint spiral float64 B={MESH_B} dopri5: each rank "
           f"vs the single solve {['%.2e' % e for e in errs]} of max|y| (<= "
-          f"{MESH_F64_REL}), counters {res[0]['st']} equal on every rank")
+          f"{MESH_F64_REL}), counters {res[0]['st']} equal on every rank | "
+          f"global decisions on {MESH_DEC_B} spirals and Parareal's mesh "
+          f"gradient, each rank vs the single solve [max error of max|y|, "
+          f"counters equal]: "
+          + "; ".join(f"{k} " + ", ".join(f"[{c[k][0]:.2e}, {c[k][1]}]"
+                                          for c in checks)
+                      for k in checks[0]))
     print(f"[20 budget] phase 20 took {total:.1f} s (budget "
           f"{MESH_BUDGET_S} s)")
     _check(total <= MESH_BUDGET_S, f"phase 20 took {total:.1f} s")
@@ -5067,6 +5270,11 @@ def main():
         **dict(zip(("bound_ms", "bound_by"), _events_bound(st_ev.n_steps, B))),
         bound_ms_65536=_events_bound(ev_stp_big, BIG_B)[0],
         library_ms=None))
+
+    order2 = _order2_vs_plain(torch, kernels, dev)
+    for e in summary:
+        if e["name"] in order2:
+            e["order2_bitwise"] = order2[e["name"]]
 
     summary.append(_phase_fused(torch, fused_field, kernels, DOPRI5, dev))
 

@@ -482,6 +482,42 @@ def test_events_kernel_every_group_width(cuda, L, D, power, K):
     _assert_events_equal(got, want)
 
 
+# ---- C22: the order-2 methods' step-size power ------------------------------
+
+@pytest.mark.parametrize("method", ["fehlberg2", "adaptive_heun"])
+def test_order2_lane_kernels_equal_plain_bit_for_bit(cuda, method):
+    """fehlberg2 and adaptive_heun in float64: the initial step's and the
+    controller's x**(1/2) is the square root in the hand-written K-dopri5
+    and K-events instances, as PyTorch computes the plain versions' power
+    by 0.5.  On a field with no sum to reorder (D=1, H=1, power 1: each
+    product single, tanh the same libdevice call) every output, count and
+    NaN equals the plain version's bit for bit, with the default
+    controller and with a max_steps (the plain version's median step
+    count) that leaves half the lanes NaN."""
+    model, rng = _model(cuda, torch.float64, D=1, H=1, power=1, scale=1.0)
+    y0 = torch.from_numpy(rng.randn(1, 1000)).to(cuda)
+    kw = dict(ts=np.linspace(0.0, 1.0, 6), rtol=1e-5, atol=1e-7,
+              method=method)
+    full = kernels.dopri5_integrate_batched_ref(model, y0, 0.0, 1.0, **kw)
+    median = int(full[2].double().median())
+    event, sign0 = _lane_event(cuda, torch.float64, y0)
+    ekw = dict(rtol=1e-5, atol=1e-7, method=method, ev_params=(sign0,))
+    for max_steps in (10_000, median):
+        got = kernels.dopri5_integrate_batched(model, y0, 0.0, 1.0,
+                                               max_steps=max_steps, **kw)
+        want = kernels.dopri5_integrate_batched_ref(
+            model, y0, 0.0, 1.0, max_steps=max_steps, **kw)
+        got_e = kernels.dopri5_events_batched(model, y0, 0.0, event,
+                                              max_steps=max_steps, **ekw)
+        want_e = kernels.dopri5_events_batched_ref(
+            model, y0, 0.0, event, max_steps=max_steps, **ekw)
+        torch.cuda.synchronize()
+        for g, w in zip((*got, *got_e), (*want, *want_e)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+        assert (bool(torch.isnan(want[0]).any())
+                == (max_steps == median))
+
+
 # ---- dopri8 and D > 8: the shared-memory instances --------------------------
 
 # (D, power, scale, method, value tolerance): dopri8's 14 stages at D=2, a

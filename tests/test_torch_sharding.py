@@ -10,11 +10,17 @@ The port runs one process a rank: one module-wide launch of 4 CPU ranks
 temporary directory, one thread each; `torch_sharding_ranks.py`) runs
 every case and writes its results to files, which the tests below read.
 JAX runs here, on a mesh of 4 of the 8 virtual CPU devices that
-conftest.py makes, so the shard counts match.  The ranks import no JAX.
+conftest.py makes, so the shard counts match; its references are computed
+while the ranks run.  The ranks import no JAX.
 Tolerances: values to 1e-12 of the largest (rtol 1e-10 for Parareal, as
 JAX's own test), Stats counters exactly, gradients to 1e-9 of the largest
 against JAX's shard_map + psum and to JAX's own 1e-5 against one
-device.  The sharded training step: float64 losses and gradients to
+device.  The data-parallel solves whose decisions go beyond the error
+norm (stage solves, Adams correctors, SciPy, an event function), each
+decision made global: values to 1e-12 of the largest against the port's
+one-device solve and JAX's, counters and stage iterations exact;
+Parareal's mesh gradient to 1e-12 of the largest against mesh=None and to
+1e-9 against JAX's.  The sharded training step: float64 losses and gradients to
 1e-12 of the largest against JAX's one-device step (its shared
 controller takes the one-device steps, so only the blocks' and shards'
 summation order differs: 3.8e-16 measured), float32 to the dry run's own
@@ -51,6 +57,8 @@ from torchdiffeq_tpu_torch.parallel import (data_parallel_odeint, make_mesh,
                                             odeint_parareal,
                                             sharded_independent_odeint,
                                             tensor_parallel_mlp)
+from torch_sharding_ranks import (DP_DECISIONS, DP_TOLS, PAR_A, PAR_W,
+                                  relax_y0)
 
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      'torch_sharding_ranks.py')
@@ -135,6 +143,11 @@ def ranks(tmp_path_factory):
                 arrays[f'{k}{i + 1}_{name}'] = np.asarray(v)
     np.savez(os.path.join(out, 'spiral_params.npz'), **arrays)
     launch = _Launch(out, 'mesh', WORLD)
+    # the JAX references of the mesh's global decisions and gradients,
+    # while the ranks run
+    for name, _, _ in DP_DECISIONS:
+        _jax_decision(name)
+    _jax_parareal_grads()
     yield launch
     launch.close()
 
@@ -209,7 +222,7 @@ def test_parareal_mesh_matches_jax(ranks):
     """test_mesh_execution_matches_vmap with 8 slices over 4 ranks: equal
     to JAX's mesh run at its rtol 1e-10, and to the port's one-device run
     exactly (every slice has its own controller either way); 6 slices do
-    not divide, with JAX's message; under autograd the mesh refuses."""
+    not divide, with JAX's message."""
     from test_parareal import _stiffish_field
     mesh = _jmesh({'time': WORLD})
     y0, t = jnp.array([1.0, 0.3]), jnp.linspace(0., 4., 9)
@@ -224,7 +237,44 @@ def test_parareal_mesh_matches_jax(ranks):
                                    atol=1e-12)
         assert np.array_equal(res['ys_m'], res['ys_v'])
         assert res['indivisible'] == str(err_j.value)
-        assert 'forward-only' in res['autograd']
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_parareal_grads():
+    """jax.grad of sum(ys**2) through JAX's mesh Parareal (8 slices over 4
+    devices) in y0, W, the args scale a and t."""
+    mesh = _jmesh({'time': WORLD})
+
+    def loss(y0, W, a, tt_):
+        ys = j_parareal(lambda s, y, W_, a_: a_ * (W_ @ y), y0, tt_,
+                        rtol=1e-8, atol=1e-10, n_iters=3, mesh=mesh,
+                        axis='time', args=(W, a))
+        return jnp.sum(ys ** 2)
+
+    g_j = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
+        jnp.array([1.0, 0.3]), jnp.asarray(PAR_W), jnp.asarray(PAR_A),
+        jnp.linspace(0., 4., 9))
+    return dict(zip(('y0', 'w', 'a', 't'), (np.asarray(g) for g in g_j)))
+
+
+def test_parareal_mesh_gradients_match_jax(ranks):
+    """Parareal's mesh under autograd, 8 slices over 4 ranks: the
+    gradients of sum(ys**2) in y0, a Module's W, an args tensor and t are
+    the same on every rank (the global gradient, counted once), within
+    1e-12 of the largest of the port's mesh=None and within 1e-9 of JAX's
+    jax.grad through its mesh Parareal on 4 devices; the mesh's forward
+    under autograd is its forward without, bit for bit, and mesh=None's
+    to 1e-12."""
+    g_j = _jax_parareal_grads()
+    out = [res['grads'] for res in _case(ranks, 'parareal')]
+    for g in out:
+        assert np.array_equal(g['mesh']['ys'], g['forward'])
+        _rel(g['mesh']['ys'], g['one']['ys'], 1e-12)
+        for key in ('y0', 'w', 'a', 't'):
+            _rel(g['mesh'][key], g['one'][key], 1e-12)
+            _rel(g['mesh'][key], g_j[key], 1e-9)
+    for key in ('y0', 'w', 'a', 't'):
+        _same_on_every_rank([g['mesh'][key] for g in out])
 
 
 def test_event_times_on_a_sharded_batch(ranks):
@@ -333,19 +383,79 @@ def test_data_parallel_explicit_routes_match_single_device(ranks, method):
         assert got['st'] == got['st1'] == _counters(st_j)
 
 
-@pytest.mark.parametrize("name", ['kvaerno5', 'implicit_euler',
-                                  'implicit_adams', 'scipy_solver',
-                                  'event_fn'])
-def test_data_parallel_refuses_local_decisions(ranks, name):
-    """A solve that decides by more than the error norm -- a stage
-    solve's Newton test, an Adams corrector's, SciPy's controller, an event
-    function -- would see one rank's block, and the ranks would part ways:
-    data_parallel_odeint raises NotImplementedError on every rank, before
-    any collective."""
-    for res in _case(ranks, 'data_parallel'):
-        msg = res['refused'][name]
-        assert msg is not None and 'one' in msg and 'block' in msg
-        assert ('event function' in msg) == (name == 'event_fn')
+def _jrelax(s, y):
+    """`torch_sharding_ranks.relax` in JAX."""
+    k = jnp.exp(y[:, 2:])
+    target = jnp.stack([jnp.cos(s), jnp.sin(s)])
+    dy = -k * (y[:, :2] - target) - 0.5 * y[:, :2] ** 3
+    return jnp.concatenate([dy, jnp.zeros_like(k)], axis=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_decision(name):
+    """JAX's single-device solve of DP_DECISIONS' case `name`: ((event
+    time or None), ys, counters).  SciPy's bridge (its callback closes
+    over the problem) and a grid constructor that reads the state run
+    outside jit, their field jitted."""
+    _, k, kw = next(c for c in DP_DECISIONS if c[0] == name)
+    kw = dict(DP_TOLS, **kw)
+    event = 'event_fn' in kw
+    if event:
+        kw['event_fn'] = lambda s, y: y[0, 0] - 0.5
+    t = jnp.array([0., 1.]) if event else jnp.linspace(0., 1., 3)
+    if (kw.get('method') == 'scipy_solver'
+            or 'grid_constructor' in kw.get('options', {})):
+        run = lambda y: tde.odeint_with_stats(  # noqa: E731
+            jax.jit(_jrelax), y, t, **kw)
+    else:
+        run = jax.jit(lambda y: tde.odeint_with_stats(_jrelax, y, t, **kw))
+    out, st = run(jnp.asarray(relax_y0(k)))
+    et, ys = out if event else (None, out)
+    return (None if et is None else float(et)), np.asarray(ys), \
+        _counters(st)
+
+
+@pytest.mark.parametrize("name", [c[0] for c in DP_DECISIONS])
+def test_data_parallel_local_decisions_match_single_device(ranks, name):
+    """test_data_parallel_solve_matches_single_device for the solves that
+    decide by more than the error norm -- the stage solves (Newton's and
+    Broyden's), the Adams corrector, SciPy's controller, an event
+    function, a grid constructor that reads the state -- each decision
+    now read from the global state: on 4 ranks
+    the values equal the port's single-device solve and JAX's to 1e-12 of
+    max|y| (an event time to 1e-12), the counters exact and the same on
+    every rank, and each rank's stage and corrector iterations
+    (`IMPLICIT_COUNTS`) the single device's."""
+    et_j, ys_j, st_j = _jax_decision(name)
+    out = [res[name] for res in _case(ranks, 'decisions')]
+    one = next(res for res in out if 'one' in res)
+    _rel(one['one']['ys'], ys_j, 1e-12)
+    assert one['one']['st'] == st_j
+    for res in out:
+        _rel(res['mesh']['ys'], one['one']['ys'], 1e-12)
+        _rel(res['mesh']['ys'], ys_j, 1e-12)
+        assert res['mesh']['st'] == st_j
+        assert res['mesh']['counts'] == one['one']['counts']
+        if et_j is not None:
+            assert abs(res['mesh_et'] - one['one_et']) <= 1e-12
+            assert abs(res['mesh_et'] - et_j) <= 1e-12
+    _same_on_every_rank([res['mesh']['ys'] for res in out])
+
+
+@pytest.mark.parametrize("name", ['kvaerno5', 'implicit_euler'])
+def test_data_parallel_unequal_stiffness_takes_single_device_iterations(
+        ranks, name):
+    """Blocks of unequal stiffness (rate 1 on ranks 0-1, 500 for Newton's
+    and 20 for Broyden's stage solves on ranks 2-3): the solve ends, every
+    rank takes the single device's stage iterations, linear solves and
+    Jacobians, and the stiff blocks' iterations set them all (more than
+    the steps' stages alone)."""
+    out = [res[name] for res in _case(ranks, 'decisions')]
+    one = next(res for res in out if 'one' in res)['one']
+    for res in out:
+        assert res['mesh']['counts'] == one['counts']
+        assert res['mesh']['st'][4] == 0
+    assert one['counts']['iterations'] > one['st'][1]
 
 
 # ---- the sharded training step of __graft_entry__.dryrun_multichip ----------
@@ -463,7 +573,9 @@ def test_tensor_parallel_field_matches_mlp(ranks):
 
 @pytest.mark.parametrize("name", ['fixed_grid', 'replay_grad',
                                   'forward_grad', 'interpolated',
-                                  'implicit_adjoint', 'callable_norm'])
+                                  'implicit_adjoint', 'callable_norm',
+                                  'implicit_fixed_grid', 'event_solve',
+                                  'adams_adjoint', 'scipy_adjoint'])
 def test_data_parallel_refuses_gradient_routes(ranks, name):
     """The gradient routes data_parallel_odeint does not take raise
     NotImplementedError on all 4 ranks, from the arguments alone, before
@@ -472,6 +584,18 @@ def test_data_parallel_refuses_gradient_routes(ranks, name):
         msg = res['refused'][name]
         assert msg is not None and msg.startswith('data_parallel_odeint')
         assert res['after'] == WORLD
+
+
+def test_data_parallel_implicit_forward_gradient_matches_single_device(
+        ranks):
+    """kvaerno5 forward, dopri5 backward (the continuous adjoint), at
+    {'data': 4}: the forward's stage solves global, every rank's gradient
+    of an args scale w is the port's one-device gradient within 1e-12,
+    the same on every rank."""
+    out = [res['implicit'] for res in _case(ranks, 'grad_routes')]
+    for g_dp, g_one in out:
+        _rel(g_dp, g_one, 1e-12)
+    _same_on_every_rank([g[0] for g in out])
 
 
 def test_data_parallel_closure_gradient_matches_jax(ranks):

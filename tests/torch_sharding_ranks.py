@@ -69,15 +69,96 @@ def _dp_problem():
     return t, y0
 
 
-# data_parallel_odeint's routes beyond dopri5, and the solves it refuses
+# data_parallel_odeint's routes beyond dopri5
 DP_ROUTES = [('tsit5', None), ('rk4', dict(num_steps=8))]
-DP_REFUSED = [('kvaerno5', dict(method='kvaerno5')),
-              ('implicit_euler', dict(method='implicit_euler',
-                                      options=dict(num_steps=8))),
-              ('implicit_adams', dict(method='implicit_adams')),
-              ('scipy_solver', dict(method='scipy_solver',
-                                    options=dict(solver='RK45'))),
-              ('event_fn', dict(event_fn=lambda s, y: y[0, 0] - 0.5))]
+
+
+def relax(s, y):
+    """Each row relaxes at its own rate exp(q), q its third entry (constant),
+    toward (cos s, sin s), with a cubic damping: row-wise, so a block's
+    Newton Jacobian is the global one's diagonal block."""
+    k = torch.exp(y[:, 2:])
+    target = torch.cat([torch.cos(s).reshape(1), torch.sin(s).reshape(1)])
+    dy = -k * (y[:, :2] - target) - 0.5 * y[:, :2] ** 3
+    return torch.cat([dy, torch.zeros_like(k)], dim=1)
+
+
+def relax_y0(k):
+    """16 rows: rate 1 on ranks 0-1's blocks and `k` on ranks 2-3's."""
+    r = np.arange(16.0)
+    q = np.where(r < 8, 0.0, np.log(k))
+    return np.stack([1.0 + 0.05 * r, 0.5 - 0.02 * r, q], axis=1)
+
+
+def state_grid(y, t):
+    """A grid of 1 + 8 max|y[:, 0]| steps (rounded down) over [t0, t1]: a
+    grid_constructor that reads the whole batch's state (numpy, so JAX's
+    solve takes it too)."""
+    n = 1 + int(8 * float(abs(y[:, 0]).max()))
+    return np.linspace(float(t[0]), float(t[-1]), n + 1)
+
+
+# the solves whose decisions beyond the error norm are made global: (name,
+# the stiff blocks' rate, keywords).  Blocks of unequal stiffness: the
+# Newton tiers at rate 500 against 1, Broyden's (from the identity) at 20;
+# the Adams and event solves on a mild problem.  t = linspace(0, 1, 3)
+# (an event solve's [0, 1]); rtol 1e-8, atol 1e-10 unless given (the
+# adaptive stiff solves at 1e-6 and 1e-8, kvaerno3 at 1e-5 and 1e-7, to
+# keep their steps to tens on the CPU)
+_ADAMS = dict(num_steps=20, max_order=4)
+_STIFF = dict(rtol=1e-6, atol=1e-8)
+DP_TOLS = dict(rtol=1e-8, atol=1e-10)
+DP_DECISIONS = [
+    ('kvaerno5', 500.0, dict(method='kvaerno5', **_STIFF)),
+    ('radau5a', 500.0, dict(method='radau5a', **_STIFF)),
+    ('kvaerno3', 500.0, dict(method='kvaerno3', rtol=1e-5, atol=1e-7)),
+    ('implicit_euler', 20.0, dict(method='implicit_euler',
+                                  options=dict(num_steps=10))),
+    ('implicit_euler_newton', 500.0, dict(
+        method='implicit_euler', options=dict(num_steps=10,
+                                              root_solver='newton'))),
+    ('trbdf2', 20.0, dict(method='trbdf2', options=dict(num_steps=10))),
+    ('gl4', 20.0, dict(method='gl4', options=dict(num_steps=10))),
+    ('implicit_adams', 2.0, dict(method='implicit_adams', options=_ADAMS)),
+    ('explicit_adams', 2.0, dict(method='explicit_adams', options=_ADAMS)),
+    ('scipy_solver', 500.0, dict(method='scipy_solver',
+                                 options=dict(solver='LSODA'), **_STIFF)),
+    ('grid_constructor', 2.0, dict(method='rk4', options=dict(
+        grid_constructor=lambda f, y, t: state_grid(y, t)))),
+    # the bisection resolves the event time to atol: 1e-12 here, since at
+    # 1e-10 JAX's and the port's single-device event times, whose steps
+    # round apart, stop 3e-11 apart
+    ('event_fn', 2.0, dict(event_fn=lambda s, y: y[0, 0] - 0.5,
+                           atol=1e-12)),
+]
+
+
+def case_decisions(rank):
+    """Every DP_DECISIONS solve through data_parallel_odeint on 4 ranks,
+    with its `Stats` and `IMPLICIT_COUNTS`; the single-device solve of
+    case i on rank i % 4 (the ranks share the CPU's time)."""
+    from torchdiffeq_tpu_torch.solvers.solution import (
+        IMPLICIT_COUNTS, reset_implicit_counts)
+    mesh = make_mesh({'data': 4}, device_type='cpu')
+    solve = data_parallel_odeint(tt.odeint_with_stats, mesh)
+    out = {}
+    for i, (name, k, kw) in enumerate(DP_DECISIONS):
+        y0 = torch.from_numpy(relax_y0(k))
+        t = torch.linspace(0., 1., 2 if 'event_fn' in kw else 3, dtype=F64)
+        out[name] = {}
+        runs = [('mesh', solve)]
+        if i % 4 == rank:
+            runs.append(('one', tt.odeint_with_stats))
+        for which, run in runs:
+            reset_implicit_counts()
+            with torch.no_grad():
+                ys, st = run(relax, y0, t, **dict(DP_TOLS, **kw))
+            if 'event_fn' in kw:
+                out[name][which + '_et'] = float(ys[0])
+                ys = ys[1]
+            out[name][which] = dict(ys=_np(ys), st=_counters(st),
+                                    counts=dict(IMPLICIT_COUNTS))
+    return out
 
 
 def case_data_parallel(rank):
@@ -101,11 +182,6 @@ def case_data_parallel(rank):
                                           t, **kwm)
         routes[method] = dict(ys=_np(ysm), st=_counters(stm), ys1=_np(ysm1),
                               st1=_counters(stm1))
-    # the solves with decisions other than the norm's raise, before any
-    # collective
-    refused = {name: _raises(lambda: solve(lambda s, y: -y, y0, t, **kwr),
-                             NotImplementedError)
-               for name, kwr in DP_REFUSED}
     # under autograd (plain odeint, the continuous adjoint): the global
     # gradient of an args tensor on every rank, the one-device solve's
     grads = []
@@ -118,7 +194,7 @@ def case_data_parallel(rank):
     return dict(
         ys=_np(ys), st=_counters(st), ys1=_np(ys1), st1=_counters(st1),
         ysd={k: _np(v) for k, v in ysd.items()}, std=_counters(std),
-        routes=routes, refused=refused,
+        routes=routes,
         user_norm=_raises(lambda: solve(lambda s, y: -y, y0, t, options=dict(
             norm=lambda x: x.abs().max())), NotImplementedError),
         indivisible=_raises(lambda: solve(lambda s, y: -y, y0[:6], t),
@@ -209,24 +285,53 @@ def stiffish(s, y):
     return torch.stack([-0.5 * y[0] + 2.0 * y[1], -2.0 * y[0] - 0.5 * y[1]])
 
 
+class Stiffish(torch.nn.Module):
+    """`stiffish` as ``a * (y @ W.T)``, W a parameter: W = [[-0.5, 2],
+    [-2, -0.5]] and a = 1 give it back."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.tensor(PAR_W, dtype=F64))
+
+    def forward(self, s, y, a):
+        return a * (y @ self.w.T)
+
+
+PAR_W = [[-0.5, 2.0], [-2.0, -0.5]]
+PAR_A = 1.1
+
+
 def case_parareal(rank):
     """8 slices over 4 ranks, against the one-device scheme; 6 slices do
-    not divide."""
+    not divide.  Under autograd, the gradients of y0, the Module's W, an
+    args tensor and t of sum(ys**2), on the mesh and with mesh=None, and
+    the mesh's forward without autograd."""
     mesh = make_mesh({'time': 4}, device_type='cpu')
     y0 = torch.tensor([1.0, 0.3], dtype=F64)
     t = torch.linspace(0., 4., 9, dtype=F64)
     kw = dict(rtol=1e-8, atol=1e-10, n_iters=3)
     ys_m = odeint_parareal(stiffish, y0, t, mesh=mesh, axis='time', **kw)
     ys_v = odeint_parareal(stiffish, y0, t, **kw)
-    y0g = y0.clone().requires_grad_(True)
+    with torch.no_grad():
+        ys_f = odeint_parareal(Stiffish(), y0, t, mesh=mesh, axis='time',
+                               args=(torch.tensor(PAR_A, dtype=F64),), **kw)
+    grads = {'forward': _np(ys_f)}
+    for name, m in (('mesh', mesh), ('one', None)):
+        field = Stiffish()
+        a = torch.tensor(PAR_A, dtype=F64, requires_grad=True)
+        y0g = y0.clone().requires_grad_(True)
+        tg = t.clone().requires_grad_(True)
+        ys = odeint_parareal(field, y0g, tg, mesh=m, axis='time',
+                             args=(a,), **kw)
+        (ys ** 2).sum().backward()
+        grads[name] = dict(ys=_np(ys), y0=_np(y0g.grad),
+                           w=_np(field.w.grad), a=_np(a.grad),
+                           t=_np(tg.grad))
     return dict(
-        ys_m=_np(ys_m), ys_v=_np(ys_v),
+        ys_m=_np(ys_m), ys_v=_np(ys_v), grads=grads,
         indivisible=_raises(lambda: odeint_parareal(
             stiffish, y0, torch.linspace(0., 4., 7, dtype=F64), mesh=mesh,
-            axis='time', **kw), ValueError),
-        autograd=_raises(lambda: odeint_parareal(
-            stiffish, y0g, t, mesh=mesh, axis='time', **kw),
-            NotImplementedError))
+            axis='time', **kw), ValueError))
 
 
 def case_shard_params(rank):
@@ -371,6 +476,13 @@ DP_GRAD_REFUSED = [
     ('implicit_adjoint', tt.odeint_adjoint, dict(adjoint_method='kvaerno5')),
     ('callable_norm', tt.odeint_adjoint,
      dict(adjoint_options=dict(norm=lambda x: x[0].abs()))),
+    ('implicit_fixed_grid', tt.odeint,
+     dict(method='implicit_euler', options=dict(num_steps=4))),
+    ('event_solve', tt.odeint, dict(event_fn=lambda s, y: y[0, 0] - 0.5)),
+    ('adams_adjoint', tt.odeint_adjoint,
+     dict(adjoint_method='implicit_adams')),
+    ('scipy_adjoint', tt.odeint_adjoint,
+     dict(adjoint_method='scipy_solver')),
 ]
 
 
@@ -389,13 +501,25 @@ def case_grad_routes(rank):
             NotImplementedError)
     after = torch.ones(1)
     dist.all_reduce(after, group=mesh.group('data'))
+    # an implicit forward method under the continuous adjoint with an
+    # explicit adjoint method: the global gradient, the one-device one's
+    implicit = []
+    for run in (data_parallel_odeint(tt.odeint_adjoint, mesh),
+                tt.odeint_adjoint):
+        w = torch.tensor(1.0, dtype=F64, requires_grad=True)
+        ysw = run(lambda s, y, ww: ww * relax(s, y),
+                  torch.from_numpy(relax_y0(2.0)), t, rtol=1e-8, atol=1e-10,
+                  args=(w,), method='kvaerno5', adjoint_method='dopri5')
+        (ysw[-1] ** 2).sum().backward()
+        implicit.append(float(w.grad))
     y0c, tgt, tc = _grad_problem()
     Wt = torch.tensor(W, requires_grad=True)
     ys = data_parallel_odeint(tt.odeint_adjoint, mesh)(
         lambda s, y: torch.tanh(y) @ Wt.T, y0c, tc, rtol=1e-8, atol=1e-10,
         adjoint_params=(Wt,))
     ((ys[-1] - tgt) ** 2).sum().backward()
-    return dict(refused=refused, after=float(after), closure=_np(Wt.grad))
+    return dict(refused=refused, after=float(after), closure=_np(Wt.grad),
+                implicit=implicit)
 
 
 def case_demo(rank):
@@ -408,6 +532,7 @@ def case_demo(rank):
 
 SUITES = {
     'mesh': [('mesh', case_mesh), ('data_parallel', case_data_parallel),
+             ('decisions', case_decisions),
              ('sharded', case_sharded), ('adjoint', case_adjoint),
              ('events', case_events), ('parareal', case_parareal),
              ('shard_params', case_shard_params), ('step', case_step),

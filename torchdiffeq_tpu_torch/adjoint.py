@@ -64,9 +64,9 @@ import numpy as np
 import torch
 
 from .misc import (CALLBACK_NAMES, autograd_lane_jacobian, check_inputs,
-                   flatten_state, host_times, is_tree_state, mixed_norm,
-                   ravel_leaves, real_dtype, real_part, rms_norm, time_effect,
-                   time_sign, tree_leaves)
+                   data_axis, flatten_state, host_times, is_tree_state,
+                   mixed_norm, ravel_leaves, real_dtype, real_part, rms_norm,
+                   time_effect, time_sign, tree_leaves)
 from .solvers import SOLVERS, needs_jacobian
 
 
@@ -308,14 +308,15 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     y_of = None if rec_sol is None else (
         lambda s: rec_sol._eval_internal(float(s)))
 
-    # a rank of a data-parallel solve holds one block of the batch
-    # (`parallel.sharding`'s `batch_sum`): the rates of vjp_t and theta_bar,
-    # sums over the batch, are summed over the blocks at every evaluation,
-    # as XLA's partitioning sums them, so that every rank carries the
-    # global vjp_t and theta_bar.  Summing shares at the norm instead would
-    # not do: the error control scales each entry by atol + rtol * |entry|
-    # before the norm sees it, and a share's scale is not the sum's.
-    batch_sum = getattr(func, 'batch_sum', None)
+    # a rank of a data-parallel solve holds one block of the batch (the
+    # forward's `misc.data_axis`, `parallel.sharding`): the rates of vjp_t
+    # and theta_bar, sums over the batch, are summed over the blocks at
+    # every evaluation, as XLA's partitioning sums them, so that every rank
+    # carries the global vjp_t and theta_bar.  Summing shares at the norm
+    # instead would not do: the error control scales each entry by atol +
+    # rtol * |entry| before the norm sees it, and a share's scale is not
+    # the sum's.
+    batch_sum = None if spec.data_axis is None else spec.data_axis.sum
 
     def f_dir(s, y):
         """The field in the internal increasing frame: sign * f(sign * s)."""
@@ -677,7 +678,7 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
         user_state_norm=(options or {}).get('norm'),
         interp_max_segments=interp_max_segments,
         module_params=module_params, arg_tensors=arg_tensors,
-        t_tensor=t_tensor, stats=None)
+        t_tensor=t_tensor, stats=None, data_axis=data_axis())
     out = _AdjointOp.apply(spec, y0_in, t_tensor, *module_params,
                            *arg_tensors)
     if event_fn is None:

@@ -175,15 +175,20 @@ __device__ __forceinline__ bool fsal_of(const Tab& tab) {
     return tab.fsal;
 }
 
-// x^(1/order), the power of the initial step and of the controller: with
-// a compiled tableau, as PyTorch's power by a scalar computes it (the
-// plain versions' `x ** inv_order`): the square root for order 2
-// (fehlberg2, adaptive_heun), pow otherwise.  A run-time tableau's order is
-// known only at run time, and the hand-written instances take pow.
+// x^(1/order), the power of the initial step and of the controller, as
+// PyTorch's power by a scalar computes it (the plain versions'
+// `x ** inv_order`): the square root for order 2 (fehlberg2,
+// adaptive_heun), pow otherwise.  A run-time tableau (the hand-written
+// instances) makes the choice at run time, a compiled one at compile time.
+template <typename T>
+__device__ __forceinline__ T pow_inv_order_rt(T x, T inv_order) {
+  return inv_order == T(0.5) ? dsqrt<T>(x) : dpow<T>(x, inv_order);
+}
+
 template <typename T, typename Tab>
 __device__ __forceinline__ T pow_inv_order(const Tab& tab, T x) {
   if constexpr (!Tab::kCompiled)
-    return dpow<T>(x, tab.inv_order);
+    return pow_inv_order_rt<T>(x, tab.inv_order);
   else if constexpr (Tab::inv_order == 0.5)
     return dsqrt<T>(x);
   else
@@ -477,7 +482,7 @@ struct WideLane {
     const T d_max = nmax(d1, d2);
     const T h1 = (d1 <= T(1e-15) && d2 <= T(1e-15))
                      ? nmax(T(1e-6), h0 * T(1e-3))
-                     : dpow<T>(T(0.01) / nmax(d_max, tiny<T>()), inv_order);
+                     : pow_inv_order_rt<T>(T(0.01) / nmax(d_max, tiny<T>()), inv_order);
     g.sync();
     return nmin(T(100) * h0, h1);
   }

@@ -24,6 +24,7 @@ sample's own.
 """
 from __future__ import annotations
 
+import contextvars
 import enum
 import warnings
 from collections import OrderedDict
@@ -160,6 +161,19 @@ def needs_autograd(func, *tensors):
         tensors = tensors + tuple(func.parameters())
     return any(isinstance(x, torch.Tensor) and x.requires_grad
                for x in tensors)
+
+
+# The data axis of the `parallel.data_parallel_odeint` solve in progress
+# (`parallel.sharding._DataAxis`; the `sharding` module docstring): each
+# rank holds one block of the batch, and a decision that reads the state
+# reduces over the axis through it.  None off the mesh, where every solver
+# takes its own arithmetic.
+DATA_AXIS = contextvars.ContextVar('data_axis', default=None)
+
+
+def data_axis():
+    """The data axis of the solve in progress (`DATA_AXIS`), or None."""
+    return DATA_AXIS.get()
 
 
 def nan_sign(x):

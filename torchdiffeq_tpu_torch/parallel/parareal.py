@@ -29,16 +29,30 @@ rank fine-solves its contiguous block of slices with its own controllers
 and the slice ends are gathered over ``mesh[axis]`` (JAX's ``shard_map``
 of the fine sweep, parareal.py:111-126); the coarse sweep runs replicated
 on every rank.  Every slice has its own controller either way, so the
-result is the one-device one.  The mesh path is forward-only: under
-autograd it raises `NotImplementedError` (`sharding` module docstring).
+result is the one-device one.
+
+Under autograd every rank calls with the same global inputs and receives
+the global gradient, counted once, as under
+`sharding.data_parallel_odeint`.  The coarse sweeps are replicated, so
+their backward is the same on every rank; the fine sweep is one autograd
+Function (`_MeshFineSweep`), whose backward hands every rank the global
+fine cotangents: each rank takes the vector-Jacobian product of its own
+slices (their continuous adjoints, with no collective), then one
+all-gather brings every rank's slice heads' and spans' (that is, `t`'s)
+cotangent blocks, and one all-reduce sums the cotangents of the field's
+parameters and `args` tensors over the ranks.  Two collectives a fine
+sweep, whatever the slices' step counts, so the ranks never part ways.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..misc import (flatten_state, is_tree_state, needs_autograd,
-                    ravel_leaves, tree_leaves)
+                    ravel_leaves, real_part, tree_leaves)
 from .batched import odeint_spans_with_stats
 from .sharding import _all_gather_blocks, _axis
 
@@ -75,6 +89,74 @@ def _flat_problem(func, y0):
     else:
         raise TypeError("y0 must be a torch.Tensor or a pytree of tensors")
     return _FlatField(func, unravel), y0_flat, unravel
+
+
+class _MeshFineSweep(torch.autograd.Function):
+    """``(U_heads (S, n), spans (S, 2), *params) -> ends (S, n)``: the
+    mesh's fine sweep under autograd (module docstring).  The forward
+    solves this rank's slices (`fine(U_mine, spans_mine)`, recording their
+    continuous adjoints on the real parameters) and gathers the slice ends
+    over `group`; the backward returns the global cotangents of the heads,
+    the spans and `params` on every rank."""
+
+    @staticmethod
+    def forward(ctx, fine, mine, group, U_heads, spans, *params):
+        need = ctx.needs_input_grad
+        with torch.enable_grad():
+            u = U_heads.detach()[mine].requires_grad_(need[3])
+            sp = spans.detach()[mine].requires_grad_(need[4])
+            ends = fine(u, sp)
+        ctx.mine, ctx.group, ctx.graph = mine, group, (ends, u, sp, params)
+        parts = [torch.empty_like(ends) for _ in range(dist.get_world_size(
+            group))]
+        dist.all_gather(parts, ends.detach().contiguous(), group=group)
+        return torch.cat(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        ends, u, sp, params = ctx.graph
+        ctx.graph = None
+        xs = (u, sp, *params)
+        got = iter(torch.autograd.grad(
+            ends, [x for x in xs if x.requires_grad], g[ctx.mine],
+            allow_unused=True))
+        grads = [None] * len(xs)
+        for i, x in enumerate(xs):
+            if x.requires_grad:
+                v = next(got)
+                grads[i] = torch.zeros_like(x) if v is None else v
+        world = dist.get_world_size(ctx.group)
+        # the collectives run on the state's device (a card's, for NCCL);
+        # the times and an args tensor may lie on the CPU
+        dev = u.device
+        # every rank's heads' and spans' cotangent blocks, one all-gather
+        gu, gsp = (torch.zeros_like(x) if v is None else v
+                   for v, x in zip(grads[:2], (u, sp)))
+        wide = torch.promote_types(gu.dtype, gsp.dtype)
+        blocks = torch.cat([gu.to(wide), gsp.to(dev, wide)], dim=1)
+        parts = [torch.empty_like(blocks) for _ in range(world)]
+        dist.all_gather(parts, blocks, group=ctx.group)
+        full = torch.cat(parts)
+        n = gu.shape[1]
+        if grads[0] is not None:
+            grads[0] = full[:, :n].to(gu.dtype)
+        if grads[1] is not None:
+            grads[1] = real_part(full[:, n:]).to(sp.device, sp.dtype)
+        # the parameters' cotangents summed over the ranks, one all-reduce
+        live = [i for i in range(2, len(xs)) if grads[i] is not None]
+        if live:
+            wide = functools.reduce(torch.promote_types,
+                                    [grads[i].dtype for i in live],
+                                    torch.float64)
+            flat = torch.cat([grads[i].reshape(-1).to(dev, wide)
+                              for i in live])
+            dist.all_reduce(flat, group=ctx.group)
+            for i, part in zip(live, torch.split(
+                    flat, [grads[i].numel() for i in live])):
+                x = xs[i]
+                part = part if x.is_complex() else real_part(part)
+                grads[i] = part.reshape(x.shape).to(x.device, x.dtype)
+        return (None, None, None, *grads)
 
 
 def odeint_parareal(func, y0, t, *, rtol=1e-7, atol=1e-9, method=None,
@@ -123,6 +205,7 @@ def odeint_parareal_with_info(func, y0, t, *, rtol=1e-7, atol=1e-9,
         raise ValueError("n_iters must be >= 1")
     args = tuple(args)
     mine = slice(None)            # the slices this process fine-solves
+    grad = False
     if mesh is not None:
         group, n_shards, coord = _axis(mesh, axis)
         if S % n_shards != 0:
@@ -130,10 +213,7 @@ def odeint_parareal_with_info(func, y0, t, *, rtol=1e-7, atol=1e-9,
                 f"the mesh axis '{axis}' size ({n_shards}) must divide "
                 f"the T-1={S} time slices")
         from ..adjoint import _tensors_in
-        if needs_autograd(func, *tree_leaves(y0), t, *_tensors_in(args)):
-            raise NotImplementedError(
-                "odeint_parareal(mesh=...) is forward-only: mesh=None "
-                "differentiates the one-device scheme")
+        grad = needs_autograd(func, *tree_leaves(y0), t, *_tensors_in(args))
         per = S // n_shards
         mine = slice(coord * per, (coord + 1) * per)
     flat_func, y0_flat, unravel = _flat_problem(func, y0)
@@ -141,12 +221,23 @@ def odeint_parareal_with_info(func, y0, t, *, rtol=1e-7, atol=1e-9,
     coarse_opts = dict(num_steps=int(coarse_num_steps))
     spans = torch.stack([t[:-1], t[1:]], dim=1)      # (S, 2)
 
-    def fine_all(U_heads):
+    def fine(U_mine, spans_mine):
         ys, _ = odeint_spans_with_stats(
-            flat_func, U_heads[mine], spans[mine], rtol=rtol, atol=atol,
+            flat_func, U_mine, spans_mine, rtol=rtol, atol=atol,
             method=method, options=fine_opts, args=args)
-        ends = ys[:, -1]
-        return ends if mesh is None else _all_gather_blocks(ends, group, 0)
+        return ys[:, -1]
+
+    def fine_all(U_heads):
+        if mesh is None:
+            return fine(U_heads, spans)
+        if grad:
+            from ..adjoint import _adjoint_params
+            module_params, arg_tensors = _adjoint_params(flat_func, args,
+                                                         None)
+            return _MeshFineSweep.apply(fine, mine, group, U_heads, spans,
+                                        *module_params, *arg_tensors)
+        return _all_gather_blocks(fine(U_heads[mine], spans[mine]), group,
+                                  0)
 
     def coarse(s, u):
         return odeint(flat_func, u, t[s:s + 2], method=coarse_method,

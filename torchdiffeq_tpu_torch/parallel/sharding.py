@@ -23,14 +23,10 @@ wants one process a device; one process a rank gives each card its own.
   `y0`'s rows with its own controller, and the blocks are gathered (JAX's
   ``shard_map`` block for block).
 * `data_parallel_odeint`: one shared controller over the global batch
-  (docs/SHARDING.md §1): each rank solves its rows, and the error norm is
-  the global one, its sums all-reduced over the axis, so every rank takes
-  the same steps as the single-device solve.  Only the error norm is made
-  global, so it takes the solves whose every decision is that norm's: the
-  explicit adaptive and fixed-grid methods, with no event function.  A
-  Newton or corrector convergence test, or an event function, would see
-  one rank's block, and the ranks would part ways (on NCCL a rank still
-  stepping would wait in the norm's all-reduce for ever): those raise.
+  (docs/SHARDING.md §1): each rank solves its rows, and every decision
+  that reads the state reads its global value, so every rank takes the
+  single-device solve's steps, stage-solve and corrector iterations and
+  `Stats` (below).  It takes every registry method and event functions.
   Under autograd it gives global gradients (below).
 * `shard_params`: large 2-D leaves as DTensors sharded by column over the
   model axis, the rest replicated.
@@ -43,6 +39,44 @@ wants one process a device; one process a rank gives each card its own.
   leaves through "reduce" (forward all-reduce, backward identity), then b2
   is added.  One model all-reduce a forward evaluation and one a backward
   evaluation; on a model axis of one it is the `MLPField` bit for bit.
+
+Global decisions.  JAX's `data_parallel_odeint` is sharding-transparent:
+XLA makes every reduction over the batch global.  The port's ranks each
+run the solver's host loop on their block, so each decision that reads
+the state must read the global value, or the ranks part ways (on NCCL a
+rank still stepping would wait for ever in the next collective).  The
+reductions reach the solvers by one mechanism: `data_parallel_odeint`
+sets the context variable `misc.DATA_AXIS` to a `_DataAxis` (this rank's
+coordinate, and ``sum``, ``max``, ``gather`` and ``block`` over the axis)
+around its call of `odeint_fn`, and every solver that decides by the
+state reads it (`misc.data_axis()`; None off the mesh, where each solver
+takes its own arithmetic bit for bit).  Per site:
+
+* the error norm (``options['norm']``, which `select_initial_step` reads
+  too): each leaf's mean of squares all-reduced, one all-reduce a call;
+* Newton's stage solves (`fixed_grid_implicit._iterate`, the fixed-grid
+  implicit methods with ``root_solver='newton'`` and the ESDIRK and FIRK
+  steps of kvaerno3, kvaerno5 and radau5a): the residual's global 2-norm,
+  each rank's sum of squares all-reduced with its bail-out flag, one
+  all-reduce an iteration; the Jacobian and the linear solve stay the
+  block's (a row-wise field's Jacobian is block-diagonal);
+* Broyden's stage solves (the fixed-grid implicit default): the rank-1
+  update couples the blocks, so the residuals are gathered (one
+  all-gather an iteration) and the matrix, its solve and the norm are
+  global, computed alike on every rank;
+* the implicit Adams corrector's test (`adams._has_converged`): the max
+  norm's global max, one all-reduce an iteration;
+* an event function (every step's sign and every bisection point) and a
+  ``grid_constructor``: called on the state gathered over the axis, one
+  all-gather a call;
+* SciPy (``scipy_solver``): its controller and LSODA's and BDF's
+  finite-difference Jacobians read the whole flat state, so every rank
+  runs the single-device SciPy solve of the global `y0` and returns its
+  result, which is the global one.
+
+A shared controller's event time is the same on every rank and comes
+back as it is (a 0-d tensor).  The per-sample lanes of the batched driver
+(`solvers/batched_rk.py`) keep their own decisions.
 
 Gradients.  JAX runs one controller, so every rank calls with the same
 global inputs and computes the loss from the same gathered global result.
@@ -65,35 +99,35 @@ accumulator theta_bar, sums over the batch of which each rank's block
 holds a share.  Summing the shares where the norm reads them would not
 do: the controller scales each entry by ``atol + rtol * |entry|`` before
 the norm sees it, and a share's scale is not the sum's (at 4 CPU ranks
-that took 22 backward steps where the one-device solve takes 20).  So
-under autograd `data_parallel_odeint` hands `odeint_fn` a field module
-(`_DataParallelField`) that holds the user's field (a submodule, so the
-adjoint finds its parameters), passes its calls and its ``callback_*`` and
-``*_adjoint`` callbacks through, and carries one attribute,
-``batch_sum(x)``: an all-reduce (SUM) over the data axis.  The adjoint
-reads it (`adjoint._backward_pass`): at every evaluation of the augmented
-field the rates of vjp_t and theta_bar go through one ``batch_sum`` (1 + P
+that took 22 backward steps where the one-device solve takes 20).  So the
+adjoint's forward keeps the data axis it ran under, and its backward
+(`adjoint._backward_pass`) sums the rates of vjp_t and theta_bar over the
+axis at every evaluation of the augmented field (one all-reduce of 1 + P
 values, P the parameters' size), as XLA's partitioning sums them in JAX,
-and so do the output times' effects once, so that every rank carries the
+and the output times' effects once, so that every rank carries the
 global vjp_t and theta_bar and takes the one-device solve's steps; y and
-adj_y stay each rank's block under the global state norm that the wrapper
-sets as ``options['norm']``, and a sharded field's parameter term is its
-``param_norm`` (a `tensor_parallel_mlp`'s: one model all-reduce a norm
-call).  The time and parameter gradients then come out global, and the
-backward of y0's rows all-gathers every rank's cotangent block, so that
-every rank's y0 gradient is the whole one.
+adj_y stay each rank's block under the global state norm, and a sharded
+field's parameter term is its ``param_norm`` (a `tensor_parallel_mlp`'s:
+one model all-reduce a norm call).  The time and parameter gradients then
+come out global, and the backward of y0's rows all-gathers every rank's
+cotangent block, so that every rank's y0 gradient is the whole one.
 
-Taken under autograd: the continuous adjoint, through `odeint_adjoint`
-(default norm or ``'seminorm'``) and through plain `odeint` with an
-explicit adaptive method, for parameters of an ``nn.Module`` field,
-tensors in `args`, and closure tensors given in ``adjoint_params``.
-Refused with `NotImplementedError`, from the arguments alone, on every
-rank and before any collective: autograd through a fixed-grid solve
-(autograd differentiates its loop, which would give each rank its share),
-``replay_grad`` and ``forward_grad``, the interpolated adjoint, an implicit,
-Adams or SciPy adjoint method, and a callable adjoint norm (each would see
-one rank's block).  Parareal's mesh is forward-only and raises under
-autograd.
+Taken under autograd: the continuous adjoint with an explicit adaptive or
+fixed-grid adjoint method, through `odeint_adjoint` (default norm or
+``'seminorm'``) and through plain `odeint` with an explicit adaptive
+method, after any adaptive forward method (kvaerno3, kvaerno5 and
+radau5a too, with an explicit ``adjoint_method``), for parameters of an
+``nn.Module`` field, tensors in `args`, and closure tensors given in
+``adjoint_params``.  Refused with `NotImplementedError`, from the
+arguments alone, on every rank and before any collective: autograd
+through a fixed-grid, Adams or implicit fixed-grid solve (autograd
+differentiates its loop, which would give each rank its share),
+gradients through an event solve, ``replay_grad`` and ``forward_grad``,
+the interpolated adjoint, an implicit, Adams or SciPy adjoint method
+(their stage systems over the augmented state couple the ranks through
+theta_bar's global sum), and a callable adjoint norm (it would see one
+rank's block).  Parareal's ``mesh=`` gives every rank the global gradient
+too (`parareal` module docstring).
 """
 from __future__ import annotations
 
@@ -107,9 +141,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..misc import (CALLBACK_NAMES, is_tree_state, needs_autograd,
-                    tree_leaves, tree_map)
-from ..solvers import SOLVERS
+from ..misc import (DATA_AXIS, is_tree_state, needs_autograd, tree_leaves,
+                    tree_map)
+from ..solvers import DIRECT_DIFF_KINDS, SOLVERS
 from ..solvers.solution import Stats
 
 
@@ -276,11 +310,15 @@ def _gather_out(out, group, shards):
     ...), JAX's ``out_specs=P(None, axis)``), a 1-D one along axis 0 (a
     per-sample (B,) vector, such as event times); a `Stats` as every
     shard's, in rank order, with `shards`, else (one shared controller) as
-    it is; containers and None through.  Anything else (a 0-d tensor, a
-    `DenseSolution`) cannot be placed and raises `TypeError`."""
+    it is, and so is a 0-d tensor (an event time, the same on every
+    rank); containers and None through.  Anything else (a 0-d tensor of
+    per-shard solves, a `DenseSolution`) cannot be placed and raises
+    `TypeError`."""
     if isinstance(out, Stats):
         return _per_shard(out, group) if shards else out
     if isinstance(out, torch.Tensor):
+        if out.dim() == 0 and not shards:
+            return out
         if out.dim() == 0:
             raise TypeError(
                 "a 0-d tensor in the result of a sharded solve cannot be "
@@ -338,40 +376,43 @@ def _global_norm(group, n):
     return norm
 
 
-class _DataParallelField(torch.nn.Module):
-    """The field `data_parallel_odeint` hands `odeint_fn` under autograd
-    (module docstring): the user's `func` (a submodule when it is an
-    ``nn.Module``, so that the adjoint finds its parameters), called as it
-    is, with its callbacks and its ``param_norm`` passed through, and
-    ``batch_sum``, which the adjoint reads."""
+class _DataAxis:
+    """The data axis of a `data_parallel_odeint` solve as its solvers see
+    it (`misc.DATA_AXIS`, module docstring): this rank's coordinate `c`
+    among `n` equal blocks, and the collectives that make a decision
+    global."""
 
-    _PASSED = (CALLBACK_NAMES + tuple(n + '_adjoint' for n in CALLBACK_NAMES)
-               + ('param_norm',))
+    def __init__(self, group, n, c):
+        self.group, self.n, self.c = group, n, c
 
-    def __init__(self, func, group):
-        super().__init__()
-        self.func = func
-        self.group = group
-        for name in self._PASSED:
-            value = getattr(func, name, None)
-            if value is not None:
-                setattr(self, name, value)
+    def sum(self, x):
+        """`x` summed over the axis (one all-reduce)."""
+        return _all_reduce(x, self.group)
 
-    def forward(self, t, y, *args):
-        return self.func(t, y, *args)
-
-    def batch_sum(self, x):
-        """`x` summed over the data axis (one all-reduce): each rank's
-        share of a sum over the batch made the global sum."""
+    def max(self, x):
+        """The elementwise max of `x` over the axis (one all-reduce)."""
         out = x.clone()
-        dist.all_reduce(out, group=self.group)
+        dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return out
 
+    def gather(self, x, dim=0):
+        """Every rank's `x` (one shape on all) concatenated along `dim`,
+        in rank order (one all-gather)."""
+        parts = [torch.empty_like(x) for _ in range(self.n)]
+        dist.all_gather(parts, x.contiguous(), group=self.group)
+        return torch.cat(parts, dim)
 
-def _shared_decisions(method):
-    """Whether every decision of `method`'s solve is the error norm's (an
-    explicit adaptive tableau) or there is none (a fixed grid); a name
-    the registry does not know passes, for the solve to reject."""
+    def block(self, x, dim=0):
+        """This rank's block of `x` along `dim`: the inverse of
+        `gather`."""
+        b = x.shape[dim] // self.n
+        return x.narrow(dim, self.c * b, b)
+
+
+def _explicit(method):
+    """Whether `method` is an explicit adaptive or a fixed-grid one, whose
+    backward solve decides by its norm alone; a name the registry does
+    not know passes, for the solve to reject."""
     spec = SOLVERS.get(method)
     return spec is None or spec['kind'] == 'fixed' or (
         spec['kind'] == 'adaptive' and not spec['tableau'].implicit)
@@ -390,12 +431,18 @@ def _refuse_gradient_routes(method, options, kwargs, grad):
                 "(odeint_adjoint, or odeint with an adaptive method)")
     if not grad:
         return
-    if SOLVERS.get(method, {}).get('kind') == 'fixed':
+    if SOLVERS.get(method, {}).get('kind') in DIRECT_DIFF_KINDS:
         raise NotImplementedError(
-            "data_parallel_odeint: gradients through a fixed-grid solve "
-            "come from autograd through its loop, which would give each "
-            "rank its block's share; use an explicit adaptive method "
-            "under the continuous adjoint")
+            "data_parallel_odeint: gradients through a fixed-grid, Adams or "
+            "implicit fixed-grid solve come from autograd through its loop, "
+            "which would give each rank its block's share; use an adaptive "
+            "method under the continuous adjoint")
+    if kwargs.get('event_fn') is not None:
+        raise NotImplementedError(
+            "data_parallel_odeint: gradients through an event solve are "
+            "not taken under the mesh (the event-mode adjoint and the event "
+            "time's reroute would each see one rank's block); solve it "
+            "under torch.no_grad()")
     adj = dict(kwargs.get('adjoint_options') or {})
     if adj.get('interpolated'):
         raise NotImplementedError(
@@ -407,47 +454,34 @@ def _refuse_gradient_routes(method, options, kwargs, grad):
             "rank's block of y and adj_y; use the default norm or "
             "'seminorm'")
     adjoint_method = kwargs.get('adjoint_method') or method
-    if not _shared_decisions(adjoint_method):
+    if not _explicit(adjoint_method):
         raise NotImplementedError(
-            f"data_parallel_odeint: adjoint method {adjoint_method!r} makes "
-            "decisions other than the error norm's, which would see one "
-            "rank's block; use an explicit adaptive adjoint method")
+            f"data_parallel_odeint: adjoint method {adjoint_method!r} solves "
+            "stage systems, corrects or calls SciPy over the augmented "
+            "state, whose vjp_t and theta_bar are sums over every rank's "
+            "block; use an explicit adaptive adjoint method")
 
 
 def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
     """Wrap an odeint-like ``odeint_fn(func, y0, t, **kwargs)`` as one
     shared controller over the global batch (JAX `data_parallel_odeint`,
     docs/SHARDING.md §1): each rank solves its block of `y0`'s leading
-    axis, its error norm (``options['norm']``, which `select_initial_step`
-    reads too) the global RMS all-reduced over `axis`, so that every rank
-    takes the single-device solve's steps and its `Stats`.  The result is
-    gathered as `sharded_independent_odeint`'s, the `Stats` the same on
-    every rank and returned as it is.  Only the norm is global, so
-    ``method`` must be an explicit adaptive or fixed-grid one, and an
-    ``event_fn`` is refused: a stage solve's Newton test, an Adams
-    corrector's, SciPy's controller or an event function would see one
-    block (module docstring).  Those raise `NotImplementedError`, and so
-    does a user ``options['norm']`` (it too would see one block).  Under
-    autograd every rank receives the global gradients, the one-device
-    solve's; the gradient routes it does not take raise
+    axis, and every decision that reads the state reads its global value
+    (module docstring): the error norm (``options['norm']``) is the global
+    RMS, and the stage solves, the Adams corrector, an ``event_fn`` and a
+    ``grid_constructor`` reduce over `axis` through `misc.DATA_AXIS`, so
+    that every rank takes the single-device solve's steps and iterations
+    and its `Stats`.  ``method='scipy_solver'`` runs SciPy on the global
+    state on every rank, whose result is the global one.  The result is
+    gathered as `sharded_independent_odeint`'s, the `Stats` and an event
+    time the same on every rank and returned as they are.  A user
+    ``options['norm']`` raises `NotImplementedError` (it would see one
+    block).  Under autograd every rank receives the global gradients, the
+    one-device solve's; the gradient routes it does not take raise
     `NotImplementedError` (module docstring)."""
     def solve(func, y0, t, **kwargs):
         group, n, c = _axis(mesh, axis)
         method = kwargs.get('method') or 'dopri5'
-        if not _shared_decisions(method):
-            raise NotImplementedError(
-                f"data_parallel_odeint: method {method!r} makes decisions "
-                "other than the error norm's (a stage solve's or corrector's "
-                "convergence, SciPy's controller), which would see one "
-                "rank's block; use an explicit adaptive or fixed-grid "
-                "method, or sharded_independent_odeint for per-block "
-                "controllers")
-        if kwargs.get('event_fn') is not None:
-            raise NotImplementedError(
-                "data_parallel_odeint: an event function would see one "
-                "rank's block of the batch, and the ranks would stop at "
-                "different steps; use sharded_independent_odeint with a "
-                "per-sample event solve")
         options = dict(kwargs.get('options') or {})
         if 'norm' in options:
             raise NotImplementedError(
@@ -462,12 +496,33 @@ def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
                               *_tensors_in(kwargs.get('args', ())),
                               *(kwargs.get('adjoint_params') or ()))
         _refuse_gradient_routes(method, options, kwargs, grad)
+        if SOLVERS.get(method, {}).get('kind') == 'scipy':
+            # SciPy's controller reads the whole flat state: the global
+            # solve, the same on every rank
+            return odeint_fn(func, tree_map(lambda x: x.to(mesh.device), y0),
+                             t, **kwargs)
+        if (kwargs.get('options') is None and 'adjoint_method' in kwargs
+                and kwargs.get('adjoint_options') is None):
+            # the norm set below is no user option: the backward's options
+            # are none, as one device infers them
+            kwargs['adjoint_options'] = {}
+        data = _DataAxis(group, n, c)
         options['norm'] = _global_norm(group, n)
-        if grad:
-            func = _DataParallelField(func, group)
-        local = odeint_fn(func, _block(y0, n, c, axis, mesh.device,
-                                       group if grad else None), t,
-                          **dict(kwargs, options=options))
+        grid_constructor = options.get('grid_constructor')
+        if grid_constructor is not None:
+            options['grid_constructor'] = lambda f, y, tt: grid_constructor(
+                f, tree_map(data.gather, y), tt)
+        event_fn = kwargs.get('event_fn')
+        if event_fn is not None:
+            kwargs['event_fn'] = lambda tt, y: event_fn(
+                tt, tree_map(data.gather, y))
+        token = DATA_AXIS.set(data)
+        try:
+            local = odeint_fn(func, _block(y0, n, c, axis, mesh.device,
+                                           group if grad else None), t,
+                              **dict(kwargs, options=options))
+        finally:
+            DATA_AXIS.reset(token)
         return _gather_out(local, group, shards=False)
 
     return solve

@@ -37,8 +37,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import (Perturb, carries_derivative, coef, lane_jacobian,
-                    nextafter_down, real_dtype, scalar_type, stage_jacobian)
+from ..misc import (Perturb, carries_derivative, coef, data_axis,
+                    lane_jacobian, nextafter_down, real_dtype, scalar_type,
+                    stage_jacobian)
 from ..ops import linsolve
 from ..ops.rk_step import weighted_sum
 from .fixed_grid import FixedStepMethod, construct_grid, integrate_fixed_grid
@@ -82,7 +83,7 @@ class _IFT(torch.autograd.Function):
 
 
 def _iterate(residual, x0, tol, max_iters, newton, active=None,
-             jacobian=lane_jacobian):
+             jacobian=lane_jacobian, axis=None):
     """Broyden's (JAX `_broyden`, fixed_grid_implicit.py:41-69) or Newton's
     (`_newton`, :72-98) method for every sample of a batch at once (JAX's
     solves under vmap), with no graph: ``residual: (B, m) -> (B, m)`` row
@@ -96,14 +97,29 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None,
     `ops.linsolve.solve`.  One host read an iteration: whether any sample
     still iterates, and whether all have converged.  `active` (B,) bool
     leaves the other samples out from the start (an adaptive step's
-    finished samples).  Returns (x, converged (B,), all converged: a
-    bool)."""
+    finished samples).
+
+    `axis` (`misc.data_axis`, a batch of one) is the data axis of a
+    data-parallel solve, whose rank holds one block of each stage vector:
+    Newton's norm is the global 2-norm, each rank's sum of squares
+    all-reduced with its bail-out flag, while its Jacobian and linear solve
+    stay the block's (a row-wise field's Jacobian is block-diagonal).
+    Broyden's update couples the blocks, so its residuals are gathered
+    (rank-major: the single device's vector permuted, which leaves the
+    iterates from the identity matrix unchanged) and its matrix, solve and
+    norm are global, the same on every rank; each rank steps its block.
+    Returns (x, converged (B,), all converged: a bool)."""
     # the norm is compared in its dtype, as JAX's weakly typed tolerance
     tol = float(scalar_type(x0.dtype)(tol))
-    B, m = x0.shape
+    B = x0.shape[0]
+    wide = axis is not None and not newton   # Broyden over the whole state
     x = x0
-    f = residual(x)
-    norm_f = torch.linalg.vector_norm(f, dim=1)
+    f = axis.gather(residual(x), 1) if wide else residual(x)
+    if axis is not None and newton:
+        norm_f = torch.sqrt(axis.sum((f * f).sum(1)))
+    else:
+        norm_f = torch.linalg.vector_norm(f, dim=1)
+    m = f.shape[1]
     J = None if newton else torch.eye(
         m, dtype=x.dtype, device=x.device).expand(B, m, m)
     tiny = torch.finfo(x.dtype).tiny
@@ -126,8 +142,16 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None,
         COUNTS['iterations'] += 1
         bail = ~torch.isfinite(s).all(1)
         s = torch.where(bail[:, None], torch.zeros_like(s), s)
-        x_new = x + s
+        x_new = x + (axis.block(s, 1) if wide else s)
         f_new = residual(x_new)
+        if wide:
+            f_new = axis.gather(f_new, 1)
+        if axis is not None and newton:
+            red = axis.sum(torch.cat([(f_new * f_new).sum(1),
+                                      bail.to(f_new.dtype)]))
+            norm_new, bail = torch.sqrt(red[:B]), red[B:] > 0
+        else:
+            norm_new = torch.linalg.vector_norm(f_new, dim=1)
         upd = live & ~bail
         if not newton:
             denom = torch.clamp((s * s).sum(1), min=tiny)
@@ -136,8 +160,7 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None,
             J = torch.where(upd[:, None, None], J_new, J)
         x = torch.where(upd[:, None], x_new, x)
         f = torch.where(upd[:, None], f_new, f)
-        norm_f = torch.where(upd, torch.linalg.vector_norm(f_new, dim=1),
-                             norm_f)
+        norm_f = torch.where(upd, norm_new, norm_f)
         it = it + live.to(torch.int32)
         bailed = bailed | (live & bail)
     return x, norm_f < tol, bool(all_conv)
@@ -157,12 +180,14 @@ def root_solve(residual, x0, tol, max_iters, newton, lanes=False,
     if x0.is_complex():
         return _complex_root_solve(residual, x0, tol, max_iters, newton,
                                    lanes, active, jacobian)
+    axis = None
     if not lanes:
         one, residual = residual, lambda xb: one(xb[0])[None]
         x0 = x0[None]
+        axis = data_axis()
     with torch.no_grad():
         x, conv, all_conv = _iterate(residual, x0.detach(), tol, max_iters,
-                                     newton, active, jacobian)
+                                     newton, active, jacobian, axis)
     if torch.is_grad_enabled() or carries_derivative(x0):
         x = x.detach()
         r = residual(x)
