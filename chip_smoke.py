@@ -173,8 +173,20 @@ benchmarks/bench_fused_field.py at its full width:
      and its median time a step beside phase 10's; (b) STEP_RANKS ranks on
      the card, subprocesses on gloo: the dry run's float64 step on
      {'data': 1, 'model': 2} and {'data': 2, 'model': 1} against the single
-     step (STEP_F64_REL, counters equal), and every refused gradient route
-     raising on every rank; the phase's seconds (budget STEP_BUDGET_S).
+     step (STEP_F64_REL, counters equal), and the two refused gradient
+     routes (an implicit and an Adams adjoint method) raising on every
+     rank; the phase's seconds (budget STEP_BUDGET_S); (c) the gradient
+     routes that run their backward over each rank's block (no kernel,
+     the launch counts reset before and read after): (a) on a world of
+     one rank on NCCL, phase 11's fixed-grid training step through
+     `data_parallel_odeint` against the unsharded step, bit for bit, and
+     the two timed in alternating pairs, beside phase 11's median; (b)
+     ROUTE_RANKS ranks on the card, subprocesses on gloo: each of ROUTES'
+     float64 gradients (the fixed grid, the implicit fixed grid, the
+     replay, forward_grad's jvp, an event solve, the interpolated,
+     callable-norm and SciPy adjoints) against the single solve
+     (ROUTE_F64_REL, counters equal); the part's seconds (budget
+     ROUTE_BUDGET_S).
 
 ``torchrun --nproc_per_node=N chip_smoke.py --mesh-cards`` instead runs
 the device mesh and the sharded training step across N cards, one rank a
@@ -454,6 +466,21 @@ STEP_RANKS = 2
 STEP_F64_REL = 1e-12
 STEP_TIMED = 5           # phase 21 (a)'s timed steps
 STEP_BUDGET_S = 30
+
+# - phase 21 (c), gradients through data_parallel_odeint's routes that run
+#   their backward over each rank's block.  (a) A world of one rank: the
+#   entry's copy of the replicated inputs and y0's rows are the identity,
+#   and their backward collectives sum over one rank, so the fixed-grid
+#   training step is the unsharded one's bit for bit.  (b) Two ranks on
+#   the card: each block's field products and the parameter cotangents'
+#   all-reduce add in another order than one process's: float64 gradients
+#   within 1e-12 of max|g| (ROUTE_F64_REL; 2.9e-15 measured between 4 CPU
+#   ranks and one process on the tests' problem), counters equal.
+ROUTE_RANKS = 2
+ROUTE_B = 64
+ROUTE_F64_REL = 1e-12
+ROUTE_TIMED = 8          # (a)'s timed pairs
+ROUTE_BUDGET_S = 60
 
 # the kernel instances at the widths the phases run (both dtypes of D=2,
 # each per-trajectory kernel with and without lane groups, and K-fused at
@@ -1170,14 +1197,16 @@ def _phase_train(torch, kernels, dev):
 FIXED = ("euler", "midpoint", "heun2", "heun3", "rk4")
 
 
-def _fixed_step(torch, model, y0, target, t, options, marks=None):
+def _fixed_step(torch, model, y0, target, t, options, marks=None,
+                solve=None):
     """One step of bench.py's training loop on the fixed grid: `odeint`
-    with rk4 and `options`, backpropagated through the loop, loss and SGD
-    as `_train_step`.  Returns (loss, the gradients)."""
+    (or `solve`, an odeint-like) with rk4 and `options`, backpropagated
+    through the loop, loss and SGD as `_train_step`.  Returns (loss, the
+    gradients)."""
     from torchdiffeq_tpu_torch import odeint
     if marks:
         marks[0].record()
-    ys = odeint(model, y0, t, method="rk4", options=options)
+    ys = (solve or odeint)(model, y0, t, method="rk4", options=options)
     loss = ((ys - target[None]) ** 2).mean()
     if marks:
         marks[1].record()
@@ -1412,6 +1441,7 @@ def _phase_fixed(torch, kernels, dev):
           f"{BF16_RTOL}: {err_b:.2e} of max|y| (<= {BF16_VALUES}), steps "
           f"{st_b.n_steps} vs float32 {st_f.n_steps} | callbacks {n} == "
           f"steps {st_c.n_steps}")
+    return med
 
 
 IMPLICIT_FIXED = ("explicit_adams", "implicit_adams", "fixed_adams",
@@ -4655,14 +4685,9 @@ def _phase_mesh(torch, kernels, dev, summary):
 # the gradient routes data_parallel_odeint refuses (phase 21 (b)), each
 # under autograd: (name, entry point, keywords)
 STEP_REFUSED = (
-    ("fixed_grid", "odeint", dict(method="rk4", options=dict(num_steps=4))),
-    ("replay_grad", "odeint", dict(options=dict(replay_grad=True))),
-    ("forward_grad", "odeint", dict(options=dict(forward_grad=True))),
-    ("interpolated", "odeint_adjoint",
-     dict(adjoint_options=dict(interpolated=True))),
     ("implicit_adjoint", "odeint_adjoint", dict(adjoint_method="kvaerno5")),
-    ("callable_norm", "odeint_adjoint",
-     dict(adjoint_options=dict(norm=lambda x: x[0].abs()))))
+    ("adams_adjoint", "odeint_adjoint",
+     dict(adjoint_method="implicit_adams")))
 
 
 def _sharded_vs_single(torch, mesh, field, y0, target, t, **kw):
@@ -4859,6 +4884,226 @@ def _phase_sharded_step(torch, kernels, dev, train_ms):
     print(f"[21 budget] phase 21 took {total:.1f} s (budget "
           f"{STEP_BUDGET_S} s)")
     _check(total <= STEP_BUDGET_S, f"phase 21 took {total:.1f} s")
+
+
+def _max_rms(xs):
+    """A callable adjoint norm: the largest RMS of its parts."""
+    import torch
+    return torch.stack([torch.sqrt(torch.mean(x.abs() ** 2))
+                        for x in xs]).max()
+
+
+# phase 21 (c) (b)'s routes, each under autograd: (name, entry point,
+# keywords); "event" is odeint with an event function, its state
+ROUTES = (
+    ("fixed_grid", "odeint",
+     dict(method="rk4", options=dict(num_steps=FIXED_STEPS))),
+    ("replay_grad", "odeint", dict(options=dict(replay_grad=True))),
+    ("forward_grad", "odeint", dict(options=dict(forward_grad=True))),
+    ("interpolated", "odeint_adjoint",
+     dict(adjoint_options=dict(interpolated=True))),
+    ("callable_norm", "odeint_adjoint",
+     dict(adjoint_options=dict(norm=_max_rms))),
+    ("implicit_fixed_grid", "odeint",
+     dict(method="implicit_euler", options=dict(num_steps=FIXED_STEPS))),
+    ("event_solve", "event", dict(atol=1e-12)),
+    ("scipy_adjoint", "odeint_adjoint",
+     dict(adjoint_method="scipy_solver", adjoint_options=dict(solver="RK45"))))
+
+
+class _ForwardStats:
+    """While active, records the counters of every forward solve (each
+    call of odeint's `_odeint_impl` and of the adjoint's
+    `adjoint_solve`)."""
+
+    def __enter__(self):
+        from torchdiffeq_tpu_torch import adjoint
+        self.saved = [(adjoint, "adjoint_solve"),
+                      (sys.modules["torchdiffeq_tpu_torch.odeint"],
+                       "_odeint_impl")]
+        self.counters = []
+        for module, name in self.saved:
+            fn = getattr(module, name)
+
+            def recorded(*a, _fn=fn, **k):
+                out, st = _fn(*a, **k)
+                self.counters.append([int(x) for x in st[:5]])
+                return out, st
+            recorded.original = fn
+            setattr(module, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name in self.saved:
+            setattr(module, name, getattr(module, name).original)
+
+
+def _route_grads(torch, run, model, y0, t, thr, entry, kw):
+    """`run`'s gradients of sum(ys**2) in y0, t and the spiral's
+    parameters (forward_grad: the tangent of ys along y0 and t, all ones),
+    and its forward and backward counters."""
+    kw = dict(dict(rtol=RTOL, atol=ATOL), **kw)
+    if entry == "event":
+        kw["event_fn"] = lambda s, y: y[0, 0] - thr
+        t = t[[0, -1]]
+    with _ForwardStats() as fwd, _BackwardStats() as bwd:
+        if "forward_grad" in kw.get("options", {}):
+            _, tan = torch.func.jvp(lambda y, tt: run(model, y, tt, **kw),
+                                    (y0, t), (torch.ones_like(y0),
+                                              torch.ones_like(t)))
+            grads = [tan]
+        else:
+            y = y0.clone().requires_grad_(True)
+            tg = t.clone().requires_grad_(True)
+            ys = run(model, y, tg, **kw)
+            if entry == "event":
+                ys = ys[1]
+            xs = [y, tg, *model.parameters()]
+            grads = [torch.zeros_like(x) if g is None else g for g, x in zip(
+                torch.autograd.grad((ys ** 2).sum(), xs, allow_unused=True),
+                xs)]
+    return [g.detach() for g in grads], fwd.counters, bwd.counters()
+
+
+def _grad_rank(rank, world, store, out):
+    """One rank of phase 21 (c) (b), run as ``chip_smoke.py --grad-rank
+    RANK WORLD STORE OUT``: gloo on the card, each ROUTES gradient of the
+    float64 spiral (ROUTE_B states) through `data_parallel_odeint` against
+    the single solve on the card; writes {name: [error relative to max|g|,
+    forward and backward counters equal]} to OUT."""
+    import torch
+    import torch.distributed as dist
+    import torchdiffeq_tpu_torch as tt
+    from torchdiffeq_tpu_torch.parallel import data_parallel_odeint, make_mesh
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh({"data": world})
+        model, y_big = _spiral(torch, torch.float64, mesh.device)
+        model.requires_grad_(True)
+        y0 = y_big[:ROUTE_B].contiguous()
+        t = torch.linspace(0.0, 1.0, T, dtype=torch.float64)
+        with torch.no_grad():
+            end = tt.odeint(model, y0, t, rtol=RTOL, atol=ATOL)[-1]
+        thr = float(0.5 * (y0[0, 0] + end[0, 0]))
+        res = {}
+        for name, entry, kw in ROUTES:
+            fn = tt.odeint if entry == "event" else getattr(tt, entry)
+            got = [_route_grads(torch, run, model, y0, t, thr, entry, kw)
+                   for run in (data_parallel_odeint(fn, mesh), fn)]
+            (g, fwd, bwd), (g1, fwd1, bwd1) = got
+            err = max(float((a - b).abs().max()
+                            / b.abs().max().clamp(min=1e-300))
+                      for a, b in zip(g, g1))
+            res[name] = [err, fwd == fwd1 and bwd == bwd1,
+                         str(g[0].device)]
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+
+
+def _phase_grad_routes(torch, kernels, dev, fixed_ms):
+    """Phase 21 (c): gradients through `data_parallel_odeint`'s routes
+    that run their backward over each rank's block, on the card."""
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from torchdiffeq_tpu_torch.parallel import data_parallel_odeint, make_mesh
+    from torchdiffeq_tpu_torch import odeint
+    p0 = time.perf_counter()
+    card = _card()
+
+    # (a) phase 11's fixed-grid training step through the mesh's world of
+    # one rank, NCCL, against the unsharded step from the same weights
+    mesh = make_mesh({"data": 1})
+    backend = dist.get_backend()
+    solve = data_parallel_odeint(odeint, mesh)
+    opts = dict(num_steps=FIXED_STEPS)
+    steps = {}
+    kernels.reset_launch_counts()
+    for name, run in (("sharded", solve), ("single", None)):
+        model, y0, target, t = _train_setup(torch, np.float32, dev)
+        steps[name] = _fixed_step(torch, model, y0, target, t, opts,
+                                  solve=run)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in (*kernels.launch_counts.items(),
+                                  *kernels.traced_launch_counts.items()) if v}
+    (loss, grads), (loss1, grads1) = steps["sharded"], steps["single"]
+    same = dict(loss=torch.equal(loss, loss1),
+                grads=all(torch.equal(a, b) for a, b in zip(grads, grads1)))
+    _check(all(same.values()) and loss.is_cuda and not launches,
+           f"fixed-grid step through data_parallel_odeint, world of one "
+           f"({backend}) vs unsharded, bit for bit: {same}; kernel launches "
+           f"{launches}")
+    # the sharded and the unsharded step in pairs, alternating which runs
+    # first, so that the host's drift within the phase falls on both
+    ms = {"sharded": [], "single": []}
+    for i in range(ROUTE_TIMED):
+        order = (("sharded", solve), ("single", None))
+        for name, run in order[::-1] if i % 2 else order:
+            marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            _fixed_step(torch, model, y0, target, t, opts, marks, solve=run)
+            torch.cuda.synchronize()
+            ms[name].append(marks[0].elapsed_time(marks[3]))
+    med = {k: float(np.median(v)) for k, v in ms.items()}
+    dist.destroy_process_group()
+    a_s = time.perf_counter() - p0
+
+    # (b) ROUTE_RANKS ranks on the card, gloo
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_routes_")
+    procs = []
+    try:
+        for r in range(ROUTE_RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--grad-rank",
+                 str(r), str(ROUTE_RANKS), os.path.join(tmp, "store"),
+                 os.path.join(tmp, f"rank{r}.pt")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate(timeout=ROUTE_BUDGET_S)[0] for p in procs]
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            _check(p.returncode == 0,
+                   f"route rank {r} of {ROUTE_RANKS} (gloo on the card) "
+                   f"failed:\n{log[-3000:]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                 for r in range(ROUTE_RANKS)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = [(r, k, v) for r, x in enumerate(ranks) for k, v in x.items()
+           if not (v[0] <= ROUTE_F64_REL and v[1]
+                   and v[2].startswith("cuda"))]
+    _check(not bad and all(set(x) == {n for n, _, _ in ROUTES}
+                           for x in ranks),
+           f"{ROUTE_RANKS} ranks, gradient routes vs single (<= "
+           f"{ROUTE_F64_REL}, counters equal, on the card): {bad}")
+    total = time.perf_counter() - p0
+    print(f"[21c gradient routes, world of one] {card} | make_mesh({{'data': "
+          f"1}}) on {backend}: phase 11's step (B={B} H={H} T={T} float32, "
+          f"odeint rk4 num_steps={FIXED_STEPS} through its loop, SGD lr "
+          f"1e-3) through data_parallel_odeint equals the unsharded step bit "
+          f"for bit {same}; kernel launches {launches} (the step runs none) "
+          f"| {ROUTE_TIMED} steps each, in alternating pairs: median "
+          f"{med['sharded']:.2f} ms (min {min(ms['sharded']):.2f}, max "
+          f"{max(ms['sharded']):.2f}) against the unsharded step's "
+          f"{med['single']:.2f} ms (min {min(ms['single']):.2f}, max "
+          f"{max(ms['single']):.2f}), {med['sharded'] / med['single']:.3f}x; "
+          f"phase 11's median {fixed_ms:.2f} ms | {a_s:.1f} s")
+    print(f"[21c gradient routes, {ROUTE_RANKS} ranks on one card] {card} | "
+          f"gloo, spiral float64 B={ROUTE_B}: each route's gradients in y0, "
+          f"t and the MLP's parameters (forward_grad: its jvp) vs the "
+          f"single solve per rank [max error of max|g|, counters equal]: "
+          + "; ".join(f"{k} " + ", ".join(f"[{x[k][0]:.2e}, {x[k][1]}]"
+                                          for x in ranks)
+                      for k in ranks[0])
+          + f" (<= {ROUTE_F64_REL})")
+    print(f"[21c budget] phase 21 (c) took {total:.1f} s (budget "
+          f"{ROUTE_BUDGET_S} s)")
+    _check(total <= ROUTE_BUDGET_S, f"phase 21 (c) took {total:.1f} s")
 
 
 def main():
@@ -5280,7 +5525,7 @@ def main():
 
     train_ms = _phase_train(torch, kernels, dev)
 
-    _phase_fixed(torch, kernels, dev)
+    fixed_ms = _phase_fixed(torch, kernels, dev)
 
     walls_12c = _phase_implicit(torch, kernels, dev)
 
@@ -5300,6 +5545,8 @@ def main():
 
     _phase_sharded_step(torch, kernels, dev, train_ms)
 
+    _phase_grad_routes(torch, kernels, dev, fixed_ms)
+
     torch.cuda.synchronize()
     print(_card())
     print(json.dumps({"kernels": summary}))
@@ -5316,6 +5563,9 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--step-rank"]:
         a = sys.argv[2:]
         sys.exit(_step_rank(int(a[0]), int(a[1]), a[2], a[3]))
+    if sys.argv[1:2] == ["--grad-rank"]:
+        a = sys.argv[2:]
+        sys.exit(_grad_rank(int(a[0]), int(a[1]), a[2], a[3]))
     if sys.argv[1:2] == ["--mesh-cards"]:
         sys.exit(_mesh_cards())
     sys.exit(main())

@@ -26,7 +26,13 @@ controller takes the one-device steps, so only the blocks' and shards'
 summation order differs: 3.8e-16 measured), float32 to the dry run's own
 bounds (`__graft_entry__.py:134-135`) against JAX and to 1e-5 against
 the port's one-device step (the float32 step's rounding, 1.6e-7
-measured), the tensor-parallel field alone to 1e-15."""
+measured), the tensor-parallel field alone to 1e-15.  The gradient
+routes that run their backward over each rank's block (autograd through
+the loop, the replay, forward_grad's jvp, event solves, the interpolated,
+callable-norm and SciPy adjoints): every rank's gradient to 1e-12 of the
+largest against the port's one-device gradient and against JAX's, but
+the event solves' 1e-10 and SciPy's 1e-9 against JAX (`_JAX_GRAD_REL`),
+counters exactly."""
 import functools
 import os
 import pickle
@@ -57,7 +63,9 @@ from torchdiffeq_tpu_torch.parallel import (data_parallel_odeint, make_mesh,
                                             odeint_parareal,
                                             sharded_independent_odeint,
                                             tensor_parallel_mlp)
-from torch_sharding_ranks import (DP_DECISIONS, DP_TOLS, PAR_A, PAR_W,
+from torch_sharding_ranks import (DP_DECISIONS, DP_GRAD, DP_GRAD_REFUSED,
+                                  DP_TOLS, DP_TOLS_GRAD, EVENT_TOLS, PAR_A,
+                                  PAR_W, SPIN_EVENT, SPIN_T, SPIN_W, TP_STEPS,
                                   relax_y0)
 
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -148,6 +156,10 @@ def ranks(tmp_path_factory):
     for name, _, _ in DP_DECISIONS:
         _jax_decision(name)
     _jax_parareal_grads()
+    for name, _, _ in DP_GRAD:
+        if name not in DP_GRAD_REFUSED:
+            _jax_grad_route(name)
+    _jax_tp_fixed_grid()
     yield launch
     launch.close()
 
@@ -571,19 +583,216 @@ def test_tensor_parallel_field_matches_mlp(ranks):
         assert 'hidden layer' in res['deeper']
 
 
+def _jspin(s, y, W_, a):
+    """`torch_sharding_ranks.Spin` in JAX, W and a as args."""
+    return a * jnp.tanh(y) @ W_.T
+
+
+def _jmax_rms(xs):
+    return jnp.max(jnp.stack([jnp.sqrt(jnp.mean(jnp.abs(x) ** 2))
+                              for x in xs]))
+
+
+# each DP_GRAD route's JAX call: (entry, keywords).  JAX's SciPy adjoint
+# raises under jax.grad (C26): the SciPy route's reference is JAX's dopri5
+# adjoint, whose tableau SciPy's RK45 steps with its own controller
+_JAX_ROUTES = {
+    'fixed_grid': ('odeint', dict(method='rk4', options=dict(num_steps=8))),
+    'replay_grad': ('odeint', dict(options=dict(replay_grad=True))),
+    'forward_grad': ('odeint', dict(options=dict(forward_grad=True))),
+    'interpolated': ('odeint_adjoint',
+                     dict(adjoint_options=dict(interpolated=True))),
+    'callable_norm': ('odeint_adjoint',
+                      dict(adjoint_options=dict(norm=_jmax_rms))),
+    'implicit_fixed_grid': ('odeint', dict(method='implicit_euler',
+                                           options=dict(num_steps=8))),
+    'event_solve': ('event_solve', {}),
+    'scipy_adjoint': ('odeint_adjoint', {}),
+    'adams': ('odeint', dict(method='implicit_adams',
+                             options=dict(num_steps=8, max_order=4))),
+    'implicit_euler_newton': ('odeint', dict(
+        method='implicit_euler', options=dict(num_steps=8,
+                                              root_solver='newton'))),
+    'rk4_remat': ('odeint', dict(method='rk4',
+                                 options=dict(num_steps=8, remat=True))),
+    'event_time': ('odeint_event', {}),
+    'replay_event': ('odeint_event', dict(options=dict(replay_grad=True))),
+}
+# the bound of each route's gradient against JAX's, of max|g|: 1e-12, but
+# the event solves' 1e-10 (the replay's own parity bound,
+# tests/test_torch_replay.py, inside test_torch_adjoint.py's rtol 1e-9 for
+# the event gradients; 1.1e-11 measured: the bisection to atol 1e-12 and
+# the steps' last bits) and SciPy's RK45 against JAX's dopri5 adjoint,
+# 1e-9 (9e-11 measured)
+_JAX_GRAD_REL = dict(event_solve=1e-10, event_time=1e-10,
+                     replay_event=1e-10, scipy_adjoint=1e-9)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grad_route(name):
+    """JAX's one-device gradients of `torch_sharding_ranks._spin_grads`'
+    loss in (W, a, y0, t) for route `name` (forward_grad: the tangent of
+    ys along all four)."""
+    entry, kw = _JAX_ROUTES[name]
+    kw = dict(DP_TOLS_GRAD, **kw)
+    t = jnp.asarray(SPIN_T)
+    if entry in ('event_solve', 'odeint_event'):
+        kw.update(EVENT_TOLS, event_fn=lambda s, y: y[0, 0] - SPIN_EVENT)
+        t = jnp.array([0.0, 1.0])
+    xs = (jnp.asarray(SPIN_W), jnp.asarray(1.1),
+          jnp.arange(1.0, 33.0).reshape(16, 2) / 16.0, t)
+
+    def ys_of(W_, a, y0, tt_):
+        if entry == 'odeint_event':
+            return tde.odeint_event(_jspin, y0, tt_[0], args=(W_, a), **kw)
+        fn = tde.odeint_adjoint if entry == 'odeint_adjoint' else tde.odeint
+        out = fn(_jspin, y0, tt_, args=(W_, a), **kw)
+        return out[1] if entry == 'event_solve' else out
+
+    if name == 'forward_grad':
+        return [np.asarray(jax.jit(lambda *a: jax.jvp(
+            ys_of, a, tuple(jnp.ones_like(x) for x in a))[1])(*xs))]
+
+    def loss(*args):
+        out = ys_of(*args)
+        if entry == 'odeint_event':
+            return 3.0 * out[0] + jnp.sum(out[1][-1] ** 2)
+        return jnp.sum(out ** 2)
+
+    return [np.asarray(g) for g in
+            jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(*xs)]
+
+
+def _check_grad_route(ranks, name):
+    """Route `name` on 4 ranks: every rank's gradients (or forward-mode
+    tangent) the same, within 1e-12 of max|g| of the port's one-device
+    ones and within `_JAX_GRAD_REL` of JAX's; its forward and backward
+    counters the one-device solve's."""
+    out = [res['routes'][name] for res in _case(ranks, 'grad_routes')]
+    one = next(res['one'] for res in out if 'one' in res)
+    g_j = _jax_grad_route(name)
+    for res in out:
+        mesh = res['mesh']
+        assert mesh['fwd'] == one['fwd'] and mesh['bwd'] == one['bwd']
+        for got, want, ref in zip(mesh['grads'], one['grads'], g_j):
+            _rel(got, want, 1e-12)
+            if np.abs(ref).max() > 0:
+                _rel(got, ref, _JAX_GRAD_REL.get(name, 1e-12))
+            else:
+                assert np.abs(got).max() == 0
+    for i in range(len(one['grads'])):
+        _same_on_every_rank([res['mesh']['grads'][i] for res in out])
+
+
 @pytest.mark.parametrize("name", ['fixed_grid', 'replay_grad',
                                   'forward_grad', 'interpolated',
                                   'implicit_adjoint', 'callable_norm',
                                   'implicit_fixed_grid', 'event_solve',
                                   'adams_adjoint', 'scipy_adjoint'])
 def test_data_parallel_refuses_gradient_routes(ranks, name):
-    """The gradient routes data_parallel_odeint does not take raise
-    NotImplementedError on all 4 ranks, from the arguments alone, before
-    any collective: the ranks' all-reduce after them completes."""
+    """The ten gradient routes data_parallel_odeint refused before its data
+    axis's autograd Functions.  Eight it now takes on 4 ranks: autograd
+    through each rank's fixed-grid and implicit fixed-grid loop, the
+    replay, forward_grad's jvp, an event solve's event-mode adjoint, the
+    interpolated adjoint, a callable adjoint norm and the SciPy adjoint
+    method give every rank the one-device gradient (`_check_grad_route`:
+    Spin's parameter, an args scale, y0 and t).  An implicit and an Adams
+    adjoint method still raise NotImplementedError on all 4 ranks, from
+    the arguments alone, before any collective: the ranks' all-reduce
+    after them completes."""
+    if name not in DP_GRAD_REFUSED:
+        _check_grad_route(ranks, name)
+        return
     for res in _case(ranks, 'grad_routes'):
         msg = res['refused'][name]
         assert msg is not None and msg.startswith('data_parallel_odeint')
         assert res['after'] == WORLD
+
+
+@pytest.mark.parametrize("name", ['adams', 'implicit_euler_newton',
+                                  'rk4_remat', 'event_time',
+                                  'replay_event'])
+def test_data_parallel_gradient_routes_match_single_device(ranks, name):
+    """The routes beside the ten, on 4 ranks (`_check_grad_route`): the
+    `adams` kind through its loop (its corrector's test global), the
+    implicit fixed grid with Newton's stage solves (Broyden's is
+    implicit_fixed_grid), rk4 with remat, and the event time's gradient
+    through `odeint_event`'s reroute, by the event-mode adjoint and by the
+    replay."""
+    _check_grad_route(ranks, name)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tp_fixed_grid():
+    """JAX's one-device `case_tp_fixed_grid`: the dry run's float64 field
+    through rk4's loop, the loss and its gradients in the parameters, y0
+    and t."""
+    y0 = jnp.asarray(np.random.RandomState(1).randn(64, 2))
+    tgt = jnp.asarray(np.random.RandomState(2).randn(64, 2))
+
+    def loss(p, y, tt_):
+        ys = tde.odeint(lambda s, yy, pp: spiral_field(pp, s, yy), y, tt_,
+                        method='rk4', options=dict(num_steps=TP_STEPS),
+                        args=(p,))
+        return jnp.mean((ys[-1] - tgt) ** 2)
+
+    value, (g_p, g_y, g_t) = jax.jit(jax.value_and_grad(
+        loss, argnums=(0, 1, 2)))(_spiral_params(jnp.float64), y0,
+                                  jnp.array([0.0, 0.5]))
+    return float(value), [np.asarray(x) for layer in g_p
+                          for x in (layer['w'], layer['b'])], \
+        np.asarray(g_y), np.asarray(g_t)
+
+
+def test_data_parallel_tensor_parallel_fixed_grid_matches_jax(ranks):
+    """The dry run's field split by `tensor_parallel_mlp` on {'data': 2,
+    'model': 2} through rk4's loop with remat (the recomputation's model
+    all-reduces in the backward): every rank's loss and gathered
+    gradients, y0's and t's within 1e-12 of max|g| of the port's
+    one-device MLPField and of JAX's one-device step, the same on every
+    rank."""
+    loss_j, g_j, gy_j, gt_j = _jax_tp_fixed_grid()
+    out = _case(ranks, 'tp_fixed_grid')
+    for res in out:
+        sh, one = res['sharded'], res['single']
+        assert abs(sh['loss'] - one['loss']) <= 1e-12 * abs(one['loss'])
+        assert abs(sh['loss'] - loss_j) <= 1e-12 * abs(loss_j)
+        for key, ref in (('grads', g_j), ('y0', gy_j), ('t', gt_j)):
+            _rel(_flat(sh[key]), _flat(one[key]), 1e-12)
+            _rel(_flat(sh[key]), _flat(ref), 1e-12)
+    for key in ('grads', 'y0', 't'):
+        _same_on_every_rank([_flat(res['sharded'][key]) for res in out])
+
+
+@pytest.mark.parametrize("name", ['scipy_adjoint', 'callable_norm'])
+def test_data_parallel_pytree_gradient_routes_match_single_device(ranks,
+                                                                  name):
+    """A dict state through the routes whose backward gathers the state
+    leaf by leaf on 4 ranks, SciPy's adjoint (the global backward, then
+    each rank's rows) and a callable adjoint norm (one all-gather of every
+    leaf a call): the gradients in an args scale and both leaves of y0
+    within 1e-12 of max|g| of the port's one device, the same on every
+    rank."""
+    out = [res['pytree'][name] for res in _case(ranks, 'grad_routes')]
+    for mesh, one in out:
+        for got, want in zip(mesh, one):
+            _rel(got, want, 1e-12)
+    for i in range(3):
+        _same_on_every_rank([mesh[i] for mesh, _ in out])
+
+
+def test_data_parallel_closure_tensor_gets_its_share(ranks):
+    """C25: a tensor the field captures in a closure, which no wrapper
+    sees (neither an nn.Module's parameter nor in `args`), differentiated
+    through the fixed grid on 4 ranks: each rank's gradient is its block's
+    share, which differs from the one-device gradient, and the shares
+    summed over the ranks are that gradient within 1e-12 of its
+    largest."""
+    for res in _case(ranks, 'grad_routes'):
+        c25 = res['c25']
+        _rel(c25['summed'], c25['one'], 1e-12)
+        assert np.abs(c25['rank'] - c25['one']).max() > \
+            0.01 * np.abs(c25['one']).max()
 
 
 def test_data_parallel_implicit_forward_gradient_matches_single_device(

@@ -466,39 +466,179 @@ def case_tensor_parallel(rank):
     return out
 
 
-# the gradient routes data_parallel_odeint refuses, each under autograd
-DP_GRAD_REFUSED = [
-    ('fixed_grid', tt.odeint, dict(method='rk4', options=dict(num_steps=4))),
-    ('replay_grad', tt.odeint, dict(options=dict(replay_grad=True))),
-    ('forward_grad', tt.odeint, dict(options=dict(forward_grad=True))),
-    ('interpolated', tt.odeint_adjoint,
-     dict(adjoint_options=dict(interpolated=True))),
-    ('implicit_adjoint', tt.odeint_adjoint, dict(adjoint_method='kvaerno5')),
-    ('callable_norm', tt.odeint_adjoint,
-     dict(adjoint_options=dict(norm=lambda x: x[0].abs()))),
-    ('implicit_fixed_grid', tt.odeint,
-     dict(method='implicit_euler', options=dict(num_steps=4))),
-    ('event_solve', tt.odeint, dict(event_fn=lambda s, y: y[0, 0] - 0.5)),
-    ('adams_adjoint', tt.odeint_adjoint,
-     dict(adjoint_method='implicit_adams')),
-    ('scipy_adjoint', tt.odeint_adjoint,
-     dict(adjoint_method='scipy_solver')),
+class Spin(torch.nn.Module):
+    """``y' = w * tanh(y) @ W.T``: W a parameter (SPIN_W), w an args
+    scale; row-wise, so each rank's block is its own."""
+
+    def __init__(self):
+        super().__init__()
+        self.w = torch.nn.Parameter(torch.tensor(SPIN_W, dtype=F64))
+
+    def forward(self, s, y, a):
+        return a * torch.tanh(y) @ self.w.T
+
+
+SPIN_W = [[-0.5, 0.8], [-0.8, -0.5]]
+SPIN_T = [0.0, 0.5, 1.0]
+# a level y[0, 0] crosses near t = 0.2 (it starts at 0.0625); bisected to
+# atol 1e-12 (C24: the event time is resolved to atol)
+SPIN_EVENT = 0.08
+EVENT_TOLS = dict(rtol=1e-8, atol=1e-12)
+
+
+def spin_event(s, y):
+    return y[0, 0] - SPIN_EVENT
+
+
+def spin_y0():
+    return torch.arange(1.0, 33.0, dtype=F64).reshape(16, 2) / 16.0
+
+
+def max_rms(xs):
+    """A callable adjoint norm: the largest RMS of its parts (vjp_t, y,
+    adj_y and each theta_bar)."""
+    return torch.stack([torch.sqrt(torch.mean(x.abs() ** 2))
+                        for x in xs]).max()
+
+
+def _event_solve(func, y0, t, **kw):
+    """`odeint` of an event solve, its state: autograd takes the event-mode
+    adjoint with the event time held fixed."""
+    return tt.odeint_with_stats(func, y0, t, **kw)[0][1], None
+
+
+def _event_time(func, y0, t, options=None, **kw):
+    """`odeint_event` from t[0]: (event_t, the state's solution)."""
+    return tt.odeint_event(func, y0, t[0], options=options, **kw), None
+
+
+def _with_stats(func, y0, t, **kw):
+    return tt.odeint_with_stats(func, y0, t, **kw)
+
+
+def _adjoint(func, y0, t, **kw):
+    return tt.odeint_adjoint(func, y0, t, **kw), None
+
+
+# the gradient routes of data_parallel_odeint: (name, odeint_fn, keywords).
+# The first ten were refused before the data axis's autograd Functions;
+# implicit_adjoint and adams_adjoint still are
+DP_GRAD = [
+    ('fixed_grid', _with_stats, dict(method='rk4', options=dict(num_steps=8))),
+    ('replay_grad', _with_stats, dict(options=dict(replay_grad=True))),
+    ('forward_grad', _with_stats, dict(options=dict(forward_grad=True))),
+    ('interpolated', _adjoint, dict(adjoint_options=dict(interpolated=True))),
+    ('implicit_adjoint', _adjoint, dict(adjoint_method='kvaerno5')),
+    ('callable_norm', _adjoint, dict(adjoint_options=dict(norm=max_rms))),
+    ('implicit_fixed_grid', _with_stats,
+     dict(method='implicit_euler', options=dict(num_steps=8))),
+    ('event_solve', _event_solve, dict(event_fn=spin_event, **EVENT_TOLS)),
+    ('adams_adjoint', _adjoint, dict(adjoint_method='implicit_adams')),
+    ('scipy_adjoint', _adjoint, dict(adjoint_method='scipy_solver',
+                                     adjoint_options=dict(solver='RK45'))),
+    # beyond the ten
+    ('adams', _with_stats, dict(method='implicit_adams',
+                                options=dict(num_steps=8, max_order=4))),
+    ('implicit_euler_newton', _with_stats, dict(
+        method='implicit_euler', options=dict(num_steps=8,
+                                              root_solver='newton'))),
+    ('rk4_remat', _with_stats,
+     dict(method='rk4', options=dict(num_steps=8, remat=True))),
+    ('event_time', _event_time, dict(event_fn=spin_event, **EVENT_TOLS)),
+    ('replay_event', _event_time, dict(event_fn=spin_event,
+                                       options=dict(replay_grad=True),
+                                       **EVENT_TOLS)),
 ]
+DP_GRAD_REFUSED = ('implicit_adjoint', 'adams_adjoint')
+DP_TOLS_GRAD = dict(rtol=1e-8, atol=1e-10)
+
+
+class _Counters:
+    """While active, the `Stats` counters of every forward solve (each
+    call of odeint's `_odeint_impl` and of `adjoint_solve`) and every
+    backward solve (`_BackwardStats`)."""
+
+    def __enter__(self):
+        from torchdiffeq_tpu_torch import adjoint
+        self.saved = [(adjoint, 'adjoint_solve'),
+                      (sys.modules['torchdiffeq_tpu_torch.odeint'],
+                       '_odeint_impl')]
+        self.fwd, self.bwd = [], _BackwardStats().__enter__()
+        for module, name in self.saved:
+            setattr(module, name, self._recording(getattr(module, name)))
+        return self
+
+    def _recording(self, fn):
+        def recorded(*a, **k):
+            out, st = fn(*a, **k)
+            self.fwd.append(_counters(st))
+            return out, st
+        recorded.original = fn
+        return recorded
+
+    def __exit__(self, *exc):
+        for module, name in self.saved:
+            setattr(module, name, getattr(module, name).original)
+        self.bwd.__exit__()
+
+
+def _spin_grads(run, kw, forward_mode):
+    """Through `run`: the gradients of the loss sum(ys**2) (an event
+    solve's 3 event_t + sum(y_event**2)) in Spin's W, the args scale w, y0
+    and t, or in forward mode (``torch.func.jvp``, W swapped in by
+    ``functional_call``) the tangent of ys along all four at once; and the
+    forward and backward counters."""
+    field = Spin()
+    kw = dict(DP_TOLS_GRAD, **kw)
+    t = torch.tensor([0.0, 1.0] if 'event_fn' in kw else SPIN_T, dtype=F64)
+    a = torch.tensor(1.1, dtype=F64)
+    with _Counters() as c:
+        if forward_mode:
+            def ys_of(w, aa, y0, tt_):
+                return run(lambda s, y, x: torch.func.functional_call(
+                    field, {'w': w}, (s, y, x)), y0, tt_, args=(aa,), **kw)[0]
+
+            inputs = (field.w.detach(), a, spin_y0(), t)
+            _, tan = torch.func.jvp(ys_of, inputs,
+                                    tuple(torch.ones_like(x) for x in inputs))
+            grads = [_np(tan)]
+        else:
+            leaves = [field.w] + [x.clone().requires_grad_(True)
+                                  for x in (a, spin_y0(), t)]
+            out, _ = run(field, leaves[2], leaves[3], args=(leaves[1],), **kw)
+            if isinstance(out, tuple):
+                loss = 3.0 * out[0] + (out[1][-1] ** 2).sum()
+            else:
+                loss = (out ** 2).sum()
+            loss.backward()
+            grads = [np.zeros(tuple(x.shape)) if x.grad is None
+                     else _np(x.grad) for x in leaves]
+    return dict(grads=grads, fwd=c.fwd, bwd=c.bwd.counters)
 
 
 def case_grad_routes(rank):
-    """Every refused gradient route raises NotImplementedError on every
-    rank before any collective (the all-reduce after them would hang
-    otherwise); a closure field whose W is given in `adjoint_params` gets
-    the global d/dW on every rank."""
+    """Every gradient route of DP_GRAD through data_parallel_odeint on 4
+    ranks, and the single-device gradient of case i on rank i % 4; the two
+    refused routes raise NotImplementedError on every rank before any
+    collective (the all-reduce after them would hang otherwise).  A
+    closure field whose W is given in `adjoint_params` gets the global
+    d/dW on every rank; one whose W is not (C25) gets its block's share
+    through the fixed grid."""
     mesh = make_mesh({'data': 4}, device_type='cpu')
     t, y0 = _dp_problem()
-    refused = {}
-    for name, fn, kwr in DP_GRAD_REFUSED:
-        w = torch.tensor(1.0, dtype=F64, requires_grad=True)
-        refused[name] = _raises(lambda: data_parallel_odeint(fn, mesh)(
-            lambda s, y, ww: -ww * y, y0, t, args=(w,), **kwr),
-            NotImplementedError)
+    routes, refused = {}, {}
+    for i, (name, fn, kw) in enumerate(DP_GRAD):
+        if name in DP_GRAD_REFUSED:
+            a = torch.tensor(1.0, dtype=F64, requires_grad=True)
+            refused[name] = _raises(lambda: data_parallel_odeint(fn, mesh)(
+                lambda s, y, aa: -aa * y, y0, t, args=(a,), **kw),
+                NotImplementedError)
+            continue
+        runs = [('mesh', data_parallel_odeint(fn, mesh))]
+        if i % 4 == rank:
+            runs.append(('one', fn))
+        routes[name] = {which: _spin_grads(run, kw, name == 'forward_grad')
+                        for which, run in runs}
     after = torch.ones(1)
     dist.all_reduce(after, group=mesh.group('data'))
     # an implicit forward method under the continuous adjoint with an
@@ -518,8 +658,90 @@ def case_grad_routes(rank):
         lambda s, y: torch.tanh(y) @ Wt.T, y0c, tc, rtol=1e-8, atol=1e-10,
         adjoint_params=(Wt,))
     ((ys[-1] - tgt) ** 2).sum().backward()
-    return dict(refused=refused, after=float(after), closure=_np(Wt.grad),
-                implicit=implicit)
+    # C25: a tensor the field captures, seen by no wrapper, through the
+    # fixed grid: each rank's gradient is its block's share
+    c25 = []
+    for run in (data_parallel_odeint(tt.odeint, mesh), tt.odeint):
+        Wc = torch.tensor(W, requires_grad=True)
+        ysc = run(lambda s, y: torch.tanh(y) @ Wc.T, y0c, tc, method='rk4',
+                  options=dict(num_steps=8))
+        ((ysc[-1] - tgt) ** 2).sum().backward()
+        c25.append(Wc.grad.clone())
+    share = c25[0].clone()
+    dist.all_reduce(share, group=mesh.group('data'))
+    return dict(routes=routes, refused=refused, after=float(after),
+                closure=_np(Wt.grad), implicit=implicit,
+                c25=dict(rank=_np(c25[0]), summed=_np(share),
+                         one=_np(c25[1])),
+                pytree=_pytree_routes(mesh))
+
+
+def _pytree_routes(mesh):
+    """A dict state through the routes whose backward gathers it (SciPy's
+    and a callable norm's): the gradients in an args scale and both
+    leaves of y0, on the mesh and on one device."""
+    t = torch.tensor(SPIN_T, dtype=F64)
+    Wd = torch.tensor(SPIN_W, dtype=F64)
+
+    def field(s, y, a):
+        return {'p': a * torch.tanh(y['p']) @ Wd.T,
+                'q': -a * y['q'] * y['p'][:, 0]}
+
+    out = {}
+    for name, kw in (('scipy_adjoint', dict(adjoint_method='scipy_solver',
+                                            adjoint_options=dict(
+                                                solver='RK45'))),
+                     ('callable_norm', dict(adjoint_options=dict(
+                         norm=max_rms)))):
+        out[name] = []
+        for run in (data_parallel_odeint(tt.odeint_adjoint, mesh),
+                    tt.odeint_adjoint):
+            a = torch.tensor(1.1, dtype=F64, requires_grad=True)
+            y0 = {'p': spin_y0().requires_grad_(True),
+                  'q': torch.linspace(0.5, 1.5, 16, dtype=F64)
+                  .requires_grad_(True)}
+            ys = run(field, y0, t, args=(a,), **dict(DP_TOLS_GRAD, **kw))
+            ((ys['p'] ** 2).sum() + (ys['q'] ** 2).sum()).backward()
+            out[name].append([_np(x.grad) for x in (a, y0['p'], y0['q'])])
+    return out
+
+
+def case_tp_fixed_grid(rank):
+    """The dry run's field split by `tensor_parallel_mlp` on {'data': 2,
+    'model': 2} (hidden 128, batch 64 from numpy seeds 1 and 2, float64),
+    differentiated through rk4's loop with remat (each recomputed step
+    issues its model all-reduces in the backward): the loss mean((ys[-1] -
+    target)**2) and the gradients in the (gathered) parameters, y0 and t,
+    on the mesh and for the one-device MLPField."""
+    from torchdiffeq_tpu_torch.models import mlp_params_from_jax
+    mesh = make_mesh({'data': 2, 'model': 2}, device_type='cpu')
+    y0 = torch.from_numpy(np.random.RandomState(1).randn(64, 2))
+    tgt = torch.from_numpy(np.random.RandomState(2).randn(64, 2))
+    out = {}
+    for name in ('sharded', 'single'):
+        field = mlp_params_from_jax(_spiral_params('float64'), power=3,
+                                    device='cpu')
+        solve = tt.odeint
+        if name == 'sharded':
+            field = tensor_parallel_mlp(field, mesh)
+            solve = data_parallel_odeint(tt.odeint, mesh)
+        yg = y0.clone().requires_grad_(True)
+        tg = torch.tensor([0.0, 0.5], dtype=F64, requires_grad=True)
+        ys = solve(field, yg, tg, method='rk4',
+                   options=dict(num_steps=TP_STEPS, remat=True))
+        loss = ((ys[-1] - tgt) ** 2).mean()
+        grads = torch.autograd.grad(loss, [*field.parameters(), yg, tg])
+        params = list(grads[:-2])
+        if name == 'sharded':
+            params = field.gather(params)
+        w1, w2, b1, b2 = params
+        out[name] = dict(loss=float(loss.detach()),
+                         grads=[_np(x) for x in (w1, b1, w2, b2)],
+                         y0=_np(grads[-2]), t=_np(grads[-1]))
+    return out
+
+
+TP_STEPS = 8
 
 
 def case_demo(rank):
@@ -537,7 +759,8 @@ SUITES = {
              ('events', case_events), ('parareal', case_parareal),
              ('shard_params', case_shard_params), ('step', case_step),
              ('tensor_parallel', case_tensor_parallel),
-             ('grad_routes', case_grad_routes)],
+             ('grad_routes', case_grad_routes),
+             ('tp_fixed_grid', case_tp_fixed_grid)],
     'demo': [('demo', case_demo)],
 }
 

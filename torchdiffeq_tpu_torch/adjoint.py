@@ -58,6 +58,7 @@ method, a callable adjoint norm and an adjoint ``step_t`` or ``jump_t``.
 """
 from __future__ import annotations
 
+import functools
 from types import SimpleNamespace
 
 import numpy as np
@@ -66,7 +67,8 @@ import torch
 from .misc import (CALLBACK_NAMES, autograd_lane_jacobian, check_inputs,
                    data_axis, flatten_state, host_times, is_tree_state,
                    mixed_norm, ravel_leaves, real_dtype, real_part, rms_norm,
-                   time_effect, time_sign, tree_leaves)
+                   time_effect, time_sign, tree_flatten, tree_leaves,
+                   tree_map, tree_unflatten)
 from .solvers import SOLVERS, needs_jacobian
 
 
@@ -190,11 +192,14 @@ class _Layout:
 
 
 def _make_adjoint_norm(norm_spec, user_state_norm, layout, field=None,
-                       params=()):
+                       params=(), data=None):
     """The norm of the backward solve on the flat augmented state (JAX
     `_make_adjoint_norm`, adjoint.py:64-118): the default, ``'seminorm'``,
     or a user callable, which sees ``(vjp_t, y, adj_y, *theta_bar)``, y and
-    adj_y splatted per leaf for a pytree state.  A `field` whose
+    adj_y splatted per leaf for a pytree state.  Under a data axis `data`
+    (`parallel.sharding`) the callable sees the global augmented state: y
+    and adj_y gathered over the axis (one all-gather a call), vjp_t and
+    theta_bar global already.  A `field` whose
     parameters are sharded over ranks carries ``param_norm(theta_bar,
     params)``, the parameter term over each parameter's global extent
     (`parallel.sharding.TensorParallelMLP`), used in place of
@@ -240,11 +245,65 @@ def _make_adjoint_norm(norm_spec, user_state_norm, layout, field=None,
 
     def wrapped(aug):
         vt, (y, adj_y), th = states(aug)
+        if data is not None:
+            y, adj_y = _gather_trees(data, (y, adj_y))
         if single:
             return norm_spec((vt, y, adj_y) + tuple(th))
         return norm_spec((vt, *tree_leaves(y), *tree_leaves(adj_y), *th))
 
     return wrapped
+
+
+def _gather_trees(data, trees):
+    """Trees of this rank's rows of the batch (the leading dimension of
+    every leaf) as the global batch's, in one all-gather over the data
+    axis `data`: every leaf flattened to (rows, -1) and concatenated."""
+    flat, treedefs = zip(*(tree_flatten(x) for x in trees))
+    leaves = [x for part in flat for x in part]
+    b = leaves[0].shape[0]
+    dt = functools.reduce(torch.promote_types, [x.dtype for x in leaves])
+    whole = data.gather(torch.cat([x.reshape(b, -1).to(dt) for x in leaves],
+                                  1), 0)
+    parts = iter(
+        (p if x.is_complex() or not p.is_complex() else p.real)
+        .reshape((-1,) + tuple(x.shape[1:])).to(x.dtype)
+        for p, x in zip(torch.split(whole, [x[0].numel() for x in leaves],
+                                    1), leaves))
+    return tuple(tree_unflatten(td, [next(parts) for _ in part])
+                 for td, part in zip(treedefs, flat))
+
+
+def _global_rows(data, unravel, xs):
+    """(T, *state) tensors of the solver's layout holding this rank's rows
+    of the batch as the global batch's, each leaf gathered over the data
+    axis on its batch dimension.  Returns (the tensors, the global
+    layout's unravel: None for one tensor)."""
+    if unravel is None:
+        return [data.gather(x, 1) for x in xs], None
+    out = []
+    for x in xs:
+        tree = tree_map(lambda leaf: data.gather(leaf, 1), unravel(x))
+        out.append(torch.cat([leaf.reshape(leaf.shape[0], -1).to(x.dtype)
+                              for leaf in tree_leaves(tree)], 1))
+    return out, flatten_state(tree_map(lambda leaf: leaf[0], tree))[1]
+
+
+def _scipy_global_backward(spec, ys, g_ys, t_int, sign, args_d, params):
+    """A SciPy adjoint method under a data axis: its controller and its
+    finite-difference Jacobians read the whole augmented state, so every
+    rank runs the single-device backward on the global ys and cotangents
+    and keeps its rows of adj_y, as the forward SciPy route runs the
+    global solve (`parallel.sharding`); vjp_t, theta_bar and the time
+    effects come out global."""
+    data = spec.data_axis
+    (ys_g, g_g), unravel_g = _global_rows(data, spec.unravel, (ys, g_ys))
+    adj_y, th, vt, dLds = _backward_pass(
+        SimpleNamespace(**dict(vars(spec), data_axis=None, unravel=unravel_g)),
+        ys_g, g_g, t_int, sign, args_d, params)
+    if unravel_g is None:
+        return data.block(adj_y), th, vt, dLds
+    own = tree_map(lambda leaf: data.block(leaf), unravel_g(adj_y))
+    return flatten_state(own)[0], th, vt, dLds
 
 
 def _forward(spec, y0, t):
@@ -317,6 +376,10 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     # rtol * |entry| before the norm sees it, and a share's scale is not
     # the sum's.
     batch_sum = None if spec.data_axis is None else spec.data_axis.sum
+    if batch_sum is not None and SOLVERS[spec.adjoint_method]['kind'] == \
+            'scipy':
+        return _scipy_global_backward(spec, ys, g_ys, t_int, sign, args_d,
+                                      params)
 
     def f_dir(s, y):
         """The field in the internal increasing frame: sign * f(sign * s)."""
@@ -386,7 +449,7 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     adj_opts = dict(spec.adjoint_options)
     adj_opts['norm'] = _make_adjoint_norm(adj_opts.get('norm'),
                                           spec.user_state_norm, layout,
-                                          func, params)
+                                          func, params, spec.data_axis)
     n_th = sum(layout.p_sizes)
 
     # the effect of moving each output time: one batched field call
@@ -668,6 +731,12 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
         y0_in, unravel = flatten_state(y0)
     else:
         y0_in, unravel = y0, None
+    axis = data_axis()
+    if axis is not None and torch.is_grad_enabled() and any(
+            x.requires_grad for x in (y0_in, t_tensor, *module_params,
+                                      *arg_tensors)):
+        # refused on every rank before the forward's first collective
+        axis.check_adjoint_method(adjoint_method)
     # what the autograd Function needs besides its tensor inputs; its
     # forward leaves the solve's Stats in `stats`
     spec = SimpleNamespace(
@@ -678,7 +747,7 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
         user_state_norm=(options or {}).get('norm'),
         interp_max_segments=interp_max_segments,
         module_params=module_params, arg_tensors=arg_tensors,
-        t_tensor=t_tensor, stats=None, data_axis=data_axis())
+        t_tensor=t_tensor, stats=None, data_axis=axis)
     out = _AdjointOp.apply(spec, y0_in, t_tensor, *module_params,
                            *arg_tensors)
     if event_fn is None:

@@ -14,7 +14,7 @@ import math
 import numpy as np
 import torch
 
-from .misc import (check_inputs, nan_sign, ravel_leaves, real_part,
+from .misc import (check_inputs, data_axis, nan_sign, ravel_leaves, real_part,
                    scalar_type, smax, time_effect, time_tensor, tree_flatten,
                    tree_leaves, tree_map, tree_unflatten)
 
@@ -81,11 +81,19 @@ class _ImplicitFnGradientRerouting(torch.autograd.Function):
     and `event_fn` capture (parameters) are not inputs of the Function, so
     the evaluation here gives them no gradient, as the JAX package's zero
     cotangents for its closure-converted constants do.
+
+    Under a data axis (`misc.data_axis`, `parallel.sharding`) the state is
+    this rank's rows and the event time is replicated: the event function
+    gathers the state, so ``dc/dy`` comes back as this rank's rows, and the
+    two inner products over the state, the blocks' shares, are summed over
+    the axis (one all-reduce) before the replicated ``dc/dt|_partial`` and
+    ``grad_t`` are added, each counted once.
     """
 
     @staticmethod
     def forward(ctx, func, event_fn, event_t, state_t):
         ctx.func, ctx.event_fn = func, event_fn
+        ctx.axis = data_axis()
         ctx.save_for_backward(event_t, state_t)
         return event_t.detach(), state_t.detach()
 
@@ -108,8 +116,12 @@ class _ImplicitFnGradientRerouting(torch.autograd.Function):
         # the gradient from the final state to the final time, as for
         # odeint: real inner products, Re sum(conj(g) f) for a complex
         # state (`misc.time_effect`)
-        dcdt = par_dt + _inner(f_val, dstate)
-        grad_t_total = grad_t + _inner(f_val, grad_state)
+        inner = torch.stack([_inner(f_val, dstate),
+                             _inner(f_val, grad_state)])
+        if ctx.axis is not None:
+            inner = ctx.axis.sum(inner)
+        dcdt = par_dt + inner[0]
+        grad_t_total = grad_t + inner[1]
         grad_state = grad_state + dstate * (-grad_t_total / (dcdt + 1e-12))
         return None, None, torch.zeros_like(event_t), grad_state
 

@@ -37,7 +37,8 @@ import warnings
 import numpy as np
 import torch
 
-from .misc import check_inputs, host_times, needs_autograd, tree_leaves
+from .misc import (check_inputs, data_axis, host_times, needs_autograd,
+                   tree_leaves)
 from .solvers import SOLVERS, DIRECT_DIFF_KINDS
 from .solvers import (adams, adaptive_rk, fixed_grid, fixed_grid_implicit,
                       replay, scipy_wrapper)
@@ -273,10 +274,23 @@ def _forward_grad(func, y0, t, rtol, atol, method, options, event_fn, args):
     return (prob.unravel or (lambda x: x))(ys), stats
 
 
+def _block_inputs(func, y0, t, args):
+    """A data-parallel rank's inputs to a solve that autograd
+    differentiates through its own loop: each replicated one read through
+    the data axis's `copy_inputs` (`parallel.sharding`), so that its
+    gradient sums every rank's share; off the mesh they are the inputs."""
+    axis = data_axis()
+    if axis is None or not torch.is_grad_enabled():
+        return func, y0, t, args
+    return axis.copy_inputs(func, y0, t, args)
+
+
 def _replay(func, y0, t, rtol, atol, method, options, event_fn, args):
     """``replay_grad``: record the steps, then replay them differentiably
     (JAX odeint.py:300-322).  step_to_end is dropped: the replay emits
     through the interpolant."""
+    t_user = t
+    func, y0, t, args = _block_inputs(func, y0, t, args)
     options = dict(options)
     options.pop('replay_grad')
     options.pop('step_to_end', None)
@@ -292,7 +306,8 @@ def _replay(func, y0, t, rtol, atol, method, options, event_fn, args):
         return unravel(ys), stats
     event_t, y_event, stats = replay.integrate_replay_event(
         prob.func, prob.y0, prob.t[0], ts_d[0], prob.event_fn, cfg,
-        max_segments)
+        max_segments,
+        t0_out=None if t is t_user else _internal_times(prob, t_user)[0])
     return ((prob.t_sign * event_t, unravel(torch.stack([prob.y0, y_event]))),
             stats)
 
@@ -313,6 +328,7 @@ def _odeint_impl(func, y0, t, rtol, atol, method, options, event_fn, args):
         options = {k: v for k, v in options.items() if k != 'forward_grad'}
     if direct and event_fn is None:
         # JAX odeint.py:269-271: backprop through the loop
+        func, y0, t, args = _block_inputs(func, y0, t, args)
         prob = check_inputs(func, y0, t, rtol, atol, method, options, None,
                             SOLVERS, args=tuple(args))
         t_grad = None

@@ -54,7 +54,7 @@ from torch import nn
 from ..misc import (flatten_state, is_tree_state, needs_autograd,
                     ravel_leaves, real_part, tree_leaves)
 from .batched import odeint_spans_with_stats
-from .sharding import _all_gather_blocks, _axis
+from .sharding import _DataGather, _axis
 
 
 class _FlatField(nn.Module):
@@ -236,8 +236,7 @@ def odeint_parareal_with_info(func, y0, t, *, rtol=1e-7, atol=1e-9,
                                                          None)
             return _MeshFineSweep.apply(fine, mine, group, U_heads, spans,
                                         *module_params, *arg_tensors)
-        return _all_gather_blocks(fine(U_heads[mine], spans[mine]), group,
-                                  0)
+        return _DataGather.apply(fine(U_heads[mine], spans[mine]), group, 0)
 
     def coarse(s, u):
         return odeint(flat_func, u, t[s:s + 2], method=coarse_method,

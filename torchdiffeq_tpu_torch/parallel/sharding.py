@@ -27,7 +27,8 @@ wants one process a device; one process a rank gives each card its own.
   that reads the state reads its global value, so every rank takes the
   single-device solve's steps, stage-solve and corrector iterations and
   `Stats` (below).  It takes every registry method and event functions.
-  Under autograd it gives global gradients (below).
+  Under autograd it gives global gradients on every route but an
+  implicit or Adams adjoint method (below).
 * `shard_params`: large 2-D leaves as DTensors sharded by column over the
   model axis, the rest replicated.
 * `tensor_parallel_mlp`: an `MLPField` of one hidden layer split over the
@@ -92,46 +93,98 @@ The two wrappers differ in what a rank then receives.
   nothing; a parameter of a `tensor_parallel_mlp` receives the global
   gradient of its own shard.
 
-Why that is more than autograd: a continuous-adjoint backward must take the
-same steps on every rank, or a rank still stepping waits for ever in a
-collective, and its error control reads vjp_t and the parameter
-accumulator theta_bar, sums over the batch of which each rank's block
-holds a share.  Summing the shares where the norm reads them would not
-do: the controller scales each entry by ``atol + rtol * |entry|`` before
-the norm sees it, and a share's scale is not the sum's (at 4 CPU ranks
-that took 22 backward steps where the one-device solve takes 20).  So the
-adjoint's forward keeps the data axis it ran under, and its backward
-(`adjoint._backward_pass`) sums the rates of vjp_t and theta_bar over the
-axis at every evaluation of the augmented field (one all-reduce of 1 + P
-values, P the parameters' size), as XLA's partitioning sums them in JAX,
-and the output times' effects once, so that every rank carries the
-global vjp_t and theta_bar and takes the one-device solve's steps; y and
-adj_y stay each rank's block under the global state norm, and a sharded
-field's parameter term is its ``param_norm`` (a `tensor_parallel_mlp`'s:
-one model all-reduce a norm call).  The time and parameter gradients then
-come out global, and the backward of y0's rows all-gathers every rank's
-cotangent block, so that every rank's y0 gradient is the whole one.
+The continuous adjoint (explicit adaptive or fixed-grid adjoint method,
+default norm or ``'seminorm'``) is more than autograd: a
+continuous-adjoint backward must take the same steps on every rank, or a
+rank still stepping waits for ever in a collective, and its error control
+reads vjp_t and the parameter accumulator theta_bar, sums over the batch
+of which each rank's block holds a share.  Summing the shares where the
+norm reads them would not do: the controller scales each entry by ``atol
++ rtol * |entry|`` before the norm sees it, and a share's scale is not
+the sum's (at 4 CPU ranks that took 22 backward steps where the
+one-device solve takes 20).  So the adjoint's forward keeps the data axis
+it ran under, and its backward (`adjoint._backward_pass`) sums the rates
+of vjp_t and theta_bar over the axis at every evaluation of the augmented
+field (one all-reduce of 1 + P values, P the parameters' size), as XLA's
+partitioning sums them in JAX, and the output times' effects once, so
+that every rank carries the global vjp_t and theta_bar and takes the
+one-device solve's steps; y and adj_y stay each rank's block under the
+global state norm, and a sharded field's parameter term is its
+``param_norm`` (a `tensor_parallel_mlp`'s: one model all-reduce a norm
+call).  The time and parameter gradients then come out global, and the
+backward of y0's rows all-gathers every rank's cotangent block, so that
+every rank's y0 gradient is the whole one.
 
-Taken under autograd: the continuous adjoint with an explicit adaptive or
-fixed-grid adjoint method, through `odeint_adjoint` (default norm or
-``'seminorm'``) and through plain `odeint` with an explicit adaptive
-method, after any adaptive forward method (kvaerno3, kvaerno5 and
-radau5a too, with an explicit ``adjoint_method``), for parameters of an
-``nn.Module`` field, tensors in `args`, and closure tensors given in
-``adjoint_params``.  Refused with `NotImplementedError`, from the
-arguments alone, on every rank and before any collective: autograd
-through a fixed-grid, Adams or implicit fixed-grid solve (autograd
-differentiates its loop, which would give each rank its share),
-gradients through an event solve, ``replay_grad`` and ``forward_grad``,
-the interpolated adjoint, an implicit, Adams or SciPy adjoint method
-(their stage systems over the augmented state couple the ranks through
-theta_bar's global sum), and a callable adjoint norm (it would see one
-rank's block).  Parareal's ``mesh=`` gives every rank the global gradient
-too (`parareal` module docstring).
+Where a replicated value and a block meet (every other gradient route).
+Autograd differentiates each rank's own loop, whose backward gives each
+rank its block's share of every replicated input's gradient, and a
+replicated value computed from the blocks must see every block.  The
+port takes Megatron's pair, as `_ModelCopy` and `_ModelReduce` work on
+the model axis, onto the data axis, three autograd Functions with a
+forward-mode rule and a ``torch.func.vmap`` rule each:
+
+* `_DataCopy`, a replicated value read by a block: the identity, whose
+  backward all-reduces (SUM) the cotangents, forward mode the identity;
+* `_DataReduce`, a block's shares summed into a replicated value: the
+  all-reduce, whose backward is the identity and whose forward mode
+  all-reduces the tangents (the error norm's means, so that
+  ``forward_grad``'s step sizes carry the global tangent: a plain
+  all-reduce of a tensor inside ``torch.func.jvp`` drops it);
+* `_DataGather`, a block gathered into a replicated whole: the
+  all-gather, whose backward hands each rank its block's cotangent and
+  whose forward mode all-gathers the tangents (the results, an event
+  function's state).
+
+`_DataAxis.sum` and `gather` take them only when a graph or a tangent is
+live, and their plain collectives otherwise, bit for bit with the
+forward before them.  The replicated inputs of a solve a rank
+differentiates through its own loop (`odeint`'s fixed-grid, Adams and
+implicit fixed-grid routes and ``replay_grad``: `odeint._block_inputs`)
+pass through ONE `_DataCopy` at its entry: an ``nn.Module`` field's
+parameters (swapped in by ``torch.func.functional_call``), the tensors in
+`args` and a tensor `t`, with y0's rows passed through it, so that the
+backward's data collectives form one chain -- the copy's all-reduce of
+the concatenated cotangents, then the rows' all-gather, which waits for
+it -- and no two autograd threads can issue them in another order on
+another rank (NCCL would hang).  Per route:
+
+* autograd through each rank's loop: the implicit stage solves'
+  implicit-function backward (`_IFT`) solves with the block's own
+  Jacobian (a row-wise field's stage Jacobian is block-diagonal;
+  Broyden's global matrix is the forward's alone);
+* ``replay_grad``: the recording runs under the global norm, the replay
+  is the loop's autograd; an event's Newton correction reads the event
+  function through `_DataGather`, and each block reads the event time
+  (and the bisection point whose derivative the correction takes)
+  through `_DataCopy`;
+* an event solve under autograd (the event-mode adjoint) and the event
+  time's reroute (`events._ImplicitFnGradientRerouting`): the event
+  function gathers the state through `_DataGather`, and the reroute's
+  two inner products over the state, the blocks' shares, are summed over
+  the axis before the replicated shares are added, each counted once;
+* the interpolated adjoint: its reduced backward sums vjp_t's and
+  theta_bar's rates as the standard one does, on the forward's global
+  steps;
+* a callable adjoint norm sees the global augmented state: y and adj_y
+  gathered (one all-gather a call), vjp_t and theta_bar global already;
+* a SciPy adjoint method: as the forward SciPy route, every rank runs
+  the one-device backward on the gathered ys and cotangents and keeps its
+  rows of adj_y.
+
+Refused with `NotImplementedError`, from the arguments alone, on every
+rank and before any collective (`adjoint.adjoint_solve`): an implicit or
+Adams adjoint method, whose stage systems or corrector run over the
+augmented state, coupling the ranks through vjp_t's and theta_bar's
+global sums.  A tensor that a closure field captures, which no wrapper
+sees, gets its rank's share on the routes that differentiate a rank's
+loop (C25): give it in `args`, or to `odeint_adjoint` in
+``adjoint_params``.  Parareal's ``mesh=`` gives every rank the global
+gradient too (`parareal` module docstring).
 """
 from __future__ import annotations
 
 import atexit
+import functools
 import os
 import shutil
 import tempfile
@@ -141,9 +194,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..misc import (DATA_AXIS, is_tree_state, needs_autograd, tree_leaves,
-                    tree_map)
-from ..solvers import DIRECT_DIFF_KINDS, SOLVERS
+from ..adjoint import _replace_tensors, _tensors_in
+from ..misc import (DATA_AXIS, carries_derivative, is_tree_state,
+                    needs_autograd, tree_leaves, tree_map)
+from ..solvers import SOLVERS, needs_jacobian
 from ..solvers.solution import Stats
 
 
@@ -256,42 +310,132 @@ class _Rows(torch.autograd.Function):
     every rank's cotangent of its rows over `group`, in rank order: the
     whole batch's gradient, when each rank's rows are its own block's and
     its cotangent that block's whole (the loss is computed on every rank
-    from the gathered result)."""
+    from the gathered result).  Forward mode takes the tangent's rows."""
 
     @staticmethod
-    def forward(ctx, x, start, b, group, device):
-        ctx.group, ctx.device = group, x.device
+    def forward(x, start, b, group, device):
         return x[start:start + b].to(device, copy=True)
 
     @staticmethod
-    def backward(ctx, g):
-        parts = [torch.empty_like(g)
-                 for _ in range(dist.get_world_size(ctx.group))]
-        dist.all_gather(parts, g.contiguous(), group=ctx.group)
-        return torch.cat(parts).to(ctx.device), None, None, None, None
-
-
-class _AllGather(torch.autograd.Function):
-    """The blocks of every rank along `dim`, in rank order; the backward
-    hands each rank the cotangent of its own block."""
+    def setup_context(ctx, inputs, output):
+        x, ctx.start, ctx.b, ctx.group, ctx.out_device = inputs
+        ctx.device = x.device
 
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.dim, ctx.rank = dim, dist.get_rank(group)
-        ctx.size = x.shape[dim]
-        parts = [torch.empty_like(x)
-                 for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim=dim)
+    def backward(ctx, g):
+        return _gather(g, ctx.group, 0).to(ctx.device), None, None, None, None
+
+    @staticmethod
+    def jvp(ctx, x_t, *_):
+        return x_t[ctx.start:ctx.start + ctx.b].to(ctx.out_device, copy=True)
+
+    @staticmethod
+    def vmap(info, in_dims, x, start, b, group, device):
+        x = x.movedim(in_dims[0], 0)
+        return x[:, start:start + b].to(device, copy=True), 0
+
+
+def _gather(x, group, dim):
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+class _DataCopy(torch.autograd.Function):
+    """Megatron's "copy" on the data axis (module docstring): the identity
+    on every tensor of `xs`, whose backward all-reduces (SUM) the
+    cotangents of the replicated ones over `group` -- each rank's is its
+    block's share -- in ONE all-reduce of their concatenation on `device`;
+    the first `n_blocks` of `xs` are blocks of the batch (y0's rows), whose
+    cotangents pass through, so that the backward of their rows (`_Rows`)
+    waits for this one.  Forward mode is the identity."""
+
+    @staticmethod
+    def forward(group, device, n_blocks, *xs):
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.device, ctx.n_blocks = inputs[:3]
+
+    @staticmethod
+    def backward(ctx, *gs):
+        blocks, rep = gs[:ctx.n_blocks], gs[ctx.n_blocks:]
+        if rep:
+            dt = functools.reduce(torch.promote_types, [g.dtype for g in rep])
+            flat = torch.cat([g.reshape(-1).to(ctx.device, dt) for g in rep])
+            dist.all_reduce(flat, group=ctx.group)
+            rep = [part.view(g.shape).to(g.device, g.dtype) for part, g in
+                   zip(torch.split(flat, [g.numel() for g in rep]), rep)]
+        return (None, None, None, *blocks, *rep)
+
+    @staticmethod
+    def jvp(ctx, *tangents):
+        return tuple(tangents[3:])
+
+    @staticmethod
+    def vmap(info, in_dims, group, device, n_blocks, *xs):
+        return (_DataCopy.apply(group, device, n_blocks, *xs),
+                tuple(in_dims[3:]))
+
+
+class _DataReduce(torch.autograd.Function):
+    """Megatron's "reduce" on the data axis: the all-reduce (SUM) of each
+    rank's share of a replicated value, whose backward is the identity
+    (the value's cotangent is already whole on every rank) and whose
+    forward-mode derivative all-reduces the tangents."""
+
+    @staticmethod
+    def forward(x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group = inputs[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+    @staticmethod
+    def jvp(ctx, x_t, group_t):
+        # through the Function again: a tangent may be a torch.func
+        # wrapper, which a collective cannot read
+        return _DataReduce.apply(x_t, ctx.group)
+
+    @staticmethod
+    def vmap(info, in_dims, x, group):
+        return _DataReduce.apply(x, group), in_dims[0]
+
+
+class _DataGather(torch.autograd.Function):
+    """Every rank's block of one tensor along `dim`, in rank order (one
+    all-gather); the backward hands each rank the cotangent of its own
+    block, and forward mode all-gathers the tangents."""
+
+    @staticmethod
+    def forward(x, group, dim):
+        return _gather(x, group, dim)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.group, ctx.dim = inputs
+        ctx.rank, ctx.size = dist.get_rank(ctx.group), x.shape[ctx.dim]
 
     @staticmethod
     def backward(ctx, g):
         return g.narrow(ctx.dim, ctx.rank * ctx.size, ctx.size), None, None
 
+    @staticmethod
+    def jvp(ctx, x_t, group_t, dim_t):
+        return _DataGather.apply(x_t, ctx.group, ctx.dim)
 
-def _all_gather_blocks(x, group, dim):
-    """Every rank's block `x` of one tensor, concatenated along `dim`."""
-    return _AllGather.apply(x, group, dim)
+    @staticmethod
+    def vmap(info, in_dims, x, group, dim):
+        if in_dims[0] is None:
+            return _DataGather.apply(x, group, dim), None
+        x = x.movedim(in_dims[0], 0)
+        return _DataGather.apply(x, group, dim + 1 if dim >= 0 else dim), 0
 
 
 def _per_shard(obj, group):
@@ -324,7 +468,7 @@ def _gather_out(out, group, shards):
                 "a 0-d tensor in the result of a sharded solve cannot be "
                 "placed on the batch: odeint_fn must return odeint's layout "
                 "(T, B, ...), (B,) vectors or Stats")
-        return _all_gather_blocks(out, group, 1 if out.dim() >= 2 else 0)
+        return _DataGather.apply(out, group, 1 if out.dim() >= 2 else 0)
     if isinstance(out, dict):
         return type(out)((k, _gather_out(v, group, shards))
                          for k, v in out.items())
@@ -361,46 +505,68 @@ def sharded_independent_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
     return solve
 
 
-def _global_norm(group, n):
+def _global_norm(data):
     """The RMS norm over the global batch (the max of per-leaf ones for a
     pytree, as `misc.mixed_norm`): each rank's mean of squares per leaf,
-    summed over `group` and divided by its `n` shards.  The shards are
-    equal blocks, so this is the global mean of squares; with one shard it
-    is `misc.rms_norm` bit for bit."""
+    summed over the data axis (`_DataAxis.sum`, which carries
+    ``forward_grad``'s tangents) and divided by its `n` shards.  The shards
+    are equal blocks, so this is the global mean of squares; with one
+    shard it is `misc.rms_norm` bit for bit."""
     def norm(x):
         leaves = tree_leaves(x)
         ms = torch.stack([torch.mean(leaf.abs() ** 2) for leaf in leaves])
-        dist.all_reduce(ms, group=group)
-        rms = torch.sqrt(ms / n)
+        rms = torch.sqrt(data.sum(ms) / data.n)
         return rms.max() if is_tree_state(x) else rms[0]
     return norm
+
+
+class _Swapped:
+    """An ``nn.Module`` field called with `params` in place of its own
+    (``torch.func.functional_call``); its other attributes (a field's
+    callbacks) are the module's."""
+
+    def __init__(self, module, params):
+        self.module, self.params = module, params
+
+    def __call__(self, *args, **kwargs):
+        return torch.func.functional_call(self.module, self.params, args,
+                                          kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.module, name)
 
 
 class _DataAxis:
     """The data axis of a `data_parallel_odeint` solve as its solvers see
     it (`misc.DATA_AXIS`, module docstring): this rank's coordinate `c`
-    among `n` equal blocks, and the collectives that make a decision
-    global."""
+    among `n` equal blocks on `device`, the collectives that make a
+    decision global, and the autograd Functions where a replicated value
+    and a block meet.  `sum` and `gather` take their Function only when
+    `x` carries a graph or a tangent, and their plain collective
+    otherwise."""
 
-    def __init__(self, group, n, c):
-        self.group, self.n, self.c = group, n, c
+    def __init__(self, group, n, c, device):
+        self.group, self.n, self.c, self.device = group, n, c, device
 
     def sum(self, x):
-        """`x` summed over the axis (one all-reduce)."""
+        """`x` summed over the axis (one all-reduce; `_DataReduce`)."""
+        if carries_derivative(x):
+            return _DataReduce.apply(x, self.group)
         return _all_reduce(x, self.group)
 
     def max(self, x):
-        """The elementwise max of `x` over the axis (one all-reduce)."""
-        out = x.clone()
+        """The elementwise max of `x` over the axis (one all-reduce), a
+        decision: no derivative."""
+        out = x.detach().clone()
         dist.all_reduce(out, op=dist.ReduceOp.MAX, group=self.group)
         return out
 
     def gather(self, x, dim=0):
         """Every rank's `x` (one shape on all) concatenated along `dim`,
-        in rank order (one all-gather)."""
-        parts = [torch.empty_like(x) for _ in range(self.n)]
-        dist.all_gather(parts, x.contiguous(), group=self.group)
-        return torch.cat(parts, dim)
+        in rank order (one all-gather; `_DataGather`)."""
+        if carries_derivative(x):
+            return _DataGather.apply(x, self.group, dim)
+        return _gather(x, self.group, dim)
 
     def block(self, x, dim=0):
         """This rank's block of `x` along `dim`: the inverse of
@@ -408,58 +574,57 @@ class _DataAxis:
         b = x.shape[dim] // self.n
         return x.narrow(dim, self.c * b, b)
 
+    def copy(self, x):
+        """A replicated tensor `x` as this rank's block reads it
+        (`_DataCopy`)."""
+        if not carries_derivative(x):
+            return x
+        return _DataCopy.apply(self.group, self.device, 0, x)[0]
 
-def _explicit(method):
-    """Whether `method` is an explicit adaptive or a fixed-grid one, whose
-    backward solve decides by its norm alone; a name the registry does
-    not know passes, for the solve to reject."""
-    spec = SOLVERS.get(method)
-    return spec is None or spec['kind'] == 'fixed' or (
-        spec['kind'] == 'adaptive' and not spec['tableau'].implicit)
+    def copy_inputs(self, func, y0, t, args):
+        """The inputs of a solve that autograd differentiates through this
+        rank's loop, every replicated one through ONE `_DataCopy` (module
+        docstring): the parameters of an ``nn.Module`` `func` that require
+        grad (swapped in by ``torch.func.functional_call``), and the
+        tensors in `args` and a tensor `t` that carry a derivative; y0's
+        leaves, this rank's rows, pass through it.  Returns (func, y0, t,
+        args)."""
+        named = ([(k, p) for k, p in func.named_parameters()
+                  if p.requires_grad]
+                 if isinstance(func, torch.nn.Module) else [])
+        blocks = [x for x in tree_leaves(y0) if carries_derivative(x)]
+        seen, rep = {id(x) for x in blocks}, []
+        for x in ([p for _, p in named] + _tensors_in(args)
+                  + ([t] if isinstance(t, torch.Tensor) else [])):
+            if carries_derivative(x) and id(x) not in seen:
+                seen.add(id(x))
+                rep.append(x)
+        if not rep:
+            return func, y0, t, args
+        out = _DataCopy.apply(self.group, self.device, len(blocks), *blocks,
+                              *rep)
+        subs = {id(x): o for x, o in zip(blocks + rep, out)}
+        if named:
+            func = _Swapped(func, {k: subs[id(p)] for k, p in named})
+        return (func, tree_map(lambda x: subs.get(id(x), x), y0),
+                subs.get(id(t), t), _replace_tensors(args, subs))
 
-
-def _refuse_gradient_routes(method, options, kwargs, grad):
-    """The gradient routes `data_parallel_odeint` does not take, refused
-    from the arguments alone (module docstring): `grad` says whether
-    autograd would record through the solve."""
-    for key in ('replay_grad', 'forward_grad'):
-        if options.get(key):
+    @staticmethod
+    def check_adjoint_method(adjoint_method):
+        """The gradient routes `data_parallel_odeint` does not take, refused
+        from the arguments alone before any collective (module docstring):
+        an implicit or Adams adjoint method, whose stage systems or
+        corrector run over the augmented state, coupling the ranks through
+        theta_bar's and vjp_t's global sums."""
+        spec = SOLVERS.get(adjoint_method)
+        if spec is not None and (spec['kind'] == 'adams'
+                                 or needs_jacobian(adjoint_method)):
             raise NotImplementedError(
-                f"data_parallel_odeint: {key} differentiates the solve's "
-                "own steps on each rank, which would give each rank its "
-                "block's share of the gradient; use the continuous adjoint "
-                "(odeint_adjoint, or odeint with an adaptive method)")
-    if not grad:
-        return
-    if SOLVERS.get(method, {}).get('kind') in DIRECT_DIFF_KINDS:
-        raise NotImplementedError(
-            "data_parallel_odeint: gradients through a fixed-grid, Adams or "
-            "implicit fixed-grid solve come from autograd through its loop, "
-            "which would give each rank its block's share; use an adaptive "
-            "method under the continuous adjoint")
-    if kwargs.get('event_fn') is not None:
-        raise NotImplementedError(
-            "data_parallel_odeint: gradients through an event solve are "
-            "not taken under the mesh (the event-mode adjoint and the event "
-            "time's reroute would each see one rank's block); solve it "
-            "under torch.no_grad()")
-    adj = dict(kwargs.get('adjoint_options') or {})
-    if adj.get('interpolated'):
-        raise NotImplementedError(
-            "data_parallel_odeint: the interpolated adjoint is not taken "
-            "under the mesh; drop adjoint_options['interpolated']")
-    if callable(adj.get('norm')):
-        raise NotImplementedError(
-            "data_parallel_odeint: a callable adjoint norm would see one "
-            "rank's block of y and adj_y; use the default norm or "
-            "'seminorm'")
-    adjoint_method = kwargs.get('adjoint_method') or method
-    if not _explicit(adjoint_method):
-        raise NotImplementedError(
-            f"data_parallel_odeint: adjoint method {adjoint_method!r} solves "
-            "stage systems, corrects or calls SciPy over the augmented "
-            "state, whose vjp_t and theta_bar are sums over every rank's "
-            "block; use an explicit adaptive adjoint method")
+                f"data_parallel_odeint: adjoint method {adjoint_method!r} "
+                "solves stage systems or corrects over the augmented state, "
+                "whose vjp_t and theta_bar are sums over every rank's block; "
+                "use an explicit adaptive, fixed-grid or SciPy adjoint "
+                "method")
 
 
 def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
@@ -489,13 +654,11 @@ def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
                 "rank's block of the batch; the wrapper sets the norm to "
                 "the global RMS itself (drop options['norm'], or use "
                 "sharded_independent_odeint for per-block controllers)")
-        from ..adjoint import _tensors_in
         if kwargs.get('adjoint_params') is not None:
             kwargs['adjoint_params'] = tuple(kwargs['adjoint_params'])
         grad = needs_autograd(func, *tree_leaves(y0), t,
                               *_tensors_in(kwargs.get('args', ())),
                               *(kwargs.get('adjoint_params') or ()))
-        _refuse_gradient_routes(method, options, kwargs, grad)
         if SOLVERS.get(method, {}).get('kind') == 'scipy':
             # SciPy's controller reads the whole flat state: the global
             # solve, the same on every rank
@@ -506,8 +669,8 @@ def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
             # the norm set below is no user option: the backward's options
             # are none, as one device infers them
             kwargs['adjoint_options'] = {}
-        data = _DataAxis(group, n, c)
-        options['norm'] = _global_norm(group, n)
+        data = _DataAxis(group, n, c, mesh.device)
+        options['norm'] = _global_norm(data)
         grid_constructor = options.get('grid_constructor')
         if grid_constructor is not None:
             options['grid_constructor'] = lambda f, y, tt: grid_constructor(

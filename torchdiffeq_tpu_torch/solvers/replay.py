@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..misc import Perturb, nan_sign
+from ..misc import Perturb, data_axis, nan_sign
 from ..ops.interp import interp_evaluate, interp_evaluate_at, interp_fit
 from ..ops.rk_step import runge_kutta_step, weighted_sum
 from .adaptive_rk import AdaptiveConfig, _Carry, _adaptive_step, _prep_tvals
@@ -187,6 +187,12 @@ def _replay_to_event(func, y0, t0_d, event_fn, cfg, times, sign0):
     replay.py:369-428).  Returns (event_t, y_event)."""
     from ..events import find_event
 
+    # under a data axis (`misc.data_axis`) the event function gathers the
+    # state and the event time is replicated: each block reads a time
+    # through `_DataCopy`, so that its share of the time's derivative is
+    # summed over the axis
+    axis = data_axis()
+    share = (lambda tt: tt) if axis is None else axis.copy
     jump_t = _jump_set(cfg, times[0])
     y, f = y0, func(t0_d, y0, perturb=Perturb.NONE)
     fit = None
@@ -209,25 +215,28 @@ def _replay_to_event(func, y0, t0_d, event_fn, cfg, times, sign0):
     # interp(t)) = 0 on the replayed (discrete) solution
     with torch.enable_grad():
         tt = t_b.detach().requires_grad_(True)
-        g_t = event_fn(tt, interp(tt, coeff.detach())).reshape(())
+        g_t = event_fn(tt, interp(share(tt), coeff.detach())).reshape(())
         (gprime,) = torch.autograd.grad(g_t, tt)
     safe = torch.where(gprime.abs() > 0, gprime, torch.ones_like(gprime))
     g = event_fn(t_b, interp(t_b)).reshape(())
     event_t = torch.clamp(t_b - g / safe, tb0, tb1)
-    return event_t, interp(event_t)
+    return event_t, interp(share(event_t))
 
 
 def integrate_replay_event(func, y0, t0, t0_d, event_fn, cfg: AdaptiveConfig,
-                           max_segments=None):
+                           max_segments=None, t0_out=None):
     """Replay-mode event solve (JAX `integrate_replay_event`,
     replay.py:410-446).  `t0_d` is the start as a 0-d float64 tensor, which
-    may carry a gradient.  Returns (event_t, y_event, Stats); both NaN when
-    the recording failed."""
+    may carry a gradient; `t0_out` (default `t0_d`) is the event time an
+    event already zero at the start returns (a data-parallel solve's
+    replicated start, where `t0_d` is the blocks' copy).  Returns (event_t,
+    y_event, Stats); both NaN when the recording failed."""
     cap = _AUTO_LIMIT if max_segments is None else int(max_segments)
     times, sign0, at_event, stats = record_segments_until_event(
         func, y0, t0, event_fn, cfg, cap)
     if at_event or times.shape[0] < 2:
-        event_t, y_event = t0_d.to(y0.device), y0
+        event_t = (t0_d if t0_out is None else t0_out).to(y0.device)
+        y_event = y0
     else:
         event_t, y_event = _replay_to_event(func, y0, t0_d, event_fn, cfg,
                                             times, sign0)
