@@ -118,8 +118,8 @@ benchmarks/bench_fused_field.py at its full width:
      and `--adjoint`; (e) odenet_mnist (the ODE-Net with and without
      `--adjoint`, and the residual network), each timed with its NFE, and a
      float64 step card against CPU for (b)-(d); (f) bouncing_ball whole in
-     float64; (g) learn_physics whole if it fits its budget; (h) the phase's
-     seconds;
+     float64; (g) learn_physics, EX_STEPS of its 300 iterations; (h) the
+     phase's seconds;
  18. every state dtype: (a) complex states on a discretised 1-D
      Schroedinger equation (64 wavepackets on 256 points, complex128):
      the dopri5 solve card against CPU and against unitarity, complex64
@@ -170,12 +170,14 @@ benchmarks/bench_fused_field.py at its full width:
      of one rank on NCCL, mesh {'data': 1, 'model': 1}: phase 10's step
      through `data_parallel_odeint` and `tensor_parallel_mlp` against the
      unsharded step, bit for bit with equal forward and backward counters,
-     and its median time a step beside phase 10's; (b) STEP_RANKS ranks on
-     the card, subprocesses on gloo: the dry run's float64 step on
-     {'data': 1, 'model': 2} and {'data': 2, 'model': 1} against the single
-     step (STEP_F64_REL, counters equal), and the two refused gradient
-     routes (an implicit and an Adams adjoint method) raising on every
-     rank; the phase's seconds (budget STEP_BUDGET_S); (c) the gradient
+     and so is the step of a field of STEP_DEEP hidden layers, and its
+     median time a step beside phase 10's; (b) STEP_RANKS ranks on the
+     card, subprocesses on gloo: the dry run's float64 step on {'data': 1,
+     'model': 2} and {'data': 2, 'model': 1}, and the deeper field's on
+     the first, against the single step (STEP_F64_REL, counters equal),
+     and the refused gradient route (an implicit adjoint method with a
+     `tensor_parallel_mlp` field) raising on every rank; the phase's
+     seconds (budget STEP_BUDGET_S); (c) the gradient
      routes that run their backward over each rank's block (no kernel,
      the launch counts reset before and read after): (a) on a world of
      one rank on NCCL, phase 11's fixed-grid training step through
@@ -184,7 +186,8 @@ benchmarks/bench_fused_field.py at its full width:
      ROUTE_RANKS ranks on the card, subprocesses on gloo: each of ROUTES'
      float64 gradients (the fixed grid, the implicit fixed grid, the
      replay, forward_grad's jvp, an event solve, the interpolated,
-     callable-norm and SciPy adjoints) against the single solve
+     callable-norm and SciPy adjoints, and an implicit (kvaerno5) and an
+     Adams (implicit_adams) adjoint method) against the single solve
      (ROUTE_F64_REL, counters equal); the part's seconds (budget
      ROUTE_BUDGET_S).
 
@@ -381,7 +384,7 @@ CONV_STEPS = 12
 ENS_B, ENS_RTOL, ENS_OMEGA_MAX = 1024, 1e-6, 60.0   # examples/ensemble.py
 ENS_EXACT = 1e-3
 ENS_EVENT_REL = 0.05
-ENS_REPS = 2     # timed repetitions, few to keep the script in its limit
+ENS_REPS = 1     # timed repetitions, few to keep the script in its limit
 SCALAR_B, SCALAR_LAM_MAX = 65536, 300.0     # benchmarks/bench_ensemble.py
 SCALAR_RTOL, SCALAR_ATOL = 1e-4, 1e-6
 SCALAR_EXACT = 1e-3
@@ -2959,8 +2962,6 @@ EX_STEPS = 3       # latent_ode, cnf and odenet_mnist's timed steps (few
 #                    to keep the script in its time limit)
 LATENT_CPU_B = 8   # latent_ode's card-vs-CPU batch (the CPU side's cost)
 CNF_CPU_B = 64     # cnf's card-vs-CPU batch
-LEARN_BUDGET_S = 60.0   # learn_physics runs whole (300 iterations) if a
-#                         warm iteration's time says they fit this
 
 
 def _traced_bound(n_steps, tableau, D, field_ops, peak, esize, S=0,
@@ -3395,8 +3396,7 @@ def _ex_odenet(torch, card):
 def _ex_physics(torch, card):
     """Phase 17 (f) bouncing_ball whole on the card (float64), against the
     closed form and finite differences (its own checks) and the CPU; (g)
-    learn_physics whole when a warm iteration's time says the 300 fit
-    LEARN_BUDGET_S, else cut to what fits."""
+    learn_physics cut to EX_STEPS of its 300 iterations (finite loss)."""
     from torchdiffeq_tpu_torch.examples import bouncing_ball, learn_physics
     from torchdiffeq_tpu_torch.examples._common import default_dtype
     from torchdiffeq_tpu_torch.examples._optim import Adam
@@ -3414,26 +3414,19 @@ def _ex_physics(torch, card):
         t_obs = torch.from_numpy(t_np).cuda()
         y_obs = torch.from_numpy(learn_physics.simulate_true(t_np)).cuda()
         params = learn_physics.init_params("cuda")
-        for _ in range(2):   # the second, warm, is timed
+        opt = Adam(list(params.values()), 0.05)
+        iter_ms = []
+        for _ in range(EX_STEPS):
             w0 = time.perf_counter()
-            learn_physics.trajectory_loss(params, t_obs, y_obs, 3.0,
-                                          3).backward()
+            opt.zero_grad()
+            loss = learn_physics.trajectory_loss(params, t_obs, y_obs, 3.0, 3)
+            loss.backward()
+            opt.step()
             torch.cuda.synchronize()
-            iter_s = time.perf_counter() - w0
-    niters = 300 if 300 * iter_s <= LEARN_BUDGET_S else max(
-        1, int(LEARN_BUDGET_S / iter_s))
-    if niters == 300:   # whole: the example asserts its gravity
-        gravity = learn_physics.main(["--device", "cuda"])["gravity"]
-    else:
-        with default_dtype(torch.float64):
-            params = learn_physics.init_params("cuda")
-            opt = Adam(list(params.values()), 0.05)
-            for _ in range(niters):
-                opt.zero_grad()
-                learn_physics.trajectory_loss(params, t_obs, y_obs, 3.0,
-                                              3).backward()
-                opt.step()
-            gravity = float(torch.exp(params["log_gravity"]))
+            iter_ms.append((time.perf_counter() - w0) * 1e3)
+        gravity = float(torch.exp(params["log_gravity"].detach()))
+    _check(bool(torch.isfinite(loss)) and np.isfinite(gravity),
+           f"learn_physics: loss {float(loss)}, gravity {gravity}")
     learn_s = time.perf_counter() - p1
     print(f"[17f bouncing_ball] {card} | whole, float64 on the card: event "
           f"times {[round(t, 9) for t in gpu['times']]}, first bounce vs "
@@ -3441,11 +3434,9 @@ def _ex_physics(torch, card):
           f"five gradients vs finite differences max|d| {fd:.2e} (the "
           f"example's 1e-3), vs CPU {rel:.2e} of max|g| (<= {EX_GRAD_F64}) | "
           f"{ball_s:.1f} s")
-    how = ("whole, 300 iterations, the example asserting gravity within 0.5"
-           if niters == 300 else
-           f"cut to {niters} of 300 iterations (no assertion)")
-    print(f"[17g learn_physics] {card} | float64, a warm iteration "
-          f"{iter_s * 1e3:.0f} ms; {how}: gravity {gravity:.3f} (true 9.8) | "
+    print(f"[17g learn_physics] {card} | float64, {EX_STEPS} of its 300 "
+          f"iterations: {', '.join(f'{x:.0f}' for x in iter_ms)} ms, loss "
+          f"{float(loss):.4f}, gravity {gravity:.3f} (true 9.8) | "
           f"{learn_s:.1f} s")
 
 
@@ -4682,12 +4673,14 @@ def _phase_mesh(torch, kernels, dev, summary):
     _check(total <= MESH_BUDGET_S, f"phase 20 took {total:.1f} s")
 
 
-# the gradient routes data_parallel_odeint refuses (phase 21 (b)), each
-# under autograd: (name, entry point, keywords)
+# the gradient route data_parallel_odeint refuses (phase 21 (b)), under
+# autograd with a tensor_parallel_mlp field: (name, entry point, keywords)
 STEP_REFUSED = (
-    ("implicit_adjoint", "odeint_adjoint", dict(adjoint_method="kvaerno5")),
-    ("adams_adjoint", "odeint_adjoint",
-     dict(adjoint_method="implicit_adams")))
+    ("tensor_parallel_implicit_adjoint", "odeint_adjoint",
+     dict(adjoint_method="kvaerno5")),)
+# phase 21's deeper tensor-parallel field: three hidden layers of the
+# step's width (two Megatron pairs)
+STEP_DEEP = 3
 
 
 def _sharded_vs_single(torch, mesh, field, y0, target, t, **kw):
@@ -4727,17 +4720,35 @@ def _step_rels(res):
     return rel_diffs(sh["loss"], sh["grads"], one["loss"], one["grads"])
 
 
+def _deep_field(torch, hidden, dtype, device):
+    """Phase 21's deeper field: an `MLPField` of STEP_DEEP hidden layers of
+    `hidden` units on y**3, weights scaled 0.1 from ``torch.Generator``
+    seed 0 and biases 0.1 * randn from seed 3 (a zero bias would hide one
+    added on every model rank)."""
+    from torchdiffeq_tpu_torch.models import MLPField
+    field = MLPField([2] + [hidden] * STEP_DEEP + [2], power=3, scale=0.1,
+                     dtype=dtype, device=device,
+                     generator=torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for b in field.biases:
+            b.copy_(0.1 * torch.randn(b.shape, generator=gen, dtype=dtype))
+    return field
+
+
 def _step_rank(rank, world, store, out):
     """One rank of phase 21 (b), run as ``chip_smoke.py --step-rank RANK
     WORLD STORE OUT``: gloo on the card, the JAX dry run's float64 step on
-    {'data': 1, 'model': WORLD} and {'data': WORLD, 'model': 1} against the
+    {'data': 1, 'model': WORLD} and {'data': WORLD, 'model': 1}, and the
+    deeper field's (`_deep_field`) on the first, each against the
     unsharded step, and each refused gradient route's message; writes them
     to OUT."""
     import torch
     import torch.distributed as dist
     import torchdiffeq_tpu_torch as tt
     from torchdiffeq_tpu_torch.examples import sharded_step
-    from torchdiffeq_tpu_torch.parallel import data_parallel_odeint, make_mesh
+    from torchdiffeq_tpu_torch.parallel import (data_parallel_odeint,
+                                                make_mesh, tensor_parallel_mlp)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
@@ -4749,21 +4760,24 @@ def _step_rank(rank, world, store, out):
             mesh = make_mesh(shape)
             field, y0, tgt = sharded_step.make_problem(
                 cfg["hidden"], cfg["batch"], torch.float64, mesh.device)
-            r, _ = _sharded_vs_single(torch, mesh, field, y0, tgt, cfg["t"],
-                                      **kw)
-            res[f"data{shape['data']}"] = dict(
-                rels=_step_rels(r), fwd=(r["sharded"]["fwd"],
-                                         r["single"]["fwd"]),
-                bwd=(r["sharded"]["bwd"], r["single"]["bwd"]),
-                device=str(r["sharded"]["loss"].device))
+            fields = {f"data{shape['data']}": field}
+            if shape["data"] == 1:
+                fields["deep"] = _deep_field(torch, cfg["hidden"],
+                                             torch.float64, mesh.device)
+            for key, f in fields.items():
+                r, _ = _sharded_vs_single(torch, mesh, f, y0, tgt, cfg["t"],
+                                          **kw)
+                res[key] = dict(
+                    rels=_step_rels(r), fwd=(r["sharded"]["fwd"],
+                                             r["single"]["fwd"]),
+                    bwd=(r["sharded"]["bwd"], r["single"]["bwd"]),
+                    device=str(r["sharded"]["loss"].device))
         refused = {}
-        y0 = torch.ones(4 * world, 1, dtype=torch.float64, device=mesh.device)
+        tp = tensor_parallel_mlp(field, mesh)
         for name, entry, kwr in STEP_REFUSED:
-            w = torch.tensor(1.0, dtype=torch.float64, device=mesh.device,
-                             requires_grad=True)
             try:
                 data_parallel_odeint(getattr(tt, entry), mesh)(
-                    lambda s, y, ww: -ww * y, y0, cfg["t"], args=(w,), **kwr)
+                    tp, y0.clone().requires_grad_(True), cfg["t"], **kwr)
                 refused[name] = None
             except NotImplementedError as err:
                 refused[name] = str(err)
@@ -4826,6 +4840,18 @@ def _phase_sharded_step(torch, kernels, dev, train_ms):
     _check(all(same.values()) and sh["loss"].is_cuda and not launches,
            f"sharded step, world of one ({backend}) vs unsharded, bit for "
            f"bit: {same}; kernel launches {launches}")
+    # the deeper field (STEP_DEEP hidden layers), bit for bit too
+    deep, _ = _sharded_vs_single(
+        torch, mesh, _deep_field(torch, H, torch.float32, dev), y0, target,
+        t, **kw)
+    dsh, done = deep["sharded"], deep["single"]
+    deep_same = (torch.equal(dsh["loss"], done["loss"])
+                 and all(torch.equal(a, b)
+                         for a, b in zip(dsh["grads"], done["grads"]))
+                 and dsh["fwd"] == done["fwd"] and dsh["bwd"] == done["bwd"])
+    _check(deep_same, f"sharded step of {STEP_DEEP} hidden layers, world of "
+           f"one ({backend}) vs unsharded, not bit for bit: loss "
+           f"{dsh['loss']} vs {done['loss']}")
     solve = data_parallel_odeint(odeint_adjoint, mesh)
     ms = []
     for _ in range(STEP_TIMED):
@@ -4869,7 +4895,9 @@ def _phase_sharded_step(torch, kernels, dev, train_ms):
           f"float32, odeint_adjoint rtol={RTOL} atol={ATOL}, SGD lr 1e-3) "
           f"through data_parallel_odeint and tensor_parallel_mlp equals the "
           f"unsharded step bit for bit {same} (forward {sh['fwd']}, backward "
-          f"{sh['bwd']}); kernel launches {launches} (the step runs none) | "
+          f"{sh['bwd']}), and so does a field of {STEP_DEEP} hidden layers "
+          f"(forward {dsh['fwd']}, backward {dsh['bwd']}); kernel launches "
+          f"{launches} (the steps run none) | "
           f"step over {STEP_TIMED}: median {np.median(ms):.2f} ms (min "
           f"{min(ms):.2f}, max {max(ms):.2f}) beside phase 10's "
           f"{train_ms:.2f} ms | {a_s:.1f} s")
@@ -4908,7 +4936,12 @@ ROUTES = (
      dict(method="implicit_euler", options=dict(num_steps=FIXED_STEPS))),
     ("event_solve", "event", dict(atol=1e-12)),
     ("scipy_adjoint", "odeint_adjoint",
-     dict(adjoint_method="scipy_solver", adjoint_options=dict(solver="RK45"))))
+     dict(adjoint_method="scipy_solver", adjoint_options=dict(solver="RK45"))),
+    ("implicit_adjoint", "odeint_adjoint", dict(adjoint_method="kvaerno5")),
+    # 8 steps an interval, so that the corrector runs past the RK4 bootstrap
+    ("adams_adjoint", "odeint_adjoint",
+     dict(adjoint_method="implicit_adams",
+          adjoint_options=dict(num_steps=8, max_order=4))))
 
 
 class _ForwardStats:
@@ -4970,7 +5003,8 @@ def _grad_rank(rank, world, store, out):
     RANK WORLD STORE OUT``: gloo on the card, each ROUTES gradient of the
     float64 spiral (ROUTE_B states) through `data_parallel_odeint` against
     the single solve on the card; writes {name: [error relative to max|g|,
-    forward and backward counters equal]} to OUT."""
+    forward and backward counters equal, the device, the seconds of both
+    solves]} to OUT."""
     import torch
     import torch.distributed as dist
     import torchdiffeq_tpu_torch as tt
@@ -4989,6 +5023,7 @@ def _grad_rank(rank, world, store, out):
         res = {}
         for name, entry, kw in ROUTES:
             fn = tt.odeint if entry == "event" else getattr(tt, entry)
+            w0 = time.perf_counter()
             got = [_route_grads(torch, run, model, y0, t, thr, entry, kw)
                    for run in (data_parallel_odeint(fn, mesh), fn)]
             (g, fwd, bwd), (g1, fwd1, bwd1) = got
@@ -4996,7 +5031,7 @@ def _grad_rank(rank, world, store, out):
                             / b.abs().max().clamp(min=1e-300))
                       for a, b in zip(g, g1))
             res[name] = [err, fwd == fwd1 and bwd == bwd1,
-                         str(g[0].device)]
+                         str(g[0].device), time.perf_counter() - w0]
         torch.save(res, out)
     finally:
         dist.destroy_process_group()
@@ -5096,9 +5131,10 @@ def _phase_grad_routes(torch, kernels, dev, fixed_ms):
     print(f"[21c gradient routes, {ROUTE_RANKS} ranks on one card] {card} | "
           f"gloo, spiral float64 B={ROUTE_B}: each route's gradients in y0, "
           f"t and the MLP's parameters (forward_grad: its jvp) vs the "
-          f"single solve per rank [max error of max|g|, counters equal]: "
-          + "; ".join(f"{k} " + ", ".join(f"[{x[k][0]:.2e}, {x[k][1]}]"
-                                          for x in ranks)
+          f"single solve per rank [max error of max|g|, counters equal, "
+          f"seconds of both solves]: "
+          + "; ".join(f"{k} " + ", ".join(
+              f"[{x[k][0]:.2e}, {x[k][1]}, {x[k][3]:.1f} s]" for x in ranks)
                       for k in ranks[0])
           + f" (<= {ROUTE_F64_REL})")
     print(f"[21c budget] phase 21 (c) took {total:.1f} s (budget "

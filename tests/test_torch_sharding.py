@@ -50,7 +50,8 @@ import torch.distributed as dist
 from jax.sharding import PartitionSpec as P
 
 import torchdiffeq_tpu as tde
-from torchdiffeq_tpu.models import init_spiral_model, spiral_field
+from torchdiffeq_tpu.models import (init_mlp, init_spiral_model, mlp_apply,
+                                    spiral_field)
 from torchdiffeq_tpu.parallel import (make_mesh as j_make_mesh,
                                       odeint_parareal as j_parareal,
                                       odeint_per_sample_with_stats as
@@ -63,10 +64,12 @@ from torchdiffeq_tpu_torch.parallel import (data_parallel_odeint, make_mesh,
                                             odeint_parareal,
                                             sharded_independent_odeint,
                                             tensor_parallel_mlp)
-from torch_sharding_ranks import (DP_DECISIONS, DP_GRAD, DP_GRAD_REFUSED,
-                                  DP_TOLS, DP_TOLS_GRAD, EVENT_TOLS, PAR_A,
-                                  PAR_W, SPIN_EVENT, SPIN_T, SPIN_W, TP_STEPS,
-                                  relax_y0)
+from torch_sharding_ranks import (DP_DECISIONS, DP_GRAD, DP_TOLS,
+                                  DP_TOLS_GRAD, EVENT_TOLS, PAR_A, PAR_W,
+                                  SPIN_EVENT, SPIN_T, SPIN_W, TP_GRAD_KW,
+                                  TP_GRAD_SIZES, TP_GRAD_T, TP_MESHES,
+                                  TP_SIZES, TP_STEPS, relax_y0, tp_inputs,
+                                  tp_key)
 
 RANKS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      'torch_sharding_ranks.py')
@@ -150,6 +153,11 @@ def ranks(tmp_path_factory):
             for k, v in layer.items():
                 arrays[f'{k}{i + 1}_{name}'] = np.asarray(v)
     np.savez(os.path.join(out, 'spiral_params.npz'), **arrays)
+    np.savez(os.path.join(out, 'tp_depths.npz'), **{
+        f"{'x'.join(map(str, sizes))}_{k}{i}": v
+        for sizes in TP_SIZES
+        for i, layer in enumerate(_tp_params(tuple(sizes)))
+        for k, v in layer.items()})
     launch = _Launch(out, 'mesh', WORLD)
     # the JAX references of the mesh's global decisions and gradients,
     # while the ranks run
@@ -157,9 +165,10 @@ def ranks(tmp_path_factory):
         _jax_decision(name)
     _jax_parareal_grads()
     for name, _, _ in DP_GRAD:
-        if name not in DP_GRAD_REFUSED:
-            _jax_grad_route(name)
+        _jax_grad_route(name)
     _jax_tp_fixed_grid()
+    for sizes in TP_GRAD_SIZES:
+        _jax_tp_grad(tuple(sizes))
     yield launch
     launch.close()
 
@@ -568,19 +577,134 @@ def test_sharded_step_other_meshes(ranks, mesh, norm):
             assert sh['st'] == ref[3]
 
 
+def _check_tp_vs_mlp(res):
+    """`torch_sharding_ranks._tp_vs_mlp`: the split field's values and
+    VJP within 1e-15 of the largest of the `MLPField`'s, and its
+    `full_field()` the field exactly."""
+    _rel(res['tp']['f'], res['mlp']['f'], 1e-15)
+    for got, want in zip(res['tp']['grads'], res['mlp']['grads']):
+        _rel(got, want, 1e-15)
+    assert res['full_equal']
+
+
 def test_tensor_parallel_field_matches_mlp(ranks):
     """`tensor_parallel_mlp` alone on each rank of {'data': 2, 'model': 2}:
     its values and its VJP in y and in the gathered parameters equal the
     `MLPField`'s within 1e-15 of the largest, float64; each rank holds
     only its shards (W1 (2, 64), W2 (64, 2), b1 (64,), b2 (2,) whole) and
-    gathers back the whole field; another depth is refused."""
+    gathers back the whole field; and so does a field of two hidden
+    layers, [2, 8, 8, 2], its last layer whole."""
     for res in _case(ranks, 'tensor_parallel'):
-        _rel(res['tp']['f'], res['mlp']['f'], 1e-15)
-        for got, want in zip(res['tp']['grads'], res['mlp']['grads']):
-            _rel(got, want, 1e-15)
+        _check_tp_vs_mlp(res)
         assert res['local_shapes'] == [(2, 64), (64, 2), (64,), (2,)]
-        assert res['full_equal']
-        assert 'hidden layer' in res['deeper']
+        _check_tp_vs_mlp(res['deeper'])
+        assert res['deeper']['local_shapes'] == [(2, 4), (4, 8), (8, 2),
+                                                 (4,), (8,), (2,)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tp_params(sizes):
+    """The JAX package's `init_mlp(PRNGKey(len(sizes)), sizes)` in
+    float64, as numpy, its zero biases replaced by 0.1 * randn from numpy
+    seed len(sizes) (a zero bias would hide one added on every model
+    rank)."""
+    rng = np.random.RandomState(len(sizes))
+    return [dict(w=np.asarray(layer['w']), b=0.1 * rng.randn(layer['b'].size))
+            for layer in init_mlp(jax.random.PRNGKey(len(sizes)), list(sizes),
+                                  dtype=jnp.float64)]
+
+
+def _tp_local_shapes(sizes, n):
+    """The shards of an MLP of `sizes` split over a model axis of `n`:
+    Megatron's pairs, column- then row-split, an odd last layer whole; the
+    weights, then the biases."""
+    L = len(sizes) - 1
+    ws, bs = [], []
+    for i, (a, b) in enumerate(zip(sizes[:-1], sizes[1:])):
+        paired = i < L - L % 2
+        ws.append((a, b // n) if paired and i % 2 == 0 else
+                  (a // n, b) if paired else (a, b))
+        bs.append((b // n,) if paired and i % 2 == 0 else (b,))
+    return ws + bs
+
+
+@pytest.mark.parametrize("sizes", TP_SIZES, ids=lambda s: 'x'.join(map(
+    str, s)))
+@pytest.mark.parametrize("shape", TP_MESHES, ids=lambda m: 'data%d' %
+                         m['data'])
+def test_tensor_parallel_mlp_any_depth_matches_jax(ranks, shape, sizes):
+    """`tensor_parallel_mlp` with no hidden layer and with 1, 2 and 3 (the
+    pairs' even and odd cases) on {'data': 2, 'model': 2} and {'data': 1,
+    'model': 4}, float64: on every rank its values and its VJP in y and in
+    the gathered parameters within 1e-15 of the largest of JAX's
+    `mlp_apply` and `jax.vjp` on the same `init_mlp` parameters, and of
+    the port's `MLPField`; each rank holds Megatron's shards, its
+    `full_field()` is the field exactly, and the `shard_params` DTensors
+    give the split field bit for bit."""
+    params = _tp_params(tuple(sizes))
+    y, ct, _ = tp_inputs()
+    f_j, vjp = jax.vjp(lambda p, yy: mlp_apply(p, yy), params, y)
+    g_p, g_y = vjp(ct)
+    g_j = [np.asarray(g_y)] + [np.asarray(layer[k]) for k in ('w', 'b')
+                               for layer in g_p]
+    n = shape['model']
+    for res in _case(ranks, 'tp_depths'):
+        res = res[tp_key(shape, sizes)]
+        _check_tp_vs_mlp(res)
+        _rel(res['tp']['f'], np.asarray(f_j), 1e-15)
+        for got, want in zip(res['tp']['grads'], g_j):
+            _rel(got, want, 1e-15)
+        assert res['local_shapes'] == _tp_local_shapes(sizes, n)
+        assert res['dtensor_equal']
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tp_grad(sizes):
+    """JAX's one-device gradients of `case_tp_depths`' loss sum(ys[-1]**2)
+    (dopri5's adjoint) in the MLP's weights, biases and y0."""
+    def loss(p, y0):
+        ys = tde.odeint_adjoint(lambda s, y, pp: mlp_apply(pp, y), y0,
+                                jnp.asarray(TP_GRAD_T), args=(p,),
+                                **TP_GRAD_KW)
+        return jnp.sum(ys[-1] ** 2)
+
+    g_p, g_y = jax.jit(jax.grad(loss, argnums=(0, 1)))(
+        _tp_params(sizes), tp_inputs()[2])
+    return [np.asarray(layer[k]) for k in ('w', 'b') for layer in g_p] + [
+        np.asarray(g_y)]
+
+
+@pytest.mark.parametrize("sizes", TP_GRAD_SIZES, ids=lambda s: 'x'.join(
+    map(str, s)))
+@pytest.mark.parametrize("shape", TP_MESHES, ids=lambda m: 'data%d' %
+                         m['data'])
+def test_tensor_parallel_mlp_any_depth_gradient_matches_jax(ranks, shape,
+                                                            sizes):
+    """The fields of two and three hidden layers split by
+    `tensor_parallel_mlp`, their batch over 'data', through
+    `data_parallel_odeint(odeint_adjoint)` (dopri5): every rank's
+    gathered parameter gradients and y0's within 1e-12 of max|g| of JAX's
+    one-device jax.grad, the same on every rank."""
+    g_j = _jax_tp_grad(tuple(sizes))
+    out = [res[tp_key(shape, sizes)]['grad']
+           for res in _case(ranks, 'tp_depths')]
+    for g in out:
+        _rel(_flat(g), _flat(g_j), 1e-12)
+    _same_on_every_rank([_flat(g) for g in out])
+
+
+def test_data_parallel_refuses_implicit_adjoint_with_tensor_parallel_field(
+        ranks):
+    """The route still refused: an implicit adjoint method (kvaerno5) with
+    a `tensor_parallel_mlp` field, whose theta_bar is another shard on
+    each model rank, raises NotImplementedError on all 4 ranks, from the
+    arguments alone, before any collective: the ranks' all-reduce after
+    it completes."""
+    for res in _case(ranks, 'tp_depths'):
+        msg = res['refused']
+        assert msg is not None and msg.startswith('data_parallel_odeint')
+        assert 'tensor_parallel_mlp' in msg
+        assert res['after'] == WORLD
 
 
 def _jspin(s, y, W_, a):
@@ -618,6 +742,10 @@ _JAX_ROUTES = {
     'event_time': ('odeint_event', {}),
     'replay_event': ('odeint_event', dict(options=dict(replay_grad=True))),
 }
+# the implicit and Adams adjoint methods: JAX's odeint_adjoint with the
+# ranks' keywords
+_JAX_ROUTES.update((name, ('odeint_adjoint', kw)) for name, _, kw in DP_GRAD
+                   if kw.get('adjoint_method') not in (None, 'scipy_solver'))
 # the bound of each route's gradient against JAX's, of max|g|: 1e-12, but
 # the event solves' 1e-10 (the replay's own parity bound,
 # tests/test_torch_replay.py, inside test_torch_adjoint.py's rtol 1e-9 for
@@ -690,35 +818,48 @@ def _check_grad_route(ranks, name):
                                   'implicit_fixed_grid', 'event_solve',
                                   'adams_adjoint', 'scipy_adjoint'])
 def test_data_parallel_refuses_gradient_routes(ranks, name):
-    """The ten gradient routes data_parallel_odeint refused before its data
-    axis's autograd Functions.  Eight it now takes on 4 ranks: autograd
-    through each rank's fixed-grid and implicit fixed-grid loop, the
-    replay, forward_grad's jvp, an event solve's event-mode adjoint, the
-    interpolated adjoint, a callable adjoint norm and the SciPy adjoint
-    method give every rank the one-device gradient (`_check_grad_route`:
-    Spin's parameter, an args scale, y0 and t).  An implicit and an Adams
-    adjoint method still raise NotImplementedError on all 4 ranks, from
-    the arguments alone, before any collective: the ranks' all-reduce
-    after them completes."""
-    if name not in DP_GRAD_REFUSED:
-        _check_grad_route(ranks, name)
-        return
-    for res in _case(ranks, 'grad_routes'):
-        msg = res['refused'][name]
-        assert msg is not None and msg.startswith('data_parallel_odeint')
-        assert res['after'] == WORLD
+    """The ten gradient routes data_parallel_odeint once refused, all taken
+    now on 4 ranks: autograd through each rank's fixed-grid and implicit
+    fixed-grid loop, the replay, forward_grad's jvp, an event solve's
+    event-mode adjoint, the interpolated adjoint, a callable adjoint norm,
+    the SciPy adjoint method, and an implicit (kvaerno5) and an Adams
+    (implicit_adams) adjoint method, whose stage solves and corrector run
+    over the augmented state on the backward's axis, give every rank the
+    one-device gradient (`_check_grad_route`: Spin's parameter, an args
+    scale, y0 and t)."""
+    _check_grad_route(ranks, name)
+
+
+@pytest.mark.parametrize("name", ['adams_adjoint', 'fixed_adams_adjoint'])
+def test_data_parallel_adams_adjoint_corrector_takes_global_max(ranks, name):
+    """An Adams adjoint method's backward on 4 ranks: its corrector tests
+    read the global max over the data axis, the same number of max
+    all-reduces on every rank (the dopri5 forward makes none).  The parity
+    cases alone do not show it: on Spin each rank's own max happens to
+    decide as the global one does."""
+    counts = [res['routes'][name]['mesh']['maxes']
+              for res in _case(ranks, 'grad_routes')]
+    assert counts[0] > 0 and len(set(counts)) == 1
 
 
 @pytest.mark.parametrize("name", ['adams', 'implicit_euler_newton',
                                   'rk4_remat', 'event_time',
-                                  'replay_event'])
+                                  'replay_event', 'radau5a_adjoint',
+                                  'implicit_euler_adjoint',
+                                  'implicit_euler_newton_adjoint',
+                                  'interpolated_implicit',
+                                  'fixed_adams_adjoint'])
 def test_data_parallel_gradient_routes_match_single_device(ranks, name):
     """The routes beside the ten, on 4 ranks (`_check_grad_route`): the
     `adams` kind through its loop (its corrector's test global), the
     implicit fixed grid with Newton's stage solves (Broyden's is
-    implicit_fixed_grid), rk4 with remat, and the event time's gradient
+    implicit_fixed_grid), rk4 with remat, the event time's gradient
     through `odeint_event`'s reroute, by the event-mode adjoint and by the
-    replay."""
+    replay; and the implicit and Adams adjoint methods beside kvaerno5 and
+    implicit_adams: radau5a's stacked stages, implicit_euler's Broyden and
+    Newton stage solves (8 steps an interval), kvaerno5 under the
+    interpolated adjoint (the augmented state without y) and
+    fixed_adams."""
     _check_grad_route(ranks, name)
 
 
@@ -930,8 +1071,8 @@ def test_sharded_step_world_of_one_in_process():
 def test_tensor_parallel_mlp_takes_shard_params_dtensors():
     """`tensor_parallel_mlp` from the JAX-layout parameters as
     `shard_params` places them (W1 sharded by column, the rest
-    replicated) on a world of one: the `MLPField` bit for bit; an MLP of
-    another depth raises."""
+    replicated) on a world of one: the `MLPField` bit for bit; and so is
+    an MLP of one layer, replicated whole."""
     assert not dist.is_initialized()
     try:
         from torchdiffeq_tpu_torch.parallel import shard_params
@@ -947,8 +1088,12 @@ def test_tensor_parallel_mlp_takes_shard_params_dtensors():
                         generator=torch.Generator().manual_seed(1))
         zero = torch.zeros((), dtype=torch.float64)
         assert torch.equal(tp(zero, y), mlp(zero, y))
-        with pytest.raises(NotImplementedError, match='hidden layer'):
-            tensor_parallel_mlp(layers[:1], mesh)
+        one = MLPField([2, 2], power=3, dtype=torch.float64, device='cpu',
+                       generator=torch.Generator().manual_seed(2))
+        tp1 = tensor_parallel_mlp([dict(w=one.weights[0], b=one.biases[0])],
+                                  mesh, power=3)
+        assert torch.equal(tp1(zero, y), one(zero, y))
+        assert [tuple(p.shape) for p in tp1.parameters()] == [(2, 2), (2,)]
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()

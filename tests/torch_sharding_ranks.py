@@ -27,6 +27,7 @@ from torchdiffeq_tpu_torch.parallel import (  # noqa: E402
     data_parallel_odeint, make_mesh, odeint_parareal,
     odeint_per_sample_with_stats, shard_params, sharded_independent_odeint,
     tensor_parallel_mlp)
+from torchdiffeq_tpu_torch.parallel import sharding  # noqa: E402
 
 F64 = torch.float64
 OUT = None       # the launch's output directory (main)
@@ -432,37 +433,123 @@ def case_step(rank):
     return out
 
 
+def _tp_vs_mlp(field, mesh, y, ct):
+    """`field` (an MLPField) split by `tensor_parallel_mlp` on `mesh` and
+    whole: each one's values and VJP in y and the (gathered) parameters,
+    the split field's local shapes and whether its `full_field()` is
+    `field` exactly."""
+    out = {}
+    for name in ('tp', 'mlp'):
+        f_ = tensor_parallel_mlp(field, mesh) if name == 'tp' else field
+        yg = y.clone().requires_grad_(True)
+        f = f_(torch.zeros((), dtype=F64), yg)
+        params = list(f_.parameters())
+        grads = torch.autograd.grad(f, [yg] + params, ct)
+        if name == 'tp':
+            grads = grads[:1] + tuple(f_.gather(grads[1:]))
+            out['full_equal'] = all(
+                torch.equal(a, b) for a, b in zip(
+                    f_.full_field().parameters(), field.parameters()))
+            out['local_shapes'] = [tuple(p.shape) for p in params]
+        out[name] = dict(f=_np(f), grads=[_np(g) for g in grads])
+    return out
+
+
 def case_tensor_parallel(rank):
     """The tensor-parallel field alone on {'data': 2, 'model': 2}: its
     values and its VJP in y0 and the (gathered) parameters against the
-    `MLPField`'s, float64; another depth refused."""
+    `MLPField`'s, float64, the dry run's field and one of two hidden
+    layers."""
     from torchdiffeq_tpu_torch.models import mlp_params_from_jax
     mesh = make_mesh({'data': 2, 'model': 2}, device_type='cpu')
     rng = np.random.RandomState(3)
     y = torch.from_numpy(rng.randn(64, 2))
     ct = torch.from_numpy(rng.randn(64, 2))
+    out = _tp_vs_mlp(mlp_params_from_jax(_spiral_params('float64'),
+                                         power=3, device='cpu'), mesh, y, ct)
+    deep = tt.models.MLPField([2, 8, 8, 2], device='cpu', dtype=F64,
+                              generator=torch.Generator().manual_seed(4))
+    out['deeper'] = _tp_vs_mlp(deep, mesh, y, ct)
+    return out
+
+
+# tensor_parallel_mlp at every depth: JAX's `init_mlp` weights of these
+# sizes, with biases from numpy (init_mlp's are zeros, which would hide a
+# bias added on every model rank), written by the test to
+# OUT/tp_depths.npz; the two deeper ones also through the adjoint
+TP_MESHES = ({'data': 2, 'model': 2}, {'data': 1, 'model': 4})
+TP_SIZES = ([2, 2], [2, 16, 2], [2, 16, 16, 2], [2, 16, 16, 16, 2])
+TP_GRAD_SIZES = TP_SIZES[2:]
+TP_GRAD_KW = dict(rtol=1e-6, atol=1e-8)
+TP_GRAD_T = [0.0, 0.5]
+
+
+def tp_key(shape, sizes):
+    return f"data{shape['data']}_" + 'x'.join(map(str, sizes))
+
+
+def tp_inputs():
+    """The field's inputs, y and a cotangent, and the adjoint solve's y0,
+    (16, 2) each, from numpy seeds 5, 6 and 7 (16 rows: at 64 the
+    unsplit `MLPField`'s VJP is already 1.06e-15 of its largest from
+    JAX's, the batch sums' order, at the tests' 1e-15)."""
+    return [np.random.RandomState(s).randn(16, 2) for s in (5, 6, 7)]
+
+
+def _tp_layers(sizes):
+    p = np.load(os.path.join(OUT, 'tp_depths.npz'))
+    key = 'x'.join(map(str, sizes))
+    return [dict(w=p[f'{key}_w{i}'], b=p[f'{key}_b{i}'])
+            for i in range(len(sizes) - 1)]
+
+
+def case_tp_depths(rank):
+    """`tensor_parallel_mlp` of every TP_SIZES field on each TP_MESHES
+    mesh: its values and VJP, local shapes and `full_field()`
+    (`_tp_vs_mlp`), the `shard_params` DTensors' intake (its values bit
+    for bit the split field's), and for TP_GRAD_SIZES the gradients of
+    sum(ys[-1]**2) through `data_parallel_odeint(odeint_adjoint)` (dopri5)
+    in the gathered parameters and y0.  Then a split field with kvaerno5
+    as adjoint method raises on every rank before any collective, and the
+    all-reduce after it completes."""
+    from torchdiffeq_tpu_torch.models import mlp_params_from_jax
+    y, ct, y0 = (torch.from_numpy(x) for x in tp_inputs())
+    t = torch.tensor(TP_GRAD_T, dtype=F64)
     out = {}
-    for name in ('tp', 'mlp'):
-        field = mlp_params_from_jax(_spiral_params('float64'), power=3,
-                                    device='cpu')
-        if name == 'tp':
-            field = tensor_parallel_mlp(field, mesh)
-        yg = y.clone().requires_grad_(True)
-        f = field(torch.zeros((), dtype=F64), yg)
-        params = list(field.parameters())
-        grads = torch.autograd.grad(f, [yg] + params, ct)
-        if name == 'tp':
-            grads = grads[:1] + tuple(field.gather(grads[1:]))
-            out['full_equal'] = all(
-                torch.equal(a, b) for a, b in zip(
-                    field.full_field().parameters(),
-                    mlp_params_from_jax(_spiral_params('float64'), power=3,
-                                        device='cpu').parameters()))
-            out['local_shapes'] = [tuple(p.shape) for p in params]
-        out[name] = dict(f=_np(f), grads=[_np(g) for g in grads])
-    deep = tt.models.MLPField([2, 8, 8, 2], device='cpu', dtype=F64)
-    out['deeper'] = _raises(lambda: tensor_parallel_mlp(deep, mesh),
-                            NotImplementedError)
+    for shape in TP_MESHES:
+        mesh = make_mesh(shape, device_type='cpu')
+        for sizes in TP_SIZES:
+            layers = _tp_layers(sizes)
+            field = mlp_params_from_jax(layers, device='cpu')
+            res = _tp_vs_mlp(field, mesh, y, ct)
+            placed = shard_params(
+                [{k: torch.from_numpy(v) for k, v in layer.items()}
+                 for layer in layers], mesh, min_size=1)
+            zero = torch.zeros((), dtype=F64)
+            with torch.no_grad():
+                res['dtensor_equal'] = torch.equal(
+                    tensor_parallel_mlp(placed, mesh)(zero, y),
+                    tensor_parallel_mlp(field, mesh)(zero, y))
+            if sizes in TP_GRAD_SIZES:
+                tp = tensor_parallel_mlp(field, mesh)
+                yg = y0.clone().requires_grad_(True)
+                ys = data_parallel_odeint(tt.odeint_adjoint, mesh)(
+                    tp, yg, t, **TP_GRAD_KW)
+                grads = torch.autograd.grad((ys[-1] ** 2).sum(),
+                                            [*tp.parameters(), yg])
+                res['grad'] = [_np(g) for g in tp.gather(grads[:-1])] + [
+                    _np(grads[-1])]
+            out[tp_key(shape, sizes)] = res
+    mesh = make_mesh(TP_MESHES[0], device_type='cpu')
+    tp = tensor_parallel_mlp(mlp_params_from_jax(_tp_layers(TP_SIZES[2]),
+                                                 device='cpu'), mesh)
+    out['refused'] = _raises(lambda: data_parallel_odeint(
+        tt.odeint_adjoint, mesh)(tp, y0.clone().requires_grad_(True), t,
+                                 adjoint_method='kvaerno5', **TP_GRAD_KW),
+        NotImplementedError)
+    after = torch.ones(1)
+    dist.all_reduce(after)
+    out['after'] = float(after)
     return out
 
 
@@ -521,8 +608,11 @@ def _adjoint(func, y0, t, **kw):
 
 
 # the gradient routes of data_parallel_odeint: (name, odeint_fn, keywords).
-# The first ten were refused before the data axis's autograd Functions;
-# implicit_adjoint and adams_adjoint still are
+# The first ten were refused before the data axis's autograd Functions and
+# the backward's augmented axis (implicit_adjoint and adams_adjoint); the
+# Adams adjoint methods take 8 steps an interval, so that their corrector
+# runs (a single step is the RK4 bootstrap)
+_ADAMS_ADJ = dict(num_steps=8, max_order=4)
 DP_GRAD = [
     ('fixed_grid', _with_stats, dict(method='rk4', options=dict(num_steps=8))),
     ('replay_grad', _with_stats, dict(options=dict(replay_grad=True))),
@@ -533,7 +623,8 @@ DP_GRAD = [
     ('implicit_fixed_grid', _with_stats,
      dict(method='implicit_euler', options=dict(num_steps=8))),
     ('event_solve', _event_solve, dict(event_fn=spin_event, **EVENT_TOLS)),
-    ('adams_adjoint', _adjoint, dict(adjoint_method='implicit_adams')),
+    ('adams_adjoint', _adjoint, dict(adjoint_method='implicit_adams',
+                                     adjoint_options=_ADAMS_ADJ)),
     ('scipy_adjoint', _adjoint, dict(adjoint_method='scipy_solver',
                                      adjoint_options=dict(solver='RK45'))),
     # beyond the ten
@@ -548,15 +639,28 @@ DP_GRAD = [
     ('replay_event', _event_time, dict(event_fn=spin_event,
                                        options=dict(replay_grad=True),
                                        **EVENT_TOLS)),
+    # implicit and Adams adjoint methods beside kvaerno5 and implicit_adams:
+    # radau5a's stacked stages, the fixed-grid implicit methods' Broyden and
+    # Newton, the interpolated adjoint's state without y, fixed_adams
+    ('radau5a_adjoint', _adjoint, dict(adjoint_method='radau5a')),
+    ('implicit_euler_adjoint', _adjoint, dict(
+        adjoint_method='implicit_euler', adjoint_options=dict(num_steps=8))),
+    ('implicit_euler_newton_adjoint', _adjoint, dict(
+        adjoint_method='implicit_euler',
+        adjoint_options=dict(num_steps=8, root_solver='newton'))),
+    ('interpolated_implicit', _adjoint, dict(
+        adjoint_method='kvaerno5', adjoint_options=dict(interpolated=True))),
+    ('fixed_adams_adjoint', _adjoint, dict(adjoint_method='fixed_adams',
+                                           adjoint_options=_ADAMS_ADJ)),
 ]
-DP_GRAD_REFUSED = ('implicit_adjoint', 'adams_adjoint')
 DP_TOLS_GRAD = dict(rtol=1e-8, atol=1e-10)
 
 
 class _Counters:
     """While active, the `Stats` counters of every forward solve (each
     call of odeint's `_odeint_impl` and of `adjoint_solve`) and every
-    backward solve (`_BackwardStats`)."""
+    backward solve (`_BackwardStats`), and the number of the data axis's
+    max all-reduces (`maxes`: the Adams corrector's global tests)."""
 
     def __enter__(self):
         from torchdiffeq_tpu_torch import adjoint
@@ -566,6 +670,12 @@ class _Counters:
         self.fwd, self.bwd = [], _BackwardStats().__enter__()
         for module, name in self.saved:
             setattr(module, name, self._recording(getattr(module, name)))
+        self.maxes, self._max = 0, sharding._DataAxis.max
+
+        def counted(axis, x):
+            self.maxes += 1
+            return self._max(axis, x)
+        sharding._DataAxis.max = counted
         return self
 
     def _recording(self, fn):
@@ -579,6 +689,7 @@ class _Counters:
     def __exit__(self, *exc):
         for module, name in self.saved:
             setattr(module, name, getattr(module, name).original)
+        sharding._DataAxis.max = self._max
         self.bwd.__exit__()
 
 
@@ -613,34 +724,24 @@ def _spin_grads(run, kw, forward_mode):
             loss.backward()
             grads = [np.zeros(tuple(x.shape)) if x.grad is None
                      else _np(x.grad) for x in leaves]
-    return dict(grads=grads, fwd=c.fwd, bwd=c.bwd.counters)
+    return dict(grads=grads, fwd=c.fwd, bwd=c.bwd.counters, maxes=c.maxes)
 
 
 def case_grad_routes(rank):
     """Every gradient route of DP_GRAD through data_parallel_odeint on 4
-    ranks, and the single-device gradient of case i on rank i % 4; the two
-    refused routes raise NotImplementedError on every rank before any
-    collective (the all-reduce after them would hang otherwise).  A
+    ranks, and the single-device gradient of case i on rank i % 4.  A
     closure field whose W is given in `adjoint_params` gets the global
     d/dW on every rank; one whose W is not (C25) gets its block's share
     through the fixed grid."""
     mesh = make_mesh({'data': 4}, device_type='cpu')
-    t, y0 = _dp_problem()
-    routes, refused = {}, {}
+    t = _dp_problem()[0]
+    routes = {}
     for i, (name, fn, kw) in enumerate(DP_GRAD):
-        if name in DP_GRAD_REFUSED:
-            a = torch.tensor(1.0, dtype=F64, requires_grad=True)
-            refused[name] = _raises(lambda: data_parallel_odeint(fn, mesh)(
-                lambda s, y, aa: -aa * y, y0, t, args=(a,), **kw),
-                NotImplementedError)
-            continue
         runs = [('mesh', data_parallel_odeint(fn, mesh))]
         if i % 4 == rank:
             runs.append(('one', fn))
         routes[name] = {which: _spin_grads(run, kw, name == 'forward_grad')
                         for which, run in runs}
-    after = torch.ones(1)
-    dist.all_reduce(after, group=mesh.group('data'))
     # an implicit forward method under the continuous adjoint with an
     # explicit adjoint method: the global gradient, the one-device one's
     implicit = []
@@ -669,8 +770,7 @@ def case_grad_routes(rank):
         c25.append(Wc.grad.clone())
     share = c25[0].clone()
     dist.all_reduce(share, group=mesh.group('data'))
-    return dict(routes=routes, refused=refused, after=float(after),
-                closure=_np(Wt.grad), implicit=implicit,
+    return dict(routes=routes, closure=_np(Wt.grad), implicit=implicit,
                 c25=dict(rank=_np(c25[0]), summed=_np(share),
                          one=_np(c25[1])),
                 pytree=_pytree_routes(mesh))
@@ -759,6 +859,7 @@ SUITES = {
              ('events', case_events), ('parareal', case_parareal),
              ('shard_params', case_shard_params), ('step', case_step),
              ('tensor_parallel', case_tensor_parallel),
+             ('tp_depths', case_tp_depths),
              ('grad_routes', case_grad_routes),
              ('tp_fixed_grid', case_tp_fixed_grid)],
     'demo': [('demo', case_demo)],

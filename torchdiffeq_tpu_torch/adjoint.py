@@ -64,11 +64,11 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from .misc import (CALLBACK_NAMES, autograd_lane_jacobian, check_inputs,
-                   data_axis, flatten_state, host_times, is_tree_state,
-                   mixed_norm, ravel_leaves, real_dtype, real_part, rms_norm,
-                   time_effect, time_sign, tree_flatten, tree_leaves,
-                   tree_map, tree_unflatten)
+from .misc import (CALLBACK_NAMES, DATA_AXIS, autograd_lane_jacobian,
+                   check_inputs, data_axis, flatten_state, host_times,
+                   is_tree_state, lane_jacobian, mixed_norm, ravel_leaves,
+                   real_dtype, real_part, rms_norm, time_effect, time_sign,
+                   tree_flatten, tree_leaves, tree_map, tree_unflatten)
 from .solvers import SOLVERS, needs_jacobian
 
 
@@ -376,10 +376,23 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     # rtol * |entry| before the norm sees it, and a share's scale is not
     # the sum's.
     batch_sum = None if spec.data_axis is None else spec.data_axis.sum
-    if batch_sum is not None and SOLVERS[spec.adjoint_method]['kind'] == \
-            'scipy':
+    kind = SOLVERS[spec.adjoint_method]['kind']
+    if batch_sum is not None and kind == 'scipy':
         return _scipy_global_backward(spec, ys, g_ys, t_int, sign, args_d,
                                       params)
+    n_th = sum(layout.p_sizes)
+    # an implicit or Adams adjoint method decides by the augmented state:
+    # its stage solves and corrector tests read it through the backward's
+    # data axis, which knows which entries are this rank's block (y and
+    # adj_y) and which replicated (vjp_t, theta_bar), set around each
+    # reverse solve (`parallel.sharding._AugmentedAxis`); its `sum` is the
+    # identity inside a stage Jacobian
+    aug_axis = None
+    if batch_sum is not None and (kind == 'adams'
+                                  or needs_jacobian(spec.adjoint_method)):
+        rows = (2 if layout.has_y else 1) * n
+        aug_axis = spec.data_axis.augmented(1 + rows + n_th, 1, 1 + rows)
+        batch_sum = aug_axis.sum
 
     def f_dir(s, y):
         """The field in the internal increasing frame: sign * f(sign * s)."""
@@ -414,14 +427,7 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
                  for g, x in zip(grads, (s_d, y_d, *params))]
         dy = [] if y_of is not None else [
             (f if graph else f.detach()).reshape(-1).to(adt)]
-        if batch_sum is None:
-            return torch.cat([grads[0].reshape(1).to(adt), *dy,
-                              *(g.reshape(-1).to(adt) for g in grads[1:])])
-        sums = batch_sum(torch.cat([grads[0].reshape(1).to(adt),
-                                    *(g.reshape(-1).to(adt)
-                                      for g in grads[2:])]))
-        return torch.cat([sums[:1], *dy, grads[1].reshape(-1).to(adt),
-                          sums[1:]])
+        return _aug_rates(grads, dy, adt, batch_sum)
 
     if needs_jacobian(spec.adjoint_method):
         names = _module_param_names(spec.func, spec.module_params)
@@ -437,7 +443,10 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
             aug_dyn = _functional_aug_dyn(
                 spec, layout, sign, args_d, params, dev,
                 None if rec_sol is None
-                else (lambda s: rec_sol.flat(sign * s)), names)
+                else (lambda s: rec_sol.flat(sign * s)), names, batch_sum)
+        if aug_axis is not None:
+            aug_dyn.lane_jacobian = aug_axis.local_jacobian(
+                getattr(aug_dyn, 'lane_jacobian', lane_jacobian))
 
     # the `*_adjoint` callbacks fire as the backward solve's own (JAX
     # adjoint.py:356-358), with the augmented state as a tuple
@@ -450,7 +459,6 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     adj_opts['norm'] = _make_adjoint_norm(adj_opts.get('norm'),
                                           spec.user_state_norm, layout,
                                           func, params, spec.data_axis)
-    n_th = sum(layout.p_sizes)
 
     # the effect of moving each output time: one batched field call
     with torch.no_grad():
@@ -466,9 +474,14 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
         return torch.cat([vt.reshape(1), *ys_, adj_y.reshape(-1), th])
 
     def reverse_solve(aug0, t_pair, opts):
-        return _raw_odeint(aug_dyn, aug0, t_pair, spec.adjoint_rtol,
-                           spec.adjoint_atol, spec.adjoint_method, opts,
-                           'reverse')
+        token = None if aug_axis is None else DATA_AXIS.set(aug_axis)
+        try:
+            return _raw_odeint(aug_dyn, aug0, t_pair, spec.adjoint_rtol,
+                               spec.adjoint_atol, spec.adjoint_method, opts,
+                               'reverse')
+        finally:
+            if token is not None:
+                DATA_AXIS.reset(token)
 
     if rec_sol is not None:
         # the interpolated adjoint (JAX adjoint.py:394-460): one reduced
@@ -541,6 +554,20 @@ def _backward_pass(spec, ys, g_ys, t_int, sign, args_d, params,
     return adj_y, th, vt, dLds
 
 
+def _aug_rates(grads, dy, adt, batch_sum):
+    """The augmented field's value ``[vjp_t | y | adj_y | theta_bar]``, in
+    `adt`, from the pullback's gradients in (time, state, *parameters) and
+    y's rate `dy` (a list, empty under the interpolated adjoint); with
+    `batch_sum` the rates of vjp_t and theta_bar, sums over the batch, are
+    summed over the data axis in one all-reduce."""
+    if batch_sum is None:
+        return torch.cat([grads[0].reshape(1).to(adt), *dy,
+                          *(g.reshape(-1).to(adt) for g in grads[1:])])
+    sums = batch_sum(torch.cat([grads[0].reshape(1).to(adt),
+                                *(g.reshape(-1).to(adt) for g in grads[2:])]))
+    return torch.cat([sums[:1], *dy, grads[1].reshape(-1).to(adt), sums[1:]])
+
+
 def _module_param_names(func, module_params):
     """The names under which ``torch.func.functional_call`` swaps each of
     `module_params` into an ``nn.Module`` `func`, or None when one is not a
@@ -553,13 +580,15 @@ def _module_param_names(func, module_params):
 
 
 def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None,
-                        names=None):
+                        names=None, batch_sum=None):
     """The augmented field written with ``torch.func.vjp``, the
     differentiated tensors passed to the field explicitly (module
     docstring), so that ``torch.func.jacrev`` can take its Jacobian: the
     parameters of an ``nn.Module`` field by their `names`
     (`_module_param_names`), the tensors in `args` in place.  With `y_of`
-    (the interpolated adjoint) y is read from it, not the state."""
+    (the interpolated adjoint) y is read from it, not the state; with
+    `batch_sum` the rates of vjp_t and theta_bar are summed by it, as
+    `_backward_pass`'s field sums them."""
     func = spec.func
     n_mod = len(spec.module_params)
     if names is None:
@@ -595,8 +624,7 @@ def _functional_aug_dyn(spec, layout, sign, args_d, params, dev, y_of=None,
                                      s_d, y, *(ps or detached))
         grads = pullback(-adj_y)
         dy = [] if y_of is not None else [f.reshape(-1).to(adt)]
-        return torch.cat([grads[0].reshape(1).to(adt), *dy,
-                          *(g.reshape(-1).to(adt) for g in grads[1:])])
+        return _aug_rates(grads, dy, adt, batch_sum)
 
     return aug_dyn
 
@@ -736,7 +764,7 @@ def adjoint_solve(func, y0, t, *, rtol, atol, method, options, event_fn, args,
             x.requires_grad for x in (y0_in, t_tensor, *module_params,
                                       *arg_tensors)):
         # refused on every rank before the forward's first collective
-        axis.check_adjoint_method(adjoint_method)
+        axis.check_adjoint_method(adjoint_method, func)
     # what the autograd Function needs besides its tensor inputs; its
     # forward leaves the solve's Stats in `stats`
     spec = SimpleNamespace(

@@ -28,18 +28,22 @@ wants one process a device; one process a rank gives each card its own.
   single-device solve's steps, stage-solve and corrector iterations and
   `Stats` (below).  It takes every registry method and event functions.
   Under autograd it gives global gradients on every route but an
-  implicit or Adams adjoint method (below).
+  implicit or Adams adjoint method with a `tensor_parallel_mlp` field
+  (below).
 * `shard_params`: large 2-D leaves as DTensors sharded by column over the
   model axis, the rest replicated.
-* `tensor_parallel_mlp`: an `MLPField` of one hidden layer split over the
-  model axis as JAX's dryrun places it (`__graft_entry__.py:73-74`): each
-  rank holds W1's columns, b1's entries and W2's rows for its coordinate,
-  b2 replicated, and computes the MLP with Megatron's pair of autograd
-  Functions: the input enters through "copy" (forward identity, backward
-  all-reduce over the model axis) and the partial product ``h @ W2_rows``
-  leaves through "reduce" (forward all-reduce, backward identity), then b2
-  is added.  One model all-reduce a forward evaluation and one a backward
-  evaluation; on a model axis of one it is the `MLPField` bit for bit.
+* `tensor_parallel_mlp`: an `MLPField` of any depth split over the model
+  axis in Megatron's pairs, as JAX's dryrun places one hidden layer
+  (`__graft_entry__.py:73-74`): layer 2k's W by column and b by entry,
+  layer 2k+1's W by row and b replicated, an odd last layer replicated
+  whole (JAX's `shard_params` leaves it whole under `min_size`).  Each
+  pair is computed with Megatron's pair of autograd Functions: the input
+  enters through "copy" (forward identity, backward all-reduce over the
+  model axis) and the partial product ``h @ W_rows`` leaves through
+  "reduce" (forward all-reduce, backward identity), then the bias is
+  added.  One model all-reduce a pair a forward evaluation and one a
+  backward evaluation; on a model axis of one it is the `MLPField` bit
+  for bit.
 
 Global decisions.  JAX's `data_parallel_odeint` is sharding-transparent:
 XLA makes every reduction over the batch global.  The port's ranks each
@@ -60,13 +64,17 @@ takes its own arithmetic bit for bit).  Per site:
   steps of kvaerno3, kvaerno5 and radau5a): the residual's global 2-norm,
   each rank's sum of squares all-reduced with its bail-out flag, one
   all-reduce an iteration; the Jacobian and the linear solve stay the
-  block's (a row-wise field's Jacobian is block-diagonal);
+  block's (a row-wise field's Jacobian is block-diagonal).  In an
+  implicit adjoint method's backward (below) the replicated rows' increment
+  takes one all-reduce more an iteration;
 * Broyden's stage solves (the fixed-grid implicit default): the rank-1
   update couples the blocks, so the residuals are gathered (one
   all-gather an iteration) and the matrix, its solve and the norm are
   global, computed alike on every rank;
 * the implicit Adams corrector's test (`adams._has_converged`): the max
-  norm's global max, one all-reduce an iteration;
+  norm's global max, one all-reduce an iteration (the backward's
+  replicated entries are equal on every rank, so their max is their
+  value);
 * an event function (every step's sign and every bisection point) and a
   ``grid_constructor``: called on the state gathered over the axis, one
   all-gather a call;
@@ -171,15 +179,49 @@ another rank (NCCL would hang).  Per route:
   the one-device backward on the gathered ys and cotangents and keeps its
   rows of adj_y.
 
+An implicit or Adams adjoint method (kvaerno3, kvaerno5, radau5a, the
+fixed-grid implicit methods, the Adams kind) runs its stage solves and
+corrector over the augmented state ``[vjp_t | y | adj_y | theta_bar]``,
+whose y and adj_y are this rank's block and whose vjp_t and theta_bar are
+replicated, global sums.  The augmented field never reads vjp_t or
+theta_bar, and it is row-wise in the batch, so the stage Jacobian of any
+stage system over this state (one stage, or a FIRK's stacked stages) is
+block-triangular when each stage's rows are ordered (block, replicated):
+the blocks' rows block-diagonal over the ranks, the replicated rows the
+identity on their own columns and, on the blocks' columns, a sum over
+every rank.  So `_backward_pass` sets `misc.DATA_AXIS` around each
+reverse solve to an `_AugmentedAxis`, which knows which entries of a
+stage vector are the block and which replicated, and:
+
+* Newton solves the block rows rank by rank, then takes the replicated
+  increment as ``-f_rep - sum_ranks J_rep,blk s_blk``, one all-reduce of
+  the ranks' shares, the same on every rank; its Jacobian is taken of
+  the rank's unsummed augmented field (no collective inside
+  ``torch.func``), whose replicated rows are this rank's share; the
+  residual's norm all-reduces the blocks' sums of squares with the
+  bail-out flag and adds the replicated part after.  Two all-reduces an
+  iteration beside the field's own;
+* Broyden gathers its residual as the blocks rank-major, then the
+  replicated entries once (one all-gather an iteration): a permutation of
+  the single device's vector, so the iterates from the identity are
+  unchanged, and the matrix, its solve and its norm are global;
+* the Adams corrector's test takes its global max (one all-reduce an
+  iteration).
+
+Explicit adjoint methods keep the backward above, collective for
+collective.
+
 Refused with `NotImplementedError`, from the arguments alone, on every
 rank and before any collective (`adjoint.adjoint_solve`): an implicit or
-Adams adjoint method, whose stage systems or corrector run over the
-augmented state, coupling the ranks through vjp_t's and theta_bar's
-global sums.  A tensor that a closure field captures, which no wrapper
-sees, gets its rank's share on the routes that differentiate a rank's
-loop (C25): give it in `args`, or to `odeint_adjoint` in
-``adjoint_params``.  Parareal's ``mesh=`` gives every rank the global
-gradient too (`parareal` module docstring).
+Adams adjoint method with a field whose parameters are sharded over a
+model axis (a ``param_norm``: a `tensor_parallel_mlp`), whose theta_bar is
+another shard on each model rank, so that Newton's norm and the
+corrector's max would have to reduce over the model axis too.  A tensor
+that a closure field captures, which no wrapper sees, gets its rank's
+share on the routes that differentiate a rank's loop (C25): give it in
+`args`, or to `odeint_adjoint` in ``adjoint_params``.  Parareal's
+``mesh=`` gives every rank the global gradient too (`parareal` module
+docstring).
 """
 from __future__ import annotations
 
@@ -574,6 +616,16 @@ class _DataAxis:
         b = x.shape[dim] // self.n
         return x.narrow(dim, self.c * b, b)
 
+    def parts(self, m, device):
+        """The layout of a stage vector of `m` entries: None, every entry
+        this rank's block (`_AugmentedAxis` says otherwise)."""
+        return None
+
+    def augmented(self, period, lo, hi):
+        """This axis as an implicit or Adams adjoint method's backward
+        sees the augmented state (`_AugmentedAxis`)."""
+        return _AugmentedAxis(self, period, lo, hi)
+
     def copy(self, x):
         """A replicated tensor `x` as this rank's block reads it
         (`_DataCopy`)."""
@@ -610,21 +662,73 @@ class _DataAxis:
                 subs.get(id(t), t), _replace_tensors(args, subs))
 
     @staticmethod
-    def check_adjoint_method(adjoint_method):
-        """The gradient routes `data_parallel_odeint` does not take, refused
+    def check_adjoint_method(adjoint_method, func):
+        """The gradient route `data_parallel_odeint` does not take, refused
         from the arguments alone before any collective (module docstring):
-        an implicit or Adams adjoint method, whose stage systems or
-        corrector run over the augmented state, coupling the ranks through
-        theta_bar's and vjp_t's global sums."""
+        an implicit or Adams adjoint method with a field whose parameters
+        are sharded over a model axis (a ``param_norm``: a
+        `tensor_parallel_mlp`), whose theta_bar is another shard on each
+        model rank."""
         spec = SOLVERS.get(adjoint_method)
-        if spec is not None and (spec['kind'] == 'adams'
-                                 or needs_jacobian(adjoint_method)):
+        if (spec is not None and (spec['kind'] == 'adams'
+                                  or needs_jacobian(adjoint_method))
+                and getattr(func, 'param_norm', None) is not None):
             raise NotImplementedError(
                 f"data_parallel_odeint: adjoint method {adjoint_method!r} "
-                "solves stage systems or corrects over the augmented state, "
-                "whose vjp_t and theta_bar are sums over every rank's block; "
-                "use an explicit adaptive, fixed-grid or SciPy adjoint "
-                "method")
+                "with a field whose parameters are sharded over a model "
+                "axis (tensor_parallel_mlp): its theta_bar differs from "
+                "model rank to model rank, so the stage solves' norm and "
+                "the corrector's max would have to reduce over the model "
+                "axis too; use an explicit adaptive, fixed-grid or SciPy "
+                "adjoint method")
+
+
+class _AugmentedAxis(_DataAxis):
+    """The data axis as an implicit or Adams adjoint method's backward sees
+    it (`adjoint._backward_pass`, module docstring): the augmented state
+    ``[vjp_t | y | adj_y | theta_bar]``, `period` entries, holds this
+    rank's block of the batch at ``[lo, hi)`` (y and adj_y; adj_y alone
+    under the interpolated adjoint) and replicated values elsewhere
+    (vjp_t and theta_bar, global sums, the same on every rank).  A stage
+    vector is such states end to end: a FIRK's stacked stages, a complex
+    state's real and imaginary parts.  While `local` (a stage Jacobian,
+    `local_jacobian`) `sum` is the identity: the augmented field is then
+    this rank's own, its replicated rows this rank's share."""
+
+    def __init__(self, data, period, lo, hi):
+        super().__init__(data.group, data.n, data.c, data.device)
+        self.period, self.lo, self.hi = period, lo, hi
+        self.local = False
+        self._parts = {}
+
+    def sum(self, x):
+        return x if self.local else super().sum(x)
+
+    def parts(self, m, device):
+        """(block, replicated) index tensors of a stage vector of `m`
+        entries on `device`."""
+        key = (m, str(device))
+        if key not in self._parts:
+            if m % self.period:
+                raise ValueError(f"a stage vector of {m} entries is not "
+                                 f"augmented states of {self.period}")
+            mask = torch.zeros(self.period, dtype=torch.bool)
+            mask[self.lo:self.hi] = True
+            mask = mask.repeat(m // self.period)
+            self._parts[key] = tuple(torch.nonzero(w).reshape(-1).to(device)
+                                     for w in (mask, ~mask))
+        return self._parts[key]
+
+    def local_jacobian(self, jacobian):
+        """`jacobian(fn, x)` taken of this rank's unsummed augmented field:
+        no collective inside ``torch.func``'s transforms."""
+        def local(fn, x):
+            self.local = True
+            try:
+                return jacobian(fn, x)
+            finally:
+                self.local = False
+        return local
 
 
 def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
@@ -642,7 +746,7 @@ def data_parallel_odeint(odeint_fn, mesh: Mesh, axis: str = 'data'):
     time the same on every rank and returned as they are.  A user
     ``options['norm']`` raises `NotImplementedError` (it would see one
     block).  Under autograd every rank receives the global gradients, the
-    one-device solve's; the gradient routes it does not take raise
+    one-device solve's; the gradient route it does not take raises
     `NotImplementedError` (module docstring)."""
     def solve(func, y0, t, **kwargs):
         group, n, c = _axis(mesh, axis)
@@ -764,30 +868,45 @@ class _ModelReduce(torch.autograd.Function):
 
 
 class TensorParallelMLP(torch.nn.Module):
-    """``f(t, y) = tanh(y**power @ W1 + b1) @ W2 + b2`` with its hidden
-    units split over a mesh axis (module docstring; built by
-    `tensor_parallel_mlp`).  Its Parameters are this rank's shards, in the
-    `MLPField`'s order (weights, then biases): ``w1`` (in, H/n) columns,
-    ``w2`` (H/n, out) rows, ``b1`` (H/n,), and ``b2`` (out,) whole.
-    Operations and dtype promotion are `mlp_apply`'s, and the adjoint's
-    augmented state is laid out as the `MLPField`'s, so on an axis of one
-    it is the `MLPField` bit for bit."""
+    """``f(t, y) = mlp(y**power)`` with its layers split over a mesh axis
+    in Megatron's pairs (module docstring; built by `tensor_parallel_mlp`).
+    Its Parameters are this rank's shards in the `MLPField`'s order
+    (``weights``, then ``biases``): layer 2k's W by column and b by entry,
+    layer 2k+1's W by row and b whole, and an odd last layer whole.
+    `split` holds each layer's ``(W's dim, b's dim)`` of the split (None:
+    whole).  Operations and dtype promotion are `mlp_apply`'s, and the
+    adjoint's augmented state is laid out as the `MLPField`'s, so on an
+    axis of one it is the `MLPField` bit for bit."""
 
-    def __init__(self, w1, w2, b1, b2, *, power, activation, group, size):
+    def __init__(self, weights, biases, split, *, power, activation, group,
+                 size):
         super().__init__()
-        self.w1, self.w2, self.b1, self.b2 = (
-            torch.nn.Parameter(x) for x in (w1, w2, b1, b2))
+        self.weights = torch.nn.ParameterList(weights)
+        self.biases = torch.nn.ParameterList(biases)
+        self.split = list(split)
         self.power, self.activation = power, activation
         self.group, self.size = group, size
 
     def forward(self, t, y):
-        x = _ModelCopy.apply(y ** self.power if self.power != 1 else y,
-                             self.group)
-        dt = torch.promote_types(x.dtype, self.w1.dtype)
-        x = self.activation(x.to(dt) @ self.w1.to(dt) + self.b1.to(dt))
-        dt = torch.promote_types(x.dtype, self.w2.dtype)
-        x = _ModelReduce.apply(x.to(dt) @ self.w2.to(dt), self.group)
-        return x + self.b2.to(dt)
+        x = y ** self.power if self.power != 1 else y
+        n = len(self.weights)
+        for i, (w, b) in enumerate(zip(self.weights, self.biases)):
+            kind = self.split[i][0]
+            if kind == 1:          # column-split: enter the model region
+                x = _ModelCopy.apply(x, self.group)
+            dt = torch.promote_types(x.dtype, w.dtype)
+            if kind == 0:          # row-split: leave it, then the bias
+                x = _ModelReduce.apply(x.to(dt) @ w.to(dt), self.group)
+                x = x + b.to(dt)
+            else:
+                x = x.to(dt) @ w.to(dt) + b.to(dt)
+            if i != n - 1:
+                x = self.activation(x)
+        return x
+
+    def _dims(self):
+        """The split dim of each parameter, in `parameters()`' order."""
+        return [d for d, _ in self.split] + [d for _, d in self.split]
 
     def param_norm(self, th, params):
         """The adjoint's parameter term (`adjoint._make_adjoint_norm`): the
@@ -796,7 +915,8 @@ class TensorParallelMLP(torch.nn.Module):
         of this module's sharded leaves are summed over the axis in one
         all-reduce and divided by its size, as `_global_norm` does (equal
         shards); on an axis of one this is `misc.mixed_norm` bit for bit."""
-        sharded = {id(p) for p in (self.w1, self.w2, self.b1)}
+        sharded = {id(p) for p, d in zip(self.parameters(), self._dims())
+                   if d is not None}
         split = ([], [])
         for x, p in zip(th, params):
             split[id(p) in sharded].append(torch.mean(x.abs() ** 2))
@@ -810,11 +930,11 @@ class TensorParallelMLP(torch.nn.Module):
     def gather(self, leaves=None):
         """`leaves` shaped as this module's parameters and in their order
         (default: the parameters; their ``.grad`` for the gradients)
-        gathered over the axis: the full ``[W1, W2, b1, b2]``, the order of
+        gathered over the axis: the full weights, then biases, the order of
         an `MLPField`'s ``parameters()``."""
         leaves = list(self.parameters()) if leaves is None else list(leaves)
         out = []
-        for x, dim in zip(leaves, (1, 0, 0, None)):
+        for x, dim in zip(leaves, self._dims()):
             if dim is None:
                 out.append(x.detach().clone())
                 continue
@@ -827,34 +947,39 @@ class TensorParallelMLP(torch.nn.Module):
         """The whole field as an `MLPField` on this rank's device, its
         parameters gathered over the axis."""
         from ..models.neural_ode import MLPField
-        w1, w2, b1, b2 = self.gather()
-        field = MLPField([w1.shape[0], w1.shape[1], w2.shape[1]],
-                         power=self.power, dtype=w1.dtype, device=w1.device,
+        full = self.gather()
+        ws = full[:len(self.weights)]
+        field = MLPField([ws[0].shape[0]] + [w.shape[1] for w in ws],
+                         power=self.power, dtype=ws[0].dtype,
+                         device=ws[0].device,
                          generator=torch.Generator(),  # overwritten below
                          activation=self.activation)
         with torch.no_grad():
-            for p, x in zip((*field.weights, *field.biases),
-                            (w1, w2, b1, b2)):
+            for p, x in zip(field.parameters(), full):
                 p.copy_(x)
         return field
 
 
 def tensor_parallel_mlp(field, mesh: Mesh, axis: str = 'model', *,
                         power=None, activation=None):
-    """`field` with its hidden units split over the mesh axis `axis` (the
-    port of ``jax.device_put(params, p_specs)`` and XLA's partitioning of
-    the spiral field in `__graft_entry__.py`'s dryrun): a
-    `TensorParallelMLP` holding this rank's shards, W1 column-split
-    (``P(None, axis)``), b1 split (``P(axis)``), W2 row-split
-    (``P(axis, None)``), b2 replicated, on the rank's device.
+    """`field` with its layers split over the mesh axis `axis` in
+    Megatron's pairs (the port of ``jax.device_put(params, p_specs)`` and
+    XLA's partitioning of an MLP field, `__graft_entry__.py`'s dryrun and
+    JAX's `shard_params`): a `TensorParallelMLP` holding this rank's
+    shards on its device.  Layer 2k is split by column (W ``P(None,
+    axis)``, b ``P(axis)``) and entered through "copy"; layer 2k+1 by row
+    (W ``P(axis, None)``), left through "reduce", its bias replicated and
+    added after; an odd last layer stays replicated, computed whole on
+    every rank from the replicated input, as JAX's `shard_params` leaves a
+    leaf under its `min_size` (the spiral's output layer at any hidden
+    width below 8192).  A network of one layer is replicated whole.
 
-    `field` is an `MLPField` of one hidden layer, or its JAX-layout
-    parameters ``[{'w', 'b'}, {'w', 'b'}]`` (tensors, or the DTensors of
-    `shard_params`: a leaf already placed as wanted gives its
-    ``to_local()``, any other its ``full_tensor()``'s block), with
-    `power` (default 1) and `activation` (default tanh).  Every rank of
-    the axis calls it with the same values.  Another depth raises
-    `NotImplementedError`; a hidden width the axis size does not divide,
+    `field` is an `MLPField`, or its JAX-layout parameters ``[{'w', 'b'},
+    ...]`` (tensors, or the DTensors of `shard_params`: a leaf already
+    placed as wanted gives its ``to_local()``, any other its
+    ``full_tensor()``'s block), with `power` (default 1) and `activation`
+    (default tanh).  Every rank of the axis calls it with the same values.
+    A width split that the axis size does not divide raises
     `ValueError`."""
     from ..models.neural_ode import MLPField
     if isinstance(field, MLPField):
@@ -865,15 +990,18 @@ def tensor_parallel_mlp(field, mesh: Mesh, axis: str = 'model', *,
         layers = list(field)
         power = 1 if power is None else power
         activation = torch.tanh if activation is None else activation
-    if len(layers) != 2:
-        raise NotImplementedError(
-            f"tensor_parallel_mlp: an MLP of {len(layers)} layers; only one "
-            "hidden layer (two weight matrices) is split so far")
     group, n, c = _axis(mesh, axis)
-    H = layers[0]['w'].shape[1]
-    if H % n:
-        raise ValueError(f"the hidden width ({H}) is not divisible by the "
-                         f"mesh axis '{axis}' size ({n})")
+    # (W's dim, b's dim) of each layer's split: column then row in pairs,
+    # an odd last layer whole
+    paired = len(layers) - len(layers) % 2
+    split = ([(1, 0), (0, None)] * (paired // 2)
+             + [(None, None)] * (len(layers) - paired))
+    for i in range(0, paired, 2):
+        H = layers[i]['w'].shape[1]
+        if H % n:
+            raise ValueError(f"the hidden width ({H}) of layer {i + 1} is "
+                             f"not divisible by the mesh axis '{axis}' size "
+                             f"({n})")
     from torch.distributed.tensor import DTensor, Replicate, Shard
     names = list(mesh.shape)
 
@@ -892,9 +1020,9 @@ def tensor_parallel_mlp(field, mesh: Mesh, axis: str = 'model', *,
         return leaf.clone().to(mesh.device)
 
     return TensorParallelMLP(
-        local(layers[0]['w'], 1), local(layers[1]['w'], 0),
-        local(layers[0]['b'], 0), local(layers[1]['b'], None),
-        power=power, activation=activation, group=group, size=n)
+        [local(layer['w'], dw) for layer, (dw, _) in zip(layers, split)],
+        [local(layer['b'], db) for layer, (_, db) in zip(layers, split)],
+        split, power=power, activation=activation, group=group, size=n)
 
 
 __all__ = ['Mesh', 'make_mesh', 'data_parallel_odeint',

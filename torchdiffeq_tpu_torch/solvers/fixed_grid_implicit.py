@@ -108,15 +108,69 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None,
     (rank-major: the single device's vector permuted, which leaves the
     iterates from the identity matrix unchanged) and its matrix, solve and
     norm are global, the same on every rank; each rank steps its block.
+
+    An implicit adjoint method's backward (`axis.parts`, the augmented
+    state's layout: `parallel.sharding._AugmentedAxis`) also holds
+    replicated entries, vjp_t and theta_bar, which the augmented field
+    never reads: the stage Jacobian is block-triangular, the replicated
+    rows' block the identity.  Newton then solves the block rows with the
+    block's own matrix and takes the replicated increment as ``-f_rep -
+    sum_ranks J_rep,blk s_blk``, one all-reduce of every rank's share
+    (its Jacobian is of the rank's unsummed field), and its norm counts
+    the replicated entries once, after the all-reduce; Broyden gathers
+    the blocks rank-major and the replicated entries once, again a
+    permutation of the single device's vector.
     Returns (x, converged (B,), all converged: a bool)."""
     # the norm is compared in its dtype, as JAX's weakly typed tolerance
     tol = float(scalar_type(x0.dtype)(tol))
     B = x0.shape[0]
     wide = axis is not None and not newton   # Broyden over the whole state
+    # (block, replicated) entries, or None when every entry is the block's
+    parts = None if axis is None else axis.parts(x0.shape[1], x0.device)
+
+    def whole(v):
+        """Broyden's global vector: every rank's block, then the
+        replicated entries once."""
+        if parts is None:
+            return axis.gather(v, 1)
+        return torch.cat([axis.gather(v[:, parts[0]], 1), v[:, parts[1]]], 1)
+
+    def own(s):
+        """This rank's entries of a global step (`whole`'s inverse)."""
+        if parts is None:
+            return axis.block(s, 1)
+        nb = axis.n * parts[0].numel()
+        out = torch.empty_like(x0)
+        out[:, parts[0]] = axis.block(s[:, :nb], 1)
+        out[:, parts[1]] = s[:, nb:]
+        return out
+
+    def global_norm(v, flags):
+        """Newton's global 2-norm of `v` and the OR of every rank's
+        `flags`, in one all-reduce."""
+        blk = v if parts is None else v[:, parts[0]]
+        red = axis.sum(torch.cat([(blk * blk).sum(1), flags.to(v.dtype)]))
+        sq = red[:B]
+        if parts is not None:
+            rep = v[:, parts[1]]
+            sq = sq + (rep * rep).sum(1)
+        return torch.sqrt(sq), red[B:] > 0
+
+    def newton_step(J, v):
+        if parts is None:
+            return -linsolve.solve(J, v)
+        b, r = parts
+        s_b = -linsolve.solve(J[:, b][:, :, b], v[:, b])
+        share = (J[:, r][:, :, b] @ s_b[:, :, None])[:, :, 0]
+        s = torch.empty_like(v)
+        s[:, b] = s_b
+        s[:, r] = -v[:, r] - axis.sum(share)
+        return s
+
     x = x0
-    f = axis.gather(residual(x), 1) if wide else residual(x)
+    f = whole(residual(x)) if wide else residual(x)
     if axis is not None and newton:
-        norm_f = torch.sqrt(axis.sum((f * f).sum(1)))
+        norm_f = global_norm(f, f.new_zeros(0))[0]
     else:
         norm_f = torch.linalg.vector_norm(f, dim=1)
     m = f.shape[1]
@@ -137,19 +191,17 @@ def _iterate(residual, x0, tol, max_iters, newton, active=None,
         if newton:
             COUNTS['jacobians'] += 1
             J = jacobian(residual, x)
-        s = -linsolve.solve(J, f)
+        s = newton_step(J, f) if newton else -linsolve.solve(J, f)
         COUNTS['linear_solves'] += 1
         COUNTS['iterations'] += 1
         bail = ~torch.isfinite(s).all(1)
         s = torch.where(bail[:, None], torch.zeros_like(s), s)
-        x_new = x + (axis.block(s, 1) if wide else s)
+        x_new = x + (own(s) if wide else s)
         f_new = residual(x_new)
         if wide:
-            f_new = axis.gather(f_new, 1)
+            f_new = whole(f_new)
         if axis is not None and newton:
-            red = axis.sum(torch.cat([(f_new * f_new).sum(1),
-                                      bail.to(f_new.dtype)]))
-            norm_new, bail = torch.sqrt(red[:B]), red[B:] > 0
+            norm_new, bail = global_norm(f_new, bail)
         else:
             norm_new = torch.linalg.vector_norm(f_new, dim=1)
         upd = live & ~bail
